@@ -1,0 +1,45 @@
+"""PyTorch/CUDA port of seld_tpu for one NVIDIA H100.
+
+The package serves the flagship ResNet50-Conformer grid model: WAV in,
+log-mel features through the hand-written CUDA kernel K1
+(seld_tpu_torch/csrc/mel_kernel.cu), the eval-mode model, and the
+class-argmax decode. It imports torch and never JAX or seld_tpu; module
+names follow seld_tpu so each piece's counterpart is easy to find.
+
+Entry points run on the card: a device of None means CUDA, and raises
+when no CUDA device is visible. Pass device="cpu" to run the plain
+PyTorch versions on the CPU.
+"""
+
+from __future__ import annotations
+
+import contextlib
+
+import torch
+
+__all__ = ["no_tf32", "resolve_device"]
+
+
+def resolve_device(device: str | torch.device | None = None) -> torch.device:
+    """The device an entry point runs on: CUDA unless the caller names one."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is visible; seld_tpu_torch runs on the GPU "
+            "unless device='cpu' is passed"
+        )
+    return torch.device("cuda")
+
+
+@contextlib.contextmanager
+def no_tf32():
+    """Run float32 convolutions and matmuls in true float32 inside the
+    block (cuDNN convolutions default to TF32 on the card), and restore
+    the previous process-wide setting after it."""
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved

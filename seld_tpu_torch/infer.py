@@ -1,0 +1,220 @@
+"""Serving: WAV in -> per-frame grid predictions + event rows
+(counterpart: seld_tpu/infer.py, `Prediction` and `SELDPredictor` for
+grid models).
+
+A predictor loads a checkpoint once (the architecture comes from the
+config stored in it), computes log-mel features on the device through
+K1, runs the eval-mode model over fixed-shape batches of windows, and
+decodes the class-major logits by argmax into a (T, G) class grid, which
+`Prediction` turns into STARSS22-style metadata rows.
+"""
+
+from __future__ import annotations
+
+import logging
+from dataclasses import dataclass
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from seld_tpu_torch import resolve_device
+from seld_tpu_torch.data.audio import load_wav
+from seld_tpu_torch.data.corpus import compute_mel_features
+from seld_tpu_torch.grid import cell_centers
+from seld_tpu_torch.models import build_model
+from seld_tpu_torch.postprocess import smooth_classes, validate_width
+from seld_tpu_torch.train.checkpoint import load_checkpoint
+
+logger = logging.getLogger(__name__)
+
+
+@dataclass
+class Prediction:
+    """Per-frame grid predictions for one clip."""
+
+    classes: np.ndarray  # (T, G) int8 argmax class per cell
+    n_el: int
+    n_az: int
+    num_classes: int
+
+    @property
+    def background_class(self) -> int:
+        return self.num_classes - 1
+
+    def events(self) -> list[tuple[int, int, int, int]]:
+        """Active cells as (frame_20ms, class, azimuth_deg, elevation_deg)
+        at grid-cell-centre resolution."""
+        el, az = cell_centers(self.n_el, self.n_az)
+        t_idx, cell_idx = np.nonzero(self.classes != self.background_class)
+        out = []
+        for t, c in zip(t_idx, cell_idx):
+            i, j = divmod(int(c), self.n_az)
+            out.append(
+                (int(t), int(self.classes[t, c]), int(round(az[j])), int(round(el[i])))
+            )
+        return out
+
+    def to_metadata_rows(self, min_votes: int = 3) -> np.ndarray:
+        """Collapse 20 ms frames to 100 ms STARSS22 metadata rows
+        (frame, class, source=0, azimuth, elevation): a (class, cell) is
+        emitted for a metadata frame when it is active in >= min_votes of
+        the frame's 5 label frames."""
+        t, g = self.classes.shape
+        fanout = 5
+        n_meta = t // fanout
+        el, az = cell_centers(self.n_el, self.n_az)
+        rows = []
+        cls = self.classes[: n_meta * fanout].reshape(n_meta, fanout, g)
+        for mf in range(n_meta):
+            block = cls[mf]  # (5, G)
+            for c in range(g):
+                vals, counts = np.unique(block[:, c], return_counts=True)
+                for v, n in zip(vals, counts):
+                    if v != self.background_class and n >= min_votes:
+                        i, j = divmod(c, self.n_az)
+                        rows.append(
+                            (mf, int(v), 0, int(round(az[j])), int(round(el[i])))
+                        )
+        return np.asarray(rows, np.int64).reshape(-1, 5)
+
+
+class SELDPredictor:
+    """Checkpoint-backed predictor for grid models."""
+
+    def __init__(self, checkpoint, batch_windows: int = 8, bg_bias: float = 0.0,
+                 median_filter: int = 0,
+                 device: str | torch.device | None = None):
+        """checkpoint: a file written by train.checkpoint.save_checkpoint.
+
+        batch_windows: windows per model call; every call, the last one
+        included, is zero-padded to this batch so the model always runs
+        at one shape.
+
+        bg_bias: background-logit decode bias: the background class's
+        logit is reduced by this amount before every argmax or softmax.
+
+        median_filter: odd temporal window (frames) of majority smoothing
+        on the decoded class grid; 0 disables it.
+
+        device: CUDA unless named; no CUDA device raises."""
+        self.device = resolve_device(device)
+        self.cfg, state, self.epoch = load_checkpoint(checkpoint)
+        self.model = build_model(self.cfg.model, self.cfg.grid,
+                                 device=self.device, seed=None)
+        self.model.load_state_dict(state)
+        self.batch_windows = int(batch_windows)
+        self.win = self.cfg.window.window_frames(self.cfg.features)
+        self.bg_bias = float(bg_bias)
+        self.median_filter = validate_width(median_filter)
+        logger.info("Predictor: %s from epoch %d on %s",
+                    self.cfg.model.model_type, self.epoch, self.device)
+
+    @torch.inference_mode()
+    def _raw_apply(self, mel: torch.Tensor) -> torch.Tensor:
+        """(B, win, C, F) -> (B, win, M, G) float32 logits, background
+        class reduced by bg_bias."""
+        out = self.model(mel)
+        if self.bg_bias:
+            out[:, :, -1, :] -= self.bg_bias
+        return out
+
+    def _forward(self, mel: torch.Tensor) -> torch.Tensor:
+        """(B, win, C, F) -> (B, win, G) int8 argmax class."""
+        return torch.argmax(self._raw_apply(mel), dim=2).to(torch.int8)
+
+    def _forward_probs(self, mel: torch.Tensor) -> torch.Tensor:
+        """(B, win, C, F) -> (B, win, M, G) float16 class probabilities,
+        the representation overlapped windows average."""
+        return torch.softmax(self._raw_apply(mel), dim=2).to(torch.float16)
+
+    def _batched(self, windows: torch.Tensor, fn):
+        """Run fn over batch_windows-sized batches of windows, zero-padding
+        the last one, and yield the valid rows of each result."""
+        bw = self.batch_windows
+        for start in range(0, windows.shape[0], bw):
+            chunk = windows[start:start + bw]
+            n_valid = chunk.shape[0]
+            if n_valid < bw:
+                chunk = torch.cat([chunk, chunk.new_zeros((bw - n_valid, *chunk.shape[1:]))])
+            yield fn(chunk)[:n_valid]
+
+    def _smooth(self, classes: np.ndarray) -> np.ndarray:
+        if self.median_filter <= 1:
+            return classes
+        return smooth_classes(classes, self.median_filter, self.cfg.grid.num_classes)
+
+    def _prediction(self, classes: np.ndarray) -> Prediction:
+        grid = self.cfg.grid
+        return Prediction(classes=self._smooth(classes), n_el=grid.n_el,
+                          n_az=grid.n_az, num_classes=grid.num_classes)
+
+    def predict_waveform(self, wave, overlap: float = 0.0) -> Prediction:
+        """wave: float32 (C, N) at the configured sample rate.
+
+        overlap=0 tiles non-overlapping windows and decodes each by argmax.
+        overlap in (0, 1) strides windows at hop = win * (1 - overlap),
+        averages the softmax probabilities over each frame's coverage in
+        float32 on the device, and decodes the average."""
+        if not 0.0 <= overlap < 1.0:
+            raise ValueError(f"overlap must be in [0, 1), got {overlap}")
+        mel = compute_mel_features(wave, self.cfg.features, self.device)  # (T, C, F)
+        if overlap > 0.0:
+            avg = self._average_probs(mel, overlap)
+            return self._prediction(torch.argmax(avg, dim=1).to(torch.int8).cpu().numpy())
+        t_total = mel.shape[0]
+        win = self.win
+        n_windows = -(-t_total // win)
+        pad_t = n_windows * win - t_total
+        if pad_t:
+            mel = torch.cat([mel, mel.new_zeros((pad_t, *mel.shape[1:]))])
+        windows = mel.reshape(n_windows, win, *mel.shape[1:])
+        classes = torch.cat(list(self._batched(windows, self._forward)))
+        classes = classes.reshape(n_windows * win, -1)[:t_total]
+        return self._prediction(classes.cpu().numpy())
+
+    def _average_probs(self, mel: torch.Tensor, overlap: float) -> torch.Tensor:
+        """(T, C, F) features -> (T, M, G) float32 class probabilities
+        averaged over the windows that cover each frame, windows strided at
+        hop = win * (1 - overlap) plus one window covering the tail."""
+        t_total = mel.shape[0]
+        win = self.win
+        hop = max(int(win * (1.0 - overlap)), 1)
+        starts = list(range(0, max(t_total - win, 0) + 1, hop))
+        if starts[-1] + win < t_total:  # cover the tail
+            starts.append(max(t_total - win, 0))
+        pad_t = starts[-1] + win - t_total
+        if pad_t > 0:
+            mel = torch.cat([mel, mel.new_zeros((pad_t, *mel.shape[1:]))])
+        windows = torch.stack([mel[s:s + win] for s in starts])
+
+        prob_sum = count = None
+        row = 0
+        for probs in self._batched(windows, self._forward_probs):
+            if prob_sum is None:
+                total = t_total + max(pad_t, 0)
+                prob_sum = torch.zeros((total, *probs.shape[2:]), device=self.device)
+                count = torch.zeros((total, 1, 1), device=self.device)
+            for p in probs:  # (win, M, G), accumulated in window order
+                s = starts[row]
+                prob_sum[s:s + win] += p.float()
+                count[s:s + win] += 1.0
+                row += 1
+        return prob_sum[:t_total] / torch.clamp_min(count[:t_total], 1.0)
+
+    def predict_file(self, wav_path, csv_out=None, overlap: float = 0.0) -> Prediction:
+        """Decode a WAV, predict, and optionally write the metadata rows
+        as CSV."""
+        wave, sr = load_wav(wav_path)
+        if sr != self.cfg.features.sample_rate:
+            raise ValueError(
+                f"{wav_path}: sample rate {sr} != configured "
+                f"{self.cfg.features.sample_rate}"
+            )
+        pred = self.predict_waveform(wave, overlap=overlap)
+        if not (pred.classes != pred.background_class).any():
+            logger.warning("%s: no events detected (all cells background)", wav_path)
+        if csv_out is not None:
+            Path(csv_out).parent.mkdir(parents=True, exist_ok=True)
+            np.savetxt(csv_out, pred.to_metadata_rows(), fmt="%d", delimiter=",")
+        return pred

@@ -1,0 +1,137 @@
+"""Ground rules of the PyTorch port: it imports neither JAX nor seld_tpu,
+its entry points refuse to run without a CUDA device unless the caller
+asks for the CPU, and kernel K1's wrapper checks its input and takes the
+plain version only for CPU tensors."""
+
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import seld_tpu_torch
+from seld_tpu_torch.cli import main as port_main
+from seld_tpu_torch.config import Config, FeatureConfig, ModelConfig
+from seld_tpu_torch.data.corpus import compute_mel_features
+from seld_tpu_torch.infer import SELDPredictor
+from seld_tpu_torch.models import build_model
+from seld_tpu_torch.ops import mel_cuda
+
+ROOT = Path(__file__).resolve().parent.parent
+FORBIDDEN = re.compile(
+    r"^\s*(?:from|import)\s+(?:jax|jaxlib|flax|optax|orbax|seld_tpu(?!_torch))\b",
+    re.M,
+)
+
+
+def test_import_leaves_jax_and_seld_tpu_out():
+    # a fresh interpreter: this test process has imported JAX already
+    probe = (
+        "import sys, seld_tpu_torch, seld_tpu_torch.infer, seld_tpu_torch.cli, "
+        "seld_tpu_torch.convert\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'seld_tpu'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    res = subprocess.run([sys.executable, "-c", probe], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+@pytest.mark.parametrize("path", sorted(
+    str(p.relative_to(ROOT))
+    for p in [*(ROOT / "seld_tpu_torch").rglob("*.py"), ROOT / "chip_smoke.py"]
+))
+def test_no_source_imports_jax_or_seld_tpu(path):
+    assert not FORBIDDEN.findall((ROOT / path).read_text())
+
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_resolve_device_needs_cuda_unless_cpu_is_named(no_cuda):
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        seld_tpu_torch.resolve_device()
+    assert seld_tpu_torch.resolve_device("cpu") == torch.device("cpu")
+
+
+def test_entry_points_raise_without_cuda(no_cuda, tmp_path):
+    missing = tmp_path / "absent.pt"  # the device check comes first
+    with pytest.raises(RuntimeError, match="CUDA"):
+        SELDPredictor(missing)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_model(ModelConfig())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        compute_mel_features(np.zeros((4, 4800), np.float32), FeatureConfig())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        port_main(["predict", "--checkpoint", str(missing), "--wavs", "x.wav"])
+
+
+def test_cpu_is_served_when_named(tmp_path):
+    feats = compute_mel_features(np.zeros((4, 4800), np.float32), FeatureConfig(),
+                                 device="cpu")
+    assert feats.device.type == "cpu" and feats.shape == (11, 4, 64)
+
+
+@pytest.mark.parametrize("dtype,inside", [("float32", False), ("bfloat16", True)])
+def test_float32_forward_turns_tf32_off_for_its_own_call_only(monkeypatch, dtype, inside):
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    cfg = ModelConfig(resnet_conf_d_model=32, resnet_conf_n_heads=2,
+                      resnet_conf_n_layers=1, compute_dtype=dtype)
+    model = build_model(cfg, device="cpu", seed=0)
+    seen = []
+    model.encoder.stem.register_forward_pre_hook(lambda *_: seen.append(
+        (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)))
+    with torch.inference_mode():
+        model(torch.zeros((1, 4, 4, 64)))
+    assert seen == [(inside, inside)]
+    assert torch.backends.cudnn.allow_tf32 and torch.backends.cuda.matmul.allow_tf32
+
+
+def test_unported_families_name_their_roadmap_item():
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        build_model(ModelConfig(model_type="crnn"), device="cpu")
+
+
+@pytest.mark.parametrize("frames,err", [
+    (torch.zeros((8, 960), dtype=torch.float64), TypeError),
+    (torch.zeros((8, 1920))[:, ::2], ValueError),  # not contiguous
+    (torch.zeros((8, 950)), ValueError),  # wrong width
+    (torch.zeros((2, 8, 960)), ValueError),  # wrong rank
+])
+def test_k1_wrapper_checks_cpu_input(frames, err):
+    with pytest.raises(err):
+        mel_cuda.log_mel_frames(frames)
+
+
+def test_k1_wrapper_takes_plain_version_for_cpu_tensors(monkeypatch):
+    calls = []
+    plain = mel_cuda.log_mel_frames_reference
+
+    def spy(*args, **kwargs):
+        calls.append(args[0].shape)
+        return plain(*args, **kwargs)
+
+    monkeypatch.setattr(mel_cuda, "log_mel_frames_reference", spy)
+    before = mel_cuda.log_mel_frames.launches
+    out = mel_cuda.log_mel_frames(torch.zeros((5, 960)))
+    assert calls == [(5, 960)] and out.shape == (5, 64)
+    assert mel_cuda.log_mel_frames.launches == before  # no kernel launched
+
+
+def test_checkpoint_round_trip(tmp_path):
+    from seld_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
+
+    cfg = Config()
+    state = {"w": torch.arange(6.0).reshape(2, 3)}
+    save_checkpoint(tmp_path / "c.pt", state, cfg, epoch=4)
+    got_cfg, got_state, epoch = load_checkpoint(tmp_path / "c.pt")
+    assert got_cfg == cfg and epoch == 4
+    torch.testing.assert_close(got_state["w"], state["w"])

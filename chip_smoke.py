@@ -5,11 +5,17 @@
 
 Phases, each of which raises on failure:
   1. the device: its name, and name and power limit from nvidia-smi;
-  2. build every CUDA kernel from seld_tpu_torch/csrc into build/kernels;
+  2. build every CUDA kernel from seld_tpu_torch/csrc into build/kernels,
+     one nvcc per source, all started together;
   3. kernel K1 against its plain PyTorch version on the card, in float32,
      at the main path's shape (a 60 s 4-channel clip, N = 12,004 frames),
      at a ragged N = 37 and on silence; times of the kernel, the plain
      version and a torch.stft + matmul + log10 chain, and K1's bound;
+     kernel K2 (grid loss, forward and backward) against its plain version
+     at one train batch's N = 4,000 rows (M = 14, G = 648), at a ragged
+     N = 37, on an all-background mask and on a many-bit mask; times of
+     both kernels, the plain version and the unfused eager loss chain, and
+     their bytes bounds;
   4. the flagship ResNet50-Conformer (default Config: d_model 512, 8 heads,
      4 blocks, 250-frame windows, bf16) from seeded weights, saved and
      loaded through seld_tpu_torch.train.checkpoint, serving a seeded 60 s
@@ -18,7 +24,14 @@ Phases, each of which raises on failure:
      predicts, and one more under torch.profiler for the device's busy
      share and the kernel time by kernel family;
   5. the model in true float32 (TF32 off) on the card against the CPU on
-     one window with the same weights.
+     one window with the same weights, and the TF32 switches held off
+     through a float32 train step's forward and backward;
+  6. training at full width through `seld_tpu_torch.cli train --synthetic`
+     (default Config: flagship, bf16, batch 16, 250-frame windows, two
+     epochs): K2's forward and backward launch counts against the steps
+     taken, K1's launches while the corpora are built, the artifacts, then
+     `--resume` into a third epoch and SELDPredictor serving the best
+     checkpoint; then timed train steps and one under torch.profiler.
 It prints one JSON line of kernel figures, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.
 """
@@ -45,13 +58,20 @@ ROOT = Path(__file__).resolve().parent
 F32_FLOPS = 67e12  # float32 outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 K1_TOL_DB = 5e-3  # float32 DFT-as-GEMM against float32 GEMMs / rFFT
+# K2 against its plain version: float32 exp and sums in another order
+K2_FWD_TOL = dict(rtol=1e-5, atol=1e-6)
+K2_GRAD_TOL = dict(rtol=2e-4, atol=1e-6)
 F32_LOGIT_TOL = 1e-3  # card vs CPU float32, sums in other orders
 CLIP_SECONDS = 60
 # kernel-name patterns -> family for the profile of one predict, first match wins
 FAMILIES = (
     ("K1 log-mel", r"log_mel_kernel"),
+    ("K2 grid loss forward", r"grid_loss_fwd_kernel"),
+    ("K2 grid loss backward", r"grid_loss_bwd_kernel"),
+    ("optimizer (multi-tensor)", r"multi_tensor"),
+    ("dropout masks", r"bernoulli|distribution"),
     ("memcpy / memset", r"memcpy|memset"),
-    ("BatchNorm / LayerNorm", r"batch_norm|layer_norm|welford|bn_fw"),
+    ("BatchNorm / LayerNorm", r"batch_norm|layer_norm|welford|bn_fw|bn_bw"),
     ("NCHW <-> NHWC transform", r"nchwToNhwc|nhwcToNchw"),
     ("convolution", r"conv|implicit|dgrad|wgrad|fprop|sm90_xmma|cudnn|winograd"),
     ("GEMM", r"gemm|cutlass|cublas|nvjet|sm90_"),
@@ -60,19 +80,33 @@ FAMILIES = (
 )
 
 
-def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean device time of fn() over iters launches, by CUDA events."""
+def cuda_ms(fn, iters: int = 20, warmup: int = 3, run_ahead: bool = False) -> float:
+    """Mean device time of fn() over iters launches, by CUDA events.
+
+    run_ahead: first occupy the device with a 25 ms spin, so that the host
+    has queued every launch by the time the device starts on them and the
+    events time the device alone. Without it a kernel shorter than the
+    host's launch cost (tens of microseconds, and it varies by host) is
+    timed at the host's rate. The paths that are host-bound by nature (a
+    model forward) are timed without it."""
     for _ in range(warmup):
         fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    if run_ahead:
+        torch.cuda._sleep(int(25e-3 * torch.cuda.get_device_properties(0).clock_rate * 1e3))
     start.record()
     for _ in range(iters):
         fn()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def kernel_ms(fn) -> float:
+    """Device time of a kernel-sized fn(): launches queued ahead of the device."""
+    return cuda_ms(fn, run_ahead=True)
 
 
 def phase_device() -> tuple[str, str]:
@@ -89,16 +123,27 @@ def phase_device() -> tuple[str, str]:
 
 
 def phase_build() -> None:
+    from concurrent.futures import ThreadPoolExecutor
+
     from seld_tpu_torch.ops import _build
 
-    for src in sorted(_build.CSRC.glob("*.cu")):
-        info = _build.build(src.stem)
+    names = sorted(src.stem for src in _build.CSRC.glob("*.cu"))
+    with ThreadPoolExecutor(len(names)) as pool:  # one nvcc each, side by side
+        infos = list(pool.map(_build.build, names))
+    for name, info in zip(names, infos):
         if info is None:
-            print(f"[build] {src.stem}: built already ({_build.library_path(src.stem).name})")
+            print(f"[build] {name}: built already ({_build.library_path(name).name})")
             continue
-        print(f"[build] {src.stem}: {info['seconds']:.2f} s")
+        print(f"[build] {name}: {info['seconds']:.2f} s")
+        # ptxas names each entry function, then its resources; of K2's
+        # instantiations only the main path's (M = 14) is shown
+        shown = True
         for line in info["log"].splitlines():
-            if "registers" in line or "spill" in line:
+            if "Compiling entry function" in line:
+                shown = "grid_loss" not in line or "ILi14E" in line
+                if shown and "grid_loss" in line:
+                    print(f"[build]   {line.split("'")[1]}:")
+            elif shown and ("registers" in line or "spill" in line):
                 print(f"[build]   {line.strip()}")
 
 
@@ -171,9 +216,9 @@ def phase_k1(dev: torch.device) -> dict:
     if not (r_err <= K1_TOL_DB and s_err <= 1e-4):
         raise AssertionError(f"K1 ragged/silence check failed: {r_err} / {s_err}")
 
-    k1_ms = cuda_ms(lambda: log_mel_frames(frames))
-    plain_ms = cuda_ms(lambda: log_mel_frames_reference(frames))
-    library_ms = cuda_ms(lambda: library_log_mel(frames, window, fb))
+    k1_ms = kernel_ms(lambda: log_mel_frames(frames))
+    plain_ms = kernel_ms(lambda: log_mel_frames_reference(frames))
+    library_ms = kernel_ms(lambda: library_log_mel(frames, window, fb))
     b = k1_bound(n, n_fft, fb)
     print(f"[K1] kernel {k1_ms:.4f} ms, plain {plain_ms:.4f} ms, stft chain "
           f"{library_ms:.4f} ms")
@@ -193,6 +238,157 @@ def phase_k1(dev: torch.device) -> dict:
         "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
         "library_ms": library_ms,
     }
+
+
+def k2_bounds(n: int, m: int, g: int) -> dict:
+    """The least card time for K2's two functions on (n, m, g) float32
+    logits and an (n, g) 16-bit mask. Bytes: forward reads the logits and
+    the mask and writes sq and p_bg; backward reads the logits, the mask
+    and the cotangent of sq, as the main path's MSE loss gives it ("bwd"),
+    or both cotangents ("bwd both"), and writes dlogits. Operations, per
+    cell: forward max, subtract, exp, sum, divide, target, difference and
+    square-add over m (8 m); backward the same softmax plus c and the
+    gradient terms (12 m, 14 m). All are far under the bytes."""
+    cells = n * g
+    out = {}
+    for name, n_bytes, ops in (
+        ("fwd", cells * (4 * m + 2 + 8), cells * 8 * m),
+        ("bwd", cells * (4 * m + 2 + 4 + 4 * m), cells * 12 * m),
+        ("bwd both", cells * (4 * m + 2 + 8 + 4 * m), cells * 14 * m),
+    ):
+        bytes_ms, ops_ms = n_bytes / HBM_BYTES_PER_S * 1e3, ops / F32_FLOPS * 1e3
+        out[name] = {"bound_ms": max(bytes_ms, ops_ms),
+                     "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                     "bytes": n_bytes, "ops": ops}
+    return out
+
+
+def k2_case(dev, n: int, m: int, g: int, seed: int, kind: str = "sparse"):
+    """Seeded logits and an int16 bitmask: "sparse" has 90 % background
+    cells and random event bits elsewhere, "background" is all zeros,
+    "dense" sets several bits in every cell, bit m-2 among them."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = 3.0 * torch.randn((n, m, g), generator=gen, device=dev)
+    bits = torch.randint(1, 2 ** (m - 1), (n, g), generator=gen, device=dev)
+    if kind == "sparse":
+        keep = torch.rand((n, g), generator=gen, device=dev) >= 0.9
+        mask = torch.where(keep, bits, torch.zeros_like(bits))
+    elif kind == "background":
+        mask = torch.zeros_like(bits)
+    else:
+        mask = bits | (1 << (m - 2)) | 1
+    return x, mask.to(torch.int16)
+
+
+def phase_k2(dev: torch.device) -> list[dict]:
+    from seld_tpu_torch.config import Config, GridConfig, LossConfig
+    from seld_tpu_torch.losses import SELDLossFn
+    from seld_tpu_torch.ops.loss_cuda import grid_loss_terms, grid_loss_terms_reference
+
+    cfg = Config()
+    m, g = cfg.grid.num_classes, cfg.grid.n_cells
+    b, t = cfg.train.batch_size, cfg.window.window_frames(cfg.features)
+    n_main = b * t  # the main path's rows: one train batch
+    worst = {"fwd": 0.0, "bwd": 0.0}
+    for n, kind in ((n_main, "sparse"), (37, "sparse"), (n_main, "background"), (37, "dense")):
+        x, mask = k2_case(dev, n, m, g, seed=n + len(kind), kind=kind)
+        gen = torch.Generator(device=dev).manual_seed(1)
+        w_sq = torch.randn((n, g), generator=gen, device=dev)
+        w_bg = torch.randn((n, g), generator=gen, device=dev)
+        launches = (grid_loss_terms.fwd_launches, grid_loss_terms.bwd_launches)
+        xk = x.clone().requires_grad_(True)
+        sq, pbg = grid_loss_terms(xk, mask, m)
+        # an expanded (stride-0) cotangent on sq, as a sum's backward gives
+        (dk_both,) = torch.autograd.grad((sq, pbg), xk, (w_sq, w_bg), retain_graph=True)
+        (dk_sq,) = torch.autograd.grad(sq.sum(), xk)  # g_bg is None here
+        torch.cuda.synchronize()
+        if (grid_loss_terms.fwd_launches - launches[0],
+                grid_loss_terms.bwd_launches - launches[1]) != (1, 2):
+            raise AssertionError("K2's launch counters did not move by (1, 2)")
+        xr = x.clone().requires_grad_(True)
+        sq_r, pbg_r = grid_loss_terms_reference(xr, mask, m)
+        (dr_both,) = torch.autograd.grad((sq_r, pbg_r), xr, (w_sq, w_bg), retain_graph=True)
+        (dr_sq,) = torch.autograd.grad(sq_r.sum(), xr)
+        torch.testing.assert_close(sq, sq_r, **K2_FWD_TOL)
+        torch.testing.assert_close(pbg, pbg_r, **K2_FWD_TOL)
+        torch.testing.assert_close(dk_both, dr_both, **K2_GRAD_TOL)
+        torch.testing.assert_close(dk_sq, dr_sq, **K2_GRAD_TOL)
+        errs = {"fwd": max((sq - sq_r).abs().max().item(), (pbg - pbg_r).abs().max().item()),
+                "bwd": max((dk_both - dr_both).abs().max().item(),
+                           (dk_sq - dr_sq).abs().max().item())}
+        print(f"[K2] N={n} {kind}: max |kernel - plain| forward {errs['fwd']:.3e}, "
+              f"gradient {errs['bwd']:.3e} (rtol 1e-5 / 2e-4)")
+        if n == n_main:
+            worst = {k: max(worst[k], errs[k]) for k in worst}
+        del xk, xr, sq, pbg, sq_r, pbg_r, dk_both, dk_sq, dr_both, dr_sq
+
+    # times at the main path's shape; 145 MB of logits, so the 50 MB L2 is cold
+    x, mask = k2_case(dev, n_main, m, g, seed=0)
+    mask_btg = mask.reshape(b, t, g)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    w_sq = torch.randn((n_main, g), generator=gen, device=dev)
+    w_bg = torch.randn((n_main, g), generator=gen, device=dev)
+    em = torch.ones(b, device=dev)
+    loss_fn = SELDLossFn(LossConfig(), GridConfig())
+    times = {}
+    for name, terms in (("kernel", grid_loss_terms), ("plain", grid_loss_terms_reference)):
+        with torch.no_grad():
+            times[name, "fwd"] = kernel_ms(lambda: terms(x, mask, m))
+        xg = x.clone().requires_grad_(True)
+        outs = terms(xg, mask, m)
+        # the main path's backward: MSE without CL puts a cotangent on sq alone
+        times[name, "bwd"] = kernel_ms(
+            lambda: torch.autograd.grad(outs[0], xg, w_sq, retain_graph=True))
+        times[name, "bwd both"] = kernel_ms(
+            lambda: torch.autograd.grad(outs, xg, (w_sq, w_bg), retain_graph=True))
+        times[name, "fwd+bwd"] = kernel_ms(
+            lambda: torch.autograd.grad(terms(xg, mask, m)[0], xg, w_sq))
+        del outs, xg
+    # the library call: the unfused eager chain of from_bitmask(fused=False),
+    # logits to the scalar loss and back
+    x4 = x.reshape(b, t, m, g)
+    with torch.no_grad():
+        times["library", "fwd"] = kernel_ms(
+            lambda: loss_fn.from_bitmask(x4, mask_btg, em, fused=False))
+        times["fused loss", "fwd"] = kernel_ms(
+            lambda: loss_fn.from_bitmask(x4, mask_btg, em, fused=True))
+    xg = x4.clone().requires_grad_(True)
+    for name, fused in (("library", False), ("fused loss", True)):
+        total = loss_fn.from_bitmask(xg, mask_btg, em, fused=fused).total
+        times[name, "bwd"] = kernel_ms(
+            lambda: torch.autograd.grad(total, xg, retain_graph=True))
+        times[name, "fwd+bwd"] = kernel_ms(lambda: torch.autograd.grad(
+            loss_fn.from_bitmask(xg, mask_btg, em, fused=fused).total, xg))
+        del total
+    bounds = k2_bounds(n_main, m, g)
+    rows = []
+    for part, line in (("fwd", "150"), ("bwd", "205")):
+        bd = bounds[part]
+        k_ms = times["kernel", part]
+        print(f"[K2] {part} N={n_main}: kernel {k_ms:.4f} ms, plain {times['plain', part]:.4f} ms, "
+              f"fused=False eager chain {times['library', part]:.4f} ms (whole loss through "
+              f"K2 {times['fused loss', part]:.4f} ms); bound {bd['bound_ms']:.4f} ms by "
+              f"{bd['bound_by']} ({bd['bytes'] / 1e6:.1f} MB at 3.35 TB/s): kernel at "
+              f"{100 * bd['bound_ms'] / k_ms:.1f} % of it, "
+              f"{bd['bytes'] / (k_ms * 1e-3) / 1e12:.3f} TB/s")
+        rows.append({
+            "name": f"K2 {part}", "route": "cuda",
+            "source": "seld_tpu_torch/csrc/grid_loss_kernel.cu",
+            "replaces": f"seld_tpu/ops/loss_pallas.py:{line}",
+            "launches": None, "max_abs_err": worst[part], "ms": k_ms,
+            "plain_ms": times["plain", part], "bound_ms": bd["bound_ms"],
+            "bound_by": bd["bound_by"], "library_ms": times["library", part],
+        })
+    bd = bounds["bwd both"]
+    print(f"[K2] bwd with both cotangents (the CL term on): kernel "
+          f"{times['kernel', 'bwd both']:.4f} ms, plain {times['plain', 'bwd both']:.4f} ms; bound "
+          f"{bd['bound_ms']:.4f} ms ({bd['bytes'] / 1e6:.1f} MB): kernel at "
+          f"{100 * bd['bound_ms'] / times['kernel', 'bwd both']:.1f} % of it")
+    print(f"[K2] forward+backward N={n_main}: kernels {times['kernel', 'fwd+bwd']:.4f} ms, plain "
+          f"{times['plain', 'fwd+bwd']:.4f} ms; whole MSE loss and its gradient: through K2 "
+          f"{times['fused loss', 'fwd+bwd']:.4f} ms, fused=False eager chain "
+          f"{times['library', 'fwd+bwd']:.4f} ms")
+    return rows
 
 
 def phase_flagship(dev: torch.device) -> int:
@@ -258,21 +454,26 @@ def phase_flagship(dev: torch.device) -> int:
           f"(median of {', '.join(f'{t:.2f}' for t in times)}; counted run {first_ms:.2f} ms) = "
           f"{CLIP_SECONDS / (clip_ms * 1e-3):.1f} audio-s/s; model forward "
           f"{forward_ms:.3f} ms per batch of {pred.batch_windows} windows")
-    profile_predict(pred, wave, clip_ms)
+    profile_call("predict", lambda: pred.predict_waveform(wave), clip_ms)
     return launches
 
 
-def profile_predict(pred, wave: np.ndarray, clip_ms: float) -> None:
-    """One predict under torch.profiler: the device's busy share (kernel
-    time over wall time) and the kernel time by family and by name."""
+def profile_call(what: str, fn, median_ms: float) -> None:
+    """One call of fn under torch.profiler: the device's busy share (kernel
+    time over wall time) and the kernel time by family and by name.
+    median_ms is the unprofiled median of the same call."""
     from torch.profiler import ProfilerActivity, profile
 
+    tag = f"[profile {what}]"
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        pred.predict_waveform(wave)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    # device-side events that are kernels or copies, not the profiler's own
+    # annotation ranges (e.g. "Optimizer.step#Adam.step")
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.is_user_annotation]
     by_name, by_family, counts = defaultdict(float), defaultdict(float), defaultdict(int)
     for e in kernels:
         fam = next((f for f, pat in FAMILIES if re.search(pat, e.name, re.I)), "other")
@@ -280,13 +481,13 @@ def profile_predict(pred, wave: np.ndarray, clip_ms: float) -> None:
         by_family[fam] += e.device_time_total / 1e3
         counts[fam] += 1
     busy_ms = sum(by_name.values())
-    print(f"[profile] profiled predict {wall_ms:.2f} ms wall; {len(kernels)} kernel launches, "
+    print(f"{tag} profiled {what} {wall_ms:.2f} ms wall; {len(kernels)} kernel launches, "
           f"{busy_ms:.2f} ms of kernel time: device busy {100 * busy_ms / wall_ms:.1f} % of the "
-          f"profiled predict, {100 * busy_ms / clip_ms:.1f} % of the unprofiled median")
+          f"profiled {what}, {100 * busy_ms / median_ms:.1f} % of the unprofiled median")
     for fam, ms in sorted(by_family.items(), key=lambda kv: -kv[1]):
-        print(f"[profile]   {fam:28s} {ms:8.3f} ms  {counts[fam]:5d} launches")
+        print(f"{tag}   {fam:28s} {ms:8.3f} ms  {counts[fam]:5d} launches")
     for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
-        print(f"[profile]   top {ms:8.3f} ms  {name[:100]}")
+        print(f"{tag}   top {ms:8.3f} ms  {name[:100]}")
 
 
 def phase_f32(dev: torch.device) -> None:
@@ -317,6 +518,158 @@ def phase_f32(dev: torch.device) -> None:
     if not err <= F32_LOGIT_TOL:
         raise AssertionError(f"float32 card vs CPU logits differ by {err}")
 
+    # a float32 train step keeps TF32 off through its backward too
+    from seld_tpu_torch.losses import SELDLossFn
+    from seld_tpu_torch.train.optimizer import make_optimizer
+    from seld_tpu_torch.train.state import create_train_state
+    from seld_tpu_torch.train.steps import make_train_step
+
+    small = Config(model=ModelConfig(compute_dtype="float32", resnet_conf_n_layers=1))
+    model = build_model(small.model, small.grid, device=dev, seed=2)
+    optimizer = make_optimizer(model.parameters(), 1e-3)
+    step = make_train_step(model, SELDLossFn(small.loss, small.grid), optimizer,
+                           small.grid.num_classes)
+    seen = []
+    model.proj.register_full_backward_pre_hook(lambda *_: seen.append(
+        (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)))
+    mel = x.to(dev)[:, :50].repeat(2, 1, 1, 1)
+    mask = torch.zeros((2, 50, small.grid.n_cells), dtype=torch.int16, device=dev)
+    _, metrics = step(create_train_state(model, optimizer), mel, mask, None, (0, 1))
+    after = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    if seen != [(False, False)] or after != before or not torch.isfinite(metrics["loss"]):
+        raise AssertionError(f"float32 train step: TF32 {seen} in the backward, "
+                             f"{before} -> {after}, loss {metrics['loss'].item()}")
+    print(f"[f32] float32 train step: TF32 off in the backward, restored after; "
+          f"loss {metrics['loss'].item():.6f}")
+
+
+def phase_train(dev: torch.device) -> dict:
+    """The training main path through the CLI, then resume and serving.
+    Returns the launch counts of the first (counted) run."""
+    from seld_tpu_torch import cli
+    from seld_tpu_torch.config import Config
+    from seld_tpu_torch.infer import SELDPredictor
+    from seld_tpu_torch.models import build_model
+    from seld_tpu_torch.ops.loss_cuda import grid_loss_terms
+    from seld_tpu_torch.ops.mel_cuda import log_mel_frames
+    from seld_tpu_torch.train.checkpoint import load_checkpoint
+
+    cfg = Config()
+    epochs = 2
+    # cli train --synthetic: 2 x 30 s train clips, 1 x 20 s test clip
+    hop = cfg.window.hop_frames(cfg.features)
+    fps = cfg.features.sample_rate // cfg.features.hop_length
+    train_steps = -(-(2 * 30 * fps // hop) // cfg.train.batch_size)
+    eval_steps = -(-(20 * fps // hop) // cfg.train.batch_size)
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        args = ["train", "--synthetic", f"data.base_path={tmp}",
+                "train.save_every_n_epochs=1"]
+        grid_loss_terms.fwd_launches = grid_loss_terms.bwd_launches = 0
+        log_mel_frames.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        if cli.main([*args, f"train.num_epochs={epochs}"]) != 0:
+            raise AssertionError("cli train failed")
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        counts = {"k2_fwd": grid_loss_terms.fwd_launches,
+                  "k2_bwd": grid_loss_terms.bwd_launches, "k1": log_mel_frames.launches}
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        want = {"k2_fwd": epochs * (train_steps + eval_steps), "k2_bwd": epochs * train_steps,
+                "k1": 3}
+        if counts != want:
+            raise AssertionError(f"kernel launches on the training path {counts}, expected {want}")
+
+        work = Path(tmp) / "checkpoints"
+        records = [json.loads(line) for line in (work / "metrics.jsonl").read_text().splitlines()]
+        losses = [r[split][k] for r in records for split in ("train", "test") for k in r[split]]
+        if len(records) != epochs or not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"metrics.jsonl: {records}")
+        best = sorted((work / "best").glob("epoch_*.pt"))
+        rolling = sorted((work / "rolling").glob("epoch_*.pt"))
+        if len(best) != 1 or len(rolling) != epochs or not (work / "training_history.json").exists():
+            raise AssertionError(f"artifacts: best {best}, rolling {rolling}")
+        _, trained, best_epoch = load_checkpoint(best[0])
+        fresh = build_model(cfg.model, cfg.grid, device="cpu", seed=cfg.train.seed).state_dict()
+        moved = [k for k in fresh if not torch.equal(fresh[k], trained[k])]
+        if not (any(k.endswith("weight") for k in moved)
+                and any(k.endswith("running_mean") for k in moved)
+                and any(k.endswith("running_var") for k in moved)):
+            raise AssertionError("parameters or BatchNorm statistics did not move")
+        print(f"[train] cli train --synthetic, {epochs} epochs x ({train_steps} train + "
+              f"{eval_steps} eval steps) in {wall_s:.1f} s with corpus build and checkpoints: "
+              f"K2 forward {counts['k2_fwd']} launches, backward {counts['k2_bwd']}, K1 "
+              f"{counts['k1']}; epoch seconds {[r['seconds'] for r in records]}; losses "
+              f"{[round(r['train']['loss'], 6) for r in records]} train, "
+              f"{[round(r['test']['loss'], 6) for r in records]} test; best epoch {best_epoch}; "
+              f"{len(moved)} of {len(fresh)} tensors moved; peak device memory {peak_gib:.2f} GiB")
+
+        stored_lr = torch.load(rolling[-1], weights_only=True)["optimizer"]["param_groups"][0]["lr"]
+        grid_loss_terms.fwd_launches = grid_loss_terms.bwd_launches = 0
+        if cli.main(["train", "--resume", *args[1:], f"train.num_epochs={epochs + 1}"]) != 0:
+            raise AssertionError("cli train --resume failed")
+        records = [json.loads(line) for line in (work / "metrics.jsonl").read_text().splitlines()]
+        resumed = (grid_loss_terms.fwd_launches, grid_loss_terms.bwd_launches)
+        if ([r["epoch"] for r in records] != [1, 2, 3] or records[-1]["lr"] != stored_lr
+                or resumed != (train_steps + eval_steps, train_steps)):
+            raise AssertionError(f"resume: records {records}, stored lr {stored_lr}, "
+                                 f"K2 launches {resumed}")
+        print(f"[train] --resume continued at epoch {records[-1]['epoch']} with the stored lr "
+              f"{stored_lr}; K2 launches {resumed}")
+
+        pred = SELDPredictor(sorted((work / "best").glob("epoch_*.pt"))[0], device=dev)
+    sr = cfg.features.sample_rate
+    wave = (0.1 * np.random.default_rng(3).standard_normal((4, 10 * sr))).astype(np.float32)
+    classes = pred.predict_waveform(wave).classes
+    if (classes.shape != (1 + 10 * fps, cfg.grid.n_cells) or classes.min() < 0
+            or classes.max() >= cfg.grid.num_classes):
+        raise AssertionError(f"serving the trained checkpoint: classes {classes.shape}")
+    print(f"[train] SELDPredictor on the best checkpoint (epoch {pred.epoch}): 10 s clip -> "
+          f"classes {classes.shape}")
+    time_train_steps(dev, cfg)
+    return counts
+
+
+def time_train_steps(dev: torch.device, cfg) -> None:
+    """Wall time of default-config train steps on seeded synthetic batches
+    (host clock around a step that ends in a synchronize), and one step
+    under torch.profiler."""
+    from seld_tpu_torch.data.sampler import BatchIterator, place_batch
+    from seld_tpu_torch.data.synthetic import synthetic_corpus
+    from seld_tpu_torch.losses import SELDLossFn
+    from seld_tpu_torch.models import build_model
+    from seld_tpu_torch.train.optimizer import make_optimizer
+    from seld_tpu_torch.train.state import create_train_state
+    from seld_tpu_torch.train.steps import make_train_step
+
+    corpus = synthetic_corpus(cfg, n_files=2, seconds=30.0, seed=0, device=dev)
+    model = build_model(cfg.model, cfg.grid, device=dev, seed=0)
+    optimizer = make_optimizer(model.parameters(), cfg.train.learning_rate,
+                               cfg.train.weight_decay)
+    step = make_train_step(model, SELDLossFn(cfg.loss, cfg.grid), optimizer,
+                           cfg.grid.num_classes)
+    state = create_train_state(model, optimizer)
+    batches = [place_batch(b, dev) for b in BatchIterator(corpus, cfg.train.batch_size)][:3]
+    times = []
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(13):
+        mel, mask, em = batches[i % len(batches)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(state, mel, mask, em, (0, 1))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    steady = times[3:]
+    step_ms = float(np.median(steady))
+    print(f"[train] train step, batch {cfg.train.batch_size} x {corpus.window_frames} frames, "
+          f"bf16: median {step_ms:.2f} ms of {', '.join(f'{t:.1f}' for t in steady)} (first "
+          f"three, with warm-up: {', '.join(f'{t:.1f}' for t in times[:3])}) = "
+          f"{cfg.train.batch_size / (step_ms * 1e-3):.1f} windows/s; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    mel, mask, em = batches[0]
+    profile_call("train step", lambda: step(state, mel, mask, em, (0, 1)), step_ms)
+
 
 def main() -> int:
     name, smi = phase_device()
@@ -324,9 +677,12 @@ def main() -> int:
     phase_build()
     with no_tf32():  # the plain versions in true float32
         k1 = phase_k1(dev)
+        k2_fwd, k2_bwd = phase_k2(dev)
     k1["launches"] = phase_flagship(dev)
     phase_f32(dev)
-    print(json.dumps({"kernels": [k1]}))
+    counts = phase_train(dev)
+    k2_fwd["launches"], k2_bwd["launches"] = counts["k2_fwd"], counts["k2_bwd"]
+    print(json.dumps({"kernels": [k1, k2_fwd, k2_bwd]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count(),

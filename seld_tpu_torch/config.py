@@ -1,20 +1,64 @@
-"""Configuration sections the serving path reads.
+"""Configuration sections the serving and training paths read.
 
-The port's own copy of FeatureConfig, GridConfig, WindowConfig and
-ModelConfig from seld_tpu/config.py, with the same defaults, field names
-and dict round-trip, so a config dict stored by either package rebuilds
-the same architecture here. Sections and fields the port does not read
-(data paths, training, dropout, the other backbones, mesh, the Pallas
-toggle) are left out and ignored by `config_from_dict`, exactly as
-seld_tpu ignores unknown keys; each comes back with the code that reads
-it.
+The port's own copy of the sections of seld_tpu/config.py, with the same
+defaults, field names, dotted `key=value` overrides and dict round-trip,
+so a config dict stored by either package rebuilds the same run here.
+Fields whose reader is not ported (the other backbones, ACCDOA tracks,
+Gaussian sigmas, QAT, distillation, SpecAugment, ACS, metric selection,
+profiling, the mesh, the Pallas toggle) are left out: `config_from_dict`
+ignores them, exactly as seld_tpu ignores unknown keys, and an override
+of one raises `parse_overrides`'s unknown-field error. Each comes back
+with the code that reads it.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from dataclasses import dataclass, field, fields
+from dataclasses import dataclass, field, fields, replace
+from pathlib import Path
 from typing import Any
+
+
+@dataclass(frozen=True)
+class DataConfig:
+    """Dataset paths, discovery and the single-file debug mode."""
+
+    base_path: str = "."
+    audio_dirname: str = "foa_dev"
+    metadata_dirname: str = "metadata_dev"
+    checkpoint_dirname: str = "checkpoints"
+
+    use_full_dataset: bool = True
+    train_audio_file: str = "fold3_room21_mix001.wav"
+    train_meta_file: str = "fold3_room21_mix001.csv"
+    test_audio_file: str = "fold4_room23_mix001.wav"
+    test_meta_file: str = "fold4_room23_mix001.csv"
+
+    prefetch_depth: int = 2  # batches staged and placed ahead of the step
+    shuffle_seed: int = 0
+    # On-disk corpus cache directory; its reader is not ported yet, so a
+    # non-empty value raises where the corpora are built.
+    cache_dir: str = ""
+
+    @property
+    def audio_path(self) -> Path:
+        return Path(self.base_path) / self.audio_dirname
+
+    @property
+    def metadata_path(self) -> Path:
+        return Path(self.base_path) / self.metadata_dirname
+
+    @property
+    def checkpoint_path(self) -> Path:
+        return Path(self.base_path) / self.checkpoint_dirname
+
+    def split_dirs(self, split: str) -> list[tuple[Path, Path]]:
+        """(audio_dir, metadata_dir) pairs of a split in {train, test}."""
+        if split not in ("train", "test"):
+            raise ValueError(f"split must be 'train' or 'test', got {split!r}")
+        return [(self.audio_path / f"dev-{split}-{site}",
+                 self.metadata_path / f"dev-{split}-{site}")
+                for site in ("sony", "tau")]
 
 
 @dataclass(frozen=True)
@@ -61,12 +105,34 @@ class GridConfig:
 
 @dataclass(frozen=True)
 class WindowConfig:
-    """Model windows: 5 s windows (250 frames)."""
+    """Corpus windowing: 5 s windows (250 frames) at a 1 s hop over the
+    concatenated corpus; the last window is padded with zeros and
+    background labels."""
 
     window_seconds: float = 5.0
+    hop_seconds: float = 1.0
 
     def window_frames(self, feat: FeatureConfig) -> int:
         return int(self.window_seconds * feat.sample_rate / feat.hop_length)
+
+    def hop_frames(self, feat: FeatureConfig) -> int:
+        return int(self.hop_seconds * feat.sample_rate / feat.hop_length)
+
+
+@dataclass(frozen=True)
+class TargetConfig:
+    """Label rasterization: 100 ms metadata frames fan out to 20 ms label
+    frames. Gaussian spatial augmentation and ACCDOA targets are not ported
+    yet: switching either on raises where the corpus is built."""
+
+    metadata_frame_ms: int = 100
+    label_frame_ms: int = 20
+    use_gaussian_augmentation: bool = False
+    accdoa: bool = False
+
+    @property
+    def fanout(self) -> int:
+        return self.metadata_frame_ms // self.label_frame_ms  # = 5
 
 
 @dataclass(frozen=True)
@@ -81,6 +147,7 @@ class ModelConfig:
     resnet_conf_d_model: int = 512
     resnet_conf_n_heads: int = 8
     resnet_conf_n_layers: int = 4
+    resnet_dropout: float = 0.3
 
     # Parameters in float32; convolutions and linears in compute_dtype;
     # norms, the attention softmax and the logits in float32.
@@ -90,11 +157,99 @@ class ModelConfig:
 
 
 @dataclass(frozen=True)
+class LossConfig:
+    """Composite loss selection: the class term alone, or with the AIUR
+    and converging-localization terms."""
+
+    loss_type: str = "mse"  # 'ce' | 'mse'
+    w_class: float = 1.0
+    w_aiur: float = 1.0
+    w_cl: float = 1.0
+    use_aiur: bool = False
+    use_cl: bool = False
+    background_class_weight: float = 0.05  # CE: events weigh 1.0
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """Optimizer, schedule, early stop and checkpoint policy."""
+
+    num_epochs: int = 30
+    batch_size: int = 16
+    learning_rate: float = 1e-3
+    weight_decay: float = 1e-4  # L2 added to the gradient (Adam, not AdamW)
+    lr_decay_factor: float = 0.5
+    lr_decay_patience: int = 5
+    # "plateau": ReduceLROnPlateau on the test loss between epochs;
+    # "cosine": per-step warmup + cosine decay over the whole run.
+    lr_schedule: str = "plateau"
+    warmup_steps: int = 0  # cosine only
+    cosine_final_scale: float = 0.01  # cosine floor as a fraction of the LR
+    patience: int = 20  # early stopping on the train loss
+    min_delta: float = 1e-4
+    save_every_n_epochs: int = 5  # rolling checkpoints
+    keep_last_n_checkpoints: int = 3
+    seed: int = 0
+    # Split each batch into N microbatches, add their gradients weighted by
+    # each one's share of the example mask, and apply one optimizer update.
+    accum_steps: int = 1
+    # Exponential moving average of the parameters (0 = off): the EMA
+    # weights are evaluated and stored in the best checkpoint; rolling
+    # checkpoints keep the raw weights for an exact resume.
+    ema_decay: float = 0.0
+
+
+@dataclass(frozen=True)
 class Config:
+    data: DataConfig = field(default_factory=DataConfig)
     features: FeatureConfig = field(default_factory=FeatureConfig)
     grid: GridConfig = field(default_factory=GridConfig)
     window: WindowConfig = field(default_factory=WindowConfig)
+    targets: TargetConfig = field(default_factory=TargetConfig)
     model: ModelConfig = field(default_factory=ModelConfig)
+    loss: LossConfig = field(default_factory=LossConfig)
+    train: TrainConfig = field(default_factory=TrainConfig)
+
+    def replace_path(self, path: str, value: Any) -> "Config":
+        """A new Config with `path` (e.g. 'train.batch_size') replaced."""
+        return _replace_nested(self, path, value)
+
+
+def _replace_nested(obj: Any, path: str, value: Any) -> Any:
+    head, _, rest = path.partition(".")
+    if head not in {f.name for f in fields(obj)}:
+        raise KeyError(f"unknown config field {head!r} on {type(obj).__name__}")
+    if rest:
+        return replace(obj, **{head: _replace_nested(getattr(obj, head), rest, value)})
+    return replace(obj, **{head: _coerce(getattr(obj, head), value)})
+
+
+def _coerce(current: Any, value: Any) -> Any:
+    """A string override as the type of the field's current value."""
+    if not isinstance(value, str):
+        return value
+    if isinstance(current, bool):
+        return value.lower() in ("1", "true", "yes", "on")
+    if isinstance(current, int):
+        return int(value)
+    if isinstance(current, float):
+        return float(value)
+    if current is None:
+        try:
+            return float(value)
+        except ValueError:
+            return value
+    return value
+
+
+def parse_overrides(cfg: Config, overrides: list[str]) -> Config:
+    """Apply `a.b.c=value` overrides; an unknown field raises KeyError."""
+    for ov in overrides:
+        if "=" not in ov:
+            raise ValueError(f"override {ov!r} must be key=value")
+        key, _, val = ov.partition("=")
+        cfg = cfg.replace_path(key.strip(), val.strip())
+    return cfg
 
 
 def config_to_dict(cfg: Any) -> dict:

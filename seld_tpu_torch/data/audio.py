@@ -1,4 +1,5 @@
-"""WAV decoding (counterpart: seld_tpu/data/audio.py::load_wav_python).
+"""WAV decoding and writing (counterpart: seld_tpu/data/audio.py,
+`load_wav_python` and `write_wav`).
 
 The standard library's `wave` decoder: PCM with 8, 16, 24 or 32-bit
 integer samples, scaled to [-1, 1]. IEEE-float and EXTENSIBLE WAVs are
@@ -9,6 +10,7 @@ from __future__ import annotations
 
 import logging
 import wave
+from pathlib import Path
 
 import numpy as np
 
@@ -49,3 +51,15 @@ def load_wav(path, expected_channels: int | None = 4):
             expected_channels, n_channels, path,
         )
     return wave_cn, sr
+
+
+def write_wav(path, waveform: np.ndarray, sample_rate: int) -> None:
+    """Write float32 (C, N) in [-1, 1] as 16-bit PCM."""
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    pcm = np.clip(waveform * 32767.0, -32768, 32767).astype("<i2")
+    with wave.open(str(path), "wb") as w:
+        w.setnchannels(waveform.shape[0])
+        w.setsampwidth(2)
+        w.setframerate(sample_rate)
+        w.writeframes(pcm.T.tobytes())

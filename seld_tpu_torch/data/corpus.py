@@ -1,22 +1,38 @@
-"""Waveform -> log-mel features (counterpart: seld_tpu/data/corpus.py,
-`compute_mel_features` and `features_from_frames`).
+"""Waveform -> log-mel features, and files -> a windowed corpus
+(counterpart: seld_tpu/data/corpus.py).
 
 Framing is a strided view of the reflect-padded signal on the device;
 the frames then go through K1 (seld_tpu_torch.ops.mel_cuda) in one
 launch per `_FRAME_CHUNK` frames. K1 treats every frame on its own, so
 the chunk only bounds device memory: the JAX package's 128/1024/8192
 tiers exist for XLA's static shapes and have no counterpart here.
+
+A corpus keeps its features and its (T, G) uint16 label bitmasks as numpy
+arrays on the host, concatenated over the files; windows are start
+offsets into them, not copies. The last window is padded with zero
+features and background labels.
 """
 
 from __future__ import annotations
+
+import logging
+from dataclasses import dataclass
 
 import numpy as np
 import torch
 
 from seld_tpu_torch import resolve_device
-from seld_tpu_torch.config import FeatureConfig
+from seld_tpu_torch.config import FeatureConfig, GridConfig, TargetConfig, WindowConfig
+from seld_tpu_torch.data.audio import load_wav
 from seld_tpu_torch.features.mel import frame_signal
 from seld_tpu_torch.ops.mel_cuda import log_mel_frames
+from seld_tpu_torch.targets.rasterize import (
+    encode_events_to_bitmask,
+    load_metadata_csv,
+    total_label_frames,
+)
+
+logger = logging.getLogger(__name__)
 
 _FRAME_CHUNK = 1 << 16  # frames per K1 launch: 250 MB of f32 input
 
@@ -51,3 +67,81 @@ def features_from_frames(frames: torch.Tensor, feat: FeatureConfig) -> torch.Ten
         for start in range(0, c * t, _FRAME_CHUNK)
     ])
     return out.reshape(c, t, feat.n_mels).transpose(0, 1).contiguous()
+
+
+@dataclass
+class WindowedCorpus:
+    """Concatenated corpus and its window index table.
+
+    mel:        (T_pad, C, n_mels) float32
+    label_mask: (T_pad, G) uint16 class bitmask (0 == background)
+    starts:     (W,) int32 window start frames
+    """
+
+    mel: np.ndarray
+    label_mask: np.ndarray
+    starts: np.ndarray
+    window_frames: int
+    total_frames: int  # before padding
+    n_el: int
+    n_az: int
+    num_classes: int
+
+    def __len__(self) -> int:
+        return len(self.starts)
+
+    def gather(self, idxs: np.ndarray):
+        """Windows idxs -> (B, win, C, F) float32, (B, win, G) uint16."""
+        offs = self.starts[np.asarray(idxs)][:, None] + np.arange(self.window_frames)
+        return self.mel[offs], self.label_mask[offs]
+
+
+def build_corpus(audio_files, metadata_files, feat: FeatureConfig, grid: GridConfig,
+                 window: WindowConfig, targets: TargetConfig, train: bool = True,
+                 device: str | torch.device | None = None) -> WindowedCorpus:
+    """Load every (wav, csv) pair, compute its features on `device` (CUDA
+    unless named: kernel K1) and its label bitmask, crop both to their
+    common length, concatenate, pad and index the windows."""
+    device = resolve_device(device)
+    if len(audio_files) != len(metadata_files):
+        raise ValueError(
+            f"{len(audio_files)} audio files but {len(metadata_files)} metadata files"
+        )
+    if train and targets.use_gaussian_augmentation:
+        raise NotImplementedError(
+            "targets.use_gaussian_augmentation: the Gaussian label rasterizer "
+            "(seld_tpu/targets/gaussian.py) is not ported yet (ROADMAP: spatial "
+            "features and augmentation)"
+        )
+    if targets.accdoa:
+        raise NotImplementedError(
+            "targets.accdoa: ACCDOA targets are not ported yet (ROADMAP: the "
+            "ACCDOA families)"
+        )
+    mels, masks = [], []
+    for apath, mpath in zip(audio_files, metadata_files):
+        wave, sr = load_wav(apath)
+        mel = compute_mel_features(wave, feat, device).cpu().numpy()  # (T_mel, C, F)
+        t_lab = total_label_frames(wave.shape[1], sr, targets.label_frame_ms)
+        frames, classes, _, az, el = load_metadata_csv(mpath)
+        mask = encode_events_to_bitmask(frames, classes, az, el, t_lab, n_el=grid.n_el,
+                                        n_az=grid.n_az, fanout=targets.fanout)
+        t_common = min(mel.shape[0], mask.shape[0])
+        mels.append(mel[:t_common])
+        masks.append(mask[:t_common])
+
+    mel = np.concatenate(mels, axis=0)
+    mask = np.concatenate(masks, axis=0)
+    total = mel.shape[0]
+    win = window.window_frames(feat)
+    hop = window.hop_frames(feat)
+    starts = np.arange(0, total, hop, dtype=np.int32)  # every start < total
+    pad = int(starts[-1]) + win - total
+    if pad > 0:
+        mel = np.concatenate([mel, np.zeros((pad, *mel.shape[1:]), mel.dtype)], axis=0)
+        mask = np.concatenate([mask, np.zeros((pad, mask.shape[1]), mask.dtype)], axis=0)
+    logger.info("Corpus: %d files, %d frames, %d windows of %d frames (hop %d)",
+                len(audio_files), total, len(starts), win, hop)
+    return WindowedCorpus(mel=mel, label_mask=mask, starts=starts, window_frames=win,
+                          total_frames=total, n_el=grid.n_el, n_az=grid.n_az,
+                          num_classes=grid.num_classes)

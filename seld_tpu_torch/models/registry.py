@@ -85,6 +85,7 @@ def build_model(model_cfg: ModelConfig, grid_cfg: GridConfig | None = None,
             n_channels=model_cfg.n_channels,
             n_mels=model_cfg.n_mels,
             compute_dtype=dtype,
+            dropout=model_cfg.resnet_dropout,
         )
     model = model.to_empty(device=device).eval()
     if seed is not None:

@@ -21,6 +21,7 @@ from seld_tpu_torch.models.layers import (
     BatchNorm,
     ConformerBlock,
     Conv2d,
+    Dropout,
     GridHead,
     Linear,
 )
@@ -110,7 +111,7 @@ class SELDResNetConformer(nn.Module):
     def __init__(self, grid_size=(18, 36), num_classes: int = 14,
                  d_model: int = 512, n_heads: int = 8, n_layers: int = 4,
                  kernel_size: int = 31, n_channels: int = 4, n_mels: int = 64,
-                 compute_dtype: torch.dtype = torch.float32):
+                 compute_dtype: torch.dtype = torch.float32, dropout: float = 0.3):
         super().__init__()
         self.compute_dtype = compute_dtype
         self.encoder = ResNet50Encoder(n_channels, compute_dtype=compute_dtype)
@@ -119,12 +120,27 @@ class SELDResNetConformer(nn.Module):
             f_out = _halve(f_out)
         self.proj = Linear(self.encoder.out_channels * f_out, d_model,
                            compute_dtype=compute_dtype)
+        self.drop = Dropout(dropout)
         self.blocks = nn.ModuleList(
-            ConformerBlock(d_model, n_heads, 4 * d_model, kernel_size, compute_dtype)
+            ConformerBlock(d_model, n_heads, 4 * d_model, kernel_size, compute_dtype,
+                           dropout)
             for _ in range(n_layers)
         )
         self.head = GridHead(d_model, 1024, grid_size[0] * grid_size[1],
-                             num_classes, compute_dtype)
+                             num_classes, compute_dtype, dropout)
+        self._dropout_generator: torch.Generator | None = None
+
+    def seed_dropout(self, seed: int) -> None:
+        """Seed the generator that every Dropout of the model draws from
+        (made on first use, on the parameters' device). The train step
+        reseeds it each step from (seed, epoch, step), so a resumed run
+        repeats the masks of the run it resumes."""
+        if self._dropout_generator is None:
+            self._dropout_generator = torch.Generator(device=self.proj.weight.device)
+            for module in self.modules():
+                if isinstance(module, Dropout):
+                    module.generator = self._dropout_generator
+        self._dropout_generator.manual_seed(seed)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         # a float32 model is true float32: no TF32, for this call only
@@ -132,7 +148,7 @@ class SELDResNetConformer(nn.Module):
             x = self.encoder(x.to(self.compute_dtype).permute(0, 2, 1, 3))
             b, c, t, f = x.shape
             # channel-major flatten of (C', F'), as the JAX model flattens
-            x = self.proj(x.permute(0, 2, 1, 3).reshape(b, t, c * f))
+            x = self.drop(self.proj(x.permute(0, 2, 1, 3).reshape(b, t, c * f)))
             for block in self.blocks:
                 x = block(x)
             return self.head(x)

@@ -1,0 +1,119 @@
+"""Train and eval steps (counterpart: seld_tpu/train/steps.py).
+
+A step is eager PyTorch: model forward (bf16 convolutions and linears on
+float32 parameters), the composite loss straight from the class bitmask
+(`loss_fn.from_bitmask`, which on the card runs the softmax region through
+kernel K2, forward and backward), backward, one Adam update. The batch
+comes in and a handful of scalar metrics go out as device tensors: nothing
+here reads a value back to the host.
+"""
+
+from __future__ import annotations
+
+import contextlib
+
+import numpy as np
+import torch
+from torch import nn
+
+from seld_tpu_torch import no_tf32
+from seld_tpu_torch.losses import SELDLossFn
+from seld_tpu_torch.train.state import TrainState
+
+
+def _true_f32(model: nn.Module):
+    """A float32 model computes in true float32: TF32 off around the
+    forward and the backward (the model's own forward only covers itself)."""
+    if getattr(model, "compute_dtype", None) == torch.float32:
+        return no_tf32()
+    return contextlib.nullcontext()
+
+
+def dropout_seed(rng: tuple[int, ...], step: int) -> int:
+    """The dropout generator's seed for one step: a pure function of the
+    run's (seed, epoch) and the step counter, so a resumed run repeats the
+    run it resumes."""
+    return int(np.random.SeedSequence((*rng, step)).generate_state(1, np.uint64)[0] >> 1)
+
+
+def make_train_step(model: nn.Module, loss_fn: SELDLossFn,
+                    optimizer: torch.optim.Optimizer, num_classes: int,
+                    accum_steps: int = 1):
+    """Returns step(state, mel, label_mask, example_mask, rng) ->
+    (state, metrics).
+
+    mel (B, T, C, F) float32, label_mask (B, T, G) integer bitmask,
+    example_mask (B,) validity weights or None, all on the model's device;
+    rng a tuple of ints, (seed, epoch) in the trainer. The step updates the
+    model, the optimizer and state.step in place. metrics holds "loss" and
+    the loss breakdown as detached device scalars.
+
+    accum_steps > 1 splits the batch into that many microbatches, runs
+    them in order (BatchNorm statistics thread through them) and adds their
+    gradients weighted by each microbatch's share of the example-mask
+    weight, then applies one optimizer update. For the em-normalised
+    decomposable terms (MSE, AIUR) that equals the full-batch gradient,
+    padded tail batches included: an all-padding microbatch adds 0."""
+    if num_classes != loss_fn.grid.num_classes:
+        raise ValueError(
+            f"num_classes {num_classes} != the loss's grid ({loss_fn.grid.num_classes})"
+        )
+    if accum_steps < 1:
+        raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
+
+    def step(state: TrainState, mel, label_mask, example_mask, rng):
+        model.train()
+        model.seed_dropout(dropout_seed(rng, state.step))
+        optimizer.zero_grad(set_to_none=True)
+        with _true_f32(model):
+            if accum_steps == 1:
+                total, breakdown = loss_fn.from_bitmask(model(mel), label_mask, example_mask)
+                total.backward()
+                total = total.detach()
+            else:
+                b = mel.shape[0]
+                if b % accum_steps:
+                    raise ValueError(f"batch {b} not divisible by accum_steps={accum_steps}")
+                mb = b // accum_steps
+                if example_mask is None:
+                    shares = torch.full((accum_steps,), 1.0 / accum_steps, device=mel.device)
+                else:
+                    em = example_mask.float().reshape(accum_steps, mb)
+                    shares = em.sum(dim=1) / em.sum().clamp_min(1e-8)
+                total, breakdown = 0.0, {}
+                for i in range(accum_steps):
+                    rows = slice(i * mb, (i + 1) * mb)
+                    t_i, bd_i = loss_fn.from_bitmask(
+                        model(mel[rows]), label_mask[rows],
+                        None if example_mask is None else example_mask[rows],
+                    )
+                    (shares[i] * t_i).backward()
+                    total = total + shares[i] * t_i.detach()
+                    for k, v in bd_i.items():
+                        breakdown[k] = breakdown.get(k, 0.0) + shares[i] * v.detach()
+        optimizer.step()
+        state.step += 1
+        return state, {"loss": total, **{k: v.detach() for k, v in breakdown.items()}}
+
+    return step
+
+
+def make_eval_step(model: nn.Module, loss_fn: SELDLossFn, num_classes: int,
+                   return_logits: bool = False):
+    """Returns step(mel, label_mask, example_mask) -> metrics (and the
+    logits when return_logits): the eval-mode forward and the loss from the
+    bitmask, without gradients."""
+    if num_classes != loss_fn.grid.num_classes:
+        raise ValueError(
+            f"num_classes {num_classes} != the loss's grid ({loss_fn.grid.num_classes})"
+        )
+
+    @torch.no_grad()
+    def step(mel, label_mask, example_mask):
+        model.eval()
+        out = model(mel)
+        total, breakdown = loss_fn.from_bitmask(out, label_mask, example_mask)
+        metrics = {"loss": total, **breakdown}
+        return (metrics, out) if return_logits else metrics
+
+    return step

@@ -1,0 +1,326 @@
+"""Training loop: the host-side orchestration around the train and eval
+steps (counterpart: seld_tpu/train/trainer.py).
+
+Adam with coupled L2, ReduceLROnPlateau on the test loss (or a per-step
+warmup + cosine schedule), early stopping on the train loss, a best
+checkpoint on the test loss, a rolling checkpoint every N epochs, resume
+from the newest rolling checkpoint, an optional parameter EMA, a
+per-epoch record in metrics.jsonl, and training_history.json at the end.
+
+Metrics stay on the device until the epoch's summary: one read-back per
+epoch for the train metrics and one for the test metrics, none per step.
+"""
+
+from __future__ import annotations
+
+import copy
+import json
+import logging
+import math
+import shutil
+import signal
+import time
+from pathlib import Path
+
+import torch
+
+from seld_tpu_torch import resolve_device
+from seld_tpu_torch.config import Config
+from seld_tpu_torch.data.corpus import WindowedCorpus
+from seld_tpu_torch.data.sampler import BatchIterator, device_prefetch, place_batch
+from seld_tpu_torch.losses import SELDLossFn
+from seld_tpu_torch.models import build_model
+from seld_tpu_torch.train.checkpoint import CheckpointManager
+from seld_tpu_torch.train.optimizer import (
+    current_learning_rate,
+    make_optimizer,
+    set_learning_rate,
+)
+from seld_tpu_torch.train.schedule import EarlyStopping, ReduceLROnPlateau, WarmupCosine
+from seld_tpu_torch.train.state import TrainState, create_train_state, param_count
+from seld_tpu_torch.train.steps import make_eval_step, make_train_step
+
+logger = logging.getLogger(__name__)
+
+
+class PreemptionGuard:
+    """While installed, SIGTERM sets a flag that the epoch loop polls:
+    training saves a rolling checkpoint and returns instead of dying
+    mid-step, and a later run with resume=True continues from it."""
+
+    def __init__(self):
+        self.requested = False
+        self._prev = None
+
+    def _handler(self, signum, frame):
+        self.requested = True
+
+    def __enter__(self):
+        try:
+            self._prev = signal.signal(signal.SIGTERM, self._handler)
+        except ValueError:  # not the main thread: the flag is never set
+            self._prev = None
+        return self
+
+    def __exit__(self, *exc):
+        if self._prev is not None:
+            signal.signal(signal.SIGTERM, self._prev)
+        return False
+
+
+def _epoch_mean(metric_list: list[dict]) -> dict[str, float]:
+    """Mean of the per-batch device scalars, in one read-back."""
+    keys = list(metric_list[0])
+    stacked = torch.stack([torch.stack([m[k].float() for m in metric_list]) for k in keys])
+    return dict(zip(keys, stacked.mean(dim=1).tolist()))
+
+
+def _replay_schedules(workdir, start_epoch: int, plateau, stopper):
+    """Rebuild the plateau and early-stop state of a resumed run by
+    replaying the completed epochs' metrics.jsonl records through them;
+    without it the first plateau step after a resume would write a reduced
+    learning rate back up. Of duplicate epoch numbers the last record
+    counts. Returns the least replayed test loss, or None."""
+    path = Path(workdir) / "metrics.jsonl"
+    if not path.exists():
+        return None
+    by_epoch: dict[int, tuple[float, float]] = {}
+    for line in path.read_text().splitlines():
+        try:
+            rec = json.loads(line)
+            by_epoch[int(rec["epoch"])] = (
+                float(rec["train"]["loss"]), float(rec["test"]["loss"]),
+            )
+        except (ValueError, KeyError, TypeError):
+            continue  # a truncated or hand-edited line
+    replayed = [e for e in sorted(by_epoch) if e < start_epoch]
+    for e in replayed:
+        train_loss, test_loss = by_epoch[e]
+        plateau.step(test_loss)
+        stopper.step(train_loss, e)
+    if not replayed:
+        return None
+    logger.info(
+        "Resume: replayed %d epoch records through the schedules (plateau lr %.6f, "
+        "early-stop best %.6f @ epoch %d, %d epochs without improvement)",
+        len(replayed), plateau.lr, stopper.best, stopper.best_epoch,
+        stopper.epochs_without_improvement,
+    )
+    return min(by_epoch[e][1] for e in replayed)
+
+
+def train_model(cfg: Config, train_corpus: WindowedCorpus, test_corpus: WindowedCorpus,
+                workdir: str | Path | None = None, resume: bool = False,
+                device: str | torch.device | None = None):
+    """Train per config on `device` (CUDA unless named); returns
+    (state, history). The returned state holds the best weights when a
+    best checkpoint was written."""
+    device = resolve_device(device)
+    workdir = Path(workdir if workdir is not None else cfg.data.checkpoint_path)
+    workdir.mkdir(parents=True, exist_ok=True)
+    tc = cfg.train
+    if tc.lr_schedule not in ("plateau", "cosine"):
+        raise ValueError(
+            f"train.lr_schedule must be 'plateau' or 'cosine', got {tc.lr_schedule!r}"
+        )
+    if tc.batch_size % tc.accum_steps:
+        raise ValueError(
+            f"train.batch_size={tc.batch_size} must divide by "
+            f"train.accum_steps={tc.accum_steps}"
+        )
+
+    model = build_model(cfg.model, cfg.grid, device=device, seed=tc.seed)
+    loss_fn = SELDLossFn(cfg.loss, cfg.grid)
+    optimizer = make_optimizer(model.parameters(), tc.learning_rate, tc.weight_decay)
+    state = create_train_state(model, optimizer)
+    logger.info("Model %s: %s parameters on %s", cfg.model.model_type,
+                f"{param_count(state):,}", device)
+    logger.info(
+        "Optimizer: Adam(lr=%g, L2 wd=%g); plateau factor=%g patience=%d; "
+        "early stop patience=%d min_delta=%g",
+        tc.learning_rate, tc.weight_decay, tc.lr_decay_factor, tc.lr_decay_patience,
+        tc.patience, tc.min_delta,
+    )
+
+    if not resume:
+        # a fresh run starts from a clean tree: stale checkpoints (possibly
+        # of another architecture) must not be reloaded as "best", and
+        # metrics.jsonl is appended to, so old records would poison a later
+        # resume's schedule replay
+        for sub in ("best", "rolling"):
+            if (workdir / sub).exists():
+                shutil.rmtree(workdir / sub)
+                logger.info("Cleared previous %s checkpoints (fresh run)", sub)
+        if (workdir / "metrics.jsonl").exists():
+            (workdir / "metrics.jsonl").unlink()
+            logger.info("Cleared previous metrics.jsonl (fresh run)")
+
+    ckpt = CheckpointManager(workdir, cfg)
+    start_epoch = 1
+    resume_best_meta = None
+    resumed_lr = None
+    if resume:
+        # the best-so-far baseline comes from the best checkpoint even when
+        # there is no rolling checkpoint to take the weights from
+        resume_best_meta = ckpt.best_meta()
+        restored = ckpt.restore_latest(state)
+        if restored is not None:
+            start_epoch = restored[1]["epoch"] + 1
+            resumed_lr = current_learning_rate(optimizer)  # from the restored optimizer
+            logger.info("Resumed from rolling checkpoint at epoch %d", restored[1]["epoch"])
+        elif resume_best_meta is not None:
+            logger.warning(
+                "Resume: no rolling checkpoint under %s: restarting training from "
+                "scratch, keeping the stored best checkpoint (epoch %d) as the "
+                "improvement baseline", workdir, resume_best_meta.get("epoch", -1),
+            )
+
+    # Parameter EMA: a shadow model updated after every step; it is what
+    # eval sees and what the best checkpoint stores. Rolling checkpoints
+    # keep the raw weights, and the EMA restarts from them on resume.
+    ema_model = None
+    if tc.ema_decay > 0:
+        ema_model = copy.deepcopy(model).eval()
+        ema_params, live_params = list(ema_model.parameters()), list(model.parameters())
+        ema_buffers, live_buffers = list(ema_model.buffers()), list(model.buffers())
+        logger.info("Parameter EMA on (decay %.4f); eval/best use EMA weights", tc.ema_decay)
+    eval_model = model if ema_model is None else ema_model
+
+    if tc.accum_steps > 1:
+        logger.info("Gradient accumulation: %d microbatches of %d",
+                    tc.accum_steps, tc.batch_size // tc.accum_steps)
+    train_step = make_train_step(model, loss_fn, optimizer, cfg.grid.num_classes,
+                                 accum_steps=tc.accum_steps)
+    eval_step = make_eval_step(eval_model, loss_fn, cfg.grid.num_classes)
+
+    plateau = ReduceLROnPlateau(lr=tc.learning_rate, factor=tc.lr_decay_factor,
+                                patience=tc.lr_decay_patience)
+    steps_per_epoch = max(-(-len(train_corpus) // tc.batch_size), 1)
+    cosine = None
+    if tc.lr_schedule == "cosine":
+        cosine = WarmupCosine(peak=tc.learning_rate,
+                              total_steps=steps_per_epoch * tc.num_epochs,
+                              warmup_steps=tc.warmup_steps,
+                              final_scale=tc.cosine_final_scale)
+        logger.info("LR schedule: warmup %d steps -> cosine over %d steps "
+                    "(plateau rewrites disabled)", tc.warmup_steps, cosine.total_steps)
+    stopper = EarlyStopping(patience=tc.patience, min_delta=tc.min_delta)
+    replayed_min_test = None
+    if start_epoch > 1:
+        replayed_min_test = _replay_schedules(workdir, start_epoch, plateau, stopper)
+        if resumed_lr is not None:
+            plateau.lr = resumed_lr  # the restored optimizer is the ground truth
+
+    train_iter = BatchIterator(train_corpus, tc.batch_size, shuffle=True,
+                               seed=cfg.data.shuffle_seed, prefetch=cfg.data.prefetch_depth)
+    train_iter.epoch = start_epoch - 1  # a resumed run continues the shuffle sequence
+    test_iter = BatchIterator(test_corpus, tc.batch_size, shuffle=False,
+                              prefetch=cfg.data.prefetch_depth)
+
+    def place(batch):
+        return place_batch(batch, device)
+
+    history = {"train_losses": [], "test_losses": [], "lr": []}
+    best_test = float("inf")
+    if resume_best_meta is not None:
+        best_test = float(resume_best_meta.get("test_loss", float("inf")))
+        if replayed_min_test is not None:
+            best_test = min(best_test, replayed_min_test)
+        logger.info("Resume: best test loss so far %.6f (best epoch %d)",
+                    best_test, resume_best_meta.get("epoch", -1))
+    epoch = start_epoch - 1
+
+    with PreemptionGuard() as preempt:
+        for epoch in range(start_epoch, tc.num_epochs + 1):
+            t0 = time.time()
+            train_metrics = []
+            for i, (mel, mask, em) in enumerate(
+                device_prefetch(train_iter, place, depth=cfg.data.prefetch_depth)
+            ):
+                if cosine is not None:
+                    set_learning_rate(optimizer, cosine((epoch - 1) * steps_per_epoch + i))
+                _, metrics = train_step(state, mel, mask, em, (tc.seed, epoch))
+                if ema_model is not None:
+                    with torch.no_grad():  # the shadow keeps the live BatchNorm statistics
+                        torch._foreach_lerp_(ema_params, live_params, 1.0 - tc.ema_decay)
+                        torch._foreach_copy_(ema_buffers, live_buffers)
+                train_metrics.append(metrics)
+                if preempt.requested:  # a host flag: no device sync
+                    break
+            train_avg = _epoch_mean(train_metrics)
+            if epoch == start_epoch and device.type == "cuda":
+                logger.info("Peak device memory after the first epoch: %.2f GiB",
+                            torch.cuda.max_memory_allocated(device) / 2**30)
+
+            if preempt.requested:
+                logger.warning("SIGTERM received: saving a preemption checkpoint at "
+                               "epoch %d and exiting cleanly", epoch)
+                ckpt.save_rolling(epoch, state, train_avg["loss"], float("inf"))
+                history["preempted_epoch"] = epoch
+                break
+
+            if not math.isfinite(train_avg["loss"]):
+                logger.error("Non-finite train loss %.6f at epoch %d: saving an "
+                             "emergency checkpoint and aborting", train_avg["loss"], epoch)
+                ckpt.save_rolling(epoch, state, train_avg["loss"], float("inf"))
+                history["aborted_epoch"] = epoch
+                break
+
+            test_avg = _epoch_mean([
+                eval_step(mel, mask, em)
+                for mel, mask, em in device_prefetch(test_iter, place,
+                                                     depth=cfg.data.prefetch_depth)
+            ])
+
+            if cosine is not None:
+                new_lr = current_learning_rate(optimizer)
+            else:
+                new_lr = plateau.step(test_avg["loss"])
+                old_lr = current_learning_rate(optimizer)
+                # rewrite only on a real change (reductions are x0.5), not on
+                # the rounding of a stored and restored value
+                if abs(new_lr - old_lr) > 1e-6 * max(abs(new_lr), abs(old_lr), 1e-30):
+                    set_learning_rate(optimizer, new_lr)
+                    logger.info("  Learning rate reduced: %.6f -> %.6f", old_lr, new_lr)
+
+            history["train_losses"].append(train_avg["loss"])
+            history["test_losses"].append(test_avg["loss"])
+            history["lr"].append(new_lr)
+            record = {"epoch": epoch, "seconds": round(time.time() - t0, 2), "lr": new_lr,
+                      "train": train_avg, "test": test_avg}
+            with (workdir / "metrics.jsonl").open("a") as fh:
+                fh.write(json.dumps(record) + "\n")
+            logger.info("Epoch %d/%d - %.1fs | train %.6f | test %.6f | lr %.6f",
+                        epoch, tc.num_epochs, time.time() - t0,
+                        train_avg["loss"], test_avg["loss"], new_lr)
+            for k in train_avg:
+                if k != "loss":
+                    logger.info("    %s: train %.6f test %.6f", k, train_avg[k], test_avg[k])
+
+            if test_avg["loss"] < best_test - tc.min_delta:
+                best_test = test_avg["loss"]
+                best_state = (state if ema_model is None
+                              else TrainState(state.step, ema_model, None))
+                ckpt.save_best(epoch, best_state, train_avg["loss"], test_avg["loss"])
+                logger.info("  New best model saved (test loss %.6f)", best_test)
+            if epoch % tc.save_every_n_epochs == 0:
+                ckpt.save_rolling(epoch, state, train_avg["loss"], test_avg["loss"])
+                logger.info("  Rolling checkpoint saved (epoch %d)", epoch)
+
+            if stopper.step(train_avg["loss"], epoch):
+                logger.info(
+                    "EARLY STOPPING at epoch %d (no train improvement for %d epochs; "
+                    "best train %.6f @ epoch %d)",
+                    epoch, stopper.patience, stopper.best, stopper.best_epoch,
+                )
+                break
+
+    history.update(best_train_loss=stopper.best, best_test_loss=best_test,
+                   best_epoch=stopper.best_epoch, total_epochs=epoch)
+    restored = ckpt.restore_best(state)
+    if restored is not None:
+        logger.info("Best model loaded from epoch %d", restored[1]["epoch"])
+    hist_path = workdir / "training_history.json"
+    hist_path.write_text(json.dumps(history, indent=2))
+    logger.info("Training history saved to %s", hist_path)
+    return state, history

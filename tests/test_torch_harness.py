@@ -31,7 +31,8 @@ def test_import_leaves_jax_and_seld_tpu_out():
     # a fresh interpreter: this test process has imported JAX already
     probe = (
         "import sys, seld_tpu_torch, seld_tpu_torch.infer, seld_tpu_torch.cli, "
-        "seld_tpu_torch.convert\n"
+        "seld_tpu_torch.convert, seld_tpu_torch.train.trainer, "
+        "seld_tpu_torch.data.synthetic, seld_tpu_torch.data.discovery\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'seld_tpu'))\n"
         "print(bad)\n"
@@ -48,6 +49,16 @@ def test_import_leaves_jax_and_seld_tpu_out():
 ))
 def test_no_source_imports_jax_or_seld_tpu(path):
     assert not FORBIDDEN.findall((ROOT / path).read_text())
+
+
+@pytest.mark.parametrize("path", sorted(
+    str(p.relative_to(ROOT)) for p in (ROOT / "seld_tpu_torch" / "ops").glob("*_cuda.py")
+))
+def test_kernel_wrappers_have_no_try_around_a_launch(path):
+    """A wrapper launches or raises: no handler that could fall back."""
+    text = (ROOT / path).read_text()
+    assert "_kernel" in text  # it is a wrapper module
+    assert not re.search(r"^\s*(try\s*:|except\b|finally\s*:)", text, re.M)
 
 
 @pytest.fixture
@@ -71,6 +82,23 @@ def test_entry_points_raise_without_cuda(no_cuda, tmp_path):
         compute_mel_features(np.zeros((4, 4800), np.float32), FeatureConfig())
     with pytest.raises(RuntimeError, match="CUDA"):
         port_main(["predict", "--checkpoint", str(missing), "--wavs", "x.wav"])
+
+
+def test_training_entry_points_raise_without_cuda(no_cuda, tmp_path):
+    from seld_tpu_torch.data.corpus import build_corpus
+    from seld_tpu_torch.data.synthetic import synthetic_corpus
+    from seld_tpu_torch.train.trainer import train_model
+
+    cfg = Config()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        synthetic_corpus(cfg, n_files=1, seconds=1.0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_corpus([], [], cfg.features, cfg.grid, cfg.window, cfg.targets)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train_model(cfg, None, None, workdir=tmp_path)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        port_main(["train", "--synthetic", f"data.base_path={tmp_path}"])
+    assert not list(tmp_path.iterdir())  # the device check comes first
 
 
 def test_cpu_is_served_when_named(tmp_path):

@@ -98,7 +98,7 @@ def test_grid_head_matches_jax(flagship):
     port_head = port_layers.GridHead(64, 1024, 648, 14)
     port_head.load_state_dict(_port_sub_state(port, "head."))
     with torch.no_grad():
-        got = port_head(torch.from_numpy(x)).numpy()
+        got = port_head.eval()(torch.from_numpy(x)).numpy()
     assert got.shape == (2, 8, 14, 648)
     # two float32 products of depth 64 and 1024
     np.testing.assert_allclose(got, want, atol=1e-4, rtol=1e-4)

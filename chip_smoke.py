@@ -16,6 +16,13 @@ Phases, each of which raises on failure:
      N = 37, on an all-background mask and on a many-bit mask; times of
      both kernels, the plain version and the unfused eager loss chain, and
      their bytes bounds;
+     kernel K3 (flash attention: forward, dQ, dK/dV) against its plain
+     version for out, lse, dq, dk and dv at one long-window train batch
+     (B*H = 128, T = 1000, Dh = 64) in bf16 and float32, at ragged T = 130
+     and 513, at T = 64, at Dh = 32 and 128, with keys scaled by 10, always
+     on q/k/v strided as the model makes them, two backward runs bit-equal;
+     times of each kernel, the plain version and
+     F.scaled_dot_product_attention, and their operations bounds;
   4. the flagship ResNet50-Conformer (default Config: d_model 512, 8 heads,
      4 blocks, 250-frame windows, bf16) from seeded weights, saved and
      loaded through seld_tpu_torch.train.checkpoint, serving a seeded 60 s
@@ -31,13 +38,21 @@ Phases, each of which raises on failure:
      epochs): K2's forward and backward launch counts against the steps
      taken, K1's launches while the corpora are built, the artifacts, then
      `--resume` into a third epoch and SELDPredictor serving the best
-     checkpoint; then timed train steps and one under torch.profiler.
+     checkpoint; then timed train steps and one under torch.profiler;
+  7. long windows at full width (window.window_seconds=20.0, T = 1000, so
+     attention runs through K3): SELDPredictor serving the 60 s clip, K3's
+     forward count against the forwards taken; `cli train --synthetic` for
+     one epoch, K3's three counts at exactly four per step; `cli eval
+     --synthetic` on that run, its JSON report parsed; timed predicts and
+     train steps and one step under torch.profiler.
 It prints one JSON line of kernel figures, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import math
 import re
@@ -56,15 +71,24 @@ from seld_tpu_torch import no_tf32
 ROOT = Path(__file__).resolve().parent
 # H100 SXM peaks from NVIDIA's data sheet, at the 700 W power limit
 F32_FLOPS = 67e12  # float32 outside the tensor cores
+BF16_FLOPS = 989e12  # dense bf16 in the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 K1_TOL_DB = 5e-3  # float32 DFT-as-GEMM against float32 GEMMs / rFFT
 # K2 against its plain version: float32 exp and sums in another order
 K2_FWD_TOL = dict(rtol=1e-5, atol=1e-6)
 K2_GRAD_TOL = dict(rtol=2e-4, atol=1e-6)
+# K3 in float32 against its plain version: the JAX kernel tests' tolerances
+K3_FWD_ATOL, K3_LSE_ATOL = 2e-5, 1e-5
+K3_GRAD_TOL = dict(rtol=2e-4, atol=2e-5)
+K3_BF16_RATIO = 1.5  # bf16 kernel error over the bf16 plain version's own error
 F32_LOGIT_TOL = 1e-3  # card vs CPU float32, sums in other orders
+LONG_WINDOW_SECONDS = 20.0  # T = 1000 frames: ragged against every power-of-two tile
 CLIP_SECONDS = 60
 # kernel-name patterns -> family for the profile of one predict, first match wins
 FAMILIES = (
+    ("K3 flash attention forward", r"flash_fwd_"),
+    ("K3 flash attention dQ", r"flash_dq_"),
+    ("K3 flash attention dK/dV", r"flash_dkv_"),
     ("K1 log-mel", r"log_mel_kernel"),
     ("K2 grid loss forward", r"grid_loss_fwd_kernel"),
     ("K2 grid loss backward", r"grid_loss_bwd_kernel"),
@@ -135,13 +159,14 @@ def phase_build() -> None:
             print(f"[build] {name}: built already ({_build.library_path(name).name})")
             continue
         print(f"[build] {name}: {info['seconds']:.2f} s")
-        # ptxas names each entry function, then its resources; of K2's
-        # instantiations only the main path's (M = 14) is shown
+        # ptxas names each entry function, then its resources; of K2's and
+        # K3's instantiations only the main path's (M = 14, Dh = 64) are shown
         shown = True
         for line in info["log"].splitlines():
             if "Compiling entry function" in line:
-                shown = "grid_loss" not in line or "ILi14E" in line
-                if shown and "grid_loss" in line:
+                shown = (("grid_loss" not in line or "ILi14E" in line)
+                         and ("flash_" not in line or "kernelILi64E" in line))
+                if shown and ("grid_loss" in line or "flash_" in line):
                     print(f"[build]   {line.split("'")[1]}:")
             elif shown and ("registers" in line or "spill" in line):
                 print(f"[build]   {line.strip()}")
@@ -391,6 +416,193 @@ def phase_k2(dev: torch.device) -> list[dict]:
     return rows
 
 
+def k3_bounds(bh: int, t: int, dh: int, dtype: torch.dtype) -> dict:
+    """The least card time for K3's three functions on (bh, t, dh) inputs.
+
+    Operations: the products each function needs at 2 bh t^2 dh flops apiece:
+    forward two (q k^T, p v); dQ three (q k^T, dO v^T, ds k); dK/dV four
+    (q k^T, dO v^T, p^T dO, ds^T q); "bwd" is the least for dq, dk and dv
+    together, five (the two passes recompute q k^T and dO v^T, so they do
+    seven). At the dense bf16 tensor-core peak for bf16 inputs, at the
+    float32 FMA peak for float32 ones. Bytes: q, k, v (and dO, lse, delta)
+    read once, the outputs written once."""
+    elem = torch.empty((), dtype=dtype).element_size()
+    peak = BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS
+    mat, row = bh * t * dh * elem, bh * t * 4
+    out = {}
+    for name, products, n_bytes in (
+        ("fwd", 2, 4 * mat + row), ("dq", 3, 5 * mat + 2 * row),
+        ("dkv", 4, 6 * mat + 2 * row), ("bwd", 5, 7 * mat + 2 * row),
+    ):
+        ops = products * 2 * bh * t * t * dh
+        bytes_ms, ops_ms = n_bytes / HBM_BYTES_PER_S * 1e3, ops / peak * 1e3
+        out[name] = {"bound_ms": max(bytes_ms, ops_ms),
+                     "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                     "bytes": n_bytes, "ops": ops}
+    return out
+
+
+def k3_case(dev, b: int, h: int, t: int, dh: int, dtype, seed: int, key_scale: float = 1.0):
+    """Seeded q, k, v as the model makes them ((B, T, H*Dh) projections
+    viewed as (B, H, T, Dh): head and time strides swapped) and a cotangent
+    strided the same way."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v, w = (torch.randn((b, t, h * dh), generator=gen, device=dev).to(dtype)
+                  .view(b, t, h, dh).transpose(1, 2) for _ in range(4))
+    return q, k * key_scale, v, w
+
+
+def k3_run(fn, q, k, v, w):
+    """(out, lse, dq, dk, dv) of fn on fresh leaves."""
+    q, k, v = (x.detach().clone().requires_grad_(True) for x in (q, k, v))
+    out, lse = fn(q, k, v)
+    return (out.detach(), lse.detach(), *torch.autograd.grad(out, (q, k, v), w))
+
+
+def phase_k3(dev: torch.device) -> list[dict]:
+    import torch.nn.functional as F
+
+    from seld_tpu_torch.config import Config, WindowConfig
+    from seld_tpu_torch.ops import flash_attention as k3
+
+    cfg = Config(window=WindowConfig(window_seconds=LONG_WINDOW_SECONDS))
+    b, h = cfg.train.batch_size, cfg.model.resnet_conf_n_heads
+    t, dh = cfg.window.window_frames(cfg.features), cfg.model.resnet_conf_d_model // h
+    names = ("out", "lse", "dq", "dk", "dv")
+
+    def kernel(q, k, v):
+        return k3.flash_attention(q, k, v, return_lse=True)
+
+    def launches():
+        fa = k3.flash_attention
+        return (fa.fwd_launches, fa.bwd_dq_launches, fa.bwd_dkv_launches)
+
+    main_err = {}
+    # 32 heads in the small cases too: a largest error over a few thousand
+    # values is mostly chance, and the bf16 check compares two of them
+    cases = [(b, h, t, dh, 1.0), (4, 8, 130, dh, 1.0), (4, 8, 513, dh, 1.0), (4, 8, 64, dh, 1.0),
+             (4, 8, 130, 32, 1.0), (4, 8, 200, 128, 1.0), (4, 8, 130, dh, 10.0)]
+    for cb, ch, ct, cdh, key_scale in cases:
+        shape = f"B*H={cb * ch} T={ct} Dh={cdh}" + (" keys x10" if key_scale != 1.0 else "")
+        # float32: the kernel against its plain version
+        case = k3_case(dev, cb, ch, ct, cdh, torch.float32, seed=ct + cdh, key_scale=key_scale)
+        before = launches()
+        copies = k3.flash_attention.copies
+        got = k3_run(kernel, *case)
+        torch.cuda.synchronize()
+        if launches() != tuple(n + 1 for n in before) or k3.flash_attention.copies != copies:
+            raise AssertionError(f"K3 {shape}: launch counters moved {before} -> {launches()}, "
+                                 f"copies {copies} -> {k3.flash_attention.copies}")
+        want = k3_run(k3.flash_attention_reference, *case)
+        errs = {n: (a - r).abs().max().item() for n, a, r in zip(names, got, want)}
+        print(f"[K3] float32 {shape}: max |kernel - plain| "
+              + ", ".join(f"{n} {e:.2e}" for n, e in errs.items())
+              + " (atol 2e-5 / lse 1e-5 / gradients rtol 2e-4)")
+        # keys x10 sharpen the softmax: no weight on padded keys, 5e-5 as in the JAX tests
+        torch.testing.assert_close(got[0], want[0], rtol=0,
+                                   atol=5e-5 if key_scale != 1.0 else K3_FWD_ATOL)
+        torch.testing.assert_close(got[1], want[1], rtol=0, atol=K3_LSE_ATOL * key_scale)
+        for a, r in zip(got[2:], want[2:]):
+            torch.testing.assert_close(a, r, rtol=K3_GRAD_TOL["rtol"],
+                                       atol=K3_GRAD_TOL["atol"] * key_scale)
+        del got, want
+        # bf16: the kernel and the bf16 plain version, each against the float32
+        # plain version on the same bf16-rounded inputs
+        case = k3_case(dev, cb, ch, ct, cdh, torch.bfloat16, seed=ct + cdh, key_scale=key_scale)
+        got = k3_run(kernel, *case)
+        plain = k3_run(k3.flash_attention_reference, *case)
+        exact = k3_run(k3.flash_attention_reference, *(x.float() for x in case))
+        parts = []
+        for i, n in enumerate(names):
+            err = (got[i].float() - exact[i]).abs().max().item()
+            plain_err = (plain[i].float() - exact[i]).abs().max().item()
+            parts.append(f"{n} {err:.2e} / {plain_err:.2e}")
+            if n == "lse":
+                ok = err <= 1e-4 * key_scale
+            else:
+                ok = err <= K3_BF16_RATIO * plain_err + 1e-6
+            if not ok:
+                raise AssertionError(f"K3 bf16 {shape}: {n} off by {err} from float32, the "
+                                     f"bf16 plain version by {plain_err}")
+            if (cb, ct, key_scale) == (b, t, 1.0):
+                main_err[n] = (got[i].float() - plain[i].float()).abs().max().item()
+        print(f"[K3] bf16 {shape}: max error against float32, kernel / bf16 plain: "
+              + ", ".join(parts) + f" (kernel at most {K3_BF16_RATIO} x plain)")
+        del got, plain, exact
+
+    # two backward runs on the same inputs: the same bits
+    for dtype in (torch.bfloat16, torch.float32):
+        case = k3_case(dev, b, h, t, dh, dtype, seed=5)
+        first, second = k3_run(kernel, *case), k3_run(kernel, *case)
+        if not all(torch.equal(x, y) for x, y in zip(first, second)):
+            raise AssertionError(f"K3 {dtype}: two runs on the same inputs differ")
+    print("[K3] two forward+backward runs bit-equal in bf16 and float32 (no atomics)")
+    del first, second
+
+    # times at the main path's shape
+    rows = []
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v, w = k3_case(dev, b, h, t, dh, dtype, seed=6)
+        scale = dh ** -0.5
+        tm = {}
+        with torch.no_grad():
+            out, lse = k3.launch_forward(q, k, v, scale)
+            delta = k3.row_delta(w, out)
+            tm["kernel", "fwd"] = kernel_ms(lambda: k3.launch_forward(q, k, v, scale))
+            tm["kernel", "dq"] = kernel_ms(lambda: k3.launch_dq(q, k, v, w, lse, delta, scale))
+            tm["kernel", "dkv"] = kernel_ms(lambda: k3.launch_dkv(q, k, v, w, lse, delta, scale))
+            tm["kernel", "delta"] = kernel_ms(lambda: k3.row_delta(w, out))
+            tm["plain", "fwd"] = kernel_ms(lambda: k3.flash_attention_reference(q, k, v))
+            tm["library", "fwd"] = kernel_ms(lambda: F.scaled_dot_product_attention(q, k, v))
+        leaves = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
+        for name, fn in (("kernel", lambda *a: kernel(*a)[0]),
+                         ("plain", lambda *a: k3.flash_attention_reference(*a)[0]),
+                         ("library", F.scaled_dot_product_attention)):
+            o = fn(*leaves)
+            tm[name, "bwd"] = kernel_ms(
+                lambda: torch.autograd.grad(o, leaves, w, retain_graph=True))
+            if name == "plain":
+                tm[name, "dq"] = kernel_ms(
+                    lambda: torch.autograd.grad(o, leaves[0], w, retain_graph=True))
+                tm[name, "dkv"] = kernel_ms(
+                    lambda: torch.autograd.grad(o, leaves[1:], w, retain_graph=True))
+            del o
+        bounds = k3_bounds(b * h, t, dh, dtype)
+        peak = "989 TFLOP/s bf16" if dtype == torch.bfloat16 else "67 TFLOP/s f32 FMA"
+        kind = "bf16" if dtype == torch.bfloat16 else "float32"
+        for part, label in (("fwd", "forward"), ("dq", "dQ"), ("dkv", "dK/dV")):
+            bd, k_ms = bounds[part], tm["kernel", part]
+            lib = tm["library", "fwd" if part == "fwd" else "bwd"]
+            print(f"[K3] {kind} {label} B*H={b * h} T={t} Dh={dh}: kernel {k_ms:.4f} ms, plain "
+                  f"{tm['plain', part]:.4f} ms, scaled_dot_product_attention "
+                  f"{'forward' if part == 'fwd' else 'backward (dq, dk and dv in one call)'} "
+                  f"{lib:.4f} ms; bound {bd['bound_ms']:.4f} ms by {bd['bound_by']} "
+                  f"({bd['ops'] / 1e9:.1f} GFLOP at {peak}; {bd['bytes'] / 1e6:.1f} MB): kernel "
+                  f"at {100 * bd['bound_ms'] / k_ms:.2f} % of it, "
+                  f"{bd['ops'] / (k_ms * 1e-3) / 1e12:.1f} TFLOP/s")
+        bd = bounds["bwd"]
+        both = tm["kernel", "dq"] + tm["kernel", "dkv"]
+        print(f"[K3] {kind} backward as autograd runs it (delta {tm['kernel', 'delta']:.4f} ms + "
+              f"dQ + dK/dV): {tm['kernel', 'bwd']:.4f} ms, plain {tm['plain', 'bwd']:.4f} ms, "
+              f"scaled_dot_product_attention {tm['library', 'bwd']:.4f} ms; the two kernels "
+              f"{both:.4f} ms against the five-product bound {bd['bound_ms']:.4f} ms: "
+              f"{100 * bd['bound_ms'] / both:.2f} % of it")
+        if dtype == torch.bfloat16:
+            for part, line, err in (("fwd", 205, main_err["out"]), ("dq", 105, main_err["dq"]),
+                                    ("dkv", 146, max(main_err["dk"], main_err["dv"]))):
+                rows.append({
+                    "name": f"K3 {part}", "route": "cuda",
+                    "source": "seld_tpu_torch/csrc/flash_attention_kernel.cu",
+                    "replaces": f"seld_tpu/ops/flash_attention.py:{line}",
+                    "launches": None, "max_abs_err": err, "ms": tm["kernel", part],
+                    "plain_ms": tm["plain", part], "bound_ms": bounds[part]["bound_ms"],
+                    "bound_by": bounds[part]["bound_by"],
+                    "library_ms": tm["library", "fwd" if part == "fwd" else "bwd"],
+                })
+        del leaves, out, lse, delta
+    return rows
+
+
 def phase_flagship(dev: torch.device) -> int:
     from seld_tpu_torch.config import Config
     from seld_tpu_torch.infer import SELDPredictor
@@ -631,10 +843,10 @@ def phase_train(dev: torch.device) -> dict:
     return counts
 
 
-def time_train_steps(dev: torch.device, cfg) -> None:
-    """Wall time of default-config train steps on seeded synthetic batches
-    (host clock around a step that ends in a synchronize), and one step
-    under torch.profiler."""
+def time_train_steps(dev: torch.device, cfg, tag: str = "[train]") -> list[float]:
+    """Wall time of cfg's train steps on seeded synthetic batches (host
+    clock around a step that ends in a synchronize), and one step under
+    torch.profiler. Returns the losses of the timed steps."""
     from seld_tpu_torch.data.sampler import BatchIterator, place_batch
     from seld_tpu_torch.data.synthetic import synthetic_corpus
     from seld_tpu_torch.losses import SELDLossFn
@@ -651,24 +863,150 @@ def time_train_steps(dev: torch.device, cfg) -> None:
                            cfg.grid.num_classes)
     state = create_train_state(model, optimizer)
     batches = [place_batch(b, dev) for b in BatchIterator(corpus, cfg.train.batch_size)][:3]
-    times = []
+    times, losses = [], []
     torch.cuda.reset_peak_memory_stats()
     for i in range(13):
         mel, mask, em = batches[i % len(batches)]
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        step(state, mel, mask, em, (0, 1))
+        _, metrics = step(state, mel, mask, em, (0, 1))
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(metrics["loss"].item())
     steady = times[3:]
     step_ms = float(np.median(steady))
-    print(f"[train] train step, batch {cfg.train.batch_size} x {corpus.window_frames} frames, "
+    print(f"{tag} train step, batch {cfg.train.batch_size} x {corpus.window_frames} frames, "
           f"bf16: median {step_ms:.2f} ms of {', '.join(f'{t:.1f}' for t in steady)} (first "
           f"three, with warm-up: {', '.join(f'{t:.1f}' for t in times[:3])}) = "
           f"{cfg.train.batch_size / (step_ms * 1e-3):.1f} windows/s; peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     mel, mask, em = batches[0]
-    profile_call("train step", lambda: step(state, mel, mask, em, (0, 1)), step_ms)
+    profile_call("train step" if tag == "[train]" else f"{tag[1:-1]} train step",
+                 lambda: step(state, mel, mask, em, (0, 1)), step_ms)
+    return losses
+
+
+def phase_long_window(dev: torch.device) -> dict:
+    """The long-window path at full width: 20 s windows are T = 1000 frames,
+    so every conformer block's attention runs through K3. Serve, train
+    through the CLI, evaluate through the CLI; returns K3's launch counts of
+    the training run."""
+    from seld_tpu_torch import cli
+    from seld_tpu_torch.config import Config, WindowConfig
+    from seld_tpu_torch.infer import SELDPredictor
+    from seld_tpu_torch.models import build_model
+    from seld_tpu_torch.ops.flash_attention import flash_attention as fa
+    from seld_tpu_torch.train.checkpoint import save_checkpoint
+
+    def k3_counts():
+        return {"k3_fwd": fa.fwd_launches, "k3_dq": fa.bwd_dq_launches,
+                "k3_dkv": fa.bwd_dkv_launches}
+
+    def k3_reset():
+        fa.fwd_launches = fa.bwd_dq_launches = fa.bwd_dkv_launches = 0
+
+    cfg = Config(window=WindowConfig(window_seconds=LONG_WINDOW_SECONDS))
+    win = cfg.window.window_frames(cfg.features)
+    blocks = cfg.model.resnet_conf_n_layers
+    sr = cfg.features.sample_rate
+    fps = sr // cfg.features.hop_length
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        # serve
+        model = build_model(cfg.model, cfg.grid, device=dev, seed=0)
+        save_checkpoint(Path(tmp) / "long.pt", model, cfg)
+        del model
+        pred = SELDPredictor(Path(tmp) / "long.pt", batch_windows=8, device=dev)
+        wave = (0.1 * np.random.default_rng(0).standard_normal((4, CLIP_SECONDS * sr))
+                ).astype(np.float32)
+        pred.predict_waveform(wave)  # warm-up
+        torch.cuda.synchronize()
+        k3_reset()
+        torch.cuda.reset_peak_memory_stats()
+        classes = pred.predict_waveform(wave).classes
+        torch.cuda.synchronize()
+        t_frames = 1 + CLIP_SECONDS * fps
+        forwards = -(-(-(-t_frames // win)) // pred.batch_windows)
+        served = k3_counts()
+        if served != {"k3_fwd": forwards * blocks, "k3_dq": 0, "k3_dkv": 0}:
+            raise AssertionError(f"serving at T={win}: K3 launches {served}, expected "
+                                 f"{forwards * blocks} forward")
+        if (classes.shape != (t_frames, cfg.grid.n_cells) or classes.min() < 0
+                or classes.max() >= cfg.grid.num_classes):
+            raise AssertionError(f"serving at T={win}: classes {classes.shape}")
+        times = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            pred.predict_waveform(wave)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        clip_ms = float(np.median(times))
+        print(f"[long] SELDPredictor at {LONG_WINDOW_SECONDS:g} s windows (T = {win}), bf16: "
+              f"{CLIP_SECONDS} s clip -> classes {classes.shape}; {forwards} forward of "
+              f"{pred.batch_windows} windows, K3 forward {served['k3_fwd']} launches; "
+              f"{clip_ms:.2f} ms per clip (median of {', '.join(f'{x:.2f}' for x in times)}) = "
+              f"{CLIP_SECONDS / (clip_ms * 1e-3):.1f} audio-s/s; peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        profile_call("long predict", lambda: pred.predict_waveform(wave), clip_ms)
+        del pred
+
+        # train: cli train --synthetic builds 2 x 30 s train clips and a 20 s
+        # test clip; windows start every hop, so their count does not depend
+        # on the window length
+        hop = cfg.window.hop_frames(cfg.features)
+        train_steps = -(-(2 * 30 * fps // hop) // cfg.train.batch_size)
+        eval_steps = -(-(20 * fps // hop) // cfg.train.batch_size)
+        args = ["--synthetic", f"data.base_path={tmp}",
+                f"window.window_seconds={LONG_WINDOW_SECONDS}", "train.num_epochs=1",
+                "train.save_every_n_epochs=1"]
+        k3_reset()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        if cli.main(["train", *args]) != 0:
+            raise AssertionError("cli train at long windows failed")
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        counts = k3_counts()
+        want = {"k3_fwd": (train_steps + eval_steps) * blocks, "k3_dq": train_steps * blocks,
+                "k3_dkv": train_steps * blocks}
+        if counts != want:
+            raise AssertionError(f"K3 launches on the long-window training path {counts}, "
+                                 f"expected {want}")
+        work = Path(tmp) / "checkpoints"
+        (record,) = [json.loads(x) for x in (work / "metrics.jsonl").read_text().splitlines()]
+        if not all(math.isfinite(record[s]["loss"]) for s in ("train", "test")):
+            raise AssertionError(f"long-window metrics.jsonl: {record}")
+        print(f"[long] cli train --synthetic window.window_seconds={LONG_WINDOW_SECONDS:g}, 1 "
+              f"epoch of {train_steps} train + {eval_steps} eval steps in {wall_s:.1f} s: K3 "
+              f"forward {counts['k3_fwd']}, dQ {counts['k3_dq']}, dK/dV {counts['k3_dkv']} "
+              f"launches; train loss {record['train']['loss']:.6f}, test "
+              f"{record['test']['loss']:.6f}; peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+        # evaluate
+        k3_reset()
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            rc = cli.main(["eval", *args[:3]])
+        report = json.loads(printed.getvalue())
+        evaluated = k3_counts()
+        if (rc != 0 or evaluated != {"k3_fwd": eval_steps * blocks, "k3_dq": 0, "k3_dkv": 0}
+                or report["checkpoint_epoch"] != 1 or "SELD_error" not in report["dcase2022"]
+                or not math.isfinite(report["test_loss"])):
+            raise AssertionError(f"cli eval at long windows: rc {rc}, K3 {evaluated}, report "
+                                 f"keys {sorted(report)}")
+        if abs(report["test_loss"] - record["test"]["loss"]) > 1e-4:
+            raise AssertionError(f"cli eval test loss {report['test_loss']} != the trainer's "
+                                 f"{record['test']['loss']} for the same checkpoint")
+        print(f"[long] cli eval --synthetic: checkpoint epoch {report['checkpoint_epoch']} "
+              f"({report['checkpoint_kind']}), test loss {report['test_loss']:.6f}, overall "
+              f"accuracy {report['overall_accuracy']:.2f} %, DCASE2022 SELD_error "
+              f"{report['dcase2022']['SELD_error']:.4f}; K3 forward {evaluated['k3_fwd']} "
+              f"launches over {eval_steps} eval steps")
+    losses = time_train_steps(dev, cfg, tag="[long]")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"long-window train loss did not fall over the timed steps: {losses}")
+    return counts
 
 
 def main() -> int:
@@ -678,11 +1016,15 @@ def main() -> int:
     with no_tf32():  # the plain versions in true float32
         k1 = phase_k1(dev)
         k2_fwd, k2_bwd = phase_k2(dev)
+        k3_rows = phase_k3(dev)
     k1["launches"] = phase_flagship(dev)
     phase_f32(dev)
     counts = phase_train(dev)
     k2_fwd["launches"], k2_bwd["launches"] = counts["k2_fwd"], counts["k2_bwd"]
-    print(json.dumps({"kernels": [k1, k2_fwd, k2_bwd]}))
+    counts = phase_long_window(dev)
+    for row, key in zip(k3_rows, ("k3_fwd", "k3_dq", "k3_dkv")):
+        row["launches"] = counts[key]
+    print(json.dumps({"kernels": [k1, k2_fwd, k2_bwd, *k3_rows]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count(),

@@ -1,14 +1,18 @@
 """PyTorch/CUDA port of seld_tpu for one NVIDIA H100.
 
-The package trains and serves the flagship ResNet50-Conformer grid
-model. Serving: WAV in, log-mel features through the hand-written CUDA
-kernel K1 (seld_tpu_torch/csrc/mel_kernel.cu), the eval-mode model, and
-the class-argmax decode. Training: windowed corpora, the train-mode
+The package trains, evaluates and serves the flagship ResNet50-Conformer
+grid model. Serving: WAV in, log-mel features through the hand-written
+CUDA kernel K1 (seld_tpu_torch/csrc/mel_kernel.cu), the eval-mode model,
+and the class-argmax decode. Training: windowed corpora, the train-mode
 model, the grid loss straight from class bitmasks through the
 hand-written CUDA kernel K2, forward and backward
 (seld_tpu_torch/csrc/grid_loss_kernel.cu), Adam with coupled L2,
-checkpoints and resume. It imports torch and never JAX or seld_tpu;
-module names follow seld_tpu so each piece's counterpart is easy to find.
+checkpoints and resume. Windows of 512 frames and more run their
+attention through the hand-written flash-attention kernels K3, forward,
+dQ and dK/dV (seld_tpu_torch/csrc/flash_attention_kernel.cu). Evaluation:
+losses, cell accuracies and the DCASE2022 metrics of a checkpoint tree on
+a test corpus. It imports torch and never JAX or seld_tpu; module names
+follow seld_tpu so each piece's counterpart is easy to find.
 
 Entry points run on the card: a device of None means CUDA, and raises
 when no CUDA device is visible. Pass device="cpu" to run the plain

@@ -4,8 +4,7 @@ The port's own copy of the sections of seld_tpu/config.py, with the same
 defaults, field names, dotted `key=value` overrides and dict round-trip,
 so a config dict stored by either package rebuilds the same run here.
 Fields whose reader is not ported (the other backbones, ACCDOA tracks,
-Gaussian sigmas, QAT, distillation, SpecAugment, ACS, metric selection,
-profiling, the mesh, the Pallas toggle) are left out: `config_from_dict`
+Gaussian sigmas, QAT, distillation, SpecAugment, ACS, profiling, the mesh, the Pallas toggle) are left out: `config_from_dict`
 ignores them, exactly as seld_tpu ignores unknown keys, and an override
 of one raises `parse_overrides`'s unknown-field error. Each comes back
 with the code that reads it.
@@ -188,6 +187,13 @@ class TrainConfig:
     patience: int = 20  # early stopping on the train loss
     min_delta: float = 1e-4
     save_every_n_epochs: int = 5  # rolling checkpoints
+    # What picks the best checkpoint: "loss" (the lowest test loss) or a
+    # DCASE2022 validation metric computed every epoch from decoded class
+    # grids: "seld_error" and "er" (lower is better), "f_macro" (higher).
+    # A metric adds one grid read-back per eval batch and a
+    # "val_dcase2022" entry per epoch in metrics.jsonl. Early stopping
+    # (train loss) and the LR plateau (test loss) do not change.
+    select_metric: str = "loss"
     keep_last_n_checkpoints: int = 3
     seed: int = 0
     # Split each batch into N microbatches, add their gradients weighted by

@@ -1,0 +1,220 @@
+"""Model evaluation for grid models (counterpart:
+seld_tpu/eval/evaluate.py::evaluate_model).
+
+  * the architecture is rebuilt from the config stored in the checkpoint,
+    not from the live one;
+  * the device returns int8 class grids and scalar losses per batch, never
+    the logits;
+  * the report carries the cell accuracies, the frame-level SELD variant
+    ("dcase") and the official DCASE2022 metrics ("dcase2022"), under the
+    JAX package's keys.
+
+Left to their own slices of the port, and therefore no parameters here:
+test-time augmentation, the int8 forward, a device mesh and the ACCDOA
+activity threshold. `save_visualizations=True` raises: the PNG renderer
+(viz.py) is not ported.
+"""
+
+from __future__ import annotations
+
+import logging
+
+import numpy as np
+import torch
+
+from seld_tpu_torch import resolve_device
+from seld_tpu_torch.config import Config
+from seld_tpu_torch.data.corpus import WindowedCorpus
+from seld_tpu_torch.data.sampler import BatchIterator, place_batch
+from seld_tpu_torch.eval.metrics import (
+    DCASE2022_SUMMARY,
+    accuracy_metrics,
+    dcase2022_metrics,
+    seld_metrics,
+)
+from seld_tpu_torch.losses import SELDLossFn
+from seld_tpu_torch.models import build_model
+from seld_tpu_torch.postprocess import smooth_classes, validate_width
+from seld_tpu_torch.train.checkpoint import checkpoint_file, load_checkpoint_config
+from seld_tpu_torch.train.completion import workdir_incomplete_reason
+from seld_tpu_torch.train.steps import make_metric_eval_step
+
+logger = logging.getLogger(__name__)
+
+
+def _sweep_report(name: str, flag: str, values, key_of, grids_of, true_classes, grid,
+                  num_classes: int) -> dict:
+    """DCASE2022 rows for each candidate of a decode knob, and the
+    candidate with the least SELD_error."""
+    report = {"metrics": {}}
+    for value in values:
+        m = dcase2022_metrics(grids_of(value), true_classes, grid.n_el, grid.n_az, num_classes)
+        row = {key: float(m[key]) for key in DCASE2022_SUMMARY}
+        report["metrics"][key_of(value)] = row
+        logger.info("  %s %s: ER %.3f F %.3f LE %.1f deg LR %.3f | SELD_error %.3f",
+                    name, key_of(value), *(row[k] for k in DCASE2022_SUMMARY))
+    best = min(values, key=lambda value: report["metrics"][key_of(value)]["SELD_error"])
+    report["best"] = {name: best, **report["metrics"][key_of(best)]}
+    logger.info("  -> best %s %s (SELD_error %.3f); serve with `predict %s %g`",
+                name, key_of(best), report["best"]["SELD_error"], flag, best)
+    return report
+
+
+def evaluate_model(
+    cfg: Config,
+    test_corpus: WindowedCorpus,
+    checkpoint_dir,
+    save_visualizations: bool = False,
+    bg_bias: float = 0.0,
+    bg_bias_sweep=None,
+    median_filter: int = 0,
+    median_filter_sweep=None,
+    use_checkpoint: str = "best",
+    device: str | torch.device | None = None,
+) -> dict:
+    """Score the checkpoint tree under `checkpoint_dir` on `test_corpus`,
+    on `device` (CUDA unless named).
+
+    use_checkpoint: "best" scores the best checkpoint, "latest" the newest
+    rolling one (the raw final weights); when the asked-for kind is absent
+    the other is taken, with a warning, and the report's "checkpoint_kind"
+    says which was scored.
+
+    bg_bias: reduce the background class's logit by this amount before
+    every decode, the detection operating point of
+    `SELDPredictor(bg_bias=...)`; losses stay on the unbiased logits.
+    bg_bias_sweep (floats): every bias decoded on the device from the one
+    forward per batch; the report gains a DCASE2022 row per bias and the
+    bias with the least SELD_error.
+
+    median_filter (odd frames): majority smoothing of each window's
+    decoded grid before the metrics, the eval gate of
+    `predict --median-filter`. median_filter_sweep (odd widths): the
+    filter runs on the host on the gathered grids, so widths cost no
+    forward; the report gains a row per width and the best one. The
+    bg_bias_sweep rows stay unfiltered.
+
+    save_visualizations=True raises: the PNG renderer is not ported, so
+    the report's "visualizations" list stays empty."""
+    if save_visualizations:
+        raise NotImplementedError(
+            "save_visualizations: the PNG renderer (seld_tpu/viz.py) is not ported yet "
+            "(ROADMAP item 11: tools); pass save_visualizations=False"
+        )
+    device = resolve_device(device)
+    if use_checkpoint not in ("best", "latest"):
+        raise ValueError(f"use_checkpoint must be 'best' or 'latest', got {use_checkpoint!r}")
+    median_filter = validate_width(median_filter)
+    if median_filter_sweep is not None:
+        median_filter_sweep = [validate_width(w) for w in median_filter_sweep]
+        if not median_filter_sweep:
+            raise ValueError("median_filter_sweep must list at least one width")
+    if bg_bias_sweep is not None:
+        bg_bias_sweep = [float(b) for b in bg_bias_sweep]
+        if not bg_bias_sweep:
+            raise ValueError("bg_bias_sweep must list at least one bias")
+
+    # a preempted or aborted run leaves a checkpoint tree that looks whole
+    training_incomplete = workdir_incomplete_reason(checkpoint_dir)
+    if training_incomplete is not None:
+        logger.warning("checkpoint %s comes from truncated training (%s): the metrics are "
+                       "those of a partially trained model", checkpoint_dir, training_incomplete)
+    stored_cfg = load_checkpoint_config(checkpoint_dir)
+    if stored_cfg is not None:
+        if stored_cfg.model != cfg.model:
+            logger.warning("checkpoint architecture (%s) differs from the live config (%s); "
+                           "using the checkpoint's", stored_cfg.model, cfg.model)
+        cfg = cfg.replace_path("model", stored_cfg.model)
+
+    checkpoint_kind = use_checkpoint
+    path = checkpoint_file(checkpoint_dir, use_checkpoint)
+    if path is None:
+        checkpoint_kind = "latest" if use_checkpoint == "best" else "best"
+        path = checkpoint_file(checkpoint_dir, checkpoint_kind)
+        if path is not None:
+            # "latest" falling back to the best file can mean EMA weights
+            # where the caller expected the raw final ones: never silent
+            logger.warning("No %s checkpoint under %s: falling back to the %s one",
+                           use_checkpoint, checkpoint_dir, checkpoint_kind)
+    if path is None:
+        raise FileNotFoundError(f"no checkpoint found under {checkpoint_dir}")
+    blob = torch.load(path, map_location="cpu", weights_only=True)
+    meta = blob["meta"]
+    model = build_model(cfg.model, cfg.grid, device=device, seed=None)
+    model.load_state_dict(blob["state_dict"])
+    logger.info("Loaded checkpoint epoch %d (test loss %.6f) on %s",
+                meta["epoch"], meta["test_loss"], device)
+
+    grid, num_classes = cfg.grid, cfg.grid.num_classes
+    step = make_metric_eval_step(model, SELDLossFn(cfg.loss, grid), num_classes,
+                                 bg_bias=float(bg_bias), bias_sweep=bg_bias_sweep)
+    losses, preds, trues, sweep_rows = [], [], [], []
+    for batch in BatchIterator(test_corpus, cfg.train.batch_size, shuffle=False, prefetch=2):
+        metrics, pred, true, *swept = step(*place_batch(batch, device))
+        losses.append(metrics)
+        preds.append(pred[:batch.n_valid].cpu().numpy())
+        trues.append(true[:batch.n_valid].cpu().numpy())
+        if swept:
+            sweep_rows.append(swept[0][:, :batch.n_valid].cpu().numpy())
+    avg = {k: float(np.mean([float(m[k]) for m in losses])) for k in losses[0]}
+    raw_pred_classes = pred_classes = np.concatenate(preds, axis=0)  # (N, T, G) int8
+    true_classes = np.concatenate(trues, axis=0)
+
+    if median_filter > 1:
+        pred_classes = smooth_classes(pred_classes, median_filter, num_classes)
+        logger.info("Median filter (majority, %d frames) applied to the prediction grids",
+                    median_filter)
+    acc = accuracy_metrics(pred_classes, true_classes, grid.background_class)
+    dcase = seld_metrics(pred_classes, true_classes, grid.n_el, grid.n_az, num_classes)
+    dcase22 = dcase2022_metrics(pred_classes, true_classes, grid.n_el, grid.n_az, num_classes)
+    logger.info("Test loss %.6f", avg["loss"])
+    logger.info("Overall acc %.2f%% | non-bg acc %.2f%% | active %d/%d",
+                acc["overall_accuracy"], acc["non_bg_accuracy"],
+                acc["active_events"], acc["total_cells"])
+    logger.info("SELD (frame variant): ER %.3f F %.3f LE %.1f deg LR %.3f",
+                dcase["ER"], dcase["F"], dcase["LE"], dcase["LR"])
+    logger.info("DCASE2022 (official, 1 s segments): ER %.3f F %.3f LE_CD %.1f deg "
+                "LR_CD %.3f | SELD_error %.3f", *(dcase22[k] for k in DCASE2022_SUMMARY))
+    logger.info("  macro over GT classes only: F %.3f LE_CD %.1f deg LR_CD %.3f | "
+                "SELD_error %.3f", dcase22["macro_gt"]["F"], dcase22["macro_gt"]["LE"],
+                dcase22["macro_gt"]["LR"], dcase22["macro_gt"]["SELD_error"])
+    cw = dcase22["classwise"]
+    for c, nref in enumerate(cw["Nref"]):
+        if nref > 0:
+            logger.info("  class %2d F %.3f LE %6.1f deg LR %.3f (Nref %d)",
+                        c, cw["F"][c], cw["LE"][c], cw["LR"][c], nref)
+
+    bias_report = None
+    if bg_bias_sweep is not None:
+        # keys are repr(float): near-identical candidates keep their own rows
+        swept = {repr(b): np.concatenate([rows[k] for rows in sweep_rows], axis=0)
+                 for k, b in enumerate(bg_bias_sweep)}
+        bias_report = _sweep_report("bg_bias", "--bg-bias", bg_bias_sweep, repr,
+                                    lambda b: swept[repr(b)], true_classes, grid, num_classes)
+    mf_report = None
+    if median_filter_sweep is not None:
+        mf_report = _sweep_report(
+            "median_filter", "--median-filter", median_filter_sweep, str,
+            lambda w: (raw_pred_classes if w <= 1
+                       else smooth_classes(raw_pred_classes, w, num_classes)),
+            true_classes, grid, num_classes)
+
+    n_event_frames = int(((true_classes != grid.background_class).sum(-1) > 0).sum())
+    logger.info("Found %d frames with active events", n_event_frames)
+    return {
+        "test_loss": avg["loss"],
+        **{k: v for k, v in avg.items() if k != "loss"},
+        **acc,
+        "dcase": dcase,
+        "dcase2022": dcase22,
+        "num_frames_with_events": n_event_frames,
+        "visualizations": [],
+        "checkpoint_epoch": meta["epoch"],
+        "checkpoint_kind": checkpoint_kind,
+        "quantized_int8": False,
+        "bg_bias": float(bg_bias),
+        **({"bg_bias_sweep": bias_report} if bias_report else {}),
+        "median_filter": int(median_filter),
+        **({"median_filter_sweep": mf_report} if mf_report else {}),
+        **({"training_incomplete": training_incomplete} if training_incomplete else {}),
+    }

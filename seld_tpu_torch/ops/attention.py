@@ -3,27 +3,55 @@
 Below FLASH_MIN_SEQ_LEN the JAX package runs plain einsum attention, and
 so does this module: scores and softmax in float32, the probabilities
 cast to the compute dtype for the value product, the output in the
-compute dtype. At T >= 512 the JAX package runs its flash-attention
-kernel K3 on the accelerator; K3 is not ported yet, so that case raises
-on CUDA instead of quietly taking the plain path.
+compute dtype. From T = FLASH_MIN_SEQ_LEN on, where the JAX package
+switches to its flash-attention kernel on the accelerator, CUDA tensors go
+through kernel K3 (seld_tpu_torch.ops.flash_attention), which never
+writes the (T x T) scores to device memory. CPU tensors take the plain
+product at any length, as every kernel wrapper of this package resolves by
+device.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
+
 import torch
 
+from seld_tpu_torch.ops.flash_attention import flash_attention
+
 FLASH_MIN_SEQ_LEN = 512
+
+_FORCE = contextvars.ContextVar("seld_tpu_torch_attention_force_flash", default=None)
+
+
+@contextlib.contextmanager
+def force_flash(enabled: bool = True):
+    """Override the length rule inside the block (tests and measurement).
+
+    True sends every call through kernel K3 whatever its length, and
+    raises for a CPU tensor; False keeps the plain product on any device
+    (the oracle, and what K3 is timed against). A ContextVar: other
+    threads keep their own setting."""
+    token = _FORCE.set(bool(enabled))
+    try:
+        yield
+    finally:
+        _FORCE.reset(token)
 
 
 def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          scale: float | None = None) -> torch.Tensor:
     """q, k, v: (B, H, T, Dh) in the compute dtype -> (B, H, T, Dh)."""
-    if q.is_cuda and q.shape[-2] >= FLASH_MIN_SEQ_LEN:
-        raise NotImplementedError(
-            f"attention at T={q.shape[-2]} >= {FLASH_MIN_SEQ_LEN} runs the "
-            "flash-attention kernel K3, which is not ported yet (ROADMAP: "
-            "long windows)"
+    forced = _FORCE.get()
+    if forced and not q.is_cuda:
+        raise ValueError(
+            f"force_flash(True) launches kernel K3 and needs CUDA tensors, got {q.device}"
         )
+    use_flash = forced if forced is not None else (
+        q.is_cuda and q.shape[-2] >= FLASH_MIN_SEQ_LEN)
+    if use_flash:
+        return flash_attention(q, k, v, scale=scale)
     if scale is None:
         scale = q.shape[-1] ** -0.5
     scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale

@@ -1,0 +1,241 @@
+"""Kernel K3: flash attention, forward and backward (CUDA C++,
+csrc/flash_attention_kernel.cu).
+
+Replaces seld_tpu/ops/flash_attention.py::flash_attention. Exact softmax
+attention of (B, H, T, Dh) q, k, v that never writes the (T x T) scores to
+device memory: the forward kernel streams K/V tiles through an online
+softmax and returns `out` and the per-row logsumexp `lse` (B*H, T); the
+backward is two more kernels, dQ (streams K/V) and dK/dV (one block per
+key tile, streams Q/dO), after `delta = rowsum(dO * out)`, which is three
+elementwise torch ops here as it is one XLA pass in the JAX package. The
+kernels are operations-bound; see the source's note.
+
+Layout: the kernels read q, k, v and dO through their batch / head / time
+strides (last dim contiguous, every stride and the base a multiple of 16
+bytes), so the transposed (B, T, H, Dh) view that the model's projections
+produce is read in place, with no copy. A tensor that does not meet that
+(an expanded cotangent, a sliced last dim) is made contiguous first: one
+copy, counted in `flash_attention.copies`. `out`, dq, dk and dv are
+allocated as (B, T, H, Dh) and returned transposed, so the model's
+`transpose(1, 2).reshape(b, t, d)` after attention is a view.
+
+`flash_attention` launches the kernels for CUDA tensors; for CPU tensors,
+and only for those, it runs `flash_attention_reference`, the same function
+in plain PyTorch ops with the forward's rounding points, differentiable by
+autograd.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+MAX_HEAD_DIM = 128  # the kernels are instantiated for multiples of 16 up to here
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+class _RoundCotangent(torch.autograd.Function):
+    """Identity whose cotangent is rounded to `dtype` on the way back: the
+    place where K3's backward rounds ds before its two products."""
+
+    @staticmethod
+    def forward(ctx, x, dtype):
+        ctx.dtype = dtype
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.to(ctx.dtype).to(g.dtype), None
+
+
+def flash_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                              scale: float | None = None):
+    """The plain version of K3: (out (B, H, T, Dh) in q's dtype,
+    lse (B*H, T) float32).
+
+    Scores, softmax and the value product's accumulation in float32; the
+    unnormalised probabilities are rounded to v's dtype before the value
+    product and the sum is divided by the float32 normaliser after it, as
+    in the kernel. The backward is autograd's, with the cotangent of the
+    unscaled scores (the kernel's ds) rounded to the inputs' dtype before
+    the two products that consume it, as the kernel rounds it. In bf16 the
+    kernel is the closer of the two to float32 in dv: it carries p into
+    that product as a bf16 pair, where autograd reuses the rounded p."""
+    b, h, t, _ = q.shape
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    s = _RoundCotangent.apply(torch.matmul(q.float(), k.float().transpose(-1, -2)), q.dtype)
+    s = s * scale
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    denom = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    out = torch.matmul(p.to(v.dtype).float(), v.float()) / denom
+    lse = (m + torch.log(denom)).reshape(b * h, t)
+    return out.to(q.dtype), lse
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    if q.dtype not in _DTYPES:
+        raise TypeError(f"K3 takes float32 or bfloat16 q, k, v, got {q.dtype}")
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"K3 takes q, k, v of one dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
+    if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(
+            f"K3 takes q, k, v of one (B, H, T, Dh) shape, got {tuple(q.shape)}, "
+            f"{tuple(k.shape)}, {tuple(v.shape)}"
+        )
+    if k.device != q.device or v.device != q.device:
+        raise ValueError(f"q on {q.device}, k on {k.device}, v on {v.device}")
+    dh = q.shape[-1]
+    if dh % 16 or not 16 <= dh <= MAX_HEAD_DIM:
+        raise ValueError(
+            f"K3 takes a head width that is a multiple of 16 up to {MAX_HEAD_DIM}, got {dh}"
+        )
+
+
+def _kernel_ready(x: torch.Tensor) -> torch.Tensor:
+    """x as the kernels address it: unit last stride, batch / head / time
+    strides and the base pointer multiples of 16 bytes. Anything else is
+    copied to a contiguous tensor (counted)."""
+    per16 = 16 // x.element_size()
+    if (x.stride(-1) == 1 and all(s % per16 == 0 for s in x.stride()[:-1])
+            and x.data_ptr() % 16 == 0):
+        return x
+    flash_attention.copies += 1
+    return x.contiguous()
+
+
+def _empty_bthd(like: torch.Tensor) -> torch.Tensor:
+    """An uninitialised (B, H, T, Dh) tensor stored as (B, T, H, Dh)."""
+    b, h, t, dh = like.shape
+    return torch.empty((b, t, h, dh), dtype=like.dtype, device=like.device).transpose(1, 2)
+
+
+def _strides(*tensors: torch.Tensor):
+    flat = [s for x in tensors for s in x.stride()[:3]]
+    return (ctypes.c_longlong * len(flat))(*flat)
+
+
+@functools.cache
+def _kernels():
+    from seld_tpu_torch.ops._build import load_library
+
+    lib = load_library("flash_attention_kernel")
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    ll = ctypes.POINTER(ctypes.c_longlong)
+    tail = [ll, i, i, i, i, f, i, p]  # strides, B, H, T, Dh, scale, dtype, stream
+    lib.seld_flash_attention_fwd.argtypes = [p] * 5 + tail
+    lib.seld_flash_attention_bwd_dq.argtypes = [p] * 7 + tail
+    lib.seld_flash_attention_bwd_dkv.argtypes = [p] * 8 + tail
+    fns = (lib.seld_flash_attention_fwd, lib.seld_flash_attention_bwd_dq,
+           lib.seld_flash_attention_bwd_dkv)
+    for fn in fns:
+        fn.restype = ctypes.c_int
+    return fns
+
+
+def _launch(which: int, name: str, tensors, strided, scale: float) -> None:
+    """One kernel launch on the current stream of the first tensor's device."""
+    q = tensors[0]
+    # autograd's thread has no current device of its own
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = _kernels()[which](*(x.data_ptr() for x in tensors), _strides(*strided),
+                               *q.shape, scale, _DTYPES[q.dtype], stream)
+    if rc != 0:
+        raise RuntimeError(f"K3 {name} launch failed with CUDA error {rc}")
+
+
+def launch_forward(q, k, v, scale: float):
+    """The forward kernel on kernel-ready CUDA tensors -> (out, lse)."""
+    b, h, t, _ = q.shape
+    out = _empty_bthd(q)
+    lse = torch.empty((b * h, t), dtype=torch.float32, device=q.device)
+    if q.numel():
+        _launch(0, "forward", (q, k, v, out, lse), (q, k, v, out), scale)
+        flash_attention.fwd_launches += 1
+    return out, lse
+
+
+def launch_dq(q, k, v, g, lse, delta, scale: float):
+    """The dQ kernel on kernel-ready CUDA tensors -> dq."""
+    dq = _empty_bthd(q)
+    if q.numel():
+        _launch(1, "dQ", (q, k, v, g, lse, delta, dq), (q, k, v, g, dq), scale)
+        flash_attention.bwd_dq_launches += 1
+    return dq
+
+
+def launch_dkv(q, k, v, g, lse, delta, scale: float):
+    """The dK/dV kernel on kernel-ready CUDA tensors -> (dk, dv)."""
+    dk, dv = _empty_bthd(q), _empty_bthd(q)
+    if q.numel():
+        _launch(2, "dK/dV", (q, k, v, g, lse, delta, dk, dv), (q, k, v, g, dk, dv), scale)
+        flash_attention.bwd_dkv_launches += 1
+    return dk, dv
+
+
+def row_delta(g: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+    """delta = rowsum(dO * out) in float32, (B, H, T) contiguous."""
+    return (g.float() * out.float()).sum(dim=-1).contiguous()
+
+
+class _FlashAttention(torch.autograd.Function):
+    """K3 on CUDA tensors: one kernel launch forward, two backward (dQ,
+    then dK/dV; a pass whose gradients nobody needs is skipped). No
+    atomics: the same inputs give the same bits."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        ctx.set_materialize_grads(False)
+        q, k, v = _kernel_ready(q), _kernel_ready(k), _kernel_ready(v)
+        out, lse = launch_forward(q, k, v, scale)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.scale = scale
+        ctx.mark_non_differentiable(lse)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, g, _g_lse):
+        q, k, v, out, lse = ctx.saved_tensors
+        need_dq, need_dk, need_dv = ctx.needs_input_grad[:3]
+        if g is None or not (need_dq or need_dk or need_dv):
+            return None, None, None, None
+        g = _kernel_ready(g.to(q.dtype))
+        delta = row_delta(g, out)
+        dq = dk = dv = None
+        if need_dq:
+            dq = launch_dq(q, k, v, g, lse, delta, ctx.scale)
+        if need_dk or need_dv:
+            dk, dv = launch_dkv(q, k, v, g, lse, delta, ctx.scale)
+        return dq, dk if need_dk else None, dv if need_dv else None, None
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    scale: float | None = None, return_lse: bool = False):
+    """Exact softmax attention of (B, H, T, Dh) q, k, v in float32 or
+    bfloat16, Dh a multiple of 16 up to 128, differentiable in all three;
+    `out` in the inputs' dtype, and with return_lse the (B*H, T) float32
+    logsumexp of the scaled scores beside it.
+
+    CUDA tensors go through kernel K3 (a forward launch adds one to
+    `flash_attention.fwd_launches`, the backward one each to
+    `.bwd_dq_launches` and `.bwd_dkv_launches`); CPU tensors go through
+    `flash_attention_reference`. Anything else raises."""
+    _check(q, k, v)
+    scale = float(q.shape[-1] ** -0.5 if scale is None else scale)
+    if q.device.type == "cpu":
+        out, lse = flash_attention_reference(q, k, v, scale)
+    elif q.device.type == "cuda":
+        out, lse = _FlashAttention.apply(q, k, v, scale)
+    else:
+        raise ValueError(f"K3 runs on CUDA or CPU tensors, got {q.device}")
+    return (out, lse) if return_lse else out
+
+
+flash_attention.fwd_launches = 0
+flash_attention.bwd_dq_launches = 0
+flash_attention.bwd_dkv_launches = 0
+flash_attention.copies = 0

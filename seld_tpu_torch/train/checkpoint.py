@@ -11,7 +11,7 @@ a save that is interrupted leaves the previous file whole. Saves are
 synchronous: there is nothing to wait for or to close.
 
 `CheckpointManager` keeps <dir>/best/epoch_NNNN.pt (one file: the lowest
-test loss so far) and <dir>/rolling/epoch_NNNN.pt (the newest
+test loss so far, or the best `train.select_metric`) and <dir>/rolling/epoch_NNNN.pt (the newest
 `keep_last_n_checkpoints`). Any of these files serves through
 `SELDPredictor`.
 """
@@ -91,10 +91,14 @@ class CheckpointManager:
             d.mkdir(parents=True, exist_ok=True)
 
     def _save(self, directory: Path, keep: int, epoch: int, state: TrainState,
-              train_loss: float, test_loss: float) -> Path:
+              train_loss: float, test_loss: float, select: dict | None = None) -> Path:
         path = directory / f"epoch_{epoch:04d}.pt"
         meta = {"epoch": int(epoch), "train_loss": float(train_loss),
                 "test_loss": float(test_loss)}
+        if select is not None:
+            # {"metric": train.select_metric, "value": float}: a resumed run
+            # takes its best-so-far selection value from here
+            meta["select"] = select
         save_checkpoint(path, state.model, self.cfg, epoch, state.optimizer,
                         state.step, meta)
         others = [f for _, f in _epoch_files(directory) if f != path]
@@ -102,8 +106,9 @@ class CheckpointManager:
             stale.unlink()
         return path
 
-    def save_best(self, epoch: int, state: TrainState, train_loss, test_loss) -> Path:
-        return self._save(self.best_dir, 1, epoch, state, train_loss, test_loss)
+    def save_best(self, epoch: int, state: TrainState, train_loss, test_loss,
+                  select: dict | None = None) -> Path:
+        return self._save(self.best_dir, 1, epoch, state, train_loss, test_loss, select)
 
     def save_rolling(self, epoch: int, state: TrainState, train_loss, test_loss) -> Path:
         return self._save(self.rolling_dir, self.cfg.train.keep_last_n_checkpoints,
@@ -140,6 +145,14 @@ class CheckpointManager:
         (weights, optimizer moments and learning rate, step counter)
         -> (state, meta) or None."""
         return self._restore(_epoch_files(self.rolling_dir), state)
+
+
+def checkpoint_file(directory, kind: str) -> Path | None:
+    """The newest file of a run's "best" or "latest" (rolling) checkpoints,
+    or None; creates nothing."""
+    sub = {"best": "best", "latest": "rolling"}[kind]
+    files = _epoch_files(Path(directory).absolute() / sub)
+    return files[-1][1] if files else None
 
 
 def load_checkpoint_config(directory) -> Config | None:

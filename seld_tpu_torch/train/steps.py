@@ -18,6 +18,7 @@ from torch import nn
 
 from seld_tpu_torch import no_tf32
 from seld_tpu_torch.losses import SELDLossFn
+from seld_tpu_torch.losses.seld_loss import _bit_labels
 from seld_tpu_torch.train.state import TrainState
 
 
@@ -94,6 +95,43 @@ def make_train_step(model: nn.Module, loss_fn: SELDLossFn,
         optimizer.step()
         state.step += 1
         return state, {"loss": total, **{k: v.detach() for k, v in breakdown.items()}}
+
+    return step
+
+
+def make_metric_eval_step(model: nn.Module, loss_fn: SELDLossFn, num_classes: int,
+                          bg_bias: float = 0.0, bias_sweep=None):
+    """An eval step that also decodes class grids, for checkpoint selection
+    on a validation metric (train.select_metric) and for `evaluate_model`.
+
+    Returns step(mel, label_mask, example_mask) -> (metrics, pred_cls,
+    true_cls): the loss from the unbiased logits, the argmax class per cell
+    of the logits (their background class reduced by bg_bias first) and the
+    ground-truth class per cell decoded from the bitmask, both (B, T, G)
+    int8 on the device. With bias_sweep (a list of floats) a fourth value
+    follows: the (K, B, T, G) int8 grids decoded at each of those biases
+    from the same forward, one at a time."""
+    if num_classes != loss_fn.grid.num_classes:
+        raise ValueError(
+            f"num_classes {num_classes} != the loss's grid ({loss_fn.grid.num_classes})"
+        )
+
+    def decode(logits, bias):
+        if bias:
+            logits = logits.clone()
+            logits[:, :, -1, :] -= bias
+        return torch.argmax(logits, dim=2).to(torch.int8)
+
+    @torch.no_grad()
+    def step(mel, label_mask, example_mask):
+        model.eval()
+        out = model(mel)
+        total, breakdown = loss_fn.from_bitmask(out, label_mask, example_mask)
+        result = ({"loss": total, **breakdown}, decode(out, bg_bias),
+                  _bit_labels(label_mask, num_classes).to(torch.int8))
+        if bias_sweep is not None:
+            result += (torch.stack([decode(out, b) for b in bias_sweep]),)
+        return result
 
     return step
 

@@ -3,7 +3,8 @@ steps (counterpart: seld_tpu/train/trainer.py).
 
 Adam with coupled L2, ReduceLROnPlateau on the test loss (or a per-step
 warmup + cosine schedule), early stopping on the train loss, a best
-checkpoint on the test loss, a rolling checkpoint every N epochs, resume
+checkpoint on the test loss (or on a DCASE2022 validation metric,
+train.select_metric), a rolling checkpoint every N epochs, resume
 from the newest rolling checkpoint, an optional parameter EMA, a
 per-epoch record in metrics.jsonl, and training_history.json at the end.
 
@@ -22,12 +23,14 @@ import signal
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 from seld_tpu_torch import resolve_device
 from seld_tpu_torch.config import Config
 from seld_tpu_torch.data.corpus import WindowedCorpus
 from seld_tpu_torch.data.sampler import BatchIterator, device_prefetch, place_batch
+from seld_tpu_torch.eval.metrics import DCASE2022_SUMMARY, dcase2022_metrics
 from seld_tpu_torch.losses import SELDLossFn
 from seld_tpu_torch.models import build_model
 from seld_tpu_torch.train.checkpoint import CheckpointManager
@@ -38,9 +41,20 @@ from seld_tpu_torch.train.optimizer import (
 )
 from seld_tpu_torch.train.schedule import EarlyStopping, ReduceLROnPlateau, WarmupCosine
 from seld_tpu_torch.train.state import TrainState, create_train_state, param_count
-from seld_tpu_torch.train.steps import make_eval_step, make_train_step
+from seld_tpu_torch.train.steps import (
+    make_eval_step,
+    make_metric_eval_step,
+    make_train_step,
+)
 
 logger = logging.getLogger(__name__)
+
+# train.select_metric -> (dcase2022_metrics key, sign: +1 when lower is better)
+SELECT_METRICS = {
+    "seld_error": ("SELD_error", 1.0),
+    "er": ("ER", 1.0),
+    "f_macro": ("F_macro", -1.0),
+}
 
 
 class PreemptionGuard:
@@ -123,6 +137,11 @@ def train_model(cfg: Config, train_corpus: WindowedCorpus, test_corpus: Windowed
         raise ValueError(
             f"train.lr_schedule must be 'plateau' or 'cosine', got {tc.lr_schedule!r}"
         )
+    select = tc.select_metric
+    if select != "loss" and select not in SELECT_METRICS:
+        raise ValueError(
+            f"train.select_metric must be one of {['loss', *SELECT_METRICS]}, got {select!r}"
+        )
     if tc.batch_size % tc.accum_steps:
         raise ValueError(
             f"train.batch_size={tc.batch_size} must divide by "
@@ -192,6 +211,14 @@ def train_model(cfg: Config, train_corpus: WindowedCorpus, test_corpus: Windowed
     train_step = make_train_step(model, loss_fn, optimizer, cfg.grid.num_classes,
                                  accum_steps=tc.accum_steps)
     eval_step = make_eval_step(eval_model, loss_fn, cfg.grid.num_classes)
+    # With a validation metric the eval pass also decodes predicted and true
+    # class grids on the device, and the best checkpoint is chosen on the
+    # DCASE2022 metric of the epoch instead of the test loss.
+    metric_step = None
+    if select != "loss":
+        metric_step = make_metric_eval_step(eval_model, loss_fn, cfg.grid.num_classes)
+        logger.info("Best-checkpoint selection on DCASE2022 %s (computed every epoch "
+                    "from decoded grids)", select)
 
     plateau = ReduceLROnPlateau(lr=tc.learning_rate, factor=tc.lr_decay_factor,
                                 patience=tc.lr_decay_patience)
@@ -221,13 +248,31 @@ def train_model(cfg: Config, train_corpus: WindowedCorpus, test_corpus: Windowed
         return place_batch(batch, device)
 
     history = {"train_losses": [], "test_losses": [], "lr": []}
+    if metric_step is not None:
+        history["val_metric"] = []
+    best_select = float("inf")
     best_test = float("inf")
     if resume_best_meta is not None:
         best_test = float(resume_best_meta.get("test_loss", float("inf")))
         if replayed_min_test is not None:
+            # under a metric the best checkpoint's test loss is the
+            # metric-best epoch's, not the least one seen
             best_test = min(best_test, replayed_min_test)
         logger.info("Resume: best test loss so far %.6f (best epoch %d)",
                     best_test, resume_best_meta.get("epoch", -1))
+        if metric_step is not None:
+            sel = resume_best_meta.get("select")
+            if sel and sel.get("metric") == select:
+                best_select = SELECT_METRICS[select][1] * float(sel["value"])
+                history["best_val_metric"] = float(sel["value"])
+                history["best_val_epoch"] = int(resume_best_meta["epoch"])
+                logger.info("Resume: best %s so far %.4f", select, sel["value"])
+            else:
+                logger.warning(
+                    "Resume: the stored best checkpoint has no %s record (saved %s): the "
+                    "first improvement after the resume sets the baseline anew",
+                    select, (sel or {}).get("metric", "by test loss"),
+                )
     epoch = start_epoch - 1
 
     with PreemptionGuard() as preempt:
@@ -266,11 +311,25 @@ def train_model(cfg: Config, train_corpus: WindowedCorpus, test_corpus: Windowed
                 history["aborted_epoch"] = epoch
                 break
 
-            test_avg = _epoch_mean([
-                eval_step(mel, mask, em)
+            val22 = None
+            if metric_step is None:
+                eval_metrics = [
+                    eval_step(mel, mask, em)
+                    for mel, mask, em in device_prefetch(test_iter, place,
+                                                         depth=cfg.data.prefetch_depth)
+                ]
+            else:
+                eval_metrics, preds, trues = [], [], []
                 for mel, mask, em in device_prefetch(test_iter, place,
-                                                     depth=cfg.data.prefetch_depth)
-            ])
+                                                     depth=cfg.data.prefetch_depth):
+                    m, p, t = metric_step(mel, mask, em)
+                    eval_metrics.append(m)
+                    n_valid = int(em.sum().item())  # the padded tail's rows drop out
+                    preds.append(p[:n_valid].cpu().numpy())
+                    trues.append(t[:n_valid].cpu().numpy())
+                val22 = dcase2022_metrics(np.concatenate(preds), np.concatenate(trues),
+                                          cfg.grid.n_el, cfg.grid.n_az, cfg.grid.num_classes)
+            test_avg = _epoch_mean(eval_metrics)
 
             if cosine is not None:
                 new_lr = current_learning_rate(optimizer)
@@ -288,6 +347,8 @@ def train_model(cfg: Config, train_corpus: WindowedCorpus, test_corpus: Windowed
             history["lr"].append(new_lr)
             record = {"epoch": epoch, "seconds": round(time.time() - t0, 2), "lr": new_lr,
                       "train": train_avg, "test": test_avg}
+            if val22 is not None:
+                record["val_dcase2022"] = {k: float(val22[k]) for k in DCASE2022_SUMMARY}
             with (workdir / "metrics.jsonl").open("a") as fh:
                 fh.write(json.dumps(record) + "\n")
             logger.info("Epoch %d/%d - %.1fs | train %.6f | test %.6f | lr %.6f",
@@ -297,12 +358,26 @@ def train_model(cfg: Config, train_corpus: WindowedCorpus, test_corpus: Windowed
                 if k != "loss":
                     logger.info("    %s: train %.6f test %.6f", k, train_avg[k], test_avg[k])
 
-            if test_avg["loss"] < best_test - tc.min_delta:
-                best_test = test_avg["loss"]
-                best_state = (state if ema_model is None
-                              else TrainState(state.step, ema_model, None))
-                ckpt.save_best(epoch, best_state, train_avg["loss"], test_avg["loss"])
-                logger.info("  New best model saved (test loss %.6f)", best_test)
+            best_state = state if ema_model is None else TrainState(state.step, ema_model, None)
+            if metric_step is None:
+                if test_avg["loss"] < best_test - tc.min_delta:
+                    best_test = test_avg["loss"]
+                    ckpt.save_best(epoch, best_state, train_avg["loss"], test_avg["loss"])
+                    logger.info("  New best model saved (test loss %.6f)", best_test)
+            else:
+                key, sign = SELECT_METRICS[select]
+                val = float(val22[key])
+                logger.info("  DCASE2022 val: ER %.3f F %.3f LE %.1f deg LR %.3f | "
+                            "SELD_error %.3f", *(val22[k] for k in DCASE2022_SUMMARY))
+                history["val_metric"].append(val)
+                best_test = min(best_test, test_avg["loss"])
+                if sign * val < best_select:
+                    best_select = sign * val
+                    history["best_val_metric"] = val
+                    history["best_val_epoch"] = epoch
+                    ckpt.save_best(epoch, best_state, train_avg["loss"], test_avg["loss"],
+                                   select={"metric": select, "value": val})
+                    logger.info("  New best model saved (%s %.4f)", select, val)
             if epoch % tc.save_every_n_epochs == 0:
                 ckpt.save_rolling(epoch, state, train_avg["loss"], test_avg["loss"])
                 logger.info("  Rolling checkpoint saved (epoch %d)", epoch)

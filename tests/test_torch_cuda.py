@@ -1,4 +1,4 @@
-"""Kernels K1 and K2 and the port's CUDA guards, on an NVIDIA card.
+"""Kernels K1, K2 and K3 and the port's CUDA guards, on an NVIDIA card.
 
 This file imports neither JAX nor seld_tpu, so it runs where only PyTorch
 is installed; the repo's conftest.py needs JAX, so skip it there:
@@ -14,7 +14,12 @@ import torch
 from seld_tpu_torch import no_tf32
 from seld_tpu_torch.config import GridConfig, LossConfig
 from seld_tpu_torch.losses import SELDLossFn
-from seld_tpu_torch.ops.attention import FLASH_MIN_SEQ_LEN, multi_head_attention
+from seld_tpu_torch.ops.attention import (
+    FLASH_MIN_SEQ_LEN,
+    force_flash,
+    multi_head_attention,
+)
+from seld_tpu_torch.ops.flash_attention import flash_attention, flash_attention_reference
 from seld_tpu_torch.ops.loss_cuda import grid_loss_terms, grid_loss_terms_reference
 from seld_tpu_torch.ops.mel_cuda import log_mel_frames, log_mel_frames_reference
 
@@ -71,10 +76,142 @@ def test_k1_rejects_what_it_cannot_take(cuda_device, make, err):
     assert log_mel_frames.launches == before
 
 
-def test_attention_at_flash_length_names_k3(cuda_device):
-    q = torch.zeros((1, 1, FLASH_MIN_SEQ_LEN, 64), device=cuda_device)
-    with pytest.raises(NotImplementedError, match="K3"):
-        multi_head_attention(q, q, q)
+def _k3_launches():
+    return (flash_attention.fwd_launches, flash_attention.bwd_dq_launches,
+            flash_attention.bwd_dkv_launches)
+
+
+def _k3_case(device, b, h, t, dh, dtype, seed, key_scale=1.0):
+    """q, k, v as the model makes them: (B, T, H*Dh) projections viewed as
+    (B, H, T, Dh), so time and head strides are swapped; and a cotangent."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    qkv = [torch.randn((b, t, h * dh), generator=g, device=device).to(dtype)
+           .view(b, t, h, dh).transpose(1, 2) for _ in range(3)]
+    qkv[1] = qkv[1] * key_scale
+    w = torch.randn((b, h, t, dh), generator=g, device=device).to(dtype)
+    return (*qkv, w)
+
+
+def _attend(fn, q, k, v, w):
+    q, k, v = (x.detach().clone().requires_grad_(True) for x in (q, k, v))
+    out, lse = fn(q, k, v)
+    grads = torch.autograd.grad(out, (q, k, v), w)
+    return (out.detach(), lse.detach(), *grads)
+
+
+@pytest.mark.parametrize("b,h,t,dh", [
+    (1, 2, 64, 64), (2, 2, 130, 64), (1, 3, 513, 64), (2, 1, 130, 32), (1, 2, 200, 128),
+    (1, 1, 77, 16), (16, 8, 1000, 64),
+])
+def test_k3_float32_matches_plain_on_card(cuda_device, b, h, t, dh):
+    """The JAX kernel tests' own tolerances: forward atol 2e-5, lse 1e-5,
+    gradients rtol 2e-4 / atol 2e-5 (float32 sums in another order)."""
+    q, k, v, w = _k3_case(cuda_device, b, h, t, dh, torch.float32, seed=t)
+    before = _k3_launches()
+    got = _attend(lambda *a: flash_attention(*a, return_lse=True), q, k, v, w)
+    torch.cuda.synchronize()
+    assert _k3_launches() == tuple(n + 1 for n in before)
+    want = _attend(flash_attention_reference, q, k, v, w)
+    assert got[0].shape == (b, h, t, dh) and got[1].shape == (b * h, t)
+    torch.testing.assert_close(got[0], want[0], rtol=0, atol=2e-5)
+    torch.testing.assert_close(got[1], want[1], rtol=0, atol=1e-5)
+    for a, r in zip(got[2:], want[2:]):
+        torch.testing.assert_close(a, r, rtol=2e-4, atol=2e-5)
+
+
+@pytest.mark.parametrize("b,h,t,dh", [
+    (1, 2, 64, 64), (2, 2, 130, 64), (1, 3, 513, 64), (2, 1, 130, 32), (1, 2, 200, 128),
+    (16, 8, 1000, 64),
+])
+def test_k3_bfloat16_is_as_close_to_float32_as_plain_bfloat16(cuda_device, b, h, t, dh):
+    """bf16: the kernel's largest error against the float32 plain version
+    on the same bf16-rounded inputs is at most 1.5 times the bf16 plain
+    version's own (both round the probabilities, ds and the outputs to
+    bf16)."""
+    q, k, v, w = _k3_case(cuda_device, b, h, t, dh, torch.bfloat16, seed=t)
+    got = _attend(lambda *a: flash_attention(*a, return_lse=True), q, k, v, w)
+    plain = _attend(flash_attention_reference, q, k, v, w)
+    exact = _attend(flash_attention_reference, *(x.float() for x in (q, k, v, w)))
+    assert got[0].dtype == torch.bfloat16 and got[1].dtype == torch.float32
+    torch.testing.assert_close(got[1], exact[1], rtol=0, atol=1e-4)
+    for name, i in (("out", 0), ("dq", 2), ("dk", 3), ("dv", 4)):
+        err = (got[i].float() - exact[i]).abs().max().item()
+        plain_err = (plain[i].float() - exact[i]).abs().max().item()
+        assert err <= 1.5 * plain_err + 1e-6, (name, err, plain_err)
+
+
+def test_k3_gives_no_weight_to_padded_keys_on_card(cuda_device):
+    """Keys ten times larger sharpen the softmax; a padded key that leaked
+    in would show (tests/test_pallas_kernels.py holds the TPU kernel to the
+    same 5e-5)."""
+    q, k, v, w = _k3_case(cuda_device, 1, 2, 130, 64, torch.float32, seed=9, key_scale=10.0)
+    got = flash_attention(q, k, v)
+    want, _ = flash_attention_reference(q, k, v)
+    torch.testing.assert_close(got, want, rtol=0, atol=5e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k3_backward_is_bit_reproducible_on_card(cuda_device, dtype):
+    q, k, v, w = _k3_case(cuda_device, 2, 4, 700, 64, dtype, seed=11)
+    first = _attend(lambda *a: flash_attention(*a, return_lse=True), q, k, v, w)
+    second = _attend(lambda *a: flash_attention(*a, return_lse=True), q, k, v, w)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def test_k3_reads_strided_inputs_in_place_and_copies_what_it_must(cuda_device):
+    q, k, v, w = _k3_case(cuda_device, 2, 2, 130, 64, torch.float32, seed=12)
+    assert not q.is_contiguous()
+    copies = flash_attention.copies
+    out = flash_attention(q, k, v)
+    assert flash_attention.copies == copies  # the model's layout: no copy
+    assert out.transpose(1, 2).is_contiguous()  # (B, T, H, Dh): the reshape after is a view
+    odd = torch.zeros((2, 2, 130, 65), device=cuda_device)[..., 1:]  # misaligned rows
+    odd.copy_(q)
+    torch.testing.assert_close(flash_attention(odd, k, v), out, rtol=0, atol=0)
+    assert flash_attention.copies == copies + 1
+    leaf = q.detach().clone().requires_grad_(True)
+    flash_attention(leaf, k, v).sum().backward()  # sum's cotangent is expanded: stride 0
+    assert flash_attention.copies == copies + 2
+    want = q.detach().clone().requires_grad_(True)
+    flash_attention_reference(want, k, v)[0].sum().backward()
+    torch.testing.assert_close(leaf.grad, want.grad, rtol=2e-4, atol=2e-5)
+
+
+@pytest.mark.parametrize("make,err", [
+    (lambda q, k, v: (q.half(), k.half(), v.half()), TypeError),
+    (lambda q, k, v: (q, k.bfloat16(), v), TypeError),
+    (lambda q, k, v: (q[..., :24], k[..., :24], v[..., :24]), ValueError),
+    (lambda q, k, v: (q, k.cpu(), v), ValueError),
+    (lambda q, k, v: (q, k[:, :, :-1], v), ValueError),
+    (lambda q, k, v: (q[0], k[0], v[0]), ValueError),
+])
+def test_k3_rejects_what_it_cannot_take(cuda_device, make, err):
+    q, k, v, _ = _k3_case(cuda_device, 1, 2, 64, 64, torch.float32, seed=13)
+    before = _k3_launches()
+    with pytest.raises(err):
+        flash_attention(*make(q, k, v))
+    assert _k3_launches() == before
+
+
+def test_attention_at_flash_length_launches_k3(cuda_device):
+    """T >= 512 on CUDA goes through K3; below it, and under
+    force_flash(False), the plain product; force_flash(True) takes K3 at
+    any length and refuses a CPU tensor."""
+    q, k, v, _ = _k3_case(cuda_device, 1, 2, FLASH_MIN_SEQ_LEN, 64, torch.float32, seed=14)
+    before = flash_attention.fwd_launches
+    long = multi_head_attention(q, k, v)
+    assert flash_attention.fwd_launches == before + 1
+    with force_flash(False):
+        plain = multi_head_attention(q, k, v)
+    short = multi_head_attention(q[:, :, :100], k[:, :, :100], v[:, :, :100])
+    assert flash_attention.fwd_launches == before + 1
+    torch.testing.assert_close(long, plain, rtol=0, atol=2e-5)
+    with force_flash(True):
+        forced = multi_head_attention(q[:, :, :100], k[:, :, :100], v[:, :, :100])
+        assert flash_attention.fwd_launches == before + 2
+        with pytest.raises(ValueError, match="CUDA"):
+            multi_head_attention(q.cpu(), k.cpu(), v.cpu())
+    torch.testing.assert_close(forced, short, rtol=0, atol=2e-5)
 
 
 M, G = 14, 648

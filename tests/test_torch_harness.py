@@ -1,7 +1,8 @@
 """Ground rules of the PyTorch port: it imports neither JAX nor seld_tpu,
 its entry points refuse to run without a CUDA device unless the caller
-asks for the CPU, and kernel K1's wrapper checks its input and takes the
-plain version only for CPU tensors."""
+asks for the CPU, kernel K1's wrapper checks its input and takes the
+plain version only for CPU tensors, and attention has no unported case
+and no library kernel behind it."""
 
 import re
 import subprocess
@@ -32,7 +33,9 @@ def test_import_leaves_jax_and_seld_tpu_out():
     probe = (
         "import sys, seld_tpu_torch, seld_tpu_torch.infer, seld_tpu_torch.cli, "
         "seld_tpu_torch.convert, seld_tpu_torch.train.trainer, "
-        "seld_tpu_torch.data.synthetic, seld_tpu_torch.data.discovery\n"
+        "seld_tpu_torch.data.synthetic, seld_tpu_torch.data.discovery, "
+        "seld_tpu_torch.eval, seld_tpu_torch.eval.metrics, "
+        "seld_tpu_torch.train.completion, seld_tpu_torch.ops.flash_attention\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'seld_tpu'))\n"
         "print(bad)\n"
@@ -52,13 +55,41 @@ def test_no_source_imports_jax_or_seld_tpu(path):
 
 
 @pytest.mark.parametrize("path", sorted(
-    str(p.relative_to(ROOT)) for p in (ROOT / "seld_tpu_torch" / "ops").glob("*_cuda.py")
+    str(p.relative_to(ROOT)) for p in [*(ROOT / "seld_tpu_torch" / "ops").glob("*_cuda.py"),
+                                       ROOT / "seld_tpu_torch" / "ops" / "flash_attention.py",
+                                       ROOT / "seld_tpu_torch" / "ops" / "attention.py"]
 ))
 def test_kernel_wrappers_have_no_try_around_a_launch(path):
     """A wrapper launches or raises: no handler that could fall back."""
     text = (ROOT / path).read_text()
-    assert "_kernel" in text  # it is a wrapper module
+    assert "_kernel" in text or "flash_attention" in text  # a wrapper or its dispatch
+    # force_flash restores its ContextVar in a finally: the one handler allowed
+    text = text.replace("""    try:
+        yield
+    finally:
+        _FORCE.reset(token)""", "")
     assert not re.search(r"^\s*(try\s*:|except\b|finally\s*:)", text, re.M)
+
+
+def test_attention_has_no_unported_length_left():
+    """T >= 512 on CUDA runs K3: the dispatch raises NotImplementedError
+    nowhere, and reaches K3's wrapper."""
+    text = (ROOT / "seld_tpu_torch" / "ops" / "attention.py").read_text()
+    assert "NotImplementedError" not in text and "not ported" not in text
+    assert "flash_attention(q, k, v, scale=scale)" in text
+    assert "FLASH_MIN_SEQ_LEN = 512" in text
+
+
+@pytest.mark.parametrize("path", sorted(
+    str(p.relative_to(ROOT)) for p in [*(ROOT / "seld_tpu_torch").rglob("*.py"),
+                                       *(ROOT / "seld_tpu_torch").rglob("*.cu")]
+))
+def test_no_library_attention_in_the_port(path):
+    """PyTorch's fused attention is the yardstick that chip_smoke.py times,
+    never a path of the package; nor is torch.compile."""
+    text = (ROOT / path).read_text()
+    assert "scaled_dot_product_attention" not in text
+    assert "torch.compile" not in text
 
 
 @pytest.fixture
@@ -82,6 +113,18 @@ def test_entry_points_raise_without_cuda(no_cuda, tmp_path):
         compute_mel_features(np.zeros((4, 4800), np.float32), FeatureConfig())
     with pytest.raises(RuntimeError, match="CUDA"):
         port_main(["predict", "--checkpoint", str(missing), "--wavs", "x.wav"])
+
+
+def test_evaluation_entry_points_raise_without_cuda(no_cuda, tmp_path):
+    from seld_tpu_torch.eval import evaluate_model
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        evaluate_model(Config(), None, tmp_path)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        port_main(["eval", "--synthetic", f"data.base_path={tmp_path}"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        port_main(["verify"])
+    assert not list(tmp_path.iterdir())  # the device check comes first
 
 
 def test_training_entry_points_raise_without_cuda(no_cuda, tmp_path):

@@ -628,7 +628,7 @@ def test_cli_train_synthetic_on_the_cpu(tmp_path):
     assert (work / "training_history.json").exists() and list((work / "best").iterdir())
 
 
-@pytest.mark.parametrize("override", ["train.qat=true", "train.select_metric=er",
+@pytest.mark.parametrize("override", ["train.qat=true", "train.prng_impl=rbg",
                                       "train.distill_ckpt=x", "train.acs_augment=true",
                                       "train.specaugment_time_masks=2", "mesh.enable=on",
                                       "train.profile_steps=3"])

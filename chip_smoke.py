@@ -23,6 +23,14 @@ Phases, each of which raises on failure:
      on q/k/v strided as the model makes them, two backward runs bit-equal;
      times of each kernel, the plain version and
      F.scaled_dot_product_attention, and their operations bounds;
+     kernel K4 (spatial features) against its plain version for "mel",
+     "mel_iv" and "mel_gcc" at a 60 s 4-channel clip (T = 3,001 frames),
+     at a ragged T = 37 and on silence, and against the rFFT chain of
+     seld_tpu_torch.features.spatial; the GCC lag peak of a 7-sample delay;
+     the ACS commutation (audio-side transform then K4 against K4 then the
+     feature-side transform) for all 16 transforms; bit-equal reruns;
+     times of the kernel, the plain version and the rFFT chain, and the
+     bytes bound;
   4. the flagship ResNet50-Conformer (default Config: d_model 512, 8 heads,
      4 blocks, 250-frame windows, bf16) from seeded weights, saved and
      loaded through seld_tpu_torch.train.checkpoint, serving a seeded 60 s
@@ -44,7 +52,17 @@ Phases, each of which raises on failure:
      forward count against the forwards taken; `cli train --synthetic` for
      one epoch, K3's three counts at exactly four per step; `cli eval
      --synthetic` on that run, its JSON report parsed; timed predicts and
-     train steps and one step under torch.profiler.
+     train steps and one step under torch.profiler;
+  8. the accuracy recipe at full width (features.feature_set=mel_iv,
+     train.acs_augment, targets.use_gaussian_augmentation, 2 + 2
+     SpecAugment masks, data.cache_dir) on synthetic WAV files in the
+     STARSS22 layout: `cli train` for 2 epochs (K4 launches = clips built,
+     K1 launches 0, K2's counts, finite losses, the artifacts, a stored
+     cache entry), `cli eval` on the same run (a cache hit: K4 launches 0;
+     the trainer's test loss; a DCASE2022 report), SELDPredictor serving
+     the 60 s clip from the best checkpoint (K4 once), a seeded "mel_gcc"
+     flagship serving it too (K4 once), and timed train steps of the
+     recipe with both augmentation hooks, one of them profiled.
 It prints one JSON line of kernel figures, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.
 """
@@ -54,8 +72,10 @@ from __future__ import annotations
 import contextlib
 import io
 import json
+import logging
 import math
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -74,6 +94,9 @@ F32_FLOPS = 67e12  # float32 outside the tensor cores
 BF16_FLOPS = 989e12  # dense bf16 in the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 K1_TOL_DB = 5e-3  # float32 DFT-as-GEMM against float32 GEMMs / rFFT
+# K4's IV and GCC planes: the JAX package's bar for its spatial kernel
+K4_TOL = 1e-4
+K4_ACS_TOL = 1e-5  # audio-side against feature-side transform, as tests/test_acs.py
 # K2 against its plain version: float32 exp and sums in another order
 K2_FWD_TOL = dict(rtol=1e-5, atol=1e-6)
 K2_GRAD_TOL = dict(rtol=2e-4, atol=1e-6)
@@ -90,6 +113,7 @@ FAMILIES = (
     ("K3 flash attention dQ", r"flash_dq_"),
     ("K3 flash attention dK/dV", r"flash_dkv_"),
     ("K1 log-mel", r"log_mel_kernel"),
+    ("K4 spatial features", r"spatial_kernel"),
     ("K2 grid loss forward", r"grid_loss_fwd_kernel"),
     ("K2 grid loss backward", r"grid_loss_bwd_kernel"),
     ("optimizer (multi-tensor)", r"multi_tensor"),
@@ -603,6 +627,157 @@ def phase_k3(dev: torch.device) -> list[dict]:
     return rows
 
 
+def k4_bound(t: int, n_fft: int, fb: torch.Tensor, feature_set: str) -> dict:
+    """The least card time for K4's function on t frames of 4 channels; fb
+    is the (n_fft // 2 + 1, n_mels) filterbank of this run.
+
+    Bytes: the frames read once and the features written once. Operations:
+    the least arithmetic that computes the function, with FFTs: per channel
+    the Hann window (n_fft), a real FFT (2.5 n_fft log2 n_fft), the power (3
+    per bin), the filterbank product over its nonzero entries (2 each) and
+    the dB (3 per mel); "mel_iv" adds the energy and three intensities (19
+    per bin) and three normalised-filterbank products; "mel_gcc" adds per
+    pair the cross-spectrum and its PHAT scaling (13 per bin) and an
+    inverse real FFT. K4 itself computes the DFT as GEMMs: `gemm_ms` is the
+    float32 floor of that arithmetic at the real bins, without padding."""
+    from seld_tpu_torch.features.spatial import feature_channels
+
+    n_freqs, n_mels = fb.shape
+    nnz = int((fb != 0).sum())
+    fft = 2.5 * n_fft * math.log2(n_fft)
+    c_out = feature_channels(feature_set)
+    n_bytes = 4 * (4 * t * n_fft + t * c_out * n_mels)
+    ops = 4 * (n_fft + fft + 3 * n_freqs + 2 * nnz + 3 * n_mels)
+    planes = 4
+    if feature_set == "mel_iv":
+        ops += 19 * n_freqs + 3 * 2 * nnz
+        planes = 7
+    elif feature_set == "mel_gcc":
+        ops += 6 * (13 * n_freqs + fft)
+        planes = 16
+    ops *= t
+    gemm_flops = 2 * 4 * t * n_fft * 2 * n_freqs + 2 * t * n_freqs * n_mels * planes
+    bytes_ms, ops_ms = n_bytes / HBM_BYTES_PER_S * 1e3, ops / F32_FLOPS * 1e3
+    return {
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "bytes": n_bytes, "ops": ops,
+        "gemm_flops": gemm_flops, "gemm_ms": gemm_flops / F32_FLOPS * 1e3,
+    }
+
+
+def k4_errors(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:
+    """Largest |got - want| over the mel planes (dB) and over the rest."""
+    mel = (got[:, :4] - want[:, :4]).abs().max().item()
+    rest = (got[:, 4:] - want[:, 4:]).abs().max().item() if got.shape[1] > 4 else 0.0
+    return mel, rest
+
+
+def phase_k4(dev: torch.device) -> list[dict]:
+    from seld_tpu_torch.config import FeatureConfig
+    from seld_tpu_torch.features import spatial as oracle
+    from seld_tpu_torch.features.acs import N_TRANSFORMS, acs_tables, audio_channel_transform
+    from seld_tpu_torch.features.mel import frame_signal, mel_filterbank
+    from seld_tpu_torch.ops.spatial_cuda import spatial_features, spatial_features_reference
+
+    feat = FeatureConfig()
+    n_fft, n_mels, sr = feat.n_fft, feat.n_mels, feat.sample_rate
+    t_main = 1 + CLIP_SECONDS * sr // feat.hop_length  # a 60 s clip: 3,001 frames
+    g = torch.Generator(device=dev).manual_seed(4)
+    frames = torch.randn((4, t_main, n_fft), generator=g, device=dev)
+    ragged = torch.randn((4, 37, n_fft), generator=g, device=dev)
+    silence = torch.zeros((4, 20, n_fft), device=dev)
+
+    def library(x, feature_set):
+        return oracle.extract_feature_frames(x, feature_set, n_fft, n_mels, sr)
+
+    main_err = {}
+    for feature_set in ("mel", "mel_iv", "mel_gcc"):
+        before = spatial_features.launches
+        got = spatial_features(frames, feature_set)
+        torch.cuda.synchronize()
+        if spatial_features.launches != before + 1:
+            raise AssertionError("K4's launch counter did not move by one")
+        errs = k4_errors(got, spatial_features_reference(frames, feature_set))
+        lib_errs = k4_errors(got, library(frames, feature_set))
+        r_errs = k4_errors(spatial_features(ragged, feature_set),
+                           spatial_features_reference(ragged, feature_set))
+        quiet = spatial_features(silence, feature_set)
+        s_err = (quiet[:, :4] + 100.0).abs().max().item()
+        s_rest = quiet[:, 4:].abs().max().item() if quiet.shape[1] > 4 else 0.0
+        again = spatial_features(frames, feature_set)
+        print(f"[K4] {feature_set} T={t_main}: max |kernel - plain| {errs[0]:.3e} dB, other "
+              f"planes {errs[1]:.3e}; against the rFFT chain {lib_errs[0]:.3e} dB / "
+              f"{lib_errs[1]:.3e}; T=37 {r_errs[0]:.3e} dB / {r_errs[1]:.3e}; silence max "
+              f"|mel + 100| {s_err:.3e} dB, max |other| {s_rest:.3e} (tolerance "
+              f"{K1_TOL_DB} dB / {K4_TOL})")
+        for mel_err, rest_err in (errs, lib_errs, r_errs):
+            if not (mel_err <= K1_TOL_DB and rest_err <= K4_TOL):
+                raise AssertionError(f"K4 {feature_set} disagrees: {mel_err} dB / {rest_err}")
+        if not (s_err <= 1e-4 and s_rest == 0.0 and bool(torch.isfinite(quiet).all())):
+            raise AssertionError(f"K4 {feature_set} on silence: {s_err} / {s_rest}")
+        if not torch.equal(got, again):
+            raise AssertionError(f"K4 {feature_set}: two runs on the same frames differ")
+        main_err[feature_set] = max(errs)
+    print("[K4] two runs bit-equal for every feature set")
+
+    # GCC-PHAT: a channel delayed by 7 samples peaks at lag +7 (column 32 + 7)
+    rng = np.random.default_rng(5)
+    base = rng.standard_normal(sr // 2 + 64).astype(np.float32)
+    delay = 7
+    wave = np.stack([base[64:64 + sr // 2], base[64 - delay:64 - delay + sr // 2],
+                     rng.standard_normal(sr // 2).astype(np.float32),
+                     rng.standard_normal(sr // 2).astype(np.float32)])
+    framed = frame_signal(torch.from_numpy(wave).to(dev), n_fft, feat.hop_length).contiguous()
+    peak = int(spatial_features(framed, "mel_gcc")[:, 4].mean(dim=0).argmax())
+    print(f"[K4] GCC-PHAT of a {delay}-sample delay: peak at column {peak} (lag {peak - 32})")
+    if peak != 32 + delay:
+        raise AssertionError(f"K4 GCC lag peak at column {peak}, expected {32 + delay}")
+
+    # ACS: transforming the audio and then K4 equals K4 and then the
+    # feature-side signed permutation, for all 16 transforms
+    _, ch_perm, ch_sign = acs_tables(18, 36, "mel_iv")
+    base_feats = spatial_features(frames, "mel_iv")
+    worst = 0.0
+    for t in range(N_TRANSFORMS):
+        perm, sign = audio_channel_transform(t)
+        audio_t = (torch.from_numpy(sign).to(dev)[:, None, None]
+                   * frames[torch.from_numpy(perm).to(dev)]).contiguous()
+        want = spatial_features(audio_t, "mel_iv")
+        got = (torch.from_numpy(ch_sign[t]).to(dev)[None, :, None]
+               * base_feats[:, torch.from_numpy(ch_perm[t]).long().to(dev)])
+        worst = max(worst, (got - want).abs().max().item())
+    print(f"[K4] ACS commutation, 16 transforms at T={t_main}: max |feature-side - audio-side| "
+          f"{worst:.3e} (tolerance {K4_ACS_TOL})")
+    if not worst <= K4_ACS_TOL:
+        raise AssertionError(f"K4 breaks the ACS commutation by {worst}")
+
+    fb = torch.from_numpy(mel_filterbank(n_fft // 2 + 1, n_mels, sr)).to(dev)
+    rows = []
+    for feature_set in ("mel", "mel_iv", "mel_gcc"):
+        k_ms = kernel_ms(lambda: spatial_features(frames, feature_set))
+        plain_ms = kernel_ms(lambda: spatial_features_reference(frames, feature_set))
+        library_ms = kernel_ms(lambda: library(frames, feature_set))
+        b = k4_bound(t_main, n_fft, fb, feature_set)
+        print(f"[K4] {feature_set} T={t_main}: kernel {k_ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"rFFT chain {library_ms:.4f} ms; bound {b['bound_ms']:.4f} ms by {b['bound_by']} "
+              f"({b['bytes'] / 1e6:.2f} MB at 3.35 TB/s; {b['ops'] / 1e9:.3f} GFLOP with FFTs "
+              f"at 67 TFLOP/s f32): kernel at {100 * b['bound_ms'] / k_ms:.2f} % of it; "
+              f"DFT-as-GEMM arithmetic {b['gemm_flops'] / 1e9:.2f} GFLOP, f32 floor "
+              f"{b['gemm_ms']:.4f} ms, kernel {b['gemm_flops'] / (k_ms * 1e-3) / 1e12:.2f} "
+              f"TFLOP/s ({100 * b['gemm_ms'] / k_ms:.1f} % of the f32 peak)")
+        if feature_set != "mel":  # "mel" takes K1 on the main path
+            rows.append({
+                "name": f"K4 {feature_set}", "route": "cuda",
+                "source": "seld_tpu_torch/csrc/spatial_kernel.cu",
+                "replaces": "seld_tpu/ops/spatial_pallas.py:132",
+                "launches": None, "max_abs_err": main_err[feature_set], "ms": k_ms,
+                "plain_ms": plain_ms, "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
+                "library_ms": library_ms,
+            })
+    return rows
+
+
 def phase_flagship(dev: torch.device) -> int:
     from seld_tpu_torch.config import Config
     from seld_tpu_torch.infer import SELDPredictor
@@ -849,6 +1024,9 @@ def time_train_steps(dev: torch.device, cfg, tag: str = "[train]") -> list[float
     torch.profiler. Returns the losses of the timed steps."""
     from seld_tpu_torch.data.sampler import BatchIterator, place_batch
     from seld_tpu_torch.data.synthetic import synthetic_corpus
+    from seld_tpu_torch.features.acs import make_acs_augment
+    from seld_tpu_torch.features.spatial import feature_channels
+    from seld_tpu_torch.features.specaugment import make_spec_augment
     from seld_tpu_torch.losses import SELDLossFn
     from seld_tpu_torch.models import build_model
     from seld_tpu_torch.train.optimizer import make_optimizer
@@ -856,11 +1034,16 @@ def time_train_steps(dev: torch.device, cfg, tag: str = "[train]") -> list[float
     from seld_tpu_torch.train.steps import make_train_step
 
     corpus = synthetic_corpus(cfg, n_files=2, seconds=30.0, seed=0, device=dev)
-    model = build_model(cfg.model, cfg.grid, device=dev, seed=0)
+    model = build_model(cfg.model, cfg.grid, device=dev, seed=0,
+                        in_channels=feature_channels(cfg.features.feature_set,
+                                                     cfg.model.n_channels))
     optimizer = make_optimizer(model.parameters(), cfg.train.learning_rate,
                                cfg.train.weight_decay)
+    spatial_augment = (make_acs_augment(cfg.grid.n_el, cfg.grid.n_az, cfg.features.feature_set)
+                       if cfg.train.acs_augment else None)
     step = make_train_step(model, SELDLossFn(cfg.loss, cfg.grid), optimizer,
-                           cfg.grid.num_classes)
+                           cfg.grid.num_classes, input_augment=make_spec_augment(cfg.train),
+                           spatial_augment=spatial_augment)
     state = create_train_state(model, optimizer)
     batches = [place_batch(b, dev) for b in BatchIterator(corpus, cfg.train.batch_size)][:3]
     times, losses = [], []
@@ -875,8 +1058,8 @@ def time_train_steps(dev: torch.device, cfg, tag: str = "[train]") -> list[float
         losses.append(metrics["loss"].item())
     steady = times[3:]
     step_ms = float(np.median(steady))
-    print(f"{tag} train step, batch {cfg.train.batch_size} x {corpus.window_frames} frames, "
-          f"bf16: median {step_ms:.2f} ms of {', '.join(f'{t:.1f}' for t in steady)} (first "
+    print(f"{tag} train step, batch {cfg.train.batch_size} x {corpus.window_frames} frames "
+          f"x {corpus.mel.shape[1]} feature channels, bf16: median {step_ms:.2f} ms of {', '.join(f'{t:.1f}' for t in steady)} (first "
           f"three, with warm-up: {', '.join(f'{t:.1f}' for t in times[:3])}) = "
           f"{cfg.train.batch_size / (step_ms * 1e-3):.1f} windows/s; peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
@@ -1009,6 +1192,169 @@ def phase_long_window(dev: torch.device) -> dict:
     return counts
 
 
+RECIPE = ["features.feature_set=mel_iv", "train.acs_augment=true",
+          "targets.use_gaussian_augmentation=true", "train.specaugment_time_masks=2",
+          "train.specaugment_freq_masks=2"]
+
+
+def write_starss_layout(root: Path, cfg, train_files: int, train_seconds: float,
+                        test_seconds: float) -> None:
+    """Seeded synthetic WAV and CSV files under root in the STARSS22 layout:
+    train_files clips in dev-train-sony / dev-train-tau and one test clip
+    in dev-test-sony."""
+    from seld_tpu_torch.data.synthetic import synthetic_raw_files
+
+    synthetic_raw_files(root, cfg, n_files=train_files, seconds=train_seconds, seed=0,
+                        split_dirs=True)
+    staging = root / "staging"
+    synthetic_raw_files(staging, cfg, n_files=1, seconds=test_seconds, seed=1,
+                        split_dirs=True)
+    for sub in (cfg.data.audio_dirname, cfg.data.metadata_dirname):
+        (staging / sub / "dev-train-sony").rename(root / sub / "dev-test-sony")
+    shutil.rmtree(staging)
+
+
+@contextlib.contextmanager
+def log_messages(name: str):
+    """The messages logged under logger `name` inside the block."""
+    messages = []
+    handler = logging.Handler()
+    handler.emit = lambda record: messages.append(record.getMessage())
+    log = logging.getLogger(name)
+    log.addHandler(handler)
+    try:
+        yield messages
+    finally:
+        log.removeHandler(handler)
+
+
+def phase_spatial(dev: torch.device) -> dict:
+    """The accuracy recipe at full width: train through the CLI from WAV
+    files (features through K4, the corpus cache), evaluate through the CLI
+    (a cache hit), serve with "mel_iv" and with "mel_gcc"; returns K4's
+    launch counts on that path."""
+    from seld_tpu_torch import cli
+    from seld_tpu_torch.config import Config, parse_overrides
+    from seld_tpu_torch.features.spatial import feature_channels
+    from seld_tpu_torch.infer import SELDPredictor
+    from seld_tpu_torch.models import build_model
+    from seld_tpu_torch.ops.loss_cuda import grid_loss_terms
+    from seld_tpu_torch.ops.mel_cuda import log_mel_frames
+    from seld_tpu_torch.ops.spatial_cuda import spatial_features
+    from seld_tpu_torch.train.checkpoint import save_checkpoint
+
+    cfg = parse_overrides(Config(), RECIPE)
+    epochs = 2
+    hop = cfg.window.hop_frames(cfg.features)
+    fps = cfg.features.sample_rate // cfg.features.hop_length
+    train_steps = -(-(2 * 30 * fps // hop) // cfg.train.batch_size)
+    eval_steps = -(-(20 * fps // hop) // cfg.train.batch_size)
+    sr = cfg.features.sample_rate
+    wave = (0.1 * np.random.default_rng(0).standard_normal((4, CLIP_SECONDS * sr))
+            ).astype(np.float32)
+    t_frames = 1 + CLIP_SECONDS * fps
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        root = Path(tmp)
+        write_starss_layout(root, cfg, train_files=2, train_seconds=30.0, test_seconds=20.0)
+        args = [f"data.base_path={root}", f"data.cache_dir={root / 'cache'}", *RECIPE,
+                "train.save_every_n_epochs=2"]
+        spatial_features.launches = log_mel_frames.launches = 0
+        grid_loss_terms.fwd_launches = grid_loss_terms.bwd_launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with log_messages("seld_tpu_torch") as logged:
+            if cli.main(["train", *args, f"train.num_epochs={epochs}"]) != 0:
+                raise AssertionError("cli train of the recipe failed")
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        counts = {"k4": spatial_features.launches, "k1": log_mel_frames.launches,
+                  "k2_fwd": grid_loss_terms.fwd_launches,
+                  "k2_bwd": grid_loss_terms.bwd_launches}
+        want = {"k4": 3, "k1": 0, "k2_fwd": epochs * (train_steps + eval_steps),
+                "k2_bwd": epochs * train_steps}
+        if counts != want:
+            raise AssertionError(f"kernel launches on the recipe's training path {counts}, "
+                                 f"expected {want}")
+        stored = [m for m in logged if m.startswith("Corpus cache stored")]
+        hooks = [m for m in logged if m.startswith(("SpecAugment on", "ACS spatial"))]
+        work = root / "checkpoints"
+        records = [json.loads(x) for x in (work / "metrics.jsonl").read_text().splitlines()]
+        losses = [r[split][k] for r in records for split in ("train", "test") for k in r[split]]
+        best = sorted((work / "best").glob("epoch_*.pt"))
+        if (len(stored) != 2 or len(hooks) != 2 or len(records) != epochs
+                or not all(math.isfinite(v) for v in losses) or len(best) != 1
+                or not list((work / "rolling").glob("epoch_*.pt"))
+                or not (work / "training_history.json").exists()):
+            raise AssertionError(f"recipe training: cache {stored}, hooks {hooks}, records "
+                                 f"{records}, best {best}")
+        print(f"[spatial] cli train {' '.join(RECIPE)} data.cache_dir=...: {epochs} epochs x "
+              f"({train_steps} train + {eval_steps} eval steps) in {wall_s:.1f} s from 3 WAV "
+              f"files: K4 {counts['k4']} launches, K1 {counts['k1']}, K2 forward "
+              f"{counts['k2_fwd']}, backward {counts['k2_bwd']}; losses "
+              f"{[round(r['train']['loss'], 6) for r in records]} train, "
+              f"{[round(r['test']['loss'], 6) for r in records]} test; {len(stored)} cache "
+              f"entries stored; peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+        # evaluate: both corpora come from the cache
+        spatial_features.launches = 0
+        printed = io.StringIO()
+        with log_messages("seld_tpu_torch") as logged, contextlib.redirect_stdout(printed):
+            rc = cli.main(["eval", *args])
+        report = json.loads(printed.getvalue())
+        hits = [m for m in logged if m.startswith("Corpus cache hit")]
+        best_record = next(r for r in records if r["epoch"] == report["checkpoint_epoch"])
+        if (rc != 0 or spatial_features.launches != 0 or len(hits) != 2
+                or "SELD_error" not in report["dcase2022"]
+                or abs(report["test_loss"] - best_record["test"]["loss"]) > 1e-4):
+            raise AssertionError(f"cli eval of the recipe: rc {rc}, K4 "
+                                 f"{spatial_features.launches}, hits {hits}, test loss "
+                                 f"{report['test_loss']} against {best_record['test']['loss']}")
+        print(f"[spatial] cli eval: {len(hits)} cache hits, K4 {spatial_features.launches} "
+              f"launches; checkpoint epoch {report['checkpoint_epoch']}, test loss "
+              f"{report['test_loss']:.6f} (the trainer's {best_record['test']['loss']:.6f}), "
+              f"DCASE2022 SELD_error {report['dcase2022']['SELD_error']:.4f}")
+
+        # serve: the trained mel_iv checkpoint, then a seeded mel_gcc flagship
+        pred = SELDPredictor(best[0], batch_windows=8, device=dev)
+        gcc_cfg = cfg.replace_path("features.feature_set", "mel_gcc")
+        model = build_model(gcc_cfg.model, gcc_cfg.grid, device=dev, seed=0,
+                            in_channels=feature_channels("mel_gcc"))
+        save_checkpoint(root / "gcc.pt", model, gcc_cfg)
+        del model
+        gcc_pred = SELDPredictor(root / "gcc.pt", batch_windows=8, device=dev)
+    served = {}
+    for name, p in (("mel_iv", pred), ("mel_gcc", gcc_pred)):
+        p.predict_waveform(wave)  # warm-up
+        torch.cuda.synchronize()
+        spatial_features.launches = 0
+        classes = p.predict_waveform(wave).classes
+        torch.cuda.synchronize()
+        served[name] = spatial_features.launches
+        if (served[name] != 1 or classes.shape != (t_frames, cfg.grid.n_cells)
+                or classes.min() < 0 or classes.max() >= cfg.grid.num_classes):
+            raise AssertionError(f"serving {name}: K4 {served[name]} launches, classes "
+                                 f"{classes.shape}")
+        times = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            p.predict_waveform(wave)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        clip_ms = float(np.median(times))
+        print(f"[spatial] SELDPredictor {name} ({feature_channels(name)} feature channels): "
+              f"{CLIP_SECONDS} s clip -> classes {classes.shape}, K4 {served[name]} launch; "
+              f"{clip_ms:.2f} ms per clip (median of {', '.join(f'{x:.2f}' for x in times)}) = "
+              f"{CLIP_SECONDS / (clip_ms * 1e-3):.1f} audio-s/s")
+        profile_call(f"{name} predict", lambda: p.predict_waveform(wave), clip_ms)
+    del pred, gcc_pred
+    losses = time_train_steps(dev, cfg, tag="[spatial]")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"recipe train steps: losses {losses}")
+    return {"mel_iv": counts["k4"], "mel_gcc": served["mel_gcc"]}
+
+
 def main() -> int:
     name, smi = phase_device()
     dev = torch.device("cuda")
@@ -1017,6 +1363,7 @@ def main() -> int:
         k1 = phase_k1(dev)
         k2_fwd, k2_bwd = phase_k2(dev)
         k3_rows = phase_k3(dev)
+        k4_rows = phase_k4(dev)
     k1["launches"] = phase_flagship(dev)
     phase_f32(dev)
     counts = phase_train(dev)
@@ -1024,7 +1371,10 @@ def main() -> int:
     counts = phase_long_window(dev)
     for row, key in zip(k3_rows, ("k3_fwd", "k3_dq", "k3_dkv")):
         row["launches"] = counts[key]
-    print(json.dumps({"kernels": [k1, k2_fwd, k2_bwd, *k3_rows]}))
+    counts = phase_spatial(dev)
+    for row, key in zip(k4_rows, ("mel_iv", "mel_gcc")):
+        row["launches"] = counts[key]
+    print(json.dumps({"kernels": [k1, k2_fwd, k2_bwd, *k3_rows, *k4_rows]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count(),

@@ -9,7 +9,11 @@ hand-written CUDA kernel K2, forward and backward
 (seld_tpu_torch/csrc/grid_loss_kernel.cu), Adam with coupled L2,
 checkpoints and resume. Windows of 512 frames and more run their
 attention through the hand-written flash-attention kernels K3, forward,
-dQ and dK/dV (seld_tpu_torch/csrc/flash_attention_kernel.cu). Evaluation:
+dQ and dK/dV (seld_tpu_torch/csrc/flash_attention_kernel.cu). The spatial
+feature sets "mel_iv" and "mel_gcc" run through the hand-written CUDA
+kernel K4 (seld_tpu_torch/csrc/spatial_kernel.cu), with the accuracy
+recipe's ACS and SpecAugment augmentations, Gaussian label targets and an
+on-disk corpus cache. Evaluation:
 losses, cell accuracies and the DCASE2022 metrics of a checkpoint tree on
 a test corpus. It imports torch and never JAX or seld_tpu; module names
 follow seld_tpu so each piece's counterpart is easy to find.

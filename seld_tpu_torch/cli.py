@@ -20,7 +20,8 @@ split and prints the report (losses, cell accuracies, "dcase" and
 
     python -m seld_tpu_torch.cli verify [--frames T] [--device cpu]
 
-checks every backbone's output shape on a (2, T, 4, 64) input.
+checks every backbone's output shape on a (2, T, C, 64) input, C the
+feature set's channel count (4, 7 for mel_iv, 10 for mel_gcc).
 
     python -m seld_tpu_torch.cli predict --checkpoint FILE --wavs A.wav ... \
         [--out DIR] [--overlap F] [--bg-bias B] [--median-filter W] [--device cpu]
@@ -58,6 +59,9 @@ def cmd_predict(args) -> int:
 
 
 def _build_corpora(cfg, synthetic: bool, device):
+    """(train, test) corpora: the seeded synthetic clips, or the files
+    under data.base_path through the corpus cache (data.cache_dir; the
+    synthetic corpora bypass it)."""
     if synthetic:
         logger.info("Using synthetic data (no STARSS22 corpus required)")
         from seld_tpu_torch.data.synthetic import synthetic_corpus
@@ -66,19 +70,16 @@ def _build_corpora(cfg, synthetic: bool, device):
                                  device=device),
                 synthetic_corpus(cfg, n_files=1, seconds=20.0, seed=1, train=False,
                                  device=device))
-    if cfg.data.cache_dir:
-        raise NotImplementedError(
-            "data.cache_dir: the on-disk corpus cache (seld_tpu/data/cache.py) is "
-            "not ported yet (ROADMAP: spatial features and augmentation)"
-        )
-    from seld_tpu_torch.data.corpus import build_corpus
+    from seld_tpu_torch.data.cache import cached_build_corpus
     from seld_tpu_torch.data.discovery import discover_files
 
     tr_a, tr_m, te_a, te_m = discover_files(cfg.data)
     logger.info("Discovered %d train / %d test files", len(tr_a), len(te_a))
     parts = (cfg.features, cfg.grid, cfg.window, cfg.targets)
-    return (build_corpus(tr_a, tr_m, *parts, train=True, device=device),
-            build_corpus(te_a, te_m, *parts, train=False, device=device))
+    return (cached_build_corpus(tr_a, tr_m, *parts, train=True,
+                                cache_dir=cfg.data.cache_dir, device=device),
+            cached_build_corpus(te_a, te_m, *parts, train=False,
+                                cache_dir=cfg.data.cache_dir, device=device))
 
 
 def cmd_train(args) -> int:
@@ -147,18 +148,20 @@ def cmd_verify(args) -> int:
 
     from seld_tpu_torch import resolve_device
     from seld_tpu_torch.config import Config, ModelConfig, parse_overrides
+    from seld_tpu_torch.features.spatial import feature_channels
     from seld_tpu_torch.models import build_model
 
     device = resolve_device(args.device)
     cfg = parse_overrides(Config(), args.overrides)
     b, t = 2, args.frames
-    x = torch.zeros((b, t, cfg.model.n_channels, cfg.model.n_mels), device=device)
+    c = feature_channels(cfg.features.feature_set, cfg.model.n_channels)
+    x = torch.zeros((b, t, c, cfg.model.n_mels), device=device)
     expect = (b, t, cfg.grid.num_classes, cfg.grid.n_cells)
     failures = 0
     for model_type in VERIFY_BACKBONES:
         mcfg = ModelConfig(model_type=model_type, compute_dtype="float32")
         try:
-            model = build_model(mcfg, cfg.grid, device=device, seed=0)
+            model = build_model(mcfg, cfg.grid, device=device, seed=0, in_channels=c)
         except NotImplementedError as e:
             print(f"{model_type:>22}: NOT PORTED ({e})")
             continue

@@ -4,10 +4,10 @@ The port's own copy of the sections of seld_tpu/config.py, with the same
 defaults, field names, dotted `key=value` overrides and dict round-trip,
 so a config dict stored by either package rebuilds the same run here.
 Fields whose reader is not ported (the other backbones, ACCDOA tracks,
-Gaussian sigmas, QAT, distillation, SpecAugment, ACS, profiling, the mesh, the Pallas toggle) are left out: `config_from_dict`
-ignores them, exactly as seld_tpu ignores unknown keys, and an override
-of one raises `parse_overrides`'s unknown-field error. Each comes back
-with the code that reads it.
+QAT, distillation, profiling, the mesh, the Pallas toggle) are left out:
+`config_from_dict` ignores them, exactly as seld_tpu ignores unknown
+keys, and an override of one raises `parse_overrides`'s unknown-field
+error. Each comes back with the code that reads it.
 """
 
 from __future__ import annotations
@@ -35,8 +35,7 @@ class DataConfig:
 
     prefetch_depth: int = 2  # batches staged and placed ahead of the step
     shuffle_seed: int = 0
-    # On-disk corpus cache directory; its reader is not ported yet, so a
-    # non-empty value raises where the corpora are built.
+    # On-disk corpus cache directory (data/cache.py); "" turns it off.
     cache_dir: str = ""
 
     @property
@@ -73,8 +72,8 @@ class FeatureConfig:
     f_min: float = 0.0
     f_max: float | None = None  # None means sample_rate / 2
     amin: float = 1e-10
-    # "mel" (4 log-mel channels); "mel_iv" / "mel_gcc" need kernel K4,
-    # which is not ported yet.
+    # "mel" (4 log-mel channels, kernel K1), "mel_iv" (+ 3 FOA intensity
+    # vectors) or "mel_gcc" (+ 6 GCC-PHAT pairs), both through kernel K4.
     feature_set: str = "mel"
 
 
@@ -121,12 +120,18 @@ class WindowConfig:
 @dataclass(frozen=True)
 class TargetConfig:
     """Label rasterization: 100 ms metadata frames fan out to 20 ms label
-    frames. Gaussian spatial augmentation and ACCDOA targets are not ported
-    yet: switching either on raises where the corpus is built."""
+    frames. The Gaussian spatial augmentation (train side only) paints a
+    2-sigma region around each source's direction, displaced once per
+    source by a draw keyed on (augmentation_seed, file, class, source).
+    ACCDOA targets are not ported yet: switching them on raises where the
+    corpus is built."""
 
     metadata_frame_ms: int = 100
     label_frame_ms: int = 20
     use_gaussian_augmentation: bool = False
+    sigma_azimuth: float = 5.0
+    sigma_elevation: float = 5.0
+    augmentation_seed: int = 0
     accdoa: bool = False
 
     @property
@@ -203,6 +208,17 @@ class TrainConfig:
     # weights are evaluated and stored in the best checkpoint; rolling
     # checkpoints keep the raw weights for an exact resume.
     ema_decay: float = 0.0
+    # SpecAugment inside the train step (0 masks = off): per sample, masks
+    # of up to `width` frames / mel bins filled with the sample's
+    # per-channel mean.
+    specaugment_time_masks: int = 0
+    specaugment_time_width: int = 25  # frames (0.5 s at 50 fps)
+    specaugment_freq_masks: int = 0
+    specaugment_freq_width: int = 8  # mel bins
+    # FOA spatial augmentation (ACS): per sample one of the 16 label-exact
+    # scene transforms, applied to features and labels inside the train
+    # step. Needs features.feature_set="mel_iv".
+    acs_augment: bool = False
 
 
 @dataclass(frozen=True)

@@ -1,10 +1,13 @@
-"""Waveform -> log-mel features, and files -> a windowed corpus
-(counterpart: seld_tpu/data/corpus.py).
+"""Waveform -> features, and files -> a windowed corpus (counterpart:
+seld_tpu/data/corpus.py).
 
-Framing is a strided view of the reflect-padded signal on the device;
-the frames then go through K1 (seld_tpu_torch.ops.mel_cuda) in one
-launch per `_FRAME_CHUNK` frames. K1 treats every frame on its own, so
-the chunk only bounds device memory: the JAX package's 128/1024/8192
+Framing is a strided view of the reflect-padded signal on the device.
+For feature_set "mel" the frames go through K1
+(seld_tpu_torch.ops.mel_cuda) in one launch per `_FRAME_CHUNK` frames;
+for "mel_iv" and "mel_gcc" they go through K4
+(seld_tpu_torch.ops.spatial_cuda), one launch per clip of up to
+MAX_LAUNCH_FRAMES frames. Both kernels treat every frame on its own, so
+the chunks only bound device memory: the JAX package's 128/1024/8192
 tiers exist for XLA's static shapes and have no counterpart here.
 
 A corpus keeps its features and its (T, G) uint16 label bitmasks as numpy
@@ -26,6 +29,8 @@ from seld_tpu_torch.config import FeatureConfig, GridConfig, TargetConfig, Windo
 from seld_tpu_torch.data.audio import load_wav
 from seld_tpu_torch.features.mel import frame_signal
 from seld_tpu_torch.ops.mel_cuda import log_mel_frames
+from seld_tpu_torch.ops.spatial_cuda import spatial_features
+from seld_tpu_torch.targets.gaussian import rasterize_gaussian_labels
 from seld_tpu_torch.targets.rasterize import (
     encode_events_to_bitmask,
     load_metadata_csv,
@@ -39,8 +44,8 @@ _FRAME_CHUNK = 1 << 16  # frames per K1 launch: 250 MB of f32 input
 
 def compute_mel_features(wave, feat: FeatureConfig,
                          device: str | torch.device | None = None) -> torch.Tensor:
-    """(C, N) waveform (numpy or tensor) -> (T, C, n_mels) float32 features
-    on `device` (CUDA unless named), T = 1 + N // hop."""
+    """(C, N) waveform (numpy or tensor) -> (T, C_out, n_mels) float32
+    features on `device` (CUDA unless named), T = 1 + N // hop."""
     device = resolve_device(device)
     if not torch.is_tensor(wave):
         wave = torch.from_numpy(np.asarray(wave, np.float32))
@@ -49,13 +54,13 @@ def compute_mel_features(wave, feat: FeatureConfig,
 
 
 def features_from_frames(frames: torch.Tensor, feat: FeatureConfig) -> torch.Tensor:
-    """(C, T, n_fft) frames -> (T, C, n_mels) log-mel features, time-major
-    so that window slicing is a view of the leading axis."""
-    if feat.feature_set != "mel":
-        raise NotImplementedError(
-            f"feature_set={feat.feature_set!r} needs the spatial front-end "
-            "kernel K4, which is not ported yet (ROADMAP: spatial features)"
-        )
+    """(C, T, n_fft) frames -> (T, C_out, n_mels) features, time-major so
+    that window slicing is a view of the leading axis: C_out = C log-mel
+    planes for "mel", 7 or 10 planes of 4 channels for "mel_iv" /
+    "mel_gcc"."""
+    if feat.feature_set != "mel":  # an unknown set raises in spatial_features
+        return spatial_features(frames.contiguous(), feat.feature_set, n_mels=feat.n_mels,
+                                sample_rate=feat.sample_rate, amin=feat.amin)
     c, t, nf = frames.shape
     flat = frames.reshape(c * t, nf).contiguous()
     out = torch.cat([
@@ -100,18 +105,14 @@ def build_corpus(audio_files, metadata_files, feat: FeatureConfig, grid: GridCon
                  window: WindowConfig, targets: TargetConfig, train: bool = True,
                  device: str | torch.device | None = None) -> WindowedCorpus:
     """Load every (wav, csv) pair, compute its features on `device` (CUDA
-    unless named: kernel K1) and its label bitmask, crop both to their
-    common length, concatenate, pad and index the windows."""
+    unless named: kernel K1 or K4) and its label bitmask, crop both to their
+    common length, concatenate, pad and index the windows. With train and
+    targets.use_gaussian_augmentation the labels are Gaussian regions,
+    keyed on each file's index in the list."""
     device = resolve_device(device)
     if len(audio_files) != len(metadata_files):
         raise ValueError(
             f"{len(audio_files)} audio files but {len(metadata_files)} metadata files"
-        )
-    if train and targets.use_gaussian_augmentation:
-        raise NotImplementedError(
-            "targets.use_gaussian_augmentation: the Gaussian label rasterizer "
-            "(seld_tpu/targets/gaussian.py) is not ported yet (ROADMAP: spatial "
-            "features and augmentation)"
         )
     if targets.accdoa:
         raise NotImplementedError(
@@ -119,13 +120,22 @@ def build_corpus(audio_files, metadata_files, feat: FeatureConfig, grid: GridCon
             "ACCDOA families)"
         )
     mels, masks = [], []
-    for apath, mpath in zip(audio_files, metadata_files):
+    for idx, (apath, mpath) in enumerate(zip(audio_files, metadata_files)):
         wave, sr = load_wav(apath)
         mel = compute_mel_features(wave, feat, device).cpu().numpy()  # (T_mel, C, F)
         t_lab = total_label_frames(wave.shape[1], sr, targets.label_frame_ms)
-        frames, classes, _, az, el = load_metadata_csv(mpath)
-        mask = encode_events_to_bitmask(frames, classes, az, el, t_lab, n_el=grid.n_el,
-                                        n_az=grid.n_az, fanout=targets.fanout)
+        frames, classes, sources, az, el = load_metadata_csv(mpath)
+        if train and targets.use_gaussian_augmentation:
+            mask = rasterize_gaussian_labels(
+                frames, classes, sources, az, el, t_lab, n_el=grid.n_el, n_az=grid.n_az,
+                num_classes=grid.num_classes, fanout=targets.fanout,
+                sigma_azimuth=targets.sigma_azimuth,
+                sigma_elevation=targets.sigma_elevation,
+                seed=targets.augmentation_seed, file_key=idx, return_dense=False,
+            )
+        else:
+            mask = encode_events_to_bitmask(frames, classes, az, el, t_lab, n_el=grid.n_el,
+                                            n_az=grid.n_az, fanout=targets.fanout)
         t_common = min(mel.shape[0], mask.shape[0])
         mels.append(mel[:t_common])
         masks.append(mask[:t_common])

@@ -32,6 +32,7 @@ from seld_tpu_torch.eval.metrics import (
     dcase2022_metrics,
     seld_metrics,
 )
+from seld_tpu_torch.features.spatial import feature_channels
 from seld_tpu_torch.losses import SELDLossFn
 from seld_tpu_torch.models import build_model
 from seld_tpu_torch.postprocess import smooth_classes, validate_width
@@ -120,6 +121,15 @@ def evaluate_model(
         logger.warning("checkpoint %s comes from truncated training (%s): the metrics are "
                        "those of a partially trained model", checkpoint_dir, training_incomplete)
     stored_cfg = load_checkpoint_config(checkpoint_dir)
+    # the stem's width follows the feature set the checkpoint was trained on
+    in_channels = feature_channels((stored_cfg or cfg).features.feature_set,
+                                   cfg.model.n_channels)
+    if test_corpus.mel.shape[1] != in_channels:
+        raise ValueError(
+            f"the test corpus has {test_corpus.mel.shape[1]} feature channels, the "
+            f"checkpoint's model takes {in_channels} (features.feature_set="
+            f"{(stored_cfg or cfg).features.feature_set!r})"
+        )
     if stored_cfg is not None:
         if stored_cfg.model != cfg.model:
             logger.warning("checkpoint architecture (%s) differs from the live config (%s); "
@@ -140,7 +150,8 @@ def evaluate_model(
         raise FileNotFoundError(f"no checkpoint found under {checkpoint_dir}")
     blob = torch.load(path, map_location="cpu", weights_only=True)
     meta = blob["meta"]
-    model = build_model(cfg.model, cfg.grid, device=device, seed=None)
+    model = build_model(cfg.model, cfg.grid, device=device, seed=None,
+                        in_channels=in_channels)
     model.load_state_dict(blob["state_dict"])
     logger.info("Loaded checkpoint epoch %d (test loss %.6f) on %s",
                 meta["epoch"], meta["test_loss"], device)

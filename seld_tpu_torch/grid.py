@@ -14,6 +14,15 @@ def cell_centers(n_el: int, n_az: int):
     return el, az
 
 
+def wrap_angle_diff(a, b):
+    """Shortest signed angular distance a - b in degrees, wrapped into
+    [-180, 180). Computed in float32, as the JAX package does: the
+    Gaussian region test compares it at exactly 2 sigma, so float64 would
+    change which cells count."""
+    diff = np.asarray(a, dtype=np.float32) - np.asarray(b, dtype=np.float32)
+    return (diff + 180.0) % 360.0 - 180.0
+
+
 def polar_to_grid(phi, theta, n_el: int, n_az: int):
     """(azimuth, elevation) degrees -> (i, j) int32 grid indices:
     j = clip(floor((phi + 180) / 360 * n_az), 0, n_az - 1) and

@@ -2,10 +2,11 @@
 (counterpart: seld_tpu/infer.py, `Prediction` and `SELDPredictor` for
 grid models).
 
-A predictor loads a checkpoint once (the architecture comes from the
-config stored in it), computes log-mel features on the device through
-K1, runs the eval-mode model over fixed-shape batches of windows, and
-decodes the class-major logits by argmax into a (T, G) class grid, which
+A predictor loads a checkpoint once (the architecture and the feature
+set come from the config stored in it), computes features on the device
+(log-mel through K1, "mel_iv" / "mel_gcc" through K4), runs the
+eval-mode model over fixed-shape batches of windows, and decodes the
+class-major logits by argmax into a (T, G) class grid, which
 `Prediction` turns into STARSS22-style metadata rows.
 """
 
@@ -21,6 +22,7 @@ import torch
 from seld_tpu_torch import resolve_device
 from seld_tpu_torch.data.audio import load_wav
 from seld_tpu_torch.data.corpus import compute_mel_features
+from seld_tpu_torch.features.spatial import feature_channels
 from seld_tpu_torch.grid import cell_centers
 from seld_tpu_torch.models import build_model
 from seld_tpu_torch.postprocess import smooth_classes, validate_width
@@ -100,8 +102,11 @@ class SELDPredictor:
         device: CUDA unless named; no CUDA device raises."""
         self.device = resolve_device(device)
         self.cfg, state, self.epoch = load_checkpoint(checkpoint)
-        self.model = build_model(self.cfg.model, self.cfg.grid,
-                                 device=self.device, seed=None)
+        self.model = build_model(
+            self.cfg.model, self.cfg.grid, device=self.device, seed=None,
+            in_channels=feature_channels(self.cfg.features.feature_set,
+                                         self.cfg.model.n_channels),
+        )
         self.model.load_state_dict(state)
         self.batch_windows = int(batch_windows)
         self.win = self.cfg.window.window_frames(self.cfg.features)

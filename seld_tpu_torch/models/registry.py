@@ -50,8 +50,14 @@ def init_parameters(model: nn.Module, generator: torch.Generator) -> None:
 
 def build_model(model_cfg: ModelConfig, grid_cfg: GridConfig | None = None,
                 device: str | torch.device | None = None,
-                seed: int | None = 0) -> nn.Module:
+                seed: int | None = 0, in_channels: int | None = None) -> nn.Module:
     """The eval-mode model on `device` (CUDA unless named).
+
+    in_channels: the feature channels C of the (B, T, C, F) input, which
+    the stem's width (and its initialisation's fan-in) follows; callers
+    pass feature_channels(cfg.features.feature_set, model_cfg.n_channels)
+    (7 for "mel_iv", 10 for "mel_gcc"). None means model_cfg.n_channels,
+    the "mel" feature set's count.
 
     seed: initialise the parameters from torch.Generator().manual_seed(seed);
     None leaves them unset for a caller that loads a state_dict next.
@@ -82,7 +88,7 @@ def build_model(model_cfg: ModelConfig, grid_cfg: GridConfig | None = None,
             d_model=model_cfg.resnet_conf_d_model,
             n_heads=model_cfg.resnet_conf_n_heads,
             n_layers=model_cfg.resnet_conf_n_layers,
-            n_channels=model_cfg.n_channels,
+            n_channels=model_cfg.n_channels if in_channels is None else in_channels,
             n_mels=model_cfg.n_mels,
             compute_dtype=dtype,
             dropout=model_cfg.resnet_dropout,

@@ -1,7 +1,8 @@
 """SELD ResNet50-Conformer, the flagship backbone (counterpart:
 seld_tpu/models/resnet_conformer.py).
 
-An audio ResNet50 (4-channel input, 3x3 stem, every stride (1, 2) on
+An audio ResNet50 (C-channel input: 4 log-mel planes, 7 with the FOA
+intensity vectors, 10 with GCC-PHAT; 3x3 stem, every stride (1, 2) on
 (T, F) so time is kept while frequency goes 64 -> 2; bottleneck counts
 [3, 4, 6, 3]) feeds d_model-wide Conformer blocks and a 1024-hidden grid
 head. The public input is (B, T, C, F) as in the JAX package; inside,

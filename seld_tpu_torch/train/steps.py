@@ -37,9 +37,16 @@ def dropout_seed(rng: tuple[int, ...], step: int) -> int:
     return int(np.random.SeedSequence((*rng, step)).generate_state(1, np.uint64)[0] >> 1)
 
 
+def augment_seed(rng: tuple[int, ...], step: int) -> int:
+    """The augmentation generator's seed for one step: like dropout_seed,
+    a pure function of (seed, epoch) and the step counter, from its own
+    stream."""
+    return int(np.random.SeedSequence((*rng, step, 1)).generate_state(1, np.uint64)[0] >> 1)
+
+
 def make_train_step(model: nn.Module, loss_fn: SELDLossFn,
                     optimizer: torch.optim.Optimizer, num_classes: int,
-                    accum_steps: int = 1):
+                    accum_steps: int = 1, input_augment=None, spatial_augment=None):
     """Returns step(state, mel, label_mask, example_mask, rng) ->
     (state, metrics).
 
@@ -54,7 +61,14 @@ def make_train_step(model: nn.Module, loss_fn: SELDLossFn,
     gradients weighted by each microbatch's share of the example-mask
     weight, then applies one optimizer update. For the em-normalised
     decomposable terms (MSE, AIUR) that equals the full-batch gradient,
-    padded tail batches included: an all-padding microbatch adds 0."""
+    padded tail batches included: an all-padding microbatch adds 0.
+
+    spatial_augment(generator, mel, label_mask) -> (mel, label_mask)
+    transforms features and labels together (the ACS scene transforms);
+    input_augment(generator, mel) -> mel transforms the features
+    (SpecAugment). Both are train-side only and run in that order on the
+    whole batch before any microbatch split, drawing from one generator
+    on the batch's device seeded with augment_seed(rng, step)."""
     if num_classes != loss_fn.grid.num_classes:
         raise ValueError(
             f"num_classes {num_classes} != the loss's grid ({loss_fn.grid.num_classes})"
@@ -62,9 +76,20 @@ def make_train_step(model: nn.Module, loss_fn: SELDLossFn,
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
 
+    generator = None
+
     def step(state: TrainState, mel, label_mask, example_mask, rng):
+        nonlocal generator
         model.train()
         model.seed_dropout(dropout_seed(rng, state.step))
+        if spatial_augment is not None or input_augment is not None:
+            if generator is None:
+                generator = torch.Generator(device=mel.device)
+            generator.manual_seed(augment_seed(rng, state.step))
+            if spatial_augment is not None:
+                mel, label_mask = spatial_augment(generator, mel, label_mask)
+            if input_augment is not None:
+                mel = input_augment(generator, mel)
         optimizer.zero_grad(set_to_none=True)
         with _true_f32(model):
             if accum_steps == 1:

@@ -31,6 +31,9 @@ from seld_tpu_torch.config import Config
 from seld_tpu_torch.data.corpus import WindowedCorpus
 from seld_tpu_torch.data.sampler import BatchIterator, device_prefetch, place_batch
 from seld_tpu_torch.eval.metrics import DCASE2022_SUMMARY, dcase2022_metrics
+from seld_tpu_torch.features.acs import make_acs_augment
+from seld_tpu_torch.features.spatial import feature_channels
+from seld_tpu_torch.features.specaugment import make_spec_augment
 from seld_tpu_torch.losses import SELDLossFn
 from seld_tpu_torch.models import build_model
 from seld_tpu_torch.train.checkpoint import CheckpointManager
@@ -148,7 +151,17 @@ def train_model(cfg: Config, train_corpus: WindowedCorpus, test_corpus: Windowed
             f"train.accum_steps={tc.accum_steps}"
         )
 
-    model = build_model(cfg.model, cfg.grid, device=device, seed=tc.seed)
+    input_augment = make_spec_augment(tc)
+    spatial_augment = None
+    if tc.acs_augment:
+        # a named error unless the feature set carries signed direction
+        # (mel_iv), raised before anything is built or cleared
+        spatial_augment = make_acs_augment(cfg.grid.n_el, cfg.grid.n_az,
+                                           cfg.features.feature_set)
+
+    model = build_model(cfg.model, cfg.grid, device=device, seed=tc.seed,
+                        in_channels=feature_channels(cfg.features.feature_set,
+                                                     cfg.model.n_channels))
     loss_fn = SELDLossFn(cfg.loss, cfg.grid)
     optimizer = make_optimizer(model.parameters(), tc.learning_rate, tc.weight_decay)
     state = create_train_state(model, optimizer)
@@ -205,11 +218,19 @@ def train_model(cfg: Config, train_corpus: WindowedCorpus, test_corpus: Windowed
         logger.info("Parameter EMA on (decay %.4f); eval/best use EMA weights", tc.ema_decay)
     eval_model = model if ema_model is None else ema_model
 
+    if input_augment is not None:
+        logger.info("SpecAugment on: %d time masks (w<=%d frames), %d freq masks "
+                    "(w<=%d bins)", tc.specaugment_time_masks, tc.specaugment_time_width,
+                    tc.specaugment_freq_masks, tc.specaugment_freq_width)
+    if spatial_augment is not None:
+        logger.info("ACS spatial augmentation on: per-sample draw from the 16 FOA scene "
+                    "transforms (features + grid labels)")
     if tc.accum_steps > 1:
         logger.info("Gradient accumulation: %d microbatches of %d",
                     tc.accum_steps, tc.batch_size // tc.accum_steps)
     train_step = make_train_step(model, loss_fn, optimizer, cfg.grid.num_classes,
-                                 accum_steps=tc.accum_steps)
+                                 accum_steps=tc.accum_steps, input_augment=input_augment,
+                                 spatial_augment=spatial_augment)
     eval_step = make_eval_step(eval_model, loss_fn, cfg.grid.num_classes)
     # With a validation metric the eval pass also decodes predicted and true
     # class grids on the device, and the best checkpoint is chosen on the

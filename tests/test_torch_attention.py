@@ -25,7 +25,7 @@ from seld_tpu_torch.models import build_model as build_port_model
 from seld_tpu_torch.models import layers as port_layers
 from seld_tpu_torch.ops import attention as port_attention
 from seld_tpu_torch.ops import flash_attention as port_flash
-from tests.test_torch_model import ATOL, RTOL, randomize
+from tests.test_torch_model import ATOL, RTOL, one_torch_thread, randomize  # noqa: F401
 
 B, H, DH = 1, 2, 32
 LENGTHS = (130, 250, 640)  # ragged in one TPU block, the default window, two blocks

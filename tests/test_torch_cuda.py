@@ -1,4 +1,4 @@
-"""Kernels K1, K2 and K3 and the port's CUDA guards, on an NVIDIA card.
+"""Kernels K1, K2, K3 and K4 and the port's CUDA guards, on an NVIDIA card.
 
 This file imports neither JAX nor seld_tpu, so it runs where only PyTorch
 is installed; the repo's conftest.py needs JAX, so skip it there:
@@ -22,6 +22,11 @@ from seld_tpu_torch.ops.attention import (
 from seld_tpu_torch.ops.flash_attention import flash_attention, flash_attention_reference
 from seld_tpu_torch.ops.loss_cuda import grid_loss_terms, grid_loss_terms_reference
 from seld_tpu_torch.ops.mel_cuda import log_mel_frames, log_mel_frames_reference
+from seld_tpu_torch.ops.spatial_cuda import (
+    MAX_LAUNCH_FRAMES,
+    spatial_features,
+    spatial_features_reference,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -297,3 +302,105 @@ def test_loss_auto_goes_through_k2_on_card_and_fused_true_needs_it(cuda_device):
         torch.testing.assert_close(g_auto, g_plain, rtol=2e-4, atol=1e-9)
     with pytest.raises(ValueError, match="CUDA"):
         fn.from_bitmask(logits.detach().cpu(), mask.reshape(2, 5, G).cpu(), fused=True)
+
+
+# K4 against its plain version: float32 FMA in the kernel's order against
+# cuBLAS's float32 GEMMs. The JAX package holds its spatial kernel to
+# 5e-3 dB on the mel planes and 1e-4 on the IV and GCC planes.
+K4_SETS = ("mel", "mel_iv", "mel_gcc")
+
+
+def _k4_check(got, want):
+    torch.testing.assert_close(got[:, :4], want[:, :4], atol=DB_ATOL, rtol=0)
+    torch.testing.assert_close(got[:, 4:], want[:, 4:], atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("feature_set", K4_SETS)
+@pytest.mark.parametrize("t", [1, 37, 3001])
+def test_k4_matches_plain_on_card(cuda_device, feature_set, t):
+    g = torch.Generator(device=cuda_device).manual_seed(t)
+    frames = torch.randn((4, t, NFFT), generator=g, device=cuda_device)
+    before = spatial_features.launches
+    got = spatial_features(frames, feature_set)
+    torch.cuda.synchronize()
+    assert spatial_features.launches == before + 1
+    assert got.shape == (t, {"mel": 4, "mel_iv": 7, "mel_gcc": 10}[feature_set], 64)
+    _k4_check(got, spatial_features_reference(frames, feature_set))
+
+
+@pytest.mark.parametrize("feature_set", K4_SETS)
+def test_k4_silence_is_finite_on_card(cuda_device, feature_set):
+    got = spatial_features(torch.zeros((4, 20, NFFT), device=cuda_device), feature_set)
+    torch.testing.assert_close(got[:, :4], torch.full_like(got[:, :4], -100.0),
+                               atol=1e-4, rtol=0)
+    assert torch.equal(got[:, 4:], torch.zeros_like(got[:, 4:]))
+
+
+def test_k4_chunks_long_inputs_and_fewer_mels_on_card(cuda_device):
+    t = MAX_LAUNCH_FRAMES + 5
+    frames = torch.randn((4, t, NFFT), device=cuda_device)
+    before = spatial_features.launches
+    got = spatial_features(frames, "mel_gcc")
+    assert spatial_features.launches == before + 2
+    _k4_check(got, spatial_features_reference(frames, "mel_gcc"))
+    small = frames[:, :50].contiguous()
+    _k4_check(spatial_features(small, "mel_iv", n_mels=40),
+              spatial_features_reference(small, "mel_iv", n_mels=40))
+
+
+def test_k4_is_bit_reproducible_on_card(cuda_device):
+    frames = torch.randn((4, 300, NFFT), device=cuda_device)
+    for feature_set in K4_SETS:
+        assert torch.equal(spatial_features(frames, feature_set),
+                           spatial_features(frames, feature_set))
+
+
+@pytest.mark.parametrize("make,err", [
+    (lambda d: torch.zeros((4, 8, NFFT), dtype=torch.float64, device=d), TypeError),
+    (lambda d: torch.zeros((8, 4, NFFT), device=d).transpose(0, 1), ValueError),
+    (lambda d: torch.zeros((3, 8, NFFT), device=d), ValueError),
+    (lambda d: torch.zeros((4 * 8 * NFFT + 1,), device=d)[1:].view(4, 8, NFFT), ValueError),
+])
+def test_k4_rejects_what_it_cannot_take(cuda_device, make, err):
+    before = spatial_features.launches
+    with pytest.raises(err):
+        spatial_features(make(cuda_device), "mel_iv")
+    with pytest.raises(ValueError, match="feature_set"):
+        spatial_features(torch.zeros((4, 8, NFFT), device=cuda_device), "mel_xyz")
+    with pytest.raises(ValueError, match="at most 64"):
+        spatial_features(torch.zeros((4, 8, NFFT), device=cuda_device), "mel", n_mels=65)
+    assert spatial_features.launches == before
+
+
+def test_k4_commutes_with_acs_on_card(cuda_device):
+    """Each channel goes through the same arithmetic, so a signed
+    permutation of the audio channels permutes and signs K4's planes:
+    audio-side transform then K4 equals K4 then the feature-side one."""
+    from seld_tpu_torch.features.acs import N_TRANSFORMS, acs_tables, audio_channel_transform
+
+    frames = torch.randn((4, 200, NFFT), device=cuda_device)
+    _, ch_perm, ch_sign = acs_tables(18, 36)
+    base = spatial_features(frames, "mel_iv")
+    for t in range(N_TRANSFORMS):
+        perm, sign = audio_channel_transform(t)
+        audio_t = (torch.from_numpy(sign).to(cuda_device)[:, None, None]
+                   * frames[torch.from_numpy(perm).to(cuda_device)]).contiguous()
+        got = (torch.from_numpy(ch_sign[t]).to(cuda_device)[None, :, None]
+               * base[:, torch.from_numpy(ch_perm[t]).long().to(cuda_device)])
+        torch.testing.assert_close(got, spatial_features(audio_t, "mel_iv"), atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("feature_set", ["mel_iv", "mel_gcc"])
+def test_spatial_features_of_a_clip_launch_k4_once_on_card(cuda_device, feature_set):
+    import numpy as np
+
+    from seld_tpu_torch.config import FeatureConfig
+    from seld_tpu_torch.data.corpus import compute_mel_features
+
+    wave = (0.1 * np.random.default_rng(0).standard_normal((4, 60 * 24_000))).astype(np.float32)
+    before = (spatial_features.launches, log_mel_frames.launches)
+    feats = compute_mel_features(wave, FeatureConfig(feature_set=feature_set), cuda_device)
+    torch.cuda.synchronize()
+    assert (spatial_features.launches, log_mel_frames.launches) == (before[0] + 1, before[1])
+    assert feats.shape == (3001, 7 if feature_set == "mel_iv" else 10, 64)
+    assert bool(torch.isfinite(feats).all())

@@ -22,6 +22,7 @@ from seld_tpu_torch.data.corpus import build_corpus
 from seld_tpu_torch.data.discovery import discover_files
 from seld_tpu_torch.data.sampler import BatchIterator as PortBatchIterator
 from seld_tpu_torch.data.sampler import device_prefetch, place_batch
+from tests.test_torch_model import one_torch_thread  # noqa: F401 (autouse)
 
 OVERRIDES = ["window.window_seconds=1.0", "window.hop_seconds=0.5"]
 DB_ATOL = 5e-3

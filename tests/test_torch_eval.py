@@ -37,6 +37,7 @@ from seld_tpu_torch.train import completion
 from seld_tpu_torch.train.checkpoint import CheckpointManager, checkpoint_file
 from seld_tpu_torch.train.steps import make_metric_eval_step
 from seld_tpu_torch.train.trainer import train_model
+from tests.test_torch_model import one_torch_thread  # noqa: F401 (autouse)
 
 # --- metrics: the same grids through both packages ------------------------
 

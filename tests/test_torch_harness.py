@@ -1,7 +1,7 @@
 """Ground rules of the PyTorch port: it imports neither JAX nor seld_tpu,
 its entry points refuse to run without a CUDA device unless the caller
-asks for the CPU, kernel K1's wrapper checks its input and takes the
-plain version only for CPU tensors, and attention has no unported case
+asks for the CPU, kernels K1's and K4's wrappers check their input and take
+the plain version only for CPU tensors, and attention has no unported case
 and no library kernel behind it."""
 
 import re
@@ -20,6 +20,7 @@ from seld_tpu_torch.data.corpus import compute_mel_features
 from seld_tpu_torch.infer import SELDPredictor
 from seld_tpu_torch.models import build_model
 from seld_tpu_torch.ops import mel_cuda
+from tests.test_torch_model import one_torch_thread  # noqa: F401 (autouse)
 
 ROOT = Path(__file__).resolve().parent.parent
 FORBIDDEN = re.compile(
@@ -35,7 +36,10 @@ def test_import_leaves_jax_and_seld_tpu_out():
         "seld_tpu_torch.convert, seld_tpu_torch.train.trainer, "
         "seld_tpu_torch.data.synthetic, seld_tpu_torch.data.discovery, "
         "seld_tpu_torch.eval, seld_tpu_torch.eval.metrics, "
-        "seld_tpu_torch.train.completion, seld_tpu_torch.ops.flash_attention\n"
+        "seld_tpu_torch.train.completion, seld_tpu_torch.ops.flash_attention, "
+        "seld_tpu_torch.ops.spatial_cuda, seld_tpu_torch.features.acs, "
+        "seld_tpu_torch.features.specaugment, seld_tpu_torch.targets.gaussian, "
+        "seld_tpu_torch.data.cache\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'seld_tpu'))\n"
         "print(bad)\n"
@@ -142,6 +146,25 @@ def test_training_entry_points_raise_without_cuda(no_cuda, tmp_path):
     with pytest.raises(RuntimeError, match="CUDA"):
         port_main(["train", "--synthetic", f"data.base_path={tmp_path}"])
     assert not list(tmp_path.iterdir())  # the device check comes first
+
+
+def test_spatial_entry_points_raise_without_cuda(no_cuda, tmp_path):
+    from seld_tpu_torch.data.cache import cached_build_corpus
+
+    cfg = Config()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        compute_mel_features(np.zeros((4, 4800), np.float32), FeatureConfig(feature_set="mel_iv"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cached_build_corpus([], [], cfg.features, cfg.grid, cfg.window, cfg.targets,
+                            cache_dir=str(tmp_path / "cache"))
+    assert not list(tmp_path.iterdir())  # the device check comes first
+
+
+def test_k4_wrapper_refuses_other_devices():
+    from seld_tpu_torch.ops.spatial_cuda import spatial_features
+
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        spatial_features(torch.zeros((4, 8, 960), device="meta"), "mel_iv")
 
 
 def test_cpu_is_served_when_named(tmp_path):

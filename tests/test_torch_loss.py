@@ -21,6 +21,7 @@ from seld_tpu_torch.losses import SELDLossFn as PortLossFn
 from seld_tpu_torch.losses import seld_loss as port_losses
 from seld_tpu_torch.ops import loss_cuda
 from seld_tpu_torch.targets import rasterize as port_raster
+from tests.test_torch_model import one_torch_thread  # noqa: F401 (autouse)
 
 VALUE_TOL = dict(rtol=1e-5, atol=1e-7)
 GRAD_TOL = dict(rtol=2e-4, atol=1e-6)

@@ -1,7 +1,8 @@
 """The port's log-mel front-end against seld_tpu's: kernel K1's plain
 version (the arithmetic the CUDA kernel does, run on the CPU) against the
 Pallas kernel in interpret mode and the rFFT oracle, and the corpus
-entry point against seld_tpu.data.corpus.compute_mel_features."""
+entry point against seld_tpu.data.corpus.compute_mel_features; the
+spatial feature sets route to K4 (tests/test_torch_spatial.py holds K4)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -16,6 +17,7 @@ from seld_tpu_torch.config import FeatureConfig as PortFeatureConfig
 from seld_tpu_torch.data.corpus import compute_mel_features
 from seld_tpu_torch.features import mel as port_mel
 from seld_tpu_torch.ops.mel_cuda import log_mel_frames, log_mel_frames_reference
+from tests.test_torch_model import one_torch_thread  # noqa: F401 (autouse)
 
 SR, NFFT, HOP, NMELS = 24_000, 960, 480, 64
 # tests/test_pallas_kernels.py's bar for the fused mel kernel: a windowed
@@ -82,8 +84,18 @@ def test_compute_mel_features_matches_jax():
     np.testing.assert_allclose(got, want, atol=DB_ATOL)
 
 
-def test_spatial_feature_sets_name_their_kernel():
-    with pytest.raises(NotImplementedError, match="K4"):
-        compute_mel_features(np.zeros((4, SR), np.float32),
-                             PortFeatureConfig(feature_set="mel_iv"), device="cpu")
+def test_spatial_feature_sets_name_their_kernel(monkeypatch):
+    """mel_iv and mel_gcc go through K4's wrapper (its plain version on the
+    CPU), never through K1."""
+    from seld_tpu_torch.data import corpus as port_corpus
+
+    calls = []
+    real = port_corpus.spatial_features
+    monkeypatch.setattr(port_corpus, "spatial_features",
+                        lambda frames, fs, **kw: calls.append(fs) or real(frames, fs, **kw))
+    monkeypatch.setattr(port_corpus, "log_mel_frames", None)  # K1 must not be reached
+    for feature_set, channels in (("mel_iv", 7), ("mel_gcc", 10)):
+        got = compute_mel_features(np.zeros((4, SR), np.float32),
+                                   PortFeatureConfig(feature_set=feature_set), device="cpu")
+        assert calls[-1] == feature_set and got.shape == (1 + SR // HOP, channels, NMELS)
 

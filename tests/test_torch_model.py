@@ -23,6 +23,20 @@ SMALL = dict(resnet_conf_d_model=64, resnet_conf_n_heads=4,
 ATOL, RTOL = 5e-4, 1e-3
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Run a module's torch ops on one intra-op thread. The port's CPU
+    tests use small shapes, which torch's threads barely speed up, and
+    under pytest-xdist every worker's threads contend for the same cores:
+    a six-worker run of the port's test files took 3x as long with
+    torch's default thread count. Modules that import this fixture get it
+    too."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def randomize(variables, seed=0):
     """numpy copy of flax variables with random norm scales and biases
     and BatchNorm statistics (mean N(0, 0.05), var U(0.5, 1.5)), so that

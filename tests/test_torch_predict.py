@@ -22,6 +22,7 @@ from seld_tpu_torch.convert import state_dict_from_jax
 from seld_tpu_torch.data.corpus import compute_mel_features
 from seld_tpu_torch.infer import SELDPredictor
 from seld_tpu_torch.train.checkpoint import save_checkpoint
+from tests.test_torch_model import one_torch_thread  # noqa: F401 (autouse)
 
 SR = 24_000
 BATCH = 4

@@ -1,0 +1,285 @@
+"""The port's spatial front-end against seld_tpu's: kernel K4's plain
+version (the arithmetic the CUDA kernel does, on the CPU) against the
+Pallas kernel in interpret mode and the rFFT oracle, the port's own rFFT
+oracle, the corpus entry point for "mel_iv" and "mel_gcc", and the slice
+as a whole: a small "mel_iv" flagship with the same weights, fed the same
+features and served from the same waveform."""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from seld_tpu.config import Config, FeatureConfig, ModelConfig, WindowConfig
+from seld_tpu.data.corpus import compute_mel_features as jax_compute_mel_features
+from seld_tpu.features.spatial import extract_feature_frames as jax_extract
+from seld_tpu.features.spatial import feature_channels as jax_feature_channels
+from seld_tpu.models import build_model
+from seld_tpu.ops.spatial_pallas import _constants as jax_constants
+from seld_tpu.ops.spatial_pallas import spatial_features_pallas
+from seld_tpu_torch.config import FeatureConfig as PortFeatureConfig
+from seld_tpu_torch.config import ModelConfig as PortModelConfig
+from seld_tpu_torch.config import config_from_dict
+from seld_tpu_torch.convert import state_dict_from_jax
+from seld_tpu_torch.data.corpus import compute_mel_features
+from seld_tpu_torch.features import spatial as port_spatial
+from seld_tpu_torch.features.mel import frame_signal
+from seld_tpu_torch.infer import SELDPredictor
+from seld_tpu_torch.models import build_model as build_port_model
+from seld_tpu_torch.ops import spatial_cuda
+from seld_tpu_torch.ops.spatial_cuda import (
+    spatial_constants,
+    spatial_features,
+    spatial_features_reference,
+)
+from seld_tpu_torch.train.checkpoint import save_checkpoint
+from tests.test_torch_model import one_torch_thread  # noqa: F401 (autouse)
+
+SR, NFFT, HOP, NMELS = 24_000, 960, 480, 64
+SETS = ("mel", "mel_iv", "mel_gcc")
+# tests/test_pallas_kernels.py's bars for the fused spatial kernel: the mel
+# planes in dB as for K1, the intensity-vector and GCC planes in [-1, 1]
+DB_ATOL, PLANE_ATOL = 5e-3, 1e-4
+# the flagship's bar (tests/test_torch_model.py): float32 in another order
+ATOL, RTOL = 5e-4, 1e-3
+MARGIN = 1e-3  # argmax decisions may differ only inside this top-2 margin
+
+
+def _assert_features_close(got, want):
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got[:, :4], want[:, :4], atol=DB_ATOL, rtol=0)
+    np.testing.assert_allclose(got[:, 4:], want[:, 4:], atol=PLANE_ATOL, rtol=0)
+
+
+@pytest.fixture(scope="module")
+def frames():
+    return np.random.default_rng(0).standard_normal((4, 37, NFFT)).astype(np.float32)
+
+
+@pytest.mark.parametrize("feature_set", SETS)
+@pytest.mark.parametrize("n_audio", [2, 4])
+def test_feature_channels_match_jax(feature_set, n_audio):
+    assert (port_spatial.feature_channels(feature_set, n_audio)
+            == jax_feature_channels(feature_set, n_audio))
+    assert port_spatial.FEATURE_CHANNELS[feature_set] == jax_feature_channels(feature_set)
+
+
+def test_unknown_feature_set_raises():
+    with pytest.raises(ValueError, match="unknown feature_set"):
+        port_spatial.feature_channels("mel_xyz")
+    with pytest.raises(ValueError, match="unknown feature_set"):
+        compute_mel_features(np.zeros((4, 960), np.float32),
+                             PortFeatureConfig(feature_set="mel_xyz"), device="cpu")
+
+
+def test_constants_match_jax():
+    got = [c.numpy() for c in spatial_constants(NFFT, NMELS, SR, torch.device("cpu"))]
+    want = jax_constants(NFFT, NMELS, SR)
+    assert got[0].shape == (NFFT, 512) and got[2].shape == (512, 64)
+    for g, w in zip(got[:2], want[:2]):  # DFT bases: the same bins, padded alike
+        np.testing.assert_array_equal(g, w)
+    for g, w in zip(got[2:], want[2:]):  # projections: the TPU pads columns to 128
+        np.testing.assert_array_equal(g, w[:, :64])
+        assert not w[:, 64:].any()
+
+
+@pytest.mark.parametrize("feature_set", SETS)
+def test_plain_k4_matches_pallas_interpret(frames, feature_set):
+    got = spatial_features(torch.from_numpy(frames), feature_set).numpy()
+    want = np.asarray(spatial_features_pallas(jnp.asarray(frames), feature_set,
+                                              interpret=True))
+    _assert_features_close(got, want)
+
+
+@pytest.mark.parametrize("feature_set", SETS)
+def test_plain_k4_matches_jax_oracle(frames, feature_set):
+    got = spatial_features_reference(torch.from_numpy(frames), feature_set).numpy()
+    want = np.asarray(jax_extract(jnp.asarray(frames), feature_set, NFFT, NMELS, SR))
+    _assert_features_close(got, want)
+
+
+@pytest.mark.parametrize("feature_set", SETS)
+def test_port_oracle_matches_jax_oracle(frames, feature_set):
+    got = port_spatial.extract_feature_frames(torch.from_numpy(frames), feature_set,
+                                              NFFT, NMELS, SR).numpy()
+    want = np.asarray(jax_extract(jnp.asarray(frames), feature_set, NFFT, NMELS, SR))
+    _assert_features_close(got, want)
+
+
+@pytest.mark.parametrize("feature_set", SETS)
+def test_plain_k4_on_silence_is_finite(feature_set):
+    got = spatial_features(torch.zeros((4, 5, NFFT)), feature_set).numpy()
+    np.testing.assert_allclose(got[:, :4], -100.0, atol=1e-4)  # 10*log10(1e-10)
+    assert np.isfinite(got).all() and not got[:, 4:].any()
+
+
+def test_plain_k4_fewer_mels_matches_pallas(frames):
+    got = spatial_features(torch.from_numpy(frames), "mel_gcc", n_mels=40).numpy()
+    want = np.asarray(spatial_features_pallas(jnp.asarray(frames), "mel_gcc", n_mels=40,
+                                              interpret=True))
+    assert got.shape == (37, 10, 40)
+    _assert_features_close(got, want)
+
+
+def test_gcc_lag_peak_of_a_delayed_channel():
+    """tests/test_pallas_kernels.py's construction: channel 1 is channel 0
+    delayed by 7 samples, so the pair (0, 1) peaks at lag +7."""
+    rng = np.random.default_rng(0)
+    n, delay = SR // 2, 7
+    base = rng.standard_normal(n + 64).astype(np.float32)
+    wave = np.stack([base[64:64 + n], base[64 - delay:64 - delay + n],
+                     rng.standard_normal(n).astype(np.float32),
+                     rng.standard_normal(n).astype(np.float32)])
+    framed = frame_signal(torch.from_numpy(wave), NFFT, HOP).contiguous()
+    for out in (spatial_features(framed, "mel_gcc"),
+                port_spatial.extract_feature_frames(framed, "mel_gcc", NFFT, NMELS, SR)):
+        assert int(out[:, 4].mean(dim=0).argmax()) == 32 + delay
+
+
+@pytest.mark.parametrize("make,err", [
+    (lambda: torch.zeros((4, 8, NFFT), dtype=torch.float64), TypeError),
+    (lambda: torch.zeros((3, 8, NFFT)), ValueError),  # not 4 channels
+    (lambda: torch.zeros((8, NFFT)), ValueError),  # wrong rank
+    (lambda: torch.zeros((8, 4, NFFT)).transpose(0, 1), ValueError),  # not contiguous
+    (lambda: torch.zeros((4, 8, 950)), ValueError),  # n_fft not a multiple of 16
+])
+def test_k4_wrapper_checks_cpu_input(make, err):
+    with pytest.raises(err):
+        spatial_features(make(), "mel_iv")
+
+
+def test_k4_wrapper_takes_plain_version_for_cpu_tensors(monkeypatch):
+    calls = []
+    plain = spatial_cuda.spatial_features_reference
+
+    def spy(*args, **kwargs):
+        calls.append(tuple(args[0].shape))
+        return plain(*args, **kwargs)
+
+    monkeypatch.setattr(spatial_cuda, "spatial_features_reference", spy)
+    before = spatial_features.launches
+    out = spatial_features(torch.zeros((4, 5, NFFT)), "mel_gcc")
+    assert calls == [(4, 5, NFFT)] and out.shape == (5, 10, 64)
+    assert spatial_features.launches == before  # no kernel launched
+
+
+@pytest.mark.parametrize("feature_set", ["mel_iv", "mel_gcc"])
+def test_compute_mel_features_matches_jax(feature_set):
+    wave = (0.1 * np.random.default_rng(2).standard_normal((4, SR // 2))).astype(np.float32)
+    want = jax_compute_mel_features(wave, FeatureConfig(feature_set=feature_set))
+    got = compute_mel_features(wave, PortFeatureConfig(feature_set=feature_set),
+                               device="cpu").numpy()
+    assert got.shape == (1 + SR // 2 // HOP, jax_feature_channels(feature_set), NMELS)
+    _assert_features_close(got, want)
+
+
+# --- the slice as a whole: a small mel_iv flagship ------------------------
+
+SMALL = dict(resnet_conf_d_model=16, resnet_conf_n_heads=2, resnet_conf_n_layers=1,
+             compute_dtype="float32")
+
+
+def _random_variables(model, x0, seed=0):
+    """numpy variables of the JAX model for input x0, drawn from a seed:
+    the tree's shapes from jax.eval_shape (no init compile), kernels from
+    N(0, 1/fan_in), random norm scales and biases and BatchNorm statistics,
+    so that a layout mistake cannot hide behind the 0/1 init and the
+    decoded grid holds many classes."""
+    key = jax.random.PRNGKey(seed)
+    shapes = jax.eval_shape(lambda: model.init({"params": key, "dropout": key}, x0,
+                                               train=False))
+    rng = np.random.default_rng(seed)
+
+    def draw(path, x):
+        keys = [getattr(p, "key", str(p)) for p in path]
+        if keys[0] == "batch_stats":
+            if keys[-1] == "mean":
+                return rng.normal(0, 0.05, x.shape).astype(np.float32)
+            return rng.uniform(0.5, 1.5, x.shape).astype(np.float32)
+        if keys[-1] == "scale":
+            return rng.uniform(0.5, 1.5, x.shape).astype(np.float32)
+        if keys[-1] == "bias":
+            return rng.normal(0, 0.1, x.shape).astype(np.float32)
+        fan_in = x.shape[0] if "logits" in keys else int(np.prod(x.shape[:-1]))
+        return (rng.standard_normal(x.shape) / np.sqrt(fan_in)).astype(np.float32)
+
+    return jax.tree_util.tree_map_with_path(draw, shapes)
+
+
+WIN = 10  # 0.2 s windows
+N_WIN = 6  # a 1 s clip: 51 frames in 6 windows
+
+
+@pytest.fixture(scope="module")
+def iv_flagship():
+    """(JAX config, jitted JAX forward, numpy variables, port model): flax
+    infers the 7-channel stem from a mel_iv input; the port builds it from
+    the count."""
+    cfg = dataclasses.replace(
+        Config(), model=ModelConfig(**SMALL),
+        features=FeatureConfig(feature_set="mel_iv"),
+        window=WindowConfig(window_seconds=0.2, hop_seconds=0.2),
+    )
+    model = build_model(cfg.model, cfg.grid)
+    variables = _random_variables(model, jnp.zeros((N_WIN, WIN, 7, NMELS), jnp.float32))
+    forward = jax.jit(lambda v, x: model.apply(v, x, train=False))
+    port = build_port_model(PortModelConfig(**SMALL), device="cpu", seed=None,
+                            in_channels=7)
+    port.load_state_dict(state_dict_from_jax(variables, PortModelConfig(**SMALL)))
+    return cfg, forward, variables, port
+
+
+@pytest.mark.parametrize("channels", [7, 10])
+def test_wider_stem_kernels_convert(iv_flagship, channels):
+    _, _, variables, _ = iv_flagship
+    kernel = np.random.default_rng(channels).standard_normal((3, 3, channels, 64))
+    variables = jax.tree.map(np.copy, variables)
+    variables["params"]["ResNet50Encoder_0"]["stem"]["kernel"] = kernel.astype(np.float32)
+    port = build_port_model(PortModelConfig(**SMALL), device="cpu", seed=0,
+                            in_channels=channels)
+    assert port.encoder.stem.weight.shape == (64, channels, 3, 3)
+    port.load_state_dict(state_dict_from_jax(variables, PortModelConfig(**SMALL)))
+    np.testing.assert_array_equal(port.encoder.stem.weight.detach().numpy(),
+                                  kernel.astype(np.float32).transpose(3, 2, 0, 1))
+
+
+def test_mel_iv_flagship_logits_match_jax(iv_flagship):
+    _, forward, variables, port = iv_flagship
+    x = np.random.default_rng(1).standard_normal((N_WIN, WIN, 7, NMELS)).astype(np.float32)
+    want = np.asarray(forward(variables, x))
+    with torch.no_grad():
+        got = port(torch.from_numpy(x)).numpy()
+    assert got.shape == want.shape == (N_WIN, WIN, 14, 648)
+    np.testing.assert_allclose(got, want, atol=ATOL, rtol=RTOL)
+
+
+def test_mel_iv_predictor_from_the_waveform_matches_jax(iv_flagship, tmp_path):
+    """A checkpoint stores its config: SELDPredictor rebuilds the 7-channel
+    model from it and computes the features through K4's plain version; the
+    JAX side runs its own features (the jnp oracle) and model on the same
+    window tiling. Grids agree outside the top-2 margin."""
+    from seld_tpu.config import config_to_dict
+
+    cfg, forward, variables, port = iv_flagship
+    port_cfg = config_from_dict(config_to_dict(cfg))
+    save_checkpoint(tmp_path / "iv.pt", port, port_cfg)
+    pred = SELDPredictor(tmp_path / "iv.pt", batch_windows=4, device="cpu")
+    assert pred.model.encoder.stem.weight.shape[1] == 7
+
+    wave = (0.1 * np.random.default_rng(3).standard_normal((4, SR))).astype(np.float32)
+    got = pred.predict_waveform(wave).classes
+    feats = jax_compute_mel_features(wave, cfg.features)  # (51, 7, 64)
+    t = feats.shape[0]
+    assert cfg.window.window_frames(cfg.features) == WIN and -(-t // WIN) == N_WIN
+    padded = np.concatenate([feats, np.zeros((N_WIN * WIN - t, 7, NMELS), np.float32)])
+    logits = np.asarray(forward(variables, padded.reshape(N_WIN, WIN, 7, NMELS)))
+    logits = logits.transpose(0, 1, 3, 2).reshape(N_WIN * WIN, 648, 14)[:t]
+    want = logits.argmax(-1)
+    top2 = np.sort(logits, axis=-1)[..., -2:]
+    clear = (top2[..., 1] - top2[..., 0]) > MARGIN
+    assert got.shape == want.shape == (t, 648)
+    assert len(np.unique(want)) > 3  # many classes, not one
+    np.testing.assert_array_equal(got[clear], want[clear])

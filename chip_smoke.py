@@ -8,9 +8,13 @@ Phases, each of which raises on failure:
   2. build every CUDA kernel from seld_tpu_torch/csrc into build/kernels,
      one nvcc per source, all started together;
   3. kernel K1 against its plain PyTorch version on the card, in float32,
-     at the main path's shape (a 60 s 4-channel clip, N = 12,004 frames),
-     at a ragged N = 37 and on silence; times of the kernel, the plain
-     version and a torch.stft + matmul + log10 chain, and K1's bound;
+     at the main path's frame count (a 60 s 4-channel clip, N = 12,004
+     frames), at a ragged N = 37, on silence, on the main path's input
+     (frame_signal's (4, 3001, 960) view of a reflect-padded seeded 60 s
+     clip, read in place: one launch), at every n_fft the kernel takes and
+     at 40 mels; times of the kernel, the plain version and a torch.stft +
+     matmul + log10 chain, in turns, on contiguous frames and in place,
+     and K1's bound both ways;
      kernel K2 (grid loss, forward and backward) against its plain version
      at one train batch's N = 4,000 rows (M = 14, G = 648), at a ragged
      N = 37, on an all-background mask and on a many-bit mask; times of
@@ -35,9 +39,10 @@ Phases, each of which raises on failure:
      4 blocks, 250-frame windows, bf16) from seeded weights, saved and
      loaded through seld_tpu_torch.train.checkpoint, serving a seeded 60 s
      clip through SELDPredictor.predict_waveform; K1's launch count is
-     reset just before that call and read just after it. Then timed
-     predicts, and one more under torch.profiler for the device's busy
-     share and the kernel time by kernel family;
+     reset just before that call and read just after it (exactly 1). The
+     clip's features hold no framed copy (their peak device memory). Then
+     timed predicts, and one more under torch.profiler for the device's
+     busy share and the kernel time by kernel family;
   5. the model in true float32 (TF32 off) on the card against the CPU on
      one window with the same weights, and the TF32 switches held off
      through a float32 train step's forward and backward;
@@ -183,14 +188,16 @@ def phase_build() -> None:
             print(f"[build] {name}: built already ({_build.library_path(name).name})")
             continue
         print(f"[build] {name}: {info['seconds']:.2f} s")
-        # ptxas names each entry function, then its resources; of K2's and
-        # K3's instantiations only the main path's (M = 14, Dh = 64) are shown
+        # ptxas names each entry function, then its resources; of K1's, K2's
+        # and K3's instantiations only the main path's are shown (n_fft = 960
+        # as R = 15 with float2 loads, M = 14, Dh = 64)
         shown = True
         for line in info["log"].splitlines():
             if "Compiling entry function" in line:
                 shown = (("grid_loss" not in line or "ILi14E" in line)
-                         and ("flash_" not in line or "kernelILi64E" in line))
-                if shown and ("grid_loss" in line or "flash_" in line):
+                         and ("flash_" not in line or "kernelILi64E" in line)
+                         and ("log_mel" not in line or "ILi15ELb1E" in line))
+                if shown and ("grid_loss" in line or "flash_" in line or "log_mel" in line):
                     print(f"[build]   {line.split("'")[1]}:")
             elif shown and ("registers" in line or "spill" in line):
                 print(f"[build]   {line.strip()}")
@@ -207,20 +214,33 @@ def library_log_mel(frames: torch.Tensor, window: torch.Tensor,
     return 10.0 * torch.log10(torch.clamp_min(power.T @ fb, 1e-10))
 
 
-def k1_bound(n: int, n_fft: int, fb: torch.Tensor) -> dict:
+def library_log_mel_padded(padded: torch.Tensor, hop: int, window: torch.Tensor,
+                           fb: torch.Tensor) -> torch.Tensor:
+    """K1's in-place function from PyTorch's own calls: a center=False STFT
+    of the (C, n) reflect-padded waveform -> (C, T, n_mels)."""
+    spec = torch.stft(padded, n_fft=window.shape[0], hop_length=hop, window=window,
+                      center=False, return_complex=True)  # (C, bins, T)
+    power = spec.real.square() + spec.imag.square()
+    return 10.0 * torch.log10(torch.clamp_min(power.transpose(1, 2) @ fb, 1e-10))
+
+
+def k1_bound(n: int, n_fft: int, fb: torch.Tensor, input_bytes: int | None = None) -> dict:
     """The least card time for K1's function on n frames; fb is the
     (n_fft // 2 + 1, n_mels) filterbank of this run.
 
-    Bytes: the frames and the filterbank read once, the log-mel written
-    once. Operations: the least arithmetic that computes the function: the
-    Hann window (n_fft multiplies), a real FFT (2.5 n_fft log2 n_fft, the
-    usual count), the power (3 per bin), the filterbank product over its
-    nonzero entries (2 each) and the dB (3 per mel). K1 itself computes the
-    DFT as GEMMs; `gemm_ms` is the float32 floor of that arithmetic at the
-    real bins and mels, without the kernel's zero padding."""
+    Bytes: the input read once (by default the n frames; for frames read in
+    place, `input_bytes` of the padded waveform they view), the filterbank
+    read once, the log-mel written once. Operations: the least arithmetic
+    that computes the function: the Hann window (n_fft multiplies), a real
+    FFT (2.5 n_fft log2 n_fft, the usual count), the power (3 per bin), the
+    filterbank product over its nonzero entries (2 each) and the dB (3 per
+    mel). `gemm_flops` is the arithmetic of the plain version, the DFT as
+    float32 GEMMs at the real bins and mels, and `gemm_ms` its floor."""
     n_freqs, n_mels = fb.shape
     nnz = int((fb != 0).sum())
-    n_bytes = 4 * (n * n_fft + fb.numel() + n * n_mels)
+    if input_bytes is None:
+        input_bytes = 4 * n * n_fft
+    n_bytes = input_bytes + 4 * (fb.numel() + n * n_mels)
     ops = n * (n_fft + 2.5 * n_fft * math.log2(n_fft) + 3 * n_freqs + 2 * nnz + 3 * n_mels)
     gemm_flops = 2 * n * n_fft * 2 * n_freqs + 2 * n * n_freqs * n_mels
     bytes_ms, ops_ms = n_bytes / HBM_BYTES_PER_S * 1e3, ops / F32_FLOPS * 1e3
@@ -232,60 +252,124 @@ def k1_bound(n: int, n_fft: int, fb: torch.Tensor) -> dict:
     }
 
 
+def k1_check(name: str, got: torch.Tensor, want: torch.Tensor, tol: float = K1_TOL_DB) -> float:
+    err = (got - want).abs().max().item()
+    if not err <= tol:
+        raise AssertionError(f"K1 {name}: max |kernel - reference| {err} dB over {tol}")
+    return err
+
+
 def phase_k1(dev: torch.device) -> dict:
+    import torch.nn.functional as F
+
     from seld_tpu_torch.config import FeatureConfig, ModelConfig
-    from seld_tpu_torch.features.mel import hann_window, mel_filterbank
-    from seld_tpu_torch.ops.mel_cuda import log_mel_frames, log_mel_frames_reference
+    from seld_tpu_torch.features.mel import frame_signal, hann_window, mel_filterbank
+    from seld_tpu_torch.ops.mel_cuda import (
+        KERNEL_N_FFT,
+        log_mel_frames,
+        log_mel_frames_reference,
+    )
 
     feat = FeatureConfig()
-    n_fft, n_mels = feat.n_fft, feat.n_mels
+    n_fft, n_mels, hop, sr = feat.n_fft, feat.n_mels, feat.hop_length, feat.sample_rate
+    channels = ModelConfig().n_channels
+    t_frames = 1 + CLIP_SECONDS * sr // hop
     # the main path's frame count: 4 channels x (1 + 60 s * 50 frames/s)
-    n = ModelConfig().n_channels * (1 + CLIP_SECONDS * feat.sample_rate // feat.hop_length)
+    n = channels * t_frames
     g = torch.Generator(device=dev).manual_seed(0)
     frames = torch.randn((n, n_fft), generator=g, device=dev)
 
+    def constants(nf: int):
+        return (torch.from_numpy(hann_window(nf)).to(dev),
+                torch.from_numpy(mel_filterbank(nf // 2 + 1, n_mels, sr)).to(dev))
+
+    window, fb = constants(n_fft)
     got = log_mel_frames(frames)
     torch.cuda.synchronize()
-    want = log_mel_frames_reference(frames)
-    err = (got - want).abs().max().item()
-    window = torch.from_numpy(hann_window(n_fft)).to(dev)
-    fb = torch.from_numpy(mel_filterbank(n_fft // 2 + 1, n_mels, feat.sample_rate)).to(dev)
-    lib_err = (got - library_log_mel(frames, window, fb)).abs().max().item()
+    err = k1_check(f"N={n}", got, log_mel_frames_reference(frames))
+    lib_err = k1_check(f"N={n} vs stft chain", got, library_log_mel(frames, window, fb))
     print(f"[K1] N={n}: max |kernel - plain| {err:.3e} dB, "
           f"max |kernel - stft chain| {lib_err:.3e} dB (tolerance {K1_TOL_DB})")
-    if not (err <= K1_TOL_DB and lib_err <= K1_TOL_DB):
-        raise AssertionError(f"K1 disagrees: {err} / {lib_err} dB")
 
     ragged = torch.randn((37, n_fft), generator=g, device=dev)
-    r_err = (log_mel_frames(ragged) - log_mel_frames_reference(ragged)).abs().max().item()
+    r_err = k1_check("N=37", log_mel_frames(ragged), log_mel_frames_reference(ragged))
     silence = log_mel_frames(torch.zeros((8, n_fft), device=dev))
-    s_err = (silence + 100.0).abs().max().item()
+    s_err = k1_check("silence", silence, torch.full_like(silence, -100.0), 1e-4)
     torch.cuda.synchronize()
     print(f"[K1] N=37: max |kernel - plain| {r_err:.3e} dB; silence: max |out + 100| {s_err:.3e} dB")
-    if not (r_err <= K1_TOL_DB and s_err <= 1e-4):
-        raise AssertionError(f"K1 ragged/silence check failed: {r_err} / {s_err}")
 
-    k1_ms = kernel_ms(lambda: log_mel_frames(frames))
-    plain_ms = kernel_ms(lambda: log_mel_frames_reference(frames))
-    library_ms = kernel_ms(lambda: library_log_mel(frames, window, fb))
+    # the main path's input: frame_signal's (4, 3001, 960) view of the
+    # reflect-padded seeded 60 s clip, read in place
+    wave = 0.1 * torch.randn((channels, CLIP_SECONDS * sr), generator=g, device=dev)
+    padded = F.pad(wave, (n_fft // 2, n_fft // 2), mode="reflect")
+    view = frame_signal(wave, n_fft, hop)
+    if view.shape != (channels, t_frames, n_fft) or view.is_contiguous():
+        raise AssertionError(f"frame_signal gave {tuple(view.shape)}, contiguous "
+                             f"{view.is_contiguous()}")
+    before = log_mel_frames.launches
+    got_v = log_mel_frames(view)
+    torch.cuda.synchronize()
+    if log_mel_frames.launches != before + 1:
+        raise AssertionError("K1 on the in-place view did not launch exactly once")
+    v_err = k1_check("in-place view", got_v, log_mel_frames_reference(
+        view.reshape(-1, n_fft)).reshape(channels, t_frames, n_mels))
+    v_lib_err = k1_check("in-place view vs stft chain", got_v,
+                         library_log_mel_padded(padded, hop, window, fb))
+    print(f"[K1] in place, view {tuple(view.shape)} strides {view.stride()}: max |kernel - "
+          f"plain on its contiguous copy| {v_err:.3e} dB, max |kernel - stft chain| "
+          f"{v_lib_err:.3e} dB; 1 launch")
+
+    for nf in KERNEL_N_FFT:
+        fr = torch.randn((n, nf), generator=g, device=dev)
+        out = log_mel_frames(fr, n_fft=nf)
+        e_plain = k1_check(f"n_fft={nf}", out, log_mel_frames_reference(fr))
+        e_lib = k1_check(f"n_fft={nf} vs stft chain", out, library_log_mel(fr, *constants(nf)))
+        print(f"[K1] n_fft={nf}, N={n}: max |kernel - plain| {e_plain:.3e} dB, "
+              f"max |kernel - stft chain| {e_lib:.3e} dB")
+    out = log_mel_frames(view, n_mels=40)
+    e40 = k1_check("n_mels=40", out, log_mel_frames_reference(
+        view.reshape(-1, n_fft), n_mels=40).reshape(channels, t_frames, 40))
+    print(f"[K1] n_mels=40 on the in-place view: max |kernel - plain| {e40:.3e} dB")
+    del fr, out
+
+    # times in turns inside this call; each kernel_ms is a mean of 20 launches
+    runs = {
+        "kernel": lambda: log_mel_frames(frames),
+        "plain": lambda: log_mel_frames_reference(frames),
+        "stft chain": lambda: library_log_mel(frames, window, fb),
+        "kernel in place": lambda: log_mel_frames(view),
+        "stft chain in place": lambda: library_log_mel_padded(padded, hop, window, fb),
+    }
+    times = defaultdict(list)
+    for turn in range(3):
+        for name, fn in (runs.items() if turn % 2 == 0 else reversed(runs.items())):
+            times[name].append(kernel_ms(fn))
+    ms = {name: float(np.median(v)) for name, v in times.items()}
+    for name, v in times.items():
+        print(f"[K1] {name:20s} median {ms[name]:.4f} ms of turns "
+              f"{', '.join(f'{t:.4f}' for t in v)}")
     b = k1_bound(n, n_fft, fb)
-    print(f"[K1] kernel {k1_ms:.4f} ms, plain {plain_ms:.4f} ms, stft chain "
-          f"{library_ms:.4f} ms")
+    bv = k1_bound(n, n_fft, fb, input_bytes=padded.numel() * 4)
+    k1_ms = ms["kernel"]
     print(f"[K1] bound {b['bound_ms']:.4f} ms by {b['bound_by']} ({b['bytes'] / 1e6:.2f} MB "
           f"at 3.35 TB/s; {b['ops'] / 1e9:.3f} GFLOP at 67 TFLOP/s f32): kernel at "
-          f"{100 * b['bound_ms'] / k1_ms:.2f} % of it")
-    print(f"[K1] DFT-as-GEMM arithmetic at the real {fb.shape[0]} bins: "
-          f"{b['gemm_flops'] / 1e9:.2f} GFLOP, f32 floor {b['gemm_ms']:.4f} ms; kernel "
-          f"{b['gemm_flops'] / (k1_ms * 1e-3) / 1e12:.2f} TFLOP/s "
-          f"({100 * b['gemm_ms'] / k1_ms:.1f} % of the f32 peak), plain GEMMs "
-          f"{b['gemm_flops'] / (plain_ms * 1e-3) / 1e12:.2f} TFLOP/s")
+          f"{100 * b['bound_ms'] / k1_ms:.2f} % of it, {b['bytes'] / (k1_ms * 1e-3) / 1e12:.2f} "
+          f"TB/s; {ms['stft chain'] / k1_ms:.2f}x the stft chain's speed")
+    print(f"[K1] in place: bound {bv['bound_ms']:.4f} ms by {bv['bound_by']} "
+          f"({bv['bytes'] / 1e6:.2f} MB: {padded.numel() * 4 / 1e6:.2f} MB padded waveform, "
+          f"{4 * n * n_mels / 1e6:.2f} MB out, {4 * fb.numel() / 1e6:.2f} MB filterbank): kernel "
+          f"at {100 * bv['bound_ms'] / ms['kernel in place']:.2f} % of it; "
+          f"{ms['stft chain in place'] / ms['kernel in place']:.2f}x the stft chain's speed")
+    print(f"[K1] plain version: DFT-as-GEMM arithmetic at the real {fb.shape[0]} bins, "
+          f"{b['gemm_flops'] / 1e9:.2f} GFLOP, f32 floor {b['gemm_ms']:.4f} ms; "
+          f"{b['gemm_flops'] / (ms['plain'] * 1e-3) / 1e12:.2f} TFLOP/s")
     return {
         "name": "K1", "route": "cuda",
         "source": "seld_tpu_torch/csrc/mel_kernel.cu",
         "replaces": "seld_tpu/ops/mel_pallas.py:77",
-        "launches": None, "max_abs_err": err, "ms": k1_ms, "plain_ms": plain_ms,
+        "launches": None, "max_abs_err": max(err, v_err), "ms": k1_ms, "plain_ms": ms["plain"],
         "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
-        "library_ms": library_ms,
+        "library_ms": ms["stft chain"],
     }
 
 
@@ -805,8 +889,8 @@ def phase_flagship(dev: torch.device) -> int:
     torch.cuda.synchronize()
     first_ms = (time.perf_counter() - t0) * 1e3
     launches = log_mel_frames.launches
-    if launches < 1:
-        raise AssertionError("the main path did not launch K1")
+    if launches != 1:
+        raise AssertionError(f"the main path launched K1 {launches} times, not once")
 
     t_frames = 1 + CLIP_SECONDS * sr // cfg.features.hop_length
     classes = out.classes
@@ -817,7 +901,23 @@ def phase_flagship(dev: torch.device) -> int:
 
     from seld_tpu_torch.data.corpus import compute_mel_features
 
+    # K1 reads the frames in place: the features' peak memory is the upload,
+    # the padded waveform and two copies of the output; a framed copy of
+    # the clip would add its 46 MB
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     mel = compute_mel_features(wave, cfg.features, dev)
+    torch.cuda.synchronize()
+    feat_mb = (torch.cuda.max_memory_allocated() - base) / 1e6
+    nf = cfg.features.n_fft
+    framed_mb = 4 * wave.shape[0] * t_frames * nf / 1e6
+    in_place_mb = 4 * wave.shape[0] * (2 * wave.shape[1] + nf + 2 * t_frames * mel.shape[-1]) / 1e6
+    print(f"[flagship] compute_mel_features of the {CLIP_SECONDS} s clip: peak {feat_mb:.2f} MB "
+          f"of device memory above the model's ({in_place_mb:.2f} MB without a framed copy, "
+          f"{in_place_mb + framed_mb:.2f} MB with one)")
+    if not feat_mb < in_place_mb + framed_mb / 2:
+        raise AssertionError("compute_mel_features copied the frames")
     n_win = mel.shape[0] // pred.win
     windows = mel[: n_win * pred.win].reshape(n_win, pred.win, *mel.shape[1:])
     for start in range(0, n_win, pred.batch_windows):

@@ -2,13 +2,12 @@
 seld_tpu/data/corpus.py).
 
 Framing is a strided view of the reflect-padded signal on the device.
-For feature_set "mel" the frames go through K1
-(seld_tpu_torch.ops.mel_cuda) in one launch per `_FRAME_CHUNK` frames;
-for "mel_iv" and "mel_gcc" they go through K4
-(seld_tpu_torch.ops.spatial_cuda), one launch per clip of up to
-MAX_LAUNCH_FRAMES frames. Both kernels treat every frame on its own, so
-the chunks only bound device memory: the JAX package's 128/1024/8192
-tiers exist for XLA's static shapes and have no counterpart here.
+For feature_set "mel" K1 (seld_tpu_torch.ops.mel_cuda) reads that view in
+place, in one launch per clip; for "mel_iv" and "mel_gcc" the frames are
+copied and go through K4 (seld_tpu_torch.ops.spatial_cuda), one launch
+per clip of up to MAX_LAUNCH_FRAMES frames. Both kernels treat every
+frame on its own: the JAX package's 128/1024/8192 frame tiers exist for
+XLA's static shapes and have no counterpart here.
 
 A corpus keeps its features and its (T, G) uint16 label bitmasks as numpy
 arrays on the host, concatenated over the files; windows are start
@@ -39,8 +38,6 @@ from seld_tpu_torch.targets.rasterize import (
 
 logger = logging.getLogger(__name__)
 
-_FRAME_CHUNK = 1 << 16  # frames per K1 launch: 250 MB of f32 input
-
 
 def compute_mel_features(wave, feat: FeatureConfig,
                          device: str | torch.device | None = None) -> torch.Tensor:
@@ -61,17 +58,10 @@ def features_from_frames(frames: torch.Tensor, feat: FeatureConfig) -> torch.Ten
     if feat.feature_set != "mel":  # an unknown set raises in spatial_features
         return spatial_features(frames.contiguous(), feat.feature_set, n_mels=feat.n_mels,
                                 sample_rate=feat.sample_rate, amin=feat.amin)
-    c, t, nf = frames.shape
-    flat = frames.reshape(c * t, nf).contiguous()
-    out = torch.cat([
-        log_mel_frames(
-            flat[start:start + _FRAME_CHUNK], n_fft=feat.n_fft,
-            n_mels=feat.n_mels, sample_rate=feat.sample_rate,
-            f_min=feat.f_min, f_max=feat.f_max, amin=feat.amin,
-        )
-        for start in range(0, c * t, _FRAME_CHUNK)
-    ])
-    return out.reshape(c, t, feat.n_mels).transpose(0, 1).contiguous()
+    out = log_mel_frames(frames, n_fft=feat.n_fft, n_mels=feat.n_mels,
+                         sample_rate=feat.sample_rate, f_min=feat.f_min,
+                         f_max=feat.f_max, amin=feat.amin)  # (C, T, n_mels)
+    return out.transpose(0, 1).contiguous()
 
 
 @dataclass

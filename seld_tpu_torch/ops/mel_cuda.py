@@ -1,26 +1,30 @@
 """Kernel K1: STFT frames -> log-mel dB (CUDA C++, csrc/mel_kernel.cu).
 
 Replaces seld_tpu/ops/mel_pallas.py::log_mel_frames_pallas. The kernel
-computes re = frames @ C_re, im = frames @ C_im (Hann window folded into
-the DFT bases), mel = (re^2 + im^2) @ FB and 10*log10(max(mel, amin)),
-keeping the power spectrum on chip. `log_mel_frames` launches it for CUDA
-tensors; for CPU tensors, and only for those, it runs
-`log_mel_frames_reference`, the same arithmetic as three PyTorch GEMMs.
+computes, per frame, the Hann-windowed real FFT as a half-length complex
+FFT in registers (one warp per frame), the power spectrum, its sparse
+mel-filterbank sums and 10*log10(max(mel, amin)), keeping the spectrum
+on chip, and reads the frames in place through their strides.
+`fft_mel_plan` builds the tables it reads. `log_mel_frames` launches it
+for CUDA tensors; for CPU tensors, and only for those, it runs
+`log_mel_frames_reference`, the same function as three PyTorch GEMMs.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from seld_tpu_torch.features.mel import hann_window, mel_filterbank
 
-KERNEL_MELS = 64  # the kernel's filterbank width: n_mels is padded to it
-_BIN_TILE = 64  # the kernel's spectrum chunk: n_bins is padded to it
-_DEPTH_TILE = 16  # the kernel's DFT depth step: n_fft must divide by it
+KERNEL_MELS = 64  # the kernel's largest n_mels (K4's filterbank width)
+KERNEL_N_FFT = (512, 960, 1024, 2048)  # n_fft = 64 R, R in (8, 15, 16, 32)
+_WARP = 32  # lanes of a warp: the kernel's cross-lane FFT length
+_BIN_TILE = 64  # dft_mel_constants pads n_bins to a multiple of it
 
 
 @functools.lru_cache(maxsize=8)
@@ -49,12 +53,112 @@ def dft_mel_constants(n_fft: int, n_mels: int, sample_rate: int,
     return tuple(torch.from_numpy(a).to(device) for a in (c_re, c_im, fb))
 
 
+class FftMelPlan(NamedTuple):
+    """The tables K1's kernel reads, float64 rounded once to float32.
+    With M = n_fft / 2 = 32 R, complex values as trailing (re, im) pairs:
+
+    window:         (n_fft,) periodic Hann window
+    radix:          (16, 2) the per-lane R-point DFT's constants, W_p^j =
+                    exp(-2 pi i j / p): W_R^j for j < R / 2 (R a power of
+                    two), or W_3^1, W_5^1, W_5^2 (R = 15). Always on the
+                    CPU: the kernel takes it by value.
+    lane_twiddles:  (R, 32, 2) W_M^(lane * k2) at [k2, lane]
+    warp_twiddles:  (4, 32, 2) stage s of the cross-lane radix-2 FFT (half
+                    width h = 16 >> s): W_2h^(lane mod h) where lane & h,
+                    else 1
+    split_twiddles: (R, 32, 2) -(i/2) W_n_fft^k at k = r + R bitrev5(lane),
+                    [r, lane]: the real split of the bin lane holds in r
+    bands:          (3, n_mels) int32 first bin, bin count and offset into
+                    `weights` of each mel band
+    weights:        (nnz,) float32 each band's filterbank weights, packed
+    """
+
+    window: torch.Tensor
+    radix: torch.Tensor
+    lane_twiddles: torch.Tensor
+    warp_twiddles: torch.Tensor
+    split_twiddles: torch.Tensor
+    bands: torch.Tensor
+    weights: torch.Tensor
+
+
+def bit_reverse5(v: np.ndarray) -> np.ndarray:
+    """The 5-bit reversal of each entry (0..31)."""
+    return np.array([int(f"{int(x):05b}"[::-1], 2) for x in np.ravel(v)]).reshape(np.shape(v))
+
+
+def _unit(num, den) -> np.ndarray:
+    """exp(-2 pi i num / den) in float64, num reduced mod den."""
+    return np.exp(-2j * np.pi * (np.asarray(num) % den) / den)
+
+
+def _pairs(z: np.ndarray) -> np.ndarray:
+    return np.stack([z.real, z.imag], axis=-1).astype(np.float32)
+
+
+def check_kernel_shape(n_fft: int, n_mels: int) -> None:
+    """Raise ValueError for an n_fft or n_mels the CUDA kernel does not take."""
+    if n_fft not in KERNEL_N_FFT:
+        raise ValueError(f"K1's CUDA kernel takes n_fft in {KERNEL_N_FFT}, got {n_fft}")
+    if not 1 <= n_mels <= KERNEL_MELS:
+        raise ValueError(f"K1's CUDA kernel computes 1 to {KERNEL_MELS} mels, got {n_mels}")
+
+
+@functools.lru_cache(maxsize=8)
+def fft_mel_plan(n_fft: int, n_mels: int, sample_rate: int, f_min: float,
+                 f_max: float | None, device: torch.device) -> FftMelPlan:
+    """K1's tables for one (n_fft, n_mels, filterbank) on `device`, built
+    once per arguments. Callers must not write to them."""
+    check_kernel_shape(n_fft, n_mels)
+    m = n_fft // 2
+    r = m // _WARP
+    lanes = np.arange(_WARP)
+
+    radix = np.zeros(16, np.complex128)
+    if r == 15:
+        radix[:3] = [_unit(1, 3), _unit(1, 5), _unit(2, 5)]
+    else:
+        radix[:r // 2] = _unit(np.arange(r // 2), r)
+    lane_tw = _unit(np.arange(r)[:, None] * lanes[None, :], m)
+    warp_tw = np.ones((4, _WARP), np.complex128)
+    for s in range(4):
+        h = 16 >> s
+        upper = (lanes & h) != 0
+        warp_tw[s, upper] = _unit(lanes[upper] % h, 2 * h)
+    k = np.arange(r)[:, None] + r * bit_reverse5(lanes)[None, :]
+    split_tw = -0.5j * _unit(k, n_fft)
+
+    fb = mel_filterbank(m + 1, n_mels, sample_rate, f_min, f_max)
+    bands = np.zeros((3, n_mels), np.int32)
+    weights = []
+    offset = 0
+    for band in range(n_mels):
+        nz = np.flatnonzero(fb[:, band])
+        first, count = (int(nz[0]), int(nz[-1] - nz[0] + 1)) if nz.size else (0, 0)
+        bands[:, band] = first, count, offset
+        weights.append(fb[first:first + count, band])
+        offset += count
+
+    def dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    return FftMelPlan(
+        window=dev(hann_window(n_fft)),
+        radix=torch.from_numpy(_pairs(radix)),
+        lane_twiddles=dev(_pairs(lane_tw)),
+        warp_twiddles=dev(_pairs(warp_tw)),
+        split_twiddles=dev(_pairs(split_tw)),
+        bands=dev(bands),
+        weights=dev(np.concatenate(weights).astype(np.float32)),
+    )
+
+
 def log_mel_frames_reference(frames: torch.Tensor, n_mels: int = 64,
                              sample_rate: int = 24_000, f_min: float = 0.0,
                              f_max: float | None = None,
                              amin: float = 1e-10) -> torch.Tensor:
     """The plain version of K1: (N, n_fft) f32 -> (N, n_mels) f32 dB,
-    with the kernel's constants, as GEMMs in float32."""
+    the windowed DFT and the filterbank as GEMMs in float32."""
     c_re, c_im, fb = dft_mel_constants(
         frames.shape[1], n_mels, sample_rate, f_min, f_max, frames.device
     )
@@ -67,14 +171,14 @@ def log_mel_frames_reference(frames: torch.Tensor, n_mels: int = 64,
 def _check_frames(frames: torch.Tensor, n_fft: int) -> None:
     if frames.dtype != torch.float32:
         raise TypeError(f"K1 takes float32 frames, got {frames.dtype}")
-    if frames.dim() != 2 or frames.shape[1] != n_fft:
+    if frames.dim() not in (2, 3) or frames.shape[-1] != n_fft:
         raise ValueError(
-            f"K1 takes (N, {n_fft}) frames, got {tuple(frames.shape)}"
+            f"K1 takes (N, {n_fft}) or (C, T, {n_fft}) frames, got {tuple(frames.shape)}"
         )
-    if not frames.is_contiguous():
-        raise ValueError("K1 takes contiguous frames")
-    if n_fft % _DEPTH_TILE:
-        raise ValueError(f"K1 needs n_fft divisible by {_DEPTH_TILE}, got {n_fft}")
+    if frames.stride(-1) != 1:
+        raise ValueError(
+            f"K1 reads frames whose last axis has unit stride, got stride {frames.stride(-1)}"
+        )
 
 
 @functools.cache
@@ -82,9 +186,11 @@ def _kernel():
     from seld_tpu_torch.ops._build import load_library
 
     fn = load_library("mel_kernel").seld_log_mel_frames
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
-        ctypes.c_float, ctypes.c_void_p,
-    ]
+    fn.argtypes = (
+        [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong]
+        + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 7
+        + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p]
+    )
     fn.restype = ctypes.c_int
     return fn
 
@@ -93,36 +199,40 @@ def log_mel_frames(frames: torch.Tensor, n_fft: int = 960, n_mels: int = 64,
                    sample_rate: int = 24_000, f_min: float = 0.0,
                    f_max: float | None = None,
                    amin: float = 1e-10) -> torch.Tensor:
-    """(N, n_fft) float32 contiguous STFT frames -> (N, n_mels) float32
-    log-mel dB.
+    """(N, n_fft) or (C, T, n_fft) float32 STFT frames -> (N, n_mels) or
+    (C, T, n_mels) float32 log-mel dB.
 
-    A CUDA tensor goes through kernel K1 on the current stream (every
-    launch adds one to `log_mel_frames.launches`); a CPU tensor goes
-    through `log_mel_frames_reference`. Anything else raises."""
+    The frames may be any view whose last axis has unit stride, such as
+    `features.mel.frame_signal`'s view of the padded waveform: a CUDA
+    tensor is read in place by kernel K1, in one launch on the current
+    stream (every launch adds one to `log_mel_frames.launches`), for n_fft
+    in KERNEL_N_FFT and up to KERNEL_MELS mels; a CPU tensor goes through
+    `log_mel_frames_reference` at any n_fft. Anything else raises."""
     _check_frames(frames, n_fft)
+    lead = frames.shape[:-1]
     if frames.device.type == "cpu":
         return log_mel_frames_reference(
-            frames, n_mels, sample_rate, f_min, f_max, amin
-        )
+            frames.reshape(-1, n_fft), n_mels, sample_rate, f_min, f_max, amin
+        ).reshape(*lead, n_mels)
     if frames.device.type != "cuda":
         raise ValueError(f"K1 runs on CUDA or CPU tensors, got {frames.device}")
-    if n_mels > KERNEL_MELS:
-        raise ValueError(f"K1 computes at most {KERNEL_MELS} mels, got {n_mels}")
-    if frames.data_ptr() % 16:
-        raise ValueError("K1 needs 16-byte aligned frames")
-    c_re, c_im, fb = dft_mel_constants(
-        n_fft, n_mels, sample_rate, f_min, f_max, frames.device
-    )
-    out = torch.empty((frames.shape[0], n_mels), dtype=torch.float32,
-                      device=frames.device)
-    if frames.shape[0] == 0:
+    check_kernel_shape(n_fft, n_mels)
+    plan = fft_mel_plan(n_fft, n_mels, sample_rate, f_min, f_max, frames.device)
+    out = torch.empty((*lead, n_mels), dtype=torch.float32, device=frames.device)
+    if out.numel() == 0:
         return out
+    if frames.dim() == 2:
+        n_channels, n_frames, channel_stride, frame_stride = 1, lead[0], 0, frames.stride(0)
+    else:
+        (n_channels, n_frames), (channel_stride, frame_stride) = lead, frames.stride()[:2]
     with torch.cuda.device(frames.device):
         stream = torch.cuda.current_stream(frames.device).cuda_stream
         rc = _kernel()(
-            frames.data_ptr(), c_re.data_ptr(), c_im.data_ptr(), fb.data_ptr(),
-            out.data_ptr(), frames.shape[0], n_fft, c_re.shape[1], n_mels,
-            amin, stream,
+            frames.data_ptr(), channel_stride, frame_stride, n_channels, n_frames, n_fft,
+            plan.window.data_ptr(), plan.lane_twiddles.data_ptr(),
+            plan.warp_twiddles.data_ptr(), plan.split_twiddles.data_ptr(),
+            plan.radix.data_ptr(), plan.bands.data_ptr(), plan.weights.data_ptr(),
+            n_mels, amin, out.data_ptr(), stream,
         )
     if rc != 0:
         raise RuntimeError(f"K1 launch failed with CUDA error {rc}")

@@ -44,9 +44,9 @@ def spatial_constants(n_fft: int, n_mels: int, sample_rate: int, device: torch.d
     """(C_re, C_im, FB, FB_norm, LAG_re, LAG_im) float32 on `device`,
     built once per arguments; callers must not write to them.
 
-    C_re, C_im and FB are K1's (mel_cuda.dft_mel_constants): the DFT bases
-    with the n_fft//2 + 1 bins zero-padded to a multiple of 64, and the
-    (n_bins, 64) mel filterbank. FB_norm is FB with its columns divided by
+    C_re, C_im and FB are those of K1's plain version
+    (mel_cuda.dft_mel_constants): the DFT bases with the n_fft//2 + 1 bins
+    zero-padded to a multiple of 64, and the (n_bins, 64) mel filterbank. FB_norm is FB with its columns divided by
     max(column sum, 1e-8); LAG_re/LAG_im, also (n_bins, 64), are the
     inverse one-sided DFT onto lags l - n_mels//2 (weights 1 at bins 0 and
     n_fft/2, else 2, over n_fft). All are zero outside the real bins and

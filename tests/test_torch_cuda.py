@@ -21,7 +21,8 @@ from seld_tpu_torch.ops.attention import (
 )
 from seld_tpu_torch.ops.flash_attention import flash_attention, flash_attention_reference
 from seld_tpu_torch.ops.loss_cuda import grid_loss_terms, grid_loss_terms_reference
-from seld_tpu_torch.ops.mel_cuda import log_mel_frames, log_mel_frames_reference
+from seld_tpu_torch.features.mel import frame_signal
+from seld_tpu_torch.ops.mel_cuda import KERNEL_N_FFT, log_mel_frames, log_mel_frames_reference
 from seld_tpu_torch.ops.spatial_cuda import (
     MAX_LAUNCH_FRAMES,
     spatial_features,
@@ -31,8 +32,8 @@ from seld_tpu_torch.ops.spatial_cuda import (
 pytestmark = pytest.mark.cuda
 
 NFFT = 960
-# float32 FMA in the kernel's order against cuBLAS's float32 GEMMs; the
-# JAX package holds its mel kernel to the same 5e-3 dB
+# a float32 FFT against cuBLAS's float32 DFT GEMMs; the JAX package holds
+# its mel kernel to the same 5e-3 dB
 DB_ATOL = 5e-3
 
 
@@ -56,6 +57,41 @@ def test_k1_matches_plain_on_card(cuda_device, n):
     torch.testing.assert_close(got, log_mel_frames_reference(frames), atol=DB_ATOL, rtol=0)
 
 
+@pytest.mark.parametrize("t", [3001, 37])
+def test_k1_reads_the_padded_waveform_in_place_on_card(cuda_device, t):
+    """frame_signal's (4, T, n_fft) view of the reflect-padded waveform
+    (hop n_fft / 2): one launch, no copy, the plain version's numbers on
+    the contiguous copy of the same frames."""
+    g = torch.Generator(device=cuda_device).manual_seed(t)
+    wave = 0.1 * torch.randn((4, (t - 1) * (NFFT // 2)), generator=g, device=cuda_device)
+    view = frame_signal(wave, NFFT, NFFT // 2)
+    assert view.shape == (4, t, NFFT) and not view.is_contiguous()
+    before = log_mel_frames.launches
+    got = log_mel_frames(view)
+    torch.cuda.synchronize()
+    assert log_mel_frames.launches == before + 1
+    want = log_mel_frames_reference(view.reshape(-1, NFFT)).reshape(4, t, 64)
+    torch.testing.assert_close(got, want, atol=DB_ATOL, rtol=0)
+
+
+def test_k1_reads_unaligned_views_on_card(cuda_device):
+    """Odd strides and an odd start take the kernel's scalar loads."""
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    flat = torch.randn((3 * 9_001,), generator=g, device=cuda_device)[1:]
+    view = flat.as_strided((3, 17, NFFT), (9_001, 479, 1))
+    got = log_mel_frames(view)
+    want = log_mel_frames_reference(view.reshape(-1, NFFT)).reshape(3, 17, 64)
+    torch.testing.assert_close(got, want, atol=DB_ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("n_fft", KERNEL_N_FFT)
+def test_k1_every_n_fft_on_card(cuda_device, n_fft):
+    g = torch.Generator(device=cuda_device).manual_seed(n_fft)
+    frames = torch.randn((300, n_fft), generator=g, device=cuda_device)
+    got = log_mel_frames(frames, n_fft=n_fft)
+    torch.testing.assert_close(got, log_mel_frames_reference(frames), atol=DB_ATOL, rtol=0)
+
+
 def test_k1_silence_on_card(cuda_device):
     got = log_mel_frames(torch.zeros((8, NFFT), device=cuda_device))
     torch.testing.assert_close(got, torch.full_like(got, -100.0), atol=1e-4, rtol=0)
@@ -69,15 +105,16 @@ def test_k1_fewer_mels_on_card(cuda_device):
                                atol=DB_ATOL, rtol=0)
 
 
-@pytest.mark.parametrize("make,err", [
-    (lambda d: torch.zeros((8, NFFT), dtype=torch.float64, device=d), TypeError),
-    (lambda d: torch.zeros((8, 2 * NFFT), device=d)[:, ::2], ValueError),
-    (lambda d: torch.zeros((8 * NFFT + 1,), device=d)[1:].view(8, NFFT), ValueError),
+@pytest.mark.parametrize("make,n_fft,err", [
+    (lambda d: torch.zeros((8, NFFT), dtype=torch.float64, device=d), NFFT, TypeError),
+    (lambda d: torch.zeros((8, 2 * NFFT), device=d)[:, ::2], NFFT, ValueError),
+    (lambda d: torch.zeros((8, 976), device=d), 976, ValueError),  # no plan for 976
+    (lambda d: torch.zeros((2, 2, 8, NFFT), device=d), NFFT, ValueError),
 ])
-def test_k1_rejects_what_it_cannot_take(cuda_device, make, err):
+def test_k1_rejects_what_it_cannot_take(cuda_device, make, n_fft, err):
     before = log_mel_frames.launches
     with pytest.raises(err):
-        log_mel_frames(make(cuda_device))
+        log_mel_frames(make(cuda_device), n_fft=n_fft)
     assert log_mel_frames.launches == before
 
 

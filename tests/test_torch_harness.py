@@ -198,7 +198,7 @@ def test_unported_families_name_their_roadmap_item():
     (torch.zeros((8, 960), dtype=torch.float64), TypeError),
     (torch.zeros((8, 1920))[:, ::2], ValueError),  # not contiguous
     (torch.zeros((8, 950)), ValueError),  # wrong width
-    (torch.zeros((2, 8, 960)), ValueError),  # wrong rank
+    (torch.zeros((2, 2, 8, 960)), ValueError),  # wrong rank
 ])
 def test_k1_wrapper_checks_cpu_input(frames, err):
     with pytest.raises(err):

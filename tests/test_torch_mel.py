@@ -1,8 +1,11 @@
 """The port's log-mel front-end against seld_tpu's: kernel K1's plain
-version (the arithmetic the CUDA kernel does, run on the CPU) against the
-Pallas kernel in interpret mode and the rFFT oracle, and the corpus
-entry point against seld_tpu.data.corpus.compute_mel_features; the
-spatial feature sets route to K4 (tests/test_torch_spatial.py holds K4)."""
+version (the float32 GEMMs its wrapper runs on the CPU) against the Pallas
+kernel in interpret mode and the rFFT oracle; a numpy emulation of the
+CUDA kernel's stage order on the tables of `fft_mel_plan`, against
+numpy's rFFT, the plain version, the Pallas kernel and the JAX rFFT
+oracle at every n_fft the kernel takes; the corpus entry point against
+seld_tpu.data.corpus.compute_mel_features; the spatial feature sets
+route to K4 (tests/test_torch_spatial.py holds K4)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -16,7 +19,14 @@ from seld_tpu.ops.mel_pallas import log_mel_frames_pallas
 from seld_tpu_torch.config import FeatureConfig as PortFeatureConfig
 from seld_tpu_torch.data.corpus import compute_mel_features
 from seld_tpu_torch.features import mel as port_mel
-from seld_tpu_torch.ops.mel_cuda import log_mel_frames, log_mel_frames_reference
+from seld_tpu_torch.ops.mel_cuda import (
+    KERNEL_N_FFT,
+    bit_reverse5,
+    check_kernel_shape,
+    fft_mel_plan,
+    log_mel_frames,
+    log_mel_frames_reference,
+)
 from tests.test_torch_model import one_torch_thread  # noqa: F401 (autouse)
 
 SR, NFFT, HOP, NMELS = 24_000, 960, 480, 64
@@ -99,3 +109,183 @@ def test_spatial_feature_sets_name_their_kernel(monkeypatch):
                                    PortFeatureConfig(feature_set=feature_set), device="cpu")
         assert calls[-1] == feature_set and got.shape == (1 + SR // HOP, channels, NMELS)
 
+
+
+# --- the CUDA kernel's arithmetic, stage by stage, in float32 numpy ------
+
+
+def _complex(table) -> np.ndarray:
+    a = table.numpy()
+    return (a[..., 0] + 1j * a[..., 1]).astype(np.complex64)
+
+
+def _dft3(a0, a1, a2, w):
+    t, d = a1 + a2, a1 - a2
+    m = a0 + w.real * t
+    r = 1j * w.imag * d  # (a1 - a2) * (-i sin(2 pi / 3))
+    return a0 + t, m + r, m - r
+
+
+def _dft5(a, w1, w2):
+    s1, d1 = a[1] + a[4], a[1] - a[4]
+    s2, d2 = a[2] + a[3], a[2] - a[3]
+    c1, c2, n1, n2 = w1.real, w2.real, -w1.imag, -w2.imag
+    p1 = a[0] + c1 * s1 + c2 * s2
+    p2 = a[0] + c2 * s1 + c1 * s2
+    q1 = n1 * d1 + n2 * d2
+    q2 = n2 * d1 - n1 * d2
+    return [a[0] + (s1 + s2), p1 - 1j * q1, p2 - 1j * q2, p2 + 1j * q2, p1 + 1j * q1]
+
+
+def _lane_dft(z: np.ndarray, radix: np.ndarray) -> np.ndarray:
+    """The per-lane R-point DFT over the last axis, as the kernel runs it."""
+    r = z.shape[-1]
+    out = np.empty_like(z)
+    if r == 15:  # prime-factor 3 x 5
+        t = [_dft5([z[..., (5 * n1 + 3 * n2) % 15] for n2 in range(5)], radix[1], radix[2])
+             for n1 in range(3)]
+        for k2 in range(5):
+            for k1, u in enumerate(_dft3(t[0][k2], t[1][k2], t[2][k2], radix[0])):
+                out[..., (10 * k1 + 6 * k2) % 15] = u
+        return out
+    a = [z[..., j] for j in range(r)]
+    h = r // 2
+    while h:  # radix-2 decimation in frequency
+        for b in range(0, r, 2 * h):
+            for i in range(h):
+                u, v = a[b + i], a[b + i + h]
+                a[b + i] = u + v
+                a[b + i + h] = (u - v) * radix[i * (r // (2 * h))] if i else u - v
+        h //= 2
+    bits = r.bit_length() - 1
+    for k in range(r):
+        out[..., k] = a[int(f"{k:0{bits}b}"[::-1], 2)]
+    return out
+
+
+def _emulate_k1(frames: np.ndarray, plan, n_mels: int, amin: float = 1e-10):
+    """(N, n_fft) float32 frames -> (power (N, n_fft/2 + 1), dB (N, n_mels))
+    through the kernel's stages: the packing and window, the lane DFT, the
+    lane twiddles, five cross-lane radix-2 stages, the real split, the
+    sparse mel sums and the log."""
+    n, n_fft = frames.shape
+    m = n_fft // 2
+    r = m // 32
+    lanes = np.arange(32)
+    xw = frames * plan.window.numpy()
+    z = (xw[:, 0::2] + 1j * xw[:, 1::2]).astype(np.complex64)
+    z = z.reshape(n, r, 32).transpose(0, 2, 1)  # [frame, lane, j]: sample pair lane + 32 j
+    z = _lane_dft(z, _complex(plan.radix))
+    z = z * _complex(plan.lane_twiddles).T
+    warp = _complex(plan.warp_twiddles)
+    for s in range(5):
+        h = 16 >> s
+        p = z[:, lanes ^ h]
+        y = np.where(((lanes & h) != 0)[None, :, None], p - z, p + z)
+        z = y * warp[s][:, None] if s < 4 else y
+    k1 = bit_reverse5(lanes)
+    partner = np.empty_like(z)
+    partner[:, :, 0] = z[:, bit_reverse5((32 - k1) % 32), 0]
+    for j in range(1, r):
+        partner[:, :, j] = z[:, lanes ^ 31, r - j]
+    b = np.conj(partner)
+    x = np.float32(0.5) * (z + b) + _complex(plan.split_twiddles).T * (z - b)
+    power = np.empty((n, m + 1), np.float32)
+    power[:, np.arange(r)[None, :] + r * k1[:, None]] = x.real * x.real + x.imag * x.imag
+    power[:, m] = (z[:, 0, 0].real - z[:, 0, 0].imag) ** 2
+    first, count, offset = plan.bands.numpy()
+    w = plan.weights.numpy()
+    mel = np.stack([power[:, f:f + c] @ w[o:o + c] for f, c, o in zip(first, count, offset)], 1)
+    return power, 10.0 * np.log10(np.maximum(mel, np.float32(amin)))
+
+
+def _plan(n_fft, n_mels=NMELS):
+    return fft_mel_plan(n_fft, n_mels, SR, 0.0, None, torch.device("cpu"))
+
+
+@pytest.fixture(scope="module", params=KERNEL_N_FFT)
+def fft_case(request):
+    """A seeded waveform of 12 frames at this n_fft (hop n_fft / 2), its
+    JAX frames and the JAX rFFT oracle's dB."""
+    n_fft = request.param
+    wave = np.random.default_rng(n_fft).standard_normal(6 * n_fft).astype(np.float32)
+    fr = np.array(frame_signal(jnp.asarray(wave), n_fft, n_fft // 2))
+    oracle = np.asarray(log_mel_spectrogram(jnp.asarray(wave), n_fft=n_fft,
+                                            hop_length=n_fft // 2)).T
+    return n_fft, fr, oracle
+
+
+def test_fft_plan_power_matches_numpy_rfft(fft_case):
+    n_fft, fr, _ = fft_case
+    power, _ = _emulate_k1(fr, _plan(n_fft), NMELS)
+    spec = np.fft.rfft(fr.astype(np.float64) * hann_window(n_fft).astype(np.float64), axis=-1)
+    want = spec.real ** 2 + spec.imag ** 2
+    # float32 FFT against float64: 1e-5 of each bin, or of its frame's
+    # mean power where a bin lies near zero
+    np.testing.assert_allclose(power, want, rtol=1e-5,
+                               atol=1e-6 * want.mean(axis=1, keepdims=True).max())
+    assert np.abs(power - want).max() <= 1e-5 * want.max()
+
+
+def test_fft_plan_matches_plain_k1(fft_case):
+    n_fft, fr, _ = fft_case
+    _, got = _emulate_k1(fr, _plan(n_fft), NMELS)
+    want = log_mel_frames_reference(torch.from_numpy(fr)).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-4, rtol=0)
+
+
+def test_fft_plan_matches_pallas_and_jax_oracle(fft_case):
+    n_fft, fr, oracle = fft_case
+    _, got = _emulate_k1(fr, _plan(n_fft), NMELS)
+    assert got.shape == oracle.shape == (fr.shape[0], NMELS)
+    np.testing.assert_allclose(got, oracle, atol=DB_ATOL, rtol=0)
+    if n_fft // 2 + 1 <= 512:  # the Pallas kernel pads the bins to 512 lanes
+        pallas = np.asarray(log_mel_frames_pallas(jnp.asarray(fr), interpret=True))
+        np.testing.assert_allclose(got, pallas, atol=DB_ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("n_mels", [40, 64])
+@pytest.mark.parametrize("n_fft", KERNEL_N_FFT)
+def test_sparse_filterbank_expands_to_mel_filterbank(n_fft, n_mels):
+    plan = _plan(n_fft, n_mels)
+    first, count, offset = plan.bands.numpy()
+    w = plan.weights.numpy()
+    dense = np.zeros((n_fft // 2 + 1, n_mels), np.float32)
+    for band, (f, c, o) in enumerate(zip(first, count, offset)):
+        dense[f:f + c, band] = w[o:o + c]
+    np.testing.assert_array_equal(dense, mel_filterbank(n_fft // 2 + 1, n_mels, SR))
+    assert offset[-1] + count[-1] == w.size <= 2 * (n_fft // 2 + 1)  # a bin in two bands at most
+
+
+@pytest.mark.parametrize("n_fft", KERNEL_N_FFT)
+def test_fft_plan_fewer_mels_and_silence(n_fft):
+    fr = np.random.default_rng(7).standard_normal((5, n_fft)).astype(np.float32)
+    _, got = _emulate_k1(fr, _plan(n_fft, 40), 40)
+    want = log_mel_frames_reference(torch.from_numpy(fr), n_mels=40).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-4, rtol=0)
+    _, silent = _emulate_k1(np.zeros((2, n_fft), np.float32), _plan(n_fft), NMELS)
+    np.testing.assert_allclose(silent, -100.0, atol=1e-4)
+
+
+def test_log_mel_frames_takes_frame_signal_view():
+    """A CPU (C, T, n_fft) view of the padded waveform gives what its
+    contiguous (C * T, n_fft) copy gives, in the view's shape."""
+    wave = torch.from_numpy(
+        (0.1 * np.random.default_rng(3).standard_normal((4, SR // 2))).astype(np.float32))
+    view = port_mel.frame_signal(wave, NFFT, HOP)
+    assert not view.is_contiguous() and view.stride()[1:] == (HOP, 1)
+    got = log_mel_frames(view)
+    want = log_mel_frames(view.contiguous().reshape(-1, NFFT))
+    assert got.shape == (4, 1 + SR // 2 // HOP, NMELS)
+    np.testing.assert_array_equal(got.reshape(-1, NMELS).numpy(), want.numpy())
+
+
+@pytest.mark.parametrize("n_fft,n_mels", [(976, 64), (480, 64), (4096, 64), (960, 65), (960, 0)])
+def test_kernel_shape_check_names_what_the_card_cannot_take(n_fft, n_mels):
+    with pytest.raises(ValueError, match="K1's CUDA kernel"):
+        check_kernel_shape(n_fft, n_mels)
+    for ok in KERNEL_N_FFT:
+        check_kernel_shape(ok, 64)
+    # the CPU path takes any n_fft
+    got = log_mel_frames(torch.zeros((2, 976)), n_fft=976)
+    np.testing.assert_allclose(got.numpy(), -100.0, atol=1e-4)

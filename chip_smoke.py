@@ -6,7 +6,9 @@
 Phases, each of which raises on failure:
   1. the device: its name, and name and power limit from nvidia-smi;
   2. build every CUDA kernel from seld_tpu_torch/csrc into build/kernels,
-     one nvcc per source, all started together;
+     one nvcc per source, all started together; K3's wgmma backward
+     kernels must not spill, and where cuobjdump exists their SASS must
+     hold HGMMA (wgmma) instructions;
   3. kernel K1 against its plain PyTorch version on the card, in float32,
      at the main path's frame count (a 60 s 4-channel clip, N = 12,004
      frames), at a ragged N = 37, on silence, on the main path's input
@@ -25,8 +27,9 @@ Phases, each of which raises on failure:
      (B*H = 128, T = 1000, Dh = 64) in bf16 and float32, at ragged T = 130
      and 513, at T = 64, at Dh = 32 and 128, with keys scaled by 10, always
      on q/k/v strided as the model makes them, two backward runs bit-equal;
-     times of each kernel, the plain version and
-     F.scaled_dot_product_attention, and their operations bounds;
+     the delta that the bf16 dQ kernel forms against row_delta; times of
+     each kernel and of the dQ + dK/dV pair, the plain version and
+     F.scaled_dot_product_attention, their operations bounds and rates;
      kernel K4 (spatial features) against its plain version for "mel",
      "mel_iv" and "mel_gcc" at a 60 s 4-channel clip (T = 3,001 frames),
      at a ragged T = 37 and on silence, and against the rFFT chain of
@@ -190,17 +193,58 @@ def phase_build() -> None:
         print(f"[build] {name}: {info['seconds']:.2f} s")
         # ptxas names each entry function, then its resources; of K1's, K2's
         # and K3's instantiations only the main path's are shown (n_fft = 960
-        # as R = 15 with float2 loads, M = 14, Dh = 64)
-        shown = True
+        # as R = 15 with float2 loads, M = 14, Dh = 64); K3's wgmma backward
+        # kernels must not spill at any width
+        shown, entry = True, ""
         for line in info["log"].splitlines():
             if "Compiling entry function" in line:
+                entry = line.split("'")[1]
                 shown = (("grid_loss" not in line or "ILi14E" in line)
                          and ("flash_" not in line or "kernelILi64E" in line)
                          and ("log_mel" not in line or "ILi15ELb1E" in line))
                 if shown and ("grid_loss" in line or "flash_" in line or "log_mel" in line):
-                    print(f"[build]   {line.split("'")[1]}:")
-            elif shown and ("registers" in line or "spill" in line):
+                    print(f"[build]   {entry}:")
+            elif "spill" in line and "wgmma" in entry:
+                spills = [int(n) for n in re.findall(r"(\d+) bytes spill", line)]
+                if any(spills):
+                    raise AssertionError(f"{entry} spills: {line.strip()}")
+            if shown and ("registers" in line or "spill" in line):
                 print(f"[build]   {line.strip()}")
+    k3_build_report()
+
+
+def k3_build_report() -> None:
+    """K3's wgmma backward kernels at Dh = 64: their dynamic shared memory,
+    and where cuobjdump exists, the count of HGMMA (wgmma) instructions in
+    each one's SASS."""
+    import ctypes
+
+    from seld_tpu_torch.ops import _build
+
+    lib = ctypes.CDLL(str(_build.library_path("flash_attention_kernel")))
+    lib.seld_flash_attention_bwd_smem_bytes.argtypes = [ctypes.c_int]
+    lib.seld_flash_attention_bwd_smem_bytes.restype = ctypes.c_int
+    smem = lib.seld_flash_attention_bwd_smem_bytes(64)
+    print(f"[build] K3 wgmma dQ and dK/dV at Dh = 64: {smem} bytes of dynamic shared memory "
+          f"a block (3 stages of 64-row Q/dO or K/V tiles, 128 owned rows, 1 KB alignment)")
+    beside_nvcc = Path(_build._nvcc()).parent / "cuobjdump"
+    cuobjdump = str(beside_nvcc) if beside_nvcc.exists() else shutil.which("cuobjdump")
+    if cuobjdump is None:
+        print("[build] cuobjdump not found: HGMMA count not shown")
+        return
+    sass = subprocess.run([cuobjdump, "-sass", str(_build.library_path("flash_attention_kernel"))],
+                          capture_output=True, text=True, check=True, timeout=300).stdout
+    counts, fn = defaultdict(int), ""
+    for line in sass.splitlines():
+        found = re.search(r"Function : (\S+)", line)
+        if found:
+            fn = found.group(1)
+        elif "HGMMA" in line and "wgmma_kernelILi64E" in fn:
+            counts["dQ" if "flash_dq_" in fn else "dK/dV"] += 1
+    print(f"[build] HGMMA instructions in the Dh = 64 SASS: dQ {counts['dQ']}, dK/dV "
+          f"{counts['dK/dV']} (per streamed tile: 4 + 4 + 4 and 4 + 4 + 3 x 4)")
+    if not counts["dQ"] or not counts["dK/dV"]:
+        raise AssertionError(f"K3's backward kernels hold no HGMMA: {dict(counts)}")
 
 
 def library_log_mel(frames: torch.Tensor, window: torch.Tensor,
@@ -530,9 +574,10 @@ def k3_bounds(bh: int, t: int, dh: int, dtype: torch.dtype) -> dict:
     Operations: the products each function needs at 2 bh t^2 dh flops apiece:
     forward two (q k^T, p v); dQ three (q k^T, dO v^T, ds k); dK/dV four
     (q k^T, dO v^T, p^T dO, ds^T q); "bwd" is the least for dq, dk and dv
-    together, five (the two passes recompute q k^T and dO v^T, so they do
-    seven). At the dense bf16 tensor-core peak for bf16 inputs, at the
-    float32 FMA peak for float32 ones. Bytes: q, k, v (and dO, lse, delta)
+    together, five (the two passes recompute q k^T and dO v^T, and the bf16
+    dK/dV kernel adds one for p's remainder, so they do eight). At the dense
+    bf16 tensor-core peak for bf16 inputs, at the float32 FMA peak for
+    float32 ones. Bytes: q, k, v (and dO, lse, delta)
     read once, the outputs written once."""
     elem = torch.empty((), dtype=dtype).element_size()
     peak = BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS
@@ -647,19 +692,38 @@ def phase_k3(dev: torch.device) -> list[dict]:
     print("[K3] two forward+backward runs bit-equal in bf16 and float32 (no atomics)")
     del first, second
 
+    # the delta the bf16 dQ kernel forms, against row_delta: the same float32
+    # products summed in another order
+    q, k, v, w = k3_case(dev, b, h, t, dh, torch.bfloat16, seed=7)
+    with torch.no_grad():
+        out, lse = k3.launch_forward(q, k, v, dh ** -0.5)
+        _, delta = k3.launch_dq(q, k, v, w, out, lse, dh ** -0.5)
+        want = k3.row_delta(w, out).view(delta.shape)
+        size = (w.float() * out.float()).abs().sum(-1).view(delta.shape)
+        delta_err = ((delta - want).abs() / size.clamp_min(1e-30)).max().item()
+    if not delta_err <= 1e-5:
+        raise AssertionError(f"K3 dQ kernel's delta off row_delta's by {delta_err} of "
+                             "rowsum|dO out|")
+    print(f"[K3] bf16 delta formed in the dQ kernel against row_delta: {delta_err:.2e} of "
+          f"rowsum(|dO * out|) at most (bound 1e-5)")
+    del q, k, v, w, out, lse, delta, want, size
+
     # times at the main path's shape
     rows = []
+    # products the kernels do: the two passes both recompute q k^T and dO v^T,
+    # and in bf16 dv takes one more for p's remainder
+    own_products = {torch.bfloat16: {"dq": 3, "dkv": 5, "bwd": 8},
+                    torch.float32: {"dq": 3, "dkv": 4, "bwd": 7}}
     for dtype in (torch.bfloat16, torch.float32):
         q, k, v, w = k3_case(dev, b, h, t, dh, dtype, seed=6)
         scale = dh ** -0.5
         tm = {}
         with torch.no_grad():
             out, lse = k3.launch_forward(q, k, v, scale)
-            delta = k3.row_delta(w, out)
+            _, delta = k3.launch_dq(q, k, v, w, out, lse, scale)
             tm["kernel", "fwd"] = kernel_ms(lambda: k3.launch_forward(q, k, v, scale))
-            tm["kernel", "dq"] = kernel_ms(lambda: k3.launch_dq(q, k, v, w, lse, delta, scale))
+            tm["kernel", "dq"] = kernel_ms(lambda: k3.launch_dq(q, k, v, w, out, lse, scale))
             tm["kernel", "dkv"] = kernel_ms(lambda: k3.launch_dkv(q, k, v, w, lse, delta, scale))
-            tm["kernel", "delta"] = kernel_ms(lambda: k3.row_delta(w, out))
             tm["plain", "fwd"] = kernel_ms(lambda: k3.flash_attention_reference(q, k, v))
             tm["library", "fwd"] = kernel_ms(lambda: F.scaled_dot_product_attention(q, k, v))
         leaves = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
@@ -675,27 +739,40 @@ def phase_k3(dev: torch.device) -> list[dict]:
                 tm[name, "dkv"] = kernel_ms(
                     lambda: torch.autograd.grad(o, leaves[1:], w, retain_graph=True))
             del o
+        tm["kernel", "pair"] = tm["kernel", "dq"] + tm["kernel", "dkv"]
         bounds = k3_bounds(b * h, t, dh, dtype)
-        peak = "989 TFLOP/s bf16" if dtype == torch.bfloat16 else "67 TFLOP/s f32 FMA"
-        kind = "bf16" if dtype == torch.bfloat16 else "float32"
-        for part, label in (("fwd", "forward"), ("dq", "dQ"), ("dkv", "dK/dV")):
-            bd, k_ms = bounds[part], tm["kernel", part]
-            lib = tm["library", "fwd" if part == "fwd" else "bwd"]
-            print(f"[K3] {kind} {label} B*H={b * h} T={t} Dh={dh}: kernel {k_ms:.4f} ms, plain "
-                  f"{tm['plain', part]:.4f} ms, scaled_dot_product_attention "
-                  f"{'forward' if part == 'fwd' else 'backward (dq, dk and dv in one call)'} "
-                  f"{lib:.4f} ms; bound {bd['bound_ms']:.4f} ms by {bd['bound_by']} "
-                  f"({bd['ops'] / 1e9:.1f} GFLOP at {peak}; {bd['bytes'] / 1e6:.1f} MB): kernel "
-                  f"at {100 * bd['bound_ms'] / k_ms:.2f} % of it, "
-                  f"{bd['ops'] / (k_ms * 1e-3) / 1e12:.1f} TFLOP/s")
-        bd = bounds["bwd"]
-        both = tm["kernel", "dq"] + tm["kernel", "dkv"]
-        print(f"[K3] {kind} backward as autograd runs it (delta {tm['kernel', 'delta']:.4f} ms + "
-              f"dQ + dK/dV): {tm['kernel', 'bwd']:.4f} ms, plain {tm['plain', 'bwd']:.4f} ms, "
-              f"scaled_dot_product_attention {tm['library', 'bwd']:.4f} ms; the two kernels "
-              f"{both:.4f} ms against the five-product bound {bd['bound_ms']:.4f} ms: "
-              f"{100 * bd['bound_ms'] / both:.2f} % of it")
-        if dtype == torch.bfloat16:
+        bf16 = dtype == torch.bfloat16
+        peak = "989 TFLOP/s bf16" if bf16 else "67 TFLOP/s f32 FMA"
+        peak_rate = BF16_FLOPS if bf16 else F32_FLOPS
+        kind = "bf16" if bf16 else "float32"
+        bd = bounds["fwd"]
+        print(f"[K3] {kind} forward B*H={b * h} T={t} Dh={dh}: kernel {tm['kernel', 'fwd']:.4f} "
+              f"ms, plain {tm['plain', 'fwd']:.4f} ms, scaled_dot_product_attention forward "
+              f"{tm['library', 'fwd']:.4f} ms; bound {bd['bound_ms']:.4f} ms by {bd['bound_by']} "
+              f"({bd['ops'] / 1e9:.1f} GFLOP at {peak}; {bd['bytes'] / 1e6:.1f} MB): kernel at "
+              f"{100 * bd['bound_ms'] / tm['kernel', 'fwd']:.2f} % of it, "
+              f"{bd['ops'] / (tm['kernel', 'fwd'] * 1e-3) / 1e12:.1f} TFLOP/s")
+        for part, label, bound in (("dq", "dQ", "dq"), ("dkv", "dK/dV", "dkv"),
+                                   ("pair", "dQ + dK/dV", "bwd")):
+            bd, k_ms = bounds[bound], tm["kernel", part]
+            own = own_products[dtype][bound] * 2 * b * h * t * t * dh
+            plain = (f"plain {tm['plain', part]:.4f} ms, " if part != "pair" else
+                     f"plain backward {tm['plain', 'bwd']:.4f} ms, ")
+            print(f"[K3] {kind} {label} B*H={b * h} T={t} Dh={dh}: kernel {k_ms:.4f} ms, {plain}"
+                  f"scaled_dot_product_attention backward (dq, dk and dv in one call) "
+                  f"{tm['library', 'bwd']:.4f} ms; the function's bound {bd['bound_ms']:.4f} ms "
+                  f"by {bd['bound_by']} ({bd['ops'] / 1e9:.1f} GFLOP at {peak}): kernel at "
+                  f"{100 * bd['bound_ms'] / k_ms:.2f} % of it, "
+                  f"{bd['ops'] / (k_ms * 1e-3) / 1e12:.1f} TFLOP/s on the function's products, "
+                  f"{own / (k_ms * 1e-3) / 1e12:.1f} TFLOP/s on the kernel's own "
+                  f"({own / 1e9:.1f} GFLOP: {100 * own / peak_rate / (k_ms * 1e-3):.2f} "
+                  f"% of peak)")
+        print(f"[K3] {kind} backward as autograd runs it (dQ + dK/dV"
+              f"{'' if bf16 else ' + row_delta inside dQ'}): {tm['kernel', 'bwd']:.4f} ms, plain "
+              f"{tm['plain', 'bwd']:.4f} ms, scaled_dot_product_attention "
+              f"{tm['library', 'bwd']:.4f} ms: kernels / SDPA "
+              f"{tm['kernel', 'pair'] / tm['library', 'bwd']:.3f}")
+        if bf16:
             for part, line, err in (("fwd", 205, main_err["out"]), ("dq", 105, main_err["dq"]),
                                     ("dkv", 146, max(main_err["dk"], main_err["dv"]))):
                 rows.append({

@@ -6,9 +6,12 @@ attention of (B, H, T, Dh) q, k, v that never writes the (T x T) scores to
 device memory: the forward kernel streams K/V tiles through an online
 softmax and returns `out` and the per-row logsumexp `lse` (B*H, T); the
 backward is two more kernels, dQ (streams K/V) and dK/dV (one block per
-key tile, streams Q/dO), after `delta = rowsum(dO * out)`, which is three
-elementwise torch ops here as it is one XLA pass in the JAX package. The
-kernels are operations-bound; see the source's note.
+128 keys, streams Q/dO). In bf16 the dQ kernel also forms
+`delta = rowsum(dO * out)` of its rows and writes it for dK/dV, so a
+backward is exactly those two launches; in float32 `delta` is
+`row_delta`'s torch ops. The bf16 backward reads q, k, v and dO through
+TMA tensor maps whose geometry `tma_geometry` computes here. The kernels
+are operations-bound; see the source's note.
 
 Layout: the kernels read q, k, v and dO through their batch / head / time
 strides (last dim contiguous, every stride and the base a multiple of 16
@@ -34,6 +37,27 @@ import torch
 
 MAX_HEAD_DIM = 128  # the kernels are instantiated for multiples of 16 up to here
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+TMA_BOX_COLS = 64  # one 128-byte swizzled row of bf16
+
+
+def bwd_box_rows(dh: int) -> int:
+    """Rows of a streamed tile in the bf16 backward: 64, or 32 above Dh = 64
+    (the accumulators of a 128-column head take the registers)."""
+    return 64 if dh <= 64 else 32
+
+
+def tma_geometry(x: torch.Tensor, box_rows: int) -> tuple[int, ...]:
+    """The TMA tensor map of a (B, H, T, Dh) view, as the bf16 backward's
+    host code encodes it: dims innermost first (Dh, T, H, B), the byte
+    strides of T, H and B, and the box (64 columns, box_rows rows; one head
+    and one batch). Columns beyond Dh and rows beyond T in a box read as
+    zeros. A dim of size 1 may have stride 0 in PyTorch; TMA takes strides
+    that are positive multiples of 16 bytes, and the stride of a dim of size
+    1 is never used, so it becomes 16."""
+    b, h, t, dh = x.shape
+    e = x.element_size()
+    sb, sh, st = (s * e if s or n > 1 else 16 for s, n in zip(x.stride()[:3], (b, h, t)))
+    return (dh, t, h, b, st, sh, sb, TMA_BOX_COLS, box_rows)
 
 
 class _RoundCotangent(torch.autograd.Function):
@@ -97,11 +121,13 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
 
 def _kernel_ready(x: torch.Tensor) -> torch.Tensor:
     """x as the kernels address it: unit last stride, batch / head / time
-    strides and the base pointer multiples of 16 bytes. Anything else is
-    copied to a contiguous tensor (counted)."""
+    strides and the base pointer multiples of 16 bytes, no stride 0 on a
+    dim longer than 1 (TMA maps no broadcast). Anything else is copied to a
+    contiguous tensor (counted)."""
     per16 = 16 // x.element_size()
-    if (x.stride(-1) == 1 and all(s % per16 == 0 for s in x.stride()[:-1])
-            and x.data_ptr() % 16 == 0):
+    if (x.stride(-1) == 1 and x.data_ptr() % 16 == 0
+            and all(s % per16 == 0 and (s or n == 1)
+                    for s, n in zip(x.stride()[:-1], x.shape[:-1]))):
         return x
     flash_attention.copies += 1
     return x.contiguous()
@@ -113,9 +139,20 @@ def _empty_bthd(like: torch.Tensor) -> torch.Tensor:
     return torch.empty((b, t, h, dh), dtype=like.dtype, device=like.device).transpose(1, 2)
 
 
+def _longs(values):
+    return (ctypes.c_longlong * len(values))(*values)
+
+
 def _strides(*tensors: torch.Tensor):
-    flat = [s for x in tensors for s in x.stride()[:3]]
-    return (ctypes.c_longlong * len(flat))(*flat)
+    return _longs([s for x in tensors for s in x.stride()[:3]])
+
+
+def _geometry(q, k, v, g):
+    """The bf16 backward's four tensor maps (q, k, v, dO); None in float32."""
+    if q.dtype != torch.bfloat16:
+        return None
+    rows = bwd_box_rows(q.shape[-1])
+    return _longs([n for x in (q, k, v, g) for n in tma_geometry(x, rows)])
 
 
 @functools.cache
@@ -125,10 +162,11 @@ def _kernels():
     lib = load_library("flash_attention_kernel")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     ll = ctypes.POINTER(ctypes.c_longlong)
-    tail = [ll, i, i, i, i, f, i, p]  # strides, B, H, T, Dh, scale, dtype, stream
-    lib.seld_flash_attention_fwd.argtypes = [p] * 5 + tail
-    lib.seld_flash_attention_bwd_dq.argtypes = [p] * 7 + tail
-    lib.seld_flash_attention_bwd_dkv.argtypes = [p] * 8 + tail
+    tail = [i, i, i, i, f, i, p]  # B, H, T, Dh, scale, dtype, stream
+    # pointers, strides, [geometry, [delta_given]], tail
+    lib.seld_flash_attention_fwd.argtypes = [p] * 5 + [ll] + tail
+    lib.seld_flash_attention_bwd_dq.argtypes = [p] * 8 + [ll, ll, i] + tail
+    lib.seld_flash_attention_bwd_dkv.argtypes = [p] * 8 + [ll, ll] + tail
     fns = (lib.seld_flash_attention_fwd, lib.seld_flash_attention_bwd_dq,
            lib.seld_flash_attention_bwd_dkv)
     for fn in fns:
@@ -136,14 +174,18 @@ def _kernels():
     return fns
 
 
-def _launch(which: int, name: str, tensors, strided, scale: float) -> None:
-    """One kernel launch on the current stream of the first tensor's device."""
+def _launch(which: int, name: str, tensors, strided, extra, scale: float) -> None:
+    """One kernel launch on the current stream of the first tensor's device;
+    `extra` goes between the strides and the shape."""
     q = tensors[0]
     # autograd's thread has no current device of its own
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = _kernels()[which](*(x.data_ptr() for x in tensors), _strides(*strided),
+        rc = _kernels()[which](*(x.data_ptr() for x in tensors), _strides(*strided), *extra,
                                *q.shape, scale, _DTYPES[q.dtype], stream)
+    if rc == -1:
+        raise RuntimeError(f"K3 {name}: libcuda refused a TMA tensor map of "
+                           f"{[tuple(x.stride()) for x in strided[:4]]}")
     if rc != 0:
         raise RuntimeError(f"K3 {name} launch failed with CUDA error {rc}")
 
@@ -154,38 +196,56 @@ def launch_forward(q, k, v, scale: float):
     out = _empty_bthd(q)
     lse = torch.empty((b * h, t), dtype=torch.float32, device=q.device)
     if q.numel():
-        _launch(0, "forward", (q, k, v, out, lse), (q, k, v, out), scale)
+        _launch(0, "forward", (q, k, v, out, lse), (q, k, v, out), (), scale)
         flash_attention.fwd_launches += 1
     return out, lse
 
 
-def launch_dq(q, k, v, g, lse, delta, scale: float):
-    """The dQ kernel on kernel-ready CUDA tensors -> dq."""
+def launch_dq(q, k, v, g, out, lse, scale: float, delta=None):
+    """The dQ kernel on kernel-ready CUDA tensors -> (dq, delta).
+
+    delta = rowsum(g * out) of each row, float32 (B*H, T). Without `delta`
+    the bf16 kernel forms it from g and `out` and writes it beside dq (in
+    float32 it is `row_delta`); with it the kernel reads it, as a ring
+    backward does that runs dQ per chunk with the global lse and a local
+    delta."""
+    b, h, t, _ = q.shape
     dq = _empty_bthd(q)
+    given = delta is not None
+    if not given:
+        if q.dtype == torch.bfloat16:
+            delta = torch.empty((b * h, t), dtype=torch.float32, device=q.device)
+        else:
+            delta = row_delta(g, out).view(b * h, t)
     if q.numel():
-        _launch(1, "dQ", (q, k, v, g, lse, delta, dq), (q, k, v, g, dq), scale)
+        _launch(1, "dQ", (q, k, v, g, out, lse, delta, dq), (q, k, v, g, out, dq),
+                (_geometry(q, k, v, g), int(given or q.dtype != torch.bfloat16)), scale)
         flash_attention.bwd_dq_launches += 1
-    return dq
+    return dq, delta
 
 
 def launch_dkv(q, k, v, g, lse, delta, scale: float):
-    """The dK/dV kernel on kernel-ready CUDA tensors -> (dk, dv)."""
+    """The dK/dV kernel on kernel-ready CUDA tensors -> (dk, dv); delta as
+    launch_dq returns it."""
     dk, dv = _empty_bthd(q), _empty_bthd(q)
     if q.numel():
-        _launch(2, "dK/dV", (q, k, v, g, lse, delta, dk, dv), (q, k, v, g, dk, dv), scale)
+        _launch(2, "dK/dV", (q, k, v, g, lse, delta, dk, dv), (q, k, v, g, dk, dv),
+                (_geometry(q, k, v, g),), scale)
         flash_attention.bwd_dkv_launches += 1
     return dk, dv
 
 
 def row_delta(g: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
-    """delta = rowsum(dO * out) in float32, (B, H, T) contiguous."""
+    """delta = rowsum(dO * out) in float32, (B, H, T) contiguous: the plain
+    version of what the bf16 dQ kernel forms."""
     return (g.float() * out.float()).sum(dim=-1).contiguous()
 
 
 class _FlashAttention(torch.autograd.Function):
     """K3 on CUDA tensors: one kernel launch forward, two backward (dQ,
-    then dK/dV; a pass whose gradients nobody needs is skipped). No
-    atomics: the same inputs give the same bits."""
+    which forms delta in bf16, then dK/dV). When dq is not needed the dQ
+    pass is skipped and delta is `row_delta`'s; when neither dk nor dv is,
+    dK/dV is. No atomics: the same inputs give the same bits."""
 
     @staticmethod
     def forward(ctx, q, k, v, scale):
@@ -204,10 +264,11 @@ class _FlashAttention(torch.autograd.Function):
         if g is None or not (need_dq or need_dk or need_dv):
             return None, None, None, None
         g = _kernel_ready(g.to(q.dtype))
-        delta = row_delta(g, out)
         dq = dk = dv = None
         if need_dq:
-            dq = launch_dq(q, k, v, g, lse, delta, ctx.scale)
+            dq, delta = launch_dq(q, k, v, g, out, lse, ctx.scale)
+        else:
+            delta = row_delta(g, out)
         if need_dk or need_dv:
             dk, dv = launch_dkv(q, k, v, g, lse, delta, ctx.scale)
         return dq, dk if need_dk else None, dv if need_dv else None, None

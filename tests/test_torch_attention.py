@@ -35,9 +35,9 @@ FWD_ATOL, LSE_ATOL = 2e-5, 1e-5
 GRAD_TOL = dict(rtol=2e-4, atol=2e-5)
 
 
-def _qkvw(t, seed, key_scale=1.0):
+def _qkvw(t, seed, key_scale=1.0, dh=DH):
     rng = np.random.default_rng(seed)
-    q, k, v, w = (rng.standard_normal((B, H, t, DH)).astype(np.float32) for _ in range(4))
+    q, k, v, w = (rng.standard_normal((B, H, t, dh)).astype(np.float32) for _ in range(4))
     return q, key_scale * k, v, w
 
 
@@ -239,3 +239,273 @@ def test_flagship_matches_jax_flash_path_at_512(long_flagship):
         got = port(torch.from_numpy(x)).numpy()
     assert got.shape == want.shape == (1, T_LONG, 14, 648)
     np.testing.assert_allclose(got, want, atol=ATOL, rtol=RTOL)
+
+
+# --- the bf16 backward kernels' tile loop, emulated in numpy ---------------
+#
+# csrc/flash_attention_kernel.cu's wgmma dQ and dK/dV kernels: a block owns
+# 128 rows, streams 64-row tiles (32 above Dh = 64) whose last one is
+# ragged, reads Dh zero-padded to 64-column TMA boxes, forms delta in
+# float32 from dO and out, p = exp2(s * scale * log2(e) - lse * log2(e)),
+# feeds p to dv as a bf16 pair (rounded and remainder) and ds rounded to
+# bf16. `rnd` is the rounding to the kernels' type: bf16, or none to hold
+# the same loop to the Pallas kernels in float32.
+
+LOG2E = np.float32(1.4426950408889634)
+EMULATED = [(t, dh) for t in (37, 130, 640) for dh in (32, 48, 64)]
+
+
+def _bf16(x):
+    """Round float32 to the nearest bfloat16 (ties to even), as float32."""
+    u = np.asarray(x, np.float32).view(np.uint32).astype(np.uint64)
+    u = (u + 0x7FFF + ((u >> 16) & 1)) & 0xFFFF0000
+    return u.astype(np.uint32).view(np.float32)
+
+
+def _no_round(x):
+    return np.asarray(x, np.float32)
+
+
+def _tiles(x, rows, dp):
+    """(BH, T, Dh) -> (BH, T rounded up to `rows`, dp): TMA's zero fill."""
+    bh, t, dh = x.shape
+    out = np.zeros((bh, -(-t // rows) * rows, dp), np.float32)
+    out[:, :t, :dh] = x
+    return out
+
+
+def _shape(dh):
+    dp = 64 if dh <= 64 else 128
+    return dp, port_flash.bwd_box_rows(dh)
+
+
+def emulate_dq(q, k, v, g, out, lse, scale, delta=None, rnd=_no_round):
+    """dq and delta of the dQ kernel's loop; arrays (BH, T, Dh), lse and
+    delta (BH, T)."""
+    bh, t, dh = q.shape
+    dp, bn = _shape(dh)
+    if delta is None:  # two threads a row in the kernel; float32 sums here too
+        delta = (g.astype(np.float32) * out.astype(np.float32)).sum(-1, dtype=np.float32)
+    qp, gp = _tiles(q, 128, dp), _tiles(g, 128, dp)
+    kp, vp = _tiles(k, bn, dp), _tiles(v, bn, dp)
+    rows = qp.shape[1]
+    nlse = np.zeros((bh, rows), np.float32)
+    nlse[:, :t] = -lse * LOG2E
+    dl = np.zeros((bh, rows), np.float32)
+    dl[:, :t] = delta
+    c = np.float32(scale) * LOG2E
+    dq = np.zeros_like(qp)
+    for n0 in range(0, kp.shape[1], bn):
+        kt, vt = kp[:, n0:n0 + bn], vp[:, n0:n0 + bn]
+        s = qp @ kt.transpose(0, 2, 1)
+        dpr = gp @ vt.transpose(0, 2, 1)
+        p = np.exp2(s * c + nlse[..., None])
+        p[..., n0 + np.arange(bn) >= t] = 0.0
+        ds = rnd(p * (dpr - dl[..., None]) * np.float32(scale))
+        dq += ds @ kt
+    return rnd(dq[:, :t, :dh]), delta
+
+
+def emulate_dkv(q, k, v, g, lse, delta, scale, rnd=_no_round):
+    """dk and dv of the dK/dV kernel's loop."""
+    bh, t, dh = q.shape
+    dp, bn = _shape(dh)
+    kp, vp = _tiles(k, 128, dp), _tiles(v, 128, dp)
+    qp, gp = _tiles(q, bn, dp), _tiles(g, bn, dp)
+    cols = qp.shape[1]
+    nlse = np.zeros((bh, cols), np.float32)
+    nlse[:, :t] = -lse * LOG2E
+    dl = np.zeros((bh, cols), np.float32)
+    dl[:, :t] = delta
+    c = np.float32(scale) * LOG2E
+    key_ok = (np.arange(kp.shape[1]) < t)[None, :, None]
+    dk, dv = np.zeros_like(kp), np.zeros_like(vp)
+    for m0 in range(0, cols, bn):
+        qt, gt = qp[:, m0:m0 + bn], gp[:, m0:m0 + bn]
+        st = kp @ qt.transpose(0, 2, 1)
+        dpt = vp @ gt.transpose(0, 2, 1)
+        p = np.where(key_ok, np.exp2(st * c + nlse[:, None, m0:m0 + bn]), 0.0).astype(np.float32)
+        hi = rnd(p)
+        lo = rnd(p - hi)
+        dv += hi @ gt + lo @ gt
+        dk += rnd(p * (dpt - dl[:, None, m0:m0 + bn]) * np.float32(scale)) @ qt
+    return rnd(dk[:, :t, :dh]), rnd(dv[:, :t, :dh])
+
+
+def _flat(x):
+    return np.asarray(x, np.float32).reshape(-1, *np.shape(x)[-2:])
+
+
+@functools.cache
+def _pallas_grads(t, dh):
+    """(q, k, v, w) and the Pallas backward's (dq, dk, dv), interpret mode."""
+    q, k, v, w = _qkvw(t, seed=100 + t + dh, dh=dh)
+    fn = lambda q, k, v: (jax_flash.flash_attention(  # noqa: E731
+        q, k, v, interpret=True, bwd_impl="pallas") * w).sum()
+    grads = jax.grad(fn, argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))
+    return (q, k, v, w), [np.asarray(x) for x in grads]
+
+
+@pytest.mark.parametrize("t,dh", EMULATED)
+def test_kernel_tile_loop_in_float32_matches_pallas_backward(t, dh):
+    (q, k, v, w), want = _pallas_grads(t, dh)
+    out, lse = port_flash.flash_attention_reference(*(torch.from_numpy(x) for x in (q, k, v)))
+    scale = dh ** -0.5
+    args = [_flat(x) for x in (q, k, v, w)]
+    dq, delta = emulate_dq(*args, _flat(out.numpy()), lse.numpy(), scale)
+    dk, dv = emulate_dkv(*args, lse.numpy(), delta, scale)
+    for name, got, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
+        np.testing.assert_allclose(got.reshape(ref.shape), ref, err_msg=name, **GRAD_TOL)
+
+
+@pytest.mark.parametrize("t,dh", EMULATED)
+def test_kernel_tile_loop_in_bfloat16_is_as_close_to_float32_as_plain_bfloat16(t, dh):
+    """The kernels' rounding points against the bf16 plain version: each
+    gradient's largest error against the float32 plain version on the same
+    bf16-rounded inputs at most 1.5 times the plain bf16 version's (the
+    card's check, chip_smoke.py K3_BF16_RATIO)."""
+    q, k, v, w = (torch.from_numpy(_bf16(x)) for x in _qkvw(t, seed=200 + t + dh, dh=dh))
+
+    def grads(*xs):
+        leaves = [x.clone().requires_grad_(True) for x in xs[:3]]
+        out, lse = port_flash.flash_attention_reference(*leaves)
+        return out.detach(), lse.detach(), torch.autograd.grad(out, leaves, xs[3])
+
+    out, lse, plain = grads(q.bfloat16(), k.bfloat16(), v.bfloat16(), w.bfloat16())
+    _, _, exact = grads(q, k, v, w)
+    scale = dh ** -0.5
+    args = [_flat(x.numpy()) for x in (q, k, v, w)]
+    dq, delta = emulate_dq(*args, _flat(out.float().numpy()), lse.numpy(), scale, rnd=_bf16)
+    dk, dv = emulate_dkv(*args, lse.numpy(), delta, scale, rnd=_bf16)
+    for name, got, p, e in zip(("dq", "dk", "dv"), (dq, dk, dv), plain, exact):
+        e = e.numpy().reshape(got.shape)
+        err = np.abs(got - e).max()
+        plain_err = np.abs(p.float().numpy().reshape(got.shape) - e).max()
+        assert err <= 1.5 * plain_err + 1e-6, (name, err, plain_err)
+
+
+def test_bf16_rounding_matches_torch():
+    x = np.random.default_rng(8).standard_normal(10_000).astype(np.float32) * 1e3
+    x[:4] = (1.0 + 2.0 ** -8, 1.0 + 3 * 2.0 ** -8, -0.0, 2.0 ** -130)  # ties both ways, subnormal
+    assert np.array_equal(_bf16(x), torch.from_numpy(x).bfloat16().float().numpy())
+
+
+@pytest.mark.parametrize("dh,box_rows", [(16, 64), (32, 64), (48, 64), (64, 64), (80, 32),
+                                         (128, 32)])
+def test_tma_geometry_of_the_models_layout(dh, box_rows):
+    """The (B, T, H*Dh) projections viewed as (B, H, T, Dh): dims innermost
+    first, byte strides of T, H and B, the 64-column box."""
+    b, h, t = 3, 5, 37
+    x = torch.zeros((b, t, h * dh), dtype=torch.bfloat16).view(b, t, h, dh).transpose(1, 2)
+    assert port_flash.bwd_box_rows(dh) == box_rows
+    assert port_flash.tma_geometry(x, box_rows) == (
+        dh, t, h, b, 2 * h * dh, 2 * dh, 2 * t * h * dh, 64, box_rows)
+    y = x.contiguous()
+    assert port_flash.tma_geometry(y, box_rows)[4:7] == (2 * dh, 2 * t * dh, 2 * h * t * dh)
+
+
+def test_tma_geometry_gives_broadcast_size_one_dims_a_usable_stride():
+    x = torch.zeros((1, 64, 64), dtype=torch.bfloat16).view(1, 1, 64, 64).expand(1, 1, 64, 64)
+    x = x.as_strided((1, 1, 64, 64), (0, 0, 64, 1))
+    assert port_flash.tma_geometry(x, 64) == (64, 64, 1, 1, 128, 16, 16, 64, 64)
+
+
+def test_kernel_ready_copies_a_broadcast_dim():
+    fa = port_flash.flash_attention
+    before = fa.copies
+    base = torch.zeros((1, 2, 8, 16))
+    assert port_flash._kernel_ready(base.expand(3, 2, 8, 16)).is_contiguous()
+    assert fa.copies == before + 1
+    size_one = base.as_strided((1, 2, 8, 16), (0, 128, 16, 1))
+    assert port_flash._kernel_ready(size_one) is size_one
+    assert fa.copies == before + 1
+
+
+@pytest.fixture
+def recorded_launches(monkeypatch):
+    """launch_dq / launch_dkv on CPU tensors with `_launch` recording its
+    arguments instead of calling the library."""
+    calls = []
+    monkeypatch.setattr(port_flash, "_launch", lambda *a: calls.append(a))
+    return calls
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_launch_dq_forms_or_takes_delta(recorded_launches, dtype):
+    fa = port_flash.flash_attention
+    q, k, v, w = (torch.from_numpy(x).to(dtype) for x in _qkvw(70, seed=9))
+    out, lse = port_flash.flash_attention_reference(q, k, v)
+    before = fa.bwd_dq_launches
+    dq, delta = port_flash.launch_dq(q, k, v, w, out, lse, 0.5)
+    assert dq.shape == q.shape and dq.dtype == dtype and dq.transpose(1, 2).is_contiguous()
+    assert delta.shape == (B * H, 70) and delta.dtype == torch.float32
+    which, name, tensors, strided, extra, scale = recorded_launches[-1]
+    assert (which, name, scale) == (1, "dQ", 0.5)
+    assert tensors[:6] == (q, k, v, w, out, lse) and tensors[6] is delta and tensors[7] is dq
+    assert strided == (q, k, v, w, out, dq)
+    geometry, given = extra
+    if dtype == torch.bfloat16:  # the kernel forms delta: its buffer, flag 0
+        assert given == 0
+        assert list(geometry) == [n for x in (q, k, v, w) for n in port_flash.tma_geometry(x, 64)]
+    else:  # float32: row_delta's, handed to the kernel
+        assert given == 1 and geometry is None
+        torch.testing.assert_close(delta, port_flash.row_delta(w, out).view(B * H, 70))
+    mine = torch.ones((B * H, 70))
+    _, passed = port_flash.launch_dq(q, k, v, w, out, lse, 0.5, delta=mine)
+    assert passed is mine and recorded_launches[-1][4][1] == 1
+    assert fa.bwd_dq_launches == before + 2
+
+
+def test_launch_dkv_passes_delta_and_the_four_maps(recorded_launches):
+    fa = port_flash.flash_attention
+    q, k, v, w = (torch.from_numpy(x).bfloat16() for x in _qkvw(70, seed=10, dh=80))
+    lse, delta = torch.zeros((B * H, 70)), torch.ones((B * H, 70))
+    before = fa.bwd_dkv_launches
+    dk, dv = port_flash.launch_dkv(q, k, v, w, lse, delta, 0.25)
+    which, name, tensors, strided, extra, scale = recorded_launches[-1]
+    assert (which, name, scale) == (2, "dK/dV", 0.25)
+    assert tensors[4] is lse and tensors[5] is delta and tensors[6] is dk and tensors[7] is dv
+    assert list(extra[0]) == [n for x in (q, k, v, w) for n in port_flash.tma_geometry(x, 32)]
+    assert dk.shape == dv.shape == q.shape and fa.bwd_dkv_launches == before + 1
+
+
+@pytest.mark.parametrize("need", ["qkv", "kv", "q"])
+def test_autograd_function_backward_on_the_emulated_kernels(monkeypatch, need):
+    """_FlashAttention's own backward, with the launches replaced by the
+    numpy emulation above (float32): which passes run, where delta comes
+    from, and the gradients against autograd through the plain version.
+    Without dq the dQ pass is skipped and delta is row_delta's."""
+    calls = []
+
+    def fake_forward(q, k, v, scale):
+        out, lse = port_flash.flash_attention_reference(q, k, v, scale)
+        return out.detach(), lse.detach()
+
+    def fake_dq(q, k, v, g, out, lse, scale, delta=None):
+        calls.append("dq")
+        assert delta is None
+        dq, delta = emulate_dq(*(_flat(x.numpy()) for x in (q, k, v, g, out)), lse.numpy(), scale)
+        return torch.from_numpy(dq).view(q.shape), torch.from_numpy(delta)
+
+    def fake_dkv(q, k, v, g, lse, delta, scale):
+        calls.append("dkv")
+        want = port_flash.row_delta(g, out_ref).reshape(delta.shape)
+        torch.testing.assert_close(delta, want, rtol=1e-5, atol=1e-6)
+        dk, dv = emulate_dkv(*(_flat(x.numpy()) for x in (q, k, v, g)), lse.numpy(),
+                             delta.reshape(lse.shape).numpy(), scale)
+        return torch.from_numpy(dk).view(q.shape), torch.from_numpy(dv).view(q.shape)
+
+    monkeypatch.setattr(port_flash, "launch_forward", fake_forward)
+    monkeypatch.setattr(port_flash, "launch_dq", fake_dq)
+    monkeypatch.setattr(port_flash, "launch_dkv", fake_dkv)
+    q, k, v, w = (torch.from_numpy(x) for x in _qkvw(130, seed=11))
+    out_ref, _ = fake_forward(q, k, v, DH ** -0.5)
+    mine = [x.clone().requires_grad_(n in need) for x, n in zip((q, k, v), "qkv")]
+    ref = [x.clone().requires_grad_(n in need) for x, n in zip((q, k, v), "qkv")]
+    out, _ = port_flash._FlashAttention.apply(*mine, DH ** -0.5)
+    want, _ = port_flash.flash_attention_reference(*ref)
+    wanted = [x for x in ref if x.requires_grad]
+    got = torch.autograd.grad(out, [x for x in mine if x.requires_grad], w)
+    for a, r in zip(got, torch.autograd.grad(want, wanted, w)):
+        torch.testing.assert_close(a, r, **GRAD_TOL)
+    assert calls == {"qkv": ["dq", "dkv"], "kv": ["dkv"], "q": ["dq"]}[need]

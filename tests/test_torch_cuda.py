@@ -19,7 +19,14 @@ from seld_tpu_torch.ops.attention import (
     force_flash,
     multi_head_attention,
 )
-from seld_tpu_torch.ops.flash_attention import flash_attention, flash_attention_reference
+from seld_tpu_torch.ops.flash_attention import (
+    flash_attention,
+    flash_attention_reference,
+    launch_dkv,
+    launch_dq,
+    launch_forward,
+    row_delta,
+)
 from seld_tpu_torch.ops.loss_cuda import grid_loss_terms, grid_loss_terms_reference
 from seld_tpu_torch.features.mel import frame_signal
 from seld_tpu_torch.ops.mel_cuda import KERNEL_N_FFT, log_mel_frames, log_mel_frames_reference
@@ -195,6 +202,90 @@ def test_k3_gives_no_weight_to_padded_keys_on_card(cuda_device):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_k3_backward_is_bit_reproducible_on_card(cuda_device, dtype):
     q, k, v, w = _k3_case(cuda_device, 2, 4, 700, 64, dtype, seed=11)
+    first = _attend(lambda *a: flash_attention(*a, return_lse=True), q, k, v, w)
+    second = _attend(lambda *a: flash_attention(*a, return_lse=True), q, k, v, w)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.parametrize("t", [37, 64, 513, 1000])
+@pytest.mark.parametrize("dh", [32, 48, 64, 80, 128])
+def test_k3_wgmma_backward_every_width_is_as_close_as_plain_bfloat16(cuda_device, t, dh):
+    """The wgmma dQ and dK/dV kernels at head widths below, at and above one
+    64-column box, ragged T included: each gradient within 1.5 times the
+    bf16 plain version's error against float32 (32 heads, so that the
+    largest error is not one value's chance)."""
+    q, k, v, w = _k3_case(cuda_device, 4, 8, t, dh, torch.bfloat16, seed=t + dh)
+    got = _attend(lambda *a: flash_attention(*a, return_lse=True), q, k, v, w)
+    plain = _attend(flash_attention_reference, q, k, v, w)
+    exact = _attend(flash_attention_reference, *(x.float() for x in (q, k, v, w)))
+    for name, i in (("dq", 2), ("dk", 3), ("dv", 4)):
+        err = (got[i].float() - exact[i]).abs().max().item()
+        plain_err = (plain[i].float() - exact[i]).abs().max().item()
+        assert err <= 1.5 * plain_err + 1e-6, (name, err, plain_err)
+
+
+def test_k3_dq_kernel_writes_delta_and_takes_a_given_one(cuda_device):
+    """delta = rowsum(dO * out) in float32, formed by the dQ kernel: within
+    1e-5 of row_delta relative to rowsum(|dO * out|) (the same float32
+    products summed in another order). Given row_delta's delta the kernel
+    reads it, and dq moves by no more than a bf16 rounding step or two."""
+    q, k, v, w = _k3_case(cuda_device, 16, 8, 1000, 64, torch.bfloat16, seed=21)
+    scale = 64 ** -0.5
+    with torch.no_grad():
+        out, lse = launch_forward(q, k, v, scale)
+        dq, delta = launch_dq(q, k, v, w, out, lse, scale)
+        want = row_delta(w, out).view(delta.shape)
+        size = (w.float() * out.float()).abs().sum(-1).view(delta.shape)
+        assert ((delta - want).abs() <= 1e-5 * size).all()
+        dq_given, same = launch_dq(q, k, v, w, out, lse, scale, delta=want)
+        assert same is want
+        torch.testing.assert_close(dq_given, dq, rtol=2 ** -6, atol=1e-3)
+        dk, dv = launch_dkv(q, k, v, w, lse, delta, scale)
+        torch.cuda.synchronize()
+    assert torch.isfinite(dk.float()).all() and torch.isfinite(dv.float()).all()
+
+
+def test_k3_backward_is_one_dq_and_one_dkv_launch_on_card(cuda_device):
+    """A bf16 backward launches the dQ kernel, then the dK/dV kernel, and no
+    kernel between them: no delta ops (counters and the profiler's kernel
+    names)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    q, k, v, w = _k3_case(cuda_device, 2, 8, 1000, 64, torch.bfloat16, seed=22)
+    q, k, v = (x.detach().clone().requires_grad_(True) for x in (q, k, v))
+    out = flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    before = _k3_launches()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.autograd.grad(out, (q, k, v), w)
+        torch.cuda.synchronize()
+    assert _k3_launches() == (before[0], before[1] + 1, before[2] + 1)
+    kernels = sorted((e for e in prof.events()
+                      if e.device_type == torch.autograd.DeviceType.CUDA
+                      and not e.is_user_annotation), key=lambda e: e.time_range.start)
+    names = [e.name for e in kernels]
+    dq = [i for i, n in enumerate(names) if "flash_dq_wgmma_kernel" in n]
+    dkv = [i for i, n in enumerate(names) if "flash_dkv_wgmma_kernel" in n]
+    assert len(dq) == 1 and dkv == [dq[0] + 1], names
+
+
+def test_k3_gradients_of_k_and_v_alone_on_card(cuda_device):
+    """q without a gradient: the dQ pass is skipped (delta from row_delta)
+    and dk, dv are those of the full backward, bit for bit."""
+    q, k, v, w = _k3_case(cuda_device, 2, 4, 513, 64, torch.bfloat16, seed=23)
+    full = _attend(lambda *a: flash_attention(*a, return_lse=True), q, k, v, w)
+    kk, vv = (x.detach().clone().requires_grad_(True) for x in (k, v))
+    before = _k3_launches()
+    dk, dv = torch.autograd.grad(flash_attention(q, kk, vv), (kk, vv), w)
+    assert _k3_launches() == (before[0] + 1, before[1], before[2] + 1)
+    # row_delta sums in another order than the kernel: a ds or a stored dk
+    # may round to the neighbouring bf16 value (2^-7 relative)
+    torch.testing.assert_close(dk, full[3], rtol=2 ** -6, atol=1e-3)
+    assert torch.equal(dv, full[4])  # dv does not read delta
+
+
+def test_k3_bf16_backward_is_bit_reproducible_at_t_1000_on_card(cuda_device):
+    q, k, v, w = _k3_case(cuda_device, 16, 8, 1000, 64, torch.bfloat16, seed=24)
     first = _attend(lambda *a: flash_attention(*a, return_lse=True), q, k, v, w)
     second = _attend(lambda *a: flash_attention(*a, return_lse=True), q, k, v, w)
     assert all(torch.equal(a, b) for a, b in zip(first, second))

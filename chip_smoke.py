@@ -6,9 +6,9 @@
 Phases, each of which raises on failure:
   1. the device: its name, and name and power limit from nvidia-smi;
   2. build every CUDA kernel from seld_tpu_torch/csrc into build/kernels,
-     one nvcc per source, all started together; K3's wgmma backward
-     kernels must not spill, and where cuobjdump exists their SASS must
-     hold HGMMA (wgmma) instructions;
+     one nvcc per source, all started together; K3's wgmma kernels
+     (forward, dQ, dK/dV) must not spill at any width, and where cuobjdump
+     exists their SASS must hold HGMMA (wgmma) instructions;
   3. kernel K1 against its plain PyTorch version on the card, in float32,
      at the main path's frame count (a 60 s 4-channel clip, N = 12,004
      frames), at a ragged N = 37, on silence, on the main path's input
@@ -160,6 +160,19 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3, run_ahead: bool = False) -> fl
     return start.elapsed_time(end) / iters
 
 
+def host_us(fn, calls: int = 200) -> float:
+    """Host wall time of one fn() call in microseconds, over `calls` calls
+    with no synchronize between them: what a launch costs the host."""
+    fn()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    elapsed = time.perf_counter() - start
+    torch.cuda.synchronize()
+    return elapsed / calls * 1e6
+
+
 def kernel_ms(fn) -> float:
     """Device time of a kernel-sized fn(): launches queued ahead of the device."""
     return cuda_ms(fn, run_ahead=True)
@@ -193,8 +206,8 @@ def phase_build() -> None:
         print(f"[build] {name}: {info['seconds']:.2f} s")
         # ptxas names each entry function, then its resources; of K1's, K2's
         # and K3's instantiations only the main path's are shown (n_fft = 960
-        # as R = 15 with float2 loads, M = 14, Dh = 64); K3's wgmma backward
-        # kernels must not spill at any width
+        # as R = 15 with float2 loads, M = 14, Dh = 64); K3's wgmma kernels
+        # (forward, dQ, dK/dV) must not spill at any width
         shown, entry = True, ""
         for line in info["log"].splitlines():
             if "Compiling entry function" in line:
@@ -214,19 +227,20 @@ def phase_build() -> None:
 
 
 def k3_build_report() -> None:
-    """K3's wgmma backward kernels at Dh = 64: their dynamic shared memory,
-    and where cuobjdump exists, the count of HGMMA (wgmma) instructions in
-    each one's SASS."""
+    """K3's wgmma kernels (forward, dQ, dK/dV) at Dh = 64: their dynamic
+    shared memory, and where cuobjdump exists, the count of HGMMA (wgmma)
+    instructions in each one's SASS."""
     import ctypes
 
     from seld_tpu_torch.ops import _build
 
     lib = ctypes.CDLL(str(_build.library_path("flash_attention_kernel")))
-    lib.seld_flash_attention_bwd_smem_bytes.argtypes = [ctypes.c_int]
-    lib.seld_flash_attention_bwd_smem_bytes.restype = ctypes.c_int
-    smem = lib.seld_flash_attention_bwd_smem_bytes(64)
-    print(f"[build] K3 wgmma dQ and dK/dV at Dh = 64: {smem} bytes of dynamic shared memory "
-          f"a block (3 stages of 64-row Q/dO or K/V tiles, 128 owned rows, 1 KB alignment)")
+    lib.seld_flash_attention_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.seld_flash_attention_smem_bytes.restype = ctypes.c_int
+    fwd, bwd = (lib.seld_flash_attention_smem_bytes(64, forward) for forward in (1, 0))
+    print(f"[build] K3 wgmma forward at Dh = 64: {fwd} bytes of dynamic shared memory a block "
+          f"(256 owned queries, 3 stages of 64-key K/V tiles, 1 KB alignment); dQ and dK/dV: "
+          f"{bwd} bytes (3 stages of 64-row Q/dO or K/V tiles, 128 owned rows)")
     beside_nvcc = Path(_build._nvcc()).parent / "cuobjdump"
     cuobjdump = str(beside_nvcc) if beside_nvcc.exists() else shutil.which("cuobjdump")
     if cuobjdump is None:
@@ -240,11 +254,13 @@ def k3_build_report() -> None:
         if found:
             fn = found.group(1)
         elif "HGMMA" in line and "wgmma_kernelILi64E" in fn:
-            counts["dQ" if "flash_dq_" in fn else "dK/dV"] += 1
-    print(f"[build] HGMMA instructions in the Dh = 64 SASS: dQ {counts['dQ']}, dK/dV "
-          f"{counts['dK/dV']} (per streamed tile: 4 + 4 + 4 and 4 + 4 + 3 x 4)")
-    if not counts["dQ"] or not counts["dK/dV"]:
-        raise AssertionError(f"K3's backward kernels hold no HGMMA: {dict(counts)}")
+            counts[next(n for key, n in (("flash_fwd_", "forward"), ("flash_dq_", "dQ"),
+                                         ("flash_dkv_", "dK/dV")) if key in fn)] += 1
+    print(f"[build] HGMMA instructions in the Dh = 64 SASS: forward {counts['forward']}, dQ "
+          f"{counts['dQ']}, dK/dV {counts['dK/dV']} (per streamed tile: 4 + 4, 4 + 4 + 4 and "
+          f"4 + 4 + 3 x 4)")
+    if not all(counts[n] for n in ("forward", "dQ", "dK/dV")):
+        raise AssertionError(f"K3's wgmma kernels hold no HGMMA: {dict(counts)}")
 
 
 def library_log_mel(frames: torch.Tensor, window: torch.Tensor,
@@ -722,6 +738,7 @@ def phase_k3(dev: torch.device) -> list[dict]:
             out, lse = k3.launch_forward(q, k, v, scale)
             _, delta = k3.launch_dq(q, k, v, w, out, lse, scale)
             tm["kernel", "fwd"] = kernel_ms(lambda: k3.launch_forward(q, k, v, scale))
+            fwd_host_us = host_us(lambda: k3.launch_forward(q, k, v, scale))
             tm["kernel", "dq"] = kernel_ms(lambda: k3.launch_dq(q, k, v, w, out, lse, scale))
             tm["kernel", "dkv"] = kernel_ms(lambda: k3.launch_dkv(q, k, v, w, lse, delta, scale))
             tm["plain", "fwd"] = kernel_ms(lambda: k3.flash_attention_reference(q, k, v))
@@ -752,6 +769,17 @@ def phase_k3(dev: torch.device) -> list[dict]:
               f"({bd['ops'] / 1e9:.1f} GFLOP at {peak}; {bd['bytes'] / 1e6:.1f} MB): kernel at "
               f"{100 * bd['bound_ms'] / tm['kernel', 'fwd']:.2f} % of it, "
               f"{bd['ops'] / (tm['kernel', 'fwd'] * 1e-3) / 1e12:.1f} TFLOP/s")
+        if bf16:
+            # the softmax's second bound: B*H*T^2 exponentials at 16 a clock
+            # per SM, at the card's own SM count and top clock
+            props = torch.cuda.get_device_properties(0)
+            exp_rate = 16 * props.multi_processor_count * props.clock_rate * 1e3  # per second
+            exp_ms = b * h * t * t / exp_rate * 1e3
+            print(f"[K3] bf16 forward's exponentials: {b * h * t * t / 1e6:.1f} M at 16 a clock "
+                  f"per SM ({props.multi_processor_count} SMs at {props.clock_rate / 1e6:.3f} "
+                  f"GHz): {exp_ms:.4f} ms, beside the tensor cores' {bd['bound_ms']:.4f} ms")
+        print(f"[K3] {kind} launch_forward: {fwd_host_us:.1f} us of host time a call (no "
+              f"synchronize between calls)")
         for part, label, bound in (("dq", "dQ", "dq"), ("dkv", "dK/dV", "dkv"),
                                    ("pair", "dQ + dK/dV", "bwd")):
             bd, k_ms = bounds[bound], tm["kernel", part]
@@ -773,7 +801,7 @@ def phase_k3(dev: torch.device) -> list[dict]:
               f"{tm['library', 'bwd']:.4f} ms: kernels / SDPA "
               f"{tm['kernel', 'pair'] / tm['library', 'bwd']:.3f}")
         if bf16:
-            for part, line, err in (("fwd", 205, main_err["out"]), ("dq", 105, main_err["dq"]),
+            for part, line, err in (("fwd", 59, main_err["out"]), ("dq", 105, main_err["dq"]),
                                     ("dkv", 146, max(main_err["dk"], main_err["dv"]))):
                 rows.append({
                     "name": f"K3 {part}", "route": "cuda",

@@ -36,24 +36,19 @@
 // What bounds it on an H100: operations. Forward is 4*T*T*Dh flops per
 // (batch, head) against 4*T*Dh elements moved: at T = 1000 about 500 flops
 // per byte in bf16, above the card's balance point (295 flop/B), and the
-// backward more so. The design therefore keeps operands in shared memory
-// and all state in registers:
+// backward more so. Beside the tensor cores the forward has a second bound
+// of the same size: its T*T exponentials, at 16 a clock per SM. The design
+// therefore keeps operands in shared memory and all state in registers,
+// and runs the exponentials while the tensor cores work:
 //
-//   bf16 fwd  a block of 4 warps owns 64 rows, 16 per warp; K/V tiles of 64
-//             rows (32 when Dh > 64) staged in padded shared memory by
-//             synchronous 16-byte copies; products are mma.sync m16n8k16
-//             (bf16 in, f32 accumulate) on fragments that ldmatrix brings
-//             in four 8x8 blocks at a time, transposed on the way where a
-//             product runs over the tile's rows; the score fragments are
-//             exponentiated in registers and repacked as the A operand of
-//             the next product, so p never touches shared memory.
-//   bf16 bwd  wgmma on tiles that TMA stages through a ring in 128-byte
-//             swizzled shared memory (hopper.cuh; the section below):
-//             a warpgroup's 64-row product reads each B tile once, where
-//             four mma.sync warps read it four times, and it runs
+//   bf16      wgmma on tiles that TMA stages through a ring in 128-byte
+//             swizzled shared memory (hopper.cuh; the section below): a
+//             warpgroup's 64-row product reads each B tile once and runs
 //             asynchronously; the accumulators are the m16n8k16 C layout
-//             per warp, so the same register repacking feeds p and ds to
-//             the next product.
+//             per warp, so p and ds are repacked in registers as the A
+//             operand of the next product and never touch shared memory.
+//             The forward commits the next tile's scores before this
+//             tile's value product and exponentiates them while it runs.
 //   float32   TF32 cannot hold the forward to 2e-5, so float32 inputs take
 //             plain f32 FMA: 4 threads share a row, each holding every
 //             fourth float4 of q / dO / the accumulators; dot products are
@@ -66,7 +61,7 @@
 // C interface (bound with ctypes): every launcher runs on the given stream
 // and returns cudaGetLastError() of its launch, cudaErrorInvalidValue for
 // a shape or type the kernels do not take, or -1 when libcuda refuses a
-// tensor map of the bf16 backward. `strides` holds (batch, head,
+// tensor map of a bf16 kernel. `strides` holds (batch, head,
 // time) element strides, three per tensor, in argument order. dtype: 0 is
 // float32, 1 is bfloat16.
 
@@ -81,8 +76,7 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kThreads = 128;
-constexpr int kRowsMma = 64;   // rows a block owns in the bf16 kernels
+constexpr int kThreads = 128;  // a float32 block
 constexpr int kRowsF32 = 32;   // rows a block owns in the float32 kernels
 constexpr float kNegInf = -1e30f;
 
@@ -157,42 +151,6 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
-// ---------------------------------------------------------------------------
-// bf16: mma.sync m16n8k16. Fragment layout, with g = lane / 4, t = lane % 4:
-//   A (16x16, row major)  a0 (g, 2t..2t+1)  a1 (g+8, 2t..)  a2 (g, 2t+8..)  a3 (g+8, 2t+8..)
-//   B (16x8, k x n)       b0 (k = 2t..2t+1, n = g)          b1 (k = 2t+8.., n = g)
-//   C (16x8, f32)         c0 (g, 2t)  c1 (g, 2t+1)  c2 (g+8, 2t)  c3 (g+8, 2t+1)
-// Two neighbouring C tiles, rounded to bf16, are one A fragment of the next
-// product: a0 = (c0, c1) and a1 = (c2, c3) of tile 2j, a2 and a3 of 2j+1.
-// ---------------------------------------------------------------------------
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Four 8x8 bf16 matrices from shared memory in one ldmatrix: lane l gives
-// the address of row l % 8 of matrix l / 8 (16 bytes, aligned), and receives
-// in r[i] its two values of matrix i in fragment order: (row g, columns 2t
-// and 2t+1), or with kTrans (rows 2t and 2t+1, column g).
-template <bool kTrans>
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const bf16* row) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(row));
-  if (kTrans) {
-    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-                 : "r"(addr));
-  } else {
-    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-                 : "r"(addr));
-  }
-}
-
 __device__ __forceinline__ uint32_t pack_floats(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
@@ -204,225 +162,122 @@ __device__ __forceinline__ uint32_t pack_remainder(float lo, float hi, uint32_t 
   return pack_floats(lo - r.x, hi - r.y);
 }
 
-// acc[j] += A[row0 .. row0+16, :DH] * Bt[8j .. 8j+8, :DH]^T for j < NT, both
-// operands row major in shared memory with row stride LD.
-template <int DH, int NT, int LD>
-__device__ __forceinline__ void mma_rows_by_rows(float (&acc)[NT][4], const bf16* As, int row0,
-                                                 const bf16* Bs, int lane) {
-  const int r8 = lane & 7, m = lane >> 3;  // this lane's row of matrix m in an ldmatrix
-#pragma unroll
-  for (int kk = 0; kk < DH / 16; ++kk) {
-    // A: matrices (rows 0-7, k 0-7), (rows 8-15, k 0-7), (rows 0-7, k 8-15), (rows 8-15, k 8-15)
-    uint32_t a[4];
-    ldmatrix_x4<false>(a, As + (row0 + (m & 1) * 8 + r8) * LD + kk * 16 + (m >> 1) * 8);
-#pragma unroll
-    for (int j = 0; j < NT; j += 2) {
-      // B of two n-tiles: (n-tile j, k 0-7), (j, k 8-15), (j+1, k 0-7), (j+1, k 8-15)
-      uint32_t b[4];
-      ldmatrix_x4<false>(b, Bs + ((j + (m >> 1)) * 8 + r8) * LD + kk * 16 + (m & 1) * 8);
-      mma_bf16(acc[j], a, b[0], b[1]);
-      mma_bf16(acc[j + 1], a, b[2], b[3]);
-    }
-  }
-}
-
-// acc[nd] += P * B for nd < DH / 8: P is 16 x (8 NT) in C-fragment layout,
-// rounded to bf16 here; B is (8 NT) x DH, row major in shared memory.
-template <int DH, int NT, int LD>
-__device__ __forceinline__ void mma_frag_by_tile(float (&acc)[DH / 8][4], const float (&p)[NT][4],
-                                                 const bf16* Bs, int lane) {
-  const int r8 = lane & 7, m = lane >> 3;
-#pragma unroll
-  for (int kc = 0; kc < NT / 2; ++kc) {
-    uint32_t a[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      a[i] = pack_floats(p[2 * kc + (i >> 1)][2 * (i & 1)], p[2 * kc + (i >> 1)][2 * (i & 1) + 1]);
-    }
-#pragma unroll
-    for (int nd = 0; nd < DH / 8; nd += 2) {
-      // B of two n-tiles, transposed on the way in: (k 0-7, n-tile nd),
-      // (k 8-15, nd), (k 0-7, nd+1), (k 8-15, nd+1)
-      uint32_t b[4];
-      ldmatrix_x4<true>(b, Bs + (kc * 16 + (m & 1) * 8 + r8) * LD + (nd + (m >> 1)) * 8);
-      mma_bf16(acc[nd], a, b[0], b[1]);
-      mma_bf16(acc[nd + 1], a, b[2], b[3]);
-    }
-  }
-}
-
-template <int N>
-__device__ __forceinline__ void zero(float (&x)[N][4]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) x[i][0] = x[i][1] = x[i][2] = x[i][3] = 0.f;
-}
-
-// Rows g and g + 8 of a warp's 16 x DH accumulator to device memory as bf16.
-template <int DH>
-__device__ __forceinline__ void store_rows(bf16* dst, long long st, const float (&acc)[DH / 8][4],
-                                           int row_g, int t_len, int t, float mul0, float mul1) {
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = row_g + 8 * r;
-    if (row >= t_len) continue;
-    const float mul = r ? mul1 : mul0;
-    bf16* rp = dst + static_cast<long long>(row) * st + 2 * t;
-#pragma unroll
-    for (int nd = 0; nd < DH / 8; ++nd) {
-      *reinterpret_cast<__nv_bfloat162*>(rp + nd * 8) =
-          __floats2bfloat162_rn(acc[nd][2 * r] * mul, acc[nd][2 * r + 1] * mul);
-    }
-  }
-}
-
-template <int DH, int BN>
-__global__ void __launch_bounds__(kThreads) flash_fwd_bf16_kernel(const Params p) {
-  constexpr int LD = DH + 8;
-  constexpr int NT = BN / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* Ks = Qs + kRowsMma * LD;
-  bf16* Vs = Ks + BN * LD;
-
-  const int bh = blockIdx.x / p.n_tiles;
-  const int m0 = (blockIdx.x - bh * p.n_tiles) * kRowsMma;
-  const int b = bh / p.H, h = bh - b * p.H;
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int wr = (threadIdx.x >> 5) * 16;
-  const int T = p.T;
-  const bf16* kp = head_of<bf16>(p.k, p.ks, b, h);
-  const bf16* vp = head_of<bf16>(p.v, p.vs, b, h);
-
-  load_tile<bf16, kRowsMma, DH, LD>(Qs, head_of<bf16>(p.q, p.qs, b, h), p.qs.st, m0, T);
-
-  float o[DH / 8][4];
-  zero(o);
-  float m_run[2] = {kNegInf, kNegInf};
-  float l_run[2] = {0.f, 0.f};  // this thread's share of the row sums
-
-  for (int n0 = 0; n0 < T; n0 += BN) {
-    __syncthreads();
-    load_tile<bf16, BN, DH, LD>(Ks, kp, p.ks.st, n0, T);
-    load_tile<bf16, BN, DH, LD>(Vs, vp, p.vs.st, n0, T);
-    __syncthreads();
-
-    float s[NT][4];
-    zero(s);
-    mma_rows_by_rows<DH, NT, LD>(s, Qs, wr, Ks, lane);
-
-    float mx[2] = {kNegInf, kNegInf};
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = n0 + j * 8 + 2 * t + (e & 1);
-        const float val = col < T ? s[j][e] * p.scale : kNegInf;
-        s[j][e] = val;
-        mx[e >> 1] = fmaxf(mx[e >> 1], val);
-      }
-    }
-    float alpha[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const float m_new = fmaxf(m_run[r], quad_max(mx[r]));
-      alpha[r] = __expf(m_run[r] - m_new);
-      m_run[r] = m_new;
-      l_run[r] *= alpha[r];
-    }
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float pe = __expf(s[j][e] - m_run[e >> 1]);
-        s[j][e] = pe;
-        l_run[e >> 1] += pe;
-      }
-    }
-#pragma unroll
-    for (int nd = 0; nd < DH / 8; ++nd) {
-      o[nd][0] *= alpha[0];
-      o[nd][1] *= alpha[0];
-      o[nd][2] *= alpha[1];
-      o[nd][3] *= alpha[1];
-    }
-    mma_frag_by_tile<DH, NT, LD>(o, s, Vs, lane);
-  }
-
-  float inv[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const float denom = fmaxf(quad_sum(l_run[r]), 1e-30f);
-    inv[r] = 1.f / denom;
-    const int row = m0 + wr + g + 8 * r;
-    if (t == 0 && row < T) p.lse[static_cast<long long>(bh) * T + row] = m_run[r] + logf(denom);
-  }
-  store_rows<DH>(head_of<bf16>(p.out, p.os, b, h), p.os.st, o, m0 + wr + g, T, t, inv[0], inv[1]);
-}
-
 // ---------------------------------------------------------------------------
-// bf16 backward: wgmma on TMA-staged tiles (hopper.cuh). A block is two
-// consumer warpgroups, each owning 64 of the block's 128 rows, and a
-// producer warpgroup, one warp of which loads the block's own rows once
-// and then streams the other operand through a ring of kStages tiles: TMA
-// fills a stage and counts its bytes on the stage's `full` barrier; the
-// 256 consumer threads arrive on its `empty` barrier when their products
-// have read it. The producers give their registers to the consumers
-// (setmaxnreg 24 / 240): the dK/dV accumulators of a 128-column head need
-// them.
+// bf16: wgmma on TMA-staged tiles (hopper.cuh). A block is CW consumer
+// warpgroups, each owning 64 of the block's 64 CW rows, and a producer
+// warpgroup, one thread of which loads the block's own rows and streams the
+// other operands through a ring of stages: TMA fills a stage and counts
+// its bytes on the stage's `full` barrier; each consumer warp arrives on
+// its `empty` barrier once its products have read it. The producers give
+// their registers to the consumers (setmaxnreg): the dK/dV accumulators of
+// a 128-column head need 240, the forward's four warpgroups share 112 each.
 //
-//   dQ     owns 128 queries (Q, dO); streams K/V tiles of BN keys.
-//          S = Q K^T, dP = dO V^T (A and B K-major from shared memory;
-//          two commit groups, so p's exponentials run while dP's product
-//          does); ds = p (dp - delta) scale, rounded to bf16 in registers;
-//          dq += ds K (A from registers, B the K tile read MN-major).
-//          Before the loop each warpgroup forms delta = rowsum(dO * out) of
-//          its rows in float32 from device memory and writes it for dK/dV,
-//          unless the caller gives delta.
-//   dK/dV  owns 128 keys (K, V); streams Q/dO tiles of BN queries with
-//          their lse and delta, which the producer warp stages beside them.
-//          S^T = K Q^T, dP^T = V dO^T; p^T as a bf16 pair (rounded, and the
-//          rounding's remainder) into dv += p^T dO; dk += ds^T Q.
+//   forward  persistent, one block per SM walking (head, 64 CW queries)
+//            work items; Q in two buffers, so the next item's loads run
+//            under this item's last products and its epilogue. Up to
+//            Dh = 64 four warpgroups own 256 queries (two and 128 above),
+//            so each K/V tile that crosses from L2 serves 256 rows; K/V
+//            tiles of 64 keys. S = Q K^T (A and B K-major from shared
+//            memory); keys at or beyond T get -1e30; running max m and
+//            normaliser l in registers; p = exp2(s * scale * log2(e) -
+//            m * scale * log2(e)), rounded to bf16 in registers; o += P V
+//            (A from registers, B the V tile read MN-major). Tile j's S
+//            product is committed before tile j-1's P V product, so tile
+//            j's exponentials run while P V does, and the warpgroups take
+//            turns at issuing (named barriers), so one's exponentials run
+//            while another's products do; o takes tile j's rescaling once
+//            P V has landed. At the end o / max(l, 1e-30) to bf16 through
+//            shared memory and a TMA store, and lse = m * scale +
+//            log(max(l, 1e-30)).
+//   dQ       two warpgroups own 128 queries (Q, dO); streams K/V tiles of
+//            BN keys. S = Q K^T, dP = dO V^T (two commit groups, so p's
+//            exponentials run while dP's product does); ds = p (dp -
+//            delta) scale, rounded to bf16 in registers; dq += ds K (B the
+//            K tile read MN-major). Before the loop each warpgroup forms
+//            delta = rowsum(dO * out) of its rows in float32 from device
+//            memory and writes it for dK/dV, unless the caller gives delta.
+//   dK/dV    two warpgroups own 128 keys (K, V); streams Q/dO tiles of BN
+//            queries with their lse and delta, which the producer warp
+//            stages beside them. S^T = K Q^T, dP^T = V dO^T; p^T as a bf16
+//            pair (rounded, and the rounding's remainder) into dv += p^T
+//            dO; dk += ds^T Q.
 //
-// p = exp2(s * scale * log2(e) - lse * log2(e)): one FFMA and ex2.approx.
-// Dh is read in 64-column TMA boxes (DP = 64 or 128 columns, zero beyond
-// Dh); products along Dh take Dh / 16 steps, products into a Dh-wide
-// accumulator run over all DP columns, and stores are masked to Dh. Rows
-// at or beyond T come in as zeros (TMA's out-of-bounds fill); padded keys
-// get p = 0 by index, padded queries contribute nothing because their Q
-// and dO rows are zero. The products are 5 per streamed tile in dK/dV (two
-// for dv) and 3 in dQ; no atomics.
+// In the backward p = exp2(s * scale * log2(e) - lse * log2(e)): one FFMA
+// and ex2.approx. Dh is read in 64-column TMA boxes (DP = 64 or 128
+// columns, zero beyond Dh); products along Dh take Dh / 16 steps, products
+// into a Dh-wide accumulator run over all DP columns, and stores are
+// masked to Dh. Rows at or beyond T come in as zeros (TMA's out-of-bounds
+// fill); padded keys get p = 0 by index, padded queries contribute
+// nothing to dK/dV because their Q and dO rows are zero, and no row at or
+// beyond T is written. The products are 2 per streamed tile in the
+// forward, 3 in dQ and 5 in dK/dV (two for dv); no atomics.
 // ---------------------------------------------------------------------------
 
-constexpr int kBwdConsumers = 256;
-constexpr int kBwdThreads = kBwdConsumers + 128;
-constexpr int kOwnRows = 128;
-constexpr int kStages = 3;
 constexpr float kLog2e = 1.4426950408889634f;
 
-template <int DH>
-struct BwdShape {
+// A wgmma kernel's block and shared memory: CW consumer warpgroups owning
+// 64 rows each and a producer warpgroup; OWN tiles of the block's own rows
+// (loaded in TMA boxes of OWN_BOX rows), then STAGES stages of two BN-row
+// tiles of the streamed operands, then the barriers (full[STAGES],
+// empty[STAGES], own_full[2], own_empty[2]), then STAT_BYTES of float
+// stats. A tile is DP columns as NB 64-column boxes, one after the other,
+// each starting at a 1024-byte boundary.
+template <int DH, int BN_, int STAGES, int OWN, int STAT_BYTES, int CW = 2, int OWN_BOX = BN_>
+struct RingShape {
   static constexpr int DP = DH <= 64 ? 64 : 128;  // columns staged
   static constexpr int NB = DP / 64;              // 64-column boxes a row
-  static constexpr int BN = DP == 64 ? 64 : 32;   // rows of a streamed tile
+  static constexpr int BN = BN_;                  // rows of a streamed tile
+  static constexpr int kStages = STAGES;
   static constexpr int KS = DH / 16;              // k-steps along Dh
+  static constexpr int kOwnRows = 64 * CW;
+  static constexpr int kOwnBox = OWN_BOX;  // rows of a TMA box of the own rows
+  static constexpr int kConsumers = 128 * CW;
+  static constexpr int kThreads = kConsumers + 128;
+  // registers a consumer thread takes (setmaxnreg) when the producer
+  // warpgroup gives back all but 24: the block holds what its launch bound
+  // gives each thread (65536 / kThreads, in steps of 8); setmaxnreg can only
+  // share that out, in steps of 8, at most 240 a thread
+  static constexpr int kBlockRegs = 65536 / kThreads / 8 * 8 * kThreads;
+  static constexpr int kShared = (kBlockRegs - 128 * 24) / kConsumers / 8 * 8;
+  static constexpr int kConsumerRegs = kShared < 240 ? kShared : 240;
+  static constexpr int kOwnTiles = OWN;
   static constexpr int kOwnBytes = NB * kOwnRows * 128;
   static constexpr int kTileBytes = NB * BN * 128;
   static constexpr int kStageBytes = 2 * kTileBytes;
-  static constexpr int kBarOffset = 2 * kOwnBytes + kStages * kStageBytes;
-  // full[kStages], empty[kStages], own; then float stats
-  static constexpr int kStatsOffset = kBarOffset + (2 * kStages + 1) * 8;
-  static constexpr int kSmemBytes = kStatsOffset + 2 * kStages * BN * 4 + kOwnRows * 4 + 1024;
+  static constexpr int kBarOffset = OWN * kOwnBytes + kStages * kStageBytes;
+  static constexpr int kStatsOffset = kBarOffset + (2 * kStages + 4) * 8;
+  static constexpr int kSmemBytes = kStatsOffset + STAT_BYTES + 1024;
+  static_assert(kOwnRows % kOwnBox == 0, "own rows load in whole boxes");
 };
 
-struct BwdParams {
+// Forward: Q in two buffers, each loaded as one TMA box per 64 columns;
+// K/V tiles of 64 keys. Up to Dh = 64 four consumer warpgroups own 256
+// queries (112 registers each hold S, P, O and the softmax state); above,
+// where O alone takes 64 registers, two own 128.
+constexpr int fwd_warpgroups(int dh) { return dh <= 64 ? 4 : 2; }
+template <int DH>
+using FwdShape = RingShape<DH, 64, 3, 2, 0, fwd_warpgroups(DH), 64 * fwd_warpgroups(DH)>;
+
+constexpr int bwd_bn(int dh) { return dh <= 64 ? 64 : 32; }
+constexpr int kBwdStages = 3;
+
+// Backward: Q/dO (dQ) or K/V (dK/dV) owned; tiles of 64 rows, 32 above
+// Dh = 64 (the dK/dV accumulators of a 128-column head take the
+// registers); stats: dK/dV's [STAGES][2][BN] (-lse log2 e, delta), dQ's
+// delta of the 128 rows.
+template <int DH>
+using BwdShape = RingShape<DH, bwd_bn(DH), kBwdStages, 2, (2 * kBwdStages * bwd_bn(DH) + 128) * 4>;
+
+struct WgmmaParams {
   const bf16* out;   // dQ: for delta
   const bf16* dout;  // dQ: for delta
-  const float* lse;
-  float* delta;  // dQ: written unless delta_given; dK/dV: read
-  bf16* d0;      // dq, or dk
-  bf16* d1;      // dv
+  float* lse;        // written by the forward, read by the backward
+  float* delta;      // dQ: written unless delta_given; dK/dV: read
+  bf16* d0;          // out, dq, or dk
+  bf16* d1;          // dv
   Strides os, gs, d0s, d1s;
   int H, T, n_row_tiles, n_stream, delta_given;
+  int n_items;  // forward: heads x row tiles, the work items of its persistent blocks
   float scale;
 };
 
@@ -433,14 +288,14 @@ __device__ __forceinline__ float ex2(float x) {
 }
 
 // The producer warp's loads of rows [row0, row0 + rows) of `map` for head
-// (b, h), every 64-column box, into `dst` (boxes `box_stride` bytes apart).
-template <int DH>
+// (b, h), every 64-column box, into `dst` (boxes `box_stride` bytes apart),
+// in TMA boxes of BOX rows.
+template <class S, int BOX>
 __device__ __forceinline__ void load_rows(uint32_t dst, const CUtensorMap* map, uint32_t bar,
                                           int row0, int rows, int box_stride, int h, int b) {
-  using S = BwdShape<DH>;
 #pragma unroll
   for (int cb = 0; cb < S::NB; ++cb) {
-    for (int r = 0; r < rows; r += S::BN) {
+    for (int r = 0; r < rows; r += BOX) {
       hopper::tma_load_4d(dst + cb * box_stride + r * 128, map, bar, cb * 64, row0 + r, h, b);
     }
   }
@@ -490,36 +345,34 @@ __device__ __forceinline__ void store_acc(bf16* dst, long long st, const float (
 
 // s (+)= A rows of `own` (this warpgroup's 64) times the streamed tile's
 // rows, along Dh: both K-major.
-template <int DH>
-__device__ __forceinline__ void products_along_dh(float (&s)[BwdShape<DH>::BN / 2], uint32_t own,
+template <class S>
+__device__ __forceinline__ void products_along_dh(float (&s)[S::BN / 2], uint32_t own,
                                                   uint32_t tile, int wg) {
-  using S = BwdShape<DH>;
 #pragma unroll
   for (int kk = 0; kk < S::KS; ++kk) {
-    const uint32_t a = own + (kk / 4) * kOwnRows * 128 + wg * 64 * 128 + (kk % 4) * 32;
+    const uint32_t a = own + (kk / 4) * S::kOwnRows * 128 + wg * 64 * 128 + (kk % 4) * 32;
     const uint32_t b = tile + (kk / 4) * S::BN * 128 + (kk % 4) * 32;
     hopper::wgmma_ss(s, hopper::desc_k_major(a), hopper::desc_k_major(b), kk > 0);
   }
 }
 
-template <int DH>
+// k-step kk (16 rows) of a streamed tile, read MN-major
+template <class S>
 __device__ __forceinline__ uint64_t tile_mn_desc(uint32_t tile, int kk) {
-  return hopper::desc_mn_major(tile + kk * 16 * 128, BwdShape<DH>::BN * 128);
+  return hopper::desc_mn_major(tile + kk * 16 * 128, S::BN * 128);
 }
 
-template <int DH>
-struct BwdSmem {
-  using S = BwdShape<DH>;
+template <class S>
+struct RingSmem {
   uint32_t own0, own1, stage0, bars;
-  float* stats;  // dK/dV: [kStages][2][BN] (-lse log2 e, delta); dQ: delta of the 128 rows
-  unsigned char* base;
+  float* stats;
 
-  __device__ __forceinline__ explicit BwdSmem(unsigned char* raw) {
+  __device__ __forceinline__ explicit RingSmem(unsigned char* raw) {
     const uint32_t a = hopper::smem_u32(raw);
-    base = raw + (((a + 1023) & ~1023u) - a);
+    unsigned char* base = raw + (((a + 1023) & ~1023u) - a);
     own0 = hopper::smem_u32(base);
-    own1 = own0 + S::kOwnBytes;
-    stage0 = own0 + 2 * S::kOwnBytes;
+    own1 = own0 + S::kOwnBytes;  // the backward's second owned operand, or Q's second buffer
+    stage0 = own0 + S::kOwnTiles * S::kOwnBytes;
     bars = own0 + S::kBarOffset;
     stats = reinterpret_cast<float*>(base + S::kStatsOffset);
   }
@@ -528,50 +381,77 @@ struct BwdSmem {
   }
   __device__ __forceinline__ uint32_t full(int stage) const { return bars + 8 * stage; }
   __device__ __forceinline__ uint32_t empty(int stage) const {
-    return bars + 8 * (kStages + stage);
+    return bars + 8 * (S::kStages + stage);
   }
-  __device__ __forceinline__ uint32_t own_bar() const { return bars + 16 * kStages; }
+  // own rows in buffer j have landed / are no longer read (the forward
+  // keeps two buffers: the next item's Q loads while this item runs)
+  __device__ __forceinline__ uint32_t own_full(int j) const {
+    return bars + 8 * (2 * S::kStages + j);
+  }
+  __device__ __forceinline__ uint32_t own_empty(int j) const {
+    return bars + 8 * (2 * S::kStages + 2 + j);
+  }
+  __device__ __forceinline__ uint32_t own(int j) const { return own0 + j * S::kOwnBytes; }
+  // A consumer warp is done with a stage: one arrival a warp, after the
+  // wgmma_wait by which its products have read the stage.
+  __device__ __forceinline__ void release(int stage) const {
+    if ((threadIdx.x & 31) == 0) hopper::mbar_arrive(empty(stage));
+  }
 };
 
-// Barrier set-up, then the producer warp: own rows [row0, row0 + 128) of
-// maps a0 / a1, then tiles of maps b0 / b1 (with their stats for dK/dV).
-// Returns true in the consumer threads.
-template <int DH, bool kDkv>
-__device__ __forceinline__ bool bwd_pipeline(const BwdSmem<DH>& sm, const BwdParams& p,
-                                             const CUtensorMap* a0, const CUtensorMap* a1,
-                                             const CUtensorMap* b0, const CUtensorMap* b1,
-                                             int bh, int row0) {
-  using S = BwdShape<DH>;
-  const int b = bh / p.H, h = bh - b * p.H;
+// Barrier set-up; then the consumers take their registers from the
+// producer warpgroup. Returns true in the consumer threads. `full` counts
+// full_count arrivals, `empty` one a consumer warp, `own_empty` one a
+// consumer warpgroup.
+template <class S>
+__device__ __forceinline__ bool ring_setup(const RingSmem<S>& sm, int full_count) {
   if (threadIdx.x == 0) {
-    for (int s = 0; s < kStages; ++s) {
-      hopper::mbar_init(sm.full(s), kDkv ? 32 : 1);
-      hopper::mbar_init(sm.empty(s), kBwdConsumers);
+    for (int s = 0; s < S::kStages; ++s) {
+      hopper::mbar_init(sm.full(s), full_count);
+      hopper::mbar_init(sm.empty(s), S::kConsumers / 32);
     }
-    hopper::mbar_init(sm.own_bar(), 1);
+    for (int j = 0; j < 2; ++j) {
+      hopper::mbar_init(sm.own_full(j), 1);
+      hopper::mbar_init(sm.own_empty(j), S::kConsumers / 128);
+    }
     hopper::mbar_fence_init();
   }
   __syncthreads();
-  if (threadIdx.x < kBwdConsumers) {
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+  if (threadIdx.x < S::kConsumers) {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(S::kConsumerRegs) : "memory");
     return true;
   }
   asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
-  if (threadIdx.x >= kBwdConsumers + 32) return false;
+  return false;
+}
+
+// The backward's set-up, then its producer warp: own rows [row0, row0 +
+// 128) of maps a0 and a1, then tiles of maps b0 / b1 (with their stats for
+// dK/dV). Returns true in the consumer threads.
+template <class S, bool kDkv>
+__device__ __forceinline__ bool ring_pipeline(const RingSmem<S>& sm, const WgmmaParams& p,
+                                              const CUtensorMap* a0, const CUtensorMap* a1,
+                                              const CUtensorMap* b0, const CUtensorMap* b1,
+                                              int bh, int row0) {
+  const int b = bh / p.H, h = bh - b * p.H;
+  if (ring_setup<S>(sm, kDkv ? 32 : 1)) return true;
+  if (threadIdx.x >= S::kConsumers + 32) return false;
 
   const int lane = threadIdx.x & 31;
   if (lane == 0) {
-    hopper::mbar_arrive_expect_tx(sm.own_bar(), 2 * S::kOwnBytes);
-    load_rows<DH>(sm.own0, a0, sm.own_bar(), row0, kOwnRows, kOwnRows * 128, h, b);
-    load_rows<DH>(sm.own1, a1, sm.own_bar(), row0, kOwnRows, kOwnRows * 128, h, b);
+    hopper::mbar_arrive_expect_tx(sm.own_full(0), 2 * S::kOwnBytes);
+    load_rows<S, S::kOwnBox>(sm.own0, a0, sm.own_full(0), row0, S::kOwnRows, S::kOwnRows * 128,
+                             h, b);
+    load_rows<S, S::kOwnBox>(sm.own1, a1, sm.own_full(0), row0, S::kOwnRows, S::kOwnRows * 128,
+                             h, b);
   } else if (!kDkv) {
     return false;
   }
   const float* lse = p.lse + static_cast<long long>(bh) * p.T;
   const float* delta = p.delta + static_cast<long long>(bh) * p.T;
   for (int i = 0; i < p.n_stream; ++i) {
-    const int s = i % kStages;
-    if (i >= kStages) hopper::mbar_wait(sm.empty(s), ((i / kStages) & 1) ^ 1);
+    const int s = i % S::kStages;
+    if (i >= S::kStages) hopper::mbar_wait(sm.empty(s), ((i / S::kStages) & 1) ^ 1);
     const int t0 = i * S::BN;
     if (kDkv) {
       float* st = sm.stats + s * 2 * S::BN;
@@ -583,8 +463,8 @@ __device__ __forceinline__ bool bwd_pipeline(const BwdSmem<DH>& sm, const BwdPar
     }
     if (lane == 0) {
       hopper::mbar_arrive_expect_tx(sm.full(s), S::kStageBytes);
-      load_rows<DH>(sm.tile(s, 0), b0, sm.full(s), t0, S::BN, S::BN * 128, h, b);
-      load_rows<DH>(sm.tile(s, 1), b1, sm.full(s), t0, S::BN, S::BN * 128, h, b);
+      load_rows<S, S::BN>(sm.tile(s, 0), b0, sm.full(s), t0, S::BN, S::BN * 128, h, b);
+      load_rows<S, S::BN>(sm.tile(s, 1), b1, sm.full(s), t0, S::BN, S::BN * 128, h, b);
     } else {
       hopper::mbar_arrive(sm.full(s));
     }
@@ -592,18 +472,233 @@ __device__ __forceinline__ bool bwd_pipeline(const BwdSmem<DH>& sm, const BwdPar
   return false;
 }
 
+// The forward's online softmax of one tile of raw scores s (this thread's
+// rows row_g and row_g + 8, keys n0 + 8 j + 2 t + e % 2 for s[4 j + e]):
+// masks keys at or beyond t_len, moves the running max m, returns in
+// alpha what the earlier tiles' sums must be scaled by, and leaves p in s
+// and its sum in l. Maxima and sums run in four and two independent
+// chains a row: two warps a scheduler hide little latency.
+template <int BN>
+__device__ __forceinline__ void online_softmax(float (&s)[BN / 2], float (&m)[2], float (&l)[2],
+                                               float (&alpha)[2], int n0, int t_len, int t,
+                                               float c) {
+  if (n0 + BN > t_len) {
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if (n0 + 8 * j + 2 * t + (e & 1) >= t_len) s[4 * j + e] = kNegInf;
+      }
+    }
+  }
+  float mx[2][4];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) mx[r][0] = mx[r][1] = mx[r][2] = mx[r][3] = m[r];
+#pragma unroll
+  for (int j = 0; j < BN / 2; ++j) {
+    float& x = mx[(j >> 1) & 1][(j & 1) | ((j >> 1) & 2)];
+    x = fmaxf(x, s[j]);
+  }
+  float nm[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float m_new = quad_max(fmaxf(fmaxf(mx[r][0], mx[r][1]), fmaxf(mx[r][2], mx[r][3])));
+    alpha[r] = ex2((m[r] - m_new) * c);
+    m[r] = m_new;
+    nm[r] = -m_new * c;
+  }
+  float sum[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
+#pragma unroll
+  for (int j = 0; j < BN / 2; ++j) {
+    const float pe = ex2(fmaf(s[j], c, nm[(j >> 1) & 1]));
+    s[j] = pe;
+    sum[(j >> 1) & 1][j & 1] += pe;
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) l[r] = fmaf(l[r], alpha[r], sum[r][0] + sum[r][1]);
+}
+
+// o += P V for one streamed tile: P from registers, V MN-major.
+template <class S>
+__device__ __forceinline__ void values_product(float (&o)[S::DP / 2],
+                                               const uint32_t (&pa)[S::BN / 16][4],
+                                               uint32_t v_tile) {
+#pragma unroll
+  for (int kk = 0; kk < S::BN / 16; ++kk) {
+    hopper::wgmma_rs(o, pa[kk], tile_mn_desc<S>(v_tile, kk));
+  }
+}
+
+// The consumer warpgroups take turns issuing their products (named
+// barriers kFwdTurn + wg, round robin), so that one's exponentials run
+// while another's products do; kFwdStoreBar + wg: a warpgroup's out tile
+// is in shared memory.
+constexpr int kFwdTurn = 1;
+constexpr int kFwdStoreBar = 8;
+
+// The forward's producer thread: for each work item of this block (a head
+// and 64 CW of its queries; items blockIdx.x, + gridDim.x, ...) Q into
+// buffer n % 2 once the item before last has let it go, then the head's
+// K/V tiles through the ring, which runs on across items.
+template <class S>
+__device__ __forceinline__ void fwd_producer(const RingSmem<S>& sm, const WgmmaParams& p,
+                                             const CUtensorMap* tq, const CUtensorMap* tk,
+                                             const CUtensorMap* tv) {
+  int tile = 0;
+  for (int n = 0, item = blockIdx.x; item < p.n_items; ++n, item += gridDim.x) {
+    const int bh = item / p.n_row_tiles;
+    const int m0 = (item - bh * p.n_row_tiles) * S::kOwnRows;
+    const int b = bh / p.H, h = bh - b * p.H;
+    const int buf = n & 1;
+    if (n >= 2) hopper::mbar_wait(sm.own_empty(buf), ((n >> 1) & 1) ^ 1);
+    hopper::mbar_arrive_expect_tx(sm.own_full(buf), S::kOwnBytes);
+    load_rows<S, S::kOwnBox>(sm.own(buf), tq, sm.own_full(buf), m0, S::kOwnRows,
+                             S::kOwnRows * 128, h, b);
+    for (int i = 0; i < p.n_stream; ++i, ++tile) {
+      const int s = tile % S::kStages;
+      if (tile >= S::kStages) hopper::mbar_wait(sm.empty(s), ((tile / S::kStages) & 1) ^ 1);
+      hopper::mbar_arrive_expect_tx(sm.full(s), S::kStageBytes);
+      load_rows<S, S::BN>(sm.tile(s, 0), tk, sm.full(s), i * S::BN, S::BN, S::BN * 128, h, b);
+      load_rows<S, S::BN>(sm.tile(s, 1), tv, sm.full(s), i * S::BN, S::BN, S::BN * 128, h, b);
+    }
+  }
+}
+
+// Persistent: a block per SM walks the work items (see fwd_producer); the
+// next item's Q and first K/V tiles load while this item's last products
+// and its epilogue run.
 template <int DH>
-__global__ void __launch_bounds__(kBwdThreads, 1)
+__global__ void __launch_bounds__(FwdShape<DH>::kThreads, 1)
+    flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                           const __grid_constant__ CUtensorMap tk,
+                           const __grid_constant__ CUtensorMap tv,
+                           const __grid_constant__ CUtensorMap tout, const WgmmaParams p) {
+  using S = FwdShape<DH>;
+  constexpr int CW = S::kOwnRows / 64;  // consumer warpgroups
+  extern __shared__ unsigned char smem_raw[];
+  const RingSmem<S> sm(smem_raw);
+  if (!ring_setup<S>(sm, 1)) {
+    if (threadIdx.x == S::kConsumers) fwd_producer<S>(sm, p, &tq, &tk, &tv);
+    return;
+  }
+
+  const int T = p.T;
+  const int wg = threadIdx.x >> 7, tw = threadIdx.x & 127;
+  const int lane = threadIdx.x & 31, t = lane & 3;
+  const int row_w = wg * 64 + (tw >> 5) * 16 + (lane >> 2);  // rows row_w, row_w + 8 of a block
+  const float c = p.scale * kLog2e;
+
+  int tile = 0;  // K/V tiles this block has taken from the ring
+  for (int n = 0, item = blockIdx.x; item < p.n_items; ++n, item += gridDim.x, tile += p.n_stream) {
+    const int bh = item / p.n_row_tiles;
+    const int m0 = (item - bh * p.n_row_tiles) * S::kOwnRows;
+    const int b = bh / p.H, h = bh - b * p.H;
+    const uint32_t q_tile = sm.own(n & 1);
+
+    float o[S::DP / 2], s[S::BN / 2];
+#pragma unroll
+    for (int i = 0; i < S::DP / 2; ++i) o[i] = 0.f;
+    uint32_t pa[S::BN / 16][4];
+    float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f}, alpha[2];
+
+    hopper::mbar_wait(sm.own_full(n & 1), (n >> 1) & 1);
+    if (wg == CW - 1 && p.n_stream > 1) hopper::named_barrier_arrive(kFwdTurn, 256);
+    hopper::mbar_wait(sm.full(tile % S::kStages), (tile / S::kStages) & 1);
+    hopper::wgmma_fence();
+    products_along_dh<S>(s, q_tile, sm.tile(tile % S::kStages, 0), wg);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(s);
+    online_softmax<S::BN>(s, m, l, alpha, 0, T, t, c);
+    pack_tile<S::BN>(pa, s);
+    for (int i = 1; i < p.n_stream; ++i) {
+      const int st = (tile + i) % S::kStages, prev = (tile + i - 1) % S::kStages;
+      hopper::mbar_wait(sm.full(st), ((tile + i) / S::kStages) & 1);
+      hopper::fence_regs(o);
+      hopper::fence_regs(pa);
+      hopper::named_barrier(kFwdTurn + wg, 256);  // this warpgroup's turn
+      hopper::wgmma_fence();
+      products_along_dh<S>(s, q_tile, sm.tile(st, 0), wg);
+      hopper::wgmma_commit();
+      values_product<S>(o, pa, sm.tile(prev, 1));
+      hopper::wgmma_commit();
+      if (wg < CW - 1 || i + 1 < p.n_stream) {  // the next one's turn
+        hopper::named_barrier_arrive(kFwdTurn + (wg + 1) % CW, 256);
+      }
+      hopper::wgmma_wait<1>();  // S of tile i: its exponentials run while P V does
+      hopper::fence_regs(s);
+      online_softmax<S::BN>(s, m, l, alpha, i * S::BN, T, t, c);
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(o);
+      hopper::fence_regs(pa);
+      sm.release(prev);
+#pragma unroll
+      for (int j = 0; j < S::DP / 2; ++j) o[j] *= alpha[(j >> 1) & 1];
+      pack_tile<S::BN>(pa, s);
+    }
+    const int last = (tile + p.n_stream - 1) % S::kStages;
+    hopper::fence_regs(o);
+    hopper::fence_regs(pa);
+    hopper::wgmma_fence();
+    values_product<S>(o, pa, sm.tile(last, 1));
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(o);
+    hopper::fence_regs(pa);
+    sm.release(last);
+
+    const long long at = static_cast<long long>(bh) * T;
+    float inv[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float denom = fmaxf(quad_sum(l[r]), 1e-30f);
+      inv[r] = 1.f / denom;
+      const int row = m0 + row_w + 8 * r;
+      if (t == 0 && row < T) p.lse[at + row] = m[r] * p.scale + logf(denom);
+    }
+    // out through shared memory and one TMA store per 64-column box: this
+    // warpgroup's 64 rows of the Q buffer are free once its S products are
+    // done; written in the maps' 128-byte swizzle (conflict-free: the 8 rows
+    // of a store instruction land in 8 different 16-byte chunks), and TMA
+    // leaves out rows at or beyond T and columns at or beyond Dh. The
+    // buffer goes back to the producer once the stores have read it.
+#pragma unroll
+    for (int j = 0; j < S::DP / 8; ++j) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = row_w + 8 * r;
+        const uint32_t chunk = static_cast<uint32_t>((j & 7) ^ (row & 7));
+        const uint32_t at_smem = q_tile + (j >> 3) * S::kOwnRows * 128 + row * 128 + chunk * 16;
+        hopper::st_shared_u32(at_smem + 4 * t, pack_floats(o[4 * j + 2 * r] * inv[r],
+                                                           o[4 * j + 2 * r + 1] * inv[r]));
+      }
+    }
+    hopper::fence_async_shared();
+    hopper::named_barrier(kFwdStoreBar + wg, 128);
+    if (tw == 0) {
+#pragma unroll
+      for (int cb = 0; cb < S::NB; ++cb) {
+        hopper::tma_store_4d(&tout, q_tile + cb * S::kOwnRows * 128 + wg * 64 * 128, cb * 64,
+                             m0 + wg * 64, h, b);
+      }
+      hopper::tma_store_wait_read();
+      hopper::mbar_arrive(sm.own_empty(n & 1));
+    }
+  }
+}
+
+template <int DH>
+__global__ void __launch_bounds__(BwdShape<DH>::kThreads, 1)
     flash_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                           const __grid_constant__ CUtensorMap tk,
                           const __grid_constant__ CUtensorMap tv,
-                          const __grid_constant__ CUtensorMap tg, const BwdParams p) {
+                          const __grid_constant__ CUtensorMap tg, const WgmmaParams p) {
   using S = BwdShape<DH>;
   extern __shared__ unsigned char smem_raw[];
-  const BwdSmem<DH> sm(smem_raw);
+  const RingSmem<S> sm(smem_raw);
   const int bh = blockIdx.x / p.n_row_tiles;
-  const int m0 = (blockIdx.x - bh * p.n_row_tiles) * kOwnRows;
-  if (!bwd_pipeline<DH, false>(sm, p, &tq, &tg, &tk, &tv, bh, m0)) return;
+  const int m0 = (blockIdx.x - bh * p.n_row_tiles) * S::kOwnRows;
+  if (!ring_pipeline<S, false>(sm, p, &tq, &tg, &tk, &tv, bh, m0)) return;
 
   const int T = p.T;
   const int b = bh / p.H, h = bh - b * p.H;
@@ -655,15 +750,15 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
   float acc[S::DP / 2];
 #pragma unroll
   for (int i = 0; i < S::DP / 2; ++i) acc[i] = 0.f;
-  hopper::mbar_wait(sm.own_bar(), 0);
+  hopper::mbar_wait(sm.own_full(0), 0);
   for (int i = 0; i < p.n_stream; ++i) {
-    const int s = i % kStages;
-    hopper::mbar_wait(sm.full(s), (i / kStages) & 1);
+    const int s = i % S::kStages;
+    hopper::mbar_wait(sm.full(s), (i / S::kStages) & 1);
     float sc[S::BN / 2], dp[S::BN / 2];
     hopper::wgmma_fence();
-    products_along_dh<DH>(sc, sm.own0, sm.tile(s, 0), wg);
+    products_along_dh<S>(sc, sm.own0, sm.tile(s, 0), wg);
     hopper::wgmma_commit();
-    products_along_dh<DH>(dp, sm.own1, sm.tile(s, 1), wg);
+    products_along_dh<S>(dp, sm.own1, sm.tile(s, 1), wg);
     hopper::wgmma_commit();
     hopper::wgmma_wait<1>();  // S: its exponentials run while dP's product does
     hopper::fence_regs(sc);
@@ -688,28 +783,28 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
     hopper::wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < S::BN / 16; ++kk) {
-      hopper::wgmma_rs(acc, ds[kk], tile_mn_desc<DH>(sm.tile(s, 0), kk));
+      hopper::wgmma_rs(acc, ds[kk], tile_mn_desc<S>(sm.tile(s, 0), kk));
     }
     hopper::wgmma_commit();
     hopper::wgmma_wait<0>();
     hopper::fence_regs(acc);
-    hopper::mbar_arrive(sm.empty(s));
+    sm.release(s);
   }
   store_acc<DH>(head_of<bf16>(p.d0, p.d0s, b, h), p.d0s.st, acc, row_g, T, t);
 }
 
 template <int DH>
-__global__ void __launch_bounds__(kBwdThreads, 1)
+__global__ void __launch_bounds__(BwdShape<DH>::kThreads, 1)
     flash_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                            const __grid_constant__ CUtensorMap tk,
                            const __grid_constant__ CUtensorMap tv,
-                           const __grid_constant__ CUtensorMap tg, const BwdParams p) {
+                           const __grid_constant__ CUtensorMap tg, const WgmmaParams p) {
   using S = BwdShape<DH>;
   extern __shared__ unsigned char smem_raw[];
-  const BwdSmem<DH> sm(smem_raw);
+  const RingSmem<S> sm(smem_raw);
   const int bh = blockIdx.x / p.n_row_tiles;
-  const int n0 = (blockIdx.x - bh * p.n_row_tiles) * kOwnRows;
-  if (!bwd_pipeline<DH, true>(sm, p, &tk, &tv, &tq, &tg, bh, n0)) return;
+  const int n0 = (blockIdx.x - bh * p.n_row_tiles) * S::kOwnRows;
+  if (!ring_pipeline<S, true>(sm, p, &tk, &tv, &tq, &tg, bh, n0)) return;
 
   const int T = p.T;
   const int b = bh / p.H, h = bh - b * p.H;
@@ -722,14 +817,14 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
   float dk[S::DP / 2], dv[S::DP / 2];
 #pragma unroll
   for (int i = 0; i < S::DP / 2; ++i) dk[i] = dv[i] = 0.f;
-  hopper::mbar_wait(sm.own_bar(), 0);
+  hopper::mbar_wait(sm.own_full(0), 0);
   for (int i = 0; i < p.n_stream; ++i) {
-    const int s = i % kStages;
-    hopper::mbar_wait(sm.full(s), (i / kStages) & 1);
+    const int s = i % S::kStages;
+    hopper::mbar_wait(sm.full(s), (i / S::kStages) & 1);
     float st[S::BN / 2], dpt[S::BN / 2];
     hopper::wgmma_fence();
-    products_along_dh<DH>(st, sm.own0, sm.tile(s, 0), wg);
-    products_along_dh<DH>(dpt, sm.own1, sm.tile(s, 1), wg);
+    products_along_dh<S>(st, sm.own0, sm.tile(s, 0), wg);
+    products_along_dh<S>(dpt, sm.own1, sm.tile(s, 1), wg);
     hopper::wgmma_commit();
     hopper::wgmma_wait<0>();
     hopper::fence_regs(st);
@@ -755,16 +850,16 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
     hopper::wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < S::BN / 16; ++kk) {
-      const uint64_t g_desc = tile_mn_desc<DH>(sm.tile(s, 1), kk);
+      const uint64_t g_desc = tile_mn_desc<S>(sm.tile(s, 1), kk);
       hopper::wgmma_rs(dv, hi[kk], g_desc);
       hopper::wgmma_rs(dv, lo[kk], g_desc);
-      hopper::wgmma_rs(dk, ds[kk], tile_mn_desc<DH>(sm.tile(s, 0), kk));
+      hopper::wgmma_rs(dk, ds[kk], tile_mn_desc<S>(sm.tile(s, 0), kk));
     }
     hopper::wgmma_commit();
     hopper::wgmma_wait<0>();
     hopper::fence_regs(dk);
     hopper::fence_regs(dv);
-    hopper::mbar_arrive(sm.empty(s));
+    sm.release(s);
   }
   store_acc<DH>(head_of<bf16>(p.d0, p.d0s, b, h), p.d0s.st, dk, row_g, T, t);
   store_acc<DH>(head_of<bf16>(p.d1, p.d1s, b, h), p.d1s.st, dv, row_g, T, t);
@@ -989,7 +1084,6 @@ enum Pass { kFwd, kDq, kDkv };
 
 constexpr int kTensorMapRefused = -1;  // libcuda refused a TMA tensor map
 
-constexpr int bn_bf16(int dh) { return dh > 64 ? 32 : 64; }
 constexpr int kBnF32 = 32;
 
 template <typename Kernel>
@@ -1006,41 +1100,68 @@ int launch(Kernel kernel, const Params& p, int n_bh, size_t smem_bytes, void* st
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int DH>
-int launch_fwd_bf16(Params p, int n_bh, void* stream) {
-  constexpr int BN = bn_bf16(DH);
-  constexpr size_t row = (DH + 8) * sizeof(bf16);
-  p.n_tiles = (p.T + kRowsMma - 1) / kRowsMma;
-  return launch(flash_fwd_bf16_kernel<DH, BN>, p, n_bh, (kRowsMma + 2 * BN) * row, stream);
-}
-
-// tensors: q, k, v, dO; geometry: nine values each (hopper::encode_bf16_4d)
-template <int DH>
-int launch_bwd_bf16(Pass pass, BwdParams p, const void* const* tensors,
-                    const long long* geometry, int n_bh, void* stream) {
-  using S = BwdShape<DH>;
-  auto kernel = pass == kDq ? flash_dq_wgmma_kernel<DH> : flash_dkv_wgmma_kernel<DH>;
+// A bf16 launch: tensors q, k, v and out (forward) or dO (backward);
+// geometry nine values each (hopper::encode_bf16_4d), box_rows the rows of
+// each map's 64-column box.
+template <class S, int DH, typename Kernel>
+int launch_wgmma(Kernel kernel, WgmmaParams p, const void* const* tensors,
+                 const long long* geometry, const int (&box_rows)[4], int n_bh, bool persistent,
+                 void* stream) {
   // first a runtime call: it makes the device's context current on this
   // thread (autograd's backward thread may have none yet), which the
   // tensor-map encoding in libcuda needs
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, S::kSmemBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
+  if (geometry == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap maps[4];
   for (int i = 0; i < 4; ++i) {
     const long long* geo = geometry + 9 * i;
-    if (geo[0] != DH || geo[1] != p.T || geo[7] != 64 || geo[8] != S::BN) {
+    const int box = box_rows[i];
+    if (geo[0] != DH || geo[1] != p.T || geo[7] != 64 || geo[8] != box) {
       return static_cast<int>(cudaErrorInvalidValue);
     }
     if (!hopper::encode_bf16_4d(&maps[i], tensors[i], geo)) return kTensorMapRefused;
   }
-  p.n_row_tiles = (p.T + kOwnRows - 1) / kOwnRows;
+  p.n_row_tiles = (p.T + S::kOwnRows - 1) / S::kOwnRows;
   p.n_stream = (p.T + S::BN - 1) / S::BN;
-  const long long blocks = static_cast<long long>(n_bh) * p.n_row_tiles;
+  long long blocks = static_cast<long long>(n_bh) * p.n_row_tiles;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  kernel<<<static_cast<unsigned int>(blocks), kBwdThreads, S::kSmemBytes,
-           static_cast<cudaStream_t>(stream)>>>(maps[0], maps[1], maps[2], maps[3], p);
+  if (persistent) {  // one block per SM, each walking its share of the items
+    p.n_items = static_cast<int>(blocks);
+    int device = 0, sms = 0;
+    if (cudaGetDevice(&device) != cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) != cudaSuccess) {
+      return static_cast<int>(cudaGetLastError());
+    }
+    blocks = blocks < sms ? blocks : sms;
+  }
+  const dim3 grid(static_cast<unsigned int>(blocks));
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  kernel<<<grid, S::kThreads, S::kSmemBytes, st>>>(maps[0], maps[1], maps[2], maps[3], p);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int DH>
+int launch_bf16(Pass pass, const WgmmaParams& p, const void* const* tensors,
+                const long long* geometry, int n_bh, void* stream) {
+  switch (pass) {
+    case kFwd: {
+      using S = FwdShape<DH>;  // q: the block's rows; out: a warpgroup's
+      return launch_wgmma<S, DH>(flash_fwd_wgmma_kernel<DH>, p, tensors, geometry,
+                                 {S::kOwnBox, S::BN, S::BN, 64}, n_bh, true, stream);
+    }
+    case kDq: {
+      using S = BwdShape<DH>;
+      return launch_wgmma<S, DH>(flash_dq_wgmma_kernel<DH>, p, tensors, geometry,
+                                 {S::BN, S::BN, S::BN, S::BN}, n_bh, false, stream);
+    }
+    default: {
+      using S = BwdShape<DH>;
+      return launch_wgmma<S, DH>(flash_dkv_wgmma_kernel<DH>, p, tensors, geometry,
+                                 {S::BN, S::BN, S::BN, S::BN}, n_bh, false, stream);
+    }
+  }
 }
 
 template <int DH>
@@ -1073,16 +1194,14 @@ int check_shape(int B, int H, int T, int dtype, int* n_bh) {
   return B == 0 || T == 0 ? 1 : 0;
 }
 
-// the forward in either dtype, or a float32 backward pass
-int dispatch(Pass pass, const Params& p, int B, int Dh, int dtype, void* stream) {
+int dispatch_f32(Pass pass, const Params& p, int B, int Dh, void* stream) {
   int n_bh = 0;
-  const int rc = check_shape(B, p.H, p.T, dtype, &n_bh);
+  const int rc = check_shape(B, p.H, p.T, 0, &n_bh);
   if (rc != 0) return rc == 1 ? 0 : rc;
   switch (Dh) {
-#define SELD_HEAD_DIM_CASE(DH_)                                                     \
-  case DH_:                                                                         \
-    return dtype == 1 ? launch_fwd_bf16<DH_>(p, n_bh, stream)                       \
-                      : launch_f32<DH_>(pass, p, n_bh, stream);
+#define SELD_HEAD_DIM_CASE(DH_) \
+  case DH_:                     \
+    return launch_f32<DH_>(pass, p, n_bh, stream);
     SELD_FOR_EACH_HEAD_DIM(SELD_HEAD_DIM_CASE)
 #undef SELD_HEAD_DIM_CASE
     default:
@@ -1090,15 +1209,15 @@ int dispatch(Pass pass, const Params& p, int B, int Dh, int dtype, void* stream)
   }
 }
 
-int dispatch_bwd_bf16(Pass pass, const BwdParams& p, const void* const* tensors,
-                      const long long* geometry, int B, int Dh, void* stream) {
+int dispatch_bf16(Pass pass, const WgmmaParams& p, const void* const* tensors,
+                  const long long* geometry, int B, int Dh, void* stream) {
   int n_bh = 0;
   const int rc = check_shape(B, p.H, p.T, 1, &n_bh);
   if (rc != 0) return rc == 1 ? 0 : rc;
   switch (Dh) {
 #define SELD_HEAD_DIM_CASE(DH_) \
   case DH_:                     \
-    return launch_bwd_bf16<DH_>(pass, p, tensors, geometry, n_bh, stream);
+    return launch_bf16<DH_>(pass, p, tensors, geometry, n_bh, stream);
     SELD_FOR_EACH_HEAD_DIM(SELD_HEAD_DIM_CASE)
 #undef SELD_HEAD_DIM_CASE
     default:
@@ -1112,13 +1231,14 @@ Strides strides_at(const long long* strides, int i) {
 
 }  // namespace
 
-// dynamic shared memory of a bf16 backward block at head width Dh (the
-// same for dQ and dK/dV), or -1 for a width the kernels do not take
-extern "C" int seld_flash_attention_bwd_smem_bytes(int Dh) {
+// dynamic shared memory of a bf16 block at head width Dh: the forward's
+// (forward = 1) or the backward's (the same for dQ and dK/dV), or -1 for a
+// width the kernels do not take
+extern "C" int seld_flash_attention_smem_bytes(int Dh, int forward) {
   switch (Dh) {
 #define SELD_HEAD_DIM_CASE(DH_) \
   case DH_:                     \
-    return BwdShape<DH_>::kSmemBytes;
+    return forward ? FwdShape<DH_>::kSmemBytes : BwdShape<DH_>::kSmemBytes;
     SELD_FOR_EACH_HEAD_DIM(SELD_HEAD_DIM_CASE)
 #undef SELD_HEAD_DIM_CASE
     default:
@@ -1126,10 +1246,20 @@ extern "C" int seld_flash_attention_bwd_smem_bytes(int Dh) {
   }
 }
 
-// strides: q, k, v, out
+// strides: q, k, v, out; geometry (bf16): q, k, v, out
 extern "C" int seld_flash_attention_fwd(const void* q, const void* k, const void* v, void* out,
-                                        void* lse, const long long* strides, int B, int H, int T,
-                                        int Dh, float scale, int dtype, void* stream) {
+                                        void* lse, const long long* strides,
+                                        const long long* geometry, int B, int H, int T, int Dh,
+                                        float scale, int dtype, void* stream) {
+  if (dtype == 1) {
+    WgmmaParams p{};  // out goes through its tensor map
+    p.lse = static_cast<float*>(lse);
+    p.H = H;
+    p.T = T;
+    p.scale = scale;
+    const void* tensors[4] = {q, k, v, out};
+    return dispatch_bf16(kFwd, p, tensors, geometry, B, Dh, stream);
+  }
   Params p{};
   p.q = q;
   p.k = k;
@@ -1143,7 +1273,7 @@ extern "C" int seld_flash_attention_fwd(const void* q, const void* k, const void
   p.H = H;
   p.T = T;
   p.scale = scale;
-  return dispatch(kFwd, p, B, Dh, dtype, stream);
+  return dispatch_f32(kFwd, p, B, Dh, stream);
 }
 
 // strides: q, k, v, dout, out, dq; geometry (bf16): q, k, v, dout.
@@ -1156,10 +1286,10 @@ extern "C" int seld_flash_attention_bwd_dq(const void* q, const void* k, const v
                                            int H, int T, int Dh, float scale, int dtype,
                                            void* stream) {
   if (dtype == 1) {
-    BwdParams p{};
+    WgmmaParams p{};
     p.out = static_cast<const bf16*>(out);
     p.dout = static_cast<const bf16*>(dout);
-    p.lse = static_cast<const float*>(lse);
+    p.lse = const_cast<float*>(static_cast<const float*>(lse));
     p.delta = static_cast<float*>(delta);
     p.d0 = static_cast<bf16*>(dq);
     p.gs = strides_at(strides, 3);
@@ -1170,7 +1300,7 @@ extern "C" int seld_flash_attention_bwd_dq(const void* q, const void* k, const v
     p.delta_given = delta_given;
     p.scale = scale;
     const void* tensors[4] = {q, k, v, dout};
-    return dispatch_bwd_bf16(kDq, p, tensors, geometry, B, Dh, stream);
+    return dispatch_bf16(kDq, p, tensors, geometry, B, Dh, stream);
   }
   if (!delta_given) return static_cast<int>(cudaErrorInvalidValue);
   Params p{};
@@ -1189,7 +1319,7 @@ extern "C" int seld_flash_attention_bwd_dq(const void* q, const void* k, const v
   p.H = H;
   p.T = T;
   p.scale = scale;
-  return dispatch(kDq, p, B, Dh, dtype, stream);
+  return dispatch_f32(kDq, p, B, Dh, stream);
 }
 
 // strides: q, k, v, dout, dk, dv; geometry (bf16): q, k, v, dout
@@ -1199,8 +1329,8 @@ extern "C" int seld_flash_attention_bwd_dkv(const void* q, const void* k, const 
                                             const long long* geometry, int B, int H, int T, int Dh,
                                             float scale, int dtype, void* stream) {
   if (dtype == 1) {
-    BwdParams p{};
-    p.lse = static_cast<const float*>(lse);
+    WgmmaParams p{};
+    p.lse = const_cast<float*>(static_cast<const float*>(lse));
     p.delta = const_cast<float*>(static_cast<const float*>(delta));
     p.d0 = static_cast<bf16*>(dk);
     p.d1 = static_cast<bf16*>(dv);
@@ -1211,7 +1341,7 @@ extern "C" int seld_flash_attention_bwd_dkv(const void* q, const void* k, const 
     p.delta_given = 1;
     p.scale = scale;
     const void* tensors[4] = {q, k, v, dout};
-    return dispatch_bwd_bf16(kDkv, p, tensors, geometry, B, Dh, stream);
+    return dispatch_bf16(kDkv, p, tensors, geometry, B, Dh, stream);
   }
   Params p{};
   p.q = q;
@@ -1231,5 +1361,5 @@ extern "C" int seld_flash_attention_bwd_dkv(const void* q, const void* k, const 
   p.H = H;
   p.T = T;
   p.scale = scale;
-  return dispatch(kDkv, p, B, Dh, dtype, stream);
+  return dispatch_f32(kDkv, p, B, Dh, stream);
 }

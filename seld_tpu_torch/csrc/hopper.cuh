@@ -133,9 +133,41 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
-// the threads of one warpgroup (ids 1..15; 0 is __syncthreads')
+// One box of a 4-D tensor map from shared memory at `src` (1024-byte
+// aligned, in the map's swizzled layout) to global memory; elements
+// outside the tensor are not written. Commits the store as a bulk group.
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, uint32_t src, int c0, int c1,
+                                             int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n"
+      "cp.async.bulk.commit_group;\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// until this thread's committed TMA stores have read their shared memory
+__device__ __forceinline__ void tma_store_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// makes this thread's shared-memory writes visible to TMA (the async proxy)
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void st_shared_u32(uint32_t addr, uint32_t value) {
+  asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(addr), "r"(value) : "memory");
+}
+
+// until `threads` threads (a multiple of 32) have arrived at named barrier
+// `id` (1..15; 0 is __syncthreads')
 __device__ __forceinline__ void named_barrier(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// arrives at named barrier `id` without waiting for the others
+__device__ __forceinline__ void named_barrier_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
 // ---------------------------------------------------------------------------
@@ -179,6 +211,15 @@ template <int N>
 __device__ __forceinline__ void fence_regs(float (&x)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(x[i])::"memory");
+}
+
+template <int M>
+__device__ __forceinline__ void fence_regs(uint32_t (&x)[M][4]) {
+#pragma unroll
+  for (int i = 0; i < M; ++i) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(x[i][j])::"memory");
+  }
 }
 
 // Accumulators: m64nN, f32, per warp the m16n8k16 C layout for each 8

@@ -9,9 +9,17 @@ backward is two more kernels, dQ (streams K/V) and dK/dV (one block per
 128 keys, streams Q/dO). In bf16 the dQ kernel also forms
 `delta = rowsum(dO * out)` of its rows and writes it for dK/dV, so a
 backward is exactly those two launches; in float32 `delta` is
-`row_delta`'s torch ops. The bf16 backward reads q, k, v and dO through
-TMA tensor maps whose geometry `tma_geometry` computes here. The kernels
-are operations-bound; see the source's note.
+`row_delta`'s torch ops.
+
+In bf16 all three kernels are wgmma products on tiles that TMA stages in
+shared memory, and read q, k, v (and dO) through tensor maps whose
+geometry `tma_geometry` computes here. The forward block owns
+`fwd_block_rows` queries, 64 per warpgroup, and streams K/V tiles of
+`FWD_BOX_KEYS` keys; each warpgroup issues the next tile's scores before
+this tile's value product and runs the exponentials of the online softmax
+while that product runs, and it writes out through shared memory and a
+TMA store. In float32 the kernels are plain FMA (TF32 cannot hold 2e-5).
+The kernels are operations-bound; see the source's note.
 
 Layout: the kernels read q, k, v and dO through their batch / head / time
 strides (last dim contiguous, every stride and the base a multiple of 16
@@ -30,6 +38,7 @@ autograd.
 
 from __future__ import annotations
 
+import array
 import ctypes
 import functools
 
@@ -40,6 +49,17 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 TMA_BOX_COLS = 64  # one 128-byte swizzled row of bf16
 
 
+def fwd_block_rows(dh: int) -> int:
+    """Queries a bf16 forward block owns, loaded as one TMA box of q per
+    64 columns: 64 per consumer warpgroup, four warpgroups up to Dh = 64
+    and two above (the accumulator of a 128-column head takes the
+    registers)."""
+    return 256 if dh <= 64 else 128
+
+
+FWD_BOX_KEYS = 64  # keys of a streamed K/V tile in the bf16 forward
+
+
 def bwd_box_rows(dh: int) -> int:
     """Rows of a streamed tile in the bf16 backward: 64, or 32 above Dh = 64
     (the accumulators of a 128-column head take the registers)."""
@@ -47,7 +67,7 @@ def bwd_box_rows(dh: int) -> int:
 
 
 def tma_geometry(x: torch.Tensor, box_rows: int) -> tuple[int, ...]:
-    """The TMA tensor map of a (B, H, T, Dh) view, as the bf16 backward's
+    """The TMA tensor map of a (B, H, T, Dh) view, as the bf16 kernels'
     host code encodes it: dims innermost first (Dh, T, H, B), the byte
     strides of T, H and B, and the box (64 columns, box_rows rows; one head
     and one batch). Columns beyond Dh and rows beyond T in a box read as
@@ -56,8 +76,9 @@ def tma_geometry(x: torch.Tensor, box_rows: int) -> tuple[int, ...]:
     1 is never used, so it becomes 16."""
     b, h, t, dh = x.shape
     e = x.element_size()
-    sb, sh, st = (s * e if s or n > 1 else 16 for s, n in zip(x.stride()[:3], (b, h, t)))
-    return (dh, t, h, b, st, sh, sb, TMA_BOX_COLS, box_rows)
+    sb, sh, st = x.stride()[:3]  # spelled out: this runs on every bf16 launch
+    return (dh, t, h, b, st * e if st or t > 1 else 16, sh * e if sh or h > 1 else 16,
+            sb * e if sb or b > 1 else 16, TMA_BOX_COLS, box_rows)
 
 
 class _RoundCotangent(torch.autograd.Function):
@@ -139,20 +160,33 @@ def _empty_bthd(like: torch.Tensor) -> torch.Tensor:
     return torch.empty((b, t, h, dh), dtype=like.dtype, device=like.device).transpose(1, 2)
 
 
+@functools.cache
+def _longs_type(n: int):
+    return ctypes.c_longlong * n
+
+
 def _longs(values):
-    return (ctypes.c_longlong * len(values))(*values)
+    """values as a C long long array; through array.array, as a ctypes
+    array's own constructor takes microseconds a launch."""
+    packed = array.array("q", values)
+    return _longs_type(len(packed)).from_buffer(packed)
 
 
 def _strides(*tensors: torch.Tensor):
     return _longs([s for x in tensors for s in x.stride()[:3]])
 
 
-def _geometry(q, k, v, g):
-    """The bf16 backward's four tensor maps (q, k, v, dO); None in float32."""
-    if q.dtype != torch.bfloat16:
+def _geometry(*maps):
+    """The bf16 kernels' tensor maps, from (tensor, box rows) pairs; None in
+    float32."""
+    if maps[0][0].dtype != torch.bfloat16:
         return None
+    return _longs([n for x, rows in maps for n in tma_geometry(x, rows)])
+
+
+def _bwd_geometry(q, k, v, g):
     rows = bwd_box_rows(q.shape[-1])
-    return _longs([n for x in (q, k, v, g) for n in tma_geometry(x, rows)])
+    return _geometry((q, rows), (k, rows), (v, rows), (g, rows))
 
 
 @functools.cache
@@ -163,8 +197,8 @@ def _kernels():
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     ll = ctypes.POINTER(ctypes.c_longlong)
     tail = [i, i, i, i, f, i, p]  # B, H, T, Dh, scale, dtype, stream
-    # pointers, strides, [geometry, [delta_given]], tail
-    lib.seld_flash_attention_fwd.argtypes = [p] * 5 + [ll] + tail
+    # pointers, strides, geometry, [delta_given], tail
+    lib.seld_flash_attention_fwd.argtypes = [p] * 5 + [ll, ll] + tail
     lib.seld_flash_attention_bwd_dq.argtypes = [p] * 8 + [ll, ll, i] + tail
     lib.seld_flash_attention_bwd_dkv.argtypes = [p] * 8 + [ll, ll] + tail
     fns = (lib.seld_flash_attention_fwd, lib.seld_flash_attention_bwd_dq,
@@ -196,7 +230,9 @@ def launch_forward(q, k, v, scale: float):
     out = _empty_bthd(q)
     lse = torch.empty((b * h, t), dtype=torch.float32, device=q.device)
     if q.numel():
-        _launch(0, "forward", (q, k, v, out, lse), (q, k, v, out), (), scale)
+        keys = FWD_BOX_KEYS  # out is stored a warpgroup's 64 rows at a time
+        maps = _geometry((q, fwd_block_rows(q.shape[-1])), (k, keys), (v, keys), (out, 64))
+        _launch(0, "forward", (q, k, v, out, lse), (q, k, v, out), (maps,), scale)
         flash_attention.fwd_launches += 1
     return out, lse
 
@@ -219,7 +255,7 @@ def launch_dq(q, k, v, g, out, lse, scale: float, delta=None):
             delta = row_delta(g, out).view(b * h, t)
     if q.numel():
         _launch(1, "dQ", (q, k, v, g, out, lse, delta, dq), (q, k, v, g, out, dq),
-                (_geometry(q, k, v, g), int(given or q.dtype != torch.bfloat16)), scale)
+                (_bwd_geometry(q, k, v, g), int(given or q.dtype != torch.bfloat16)), scale)
         flash_attention.bwd_dq_launches += 1
     return dq, delta
 
@@ -230,7 +266,7 @@ def launch_dkv(q, k, v, g, lse, delta, scale: float):
     dk, dv = _empty_bthd(q), _empty_bthd(q)
     if q.numel():
         _launch(2, "dK/dV", (q, k, v, g, lse, delta, dk, dv), (q, k, v, g, dk, dv),
-                (_geometry(q, k, v, g),), scale)
+                (_bwd_geometry(q, k, v, g),), scale)
         flash_attention.bwd_dkv_launches += 1
     return dk, dv
 

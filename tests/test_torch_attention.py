@@ -241,18 +241,25 @@ def test_flagship_matches_jax_flash_path_at_512(long_flagship):
     np.testing.assert_allclose(got, want, atol=ATOL, rtol=RTOL)
 
 
-# --- the bf16 backward kernels' tile loop, emulated in numpy ---------------
+# --- the bf16 kernels' tile loops, emulated in numpy -----------------------
 #
-# csrc/flash_attention_kernel.cu's wgmma dQ and dK/dV kernels: a block owns
-# 128 rows, streams 64-row tiles (32 above Dh = 64) whose last one is
-# ragged, reads Dh zero-padded to 64-column TMA boxes, forms delta in
+# csrc/flash_attention_kernel.cu's wgmma kernels: a block owns 128 rows,
+# streams tiles whose last one is ragged and reads Dh zero-padded to
+# 64-column TMA boxes. The forward streams K/V tiles of 64 keys, masks
+# keys at or beyond T to -1e30, keeps a running max m,
+# forms p = exp2(s * scale * log2(e) - m * scale * log2(e)), rounds p to
+# bf16 before P V and divides by the float32 sum at the end. The dQ and
+# dK/dV kernels stream 64-row tiles (32 above Dh = 64), form delta in
 # float32 from dO and out, p = exp2(s * scale * log2(e) - lse * log2(e)),
-# feeds p to dv as a bf16 pair (rounded and remainder) and ds rounded to
+# feed p to dv as a bf16 pair (rounded and remainder) and ds rounded to
 # bf16. `rnd` is the rounding to the kernels' type: bf16, or none to hold
-# the same loop to the Pallas kernels in float32.
+# the same loops to the Pallas kernels in float32.
 
 LOG2E = np.float32(1.4426950408889634)
+NEG = np.float32(-1e30)
 EMULATED = [(t, dh) for t in (37, 130, 640) for dh in (32, 48, 64)]
+# the forward also at two 64-column boxes (Dh 80 and 128)
+FWD_EMULATED = EMULATED + [(t, dh) for t in (37, 130, 640) for dh in (80, 128)]
 
 
 def _bf16(x):
@@ -274,9 +281,38 @@ def _tiles(x, rows, dp):
     return out
 
 
+def _columns(dh):
+    """Columns staged: one 64-column TMA box, or two."""
+    return 64 if dh <= 64 else 128
+
+
 def _shape(dh):
-    dp = 64 if dh <= 64 else 128
-    return dp, port_flash.bwd_box_rows(dh)
+    return _columns(dh), port_flash.bwd_box_rows(dh)
+
+
+def emulate_fwd(q, k, v, scale, rnd=_no_round):
+    """out and lse of the forward kernel's loop; q, k, v (BH, T, Dh)."""
+    bh, t, dh = q.shape
+    dp, bn = _columns(dh), port_flash.FWD_BOX_KEYS
+    qp = _tiles(q, port_flash.fwd_block_rows(dh), dp)
+    kp, vp = _tiles(k, bn, dp), _tiles(v, bn, dp)
+    c = np.float32(scale) * LOG2E
+    m = np.full(qp.shape[:2], NEG, np.float32)
+    l = np.zeros(qp.shape[:2], np.float32)
+    o = np.zeros_like(qp)
+    for n0 in range(0, kp.shape[1], bn):
+        s = qp @ kp[:, n0:n0 + bn].transpose(0, 2, 1)
+        s[..., n0 + np.arange(bn) >= t] = NEG
+        m_new = np.maximum(m, s.max(-1))
+        alpha = np.exp2((m - m_new) * c)
+        p = np.exp2(s * c - (m_new * c)[..., None])
+        l = l * alpha + p.sum(-1, dtype=np.float32)
+        o = o * alpha[..., None] + rnd(p) @ vp[:, n0:n0 + bn]
+        m = m_new
+    denom = np.maximum(l, np.float32(1e-30))
+    out = rnd(o / denom[..., None])
+    lse = m * np.float32(scale) + np.log(denom)
+    return out[:, :t, :dh], lse[:, :t]
 
 
 def emulate_dq(q, k, v, g, out, lse, scale, delta=None, rnd=_no_round):
@@ -384,20 +420,93 @@ def test_kernel_tile_loop_in_bfloat16_is_as_close_to_float32_as_plain_bfloat16(t
         assert err <= 1.5 * plain_err + 1e-6, (name, err, plain_err)
 
 
+@functools.cache
+def _pallas_forward(t, dh):
+    """(q, k, v) and the Pallas forward's out and lse, interpret mode."""
+    q, k, v, _ = _qkvw(t, seed=300 + t + dh, dh=dh)
+    out, lse = jax_flash._flash_attention_fwd_impl(dh ** -0.5, True, *map(jnp.asarray, (q, k, v)))
+    return (q, k, v), np.asarray(out), np.asarray(lse)[:, :t, 0]
+
+
+@pytest.mark.parametrize("t,dh", FWD_EMULATED)
+def test_forward_tile_loop_in_float32_matches_pallas_forward(t, dh):
+    (q, k, v), want_out, want_lse = _pallas_forward(t, dh)
+    out, lse = emulate_fwd(*(_flat(x) for x in (q, k, v)), dh ** -0.5)
+    np.testing.assert_allclose(out.reshape(want_out.shape), want_out, rtol=0, atol=FWD_ATOL)
+    np.testing.assert_allclose(lse, want_lse, rtol=0, atol=LSE_ATOL)
+
+
+@pytest.mark.parametrize("t,dh", FWD_EMULATED)
+def test_forward_tile_loop_in_bfloat16_is_as_close_to_float32_as_plain_bfloat16(t, dh):
+    """out's largest error against the float32 plain version on the same
+    bf16-rounded inputs at most 1.5 times the bf16 plain version's (the
+    card's check), lse within 1e-4 of float32's."""
+    q, k, v, _ = (torch.from_numpy(_bf16(x)) for x in _qkvw(t, seed=400 + t + dh, dh=dh))
+    plain, _ = port_flash.flash_attention_reference(q.bfloat16(), k.bfloat16(), v.bfloat16())
+    exact, exact_lse = port_flash.flash_attention_reference(q, k, v)
+    out, lse = emulate_fwd(*(_flat(x.numpy()) for x in (q, k, v)), dh ** -0.5, rnd=_bf16)
+    e = _flat(exact.numpy())
+    err = np.abs(out - e).max()
+    plain_err = np.abs(_flat(plain.float().numpy()) - e).max()
+    assert err <= 1.5 * plain_err + 1e-6, (err, plain_err)
+    np.testing.assert_allclose(lse, exact_lse.numpy(), rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("t,dh", FWD_EMULATED)
+def test_forward_and_backward_tile_loops_in_float32_match_pallas_gradients(t, dh):
+    """The three kernels end to end: the emulated forward's out and lse
+    feed the emulated dQ and dK/dV loops."""
+    (q, k, v, w), want = _pallas_grads(t, dh)
+    args = [_flat(x) for x in (q, k, v, w)]
+    scale = dh ** -0.5
+    out, lse = emulate_fwd(*args[:3], scale)
+    dq, delta = emulate_dq(*args, out, lse, scale)
+    dk, dv = emulate_dkv(*args, lse, delta, scale)
+    for name, got, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
+        np.testing.assert_allclose(got.reshape(ref.shape), ref, err_msg=name, **GRAD_TOL)
+
+
+@pytest.mark.parametrize("t,dh", FWD_EMULATED)
+def test_forward_and_backward_tile_loops_in_bfloat16_are_as_close_as_plain_bfloat16(t, dh):
+    """The bf16 forward's out and lse into the bf16 dQ and dK/dV loops:
+    each gradient within 1.5 times the plain bf16 version's error against
+    float32."""
+    q, k, v, w = (torch.from_numpy(_bf16(x)) for x in _qkvw(t, seed=500 + t + dh, dh=dh))
+
+    def grads(*xs):
+        leaves = [x.clone().requires_grad_(True) for x in xs[:3]]
+        out, _ = port_flash.flash_attention_reference(*leaves)
+        return torch.autograd.grad(out, leaves, xs[3])
+
+    plain = grads(q.bfloat16(), k.bfloat16(), v.bfloat16(), w.bfloat16())
+    exact = grads(q, k, v, w)
+    scale = dh ** -0.5
+    args = [_flat(x.numpy()) for x in (q, k, v, w)]
+    out, lse = emulate_fwd(*args[:3], scale, rnd=_bf16)
+    dq, delta = emulate_dq(*args, out, lse, scale, rnd=_bf16)
+    dk, dv = emulate_dkv(*args, lse, delta, scale, rnd=_bf16)
+    for name, got, p, e in zip(("dq", "dk", "dv"), (dq, dk, dv), plain, exact):
+        e = e.numpy().reshape(got.shape)
+        err = np.abs(got - e).max()
+        plain_err = np.abs(p.float().numpy().reshape(got.shape) - e).max()
+        assert err <= 1.5 * plain_err + 1e-6, (name, err, plain_err)
+
+
 def test_bf16_rounding_matches_torch():
     x = np.random.default_rng(8).standard_normal(10_000).astype(np.float32) * 1e3
     x[:4] = (1.0 + 2.0 ** -8, 1.0 + 3 * 2.0 ** -8, -0.0, 2.0 ** -130)  # ties both ways, subnormal
     assert np.array_equal(_bf16(x), torch.from_numpy(x).bfloat16().float().numpy())
 
 
-@pytest.mark.parametrize("dh,box_rows", [(16, 64), (32, 64), (48, 64), (64, 64), (80, 32),
-                                         (128, 32)])
-def test_tma_geometry_of_the_models_layout(dh, box_rows):
+@pytest.mark.parametrize("dh,box_rows,fwd_rows", [(16, 64, 256), (32, 64, 256), (48, 64, 256),
+                                                  (64, 64, 256), (80, 32, 128), (128, 32, 128)])
+def test_tma_geometry_of_the_models_layout(dh, box_rows, fwd_rows):
     """The (B, T, H*Dh) projections viewed as (B, H, T, Dh): dims innermost
     first, byte strides of T, H and B, the 64-column box."""
     b, h, t = 3, 5, 37
     x = torch.zeros((b, t, h * dh), dtype=torch.bfloat16).view(b, t, h, dh).transpose(1, 2)
     assert port_flash.bwd_box_rows(dh) == box_rows
+    assert port_flash.fwd_block_rows(dh) == fwd_rows
     assert port_flash.tma_geometry(x, box_rows) == (
         dh, t, h, b, 2 * h * dh, 2 * dh, 2 * t * h * dh, 64, box_rows)
     y = x.contiguous()
@@ -428,6 +537,33 @@ def recorded_launches(monkeypatch):
     calls = []
     monkeypatch.setattr(port_flash, "_launch", lambda *a: calls.append(a))
     return calls
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_launch_forward_passes_the_three_maps(recorded_launches, dtype):
+    """bf16: the tensor maps of q (a box of the block's queries: 256 up to
+    Dh = 64, 128 above), k and v (a box of 64 keys) and out (a box of one
+    warpgroup's 64 rows); float32 takes none. One launch counted."""
+    fa = port_flash.flash_attention
+    for dh, rows in ((32, 64), (80, 64)):
+        q, k, v, _ = (torch.from_numpy(x).to(dtype) for x in _qkvw(70, seed=12, dh=dh))
+        before = fa.fwd_launches
+        out, lse = port_flash.launch_forward(q, k, v, 0.5)
+        assert fa.fwd_launches == before + 1
+        assert out.shape == q.shape and out.dtype == dtype and out.transpose(1, 2).is_contiguous()
+        assert lse.shape == (B * H, 70) and lse.dtype == torch.float32
+        which, name, tensors, strided, extra, scale = recorded_launches[-1]
+        assert (which, name, scale) == (0, "forward", 0.5)
+        assert tensors[:3] == (q, k, v) and tensors[3] is out and tensors[4] is lse
+        assert strided == (q, k, v, out)
+        (geometry,) = extra
+        if dtype == torch.bfloat16:  # q's box holds the block's queries
+            want = [*port_flash.tma_geometry(q, port_flash.fwd_block_rows(dh)),
+                    *port_flash.tma_geometry(k, rows), *port_flash.tma_geometry(v, rows),
+                    *port_flash.tma_geometry(out, 64)]
+            assert list(geometry) == want
+        else:
+            assert geometry is None
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])

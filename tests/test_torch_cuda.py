@@ -224,6 +224,84 @@ def test_k3_wgmma_backward_every_width_is_as_close_as_plain_bfloat16(cuda_device
         assert err <= 1.5 * plain_err + 1e-6, (name, err, plain_err)
 
 
+def _forward_errors(q, k, v):
+    """The bf16 forward's out error against the float32 plain version, the
+    bf16 plain version's, and lse's error against float32's."""
+    with torch.no_grad():
+        out, lse = flash_attention(q, k, v, return_lse=True)
+        plain, _ = flash_attention_reference(q, k, v)
+        exact, exact_lse = flash_attention_reference(q.float(), k.float(), v.float())
+    assert out.dtype == torch.bfloat16 and lse.dtype == torch.float32
+    return ((out.float() - exact).abs().max().item(), (plain.float() - exact).abs().max().item(),
+            (lse - exact_lse).abs().max().item())
+
+
+@pytest.mark.parametrize("t", [37, 64, 130, 513, 1000])
+@pytest.mark.parametrize("dh", [16, 32, 48, 64, 80, 128])
+def test_k3_wgmma_forward_every_width_is_as_close_as_plain_bfloat16(cuda_device, t, dh):
+    """The wgmma forward at head widths below, at and above one 64-column
+    box (K/V tiles of 128 keys up to Dh = 64, 64 above), ragged T included:
+    out within 1.5 times the bf16 plain version's error against float32,
+    lse within 1e-4 of float32's (32 heads)."""
+    q, k, v, _ = _k3_case(cuda_device, 4, 8, t, dh, torch.bfloat16, seed=t + dh)
+    err, plain_err, lse_err = _forward_errors(q, k, v)
+    assert err <= 1.5 * plain_err + 1e-6, (err, plain_err)
+    assert lse_err <= 1e-4, lse_err
+
+
+@pytest.mark.parametrize("dh", [64, 128])
+def test_k3_wgmma_forward_gives_no_weight_to_padded_keys(cuda_device, dh):
+    """Keys ten times larger sharpen the softmax, so a padded key of the
+    ragged last tile that leaked in would show (T = 130: the last tile's
+    64 keys hold 2); lse within 10 x 1e-4."""
+    q, k, v, _ = _k3_case(cuda_device, 4, 8, 130, dh, torch.bfloat16, seed=31, key_scale=10.0)
+    err, plain_err, lse_err = _forward_errors(q, k, v)
+    assert err <= 1.5 * plain_err + 1e-6, (err, plain_err)
+    assert lse_err <= 1e-3, lse_err
+
+
+def test_k3_wgmma_forward_is_bit_reproducible_on_card(cuda_device):
+    q, k, v, _ = _k3_case(cuda_device, 16, 8, 1000, 64, torch.bfloat16, seed=32)
+    with torch.no_grad():
+        first = flash_attention(q, k, v, return_lse=True)
+        second = flash_attention(q, k, v, return_lse=True)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def test_k3_forward_is_one_wgmma_launch_on_card(cuda_device):
+    """A bf16 forward is one launch of the wgmma forward kernel and nothing
+    else on the card: no copy of the model's strided q, k, v, no
+    transposition of out (counters and the profiler's kernel names)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    q, k, v, _ = _k3_case(cuda_device, 2, 8, 1000, 64, torch.bfloat16, seed=33)
+    assert not q.is_contiguous()
+    flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    before, copies = _k3_launches(), flash_attention.copies
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = flash_attention(q, k, v)
+        torch.cuda.synchronize()
+    assert _k3_launches() == (before[0] + 1, before[1], before[2])
+    assert flash_attention.copies == copies
+    assert out.transpose(1, 2).is_contiguous()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation]
+    assert len(names) == 1 and "flash_fwd_wgmma_kernel" in names[0], names
+
+
+def test_k3_wgmma_forward_reads_the_models_layout_in_place(cuda_device):
+    """q, k, v as the model's projections make them and the same values
+    made contiguous give the same bits, with no copy counted for either."""
+    q, k, v, _ = _k3_case(cuda_device, 2, 4, 513, 64, torch.bfloat16, seed=34)
+    copies = flash_attention.copies
+    with torch.no_grad():
+        strided = flash_attention(q, k, v, return_lse=True)
+        packed = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), return_lse=True)
+    assert flash_attention.copies == copies
+    assert all(torch.equal(a, b) for a, b in zip(strided, packed))
+
+
 def test_k3_dq_kernel_writes_delta_and_takes_a_given_one(cuda_device):
     """delta = rowsum(dO * out) in float32, formed by the dQ kernel: within
     1e-5 of row_delta relative to rowsum(|dO * out|) (the same float32

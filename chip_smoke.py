@@ -8,7 +8,9 @@ Phases, each of which raises on failure:
   2. build every CUDA kernel from seld_tpu_torch/csrc into build/kernels,
      one nvcc per source, all started together; K3's wgmma kernels
      (forward, dQ, dK/dV) must not spill at any width, and where cuobjdump
-     exists their SASS must hold HGMMA (wgmma) instructions;
+     exists their SASS must hold HGMMA (wgmma) instructions; K4's
+     registers, spills and shared memory for every n_fft and feature set,
+     none of its instantiations spilling;
   3. kernel K1 against its plain PyTorch version on the card, in float32,
      at the main path's frame count (a 60 s 4-channel clip, N = 12,004
      frames), at a ragged N = 37, on silence, on the main path's input
@@ -32,12 +34,16 @@ Phases, each of which raises on failure:
      F.scaled_dot_product_attention, their operations bounds and rates;
      kernel K4 (spatial features) against its plain version for "mel",
      "mel_iv" and "mel_gcc" at a 60 s 4-channel clip (T = 3,001 frames),
-     at a ragged T = 37 and on silence, and against the rFFT chain of
-     seld_tpu_torch.features.spatial; the GCC lag peak of a 7-sample delay;
-     the ACS commutation (audio-side transform then K4 against K4 then the
-     feature-side transform) for all 16 transforms; bit-equal reruns;
-     times of the kernel, the plain version and the rFFT chain, and the
-     bytes bound;
+     at a ragged T = 37, on silence and on the main path's input
+     (frame_signal's (4, 3001, 960) view of a reflect-padded seeded 60 s
+     clip, read in place: one launch), at every n_fft it takes and at 40
+     mels, and against the rFFT chain of seld_tpu_torch.features.spatial;
+     its mel planes against K1 on the same frames; the GCC lag peak of a
+     7-sample delay; the ACS commutation (audio-side transform then K4
+     against K4 then the feature-side transform) for all 16 transforms;
+     bit-equal reruns; times of the kernel, the plain version and the rFFT
+     chain, in turns, on contiguous frames and in place, and K4's bound
+     both ways;
   4. the flagship ResNet50-Conformer (default Config: d_model 512, 8 heads,
      4 blocks, 250-frame windows, bf16) from seeded weights, saved and
      loaded through seld_tpu_torch.train.checkpoint, serving a seeded 60 s
@@ -69,8 +75,9 @@ Phases, each of which raises on failure:
      cache entry), `cli eval` on the same run (a cache hit: K4 launches 0;
      the trainer's test loss; a DCASE2022 report), SELDPredictor serving
      the 60 s clip from the best checkpoint (K4 once), a seeded "mel_gcc"
-     flagship serving it too (K4 once), and timed train steps of the
-     recipe with both augmentation hooks, one of them profiled.
+     flagship serving it too (K4 once; for both the features' peak device
+     memory holds no framed copy), and timed train steps of the recipe
+     with both augmentation hooks, one of them profiled.
 It prints one JSON line of kernel figures, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.
 """
@@ -207,23 +214,54 @@ def phase_build() -> None:
         # ptxas names each entry function, then its resources; of K1's, K2's
         # and K3's instantiations only the main path's are shown (n_fft = 960
         # as R = 15 with float2 loads, M = 14, Dh = 64); K3's wgmma kernels
-        # (forward, dQ, dK/dV) must not spill at any width
+        # (forward, dQ, dK/dV) and every K4 instantiation must not spill
         shown, entry = True, ""
         for line in info["log"].splitlines():
             if "Compiling entry function" in line:
                 entry = line.split("'")[1]
                 shown = (("grid_loss" not in line or "ILi14E" in line)
                          and ("flash_" not in line or "kernelILi64E" in line)
-                         and ("log_mel" not in line or "ILi15ELb1E" in line))
+                         and ("log_mel" not in line or "ILi15ELb1E" in line)
+                         and "spatial_kernel" not in line)
                 if shown and ("grid_loss" in line or "flash_" in line or "log_mel" in line):
                     print(f"[build]   {entry}:")
-            elif "spill" in line and "wgmma" in entry:
+            elif "spill" in line and ("wgmma" in entry or "spatial_kernel" in entry):
                 spills = [int(n) for n in re.findall(r"(\d+) bytes spill", line)]
                 if any(spills):
                     raise AssertionError(f"{entry} spills: {line.strip()}")
             if shown and ("registers" in line or "spill" in line):
                 print(f"[build]   {line.strip()}")
+        if name == "spatial_kernel":
+            k4_build_report(info["log"])
     k3_build_report()
+
+
+def k4_build_report(log: str) -> None:
+    """K4's registers, spills and static shared memory for each n_fft and
+    feature set (the float2-load instantiations; the scalar-load ones
+    differ only in their loads), from ptxas -v."""
+    sets = ("mel", "mel_iv", "mel_gcc")
+    found, entry = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            m = re.search(r"spatial_kernelILi(\d+)ELi(\d)ELb([01])E", line)
+            entry = (int(m.group(1)), int(m.group(2)), m.group(3) == "1") if m else None
+            if entry:
+                found[entry] = {}
+        elif entry and "spill" in line:
+            found[entry]["spill"] = sum(int(n) for n in re.findall(r"(\d+) bytes spill", line))
+        elif entry and "registers" in line:
+            found[entry]["regs"] = int(re.search(r"Used (\d+) registers", line).group(1))
+            smem = re.search(r"(\d+) bytes smem", line)
+            found[entry]["smem"] = int(smem.group(1)) if smem else 0
+    if len(found) != 24:
+        raise AssertionError(f"K4: {len(found)} instantiations in ptxas's log, expected 24")
+    for (r, kset, vec2), res in sorted(found.items()):
+        if vec2:
+            print(f"[build]   K4 n_fft={64 * r:4d} {sets[kset]:7s}: {res['regs']} registers, "
+                  f"{res.get('spill', 0)} bytes spilled, {res['smem']} bytes of shared memory")
+    print(f"[build] K4: no spills in its {len(found)} instantiations (n_fft x feature set x "
+          f"load width); most registers {max(v['regs'] for v in found.values())}")
 
 
 def k3_build_report() -> None:
@@ -816,26 +854,31 @@ def phase_k3(dev: torch.device) -> list[dict]:
     return rows
 
 
-def k4_bound(t: int, n_fft: int, fb: torch.Tensor, feature_set: str) -> dict:
+def k4_bound(t: int, n_fft: int, fb: torch.Tensor, feature_set: str,
+             input_bytes: int | None = None) -> dict:
     """The least card time for K4's function on t frames of 4 channels; fb
     is the (n_fft // 2 + 1, n_mels) filterbank of this run.
 
-    Bytes: the frames read once and the features written once. Operations:
-    the least arithmetic that computes the function, with FFTs: per channel
-    the Hann window (n_fft), a real FFT (2.5 n_fft log2 n_fft), the power (3
-    per bin), the filterbank product over its nonzero entries (2 each) and
-    the dB (3 per mel); "mel_iv" adds the energy and three intensities (19
-    per bin) and three normalised-filterbank products; "mel_gcc" adds per
-    pair the cross-spectrum and its PHAT scaling (13 per bin) and an
-    inverse real FFT. K4 itself computes the DFT as GEMMs: `gemm_ms` is the
-    float32 floor of that arithmetic at the real bins, without padding."""
+    Bytes: the input read once (by default the 4 x t frames; for frames
+    read in place, `input_bytes` of the padded waveform they view) and the
+    features written once. Operations: the least arithmetic that computes
+    the function, with FFTs: per channel the Hann window (n_fft), a real FFT
+    (2.5 n_fft log2 n_fft), the power (3 per bin), the filterbank product
+    over its nonzero entries (2 each) and the dB (3 per mel); "mel_iv" adds
+    the energy and three intensities (19 per bin) and three
+    normalised-filterbank products; "mel_gcc" adds per pair the
+    cross-spectrum and its PHAT scaling (13 per bin) and an inverse real
+    FFT. `gemm_ms` is the float32 floor of the plain version's DFT-as-GEMM
+    arithmetic at the real bins (the earlier GEMM kernel's form), without padding."""
     from seld_tpu_torch.features.spatial import feature_channels
 
     n_freqs, n_mels = fb.shape
     nnz = int((fb != 0).sum())
     fft = 2.5 * n_fft * math.log2(n_fft)
     c_out = feature_channels(feature_set)
-    n_bytes = 4 * (4 * t * n_fft + t * c_out * n_mels)
+    if input_bytes is None:
+        input_bytes = 4 * 4 * t * n_fft
+    n_bytes = input_bytes + 4 * t * c_out * n_mels
     ops = 4 * (n_fft + fft + 3 * n_freqs + 2 * nnz + 3 * n_mels)
     planes = 4
     if feature_set == "mel_iv":
@@ -862,26 +905,44 @@ def k4_errors(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:
     return mel, rest
 
 
+def k4_check(what: str, errs: tuple[float, float]) -> None:
+    if not (errs[0] <= K1_TOL_DB and errs[1] <= K4_TOL):
+        raise AssertionError(f"K4 {what} disagrees: {errs[0]} dB / {errs[1]}")
+
+
 def phase_k4(dev: torch.device) -> list[dict]:
+    import torch.nn.functional as F
+
     from seld_tpu_torch.config import FeatureConfig
     from seld_tpu_torch.features import spatial as oracle
     from seld_tpu_torch.features.acs import N_TRANSFORMS, acs_tables, audio_channel_transform
     from seld_tpu_torch.features.mel import frame_signal, mel_filterbank
+    from seld_tpu_torch.ops.mel_cuda import KERNEL_N_FFT, log_mel_frames
     from seld_tpu_torch.ops.spatial_cuda import spatial_features, spatial_features_reference
 
     feat = FeatureConfig()
-    n_fft, n_mels, sr = feat.n_fft, feat.n_mels, feat.sample_rate
-    t_main = 1 + CLIP_SECONDS * sr // feat.hop_length  # a 60 s clip: 3,001 frames
+    n_fft, n_mels, sr, hop = feat.n_fft, feat.n_mels, feat.sample_rate, feat.hop_length
+    sets = ("mel", "mel_iv", "mel_gcc")
+    t_main = 1 + CLIP_SECONDS * sr // hop  # a 60 s clip: 3,001 frames
     g = torch.Generator(device=dev).manual_seed(4)
     frames = torch.randn((4, t_main, n_fft), generator=g, device=dev)
     ragged = torch.randn((4, 37, n_fft), generator=g, device=dev)
     silence = torch.zeros((4, 20, n_fft), device=dev)
+    # the main path's input: frame_signal's (4, 3001, 960) view of the
+    # reflect-padded seeded 60 s clip, read in place
+    wave = 0.1 * torch.randn((4, CLIP_SECONDS * sr), generator=g, device=dev)
+    padded = F.pad(wave, (n_fft // 2, n_fft // 2), mode="reflect")
+    view = frame_signal(wave, n_fft, hop)
+    copy = view.contiguous()
+    if view.shape != (4, t_main, n_fft) or view.is_contiguous():
+        raise AssertionError(f"frame_signal gave {tuple(view.shape)}, contiguous "
+                             f"{view.is_contiguous()}")
 
     def library(x, feature_set):
         return oracle.extract_feature_frames(x, feature_set, n_fft, n_mels, sr)
 
     main_err = {}
-    for feature_set in ("mel", "mel_iv", "mel_gcc"):
+    for feature_set in sets:
         before = spatial_features.launches
         got = spatial_features(frames, feature_set)
         torch.cuda.synchronize()
@@ -895,29 +956,66 @@ def phase_k4(dev: torch.device) -> list[dict]:
         s_err = (quiet[:, :4] + 100.0).abs().max().item()
         s_rest = quiet[:, 4:].abs().max().item() if quiet.shape[1] > 4 else 0.0
         again = spatial_features(frames, feature_set)
+        before = spatial_features.launches
+        got_v = spatial_features(view, feature_set)
+        torch.cuda.synchronize()
+        if spatial_features.launches != before + 1:
+            raise AssertionError("K4 on the in-place view did not launch exactly once")
+        v_errs = k4_errors(got_v, spatial_features_reference(copy, feature_set))
+        v_lib_errs = k4_errors(got_v, library(view, feature_set))
         print(f"[K4] {feature_set} T={t_main}: max |kernel - plain| {errs[0]:.3e} dB, other "
               f"planes {errs[1]:.3e}; against the rFFT chain {lib_errs[0]:.3e} dB / "
               f"{lib_errs[1]:.3e}; T=37 {r_errs[0]:.3e} dB / {r_errs[1]:.3e}; silence max "
               f"|mel + 100| {s_err:.3e} dB, max |other| {s_rest:.3e} (tolerance "
               f"{K1_TOL_DB} dB / {K4_TOL})")
-        for mel_err, rest_err in (errs, lib_errs, r_errs):
-            if not (mel_err <= K1_TOL_DB and rest_err <= K4_TOL):
-                raise AssertionError(f"K4 {feature_set} disagrees: {mel_err} dB / {rest_err}")
+        print(f"[K4] {feature_set} in place, view {tuple(view.shape)} strides {view.stride()}: "
+              f"max |kernel - plain on its contiguous copy| {v_errs[0]:.3e} dB / "
+              f"{v_errs[1]:.3e}, against the rFFT chain {v_lib_errs[0]:.3e} dB / "
+              f"{v_lib_errs[1]:.3e}; 1 launch")
+        for what, e in (("", errs), ("vs rFFT chain", lib_errs), ("T=37", r_errs),
+                        ("in place", v_errs), ("in place vs rFFT chain", v_lib_errs)):
+            k4_check(f"{feature_set} {what}", e)
         if not (s_err <= 1e-4 and s_rest == 0.0 and bool(torch.isfinite(quiet).all())):
             raise AssertionError(f"K4 {feature_set} on silence: {s_err} / {s_rest}")
         if not torch.equal(got, again):
             raise AssertionError(f"K4 {feature_set}: two runs on the same frames differ")
-        main_err[feature_set] = max(errs)
+        main_err[feature_set] = max(*errs, *v_errs)
     print("[K4] two runs bit-equal for every feature set")
+
+    # K4's mel planes run K1's FFT stage and band loop: K1's numbers
+    k1 = log_mel_frames(view).transpose(0, 1)
+    k1_diff = max((spatial_features(view, fs)[:, :4] - k1).abs().max().item() for fs in sets)
+    print(f"[K4] mel planes against K1 on the same in-place frames, every feature set: max "
+          f"|K4 - K1| {k1_diff:.3e} dB ({'bit-equal' if k1_diff == 0.0 else 'not bit-equal'})")
+    if not k1_diff <= K1_TOL_DB:
+        raise AssertionError(f"K4's mel planes differ from K1 by {k1_diff} dB")
+
+    for nf in KERNEL_N_FFT:
+        v = frame_signal(wave, nf, nf // 2)
+        c = v.contiguous()
+        line = []
+        for fs in sets:
+            e = k4_errors(spatial_features(v, fs), spatial_features_reference(c, fs))
+            k4_check(f"{fs} n_fft={nf}", e)
+            line.append(f"{fs} {e[0]:.3e} dB / {e[1]:.3e}")
+        print(f"[K4] n_fft={nf} in place, T={v.shape[1]}: max |kernel - plain| " + "; ".join(line))
+    line = []
+    for fs in sets:
+        out = spatial_features(view, fs, n_mels=40)
+        e = k4_errors(out, spatial_features_reference(copy, fs, n_mels=40))
+        k4_check(f"{fs} n_mels=40", e)
+        line.append(f"{fs} {e[0]:.3e} dB / {e[1]:.3e}")
+    print("[K4] n_mels=40 in place: max |kernel - plain| " + "; ".join(line))
+    del v, c, out
 
     # GCC-PHAT: a channel delayed by 7 samples peaks at lag +7 (column 32 + 7)
     rng = np.random.default_rng(5)
     base = rng.standard_normal(sr // 2 + 64).astype(np.float32)
     delay = 7
-    wave = np.stack([base[64:64 + sr // 2], base[64 - delay:64 - delay + sr // 2],
-                     rng.standard_normal(sr // 2).astype(np.float32),
-                     rng.standard_normal(sr // 2).astype(np.float32)])
-    framed = frame_signal(torch.from_numpy(wave).to(dev), n_fft, feat.hop_length).contiguous()
+    lagged = np.stack([base[64:64 + sr // 2], base[64 - delay:64 - delay + sr // 2],
+                       rng.standard_normal(sr // 2).astype(np.float32),
+                       rng.standard_normal(sr // 2).astype(np.float32)])
+    framed = frame_signal(torch.from_numpy(lagged).to(dev), n_fft, hop)
     peak = int(spatial_features(framed, "mel_gcc")[:, 4].mean(dim=0).argmax())
     print(f"[K4] GCC-PHAT of a {delay}-sample delay: peak at column {peak} (lag {peak - 32})")
     if peak != 32 + delay:
@@ -941,28 +1039,47 @@ def phase_k4(dev: torch.device) -> list[dict]:
     if not worst <= K4_ACS_TOL:
         raise AssertionError(f"K4 breaks the ACS commutation by {worst}")
 
+    # times in turns inside this call; each kernel_ms is a mean of 20 launches
     fb = torch.from_numpy(mel_filterbank(n_fft // 2 + 1, n_mels, sr)).to(dev)
     rows = []
-    for feature_set in ("mel", "mel_iv", "mel_gcc"):
-        k_ms = kernel_ms(lambda: spatial_features(frames, feature_set))
-        plain_ms = kernel_ms(lambda: spatial_features_reference(frames, feature_set))
-        library_ms = kernel_ms(lambda: library(frames, feature_set))
+    for feature_set in sets:
+        runs = {
+            "kernel": lambda: spatial_features(frames, feature_set),
+            "plain": lambda: spatial_features_reference(frames, feature_set),
+            "rFFT chain": lambda: library(frames, feature_set),
+            "kernel in place": lambda: spatial_features(view, feature_set),
+            "rFFT chain in place": lambda: library(view, feature_set),
+        }
+        times = defaultdict(list)
+        for turn in range(3):
+            for name, fn in (runs.items() if turn % 2 == 0 else reversed(runs.items())):
+                times[name].append(kernel_ms(fn))
+        ms = {name: float(np.median(v)) for name, v in times.items()}
+        for name, v in times.items():
+            print(f"[K4] {feature_set:7s} {name:20s} median {ms[name]:.4f} ms of turns "
+                  f"{', '.join(f'{x:.4f}' for x in v)}")
+        k_ms, kv_ms = ms["kernel"], ms["kernel in place"]
         b = k4_bound(t_main, n_fft, fb, feature_set)
-        print(f"[K4] {feature_set} T={t_main}: kernel {k_ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"rFFT chain {library_ms:.4f} ms; bound {b['bound_ms']:.4f} ms by {b['bound_by']} "
+        bv = k4_bound(t_main, n_fft, fb, feature_set, input_bytes=padded.numel() * 4)
+        print(f"[K4] {feature_set} T={t_main}: bound {b['bound_ms']:.4f} ms by {b['bound_by']} "
               f"({b['bytes'] / 1e6:.2f} MB at 3.35 TB/s; {b['ops'] / 1e9:.3f} GFLOP with FFTs "
               f"at 67 TFLOP/s f32): kernel at {100 * b['bound_ms'] / k_ms:.2f} % of it; "
+              f"{ms['rFFT chain'] / k_ms:.2f}x the rFFT chain's speed; the plain version's "
               f"DFT-as-GEMM arithmetic {b['gemm_flops'] / 1e9:.2f} GFLOP, f32 floor "
-              f"{b['gemm_ms']:.4f} ms, kernel {b['gemm_flops'] / (k_ms * 1e-3) / 1e12:.2f} "
-              f"TFLOP/s ({100 * b['gemm_ms'] / k_ms:.1f} % of the f32 peak)")
+              f"{b['gemm_ms']:.4f} ms")
+        print(f"[K4] {feature_set} in place: bound {bv['bound_ms']:.4f} ms by {bv['bound_by']} "
+              f"({bv['bytes'] / 1e6:.2f} MB: {padded.numel() * 4 / 1e6:.2f} MB padded waveform, "
+              f"{(bv['bytes'] - padded.numel() * 4) / 1e6:.2f} MB out): kernel at "
+              f"{100 * bv['bound_ms'] / kv_ms:.2f} % of it; "
+              f"{ms['rFFT chain in place'] / kv_ms:.2f}x the rFFT chain's speed")
         if feature_set != "mel":  # "mel" takes K1 on the main path
             rows.append({
                 "name": f"K4 {feature_set}", "route": "cuda",
                 "source": "seld_tpu_torch/csrc/spatial_kernel.cu",
                 "replaces": "seld_tpu/ops/spatial_pallas.py:132",
                 "launches": None, "max_abs_err": main_err[feature_set], "ms": k_ms,
-                "plain_ms": plain_ms, "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
-                "library_ms": library_ms,
+                "plain_ms": ms["plain"], "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
+                "library_ms": ms["rFFT chain"],
             })
     return rows
 
@@ -1529,10 +1646,29 @@ def phase_spatial(dev: torch.device) -> dict:
         save_checkpoint(root / "gcc.pt", model, gcc_cfg)
         del model
         gcc_pred = SELDPredictor(root / "gcc.pt", batch_windows=8, device=dev)
+    from seld_tpu_torch.data.corpus import compute_mel_features
+
     served = {}
     for name, p in (("mel_iv", pred), ("mel_gcc", gcc_pred)):
         p.predict_waveform(wave)  # warm-up
         torch.cuda.synchronize()
+        # K4 reads the frames in place: the features' peak memory is the
+        # upload, the padded waveform and the output; a framed copy of the
+        # clip would add its 46 MB
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        feats = compute_mel_features(wave, p.cfg.features, dev)
+        torch.cuda.synchronize()
+        feat_mb = (torch.cuda.max_memory_allocated() - base) / 1e6
+        n_fft = p.cfg.features.n_fft
+        framed_mb = 4 * wave.shape[0] * t_frames * n_fft / 1e6
+        in_place_mb = 4 * (wave.shape[0] * (2 * wave.shape[1] + n_fft) + feats.numel()) / 1e6
+        print(f"[spatial] compute_mel_features {name} of the {CLIP_SECONDS} s clip: peak "
+              f"{feat_mb:.2f} MB of device memory above the model's ({in_place_mb:.2f} MB "
+              f"without a framed copy, {in_place_mb + framed_mb:.2f} MB with one)")
+        if not feat_mb < in_place_mb + framed_mb / 2:
+            raise AssertionError(f"compute_mel_features {name} copied the frames")
+        del feats
         spatial_features.launches = 0
         classes = p.predict_waveform(wave).classes
         torch.cuda.synchronize()

@@ -1,13 +1,12 @@
 """Waveform -> features, and files -> a windowed corpus (counterpart:
 seld_tpu/data/corpus.py).
 
-Framing is a strided view of the reflect-padded signal on the device.
-For feature_set "mel" K1 (seld_tpu_torch.ops.mel_cuda) reads that view in
-place, in one launch per clip; for "mel_iv" and "mel_gcc" the frames are
-copied and go through K4 (seld_tpu_torch.ops.spatial_cuda), one launch
-per clip of up to MAX_LAUNCH_FRAMES frames. Both kernels treat every
-frame on its own: the JAX package's 128/1024/8192 frame tiers exist for
-XLA's static shapes and have no counterpart here.
+Framing is a strided view of the reflect-padded signal on the device,
+and the kernels read that view in place, in one launch per clip: K1
+(seld_tpu_torch.ops.mel_cuda) for feature_set "mel", K4
+(seld_tpu_torch.ops.spatial_cuda) for "mel_iv" and "mel_gcc". Both
+kernels treat every frame on its own: the JAX package's 128/1024/8192
+frame tiers exist for XLA's static shapes and have no counterpart here.
 
 A corpus keeps its features and its (T, G) uint16 label bitmasks as numpy
 arrays on the host, concatenated over the files; windows are start
@@ -56,7 +55,7 @@ def features_from_frames(frames: torch.Tensor, feat: FeatureConfig) -> torch.Ten
     planes for "mel", 7 or 10 planes of 4 channels for "mel_iv" /
     "mel_gcc"."""
     if feat.feature_set != "mel":  # an unknown set raises in spatial_features
-        return spatial_features(frames.contiguous(), feat.feature_set, n_mels=feat.n_mels,
+        return spatial_features(frames, feat.feature_set, n_mels=feat.n_mels,
                                 sample_rate=feat.sample_rate, amin=feat.amin)
     out = log_mel_frames(frames, n_fft=feat.n_fft, n_mels=feat.n_mels,
                          sample_rate=feat.sample_rate, f_min=feat.f_min,

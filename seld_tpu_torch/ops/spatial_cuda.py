@@ -3,20 +3,21 @@ csrc/spatial_kernel.cu).
 
 Replaces seld_tpu/ops/spatial_pallas.py::spatial_features_pallas. For
 each frame of the four FOA channels (ACN order W, Y, Z, X) the kernel
-computes the Hann-windowed DFT as GEMMs and, without writing a spectrum
-to device memory, 4 log-mel planes and either 3 energy-normalised
-intensity-vector planes on the column-normalised filterbank ("mel_iv")
-or 6 PHAT-normalised cross-spectra projected onto n_mels centred lags
-("mel_gcc"). It computes what the TPU kernel computes, not the rFFT
-oracle of seld_tpu_torch.features.spatial: GCC normalises with
-rsqrt(cr^2 + ci^2 + eps^2), and padded bins give exact zeros.
+computes the Hann-windowed real FFT of each channel in registers (K1's
+stage, csrc/warp_fft.cuh) and, without writing a spectrum to device
+memory, 4 log-mel planes and either 3 energy-normalised intensity-vector
+planes on the column-normalised filterbank ("mel_iv") or 6
+PHAT-normalised cross-spectra taken to n_mels centred lags by a pruned
+inverse FFT ("mel_gcc"). It computes what the TPU kernel computes, not the
+rFFT oracle of seld_tpu_torch.features.spatial: GCC normalises with
+rsqrt(cr^2 + ci^2 + eps^2), and the lags read only the real parts of the
+cross-spectrum's bins 0 and n_fft / 2.
 
-Bound on an H100: the function's bytes (frames in, features out) at
-3.35 TB/s; the kernel's own DFT-as-GEMM arithmetic in float32 FMA is what
-it spends its time on (see the source). `spatial_features` launches it for
-CUDA tensors, one launch per `MAX_LAUNCH_FRAMES` frames; for CPU tensors,
-and only for those, it runs `spatial_features_reference`, the same
-arithmetic as float32 GEMMs with the same padded constants.
+`spatial_plan` builds the tables it reads. `spatial_features` launches it
+for CUDA tensors, once per call, reading the frames in place through their
+strides; for CPU tensors, and only for those, it runs
+`spatial_features_reference`, the same function as float32 GEMMs with
+the TPU kernel's padded constants.
 """
 
 from __future__ import annotations
@@ -24,19 +25,32 @@ from __future__ import annotations
 import ctypes
 import functools
 import itertools
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from seld_tpu_torch.features.mel import mel_filterbank
 from seld_tpu_torch.features.spatial import _ACN_W, _ACN_X, _ACN_Y, _ACN_Z, feature_channels
-from seld_tpu_torch.ops.mel_cuda import KERNEL_MELS, dft_mel_constants
+from seld_tpu_torch.ops.mel_cuda import (
+    _WARP,
+    KERNEL_MELS,
+    KERNEL_N_FFT,
+    FftMelPlan,
+    _pairs,
+    _unit,
+    dft_mel_constants,
+    fft_mel_plan,
+)
 
 FEATURE_SETS = {"mel": 0, "mel_iv": 1, "mel_gcc": 2}
-# frames per launch: 16,384 frames of 4 channels are 252 MB of input, so a
-# clip of up to 5.4 minutes is one launch
-MAX_LAUNCH_FRAMES = 1 << 14
-_DEPTH_TILE = 16  # the kernel's DFT depth step: n_fft must divide by it
 _PAIRS = list(itertools.combinations(range(4), 2))
+
+
+def column_normalised(fb: np.ndarray) -> np.ndarray:
+    """The filterbank with each column divided by max(its sum, 1e-8):
+    FB_norm, as seld_tpu/ops/spatial_pallas.py::_constants forms it."""
+    return fb / np.maximum(fb.sum(axis=0, keepdims=True), 1e-8)
 
 
 @functools.lru_cache(maxsize=8)
@@ -46,14 +60,14 @@ def spatial_constants(n_fft: int, n_mels: int, sample_rate: int, device: torch.d
 
     C_re, C_im and FB are those of K1's plain version
     (mel_cuda.dft_mel_constants): the DFT bases with the n_fft//2 + 1 bins
-    zero-padded to a multiple of 64, and the (n_bins, 64) mel filterbank. FB_norm is FB with its columns divided by
-    max(column sum, 1e-8); LAG_re/LAG_im, also (n_bins, 64), are the
-    inverse one-sided DFT onto lags l - n_mels//2 (weights 1 at bins 0 and
-    n_fft/2, else 2, over n_fft). All are zero outside the real bins and
-    the n_mels columns."""
+    zero-padded to a multiple of 64, and the (n_bins, 64) mel filterbank.
+    FB_norm is FB with its columns divided by max(column sum, 1e-8);
+    LAG_re/LAG_im, also (n_bins, 64), are the inverse one-sided DFT onto
+    lags l - n_mels//2 (weights 1 at bins 0 and n_fft/2, else 2, over
+    n_fft). All are zero outside the real bins and the n_mels columns."""
     c_re, c_im, fb = dft_mel_constants(n_fft, n_mels, sample_rate, 0.0, None, device)
     fb_np = fb.cpu().numpy()
-    fb_norm = fb_np / np.maximum(fb_np.sum(axis=0, keepdims=True), 1e-8)
+    fb_norm = column_normalised(fb_np)
 
     n_freqs = n_fft // 2 + 1
     half = n_mels // 2
@@ -105,6 +119,57 @@ def spatial_features_reference(frames: torch.Tensor, feature_set: str, n_mels: i
     return out.transpose(0, 1).contiguous()
 
 
+class SpatialPlan(NamedTuple):
+    """The tables K4's kernel reads, float64 rounded once to float32.
+
+    mel:          K1's plan (mel_cuda.FftMelPlan) for this n_fft, n_mels
+                  and sample rate: the window, the forward FFT's twiddles
+                  and the filterbank packed per band
+    norm_weights: (nnz,) float32 the column-normalised filterbank FB_norm
+                  packed with FB's bands (the same bins; other weights)
+    lag_twiddles: (R, 32, 2) the GCC inverse's pruned lane sum: (2 /
+                  n_fft) exp(2 pi i k2 n / M) at [k2, lane], M = n_fft / 2
+                  = 32 R, n = lane for lanes 0-15 and M - 32 + lane for
+                  lanes 16-31 (the complex samples that hold the lags)
+    """
+
+    mel: FftMelPlan
+    norm_weights: torch.Tensor
+    lag_twiddles: torch.Tensor
+
+
+def check_kernel_shape(n_fft: int, n_mels: int) -> None:
+    """Raise ValueError for an n_fft or n_mels the CUDA kernel does not take."""
+    if n_fft not in KERNEL_N_FFT:
+        raise ValueError(f"K4's CUDA kernel takes n_fft in {KERNEL_N_FFT}, got {n_fft}")
+    if not 1 <= n_mels <= KERNEL_MELS:
+        raise ValueError(f"K4 computes at most {KERNEL_MELS} mels (and at least 1), got {n_mels}")
+
+
+@functools.lru_cache(maxsize=8)
+def spatial_plan(n_fft: int, n_mels: int, sample_rate: int,
+                 device: torch.device) -> SpatialPlan:
+    """K4's tables for one (n_fft, n_mels, sample rate) on `device`, built
+    once per arguments. Callers must not write to them."""
+    check_kernel_shape(n_fft, n_mels)
+    mel = fft_mel_plan(n_fft, n_mels, sample_rate, 0.0, None, device)
+    m = n_fft // 2
+    r = m // _WARP
+    fb_norm = column_normalised(mel_filterbank(m + 1, n_mels, sample_rate))
+    first, count, offset = mel.bands.cpu().numpy()
+    norm = np.concatenate([fb_norm[f:f + c, band]
+                           for band, (f, c) in enumerate(zip(first, count))])
+    lanes = np.arange(_WARP)
+    n = np.where(lanes < _WARP // 2, lanes, m - _WARP + lanes)
+    lag_tw = (2.0 / n_fft) * np.conj(_unit(np.arange(r)[:, None] * n[None, :], m))
+
+    def dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    return SpatialPlan(mel=mel, norm_weights=dev(norm.astype(np.float32)),
+                       lag_twiddles=dev(_pairs(lag_tw)))
+
+
 def _check_frames(frames: torch.Tensor) -> None:
     if frames.dtype != torch.float32:
         raise TypeError(f"K4 takes float32 frames, got {frames.dtype}")
@@ -112,10 +177,10 @@ def _check_frames(frames: torch.Tensor) -> None:
         raise ValueError(
             f"K4 takes (4, T, n_fft) frames of 4 FOA channels, got {tuple(frames.shape)}"
         )
-    if not frames.is_contiguous():
-        raise ValueError("K4 takes contiguous frames")
-    if frames.shape[2] % _DEPTH_TILE:
-        raise ValueError(f"K4 needs n_fft divisible by {_DEPTH_TILE}, got {frames.shape[2]}")
+    if frames.stride(2) != 1:
+        raise ValueError(
+            f"K4 reads frames whose last axis has unit stride, got stride {frames.stride(2)}"
+        )
 
 
 @functools.cache
@@ -123,9 +188,10 @@ def _kernel():
     from seld_tpu_torch.ops._build import load_library
 
     fn = load_library("spatial_kernel").seld_spatial_features
-    fn.argtypes = ([ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong]
-                   + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
-                   + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
+    fn.argtypes = ([ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong]
+                   + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 9
+                   + [ctypes.c_int, ctypes.c_float, ctypes.c_float]
+                   + [ctypes.c_void_p] * 2)
     fn.restype = ctypes.c_int
     return fn
 
@@ -133,14 +199,17 @@ def _kernel():
 def spatial_features(frames: torch.Tensor, feature_set: str, n_mels: int = 64,
                      sample_rate: int = 24_000, amin: float = 1e-10,
                      eps: float = 1e-8) -> torch.Tensor:
-    """(4, T, n_fft) float32 contiguous STFT frames of the 4 FOA channels
-    -> (T, C_out, n_mels) float32 features, C_out 4 ("mel"), 7
-    ("mel_iv") or 10 ("mel_gcc").
+    """(4, T, n_fft) float32 STFT frames of the 4 FOA channels -> (T,
+    C_out, n_mels) float32 features, C_out 4 ("mel"), 7 ("mel_iv") or 10
+    ("mel_gcc").
 
-    A CUDA tensor goes through kernel K4 on the current stream, one launch
-    per MAX_LAUNCH_FRAMES frames (every launch adds one to
-    `spatial_features.launches`); a CPU tensor goes through
-    `spatial_features_reference`. Anything else raises."""
+    The frames may be any view whose last axis has unit stride, such as
+    `features.mel.frame_signal`'s view of the padded waveform: a CUDA
+    tensor is read in place by kernel K4, in one launch on the current
+    stream (every launch adds one to `spatial_features.launches`), for
+    n_fft in KERNEL_N_FFT and up to KERNEL_MELS mels; a CPU tensor goes
+    through `spatial_features_reference` at any n_fft. Anything else
+    raises."""
     c_out = feature_channels(feature_set)
     _check_frames(frames)
     if frames.device.type == "cpu":
@@ -148,25 +217,26 @@ def spatial_features(frames: torch.Tensor, feature_set: str, n_mels: int = 64,
                                           amin, eps)
     if frames.device.type != "cuda":
         raise ValueError(f"K4 runs on CUDA or CPU tensors, got {frames.device}")
-    if n_mels > KERNEL_MELS:
-        raise ValueError(f"K4 computes at most {KERNEL_MELS} mels, got {n_mels}")
-    if frames.data_ptr() % 16:
-        raise ValueError("K4 needs 16-byte aligned frames")
     _, t, n_fft = frames.shape
-    consts = spatial_constants(n_fft, n_mels, sample_rate, frames.device)
+    check_kernel_shape(n_fft, n_mels)
+    plan = spatial_plan(n_fft, n_mels, sample_rate, frames.device)
     out = torch.empty((t, c_out, n_mels), dtype=torch.float32, device=frames.device)
+    if t == 0:
+        return out
+    mel = plan.mel
     with torch.cuda.device(frames.device):
         stream = torch.cuda.current_stream(frames.device).cuda_stream
-        for start in range(0, t, MAX_LAUNCH_FRAMES):
-            n = min(MAX_LAUNCH_FRAMES, t - start)
-            rc = _kernel()(
-                FEATURE_SETS[feature_set], frames[:, start].data_ptr(), t * n_fft,
-                *(c.data_ptr() for c in consts), out[start].data_ptr(), n, n_fft,
-                consts[0].shape[1], n_mels, amin, eps, stream,
-            )
-            if rc != 0:
-                raise RuntimeError(f"K4 launch failed with CUDA error {rc}")
-            spatial_features.launches += 1
+        rc = _kernel()(
+            FEATURE_SETS[feature_set], frames.data_ptr(), frames.stride(0), frames.stride(1),
+            t, n_fft, mel.window.data_ptr(), mel.lane_twiddles.data_ptr(),
+            mel.warp_twiddles.data_ptr(), mel.split_twiddles.data_ptr(),
+            plan.lag_twiddles.data_ptr(), mel.radix.data_ptr(), mel.bands.data_ptr(),
+            mel.weights.data_ptr(), plan.norm_weights.data_ptr(), n_mels, amin, eps,
+            out.data_ptr(), stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"K4 launch failed with CUDA error {rc}")
+    spatial_features.launches += 1
     return out
 
 

@@ -30,11 +30,7 @@ from seld_tpu_torch.ops.flash_attention import (
 from seld_tpu_torch.ops.loss_cuda import grid_loss_terms, grid_loss_terms_reference
 from seld_tpu_torch.features.mel import frame_signal
 from seld_tpu_torch.ops.mel_cuda import KERNEL_N_FFT, log_mel_frames, log_mel_frames_reference
-from seld_tpu_torch.ops.spatial_cuda import (
-    MAX_LAUNCH_FRAMES,
-    spatial_features,
-    spatial_features_reference,
-)
+from seld_tpu_torch.ops.spatial_cuda import spatial_features, spatial_features_reference
 
 pytestmark = pytest.mark.cuda
 
@@ -510,10 +506,11 @@ def test_loss_auto_goes_through_k2_on_card_and_fused_true_needs_it(cuda_device):
         fn.from_bitmask(logits.detach().cpu(), mask.reshape(2, 5, G).cpu(), fused=True)
 
 
-# K4 against its plain version: float32 FMA in the kernel's order against
-# cuBLAS's float32 GEMMs. The JAX package holds its spatial kernel to
-# 5e-3 dB on the mel planes and 1e-4 on the IV and GCC planes.
+# K4 against its plain version: float32 FFTs against cuBLAS's float32 DFT
+# GEMMs. The JAX package holds its spatial kernel to 5e-3 dB on the mel
+# planes and 1e-4 on the IV and GCC planes.
 K4_SETS = ("mel", "mel_iv", "mel_gcc")
+K4_PLANES = {"mel": 4, "mel_iv": 7, "mel_gcc": 10}
 
 
 def _k4_check(got, want):
@@ -543,11 +540,13 @@ def test_k4_silence_is_finite_on_card(cuda_device, feature_set):
 
 
 def test_k4_chunks_long_inputs_and_fewer_mels_on_card(cuda_device):
-    t = MAX_LAUNCH_FRAMES + 5
+    """Any length is one launch (the earlier GEMM kernel took 16,384
+    frames a launch); fewer mels on a contiguous slice."""
+    t = (1 << 14) + 5
     frames = torch.randn((4, t, NFFT), device=cuda_device)
     before = spatial_features.launches
     got = spatial_features(frames, "mel_gcc")
-    assert spatial_features.launches == before + 2
+    assert spatial_features.launches == before + 1
     _k4_check(got, spatial_features_reference(frames, "mel_gcc"))
     small = frames[:, :50].contiguous()
     _k4_check(spatial_features(small, "mel_iv", n_mels=40),
@@ -555,19 +554,26 @@ def test_k4_chunks_long_inputs_and_fewer_mels_on_card(cuda_device):
 
 
 def test_k4_is_bit_reproducible_on_card(cuda_device):
+    """No atomics: reruns are bit-equal, on contiguous frames and on
+    frame_signal's in-place view."""
     frames = torch.randn((4, 300, NFFT), device=cuda_device)
+    view = _k4_view(300, NFFT, 300)
     for feature_set in K4_SETS:
-        assert torch.equal(spatial_features(frames, feature_set),
-                           spatial_features(frames, feature_set))
+        for x in (frames, view):
+            assert torch.equal(spatial_features(x, feature_set),
+                               spatial_features(x, feature_set))
 
 
 @pytest.mark.parametrize("make,err", [
     (lambda d: torch.zeros((4, 8, NFFT), dtype=torch.float64, device=d), TypeError),
-    (lambda d: torch.zeros((8, 4, NFFT), device=d).transpose(0, 1), ValueError),
+    (lambda d: torch.zeros((4, 8, 2 * NFFT), device=d)[..., ::2], ValueError),
     (lambda d: torch.zeros((3, 8, NFFT), device=d), ValueError),
-    (lambda d: torch.zeros((4 * 8 * NFFT + 1,), device=d)[1:].view(4, 8, NFFT), ValueError),
+    (lambda d: torch.zeros((4, 8, 976), device=d), ValueError),
 ])
 def test_k4_rejects_what_it_cannot_take(cuda_device, make, err):
+    """Raised before any launch: the wrong dtype, a column stride other
+    than 1, a channel count other than 4, an n_fft outside KERNEL_N_FFT,
+    an unknown feature set and more than 64 mels."""
     before = spatial_features.launches
     with pytest.raises(err):
         spatial_features(make(cuda_device), "mel_iv")
@@ -576,6 +582,64 @@ def test_k4_rejects_what_it_cannot_take(cuda_device, make, err):
     with pytest.raises(ValueError, match="at most 64"):
         spatial_features(torch.zeros((4, 8, NFFT), device=cuda_device), "mel", n_mels=65)
     assert spatial_features.launches == before
+
+
+def _k4_view(t, n_fft, seed):
+    """frame_signal's (4, T, n_fft) view of a reflect-padded seeded clip."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    wave = 0.1 * torch.randn((4, (t - 1) * (n_fft // 2)), generator=g, device="cuda")
+    view = frame_signal(wave, n_fft, n_fft // 2)
+    assert view.shape == (4, t, n_fft) and not view.is_contiguous()
+    return view
+
+
+@pytest.mark.parametrize("feature_set", K4_SETS)
+@pytest.mark.parametrize("t", [3001, 37])
+def test_k4_reads_the_padded_waveform_in_place_on_card(cuda_device, feature_set, t):
+    """One launch on the view, no copy; the plain version's numbers on the
+    contiguous copy of the same frames."""
+    view = _k4_view(t, NFFT, t)
+    before = spatial_features.launches
+    got = spatial_features(view, feature_set)
+    torch.cuda.synchronize()
+    assert spatial_features.launches == before + 1
+    assert got.shape == (t, K4_PLANES[feature_set], 64)
+    _k4_check(got, spatial_features_reference(view.contiguous(), feature_set))
+
+
+@pytest.mark.parametrize("feature_set", K4_SETS)
+@pytest.mark.parametrize("n_fft", KERNEL_N_FFT)
+def test_k4_every_n_fft_on_card(cuda_device, n_fft, feature_set):
+    view = _k4_view(300, n_fft, n_fft)
+    _k4_check(spatial_features(view, feature_set),
+              spatial_features_reference(view.contiguous(), feature_set))
+
+
+@pytest.mark.parametrize("feature_set", K4_SETS)
+def test_k4_fewer_mels_in_place_on_card(cuda_device, feature_set):
+    view = _k4_view(200, NFFT, 40)
+    got = spatial_features(view, feature_set, n_mels=40)
+    assert got.shape == (200, K4_PLANES[feature_set], 40)
+    _k4_check(got, spatial_features_reference(view.contiguous(), feature_set, n_mels=40))
+
+
+def test_k4_reads_unaligned_views_on_card(cuda_device):
+    """Odd strides and an odd start take the kernel's scalar loads."""
+    g = torch.Generator(device=cuda_device).manual_seed(6)
+    flat = torch.randn((4 * 9_001,), generator=g, device=cuda_device)[1:]
+    view = flat.as_strided((4, 17, NFFT), (9_001, 479, 1))
+    for feature_set in K4_SETS:
+        _k4_check(spatial_features(view, feature_set),
+                  spatial_features_reference(view.contiguous(), feature_set))
+
+
+def test_k4_mel_planes_equal_k1_on_card(cuda_device):
+    """K4's mel planes run K1's FFT stage and band loop on the same
+    weights in the same order: K1's output, bit for bit."""
+    view = _k4_view(3001, NFFT, 9)
+    k1 = log_mel_frames(view).transpose(0, 1)  # (T, 4, 64)
+    for feature_set in K4_SETS:
+        assert torch.equal(spatial_features(view, feature_set)[:, :4], k1)
 
 
 def test_k4_commutes_with_acs_on_card(cuda_device):

@@ -163,11 +163,10 @@ def _lane_dft(z: np.ndarray, radix: np.ndarray) -> np.ndarray:
     return out
 
 
-def _emulate_k1(frames: np.ndarray, plan, n_mels: int, amin: float = 1e-10):
-    """(N, n_fft) float32 frames -> (power (N, n_fft/2 + 1), dB (N, n_mels))
-    through the kernel's stages: the packing and window, the lane DFT, the
-    lane twiddles, five cross-lane radix-2 stages, the real split, the
-    sparse mel sums and the log."""
+def emulate_rfft(frames: np.ndarray, plan) -> np.ndarray:
+    """(N, n_fft) float32 frames -> (N, n_fft/2 + 1) complex64 spectra
+    through warp_fft.cuh's stages: the packing and window, the lane DFT,
+    the lane twiddles, five cross-lane radix-2 stages and the real split."""
     n, n_fft = frames.shape
     m = n_fft // 2
     r = m // 32
@@ -190,12 +189,29 @@ def _emulate_k1(frames: np.ndarray, plan, n_mels: int, amin: float = 1e-10):
         partner[:, :, j] = z[:, lanes ^ 31, r - j]
     b = np.conj(partner)
     x = np.float32(0.5) * (z + b) + _complex(plan.split_twiddles).T * (z - b)
-    power = np.empty((n, m + 1), np.float32)
-    power[:, np.arange(r)[None, :] + r * k1[:, None]] = x.real * x.real + x.imag * x.imag
-    power[:, m] = (z[:, 0, 0].real - z[:, 0, 0].imag) ** 2
+    spec = np.empty((n, m + 1), np.complex64)
+    spec[:, np.arange(r)[None, :] + r * k1[:, None]] = x
+    spec[:, m] = z[:, 0, 0].real - z[:, 0, 0].imag
+    return spec
+
+
+def band_sums(values: np.ndarray, plan, weights=None) -> np.ndarray:
+    """(N, n_fft/2 + 1) per-bin values -> (N, n_mels) sums over each
+    band's packed bins, with the plan's filterbank weights or others
+    packed alike."""
     first, count, offset = plan.bands.numpy()
-    w = plan.weights.numpy()
-    mel = np.stack([power[:, f:f + c] @ w[o:o + c] for f, c, o in zip(first, count, offset)], 1)
+    w = plan.weights.numpy() if weights is None else weights
+    return np.stack([values[:, f:f + c] @ w[o:o + c] for f, c, o in zip(first, count, offset)],
+                    1)
+
+
+def _emulate_k1(frames: np.ndarray, plan, n_mels: int, amin: float = 1e-10):
+    """(N, n_fft) float32 frames -> (power (N, n_fft/2 + 1), dB (N, n_mels))
+    through the kernel's stages: `emulate_rfft`, the power, the sparse mel
+    sums and the log."""
+    x = emulate_rfft(frames, plan)
+    power = x.real * x.real + x.imag * x.imag
+    mel = band_sums(power, plan)
     return power, 10.0 * np.log10(np.maximum(mel, np.float32(amin)))
 
 

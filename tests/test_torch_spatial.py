@@ -1,11 +1,16 @@
 """The port's spatial front-end against seld_tpu's: kernel K4's plain
-version (the arithmetic the CUDA kernel does, on the CPU) against the
-Pallas kernel in interpret mode and the rFFT oracle, the port's own rFFT
-oracle, the corpus entry point for "mel_iv" and "mel_gcc", and the slice
-as a whole: a small "mel_iv" flagship with the same weights, fed the same
+version (the float32 GEMMs its wrapper runs on the CPU) against the
+Pallas kernel in interpret mode and the rFFT oracle; a numpy emulation of
+the CUDA kernel's stage order on the tables of `spatial_plan` (K1's
+forward stages per channel, the sparse band sums, the pruned inverse FFT
+of the GCC planes) against the plain version, the Pallas kernel and the
+JAX oracle at every n_fft the kernel takes; the port's own rFFT oracle,
+the corpus entry point for "mel_iv" and "mel_gcc", and the slice as a
+whole: a small "mel_iv" flagship with the same weights, fed the same
 features and served from the same waveform."""
 
 import dataclasses
+import itertools
 
 import jax
 import jax.numpy as jnp
@@ -30,12 +35,16 @@ from seld_tpu_torch.features.mel import frame_signal
 from seld_tpu_torch.infer import SELDPredictor
 from seld_tpu_torch.models import build_model as build_port_model
 from seld_tpu_torch.ops import spatial_cuda
+from seld_tpu_torch.ops.mel_cuda import KERNEL_N_FFT, bit_reverse5
 from seld_tpu_torch.ops.spatial_cuda import (
+    check_kernel_shape,
     spatial_constants,
     spatial_features,
     spatial_features_reference,
+    spatial_plan,
 )
 from seld_tpu_torch.train.checkpoint import save_checkpoint
+from tests.test_torch_mel import _complex, band_sums, emulate_rfft
 from tests.test_torch_model import one_torch_thread  # noqa: F401 (autouse)
 
 SR, NFFT, HOP, NMELS = 24_000, 960, 480, 64
@@ -143,12 +152,45 @@ def test_gcc_lag_peak_of_a_delayed_channel():
     (lambda: torch.zeros((4, 8, NFFT), dtype=torch.float64), TypeError),
     (lambda: torch.zeros((3, 8, NFFT)), ValueError),  # not 4 channels
     (lambda: torch.zeros((8, NFFT)), ValueError),  # wrong rank
-    (lambda: torch.zeros((8, 4, NFFT)).transpose(0, 1), ValueError),  # not contiguous
-    (lambda: torch.zeros((4, 8, 950)), ValueError),  # n_fft not a multiple of 16
+    (lambda: torch.zeros((4, 8, 2 * NFFT))[..., ::2], ValueError),  # column stride 2
 ])
 def test_k4_wrapper_checks_cpu_input(make, err):
     with pytest.raises(err):
         spatial_features(make(), "mel_iv")
+
+
+@pytest.mark.parametrize("n_fft,n_mels", [(950, 64), (976, 64), (480, 64), (4096, 64),
+                                          (960, 65), (960, 0)])
+def test_kernel_shape_check_names_what_the_card_cannot_take(n_fft, n_mels):
+    with pytest.raises(ValueError, match="K4"):
+        check_kernel_shape(n_fft, n_mels)
+    for ok in KERNEL_N_FFT:
+        check_kernel_shape(ok, 64)
+
+
+@pytest.mark.parametrize("feature_set", SETS)
+def test_plain_k4_computes_at_any_n_fft_on_cpu(feature_set):
+    """n_fft = 950 is no n_fft of the CUDA kernel, but the CPU path takes
+    it: the plain version against the JAX oracle."""
+    fr = np.random.default_rng(950).standard_normal((4, 9, 950)).astype(np.float32)
+    got = spatial_features(torch.from_numpy(fr), feature_set).numpy()
+    want = np.asarray(jax_extract(jnp.asarray(fr), feature_set, 950, NMELS, SR))
+    assert got.shape == (9, jax_feature_channels(feature_set), NMELS)
+    _assert_features_close(got, want)
+
+
+@pytest.mark.parametrize("feature_set", SETS)
+def test_k4_takes_frame_signal_view_on_cpu(feature_set):
+    """A CPU (4, T, n_fft) view of the padded waveform gives what its
+    contiguous copy gives."""
+    wave = torch.from_numpy(
+        (0.1 * np.random.default_rng(4).standard_normal((4, SR // 4))).astype(np.float32))
+    view = frame_signal(wave, NFFT, HOP)
+    assert not view.is_contiguous() and view.stride()[1:] == (HOP, 1)
+    got = spatial_features(view, feature_set)
+    want = spatial_features(view.contiguous(), feature_set)
+    assert got.shape == (1 + SR // 4 // HOP, jax_feature_channels(feature_set), NMELS)
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
 
 
 def test_k4_wrapper_takes_plain_version_for_cpu_tensors(monkeypatch):
@@ -164,6 +206,144 @@ def test_k4_wrapper_takes_plain_version_for_cpu_tensors(monkeypatch):
     out = spatial_features(torch.zeros((4, 5, NFFT)), "mel_gcc")
     assert calls == [(4, 5, NFFT)] and out.shape == (5, 10, 64)
     assert spatial_features.launches == before  # no kernel launched
+
+
+# --- the CUDA kernel's arithmetic, stage by stage, in float32 numpy ------
+
+
+def emulate_lags(cross: np.ndarray, plan, n_mels: int) -> np.ndarray:
+    """(N, n_fft/2 + 1) complex64 cross-spectra -> (N, n_mels) lags through
+    the kernel's GCC stages: the bins in the forward stage's lane layout
+    (only the real parts of bins 0 and M), the inverse real split, the
+    five cross-lane stages inverted in the opposite order and the pruned
+    lane sum with the lag twiddles."""
+    n, m = cross.shape[0], cross.shape[1] - 1
+    r = m // 32
+    lanes = np.arange(32)
+    k1 = bit_reverse5(lanes)
+    z = cross[:, np.arange(r)[None, :] + r * k1[:, None]].astype(np.complex64)  # [., lane, reg]
+    z[:, 0, 0] = z[:, 0, 0].real
+    partner = np.empty_like(z)
+    partner[:, :, 0] = z[:, bit_reverse5((32 - k1) % 32), 0]
+    partner[:, 0, 0] = cross[:, m].real
+    for j in range(1, r):
+        partner[:, :, j] = z[:, lanes ^ 31, r - j]
+    b = np.conj(partner)
+    z = np.float32(0.5) * (z + b) + np.conj(_complex(plan.mel.split_twiddles).T) * (z - b)
+    warp = np.conj(_complex(plan.mel.warp_twiddles))
+    for s in range(4, -1, -1):
+        h = 16 >> s
+        v = z * warp[s][:, None] if s < 4 else z
+        p = v[:, lanes ^ h]
+        z = np.where(((lanes & h) != 0)[None, :, None], p - v, p + v)
+    acc = (z * _complex(plan.lag_twiddles).T).sum(axis=2)  # (N, 32)
+    lag = np.where(lanes < 16, 2 * lanes, 2 * lanes - 64)
+    out = np.zeros((n, n_mels), np.float32)
+    for part, shift in ((acc.real, 0), (acc.imag, 1)):
+        col = lag + shift + n_mels // 2
+        keep = (col >= 0) & (col < n_mels)
+        out[:, col[keep]] = part[:, keep]
+    return out
+
+
+def emulate_k4(frames: np.ndarray, feature_set: str, n_mels: int, amin: float = 1e-10,
+               eps: float = 1e-8) -> np.ndarray:
+    """(4, T, n_fft) float32 frames -> (T, C_out, n_mels) through the
+    kernel's stages on the tables of `spatial_plan`."""
+    plan = spatial_plan(frames.shape[2], n_mels, SR, torch.device("cpu"))
+    spec = [emulate_rfft(f, plan.mel) for f in frames]  # 4 x (T, M + 1)
+    power = [x.real * x.real + x.imag * x.imag for x in spec]
+    planes = [10.0 * np.log10(np.maximum(band_sums(p, plan.mel), np.float32(amin)))
+              for p in power]
+    w, y, z, x = range(4)  # ACN
+    if feature_set == "mel_iv":
+        energy = (power[w] + (power[x] + power[y] + power[z]) / np.float32(3)) / np.float32(2)
+        inv_e = np.float32(1) / (energy + np.float32(eps))
+        for c in (x, y, z):
+            iv = (spec[w].real * spec[c].real + spec[w].imag * spec[c].imag) * inv_e
+            planes.append(band_sums(iv, plan.mel, plan.norm_weights.numpy()))
+    elif feature_set == "mel_gcc":
+        for i, j in itertools.combinations(range(4), 2):
+            cross = np.conj(spec[i]) * spec[j]
+            mag = cross.real * cross.real + cross.imag * cross.imag + np.float32(eps) ** 2
+            planes.append(emulate_lags(cross / np.sqrt(mag), plan, n_mels))
+    return np.stack(planes, axis=1)
+
+
+def _frames_at(n_fft: int) -> np.ndarray:
+    """(4, 9, n_fft) frames of a seeded 4-channel waveform, hop n_fft / 2."""
+    wave = np.random.default_rng(n_fft).standard_normal((4, 8 * n_fft // 2)).astype(np.float32)
+    return frame_signal(torch.from_numpy(wave), n_fft, n_fft // 2).contiguous().numpy()
+
+
+@pytest.mark.parametrize("n_mels", [64, 40])
+@pytest.mark.parametrize("feature_set", SETS)
+@pytest.mark.parametrize("n_fft", KERNEL_N_FFT)
+def test_emulated_k4_matches_plain(n_fft, feature_set, n_mels):
+    fr = _frames_at(n_fft)
+    got = emulate_k4(fr, feature_set, n_mels)
+    want = spatial_features_reference(torch.from_numpy(fr), feature_set, n_mels).numpy()
+    assert got.shape == want.shape == (9, jax_feature_channels(feature_set), n_mels)
+    # float32 FFTs against float32 GEMMs (tests/test_torch_mel.py holds K1's
+    # emulation to its plain version at the same 1e-4 dB)
+    np.testing.assert_allclose(got[:, :4], want[:, :4], atol=1e-4, rtol=0)
+    np.testing.assert_allclose(got[:, 4:], want[:, 4:], atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("n_mels", [64, 40])
+@pytest.mark.parametrize("feature_set", SETS)
+@pytest.mark.parametrize("n_fft", KERNEL_N_FFT)
+def test_emulated_k4_matches_pallas_and_jax_oracle(n_fft, feature_set, n_mels):
+    """The Pallas kernel where it takes the n_fft (it pads the bins to 512
+    lanes), the JAX rFFT oracle at every n_fft."""
+    fr = _frames_at(n_fft)
+    got = emulate_k4(fr, feature_set, n_mels)
+    oracle = np.asarray(jax_extract(jnp.asarray(fr), feature_set, n_fft, n_mels, SR))
+    _assert_features_close(got, oracle)
+    if n_fft // 2 + 1 <= 512:
+        pallas = np.asarray(spatial_features_pallas(jnp.asarray(fr), feature_set, n_mels=n_mels,
+                                                    interpret=True))
+        _assert_features_close(got, pallas)
+
+
+@pytest.mark.parametrize("n_fft", KERNEL_N_FFT)
+def test_emulated_k4_on_silence(n_fft):
+    got = emulate_k4(np.zeros((4, 3, n_fft), np.float32), "mel_gcc", NMELS)
+    np.testing.assert_allclose(got[:, :4], -100.0, atol=1e-4)
+    assert not got[:, 4:].any()
+    got = emulate_k4(np.zeros((4, 3, n_fft), np.float32), "mel_iv", NMELS)
+    assert not got[:, 4:].any()
+
+
+@pytest.mark.parametrize("n_mels", [64, 40])
+@pytest.mark.parametrize("n_fft", KERNEL_N_FFT)
+def test_packed_norm_filterbank_expands_to_fb_norm(n_fft, n_mels):
+    plan = spatial_plan(n_fft, n_mels, SR, torch.device("cpu"))
+    first, count, offset = plan.mel.bands.numpy()
+    w = plan.norm_weights.numpy()
+    assert w.size == plan.mel.weights.numel()
+    dense = np.zeros((n_fft // 2 + 1, n_mels), np.float32)
+    for band, (f, c, o) in enumerate(zip(first, count, offset)):
+        dense[f:f + c, band] = w[o:o + c]
+    fb_norm = spatial_constants(n_fft, n_mels, SR, torch.device("cpu"))[3].numpy()
+    np.testing.assert_array_equal(dense, fb_norm[:n_fft // 2 + 1, :n_mels])
+    assert not fb_norm[n_fft // 2 + 1:].any() and not fb_norm[:, n_mels:].any()
+
+
+@pytest.mark.parametrize("n_mels", [64, 40])
+@pytest.mark.parametrize("n_fft", KERNEL_N_FFT)
+def test_emulated_pruned_inverse_matches_lag_matrices(n_fft, n_mels):
+    """Any cross-spectrum, not only a PHAT-normalised one: the pruned
+    inverse FFT is the product with the TPU kernel's lag matrices."""
+    rng = np.random.default_rng(n_fft + n_mels)
+    m = n_fft // 2
+    cross = (rng.standard_normal((5, m + 1)) + 1j * rng.standard_normal((5, m + 1))
+             ).astype(np.complex64)
+    got = emulate_lags(cross, spatial_plan(n_fft, n_mels, SR, torch.device("cpu")), n_mels)
+    lag_re, lag_im = (c.numpy()[:m + 1, :n_mels]
+                      for c in spatial_constants(n_fft, n_mels, SR, torch.device("cpu"))[4:])
+    want = cross.real @ lag_re + cross.imag @ lag_im
+    np.testing.assert_allclose(got, want, atol=1e-6, rtol=0)
 
 
 @pytest.mark.parametrize("feature_set", ["mel_iv", "mel_gcc"])

@@ -78,8 +78,23 @@ Phases, each of which raises on failure:
      flagship serving it too (K4 once; for both the features' peak device
      memory holds no framed copy), and timed train steps of the recipe
      with both augmentation hooks, one of them profiled.
-It prints one JSON line of kernel figures, the nvidia-smi line, and last
-{"ok": true, "device": {...}}.
+  9. the other grid backbones at full width (the JAX package's defaults):
+     `cli verify` (OK for the flagship, the CSPDarkNet, the CRNN and the
+     Conformer), then for the CRNN, the Conformer and the small
+     CSPDarkNet `cli train --synthetic` for one epoch at batch 16 and
+     T = 250 (K2's and K1's launch counts exact), a 60 s predict from the
+     best checkpoint (K1 once, K3 never; median of five timed calls, peak
+     memory), timed train steps and one profiled; the Conformer also a
+     60 s predict and timed train steps at 20 s windows, T = 1000 (K3
+     forward once per block and forward; forward, dQ and dK/dV once per
+     block in a train step);
+ 10. the flagship's train step at T = 1000 four ways: as it is,
+     model.norm_dtype=bfloat16, model.remat=all, both: step ms, kernel
+     time by family (the profile lines), peak device memory and K3's
+     launches a step (remat recomputes each conformer block: 8 forward
+     launches instead of 4).
+It prints the launch counts of phases 9 and 10, one JSON line of kernel
+figures, the nvidia-smi line, and last {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -1340,10 +1355,12 @@ def phase_train(dev: torch.device) -> dict:
     return counts
 
 
-def time_train_steps(dev: torch.device, cfg, tag: str = "[train]") -> list[float]:
+def time_train_steps(dev: torch.device, cfg, tag: str = "[train]") -> dict:
     """Wall time of cfg's train steps on seeded synthetic batches (host
-    clock around a step that ends in a synchronize), and one step under
-    torch.profiler. Returns the losses of the timed steps."""
+    clock around a step that ends in a synchronize), K3's launches in one
+    more step, and one step under torch.profiler. Returns the losses of
+    the timed steps, the median step ms, the peak device memory in GiB and
+    those K3 counts."""
     from seld_tpu_torch.data.sampler import BatchIterator, place_batch
     from seld_tpu_torch.data.synthetic import synthetic_corpus
     from seld_tpu_torch.features.acs import make_acs_augment
@@ -1351,6 +1368,7 @@ def time_train_steps(dev: torch.device, cfg, tag: str = "[train]") -> list[float
     from seld_tpu_torch.features.specaugment import make_spec_augment
     from seld_tpu_torch.losses import SELDLossFn
     from seld_tpu_torch.models import build_model
+    from seld_tpu_torch.ops.flash_attention import flash_attention as fa
     from seld_tpu_torch.train.optimizer import make_optimizer
     from seld_tpu_torch.train.state import create_train_state
     from seld_tpu_torch.train.steps import make_train_step
@@ -1380,15 +1398,23 @@ def time_train_steps(dev: torch.device, cfg, tag: str = "[train]") -> list[float
         losses.append(metrics["loss"].item())
     steady = times[3:]
     step_ms = float(np.median(steady))
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    mel, mask, em = batches[0]
+    fa.fwd_launches = fa.bwd_dq_launches = fa.bwd_dkv_launches = 0
+    step(state, mel, mask, em, (0, 1))
+    torch.cuda.synchronize()
+    k3 = {"k3_fwd": fa.fwd_launches, "k3_dq": fa.bwd_dq_launches,
+          "k3_dkv": fa.bwd_dkv_launches}
     print(f"{tag} train step, batch {cfg.train.batch_size} x {corpus.window_frames} frames "
-          f"x {corpus.mel.shape[1]} feature channels, bf16: median {step_ms:.2f} ms of {', '.join(f'{t:.1f}' for t in steady)} (first "
+          f"x {corpus.mel.shape[1]} feature channels, {cfg.model.compute_dtype}: median "
+          f"{step_ms:.2f} ms of {', '.join(f'{t:.1f}' for t in steady)} (first "
           f"three, with warm-up: {', '.join(f'{t:.1f}' for t in times[:3])}) = "
           f"{cfg.train.batch_size / (step_ms * 1e-3):.1f} windows/s; peak device memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    mel, mask, em = batches[0]
+          f"{peak_gib:.2f} GiB; K3 launches in one step: forward {k3['k3_fwd']}, dQ "
+          f"{k3['k3_dq']}, dK/dV {k3['k3_dkv']}")
     profile_call("train step" if tag == "[train]" else f"{tag[1:-1]} train step",
                  lambda: step(state, mel, mask, em, (0, 1)), step_ms)
-    return losses
+    return {"losses": losses, "step_ms": step_ms, "peak_gib": peak_gib, "k3": k3}
 
 
 def phase_long_window(dev: torch.device) -> dict:
@@ -1508,7 +1534,7 @@ def phase_long_window(dev: torch.device) -> dict:
               f"accuracy {report['overall_accuracy']:.2f} %, DCASE2022 SELD_error "
               f"{report['dcase2022']['SELD_error']:.4f}; K3 forward {evaluated['k3_fwd']} "
               f"launches over {eval_steps} eval steps")
-    losses = time_train_steps(dev, cfg, tag="[long]")
+    losses = time_train_steps(dev, cfg, tag="[long]")["losses"]
     if not losses[-1] < losses[0]:
         raise AssertionError(f"long-window train loss did not fall over the timed steps: {losses}")
     return counts
@@ -1690,10 +1716,182 @@ def phase_spatial(dev: torch.device) -> dict:
               f"{CLIP_SECONDS / (clip_ms * 1e-3):.1f} audio-s/s")
         profile_call(f"{name} predict", lambda: p.predict_waveform(wave), clip_ms)
     del pred, gcc_pred
-    losses = time_train_steps(dev, cfg, tag="[spatial]")
+    losses = time_train_steps(dev, cfg, tag="[spatial]")["losses"]
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"recipe train steps: losses {losses}")
     return {"mel_iv": counts["k4"], "mel_gcc": served["mel_gcc"]}
+
+
+BACKBONES = (  # (model_type, overrides): full width, the JAX package's defaults
+    ("crnn", ["model.model_type=crnn"]),
+    ("conformer", ["model.model_type=conformer"]),
+    ("cnn", ["model.model_type=cnn", "model.csp_use_small=true"]),
+)
+
+
+def serve_clip(pred, wave, tag: str) -> dict:
+    """One counted predict of the 60 s clip (K1, K3 forward counts), then
+    five timed ones; checks the class grid."""
+    from seld_tpu_torch.ops.flash_attention import flash_attention as fa
+    from seld_tpu_torch.ops.mel_cuda import log_mel_frames
+
+    pred.predict_waveform(wave)  # warm-up
+    torch.cuda.synchronize()
+    log_mel_frames.launches = fa.fwd_launches = fa.bwd_dq_launches = fa.bwd_dkv_launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    classes = pred.predict_waveform(wave).classes
+    torch.cuda.synchronize()
+    counts = {"k1": log_mel_frames.launches, "k3_fwd": fa.fwd_launches,
+              "k3_dq": fa.bwd_dq_launches, "k3_dkv": fa.bwd_dkv_launches}
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    grid = pred.cfg.grid
+    t_frames = 1 + CLIP_SECONDS * pred.cfg.features.sample_rate // pred.cfg.features.hop_length
+    if (classes.shape != (t_frames, grid.n_cells) or classes.min() < 0
+            or classes.max() >= grid.num_classes):
+        raise AssertionError(f"{tag} serving: classes {classes.shape}")
+    times = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        pred.predict_waveform(wave)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    clip_ms = float(np.median(times))
+    print(f"{tag} SELDPredictor at {pred.cfg.window.window_seconds:g} s windows: "
+          f"{CLIP_SECONDS} s clip -> classes {classes.shape}; K1 {counts['k1']}, K3 forward "
+          f"{counts['k3_fwd']} launches; {clip_ms:.2f} ms per clip (median of "
+          f"{', '.join(f'{x:.2f}' for x in times)}) = {CLIP_SECONDS / (clip_ms * 1e-3):.1f} "
+          f"audio-s/s; peak device memory {peak_gib:.2f} GiB")
+    return counts
+
+
+def phase_backbones(dev: torch.device) -> dict:
+    """The other grid backbones at full width (CRNN: channels 64-512, GRU
+    hidden 256, 2 layers; Conformer: d_model 256, 4 heads, 2 blocks,
+    kernel 31; CSPDarkNet small): `cli verify`, then for each `cli train
+    --synthetic` for one epoch (batch 16, T = 250; K1 and K2 counted
+    exactly), a 60 s predict from its best checkpoint (K1 once, K3 never),
+    timed and profiled train steps; the Conformer also one train step
+    (K3 forward, dQ and dK/dV once per block) and a 60 s predict at 20 s
+    windows. Returns the launch counts of every run."""
+    from seld_tpu_torch import cli
+    from seld_tpu_torch.config import Config, parse_overrides
+    from seld_tpu_torch.infer import SELDPredictor
+    from seld_tpu_torch.ops.loss_cuda import grid_loss_terms
+    from seld_tpu_torch.ops.mel_cuda import log_mel_frames
+    from seld_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
+
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        rc = cli.main(["verify"])
+    ok = [line.split(":")[0].strip() for line in printed.getvalue().splitlines()
+          if "OK |" in line]
+    print("\n".join(f"[verify] {line}" for line in printed.getvalue().splitlines()))
+    if rc != 0 or ok != ["resnet_conformer", "cnn", "crnn", "conformer"]:
+        raise AssertionError(f"cli verify: rc {rc}, OK for {ok}")
+
+    fps = Config().features.sample_rate // Config().features.hop_length
+    sr = Config().features.sample_rate
+    wave = (0.1 * np.random.default_rng(0).standard_normal((4, CLIP_SECONDS * sr))
+            ).astype(np.float32)
+    found = {}
+    (ROOT / "build").mkdir(exist_ok=True)
+    for name, overrides in BACKBONES:
+        cfg = parse_overrides(Config(), overrides)
+        hop = cfg.window.hop_frames(cfg.features)
+        train_steps = -(-(2 * 30 * fps // hop) // cfg.train.batch_size)
+        eval_steps = -(-(20 * fps // hop) // cfg.train.batch_size)
+        tag = f"[{name}]"
+        with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+            grid_loss_terms.fwd_launches = grid_loss_terms.bwd_launches = 0
+            log_mel_frames.launches = 0
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            if cli.main(["train", "--synthetic", f"data.base_path={tmp}", *overrides,
+                         "train.num_epochs=1", "train.save_every_n_epochs=1"]) != 0:
+                raise AssertionError(f"cli train {name} failed")
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+            counts = {"k2_fwd": grid_loss_terms.fwd_launches,
+                      "k2_bwd": grid_loss_terms.bwd_launches, "k1": log_mel_frames.launches}
+            want = {"k2_fwd": train_steps + eval_steps, "k2_bwd": train_steps, "k1": 3}
+            if counts != want:
+                raise AssertionError(f"{name}: launches on the training path {counts}, "
+                                     f"expected {want}")
+            work = Path(tmp) / "checkpoints"
+            (record,) = [json.loads(x) for x in (work / "metrics.jsonl").read_text().splitlines()]
+            if not all(math.isfinite(record[s]["loss"]) for s in ("train", "test")):
+                raise AssertionError(f"{name} metrics.jsonl: {record}")
+            peak_gib = torch.cuda.max_memory_allocated() / 2**30
+            best = sorted((work / "best").glob("epoch_*.pt"))[0]
+            pred = SELDPredictor(best, batch_windows=8, device=dev)
+            if pred.cfg.model.model_type != name:
+                raise AssertionError(f"the predictor rebuilt {pred.cfg.model.model_type}")
+            n_params = sum(p.numel() for p in pred.model.parameters())
+            print(f"{tag} cli train --synthetic {' '.join(overrides)}: {n_params / 1e6:.2f} M "
+                  f"parameters, 1 epoch of {train_steps} train + {eval_steps} eval steps in "
+                  f"{wall_s:.1f} s; K2 forward {counts['k2_fwd']}, backward "
+                  f"{counts['k2_bwd']}, K1 {counts['k1']} launches; train loss "
+                  f"{record['train']['loss']:.6f}, test {record['test']['loss']:.6f}; peak "
+                  f"device memory {peak_gib:.2f} GiB")
+            served = serve_clip(pred, wave, tag)
+            if served != {"k1": 1, "k3_fwd": 0, "k3_dq": 0, "k3_dkv": 0}:
+                raise AssertionError(f"{name} serving at T = 250: launches {served}")
+            del pred
+            found[name] = {"train": counts, "predict": served}
+            if name == "conformer":  # 20 s windows: attention through K3
+                long_cfg = cfg.replace_path("window.window_seconds", LONG_WINDOW_SECONDS)
+                _, state, _ = load_checkpoint(best)
+                save_checkpoint(Path(tmp) / "long.pt", state, long_cfg)
+                pred = SELDPredictor(Path(tmp) / "long.pt", batch_windows=8, device=dev)
+                served = serve_clip(pred, wave, f"{tag}[long]")
+                win = long_cfg.window.window_frames(long_cfg.features)
+                forwards = -(-(-(-(1 + CLIP_SECONDS * fps) // win)) // 8)
+                blocks = long_cfg.model.conf_n_layers
+                if served != {"k1": 1, "k3_fwd": forwards * blocks, "k3_dq": 0, "k3_dkv": 0}:
+                    raise AssertionError(f"conformer serving at T = {win}: launches {served}")
+                del pred
+                found["conformer_long"] = {"predict": served}
+        timed = time_train_steps(dev, cfg, tag=tag)
+        if not all(math.isfinite(x) for x in timed["losses"]) or any(timed["k3"].values()):
+            raise AssertionError(f"{name} timed steps: {timed}")
+        if name == "conformer":
+            timed = time_train_steps(dev, long_cfg, tag=f"{tag}[long]")
+            k3 = timed["k3"]
+            if k3 != {"k3_fwd": blocks, "k3_dq": blocks, "k3_dkv": blocks}:
+                raise AssertionError(f"conformer train step at T = {win}: K3 launches {k3}")
+            found["conformer_long"]["train_step"] = k3
+    return found
+
+
+FLAGSHIP_OPTIONS = (("as it is", []), ("norm_dtype=bfloat16", ["model.norm_dtype=bfloat16"]),
+                    ("remat=all", ["model.remat=all"]),
+                    ("both", ["model.norm_dtype=bfloat16", "model.remat=all"]))
+
+
+def phase_flagship_options(dev: torch.device) -> dict:
+    """The flagship's train step at T = 1000 four ways: as it is, with bf16
+    norms, with remat=all, with both: step ms, kernel time by family (the
+    profile lines), peak device memory, and K3's launches in one step
+    (remat recomputes every conformer block, so K3's forward launches
+    twice per block). Returns K3's counts of each."""
+    from seld_tpu_torch.config import Config, parse_overrides
+
+    found = {}
+    for name, overrides in FLAGSHIP_OPTIONS:
+        cfg = parse_overrides(Config(), [f"window.window_seconds={LONG_WINDOW_SECONDS}",
+                                         *overrides])
+        blocks = cfg.model.resnet_conf_n_layers
+        timed = time_train_steps(dev, cfg, tag=f"[options {name}]")
+        recompute = 2 if cfg.model.remat in ("conformer", "all") else 1
+        want = {"k3_fwd": recompute * blocks, "k3_dq": blocks, "k3_dkv": blocks}
+        if timed["k3"] != want or not all(math.isfinite(x) for x in timed["losses"]):
+            raise AssertionError(f"flagship {name} at T = 1000: K3 {timed['k3']}, expected "
+                                 f"{want}; losses {timed['losses']}")
+        print(f"[options] flagship {name}: step {timed['step_ms']:.2f} ms, peak device memory "
+              f"{timed['peak_gib']:.2f} GiB, K3 forward {timed['k3']['k3_fwd']} launches a "
+              f"step")
+        found[name] = timed["k3"]
+    return found
 
 
 def main() -> int:
@@ -1715,6 +1913,9 @@ def main() -> int:
     counts = phase_spatial(dev)
     for row, key in zip(k4_rows, ("mel_iv", "mel_gcc")):
         row["launches"] = counts[key]
+    print(f"[paths] launches by path: {json.dumps(phase_backbones(dev))}")
+    print(f"[paths] K3 launches a T = 1000 flagship step by option: "
+          f"{json.dumps(phase_flagship_options(dev))}")
     print(json.dumps({"kernels": [k1, k2_fwd, k2_bwd, *k3_rows, *k4_rows]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -3,8 +3,8 @@
 The port's own copy of the sections of seld_tpu/config.py, with the same
 defaults, field names, dotted `key=value` overrides and dict round-trip,
 so a config dict stored by either package rebuilds the same run here.
-Fields whose reader is not ported (the other backbones, ACCDOA tracks,
-QAT, distillation, profiling, the mesh, the Pallas toggle) are left out:
+Fields whose reader is not ported (ACCDOA tracks, QAT, distillation,
+profiling, the mesh, the Pallas toggle) are left out:
 `config_from_dict` ignores them, exactly as seld_tpu ignores unknown
 keys, and an override of one raises `parse_overrides`'s unknown-field
 error. Each comes back with the code that reads it.
@@ -143,21 +143,44 @@ class TargetConfig:
 class ModelConfig:
     """Backbone selection and per-model hyperparameters."""
 
-    model_type: str = "resnet_conformer"  # the only family ported so far
+    model_type: str = "resnet_conformer"  # cnn | cspdarknet | crnn | conformer | resnet_conformer
     num_classes: int = 14
     n_channels: int = 4
     n_mels: int = 64
 
+    # CRNN; its CNN encoder is the Conformer's too
+    crnn_cnn_channels: tuple[int, ...] = (64, 128, 256, 512)
+    crnn_rnn_hidden: int = 256
+    crnn_rnn_layers: int = 2
+    crnn_dropout: float = 0.3
+
+    # Conformer
+    conf_d_model: int = 256
+    conf_n_heads: int = 4
+    conf_n_layers: int = 2
+    conf_kernel_size: int = 31
+    conf_dropout: float = 0.3
+
+    # ResNet50-Conformer
     resnet_conf_d_model: int = 512
     resnet_conf_n_heads: int = 8
     resnet_conf_n_layers: int = 4
     resnet_dropout: float = 0.3
 
-    # Parameters in float32; convolutions and linears in compute_dtype;
-    # norms, the attention softmax and the logits in float32.
+    # CSPDarkNet ("cnn"): depth and width multiples (0.33, 0.5) when small
+    csp_use_small: bool = True
+
+    # Parameters in float32; convolutions and linears in compute_dtype; the
+    # attention softmax and the logits in float32. Norms reduce their
+    # statistics and normalise in float32 and return norm_dtype: "bfloat16"
+    # halves the bytes every norm writes (no float32 copy of the activation).
     compute_dtype: str = "bfloat16"
     param_dtype: str = "float32"
     norm_dtype: str = "float32"
+    # Activation checkpointing: recompute instead of saving activations for
+    # the backward: "none" | "resnet" (each bottleneck) | "conformer" (each
+    # conformer block) | "all"
+    remat: str = "none"
 
 
 @dataclass(frozen=True)
@@ -256,6 +279,8 @@ def _coerce(current: Any, value: Any) -> Any:
         return int(value)
     if isinstance(current, float):
         return float(value)
+    if isinstance(current, tuple):
+        return tuple(int(v) for v in value.strip("()[] ").split(",") if v)
     if current is None:
         try:
             return float(value)
@@ -294,6 +319,8 @@ def config_from_dict(d: dict, cls: type = Config) -> Any:
         )
         if dataclasses.is_dataclass(default):
             kwargs[f.name] = config_from_dict(v, type(default))
+        elif isinstance(f.default, tuple):  # a JSON round trip gives a list
+            kwargs[f.name] = tuple(v)
         else:
             kwargs[f.name] = v
     return cls(**kwargs)

@@ -11,6 +11,14 @@ of the matching seld_tpu_torch model. Layouts:
   DenseGeneral logits kernel (hidden, M, G) -> Linear weight (M*G, hidden)
   LayerNorm / BatchNorm scale               -> weight
   BatchNorm batch_stats mean / var          -> running_mean / running_var
+  GRUCell ir / iz / in kernels (in, H)      -> GRU weight_ih_l0 (3H, in), rows [r|z|n]
+  GRUCell hr / hz / hn kernels (H, H)       -> GRU weight_hh_l0 (3H, H), rows [r|z|n]
+  GRUCell ir / iz / in biases               -> GRU bias_ih_l0 [b_ir|b_iz|b_in]
+  GRUCell hn bias                           -> GRU bias_hh_l0 [0|0|b_hn]
+
+(the reverse direction's tensors carry the suffix `_reverse`; the CRNN's
+GRUCell_{2k} is layer k's forward direction, GRUCell_{2k+1} its reverse,
+as seld_tpu/tools/torch_import.py maps them).
 
 Every leaf the model needs must be present, and every leaf given must be
 used: a missing or unknown key raises KeyError.
@@ -24,6 +32,7 @@ import numpy as np
 import torch
 
 from seld_tpu_torch.config import ModelConfig
+from seld_tpu_torch.models.cspdarknet import STAGE_BLOCKS, scaled_depth
 from seld_tpu_torch.models.resnet_conformer import RESNET50_LAYERS
 
 
@@ -36,6 +45,33 @@ def _flatten(tree: Mapping, prefix: str = "") -> dict[str, np.ndarray]:
         else:
             out[path] = np.asarray(value)
     return out
+
+
+def _conformer_block_layers(i: int):
+    """(JAX path, port name, kind) of conformer block i."""
+    jb, pb = f"block_{i}", f"blocks.{i}"
+    layers = []
+    for jff, pff in (("FeedForward_0", "ff1"), ("FeedForward_1", "ff2")):
+        layers += [(f"{jb}/{jff}/LayerNorm_0", f"{pb}.{pff}.norm", "ln"),
+                   (f"{jb}/{jff}/Dense_0", f"{pb}.{pff}.fc1", "dense"),
+                   (f"{jb}/{jff}/Dense_1", f"{pb}.{pff}.fc2", "dense")]
+    attn = f"{jb}/MultiHeadSelfAttention_0"
+    layers.append((f"{attn}/LayerNorm_0", f"{pb}.attn.norm", "ln"))
+    for w in ("w_q", "w_k", "w_v", "w_o"):
+        layers.append((f"{attn}/{w}", f"{pb}.attn.{w}", "dense"))
+    conv = f"{jb}/ConformerConvModule_0"
+    layers += [(f"{conv}/LayerNorm_0", f"{pb}.conv.norm", "ln"),
+               (f"{conv}/Dense_0", f"{pb}.conv.pw1", "dense"),
+               (f"{conv}/depthwise", f"{pb}.conv.depthwise", "depthwise"),
+               (f"{conv}/BatchNorm_0", f"{pb}.conv.bn", "bn"),
+               (f"{conv}/Dense_1", f"{pb}.conv.pw2", "dense"),
+               (f"{jb}/LayerNorm_0", f"{pb}.norm", "ln")]
+    return layers
+
+
+_GRID_HEAD = [("GridHead_0/Dense_0", "head.fc", "dense"),
+              ("GridHead_0/LayerNorm_0", "head.norm", "ln"),
+              ("GridHead_0/logits", "head.logits", "logits")]
 
 
 def _resnet_conformer_layers(cfg: ModelConfig):
@@ -54,32 +90,87 @@ def _resnet_conformer_layers(cfg: ModelConfig):
                 layers.append((f"{enc}/{name}/downsample_bn", f"encoder.{name}.downsample_bn", "bn"))
     layers.append(("proj", "proj", "dense"))
     for i in range(cfg.resnet_conf_n_layers):
-        jb, pb = f"block_{i}", f"blocks.{i}"
-        for jff, pff in (("FeedForward_0", "ff1"), ("FeedForward_1", "ff2")):
-            layers += [(f"{jb}/{jff}/LayerNorm_0", f"{pb}.{pff}.norm", "ln"),
-                       (f"{jb}/{jff}/Dense_0", f"{pb}.{pff}.fc1", "dense"),
-                       (f"{jb}/{jff}/Dense_1", f"{pb}.{pff}.fc2", "dense")]
-        attn = f"{jb}/MultiHeadSelfAttention_0"
-        layers.append((f"{attn}/LayerNorm_0", f"{pb}.attn.norm", "ln"))
-        for w in ("w_q", "w_k", "w_v", "w_o"):
-            layers.append((f"{attn}/{w}", f"{pb}.attn.{w}", "dense"))
-        conv = f"{jb}/ConformerConvModule_0"
-        layers += [(f"{conv}/LayerNorm_0", f"{pb}.conv.norm", "ln"),
-                   (f"{conv}/Dense_0", f"{pb}.conv.pw1", "dense"),
-                   (f"{conv}/depthwise", f"{pb}.conv.depthwise", "depthwise"),
-                   (f"{conv}/BatchNorm_0", f"{pb}.conv.bn", "bn"),
-                   (f"{conv}/Dense_1", f"{pb}.conv.pw2", "dense"),
-                   (f"{jb}/LayerNorm_0", f"{pb}.norm", "ln")]
-    layers += [("GridHead_0/Dense_0", "head.fc", "dense"),
-               ("GridHead_0/LayerNorm_0", "head.norm", "ln"),
-               ("GridHead_0/logits", "head.logits", "logits")]
+        layers += _conformer_block_layers(i)
+    return layers + _GRID_HEAD
+
+
+def _cnn_encoder_layers(cfg: ModelConfig):
+    layers = []
+    for i in range(len(cfg.crnn_cnn_channels)):
+        block = f"CNNEncoder_0/ConvBlock_{i}"
+        layers += [(f"{block}/Conv_0", f"encoder.blocks.{i}.conv", "conv"),
+                   (f"{block}/BatchNorm_0", f"encoder.blocks.{i}.bn", "bn")]
     return layers
+
+
+def _crnn_layers(cfg: ModelConfig):
+    layers = _cnn_encoder_layers(cfg)
+    for k in range(cfg.crnn_rnn_layers):
+        layers += [(f"BiGRU_0/GRUCell_{2 * k}", f"rnn.layers.{k}", "gru"),
+                   (f"BiGRU_0/GRUCell_{2 * k + 1}", f"rnn.layers.{k}", "gru_reverse")]
+    return layers + _GRID_HEAD
+
+
+def _conformer_layers(cfg: ModelConfig):
+    layers = _cnn_encoder_layers(cfg) + [("proj", "proj", "dense")]
+    for i in range(cfg.conf_n_layers):
+        layers += _conformer_block_layers(i)
+    return layers + _GRID_HEAD
+
+
+def _cspdarknet_layers(cfg: ModelConfig):
+    def cbs(jax_path, port_name):  # ConvBnSiLU
+        return [(f"{jax_path}/Conv_0", f"{port_name}.conv", "conv"),
+                (f"{jax_path}/BatchNorm_0", f"{port_name}.bn", "bn")]
+
+    depth = 0.33 if cfg.csp_use_small else 1.0
+    layers = cbs("backbone/stem", "backbone.stem")
+    for s, n in enumerate(STAGE_BLOCKS):
+        layers += cbs(f"backbone/down{s}", f"backbone.down{s}")
+        c3, pc3 = f"backbone/c3_{s}", f"backbone.c3_{s}"
+        for cv in ("cv1", "cv2", "cv3"):
+            layers += cbs(f"{c3}/{cv}", f"{pc3}.{cv}")
+        for i in range(scaled_depth(n, depth)):
+            layers += (cbs(f"{c3}/m{i}/ConvBnSiLU_0", f"{pc3}.m.{i}.cv1")
+                       + cbs(f"{c3}/m{i}/ConvBnSiLU_1", f"{pc3}.m.{i}.cv2"))
+    layers += cbs("backbone/sppf/cv1", "backbone.sppf.cv1")
+    layers += cbs("backbone/sppf/cv2", "backbone.sppf.cv2")
+    layers += [(f"reduce_{p}", f"reduce_{p}", "conv_bias") for p in ("p3", "p4", "p5")]
+    layers += cbs("fuse1", "fuse1") + cbs("fuse2", "fuse2")
+    return layers + [("cls1", "cls1", "dense"), ("LayerNorm_0", "cls_norm", "ln"),
+                     ("cls2", "cls2", "dense")]
+
+
+_LAYERS = {
+    "resnet_conformer": _resnet_conformer_layers,
+    "crnn": _crnn_layers,
+    "conformer": _conformer_layers,
+    "cnn": _cspdarknet_layers,
+    "cspdarknet": _cspdarknet_layers,
+}
+
+
+def _gru(take, suffix: str) -> dict[str, np.ndarray]:
+    """One flax GRUCell -> one direction of a single-layer nn.GRU."""
+    gates = "rzn"
+    w_ih = np.concatenate([take("params", f"i{g}/kernel").T for g in gates])
+    w_hh = np.concatenate([take("params", f"h{g}/kernel").T for g in gates])
+    b_ih = np.concatenate([take("params", f"i{g}/bias") for g in gates])
+    b_hn = take("params", "hn/bias")
+    b_hh = np.concatenate([np.zeros_like(b_hn), np.zeros_like(b_hn), b_hn])
+    return {f"weight_ih_l0{suffix}": w_ih, f"weight_hh_l0{suffix}": w_hh,
+            f"bias_ih_l0{suffix}": b_ih, f"bias_hh_l0{suffix}": b_hh}
 
 
 def _convert(take, kind: str) -> dict[str, np.ndarray]:
     """One layer's port tensors; `take(collection, leaf)` pops a JAX leaf."""
     if kind == "conv":
         return {"weight": take("params", "kernel").transpose(3, 2, 0, 1)}
+    if kind == "conv_bias":
+        return {"weight": take("params", "kernel").transpose(3, 2, 0, 1),
+                "bias": take("params", "bias")}
+    if kind in ("gru", "gru_reverse"):
+        return _gru(take, "_reverse" if kind == "gru_reverse" else "")
     if kind == "dense":
         return {"weight": take("params", "kernel").T,
                 "bias": take("params", "bias")}
@@ -101,13 +192,13 @@ def _convert(take, kind: str) -> dict[str, np.ndarray]:
 
 def state_dict_from_jax(variables_np: Mapping, model_cfg: ModelConfig) -> dict[str, torch.Tensor]:
     """seld_tpu variables (numpy leaves) -> seld_tpu_torch state_dict."""
-    if model_cfg.model_type != "resnet_conformer":
+    if model_cfg.model_type not in _LAYERS:
         raise NotImplementedError(
             f"no converter for model_type {model_cfg.model_type!r} yet"
         )
     leaves = _flatten(variables_np)
     state = {}
-    for jax_path, port_name, kind in _resnet_conformer_layers(model_cfg):
+    for jax_path, port_name, kind in _LAYERS[model_cfg.model_type](model_cfg):
         def take(collection, leaf, _path=jax_path):
             key = f"{collection}/{_path}/{leaf}"
             if key not in leaves:

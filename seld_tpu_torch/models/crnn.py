@@ -1,0 +1,81 @@
+"""SELD CRNN: CNN encoder, bidirectional GRU, grid head (counterpart:
+seld_tpu/models/crnn.py).
+
+ConvBlocks pool frequency 64 -> 4 and keep time; a stacked bidirectional
+GRU (hidden 256, 2 layers) with dropout between layers only; the grid
+head (Linear 512, LayerNorm, ReLU, Dropout, Linear to M x G).
+
+The recurrence. The JAX package runs flax's GRUCell under nn.RNN, a
+lax.scan, not a Pallas kernel, so torch.nn.GRU (cuDNN's GRU on the card)
+is its counterpart here. flax's cell has input biases on r, z and n and a
+hidden bias on n only; torch's carries hidden biases on all three gates,
+of which the r and z ones add to the input ones (state_dict_from_jax
+loads them as zeros): the same function, and 2 x hidden more parameters
+per direction and layer. Each layer is its own single-layer bidirectional
+nn.GRU, so that the dropout between layers draws from the model's own
+generator like every other Dropout (nn.GRU's own dropout would draw from
+the global one). The recurrence runs in float32 whatever the compute
+dtype, with its float32 parameters as they are: cuDNN's GRU does take bf16
+on the H100, but that needs a bf16 copy of the weights on every call, and
+flax's cell keeps its carry in float32 too. The encoder's bf16 output is
+read as float32, and the GRU's output is cast back to the compute dtype.
+"""
+
+from __future__ import annotations
+
+import contextlib
+
+import torch
+from torch import nn
+
+from seld_tpu_torch import no_tf32
+from seld_tpu_torch.models.layers import CNNEncoder, Dropout, DropoutSeeding, GridHead
+
+
+class BiGRU(nn.Module):
+    """Stacked bidirectional GRU on (B, T, D): per layer the forward and
+    the time-reversed GRU concatenate, (B, T, 2 * hidden); dropout between
+    layers only."""
+
+    def __init__(self, in_features: int, hidden: int, num_layers: int = 2,
+                 dropout: float = 0.3, compute_dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.compute_dtype = compute_dtype
+        self.layers = nn.ModuleList(
+            nn.GRU(in_features if i == 0 else 2 * hidden, hidden, batch_first=True,
+                   bidirectional=True)
+            for i in range(num_layers)
+        )
+        self.drops = nn.ModuleList(Dropout(dropout) for _ in range(num_layers - 1))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.float()
+        for i, gru in enumerate(self.layers):
+            x, _ = gru(x)
+            if i < len(self.drops):
+                x = self.drops[i](x)
+        return x.to(self.compute_dtype)
+
+
+class SELDCRNN(DropoutSeeding, nn.Module):
+    """(B, T, C, F) features -> (B, T, M, G) class-major float32 logits."""
+
+    def __init__(self, grid_size=(18, 36), num_classes: int = 14,
+                 cnn_channels=(64, 128, 256, 512), rnn_hidden: int = 256,
+                 rnn_layers: int = 2, n_channels: int = 4, n_mels: int = 64,
+                 compute_dtype: torch.dtype = torch.float32, dropout: float = 0.3,
+                 norm_dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.compute_dtype = compute_dtype
+        self.encoder = CNNEncoder(n_channels, tuple(cnn_channels), n_mels, compute_dtype,
+                                  norm_dtype)
+        self.rnn = BiGRU(self.encoder.out_features, rnn_hidden, rnn_layers, dropout,
+                         compute_dtype)
+        self.head = GridHead(2 * rnn_hidden, 512, grid_size[0] * grid_size[1], num_classes,
+                             compute_dtype, dropout, norm_dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        # a float32 model is true float32: no TF32, for this call only
+        with no_tf32() if self.compute_dtype == torch.float32 else contextlib.nullcontext():
+            x = self.encoder(x.to(self.compute_dtype).permute(0, 2, 1, 3))
+            return self.head(self.rnn(x))

@@ -3,21 +3,32 @@ seld_tpu/models/layers.py).
 
 Dtype policy, as in the JAX package: parameters are float32; convolutions
 and linears cast their input and weights to the compute dtype; BatchNorm
-and LayerNorm run in float32 and return float32, and the caller casts back
-to the compute dtype where the JAX module does. Sequence tensors are
-(B, T, D).
+and LayerNorm compute in float32 against float32 weights and statistics
+and return their `norm_dtype` (float32 by default), and the caller casts
+back to the compute dtype where the JAX module does. With norm_dtype
+bfloat16 a norm reads a bf16 input as it is and writes bf16, as flax's
+`_normalize` does (float32 arithmetic inside, the result cast): no float32
+copy of the activation is written. Spatial tensors are NCHW, sequence
+tensors (B, T, D).
 
 Train mode (`module.train()`): BatchNorm normalises by the batch's
 statistics and updates its running ones; Dropout draws its keep-mask from
-an explicit torch.Generator (SELDResNetConformer.seed_dropout), never from
-the global one. Eval mode uses the running statistics and no dropout.
+an explicit torch.Generator (DropoutSeeding.seed_dropout), never from the
+global one. Eval mode uses the running statistics and no dropout.
+
+`run_block` is activation checkpointing (the JAX package's nn.remat): the
+block's activations are recomputed in the backward, with the block's
+dropout masks replayed and its BatchNorm statistics updated once.
 """
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from seld_tpu_torch.ops.attention import multi_head_attention
 
@@ -45,19 +56,30 @@ class Linear(nn.Linear):
 
 
 class Conv2d(nn.Conv2d):
-    """nn.Conv2d (no bias) whose convolution runs in `compute_dtype`."""
+    """nn.Conv2d (no bias unless asked) whose convolution runs in
+    `compute_dtype`.
+
+    On the CPU a bf16 convolution takes its bf16-rounded operands in
+    float32 and rounds the result to bf16: the CPU build's oneDNN bf16
+    kernel returns NaN for strided convolutions over width-1 images (the
+    CSPDarkNet's per-frame (F, 1) images; torch 2.13)."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
                  stride=1, padding: int = 0,
-                 compute_dtype: torch.dtype = torch.float32):
+                 compute_dtype: torch.dtype = torch.float32, bias: bool = False):
         super().__init__(in_channels, out_channels, kernel_size, stride=stride,
-                         padding=padding, bias=False)
+                         padding=padding, bias=bias)
         self.compute_dtype = compute_dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
-        return F.conv2d(x.to(dt), self.weight.to(dt), None, self.stride,
-                        self.padding)
+        x, weight = x.to(dt), self.weight.to(dt)
+        bias = None if self.bias is None else self.bias.to(dt)
+        if x.device.type == "cpu" and dt == torch.bfloat16:
+            bias = None if bias is None else bias.float()
+            return F.conv2d(x.float(), weight.float(), bias, self.stride,
+                            self.padding).to(dt)
+        return F.conv2d(x, weight, bias, self.stride, self.padding)
 
 
 class DepthwiseConv1d(nn.Conv1d):
@@ -75,15 +97,31 @@ class DepthwiseConv1d(nn.Conv1d):
                         padding=self.padding, groups=self.groups)
 
 
-class LayerNorm(nn.LayerNorm):
-    """LayerNorm over the last axis in float32, returning float32."""
+def _norm_input(x: torch.Tensor, norm_dtype: torch.dtype) -> torch.Tensor:
+    """A float32 norm reads its input as float32; a bf16 norm reads it as it
+    comes (float32 or bf16: the kernels compute in float32 either way)."""
+    return x.float() if norm_dtype == torch.float32 else x
 
-    def __init__(self, dim: int):
+
+class LayerNorm(nn.LayerNorm):
+    """LayerNorm over the last axis, computed in float32, returning
+    `norm_dtype`.
+
+    A bf16 norm hands F.layer_norm its weights cast to bf16: CUDA's
+    layer_norm raises for a bf16 input with float32 weights (torch 2.11 on
+    the H100), and one code path serves both devices. The statistics, the
+    normalisation and the affine still run in float32 inside the kernel;
+    only the scale and bias are rounded to bf16 first, which moves a
+    result by at most about one bf16 rounding more than flax's."""
+
+    def __init__(self, dim: int, norm_dtype: torch.dtype = torch.float32):
         super().__init__(dim, eps=LN_EPS)
+        self.norm_dtype = norm_dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.layer_norm(x.float(), self.normalized_shape, self.weight,
-                            self.bias, self.eps)
+        x = _norm_input(x, self.norm_dtype)
+        return F.layer_norm(x, self.normalized_shape, self.weight.to(x.dtype),
+                            self.bias.to(x.dtype), self.eps).to(self.norm_dtype)
 
 
 class Dropout(nn.Module):
@@ -111,24 +149,30 @@ class Dropout(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """BatchNorm over axis 1 in float32, returning float32. In train mode
-    it normalises by the batch's mean and biased variance and moves the
-    running statistics toward them by BN_MOMENTUM. The running variance
-    takes the biased batch variance, as flax stores it; F.batch_norm
-    gives the unbiased one, which is rescaled here."""
+    """BatchNorm over axis 1, computed in float32 against float32 weights
+    and statistics, returning `norm_dtype` (F.batch_norm takes a bf16
+    input with float32 weights and statistics on the CPU and on CUDA, and
+    writes bf16). In train mode it normalises by the batch's mean and
+    biased variance and moves the float32 running statistics toward them by
+    BN_MOMENTUM. The running variance takes the biased batch variance, as
+    flax stores it; F.batch_norm gives the unbiased one, which is rescaled
+    here. `update_stats = False` keeps the running statistics as they are
+    (run_block's recompute)."""
 
-    def __init__(self, channels: int):
+    def __init__(self, channels: int, norm_dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.norm_dtype = norm_dtype
+        self.update_stats = True
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("running_mean", torch.zeros(channels))
         self.register_buffer("running_var", torch.ones(channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x.float()
+        x = _norm_input(x, self.norm_dtype)
         if not self.training:
-            return F.batch_norm(x, self.running_mean, self.running_var,
-                                self.weight, self.bias, training=False, eps=BN_EPS)
+            return F.batch_norm(x, self.running_mean, self.running_var, self.weight,
+                                self.bias, training=False, eps=BN_EPS).to(self.norm_dtype)
         # F.batch_norm writes momentum * (batch mean, unbiased batch variance)
         # into zeroed buffers (autograd saves them, so the module's own
         # statistics are updated apart); unbiased -> biased is (n - 1) / n
@@ -136,20 +180,135 @@ class BatchNorm(nn.Module):
         mean_step, var_step = torch.zeros((2, x.shape[1]), device=x.device).unbind(0)
         out = F.batch_norm(x, mean_step, var_step, self.weight, self.bias,
                            training=True, momentum=BN_MOMENTUM, eps=BN_EPS)
-        with torch.no_grad():
-            self.running_mean.mul_(1.0 - BN_MOMENTUM).add_(mean_step)
-            self.running_var.mul_(1.0 - BN_MOMENTUM).add_(var_step, alpha=(n - 1) / n)
-        return out
+        if self.update_stats:
+            with torch.no_grad():
+                self.running_mean.mul_(1.0 - BN_MOMENTUM).add_(mean_step)
+                self.running_var.mul_(1.0 - BN_MOMENTUM).add_(var_step, alpha=(n - 1) / n)
+        return out.to(self.norm_dtype)
+
+
+class DropoutSeeding:
+    """Mixin of the backbones: one torch.Generator that every Dropout of
+    the model draws from."""
+
+    _dropout_generator: torch.Generator | None = None
+
+    def seed_dropout(self, seed: int) -> None:
+        """Seed the generator that every Dropout of the model draws from
+        (made on first use, on the parameters' device). The train step
+        reseeds it each step from (seed, epoch, step), so a resumed run
+        repeats the masks of the run it resumes."""
+        if self._dropout_generator is None:
+            self._dropout_generator = torch.Generator(
+                device=next(self.parameters()).device)
+            for module in self.modules():
+                if isinstance(module, Dropout):
+                    module.generator = self._dropout_generator
+        self._dropout_generator.manual_seed(seed)
+
+
+@contextlib.contextmanager
+def _replaying(block: nn.Module, generator: torch.Generator | None, start):
+    """Inside: the block's dropout generator back at `start` and its
+    BatchNorm statistics held; after: both as they were."""
+    norms = [m for m in block.modules() if isinstance(m, BatchNorm)]
+    now = None if generator is None else generator.get_state()
+    if generator is not None:
+        generator.set_state(start)
+    for m in norms:
+        m.update_stats = False
+    try:
+        yield
+    finally:
+        for m in norms:
+            m.update_stats = True
+        if generator is not None:
+            generator.set_state(now)
+
+
+def run_block(block: nn.Module, x: torch.Tensor, remat: bool) -> torch.Tensor:
+    """block(x); with `remat` and autograd recording, the block's
+    activations are not kept but recomputed in the backward
+    (torch.utils.checkpoint, non-reentrant).
+
+    The recompute must compute what the forward did. The block's Dropouts
+    draw from the model's own generator, whose state checkpoint's
+    preserve_rng_state does not restore: the generator is set back to its
+    state before the forward for the recompute, and forward again after
+    it. A train-mode BatchNorm would update its running statistics a second
+    time: the recompute holds them. Every kernel of the block (K3's forward
+    included) launches again in the recompute."""
+    if not (remat and torch.is_grad_enabled()):
+        return block(x)
+    generator = next((m.generator for m in block.modules()
+                      if isinstance(m, Dropout) and m.generator is not None), None)
+    start = None if generator is None else generator.get_state()
+    calls = []
+
+    def run(x):
+        if not calls:  # the forward
+            calls.append(1)
+            return block(x)
+        with _replaying(block, generator, start):  # the recompute
+            return block(x)
+
+    return checkpoint(run, x, use_reentrant=False)
+
+
+class ConvBlock(nn.Module):
+    """Conv 3x3 (no bias) -> BatchNorm -> ReLU, then a (1, 2) max-pool on
+    (T, F) that halves frequency and keeps time."""
+
+    def __init__(self, in_channels: int, out_channels: int, pool: bool = True,
+                 compute_dtype: torch.dtype = torch.float32,
+                 norm_dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.compute_dtype = compute_dtype
+        self.pool = pool
+        self.conv = Conv2d(in_channels, out_channels, 3, padding=1,
+                           compute_dtype=compute_dtype)
+        self.bn = BatchNorm(out_channels, norm_dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = torch.relu(self.bn(self.conv(x))).to(self.compute_dtype)
+        return F.max_pool2d(x, (1, 2)) if self.pool else x
+
+
+class CNNEncoder(nn.Module):
+    """ConvBlocks over (B, C, T, F), the first four pooling frequency by 2,
+    then the channel-major flatten to (B, T, C' * F') of the JAX encoder
+    (seld_tpu/models/layers.py:99). Shared by the CRNN and the Conformer."""
+
+    def __init__(self, in_channels: int, channels=(64, 128, 256, 512), n_mels: int = 64,
+                 compute_dtype: torch.dtype = torch.float32,
+                 norm_dtype: torch.dtype = torch.float32):
+        super().__init__()
+        chans = (in_channels, *channels)
+        self.blocks = nn.ModuleList(
+            ConvBlock(chans[i], chans[i + 1], i < 4, compute_dtype, norm_dtype)
+            for i in range(len(channels))
+        )
+        f_out = n_mels
+        for _ in range(min(len(channels), 4)):
+            f_out //= 2
+        self.out_features = channels[-1] * f_out
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for block in self.blocks:
+            x = block(x)
+        b, c, t, f = x.shape
+        return x.permute(0, 2, 1, 3).reshape(b, t, c * f)
 
 
 class FeedForward(nn.Module):
     """Half-step Swish FFN with its residual: x + 0.5 * FFN(LN(x))."""
 
     def __init__(self, d_model: int, d_ff: int,
-                 compute_dtype: torch.dtype = torch.float32, dropout: float = 0.1):
+                 compute_dtype: torch.dtype = torch.float32, dropout: float = 0.1,
+                 norm_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.compute_dtype = compute_dtype
-        self.norm = LayerNorm(d_model)
+        self.norm = LayerNorm(d_model, norm_dtype)
         self.fc1 = Linear(d_model, d_ff, compute_dtype=compute_dtype)
         self.fc2 = Linear(d_ff, d_model, compute_dtype=compute_dtype)
         self.drop1 = Dropout(dropout)
@@ -165,13 +324,14 @@ class MultiHeadSelfAttention(nn.Module):
     """Pre-norm multi-head self-attention with its residual."""
 
     def __init__(self, d_model: int, n_heads: int,
-                 compute_dtype: torch.dtype = torch.float32, dropout: float = 0.1):
+                 compute_dtype: torch.dtype = torch.float32, dropout: float = 0.1,
+                 norm_dtype: torch.dtype = torch.float32):
         super().__init__()
         if d_model % n_heads:
             raise ValueError(f"d_model {d_model} is not divisible by {n_heads} heads")
         self.compute_dtype = compute_dtype
         self.n_heads = n_heads
-        self.norm = LayerNorm(d_model)
+        self.norm = LayerNorm(d_model, norm_dtype)
         self.w_q = Linear(d_model, d_model, compute_dtype=compute_dtype)
         self.w_k = Linear(d_model, d_model, compute_dtype=compute_dtype)
         self.w_v = Linear(d_model, d_model, compute_dtype=compute_dtype)
@@ -194,13 +354,14 @@ class ConformerConvModule(nn.Module):
     pointwise, with its residual."""
 
     def __init__(self, d_model: int, kernel_size: int = 31,
-                 compute_dtype: torch.dtype = torch.float32, dropout: float = 0.1):
+                 compute_dtype: torch.dtype = torch.float32, dropout: float = 0.1,
+                 norm_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.compute_dtype = compute_dtype
-        self.norm = LayerNorm(d_model)
+        self.norm = LayerNorm(d_model, norm_dtype)
         self.pw1 = Linear(d_model, 2 * d_model, compute_dtype=compute_dtype)
         self.depthwise = DepthwiseConv1d(d_model, kernel_size, compute_dtype=compute_dtype)
-        self.bn = BatchNorm(d_model)
+        self.bn = BatchNorm(d_model, norm_dtype)
         self.pw2 = Linear(d_model, d_model, compute_dtype=compute_dtype)
         self.drop = Dropout(dropout)
 
@@ -217,15 +378,18 @@ class ConformerBlock(nn.Module):
 
     def __init__(self, d_model: int, n_heads: int = 4, d_ff: int | None = None,
                  kernel_size: int = 31,
-                 compute_dtype: torch.dtype = torch.float32, dropout: float = 0.1):
+                 compute_dtype: torch.dtype = torch.float32, dropout: float = 0.1,
+                 norm_dtype: torch.dtype = torch.float32):
         super().__init__()
         d_ff = d_ff or 4 * d_model
         self.compute_dtype = compute_dtype
-        self.ff1 = FeedForward(d_model, d_ff, compute_dtype, dropout)
-        self.attn = MultiHeadSelfAttention(d_model, n_heads, compute_dtype, dropout)
-        self.conv = ConformerConvModule(d_model, kernel_size, compute_dtype, dropout)
-        self.ff2 = FeedForward(d_model, d_ff, compute_dtype, dropout)
-        self.norm = LayerNorm(d_model)
+        self.ff1 = FeedForward(d_model, d_ff, compute_dtype, dropout, norm_dtype)
+        self.attn = MultiHeadSelfAttention(d_model, n_heads, compute_dtype, dropout,
+                                           norm_dtype)
+        self.conv = ConformerConvModule(d_model, kernel_size, compute_dtype, dropout,
+                                        norm_dtype)
+        self.ff2 = FeedForward(d_model, d_ff, compute_dtype, dropout, norm_dtype)
+        self.norm = LayerNorm(d_model, norm_dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.ff2(self.conv(self.attn(self.ff1(x))))
@@ -239,13 +403,13 @@ class GridHead(nn.Module):
 
     def __init__(self, in_features: int, hidden: int, grid_cells: int,
                  num_classes: int, compute_dtype: torch.dtype = torch.float32,
-                 dropout: float = 0.3):
+                 dropout: float = 0.3, norm_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.compute_dtype = compute_dtype
         self.num_classes = num_classes
         self.grid_cells = grid_cells
         self.fc = Linear(in_features, hidden, compute_dtype=compute_dtype)
-        self.norm = LayerNorm(hidden)
+        self.norm = LayerNorm(hidden, norm_dtype)
         self.logits = Linear(hidden, num_classes * grid_cells, compute_dtype=compute_dtype)
         self.drop = Dropout(dropout)
 

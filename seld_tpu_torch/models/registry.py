@@ -11,34 +11,68 @@ from torch import nn
 
 from seld_tpu_torch import resolve_device
 from seld_tpu_torch.config import GridConfig, ModelConfig
+from seld_tpu_torch.models.conformer import SELDConformer
+from seld_tpu_torch.models.crnn import SELDCRNN
+from seld_tpu_torch.models.cspdarknet import SELDCSPDarkNet
 from seld_tpu_torch.models.layers import BatchNorm, LayerNorm
 from seld_tpu_torch.models.resnet_conformer import SELDResNetConformer
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+REMAT = ("none", "resnet", "conformer", "all")
 
 # Families of the JAX package that this port does not have yet, with the
 # ROADMAP item that brings each.
 _NOT_PORTED = {
-    "crnn": "the other grid backbones",
-    "conformer": "the other grid backbones",
-    "cnn": "the other grid backbones",
-    "cspdarknet": "the other grid backbones",
     "accdoa_conformer": "the ACCDOA families",
     "multi_accdoa_conformer": "the ACCDOA families",
 }
 
 
+def _crnn(cfg: ModelConfig, grid_size, in_channels: int, dt: dict) -> nn.Module:
+    return SELDCRNN(grid_size, cfg.num_classes, cfg.crnn_cnn_channels, cfg.crnn_rnn_hidden,
+                    cfg.crnn_rnn_layers, in_channels, cfg.n_mels, dropout=cfg.crnn_dropout,
+                    **dt)
+
+
+def _conformer(cfg: ModelConfig, grid_size, in_channels: int, dt: dict) -> nn.Module:
+    return SELDConformer(grid_size, cfg.num_classes, cfg.crnn_cnn_channels, cfg.conf_d_model,
+                         cfg.conf_n_heads, cfg.conf_n_layers, cfg.conf_kernel_size,
+                         in_channels, cfg.n_mels, dropout=cfg.conf_dropout, remat=cfg.remat,
+                         **dt)
+
+
+def _resnet_conformer(cfg: ModelConfig, grid_size, in_channels: int, dt: dict) -> nn.Module:
+    return SELDResNetConformer(grid_size, cfg.num_classes, cfg.resnet_conf_d_model,
+                               cfg.resnet_conf_n_heads, cfg.resnet_conf_n_layers,
+                               n_channels=in_channels, n_mels=cfg.n_mels,
+                               dropout=cfg.resnet_dropout, remat=cfg.remat, **dt)
+
+
+def _cspdarknet(cfg: ModelConfig, grid_size, in_channels: int, dt: dict) -> nn.Module:
+    return SELDCSPDarkNet(grid_size, cfg.num_classes, cfg.csp_use_small, in_channels, **dt)
+
+
+MODEL_REGISTRY = {
+    "crnn": _crnn,
+    "conformer": _conformer,
+    "resnet_conformer": _resnet_conformer,
+    "cnn": _cspdarknet,  # the reference's name for CSPDarkNet
+    "cspdarknet": _cspdarknet,
+}
+
+
 def init_parameters(model: nn.Module, generator: torch.Generator) -> None:
-    """Seeded initialisation: conv and linear weights from N(0, 1/fan_in)
-    (flax's lecun-normal scale), biases 0, norm scales 1, BatchNorm running
-    mean 0 and variance 1. Draws on the CPU from `generator`."""
+    """Seeded initialisation: conv, linear and GRU weights from
+    N(0, 1/fan_in) (flax's lecun-normal scale), biases 0, norm scales 1,
+    BatchNorm running mean 0 and variance 1. Draws on the CPU from
+    `generator`."""
     with torch.no_grad():
         for name, p in model.named_parameters():
             leaf = name.rsplit(".", 1)[-1]
             owner = model.get_submodule(name.rsplit(".", 1)[0]) if "." in name else model
             if isinstance(owner, (LayerNorm, BatchNorm)):
                 p.fill_(1.0 if leaf == "weight" else 0.0)
-            elif leaf == "bias":
+            elif leaf.startswith("bias"):  # nn.GRU's are bias_ih_l0, bias_hh_l0, ...
                 p.zero_()
             else:
                 fan_in = math.prod(p.shape[1:])
@@ -51,7 +85,8 @@ def init_parameters(model: nn.Module, generator: torch.Generator) -> None:
 def build_model(model_cfg: ModelConfig, grid_cfg: GridConfig | None = None,
                 device: str | torch.device | None = None,
                 seed: int | None = 0, in_channels: int | None = None) -> nn.Module:
-    """The eval-mode model on `device` (CUDA unless named).
+    """The eval-mode model of `model_cfg.model_type` on `device` (CUDA
+    unless named).
 
     in_channels: the feature channels C of the (B, T, C, F) input, which
     the stem's width (and its initialisation's fan-in) follows; callers
@@ -62,7 +97,11 @@ def build_model(model_cfg: ModelConfig, grid_cfg: GridConfig | None = None,
     seed: initialise the parameters from torch.Generator().manual_seed(seed);
     None leaves them unset for a caller that loads a state_dict next.
     compute_dtype="float32" is true float32: the model's forward turns
-    TF32 off for its own duration (seld_tpu_torch.no_tf32)."""
+    TF32 off for its own duration (seld_tpu_torch.no_tf32). norm_dtype
+    "bfloat16" makes every norm return bf16; remat recomputes blocks in
+    the backward ("resnet" and "conformer" name the blocks of the models
+    that have them; the CRNN and CSPDarkNet have none, as in the JAX
+    package)."""
     device = resolve_device(device)
     grid_cfg = grid_cfg or GridConfig(num_classes=model_cfg.num_classes)
     if model_cfg.model_type in _NOT_PORTED:
@@ -70,29 +109,25 @@ def build_model(model_cfg: ModelConfig, grid_cfg: GridConfig | None = None,
             f"model_type {model_cfg.model_type!r} is not ported yet "
             f"(ROADMAP: {_NOT_PORTED[model_cfg.model_type]})"
         )
-    if model_cfg.model_type != "resnet_conformer":
-        raise ValueError(f"unknown model_type {model_cfg.model_type!r}")
-    if model_cfg.param_dtype != "float32" or model_cfg.norm_dtype != "float32":
+    if model_cfg.model_type not in MODEL_REGISTRY:
+        raise ValueError(f"unknown model_type {model_cfg.model_type!r}; "
+                         f"available: {sorted(MODEL_REGISTRY)}")
+    if model_cfg.param_dtype != "float32":
         raise NotImplementedError(
-            "the port keeps parameters and norms in float32 "
-            f"(got param_dtype={model_cfg.param_dtype!r}, "
-            f"norm_dtype={model_cfg.norm_dtype!r})"
+            "the port keeps parameters in float32 "
+            f"(got param_dtype={model_cfg.param_dtype!r}; ROADMAP item 13)"
         )
-    if model_cfg.compute_dtype not in _DTYPES:
-        raise ValueError(f"unknown compute_dtype {model_cfg.compute_dtype!r}")
-    dtype = _DTYPES[model_cfg.compute_dtype]
+    for field in ("compute_dtype", "norm_dtype"):
+        if getattr(model_cfg, field) not in _DTYPES:
+            raise ValueError(f"unknown {field} {getattr(model_cfg, field)!r}")
+    if model_cfg.remat not in REMAT:
+        raise ValueError(f"unknown remat {model_cfg.remat!r}; one of {REMAT}")
+    dt = dict(compute_dtype=_DTYPES[model_cfg.compute_dtype],
+              norm_dtype=_DTYPES[model_cfg.norm_dtype])
     with torch.device("meta"):
-        model = SELDResNetConformer(
-            grid_size=(grid_cfg.n_el, grid_cfg.n_az),
-            num_classes=model_cfg.num_classes,
-            d_model=model_cfg.resnet_conf_d_model,
-            n_heads=model_cfg.resnet_conf_n_heads,
-            n_layers=model_cfg.resnet_conf_n_layers,
-            n_channels=model_cfg.n_channels if in_channels is None else in_channels,
-            n_mels=model_cfg.n_mels,
-            compute_dtype=dtype,
-            dropout=model_cfg.resnet_dropout,
-        )
+        model = MODEL_REGISTRY[model_cfg.model_type](
+            model_cfg, (grid_cfg.n_el, grid_cfg.n_az),
+            model_cfg.n_channels if in_channels is None else in_channels, dt)
     model = model.to_empty(device=device).eval()
     if seed is not None:
         init_parameters(model, torch.Generator().manual_seed(seed))

@@ -7,6 +7,11 @@ intensity vectors, 10 with GCC-PHAT; 3x3 stem, every stride (1, 2) on
 [3, 4, 6, 3]) feeds d_model-wide Conformer blocks and a 1024-hidden grid
 head. The public input is (B, T, C, F) as in the JAX package; inside,
 the encoder runs NCHW on (B, C, T, F).
+
+norm_dtype goes to every BatchNorm and LayerNorm; remat ("resnet": each
+bottleneck, "conformer": each conformer block, "all": both) recomputes
+those blocks' activations in the backward (layers.run_block), as the JAX
+model's nn.remat does.
 """
 
 from __future__ import annotations
@@ -23,8 +28,10 @@ from seld_tpu_torch.models.layers import (
     ConformerBlock,
     Conv2d,
     Dropout,
+    DropoutSeeding,
     GridHead,
     Linear,
+    run_block,
 )
 
 RESNET50_LAYERS = (3, 4, 6, 3)
@@ -42,21 +49,22 @@ class BottleneckBlock(nn.Module):
     projected shortcut where the shape changes; residual + ReLU."""
 
     def __init__(self, in_channels: int, planes: int, stride=(1, 1),
-                 compute_dtype: torch.dtype = torch.float32):
+                 compute_dtype: torch.dtype = torch.float32,
+                 norm_dtype: torch.dtype = torch.float32):
         super().__init__()
         out_ch = planes * EXPANSION
         self.compute_dtype = compute_dtype
         self.conv1 = Conv2d(in_channels, planes, 1, compute_dtype=compute_dtype)
-        self.bn1 = BatchNorm(planes)
+        self.bn1 = BatchNorm(planes, norm_dtype)
         self.conv2 = Conv2d(planes, planes, 3, stride=stride, padding=1,
                             compute_dtype=compute_dtype)
-        self.bn2 = BatchNorm(planes)
+        self.bn2 = BatchNorm(planes, norm_dtype)
         self.conv3 = Conv2d(planes, out_ch, 1, compute_dtype=compute_dtype)
-        self.bn3 = BatchNorm(out_ch)
+        self.bn3 = BatchNorm(out_ch, norm_dtype)
         if in_channels != out_ch or tuple(stride) != (1, 1):
             self.downsample = Conv2d(in_channels, out_ch, 1, stride=stride,
                                      compute_dtype=compute_dtype)
-            self.downsample_bn = BatchNorm(out_ch)
+            self.downsample_bn = BatchNorm(out_ch, norm_dtype)
         else:
             self.downsample = None
 
@@ -74,15 +82,18 @@ class BottleneckBlock(nn.Module):
 class ResNet50Encoder(nn.Module):
     """(B, C, T, F) -> (B, 2048, T, F/32): 3x3 stem at stride (1, 2), 3x3
     max-pool at stride (1, 2), then stages [3, 4, 6, 3] with frequency-only
-    striding in stages 2-4. Blocks are named stage{s}_block{b}."""
+    striding in stages 2-4. Blocks are named stage{s}_block{b}; with remat
+    each is recomputed in the backward."""
 
     def __init__(self, in_channels: int = 4, layers=RESNET50_LAYERS,
-                 compute_dtype: torch.dtype = torch.float32):
+                 compute_dtype: torch.dtype = torch.float32,
+                 norm_dtype: torch.dtype = torch.float32, remat: bool = False):
         super().__init__()
         self.compute_dtype = compute_dtype
+        self.remat = remat
         self.stem = Conv2d(in_channels, 64, 3, stride=(1, 2), padding=1,
                            compute_dtype=compute_dtype)
-        self.stem_bn = BatchNorm(64)
+        self.stem_bn = BatchNorm(64, norm_dtype)
         self.block_names = []
         ch = 64
         strides = ((1, 1), (1, 2), (1, 2), (1, 2))
@@ -92,7 +103,7 @@ class ResNet50Encoder(nn.Module):
             for block in range(n):
                 name = f"stage{stage}_block{block}"
                 self.add_module(name, BottleneckBlock(
-                    ch, planes, stride if block == 0 else (1, 1), compute_dtype
+                    ch, planes, stride if block == 0 else (1, 1), compute_dtype, norm_dtype
                 ))
                 self.block_names.append(name)
                 ch = planes * EXPANSION
@@ -102,20 +113,24 @@ class ResNet50Encoder(nn.Module):
         x = torch.relu(self.stem_bn(self.stem(x))).to(self.compute_dtype)
         x = F.max_pool2d(x, 3, stride=(1, 2), padding=1)
         for name in self.block_names:
-            x = getattr(self, name)(x)
+            x = run_block(getattr(self, name), x, self.remat)
         return x
 
 
-class SELDResNetConformer(nn.Module):
+class SELDResNetConformer(DropoutSeeding, nn.Module):
     """(B, T, C, F) features -> (B, T, M, G) class-major float32 logits."""
 
     def __init__(self, grid_size=(18, 36), num_classes: int = 14,
                  d_model: int = 512, n_heads: int = 8, n_layers: int = 4,
                  kernel_size: int = 31, n_channels: int = 4, n_mels: int = 64,
-                 compute_dtype: torch.dtype = torch.float32, dropout: float = 0.3):
+                 compute_dtype: torch.dtype = torch.float32, dropout: float = 0.3,
+                 norm_dtype: torch.dtype = torch.float32, remat: str = "none"):
         super().__init__()
         self.compute_dtype = compute_dtype
-        self.encoder = ResNet50Encoder(n_channels, compute_dtype=compute_dtype)
+        self.remat_blocks = remat in ("conformer", "all")
+        self.encoder = ResNet50Encoder(n_channels, compute_dtype=compute_dtype,
+                                       norm_dtype=norm_dtype,
+                                       remat=remat in ("resnet", "all"))
         f_out = n_mels
         for _ in range(5):  # stem, max-pool and stages 2-4 each halve F
             f_out = _halve(f_out)
@@ -124,24 +139,11 @@ class SELDResNetConformer(nn.Module):
         self.drop = Dropout(dropout)
         self.blocks = nn.ModuleList(
             ConformerBlock(d_model, n_heads, 4 * d_model, kernel_size, compute_dtype,
-                           dropout)
+                           dropout, norm_dtype)
             for _ in range(n_layers)
         )
         self.head = GridHead(d_model, 1024, grid_size[0] * grid_size[1],
-                             num_classes, compute_dtype, dropout)
-        self._dropout_generator: torch.Generator | None = None
-
-    def seed_dropout(self, seed: int) -> None:
-        """Seed the generator that every Dropout of the model draws from
-        (made on first use, on the parameters' device). The train step
-        reseeds it each step from (seed, epoch, step), so a resumed run
-        repeats the masks of the run it resumes."""
-        if self._dropout_generator is None:
-            self._dropout_generator = torch.Generator(device=self.proj.weight.device)
-            for module in self.modules():
-                if isinstance(module, Dropout):
-                    module.generator = self._dropout_generator
-        self._dropout_generator.manual_seed(seed)
+                             num_classes, compute_dtype, dropout, norm_dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         # a float32 model is true float32: no TF32, for this call only
@@ -151,5 +153,5 @@ class SELDResNetConformer(nn.Module):
             # channel-major flatten of (C', F'), as the JAX model flattens
             x = self.drop(self.proj(x.permute(0, 2, 1, 3).reshape(b, t, c * f)))
             for block in self.blocks:
-                x = block(x)
+                x = run_block(block, x, self.remat_blocks)
             return self.head(x)

@@ -674,3 +674,116 @@ def test_spatial_features_of_a_clip_launch_k4_once_on_card(cuda_device, feature_
     assert (spatial_features.launches, log_mel_frames.launches) == (before[0] + 1, before[1])
     assert feats.shape == (3001, 7 if feature_set == "mel_iv" else 10, 64)
     assert bool(torch.isfinite(feats).all())
+
+
+# --- the other grid backbones, bf16 norms and remat on the card -----------
+
+TINY_BACKBONES = {
+    "crnn": ["model.model_type=crnn", "model.crnn_cnn_channels=8,16",
+             "model.crnn_rnn_hidden=16"],
+    "conformer": ["model.model_type=conformer", "model.crnn_cnn_channels=8,16",
+                  "model.conf_d_model=64", "model.conf_n_heads=2"],
+    "cnn": ["model.model_type=cnn"],
+}
+
+
+def _port_cfg(overrides):
+    from seld_tpu_torch.config import Config, parse_overrides
+
+    return parse_overrides(Config(), overrides)
+
+
+def _step_once(cfg, model, mel, mask):
+    from seld_tpu_torch.train.optimizer import make_optimizer
+    from seld_tpu_torch.train.state import create_train_state
+    from seld_tpu_torch.train.steps import make_train_step
+
+    optimizer = make_optimizer(model.parameters(), 1e-3, 1e-4)
+    step = make_train_step(model, SELDLossFn(cfg.loss, cfg.grid), optimizer,
+                           cfg.grid.num_classes)
+    return step(create_train_state(model, optimizer), mel, mask, None, (0, 1))[1]
+
+
+@pytest.mark.parametrize("name", sorted(TINY_BACKBONES))
+def test_backbone_trains_and_serves_on_card(cuda_device, name, tmp_path):
+    """A bf16 train step (K2 forward and backward once each) and a 5 s
+    predict from a saved checkpoint (K1 once) of each new backbone."""
+    import numpy as np
+
+    from seld_tpu_torch.infer import SELDPredictor
+    from seld_tpu_torch.models import build_model
+    from seld_tpu_torch.train.checkpoint import save_checkpoint
+
+    cfg = _port_cfg(TINY_BACKBONES[name])
+    model = build_model(cfg.model, cfg.grid, device=cuda_device, seed=0)
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    mel = torch.randn((4, 50, 4, 64), device=cuda_device, generator=gen)
+    mask = torch.randint(0, 2 ** 13, (4, 50, cfg.grid.n_cells), device=cuda_device,
+                         generator=gen).to(torch.int16)
+    grid_loss_terms.fwd_launches = grid_loss_terms.bwd_launches = 0
+    metrics = _step_once(cfg, model, mel, mask)
+    assert torch.isfinite(metrics["loss"])
+    assert (grid_loss_terms.fwd_launches, grid_loss_terms.bwd_launches) == (1, 1)
+    save_checkpoint(tmp_path / "m.pt", model, cfg)
+    pred = SELDPredictor(tmp_path / "m.pt", device=cuda_device)
+    wave = (0.1 * np.random.default_rng(0).standard_normal((4, 5 * 24_000))).astype(np.float32)
+    log_mel_frames.launches = 0
+    classes = pred.predict_waveform(wave).classes
+    assert log_mel_frames.launches == 1
+    assert classes.shape == (251, cfg.grid.n_cells) and 0 <= classes.min()
+    assert classes.max() < cfg.grid.num_classes
+
+
+@pytest.mark.parametrize("train", [False, True])
+def test_bf16_norms_on_card(cuda_device, train):
+    """bf16 in, bf16 out, float32 statistics on CUDA: BatchNorm takes the
+    float32 weights with a bf16 input; LayerNorm gets bf16 weights."""
+    from seld_tpu_torch.models.layers import BatchNorm, LayerNorm
+
+    x = torch.randn((4, 16, 50, 8), device=cuda_device).bfloat16()
+    bn = BatchNorm(16, torch.bfloat16).to(cuda_device).train(train)
+    ln = LayerNorm(8, torch.bfloat16).to(cuda_device)
+    want = torch.nn.functional.batch_norm(x.float(), torch.zeros(16, device=cuda_device),
+                                          torch.ones(16, device=cuda_device),
+                                          training=train, eps=1e-5)
+    got = bn(x)
+    assert got.dtype == ln(x).dtype == torch.bfloat16
+    assert bn.running_mean.dtype == bn.running_var.dtype == torch.float32
+    torch.testing.assert_close(got.float(), want, rtol=2 ** -8, atol=1e-5)
+
+
+@pytest.mark.parametrize("remat", ["resnet", "conformer", "all"])
+def test_remat_matches_plain_on_card(cuda_device, remat):
+    """The small float32 flagship at T = 512 (attention through K3) in train
+    mode with dropout: remat against none, outputs within 1e-5, gradients
+    within 1e-4, the statistics updated once; K3's forward launches once
+    more per checkpointed conformer block."""
+    from seld_tpu_torch.models import build_model
+
+    base = ["model.resnet_conf_d_model=64", "model.resnet_conf_n_heads=2",
+            "model.resnet_conf_n_layers=1", "model.compute_dtype=float32"]
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    x = torch.randn((1, FLASH_MIN_SEQ_LEN, 4, 64), device=cuda_device, generator=gen)
+    w = torch.randn((1, FLASH_MIN_SEQ_LEN, 14, 648), device=cuda_device, generator=gen)
+    runs = []
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for r in ("none", remat):
+            cfg = _port_cfg([*base, f"model.remat={r}"])
+            model = build_model(cfg.model, cfg.grid, device=cuda_device, seed=3).train()
+            model.seed_dropout(5)
+            flash_attention.fwd_launches = 0
+            out = model(x)
+            (out * w).mean().backward()
+            runs.append((out.detach(), {k: p.grad for k, p in model.named_parameters()},
+                         dict(model.named_buffers()), flash_attention.fwd_launches))
+    finally:
+        torch.backends.cudnn.deterministic = saved
+    (out0, g0, b0, n0), (out1, g1, b1, n1) = runs
+    assert (n0, n1) == (1, 1 if remat == "resnet" else 2)
+    torch.testing.assert_close(out1, out0, atol=1e-5, rtol=0)
+    for k in g0:
+        torch.testing.assert_close(g1[k], g0[k], atol=1e-4, rtol=0, msg=k)
+    for k in b0:
+        torch.testing.assert_close(b1[k], b0[k], atol=1e-6, rtol=0, msg=k)

@@ -191,7 +191,7 @@ def test_float32_forward_turns_tf32_off_for_its_own_call_only(monkeypatch, dtype
 
 def test_unported_families_name_their_roadmap_item():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(ModelConfig(model_type="crnn"), device="cpu")
+        build_model(ModelConfig(model_type="accdoa_conformer"), device="cpu")
 
 
 @pytest.mark.parametrize("frames,err", [

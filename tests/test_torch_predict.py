@@ -3,6 +3,7 @@ state_dict_from_jax, served by seld_tpu_torch.infer.SELDPredictor on the
 CPU, against seld_tpu.infer.SELDPredictor on the same clip."""
 
 import dataclasses
+import shutil
 
 import jax
 import numpy as np
@@ -82,7 +83,9 @@ def predictors(tmp_path_factory):
     save_checkpoint(tmp / "port.pt", state_dict_from_jax(variables, port_cfg.model),
                     port_cfg, epoch=jax_pred.meta["epoch"])
     port_pred = SELDPredictor(tmp / "port.pt", batch_windows=BATCH, device="cpu")
-    return jax_pred, port_pred, tmp
+    yield jax_pred, port_pred, tmp
+    # the suite's temporary trees share one disk; this module's holds 0.25 GB
+    shutil.rmtree(tmp, ignore_errors=True)
 
 
 @pytest.fixture(scope="module")

@@ -93,6 +93,27 @@ Phases, each of which raises on failure:
      time by family (the profile lines), peak device memory and K3's
      launches a step (remat recomputes each conformer block: 8 forward
      launches instead of 4).
+ 11. fault F2's general-n_fft kernels of K1 and K4 (the DFT as tiles) at
+     n_fft 1200 and 600 against their plain versions, contiguous and in
+     place, timed against the plain version and the library chain; a seeded
+     flagship with features.n_fft=1200 and one with 600 serving the 60 s
+     clip with "mel", "mel_iv" and "mel_gcc" (the DFT kernels once each,
+     the FFT kernels never);
+ 12. kernel K5 (ring attention) at K3's main-path shape (B*H = 128,
+     T = 1000, Dh = 64) in float32 and bf16: the virtual ring (n ranks in
+     one process on K3's kernels) at n = 2 and 4 against K3 over the whole
+     T and against the plain ring, for out, lse, dq, dk and dv, its K3
+     launches (n x n of each) and no copies; ring forward and backward at
+     n = 4 timed against K3 over the whole T, the plain ring and
+     scaled_dot_product_attention, and the bound;
+ 13. sequence parallelism on a 1-rank NCCL group: the ring at n = 1 against
+     K3 (bit-equal) and the plain ring (bf16, 0.05); the flagship's first T = 1000 train step sharded (K5)
+     and data parallel against the unsharded step on the same batch (loss
+     within 1e-5 relative), step times in turns; `torchrun --nproc-per-node
+     1 chip_smoke.py --sp-worker train --synthetic ... mesh.enable=on
+     mesh.shard_time=true|false` (the CLI under torchrun, then the launch
+     counts as JSON): every attention of the sharded run through K5, none
+     of the data-parallel run's, epoch losses against phase 7's.
 It prints the launch counts of phases 9 and 10, one JSON line of kernel
 figures, the nvidia-smi line, and last {"ok": true, "device": {...}}.
 """
@@ -101,6 +122,7 @@ from __future__ import annotations
 
 import contextlib
 import io
+import itertools
 import json
 import logging
 import math
@@ -229,9 +251,13 @@ def phase_build() -> None:
         # ptxas names each entry function, then its resources; of K1's, K2's
         # and K3's instantiations only the main path's are shown (n_fft = 960
         # as R = 15 with float2 loads, M = 14, Dh = 64); K3's wgmma kernels
-        # (forward, dQ, dK/dV) and every K4 instantiation must not spill
+        # (forward, dQ, dK/dV) and every instantiation of K4's FFT kernel must
+        # not spill; the general-n_fft kernels of K1 and K4 are printed
         shown, entry = True, ""
         for line in info["log"].splitlines():
+            if "_dft_kernel" in entry and ("registers" in line or "spill" in line):
+                # the general-n_fft kernels of K1 and K4 (fault F2), every one
+                print(f"[build]   {entry.split('dft')[-1][:30]}: {line.strip()}")
             if "Compiling entry function" in line:
                 entry = line.split("'")[1]
                 shown = (("grid_loss" not in line or "ILi14E" in line)
@@ -240,7 +266,8 @@ def phase_build() -> None:
                          and "spatial_kernel" not in line)
                 if shown and ("grid_loss" in line or "flash_" in line or "log_mel" in line):
                     print(f"[build]   {entry}:")
-            elif "spill" in line and ("wgmma" in entry or "spatial_kernel" in entry):
+            elif "spill" in line and ("wgmma" in entry or "spatial_kernel" in entry
+                                      and "_dft_kernel" not in entry):
                 spills = [int(n) for n in re.findall(r"(\d+) bytes spill", line)]
                 if any(spills):
                     raise AssertionError(f"{entry} spills: {line.strip()}")
@@ -674,6 +701,24 @@ def k3_case(dev, b: int, h: int, t: int, dh: int, dtype, seed: int, key_scale: f
     return q, k * key_scale, v, w
 
 
+def check_bf16(what: str, got, plain, exact, lse_atol: float = 1e-4) -> str:
+    """Hold a bf16 run's (out, lse, dq, dk, dv) and the bf16 plain
+    version's, each against the float32 plain version on the same
+    bf16-rounded inputs: the run's largest error at most K3_BF16_RATIO
+    times the plain version's (lse, float32 in both, within lse_atol).
+    Returns the errors as printed; raises where one is outside."""
+    parts = []
+    for n, a, p, e in zip(("out", "lse", "dq", "dk", "dv"), got, plain, exact):
+        err = (a.float() - e.float()).abs().max().item()
+        plain_err = (p.float() - e.float()).abs().max().item()
+        parts.append(f"{n} {err:.2e} / {plain_err:.2e}")
+        ok = err <= lse_atol if n == "lse" else err <= K3_BF16_RATIO * plain_err + 1e-6
+        if not ok:
+            raise AssertionError(f"{what}: {n} off by {err} from float32, the bf16 plain "
+                                 f"version by {plain_err}")
+    return ", ".join(parts)
+
+
 def k3_run(fn, q, k, v, w):
     """(out, lse, dq, dk, dv) of fn on fresh leaves."""
     q, k, v = (x.detach().clone().requires_grad_(True) for x in (q, k, v))
@@ -734,22 +779,12 @@ def phase_k3(dev: torch.device) -> list[dict]:
         got = k3_run(kernel, *case)
         plain = k3_run(k3.flash_attention_reference, *case)
         exact = k3_run(k3.flash_attention_reference, *(x.float() for x in case))
-        parts = []
-        for i, n in enumerate(names):
-            err = (got[i].float() - exact[i]).abs().max().item()
-            plain_err = (plain[i].float() - exact[i]).abs().max().item()
-            parts.append(f"{n} {err:.2e} / {plain_err:.2e}")
-            if n == "lse":
-                ok = err <= 1e-4 * key_scale
-            else:
-                ok = err <= K3_BF16_RATIO * plain_err + 1e-6
-            if not ok:
-                raise AssertionError(f"K3 bf16 {shape}: {n} off by {err} from float32, the "
-                                     f"bf16 plain version by {plain_err}")
-            if (cb, ct, key_scale) == (b, t, 1.0):
-                main_err[n] = (got[i].float() - plain[i].float()).abs().max().item()
+        parts = check_bf16(f"K3 bf16 {shape}", got, plain, exact, lse_atol=1e-4 * key_scale)
+        if (cb, ct, key_scale) == (b, t, 1.0):
+            main_err = {n: (a.float() - p.float()).abs().max().item()
+                        for n, a, p in zip(names, got, plain)}
         print(f"[K3] bf16 {shape}: max error against float32, kernel / bf16 plain: "
-              + ", ".join(parts) + f" (kernel at most {K3_BF16_RATIO} x plain)")
+              + parts + f" (kernel at most {K3_BF16_RATIO} x plain)")
         del got, plain, exact
 
     # two backward runs on the same inputs: the same bits
@@ -1537,7 +1572,7 @@ def phase_long_window(dev: torch.device) -> dict:
     losses = time_train_steps(dev, cfg, tag="[long]")["losses"]
     if not losses[-1] < losses[0]:
         raise AssertionError(f"long-window train loss did not fall over the timed steps: {losses}")
-    return counts
+    return counts, record["train"]["loss"]
 
 
 RECIPE = ["features.feature_set=mel_iv", "train.acs_augment=true",
@@ -1894,6 +1929,456 @@ def phase_flagship_options(dev: torch.device) -> dict:
     return found
 
 
+F2_N_FFT = (1200, 600)  # a 50 ms window at 24 kHz, and one not divisible by 16
+# K5 against K3 over the whole T: the JAX ring tests' bars in float32
+# (tests/test_pallas_kernels.py:421-465); bf16 by check_bf16, as K3
+K5_TOL = dict(rtol=2e-4, atol=2e-5)
+K5_GRAD_TOL = dict(rtol=3e-4, atol=3e-4)
+SP_LOSS_RTOL = 1e-5  # sharded against unsharded first-step loss on one card
+# an epoch's mean loss after Adam steps whose gradients carry cuDNN's
+# nondeterministic sums (each run of the backward rounds differently)
+SP_EPOCH_RTOL = 1e-3
+
+
+def phase_f2(dev: torch.device) -> list[dict]:
+    """Fault F2's general-n_fft kernels (the DFT as tiles) of K1 and K4 at
+    n_fft 1200 and 600 against their plain versions, contiguous and on
+    frame_signal's in-place view of a padded 60 s clip, timed in turns
+    against the plain version and the library chain; then the path that
+    runs them: a seeded flagship at each n_fft serving the 60 s clip for
+    "mel", "mel_iv" and "mel_gcc" (K1's or K4's DFT kernel once each, the
+    FFT kernels never)."""
+    import torch.nn.functional as F
+
+    from seld_tpu_torch.config import Config, FeatureConfig, parse_overrides
+    from seld_tpu_torch.features import spatial as oracle
+    from seld_tpu_torch.features.mel import frame_signal, hann_window, mel_filterbank
+    from seld_tpu_torch.features.spatial import feature_channels
+    from seld_tpu_torch.infer import SELDPredictor
+    from seld_tpu_torch.models import build_model
+    from seld_tpu_torch.ops.mel_cuda import log_mel_frames, log_mel_frames_reference
+    from seld_tpu_torch.ops.spatial_cuda import spatial_features, spatial_features_reference
+    from seld_tpu_torch.train.checkpoint import save_checkpoint
+
+    feat = FeatureConfig()
+    n_mels, hop, sr = feat.n_mels, feat.hop_length, feat.sample_rate
+    t_main = 1 + CLIP_SECONDS * sr // hop
+    g = torch.Generator(device=dev).manual_seed(11)
+    wave = 0.1 * torch.randn((4, CLIP_SECONDS * sr), generator=g, device=dev)
+    rows = []
+    for nf in F2_N_FFT:
+        frames = torch.randn((4 * t_main, nf), generator=g, device=dev)
+        padded = F.pad(wave, (nf // 2, nf // 2), mode="reflect")
+        view = frame_signal(wave, nf, hop)
+        window = torch.from_numpy(hann_window(nf)).to(dev)
+        fb = torch.from_numpy(mel_filterbank(nf // 2 + 1, n_mels, sr)).to(dev)
+        before = (log_mel_frames.launches, log_mel_frames.dft_launches)
+        got = log_mel_frames(frames, n_fft=nf)
+        got_v = log_mel_frames(view, n_fft=nf)
+        torch.cuda.synchronize()
+        if (log_mel_frames.launches, log_mel_frames.dft_launches) != (before[0],
+                                                                      before[1] + 2):
+            raise AssertionError(f"K1 at n_fft={nf} did not take the DFT kernel")
+        err = max(k1_check(f"DFT path n_fft={nf}", got, log_mel_frames_reference(frames)),
+                  k1_check(f"DFT path n_fft={nf} in place", got_v, log_mel_frames_reference(
+                      view.reshape(-1, nf)).reshape(got_v.shape)))
+        runs = {"kernel": lambda: log_mel_frames(frames, n_fft=nf),
+                "plain": lambda: log_mel_frames_reference(frames),
+                "stft chain": lambda: library_log_mel(frames, window, fb),
+                "kernel in place": lambda: log_mel_frames(view, n_fft=nf)}
+        ms = timed_in_turns(runs)
+        b = k1_bound(frames.shape[0], nf, fb)
+        print(f"[F2] K1 DFT path n_fft={nf}, N={frames.shape[0]}: max |kernel - plain| "
+              f"{err:.3e} dB; kernel {ms['kernel']:.4f} ms, in place "
+              f"{ms['kernel in place']:.4f} ms, plain {ms['plain']:.4f} ms, stft chain "
+              f"{ms['stft chain']:.4f} ms; bound {b['bound_ms']:.4f} ms by {b['bound_by']}: "
+              f"kernel at {100 * b['bound_ms'] / ms['kernel']:.2f} %; its own DFT-as-tiles "
+              f"arithmetic {b['gemm_flops'] / 1e9:.2f} GFLOP, f32 floor {b['gemm_ms']:.4f} ms")
+        rows.append({"name": f"K1 DFT path n_fft={nf}", "route": "cuda",
+                     "source": "seld_tpu_torch/csrc/mel_kernel.cu",
+                     "replaces": "seld_tpu/ops/mel_pallas.py:77", "launches": None,
+                     "max_abs_err": err, "ms": ms["kernel"], "plain_ms": ms["plain"],
+                     "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
+                     "library_ms": ms["stft chain"]})
+        contiguous = view.contiguous()
+        for feature_set in ("mel_iv", "mel_gcc"):
+            before = (spatial_features.launches, spatial_features.dft_launches)
+            got = spatial_features(view, feature_set)
+            torch.cuda.synchronize()
+            if (spatial_features.launches, spatial_features.dft_launches) != (before[0],
+                                                                          before[1] + 1):
+                raise AssertionError(f"K4 at n_fft={nf} did not take the DFT kernel")
+            errs = k4_errors(got, spatial_features_reference(contiguous, feature_set))
+            k4_check(f"DFT path n_fft={nf} {feature_set}", errs)
+            runs = {"kernel": lambda: spatial_features(view, feature_set),
+                    "plain": lambda: spatial_features_reference(contiguous, feature_set),
+                    "rFFT chain": lambda: oracle.extract_feature_frames(
+                        contiguous, feature_set, nf, n_mels, sr)}
+            ms = timed_in_turns(runs)
+            b = k4_bound(t_main, nf, fb, feature_set, input_bytes=padded.numel() * 4)
+            print(f"[F2] K4 DFT path {feature_set} n_fft={nf}, T={t_main} in place: max "
+                  f"|kernel - plain| {errs[0]:.3e} dB / {errs[1]:.3e}; kernel "
+                  f"{ms['kernel']:.4f} ms, plain {ms['plain']:.4f} ms, rFFT chain "
+                  f"{ms['rFFT chain']:.4f} ms; bound {b['bound_ms']:.4f} ms by "
+                  f"{b['bound_by']}: kernel at {100 * b['bound_ms'] / ms['kernel']:.2f} %")
+            rows.append({"name": f"K4 {feature_set} DFT path n_fft={nf}", "route": "cuda",
+                         "source": "seld_tpu_torch/csrc/spatial_kernel.cu",
+                         "replaces": "seld_tpu/ops/spatial_pallas.py:132", "launches": None,
+                         "max_abs_err": max(errs), "ms": ms["kernel"],
+                         "plain_ms": ms["plain"], "bound_ms": b["bound_ms"],
+                         "bound_by": b["bound_by"], "library_ms": ms["rFFT chain"]})
+
+    # the path: a flagship at each of F2_N_FFT serving the clip
+    clip = (0.1 * np.random.default_rng(0).standard_normal((4, CLIP_SECONDS * sr))
+            ).astype(np.float32)
+    (ROOT / "build").mkdir(exist_ok=True)
+    served = {}
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        for nf, feature_set in itertools.product(F2_N_FFT, ("mel", "mel_iv", "mel_gcc")):
+            cfg = parse_overrides(Config(), [f"features.n_fft={nf}",
+                                             f"features.feature_set={feature_set}"])
+            model = build_model(cfg.model, cfg.grid, device=dev, seed=0, in_channels=(
+                feature_channels(feature_set, cfg.model.n_channels)))
+            save_checkpoint(Path(tmp) / f"{feature_set}.pt", model, cfg)
+            del model
+            pred = SELDPredictor(Path(tmp) / f"{feature_set}.pt", batch_windows=8, device=dev)
+            pred.predict_waveform(clip)  # warm-up
+            torch.cuda.synchronize()
+            log_mel_frames.launches = log_mel_frames.dft_launches = 0
+            spatial_features.launches = spatial_features.dft_launches = 0
+            classes = pred.predict_waveform(clip).classes
+            torch.cuda.synchronize()
+            counts = (log_mel_frames.launches, log_mel_frames.dft_launches,
+                      spatial_features.launches, spatial_features.dft_launches)
+            want = (0, 1, 0, 0) if feature_set == "mel" else (0, 0, 0, 1)
+            if counts != want or classes.shape != (t_main, cfg.grid.n_cells):
+                raise AssertionError(f"n_fft={nf} {feature_set} predict: launches "
+                                     f"(K1 FFT, K1 DFT, K4 FFT, K4 DFT) {counts}, expected "
+                                     f"{want}; classes {classes.shape}")
+            served[nf, feature_set] = counts[1] + counts[3]
+            print(f"[F2] SELDPredictor, features.n_fft={nf} {feature_set}: 60 s clip -> "
+                  f"classes {tuple(classes.shape)}; launches K1 FFT / DFT {counts[0]} / "
+                  f"{counts[1]}, K4 FFT / DFT {counts[2]} / {counts[3]}")
+            del pred
+    for row in rows:
+        nf = int(row["name"].rsplit("=", 1)[1])
+        row["launches"] = served[nf, "mel" if row["name"].startswith("K1")
+                                 else row["name"].split()[1]]
+    return rows
+
+
+def timed_in_turns(runs: dict, turns: int = 3) -> dict:
+    """Median kernel_ms of each fn, in turns (forward, then reversed)."""
+    times = defaultdict(list)
+    for turn in range(turns):
+        for name, fn in (runs.items() if turn % 2 == 0 else reversed(runs.items())):
+            times[name].append(kernel_ms(fn))
+    return {name: float(np.median(v)) for name, v in times.items()}
+
+
+def k5_bounds(bh: int, t: int, dh: int, n: int, dtype: torch.dtype) -> dict:
+    """The least card time for the ring at n ranks on (bh, t, dh) inputs:
+    K3's bound at the whole T (the same products), plus the bytes of the
+    float32 merge between its chunk launches. Those bytes belong to this
+    unfused design, not to the function (a merge inside K3's epilogue would
+    move none of them), and are counted at their least: forward, n steps
+    each reading the running float32 out, the chunk's out and the two lse
+    rows and writing the running pair (2 mat32 + mat + 3 rows), with no
+    running pair to read on the first step; backward, n steps each reading
+    the chunk's dq, dk and dv and reading and writing their float32
+    accumulators (3 (2 mat32 + mat)), with no accumulator to read on the
+    first step. The final casts are left out."""
+    elem = torch.empty((), dtype=dtype).element_size()
+    k3 = k3_bounds(bh, t, dh, dtype)
+    mat32, mat, row = bh * t * dh * 4, bh * t * dh * elem, bh * t * 4
+    merge = {"fwd": n * (2 * mat32 + mat + 3 * row) - (mat32 + row),
+             "bwd": 3 * (n * (2 * mat32 + mat) - mat32)}
+    out = {}
+    for part in ("fwd", "bwd"):
+        merge_ms = merge[part] / HBM_BYTES_PER_S * 1e3
+        out[part] = {"bound_ms": k3[part]["bound_ms"] + merge_ms,
+                     "bound_by": k3[part]["bound_by"], "merge_ms": merge_ms}
+    return out
+
+
+def close(got: torch.Tensor, want: torch.Tensor, rtol: float, atol: float) -> float:
+    """max |got - want| - rtol |want| over atol: at most 1 when within the bar."""
+    return ((got.float() - want.float()).abs() - rtol * want.float().abs()).max().item() / atol
+
+
+def ring_run(qs, ks, vs, ws, plain: bool = True):
+    """(out, lse (B, H, T), dq, dk, dv) over the whole T of the virtual ring
+    over the chunks (the plain steps by default)."""
+    from seld_tpu_torch.ops.ring_attention import virtual_ring_attention, virtual_ring_backward
+
+    b, h = qs[0].shape[:2]
+    outs, lses = virtual_ring_attention(qs, ks, vs, plain=plain)
+    grads = virtual_ring_backward(qs, ks, vs, ws, outs, lses, plain=plain)
+    return (torch.cat(outs, 2), torch.cat([x.view(b, h, -1) for x in lses], 2),
+            *(torch.cat(g, 2) for g in grads))
+
+
+def phase_k5(dev: torch.device) -> list[dict]:
+    """K5, the ring, at K3's main-path shape (B 16, H 8, T = 1000, Dh 64) in
+    float32 and bf16: the virtual ring (n ranks in this process, K3's kernels
+    per chunk) at n = 2 and 4, in float32 against K3 over the whole T (out,
+    lse, dq, dk, dv) and against the plain ring, in bf16 by check_bf16
+    against the float32 plain ring beside the bf16 plain ring; times of the ring's forward and backward
+    at n = 4, of K3 over the whole T, the plain ring and
+    scaled_dot_product_attention, in turns; the bound and the K3 launches a
+    ring call makes."""
+    import torch.nn.functional as F
+
+    from seld_tpu_torch.config import Config, WindowConfig
+    from seld_tpu_torch.ops import flash_attention as k3
+    from seld_tpu_torch.ops.ring_attention import (
+        ring_flash_attention as k5,
+        virtual_ring_attention,
+        virtual_ring_backward,
+    )
+
+    cfg = Config(window=WindowConfig(window_seconds=LONG_WINDOW_SECONDS))
+    b, h = cfg.train.batch_size, cfg.model.resnet_conf_n_heads
+    t, dh = cfg.window.window_frames(cfg.features), cfg.model.resnet_conf_d_model // h
+    rows = []
+    for dtype in (torch.float32, torch.bfloat16):
+        kind = "bf16" if dtype == torch.bfloat16 else "float32"
+        q, k, v, w = k3_case(dev, b, h, t, dh, dtype, seed=21)
+        want = k3_run(lambda *a: k3.flash_attention(*a, return_lse=True), q, k, v, w)
+        worst = {}
+        for n in (2, 4):
+            qs, ks, vs, ws = (list(x.chunk(n, dim=2)) for x in (q, k, v, w))
+            copies = k3.flash_attention.copies
+            before = (k5.fwd_launches, k5.bwd_dq_launches, k5.bwd_dkv_launches)
+            got = ring_run(qs, ks, vs, ws, plain=False)
+            torch.cuda.synchronize()
+            made = tuple(a - c for a, c in zip(
+                (k5.fwd_launches, k5.bwd_dq_launches, k5.bwd_dkv_launches), before))
+            if made != (n * n, n * n, n * n) or k3.flash_attention.copies != copies:
+                raise AssertionError(f"K5 n={n}: K3 launches {made}, expected {n * n} each "
+                                     f"(n lanes x n steps); K3 copies "
+                                     f"{k3.flash_attention.copies - copies}")
+            plain = ring_run(qs, ks, vs, ws)
+            ref = (want[0], want[1].view(b, h, -1), *want[2:])
+            for i, name in enumerate(("out", "lse", "dq", "dk", "dv")):
+                worst[n, name] = (got[i].float() - ref[i].float()).abs().max().item()
+                if dtype == torch.float32:
+                    tol = K5_TOL if i < 2 else K5_GRAD_TOL
+                    score = max(close(got[i], ref[i], **tol), close(got[i], plain[i], **tol))
+                    if not score <= 1.0:
+                        raise AssertionError(f"K5 {kind} n={n} {name} outside its bar "
+                                             f"({score:.3f} of it)")
+            print(f"[K5] {kind} virtual ring n={n}, B*H={b * h} T={t} Dh={dh}: max |ring - K3 "
+                  f"over the whole T| out {worst[n, 'out']:.3e}, lse {worst[n, 'lse']:.3e}, dq "
+                  f"{worst[n, 'dq']:.3e}, dk {worst[n, 'dk']:.3e}, dv {worst[n, 'dv']:.3e}; "
+                  f"K3 launches {made}, copies 0")
+            if dtype == torch.bfloat16:
+                exact = ring_run(*(list(x.float().chunk(n, dim=2)) for x in (q, k, v, w)))
+                parts = check_bf16(f"K5 bf16 n={n}", got, plain, exact)
+                print(f"[K5] bf16 virtual ring n={n}: max error against the float32 plain "
+                      f"ring, ring / bf16 plain ring: {parts} (ring at most {K3_BF16_RATIO} x "
+                      f"plain)")
+                del exact
+        n = 4
+        qs, ks, vs, ws = (list(x.chunk(n, dim=2)) for x in (q, k, v, w))
+        with torch.no_grad():
+            outs, lses = virtual_ring_attention(qs, ks, vs)
+            p_outs, p_lses = virtual_ring_attention(qs, ks, vs, plain=True)
+            scale = dh ** -0.5
+            whole_out, whole_lse = k3.launch_forward(q, k, v, scale)
+            fwd = timed_in_turns({
+                "ring": lambda: virtual_ring_attention(qs, ks, vs),
+                "K3": lambda: k3.launch_forward(q, k, v, scale),
+                "plain ring": lambda: virtual_ring_attention(qs, ks, vs, plain=True),
+                "sdpa": lambda: F.scaled_dot_product_attention(q, k, v)})
+            bwd = timed_in_turns({
+                "ring": lambda: virtual_ring_backward(qs, ks, vs, ws, outs, lses),
+                "K3": lambda: k3.launch_dkv(q, k, v, w, whole_lse,
+                                            k3.launch_dq(q, k, v, w, whole_out, whole_lse,
+                                                         scale)[1], scale),
+                "plain ring": lambda: virtual_ring_backward(qs, ks, vs, ws, p_outs, p_lses,
+                                                            plain=True)})
+        leaves = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
+        o = F.scaled_dot_product_attention(*leaves)
+        bwd["sdpa"] = kernel_ms(lambda: torch.autograd.grad(o, leaves, w, retain_graph=True))
+        del o, leaves
+        bounds = k5_bounds(b * h, t, dh, n, dtype)
+        for part, ms in (("fwd", fwd), ("bwd", bwd)):
+            bd = bounds[part]
+            print(f"[K5] {kind} ring {part} n={n}: {ms['ring']:.4f} ms; K3 over the whole T "
+                  f"{ms['K3']:.4f} ms ({ms['ring'] / ms['K3']:.2f}x), plain ring "
+                  f"{ms['plain ring']:.4f} ms, scaled_dot_product_attention {part} "
+                  f"{ms['sdpa']:.4f} ms; bound {bd['bound_ms']:.4f} ms (K3's by "
+                  f"{bd['bound_by']} at the whole T + {bd['merge_ms']:.4f} ms of merge bytes): "
+                  f"ring at {100 * bd['bound_ms'] / ms['ring']:.2f} %")
+            if dtype == torch.bfloat16:
+                # launches: set by main from the sharded cli train epoch (n = 1)
+                rows.append({
+                    "name": f"K5 {part}", "route": "cuda",
+                    "source": "seld_tpu_torch/ops/ring_attention.py",
+                    "replaces": "seld_tpu/ops/ring_attention.py:53", "launches": None,
+                    "timed": f"virtual ring, n = {n}, B*H={b * h} T={t} Dh={dh}",
+                    "timed_call_launches": ({"K3 fwd": n * n} if part == "fwd" else
+                                            {"K3 dQ": n * n, "K3 dK/dV": n * n}),
+                    "max_abs_err": max(worst[n, x] for x in (("out", "lse") if part == "fwd"
+                                                             else ("dq", "dk", "dv"))),
+                    "ms": ms["ring"], "plain_ms": ms["plain ring"],
+                    "bound_ms": bd["bound_ms"], "bound_by": bd["bound_by"],
+                    "library_ms": ms["sdpa"]})
+    return rows
+
+
+def sp_worker(argv: list[str]) -> int:
+    """`chip_smoke.py --sp-worker ARGS` (one rank under torchrun): the CLI
+    with ARGS, then this process's launch counts as one JSON line."""
+    from seld_tpu_torch import cli
+    from seld_tpu_torch.ops.flash_attention import flash_attention as fa
+    from seld_tpu_torch.ops.ring_attention import ring_flash_attention as k5
+
+    rc = cli.main(argv)
+    torch.cuda.synchronize()
+    print("[sp-worker] " + json.dumps({
+        "rc": rc, "k3_fwd": fa.fwd_launches, "k3_dq": fa.bwd_dq_launches,
+        "k3_dkv": fa.bwd_dkv_launches, "k5_fwd": k5.fwd_launches,
+        "k5_dq": k5.bwd_dq_launches, "k5_dkv": k5.bwd_dkv_launches}), flush=True)
+    return rc
+
+
+def phase_sequence_parallel(dev: torch.device, long_train_loss: float) -> dict:
+    """The sequence-parallel path at full width, T = 1000, on a 1-rank NCCL
+    group: the ring at n = 1 against K3 (values and gradients); the
+    flagship's first train step sharded over the (1 x 1) mesh (K5) and as
+    data parallel, against the unsharded step on the same batch (loss within
+    SP_LOSS_RTOL), step times in turns; then `torchrun --nproc-per-node 1
+    -m seld_tpu_torch.cli train` with mesh.enable=on, shard_time true and
+    false, one epoch each, their launch counts (the ring's K3 launches
+    exact) and epoch losses against phase 7's unsharded run. Returns the
+    sharded CLI run's counts."""
+    import torch.distributed as dist
+
+    from seld_tpu_torch.config import Config, WindowConfig
+    from seld_tpu_torch.data.sampler import BatchIterator, place_batch
+    from seld_tpu_torch.data.synthetic import synthetic_corpus
+    from seld_tpu_torch.losses import SELDLossFn
+    from seld_tpu_torch.models import build_model
+    from seld_tpu_torch.ops import flash_attention as k3
+    from seld_tpu_torch.ops.ring_attention import ring_flash_attention as k5
+    from seld_tpu_torch.parallel.mesh import make_mesh
+    from seld_tpu_torch.parallel.multihost import initialize_multihost
+    from seld_tpu_torch.train.optimizer import make_optimizer
+    from seld_tpu_torch.train.state import create_train_state
+    from seld_tpu_torch.train.steps import make_train_step
+
+    cfg = Config(window=WindowConfig(window_seconds=LONG_WINDOW_SECONDS))
+    blocks = cfg.model.resnet_conf_n_layers
+    initialize_multihost(dev)
+    try:
+        if dist.get_backend() != "nccl" or dist.get_world_size() != 1:
+            raise AssertionError(f"expected a 1-rank NCCL group, got {dist.get_backend()}")
+        mesh = make_mesh(1, 1)
+        # the ring at n = 1 over the NCCL group against K3 over the whole T
+        q, k, v, w = k3_case(dev, cfg.train.batch_size, 8, 1000, 64, torch.bfloat16, seed=22)
+        want = k3_run(lambda *a: k3.flash_attention(*a, return_lse=True), q, k, v, w)
+        got = k3_run(lambda *a: k5(*a, group=mesh.model_group, return_lse=True), q, k, v, w)
+        diffs = [(x.float() - y.float()).abs().max().item() for x, y in zip(got, want)]
+        if max(diffs) > 0.0:
+            raise AssertionError(f"the 1-rank NCCL ring differs from K3: {diffs}")
+        plain = ring_run([q], [k], [v], [w])
+        exact = ring_run(*([x.float()] for x in (q, k, v, w)))
+        parts = check_bf16("the 1-rank NCCL ring", (got[0], got[1].view(plain[1].shape),
+                                                    *got[2:]), plain, exact)
+        print(f"[SP] ring over a 1-rank NCCL group, bf16 B*H=128 T=1000: out, lse, dq, dk, dv "
+              f"bit-equal to K3 (max differences {diffs}); max error against the float32 "
+              f"plain ring, ring / bf16 plain ring: {parts} (ring at most {K3_BF16_RATIO} x "
+              f"plain)")
+        del plain, exact
+
+        corpus = synthetic_corpus(cfg, n_files=2, seconds=30.0, seed=0, device=dev)
+        mel, mask, em = place_batch(next(iter(BatchIterator(corpus, cfg.train.batch_size,
+                                                            prefetch=0))), dev)
+        steps, losses = {}, {}
+        for name, step_mesh, time_sharded in (("unsharded", None, False),
+                                              ("sequence parallel", mesh, True),
+                                              ("data parallel", mesh, False)):
+            model = build_model(cfg.model, cfg.grid, device=dev, seed=0)
+            optimizer = make_optimizer(model.parameters(), cfg.train.learning_rate,
+                                       cfg.train.weight_decay)
+            steps[name] = (make_train_step(model, SELDLossFn(cfg.loss, cfg.grid), optimizer,
+                                           cfg.grid.num_classes, mesh=step_mesh,
+                                           time_sharded=time_sharded),
+                           create_train_state(model, optimizer))
+            k5.fwd_launches = k5.bwd_dq_launches = k5.bwd_dkv_launches = 0
+            step, state = steps[name]
+            losses[name] = step(state, mel, mask, em, (0, 1))[1]["loss"].item()
+            torch.cuda.synchronize()
+            ring = (k5.fwd_launches, k5.bwd_dq_launches, k5.bwd_dkv_launches)
+            if ring != ((blocks,) * 3 if time_sharded else (0, 0, 0)):
+                raise AssertionError(f"{name} step: K5's K3 launches {ring}")
+            rel = abs(losses[name] - losses["unsharded"]) / abs(losses["unsharded"])
+            if not rel <= SP_LOSS_RTOL:
+                raise AssertionError(f"{name} first-step loss {losses[name]} against the "
+                                     f"unsharded {losses['unsharded']}: {rel:.3e} relative")
+            print(f"[SP] {name} first train step at T=1000: loss {losses[name]:.9f} "
+                  f"(relative to the unsharded step {rel:.3e}); K5's K3 launches {ring}")
+        times = defaultdict(list)
+        for turn in range(10):
+            order = list(steps.items()) if turn % 2 == 0 else list(reversed(steps.items()))
+            for name, (step, state) in order:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                step(state, mel, mask, em, (0, 1))
+                torch.cuda.synchronize()
+                times[name].append((time.perf_counter() - t0) * 1e3)
+        for name, v in times.items():
+            print(f"[SP] {name} train step, batch {cfg.train.batch_size} x 1000 frames: median "
+                  f"{np.median(v[2:]):.2f} ms of {', '.join(f'{x:.1f}' for x in v[2:])}")
+        del steps
+    finally:
+        dist.destroy_process_group()
+
+    runs = {}
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        for shard_time in ("true", "false"):
+            base = Path(tmp) / f"sp_{shard_time}"
+            args = ["train", "--synthetic", f"data.base_path={base}",
+                    f"window.window_seconds={LONG_WINDOW_SECONDS}", "train.num_epochs=1",
+                    "train.save_every_n_epochs=1", "mesh.enable=on",
+                    f"mesh.shard_time={shard_time}"]
+            t0 = time.perf_counter()
+            res = subprocess.run(
+                [sys.executable, "-m", "torch.distributed.run", "--standalone",
+                 "--nproc-per-node", "1", str(ROOT / "chip_smoke.py"), "--sp-worker", *args],
+                cwd=ROOT, capture_output=True, text=True, timeout=600)
+            wall = time.perf_counter() - t0
+            lines = [x for x in res.stdout.splitlines() if x.startswith("[sp-worker] ")]
+            if res.returncode != 0 or len(lines) != 1:
+                raise AssertionError(f"torchrun cli train mesh.shard_time={shard_time}: rc "
+                                     f"{res.returncode}\n{res.stdout[-3000:]}\n"
+                                     f"{res.stderr[-6000:]}")
+            counts = json.loads(lines[0].split(" ", 1)[1])
+            (record,) = [json.loads(x) for x in (base / "checkpoints" / "metrics.jsonl")
+                         .read_text().splitlines()]
+            rel = abs(record["train"]["loss"] - long_train_loss) / abs(long_train_loss)
+            print(f"[SP] torchrun --nproc-per-node 1 chip_smoke.py --sp-worker train "
+                  f"mesh.enable=on mesh.shard_time={shard_time} at T=1000, 1 epoch in "
+                  f"{wall:.1f} s: train loss {record['train']['loss']:.9f} (phase 7's "
+                  f"unsharded run {long_train_loss:.9f}, {rel:.3e} relative), test "
+                  f"{record['test']['loss']:.6f}; launches {json.dumps(counts)}")
+            if not rel <= SP_EPOCH_RTOL:
+                raise AssertionError(f"sharded cli train's epoch loss {record['train']['loss']}"
+                                     f" against the unsharded {long_train_loss}")
+            runs[shard_time] = counts
+    sp, dp = runs["true"], runs["false"]
+    if not (sp["k5_fwd"] > 0 and sp["k5_dq"] > 0 and sp["k5_fwd"] == sp["k3_fwd"]
+            and sp["k5_dq"] == sp["k3_dq"] == sp["k5_dkv"] == sp["k3_dkv"]
+            and sp["k5_fwd"] % blocks == 0):
+        raise AssertionError(f"sequence-parallel cli train did not run every attention "
+                             f"through K5: {sp}")
+    if dp["k5_fwd"] or dp["k5_dq"] or dp["k3_fwd"] != sp["k3_fwd"]:
+        raise AssertionError(f"data-parallel cli train: {dp} (K3 directly, K5 never)")
+    return sp
+
+
 def main() -> int:
     name, smi = phase_device()
     dev = torch.device("cuda")
@@ -1907,16 +2392,27 @@ def main() -> int:
     phase_f32(dev)
     counts = phase_train(dev)
     k2_fwd["launches"], k2_bwd["launches"] = counts["k2_fwd"], counts["k2_bwd"]
-    counts = phase_long_window(dev)
+    counts, long_train_loss = phase_long_window(dev)
     for row, key in zip(k3_rows, ("k3_fwd", "k3_dq", "k3_dkv")):
         row["launches"] = counts[key]
+    with no_tf32():
+        f2_rows = phase_f2(dev)
+        k5_rows = phase_k5(dev)
+    counts = phase_sequence_parallel(dev, long_train_loss)
+    k5_rows[0]["launches"] = counts["k5_fwd"]
+    k5_rows[1]["launches"] = counts["k5_dq"] + counts["k5_dkv"]
+    for row, by in zip(k5_rows, ({"K3 fwd": counts["k5_fwd"]},
+                                 {"K3 dQ": counts["k5_dq"], "K3 dK/dV": counts["k5_dkv"]})):
+        row["launches_in"] = "the sharded cli train epoch at T = 1000, 1-rank NCCL ring (n = 1)"
+        row["launches_by_kernel"] = by
     counts = phase_spatial(dev)
     for row, key in zip(k4_rows, ("mel_iv", "mel_gcc")):
         row["launches"] = counts[key]
     print(f"[paths] launches by path: {json.dumps(phase_backbones(dev))}")
     print(f"[paths] K3 launches a T = 1000 flagship step by option: "
           f"{json.dumps(phase_flagship_options(dev))}")
-    print(json.dumps({"kernels": [k1, k2_fwd, k2_bwd, *k3_rows, *k4_rows]}))
+    print(json.dumps({"kernels": [k1, k2_fwd, k2_bwd, *k3_rows, *k4_rows, *f2_rows,
+                                  *k5_rows]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count(),
@@ -1925,4 +2421,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--sp-worker"]:
+        sys.exit(sp_worker(sys.argv[2:]))
     sys.exit(main())

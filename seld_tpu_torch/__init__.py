@@ -13,7 +13,10 @@ dQ and dK/dV (seld_tpu_torch/csrc/flash_attention_kernel.cu). The spatial
 feature sets "mel_iv" and "mel_gcc" run through the hand-written CUDA
 kernel K4 (seld_tpu_torch/csrc/spatial_kernel.cu), with the accuracy
 recipe's ACS and SpecAugment augmentations, Gaussian label targets and an
-on-disk corpus cache. Evaluation:
+on-disk corpus cache. Training also runs over a (data, model) mesh of
+processes, one GPU each (torchrun), with the window's time axis split
+over the model axis and attention as the ring, K5, which runs K3's
+kernels per time chunk. Evaluation:
 losses, cell accuracies and the DCASE2022 metrics of a checkpoint tree on
 a test corpus. It imports torch and never JAX or seld_tpu; module names
 follow seld_tpu so each piece's counterpart is easy to find.
@@ -26,6 +29,7 @@ PyTorch versions on the CPU.
 from __future__ import annotations
 
 import contextlib
+import os
 
 import torch
 
@@ -33,7 +37,8 @@ __all__ = ["no_tf32", "resolve_device"]
 
 
 def resolve_device(device: str | torch.device | None = None) -> torch.device:
-    """The device an entry point runs on: CUDA unless the caller names one."""
+    """The device an entry point runs on: CUDA unless the caller names one;
+    under torchrun (LOCAL_RANK set) the process's own card, cuda:LOCAL_RANK."""
     if device is not None:
         return torch.device(device)
     if not torch.cuda.is_available():
@@ -41,6 +46,8 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
             "no CUDA device is visible; seld_tpu_torch runs on the GPU "
             "unless device='cpu' is passed"
         )
+    if "LOCAL_RANK" in os.environ:
+        return torch.device("cuda", int(os.environ["LOCAL_RANK"]))
     return torch.device("cuda")
 
 

@@ -8,7 +8,16 @@ trains per config (every config field is a dotted key=value override, e.g.
 data.base_path=RUN train.num_epochs=2) and writes best/ and rolling/
 checkpoints, metrics.jsonl and training_history.json under
 <data.base_path>/checkpoints; --eval-after then scores the result as `eval`
-does.
+does. Over several processes, one GPU each:
+
+    torchrun --standalone --nproc-per-node N -m seld_tpu_torch.cli train \
+        mesh.enable=on mesh.model_axis=M mesh.shard_time=true [k.e.y=value ...]
+
+runs a (N / M) x M mesh, the window's time axis split over the M ranks of
+each model group (sequence parallelism, ring attention K5); without
+shard_time (M = 1) it is data parallel. Each process uses cuda:LOCAL_RANK
+and NCCL (one GPU per rank); --device cpu uses gloo. Rank 0 writes the
+files.
 
     python -m seld_tpu_torch.cli eval [--synthetic] [--bg-bias B] \
         [--bg-bias-sweep B1,B2] [--median-filter W] [--median-filter-sweep W1,W2] \
@@ -85,13 +94,25 @@ def _build_corpora(cfg, synthetic: bool, device):
 def cmd_train(args) -> int:
     from seld_tpu_torch import resolve_device
     from seld_tpu_torch.config import Config, parse_overrides
+    from seld_tpu_torch.parallel.multihost import launched_world_size
     from seld_tpu_torch.train.trainer import train_model
 
     device = resolve_device(args.device)
     cfg = parse_overrides(Config(), args.overrides)
+    if args.eval_after and (cfg.mesh.enable == "on" or (
+            cfg.mesh.enable == "auto" and launched_world_size() > 1)):
+        raise NotImplementedError(
+            "train --eval-after under a process mesh is not ported (evaluation under a "
+            "mesh is ROADMAP item 10's remainder)")
     train_c, test_c = _build_corpora(cfg, args.synthetic, device)
-    _, history = train_model(cfg, train_c, test_c, workdir=cfg.data.checkpoint_path,
-                             resume=args.resume, device=device)
+    try:
+        _, history = train_model(cfg, train_c, test_c, workdir=cfg.data.checkpoint_path,
+                                 resume=args.resume, device=device)
+    finally:
+        import torch.distributed as dist
+
+        if dist.is_initialized():
+            dist.destroy_process_group()
     logger.info("Done: best train %.6f (epoch %d), best test %.6f",
                 history["best_train_loss"], history["best_epoch"],
                 history["best_test_loss"])

@@ -4,7 +4,8 @@ The port's own copy of the sections of seld_tpu/config.py, with the same
 defaults, field names, dotted `key=value` overrides and dict round-trip,
 so a config dict stored by either package rebuilds the same run here.
 Fields whose reader is not ported (ACCDOA tracks, QAT, distillation,
-profiling, the mesh, the Pallas toggle) are left out:
+profiling, the mesh's ZeRO-1 and FSDP switches, the Pallas toggle) are
+left out:
 `config_from_dict` ignores them, exactly as seld_tpu ignores unknown
 keys, and an override of one raises `parse_overrides`'s unknown-field
 error. Each comes back with the code that reads it.
@@ -245,6 +246,30 @@ class TrainConfig:
 
 
 @dataclass(frozen=True)
+class MeshConfig:
+    """Process mesh (seld_tpu's MeshConfig): one process per GPU, each a
+    cell of a (data, model) grid; rank r sits at (r // model_axis,
+    r % model_axis).
+
+    enable: "auto" builds the mesh when the process was launched with
+    WORLD_SIZE > 1 (torchrun); "on" always builds one (a 1-rank group under
+    a plain launch); "off" never does. The data axis splits the batch's
+    rows (data parallelism; every rank holds a whole replica of the
+    parameters and the gradients are summed over all ranks before Adam).
+    shard_time splits the window's time axis over the model axis
+    (sequence parallelism: halo exchanges in the convolutions and
+    max-pools, ring attention, kernel K5). A model axis without shard_time
+    is tensor parallelism, which the port does not have; seld_tpu's
+    shard_opt_state (ZeRO-1) and shard_params (FSDP) are left out, so an
+    override of either is an unknown-field error."""
+
+    enable: str = "auto"
+    data_axis: int = -1  # -1 => every rank the model axis leaves
+    model_axis: int = 1
+    shard_time: bool = False
+
+
+@dataclass(frozen=True)
 class Config:
     data: DataConfig = field(default_factory=DataConfig)
     features: FeatureConfig = field(default_factory=FeatureConfig)
@@ -254,6 +279,7 @@ class Config:
     model: ModelConfig = field(default_factory=ModelConfig)
     loss: LossConfig = field(default_factory=LossConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
+    mesh: MeshConfig = field(default_factory=MeshConfig)
 
     def replace_path(self, path: str, value: Any) -> "Config":
         """A new Config with `path` (e.g. 'train.batch_size') replaced."""

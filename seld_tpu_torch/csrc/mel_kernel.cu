@@ -41,6 +41,18 @@
 //     memory (warp_fft.cuh's `band_sums`) and writes their dB: one
 //     coalesced row per frame.
 //
+// Other n_fft (F2): `log_mel_dft_kernel` below, the DFT as tiles (the
+// design the FFT replaced, taking any n_fft): a block owns 64 frames and
+// loops over 64-bin chunks of the spectrum; per chunk a 64 x (64 + 64) x
+// n_depth product over 16-deep shared-memory tiles of the frames and of the
+// Hann-windowed bases C_re / C_im (n_depth = n_fft rounded up to 16, the
+// bases' extra rows zero and the frame loads guarded past n_fft), each
+// thread holding 4 frames x 4 bins of re and im in registers; the power
+// tile and the matching filterbank slice go through shared memory into the
+// block's 64 x 64 mel sums, which stay in registers across all chunks. It
+// reads the frames in place through the same strides, with scalar loads
+// (any alignment). f32 FMA, compute-bound: 2 n_depth n_bins FLOP a frame.
+//
 // Nothing is pipelined: 12,004 frames give 12,004 warps over 132 SMs,
 // each warp with R independent loads in flight, which hides the latency.
 // All arithmetic is f32; every twiddle comes from the plan's float64
@@ -166,4 +178,166 @@ extern "C" int seld_log_mel_frames(const void* x, long long channel_stride,
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+namespace {
+namespace dft {
+
+constexpr int kThreads = 256;
+constexpr int kTileFrames = 64;          // frames per block
+constexpr int kTileBins = 64;            // spectrum bins per chunk
+constexpr int kTileDepth = 16;           // DFT depth per shared-memory stage
+constexpr int kMels = 64;                // filterbank width (n_mels padded)
+constexpr int kPitch = kTileFrames + 4;  // padded row of frame-indexed tiles
+
+static_assert(kThreads == 4 * kTileFrames, "frame tile load: four samples each");
+static_assert(kThreads * 4 == kTileDepth * kTileBins, "DFT tile load: one float4 each");
+
+__global__ void __launch_bounds__(kThreads, 2)
+log_mel_dft_kernel(const float* __restrict__ x, long long channel_stride,
+                   long long frame_stride, int n_frames, int total, int n_fft, int n_depth,
+                   const float* __restrict__ c_re, const float* __restrict__ c_im,
+                   const float* __restrict__ fb, int n_bins, int n_mels, float amin,
+                   float* __restrict__ out) {
+  __shared__ __align__(16) float a_s[kTileDepth][kPitch];    // frames, [depth][frame]
+  __shared__ __align__(16) float re_s[kTileDepth][kTileBins];
+  __shared__ __align__(16) float im_s[kTileDepth][kTileBins];
+  __shared__ __align__(16) float pow_s[kTileBins][kPitch];   // power, [bin][frame]
+  __shared__ __align__(16) float fb_s[kTileBins][kMels];
+
+  const int tid = threadIdx.x;
+  const int ty = tid / 16;  // owns frames ty*4 .. ty*4+3 of the tile
+  const int tx = tid % 16;  // owns bins / mels tx, tx+16, tx+32, tx+48
+  const int m0 = blockIdx.x * kTileFrames;
+
+  // Frame tile load: 64 frames x 16 samples, four guarded scalars a thread.
+  const int a_row = tid / 4;
+  const int a_col = (tid % 4) * 4;
+  const int a_frame = m0 + a_row;
+  const bool a_valid = a_frame < total;
+  const int a_ch = a_valid ? a_frame / n_frames : 0;
+  const float* a_ptr = x + a_ch * channel_stride +
+                       static_cast<long long>(a_frame - a_ch * n_frames) * frame_stride;
+  // DFT tile load: 16 samples x 64 bins, one float4 per thread per matrix.
+  const int b_row = tid / 16;
+  const int b_col = (tid % 16) * 4;
+
+  float mel[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) mel[i][j] = 0.f;
+
+  for (int b0 = 0; b0 < n_bins; b0 += kTileBins) {
+    float re[4][4], im[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) re[i][j] = im[i][j] = 0.f;
+
+    for (int k0 = 0; k0 < n_depth; k0 += kTileDepth) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int k = k0 + a_col + i;
+        a_s[a_col + i][a_row] = a_valid && k < n_fft ? a_ptr[k] : 0.f;
+      }
+      const size_t c_off = static_cast<size_t>(k0 + b_row) * n_bins + b0 + b_col;
+      *reinterpret_cast<float4*>(&re_s[b_row][b_col]) =
+          *reinterpret_cast<const float4*>(c_re + c_off);
+      *reinterpret_cast<float4*>(&im_s[b_row][b_col]) =
+          *reinterpret_cast<const float4*>(c_im + c_off);
+      __syncthreads();
+
+#pragma unroll
+      for (int kk = 0; kk < kTileDepth; ++kk) {
+        const float4 av = *reinterpret_cast<const float4*>(&a_s[kk][ty * 4]);
+        const float a4[4] = {av.x, av.y, av.z, av.w};
+        float br[4], bi[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          br[j] = re_s[kk][tx + 16 * j];
+          bi[j] = im_s[kk][tx + 16 * j];
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            re[i][j] = fmaf(a4[i], br[j], re[i][j]);
+            im[i][j] = fmaf(a4[i], bi[j], im[i][j]);
+          }
+      }
+      __syncthreads();
+    }
+
+    // Power tile and the matching filterbank rows into shared memory.
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        pow_s[tx + 16 * j][ty * 4 + i] = re[i][j] * re[i][j] + im[i][j] * im[i][j];
+#pragma unroll
+    for (int r = 0; r < (kTileBins * kMels) / (4 * kThreads); ++r) {
+      const int idx = tid + r * kThreads;
+      const int row = idx / (kMels / 4);
+      const int col = (idx % (kMels / 4)) * 4;
+      *reinterpret_cast<float4*>(&fb_s[row][col]) =
+          *reinterpret_cast<const float4*>(fb + static_cast<size_t>(b0 + row) * kMels + col);
+    }
+    __syncthreads();
+
+#pragma unroll 8
+    for (int b = 0; b < kTileBins; ++b) {
+      const float4 pv = *reinterpret_cast<const float4*>(&pow_s[b][ty * 4]);
+      const float p4[4] = {pv.x, pv.y, pv.z, pv.w};
+      float f[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) f[j] = fb_s[b][tx + 16 * j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) mel[i][j] = fmaf(p4[i], f[j], mel[i][j]);
+    }
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int m = m0 + ty * 4 + i;
+    if (m >= total) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int c = tx + 16 * j;
+      if (c < n_mels)
+        out[static_cast<size_t>(m) * n_mels + c] = 10.f * log10f(fmaxf(mel[i][j], amin));
+    }
+  }
+}
+
+}  // namespace dft
+}  // namespace
+
+// The general-n_fft path. frames as seld_log_mel_frames takes them, any
+// n_fft >= 1 and any alignment; c_re, c_im: (n_depth, n_bins) Hann-windowed
+// DFT bases, n_depth = n_fft rounded up to 16 with zero rows past n_fft;
+// fb: (n_bins, 64) filterbank, n_bins a multiple of 64, zero past the real
+// bins and the n_mels columns; out: (n_channels * n_frames, n_mels).
+extern "C" int seld_log_mel_frames_dft(const void* x, long long channel_stride,
+                                       long long frame_stride, int n_channels, int n_frames,
+                                       int n_fft, int n_depth, const void* c_re,
+                                       const void* c_im, const void* fb, int n_bins,
+                                       int n_mels, float amin, void* out, void* stream) {
+  if (n_channels < 0 || n_frames < 0 || n_fft < 1 || n_depth < n_fft ||
+      n_depth % dft::kTileDepth != 0 || n_bins <= 0 || n_bins % dft::kTileBins != 0 ||
+      n_mels < 1 || n_mels > dft::kMels ||
+      static_cast<long long>(n_channels) * n_frames > 0x7fffffffLL) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int total = n_channels * n_frames;
+  if (total == 0) return 0;
+  const dim3 grid((total + dft::kTileFrames - 1) / dft::kTileFrames);
+  dft::log_mel_dft_kernel<<<grid, dft::kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), channel_stride, frame_stride, n_frames, total, n_fft,
+      n_depth, static_cast<const float*>(c_re), static_cast<const float*>(c_im),
+      static_cast<const float*>(fb), n_bins, n_mels, amin, static_cast<float*>(out));
+  return static_cast<int>(cudaGetLastError());
 }

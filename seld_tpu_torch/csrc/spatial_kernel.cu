@@ -65,6 +65,18 @@
 //     code, so a signed permutation of the channels permutes and signs
 //     the planes exactly (the ACS commutation).
 //
+// Other n_fft (F2): `spatial_dft_kernel` below, the DFT as tiles (the design
+// the FFT replaced, taking any n_fft): a block owns 16 frames of all 4
+// channels, 64 DFT rows frame-major and channel-minor, so the thread that
+// owns a frame holds its 4 channels' re / im at 4 bins in registers and
+// forms the derived planes (power, intensity vectors or PHAT cross-spectra)
+// without an exchange; per 64-bin chunk it runs a 64 x (64 + 64) x n_depth
+// product over 16-deep shared-memory tiles (n_depth = n_fft rounded up to
+// 16, the bases' extra rows zero, frame loads guarded past n_fft and read
+// in place as scalars), then adds the chunk's planes times the projection
+// slices (filterbank, column-normalised filterbank, lag matrices) to the
+// (16, C_out, 64) output sums in registers. Compute-bound in f32 FMA.
+//
 // Nothing is pipelined: 3,001 frames give 3,001 blocks of four warps, each
 // warp with R independent loads in flight. What holds it above its bound,
 // by chip_smoke.py's times of the three feature sets: the "mel" set alone
@@ -354,6 +366,294 @@ extern "C" int seld_spatial_features(int feature_set, const void* x, long long c
     case kMelGcc:
       return launch_set<kMelGcc>(n_fft, xf, channel_stride, frame_stride, n_frames, vec2, w2,
                                  lt, wt, st, gt, bd, wg, nw, n_mels, amin, eps, o, rc, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+namespace {
+namespace dft {
+
+constexpr int kThreads = 256;
+constexpr int kTileFrames = 16;                     // frames per block, all 4 channels
+constexpr int kRows = kChannels * kTileFrames;      // DFT rows: frame-major, channel-minor
+constexpr int kTileBins = 64;                       // spectrum bins per chunk
+constexpr int kTileDepth = 16;                      // DFT depth per shared-memory stage
+constexpr int kCols = 64;                           // output columns (n_mels / lags padded)
+constexpr int kPitch = kRows + 4;                   // padded row of the frame tile
+constexpr int kPlane = kTileFrames * kTileBins;     // one derived plane of a chunk
+constexpr int kMat = kTileBins * kCols;             // one projection-matrix slice
+constexpr int kStaging = kTileDepth * kPitch + 2 * kTileDepth * kTileBins;
+
+template <int kSet> struct Layout {
+  // derived planes per chunk, output planes, projection-matrix slices
+  static constexpr int kDerived = kSet == kMel ? 4 : kSet == kMelIv ? 7 : 16;
+  static constexpr int kOut = kOutPlanes<kSet>;
+  static constexpr int kMats = kSet == kMel ? 1 : kSet == kMelIv ? 2 : 3;
+  static constexpr int kSmemFloats = kDerived * kPlane + kMats * kMat;
+};
+
+static_assert(kThreads == 4 * kRows, "frame tile load: four samples each");
+static_assert(kThreads * 4 == kTileDepth * kTileBins, "DFT tile load: one float4 each");
+static_assert(kThreads == kTileFrames * 16, "16 threads per frame, 4 bins/columns each");
+static_assert(kStaging <= kMat, "the DFT staging tiles alias the first matrix slice");
+
+// Plane p of frame f at bin b: the odd frames' halves are swapped so that
+// the two frames a warp covers hit different banks.
+__device__ __forceinline__ int plane_at(int p, int f, int b) {
+  return p * kPlane + f * kTileBins + (b ^ ((f & 1) << 4));
+}
+
+// ptxas gives the "mel_gcc" instantiation a 16-byte stack frame (12 bytes
+// of spill stores) with or without a min-blocks hint; chip_smoke.py prints
+// it on every build.
+template <int kSet>
+__global__ void __launch_bounds__(kThreads, 2)
+spatial_dft_kernel(const float* __restrict__ x, long long chan_stride, long long frame_stride,
+                   const float* __restrict__ c_re, const float* __restrict__ c_im,
+                   const float* __restrict__ fb, const float* __restrict__ fb_norm,
+                   const float* __restrict__ lag_re, const float* __restrict__ lag_im,
+                   float* __restrict__ out, int n_frames, int n_fft, int n_depth, int n_bins,
+                   int n_mels, float amin, float eps) {
+  using L = Layout<kSet>;
+  extern __shared__ __align__(16) float smem[];
+  float* planes = smem;                          // [kDerived][kTileFrames][kTileBins]
+  float* mats = smem + L::kDerived * kPlane;     // [kMats][kTileBins][kCols]
+  float* a_s = mats;                             // [kTileDepth][kPitch], rows (frame, channel)
+  float* re_s = a_s + kTileDepth * kPitch;       // [kTileDepth][kTileBins]
+  float* im_s = re_s + kTileDepth * kTileBins;
+
+  const int tid = threadIdx.x;
+  const int ty = tid / 16;  // owns frame ty of the tile (DFT rows ty*4 .. ty*4+3)
+  const int tx = tid % 16;  // owns bins / columns tx, tx+16, tx+32, tx+48
+  const int t0 = blockIdx.x * kTileFrames;
+
+  // Frame tile load: 64 rows (16 frames x 4 channels) x 16 samples, four
+  // guarded scalars a thread.
+  const int a_row = tid / 4;
+  const int a_col = (tid % 4) * 4;
+  const int a_frame = a_row / kChannels;
+  const int a_ch = a_row % kChannels;
+  const bool a_valid = t0 + a_frame < n_frames;
+  const float* a_ptr = x + a_ch * chan_stride + static_cast<long long>(t0 + a_frame) * frame_stride;
+  // DFT tile load: 16 samples x 64 bins, one float4 per thread per matrix.
+  const int b_row = tid / 16;
+  const int b_col = (tid % 16) * 4;
+
+  float acc[L::kOut][4];
+#pragma unroll
+  for (int o = 0; o < L::kOut; ++o)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[o][j] = 0.f;
+
+  for (int b0 = 0; b0 < n_bins; b0 += kTileBins) {
+    float re[kChannels][4], im[kChannels][4];
+#pragma unroll
+    for (int c = 0; c < kChannels; ++c)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) re[c][j] = im[c][j] = 0.f;
+
+    for (int k0 = 0; k0 < n_depth; k0 += kTileDepth) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int k = k0 + a_col + i;
+        a_s[(a_col + i) * kPitch + a_row] = a_valid && k < n_fft ? a_ptr[k] : 0.f;
+      }
+      const size_t c_off = static_cast<size_t>(k0 + b_row) * n_bins + b0 + b_col;
+      *reinterpret_cast<float4*>(&re_s[b_row * kTileBins + b_col]) =
+          *reinterpret_cast<const float4*>(c_re + c_off);
+      *reinterpret_cast<float4*>(&im_s[b_row * kTileBins + b_col]) =
+          *reinterpret_cast<const float4*>(c_im + c_off);
+      __syncthreads();
+
+#pragma unroll
+      for (int kk = 0; kk < kTileDepth; ++kk) {
+        const float4 av = *reinterpret_cast<const float4*>(&a_s[kk * kPitch + ty * 4]);
+        const float a4[kChannels] = {av.x, av.y, av.z, av.w};
+        float br[4], bi[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          br[j] = re_s[kk * kTileBins + tx + 16 * j];
+          bi[j] = im_s[kk * kTileBins + tx + 16 * j];
+        }
+#pragma unroll
+        for (int c = 0; c < kChannels; ++c)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            re[c][j] = fmaf(a4[c], br[j], re[c][j]);
+            im[c][j] = fmaf(a4[c], bi[j], im[c][j]);
+          }
+      }
+      __syncthreads();
+    }
+
+    // The chunk's derived planes, from this thread's registers. Every
+    // channel goes through the same expression, so a signed permutation
+    // of the input channels permutes and signs the planes exactly.
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int b = tx + 16 * j;
+      float p[kChannels];
+#pragma unroll
+      for (int c = 0; c < kChannels; ++c) {
+        p[c] = re[c][j] * re[c][j] + im[c][j] * im[c][j];
+        planes[plane_at(c, ty, b)] = p[c];
+      }
+      if constexpr (kSet == kMelIv) {
+        const float energy = (p[kW] + (p[kX] + p[kY] + p[kZ]) / 3.f) / 2.f + eps;
+        const float inv_e = 1.f / energy;
+#pragma unroll
+        for (int q = 0; q < 3; ++q) {
+          const int c = q == 0 ? kX : q == 1 ? kY : kZ;
+          planes[plane_at(4 + q, ty, b)] =
+              (re[kW][j] * re[c][j] + im[kW][j] * im[c][j]) * inv_e;
+        }
+      } else if constexpr (kSet == kMelGcc) {
+        int q = 4;
+#pragma unroll
+        for (int i = 0; i < kChannels; ++i)
+#pragma unroll
+          for (int k = i + 1; k < kChannels; ++k) {
+            const float cr = re[i][j] * re[k][j] + im[i][j] * im[k][j];
+            const float ci = re[i][j] * im[k][j] - im[i][j] * re[k][j];
+            const float inv = rsqrtf(cr * cr + ci * ci + eps * eps);
+            planes[plane_at(q, ty, b)] = cr * inv;
+            planes[plane_at(q + 1, ty, b)] = ci * inv;
+            q += 2;
+          }
+      }
+    }
+
+    // The matching 64 x 64 projection slices (over the staging tiles,
+    // which the last DFT step is done with).
+#pragma unroll
+    for (int m = 0; m < L::kMats; ++m) {
+      const float* src = m == 0 ? fb : m == 2 ? lag_im : kSet == kMelIv ? fb_norm : lag_re;
+#pragma unroll
+      for (int r = 0; r < kMat / (4 * kThreads); ++r) {
+        const int idx = tid + r * kThreads;
+        const int row = idx / (kCols / 4);
+        const int col = (idx % (kCols / 4)) * 4;
+        *reinterpret_cast<float4*>(&mats[m * kMat + row * kCols + col]) =
+            *reinterpret_cast<const float4*>(src + static_cast<size_t>(b0 + row) * kCols + col);
+      }
+    }
+    __syncthreads();
+
+#pragma unroll 4
+    for (int b = 0; b < kTileBins; ++b) {
+      float f[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) f[j] = mats[b * kCols + tx + 16 * j];
+#pragma unroll
+      for (int c = 0; c < kChannels; ++c) {
+        const float d = planes[plane_at(c, ty, b)];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[c][j] = fmaf(d, f[j], acc[c][j]);
+      }
+      if constexpr (kSet == kMelIv) {
+        float g[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) g[j] = mats[kMat + b * kCols + tx + 16 * j];
+#pragma unroll
+        for (int q = 0; q < 3; ++q) {
+          const float d = planes[plane_at(4 + q, ty, b)];
+#pragma unroll
+          for (int j = 0; j < 4; ++j) acc[4 + q][j] = fmaf(d, g[j], acc[4 + q][j]);
+        }
+      } else if constexpr (kSet == kMelGcc) {
+        float lr[4], li[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          lr[j] = mats[kMat + b * kCols + tx + 16 * j];
+          li[j] = mats[2 * kMat + b * kCols + tx + 16 * j];
+        }
+#pragma unroll
+        for (int q = 0; q < 6; ++q) {
+          const float dr = planes[plane_at(4 + 2 * q, ty, b)];
+          const float di = planes[plane_at(5 + 2 * q, ty, b)];
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            acc[4 + q][j] = fmaf(di, li[j], fmaf(dr, lr[j], acc[4 + q][j]));
+        }
+      }
+    }
+    __syncthreads();  // planes and matrix slices are rewritten by the next chunk
+  }
+
+  const int t = t0 + ty;
+  if (t >= n_frames) return;
+  float* row = out + static_cast<size_t>(t) * L::kOut * n_mels;
+#pragma unroll
+  for (int o = 0; o < L::kOut; ++o)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int col = tx + 16 * j;
+      if (col < n_mels)
+        row[o * n_mels + col] = o < kChannels ? 10.f * log10f(fmaxf(acc[o][j], amin))
+                                              : acc[o][j];
+    }
+}
+
+template <int kSet>
+int launch(const float* x, long long cs, long long fs, const float* c_re, const float* c_im,
+           const float* fb, const float* fb_norm, const float* lag_re, const float* lag_im,
+           float* out, int n_frames, int n_fft, int n_depth, int n_bins, int n_mels,
+           float amin, float eps, cudaStream_t stream) {
+  constexpr int smem = Layout<kSet>::kSmemFloats * static_cast<int>(sizeof(float));
+  cudaError_t err = cudaFuncSetAttribute(
+      spatial_dft_kernel<kSet>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaFuncSetAttribute(spatial_dft_kernel<kSet>,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((n_frames + kTileFrames - 1) / kTileFrames);
+  spatial_dft_kernel<kSet><<<grid, kThreads, smem, stream>>>(
+      x, cs, fs, c_re, c_im, fb, fb_norm, lag_re, lag_im, out, n_frames, n_fft, n_depth,
+      n_bins, n_mels, amin, eps);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace dft
+}  // namespace
+
+// The general-n_fft path. feature_set and frames as seld_spatial_features
+// takes them, any n_fft >= 1 and any alignment; c_re, c_im: (n_depth,
+// n_bins) Hann-windowed DFT bases, n_depth = n_fft rounded up to 16 with
+// zero rows past n_fft; fb, fb_norm, lag_re, lag_im: (n_bins, 64), n_bins a
+// multiple of 64; out: (n_frames, C_out, n_mels).
+extern "C" int seld_spatial_features_dft(int feature_set, const void* x,
+                                         long long channel_stride, long long frame_stride,
+                                         int n_frames, int n_fft, int n_depth,
+                                         const void* c_re, const void* c_im, const void* fb,
+                                         const void* fb_norm, const void* lag_re,
+                                         const void* lag_im, int n_bins, int n_mels,
+                                         float amin, float eps, void* out, void* stream) {
+  if (n_frames < 0 || n_fft < 1 || n_depth < n_fft || n_depth % dft::kTileDepth != 0 ||
+      n_bins <= 0 || n_bins % dft::kTileBins != 0 || n_mels < 1 || n_mels > dft::kCols) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (n_frames == 0) return 0;
+  const auto* f = static_cast<const float*>(x);
+  const auto* cr = static_cast<const float*>(c_re);
+  const auto* ci = static_cast<const float*>(c_im);
+  const auto* m0 = static_cast<const float*>(fb);
+  const auto* m1 = static_cast<const float*>(fb_norm);
+  const auto* l0 = static_cast<const float*>(lag_re);
+  const auto* l1 = static_cast<const float*>(lag_im);
+  auto* o = static_cast<float*>(out);
+  auto s = static_cast<cudaStream_t>(stream);
+  switch (feature_set) {
+    case kMel:
+      return dft::launch<kMel>(f, channel_stride, frame_stride, cr, ci, m0, m1, l0, l1, o,
+                               n_frames, n_fft, n_depth, n_bins, n_mels, amin, eps, s);
+    case kMelIv:
+      return dft::launch<kMelIv>(f, channel_stride, frame_stride, cr, ci, m0, m1, l0, l1, o,
+                                 n_frames, n_fft, n_depth, n_bins, n_mels, amin, eps, s);
+    case kMelGcc:
+      return dft::launch<kMelGcc>(f, channel_stride, frame_stride, cr, ci, m0, m1, l0, l1, o,
+                                  n_frames, n_fft, n_depth, n_bins, n_mels, amin, eps, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

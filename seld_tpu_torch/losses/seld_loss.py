@@ -15,6 +15,14 @@ class-major (B, T, M, G): softmax and argmax reduce over axis -2.
     axes, dotted with the predicted non-background activity on event
     frames.
 
+Under a process mesh of more than one rank (parallel.sequence.attention_mesh)
+each rank holds its block of the global batch's logits and returns its
+part of the loss: its local sums over the GLOBAL normaliser (the example
+count, the class weights' sum), all-reduced over the world, so that the
+parts add up to the one-device loss and their gradients, summed over the
+ranks, to its gradient. The AIUR and converging-localization terms are
+refused there (ROADMAP item 10's remainder).
+
 The *_bits terms take the (B, T, G) class bitmask instead of dense
 targets, with elementwise-identical arithmetic: argmax of a multi-hot
 one-hot is its lowest set bit; argmax != background is mask != 0; the sum
@@ -28,9 +36,11 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+import torch.distributed as dist
 
 from seld_tpu_torch.config import GridConfig, LossConfig
 from seld_tpu_torch.ops.loss_cuda import grid_loss_terms
+from seld_tpu_torch.parallel.sequence import world_mesh
 from seld_tpu_torch.targets.rasterize import decode_class_bitmask
 
 EPS = 1e-10
@@ -51,8 +61,24 @@ def _example_weights(example_mask, batch: int, device) -> torch.Tensor:
     return example_mask.float()
 
 
+def _global_count(count: torch.Tensor) -> torch.Tensor:
+    """A loss's normaliser over the global batch: this rank's count summed
+    over the world under a multi-rank mesh (a constant of the parameters:
+    no gradient flows through it), else the count itself."""
+    mesh = world_mesh()
+    if mesh is None:
+        return count
+    count = count.detach().clone()
+    dist.all_reduce(count, group=mesh.world)
+    return count
+
+
 def _weighted_mean(per_example: torch.Tensor, em: torch.Tensor) -> torch.Tensor:
-    return (per_example * em).sum() / em.sum().clamp_min(1e-8)
+    """The em-weighted mean over the batch of per-example means. Under a
+    mesh each rank's per-example means cover its time chunk: the world's sum
+    of em counts each row once per chunk, which turns them into the
+    window's means."""
+    return (per_example * em).sum() / _global_count(em.sum()).clamp_min(1e-8)
 
 
 def _weighted_nll(logits, labels, class_weights, example_mask):
@@ -61,7 +87,7 @@ def _weighted_nll(logits, labels, class_weights, example_mask):
     w = torch.ones_like(nll) if class_weights is None else class_weights.to(nll.device)[labels]
     em = _example_weights(example_mask, logits.shape[0], logits.device)
     em = em.reshape((-1,) + (1,) * (nll.dim() - 1))
-    return (w * nll * em).sum() / (w * em).sum().clamp_min(1e-8)
+    return (w * nll * em).sum() / _global_count((w * em).sum()).clamp_min(1e-8)
 
 
 def class_ce_loss(logits, targets, class_weights=None, example_mask=None):
@@ -210,6 +236,10 @@ class SELDLossFn:
         """total and breakdown from the class term and the optional terms
         (`aiur` and `cl` are thunks, called only when the config uses them)."""
         cfg = self.cfg
+        if (cfg.use_aiur or cfg.use_cl) and world_mesh() is not None:
+            raise NotImplementedError(
+                "loss.use_aiur / loss.use_cl under a process mesh of more than one rank "
+                "are not ported (ROADMAP item 10's remainder)")
         total = cfg.w_class * loss_class
         breakdown = {f"class_{cfg.loss_type}": loss_class}
         if cfg.use_aiur:

@@ -9,9 +9,14 @@ The recurrence. The JAX package runs flax's GRUCell under nn.RNN, a
 lax.scan, not a Pallas kernel, so torch.nn.GRU (cuDNN's GRU on the card)
 is its counterpart here. flax's cell has input biases on r, z and n and a
 hidden bias on n only; torch's carries hidden biases on all three gates,
-of which the r and z ones add to the input ones (state_dict_from_jax
-loads them as zeros): the same function, and 2 x hidden more parameters
-per direction and layer. Each layer is its own single-layer bidirectional
+of which the r and z ones add to the input ones: the same function, and
+2 x hidden more parameters per direction and layer. Those r and z rows of
+`bias_hh` are held at zero (state_dict_from_jax loads them as zeros, a new
+model starts with them zeroed) and out of the update: a gradient hook
+zeroes their rows, so Adam moves the effective r/z bias exactly as far as
+optax moves flax's input bias, and a zero value with a zero gradient takes
+no coupled-L2 step either. The parameters stay, so the state_dict keeps
+its layout. Each layer is its own single-layer bidirectional
 nn.GRU, so that the dropout between layers draws from the model's own
 generator like every other Dropout (nn.GRU's own dropout would draw from
 the global one). The recurrence runs in float32 whatever the compute
@@ -24,12 +29,21 @@ read as float32, and the GRU's output is cast back to the compute dtype.
 from __future__ import annotations
 
 import contextlib
+import functools
 
 import torch
 from torch import nn
 
 from seld_tpu_torch import no_tf32
 from seld_tpu_torch.models.layers import CNNEncoder, Dropout, DropoutSeeding, GridHead
+
+
+def _zero_rz_rows(hidden: int, grad: torch.Tensor) -> torch.Tensor:
+    """The gradient of a GRU's hidden bias [r|z|n] with its r and z rows
+    zeroed."""
+    grad = grad.clone()
+    grad[:2 * hidden] = 0
+    return grad
 
 
 class BiGRU(nn.Module):
@@ -47,8 +61,22 @@ class BiGRU(nn.Module):
             for i in range(num_layers)
         )
         self.drops = nn.ModuleList(Dropout(dropout) for _ in range(num_layers - 1))
+        self.hidden = hidden
+        with torch.no_grad():
+            for bias in self._rz_biases():
+                bias[:2 * hidden].zero_()
+
+    def _rz_biases(self):
+        return [getattr(gru, name) for gru in self.layers
+                for name in ("bias_hh_l0", "bias_hh_l0_reverse")]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if torch.is_grad_enabled():
+            # registered here, not once in __init__: a deep copy of a
+            # parameter drops its hooks
+            for bias in self._rz_biases():
+                if not bias._backward_hooks:
+                    bias.register_hook(functools.partial(_zero_rz_rows, self.hidden))
         x = x.float()
         for i, gru in enumerate(self.layers):
             x, _ = gru(x)

@@ -16,6 +16,15 @@ statistics and updates its running ones; Dropout draws its keep-mask from
 an explicit torch.Generator (DropoutSeeding.seed_dropout), never from the
 global one. Eval mode uses the running statistics and no dropout.
 
+Under a process mesh (parallel.sequence.attention_mesh) the layers compute
+what one device computes on the global batch: a train-mode BatchNorm
+takes its statistics over every rank's rows (and time chunks); with the
+time axis split over the model axis (sequence parallelism) a convolution
+that spans time (3x3, the depthwise kernel 31) pads its chunk with its
+neighbours' edge rows (halo_exchange, zeros at the window's ends) instead
+of zeros; Dropout draws its mask at the global shape and keeps this rank's
+block, so the sharded step's masks are the one-device step's.
+
 `run_block` is activation checkpointing (the JAX package's nn.remat): the
 block's activations are recomputed in the backward, with the block's
 dropout masks replayed and its BatchNorm statistics updated once.
@@ -31,6 +40,13 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from seld_tpu_torch.ops.attention import multi_head_attention
+from seld_tpu_torch.parallel.sequence import (
+    all_reduce_sum,
+    current_mesh,
+    halo_exchange,
+    time_mesh,
+    world_mesh,
+)
 
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.1  # running = 0.9 * running + 0.1 * batch (flax momentum 0.9)
@@ -75,11 +91,16 @@ class Conv2d(nn.Conv2d):
         dt = self.compute_dtype
         x, weight = x.to(dt), self.weight.to(dt)
         bias = None if self.bias is None else self.bias.to(dt)
+        padding = self.padding
+        mesh = time_mesh()
+        if mesh is not None and padding[0]:  # (B, C, T, F): time from the neighbours
+            x = halo_exchange(x, 2, padding[0], 0.0, mesh)
+            padding = (0, padding[1])
         if x.device.type == "cpu" and dt == torch.bfloat16:
             bias = None if bias is None else bias.float()
             return F.conv2d(x.float(), weight.float(), bias, self.stride,
-                            self.padding).to(dt)
-        return F.conv2d(x, weight, bias, self.stride, self.padding)
+                            padding).to(dt)
+        return F.conv2d(x, weight, bias, self.stride, padding)
 
 
 class DepthwiseConv1d(nn.Conv1d):
@@ -93,8 +114,13 @@ class DepthwiseConv1d(nn.Conv1d):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
-        return F.conv1d(x.to(dt), self.weight.to(dt), self.bias.to(dt),
-                        padding=self.padding, groups=self.groups)
+        x, padding = x.to(dt), self.padding
+        mesh = time_mesh()
+        if mesh is not None:  # (B, D, T): time from the neighbours
+            x = halo_exchange(x, 2, padding[0], 0.0, mesh)
+            padding = 0
+        return F.conv1d(x, self.weight.to(dt), self.bias.to(dt), padding=padding,
+                        groups=self.groups)
 
 
 def _norm_input(x: torch.Tensor, norm_dtype: torch.dtype) -> torch.Tensor:
@@ -144,8 +170,24 @@ class Dropout(nn.Module):
                 "train-mode dropout needs a generator: call the model's "
                 "seed_dropout(seed) first"
             )
-        keep = torch.empty_like(x).bernoulli_(1.0 - self.p, generator=self.generator)
+        keep = _global_mask(x, 1.0 - self.p, self.generator)
         return x / (1.0 - self.p) * keep
+
+
+def _global_mask(x: torch.Tensor, p_keep: float, generator: torch.Generator) -> torch.Tensor:
+    """A Bernoulli(p_keep) mask for x. Under a mesh x (B, T, ...) is this
+    rank's block of the global batch: the mask is drawn at the global shape,
+    as the one-device step draws it, and this rank's rows (and time chunk)
+    are kept."""
+    mesh, time_sharded = current_mesh()
+    if mesh is None or mesh.world_size == 1:
+        return torch.empty_like(x).bernoulli_(p_keep, generator=generator)
+    b, t = x.shape[0], x.shape[1]
+    n_t = mesh.n_model if time_sharded else 1
+    full = torch.empty((b * mesh.n_data, t * n_t, *x.shape[2:]), dtype=x.dtype,
+                       device=x.device).bernoulli_(p_keep, generator=generator)
+    t0 = mesh.model_rank * t if time_sharded else 0
+    return full[mesh.data_rank * b:(mesh.data_rank + 1) * b, t0:t0 + t]
 
 
 class BatchNorm(nn.Module):
@@ -173,6 +215,8 @@ class BatchNorm(nn.Module):
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var, self.weight,
                                 self.bias, training=False, eps=BN_EPS).to(self.norm_dtype)
+        if world_mesh() is not None:
+            return self._global_batch_norm(x, world_mesh())
         # F.batch_norm writes momentum * (batch mean, unbiased batch variance)
         # into zeroed buffers (autograd saves them, so the module's own
         # statistics are updated apart); unbiased -> biased is (n - 1) / n
@@ -184,6 +228,27 @@ class BatchNorm(nn.Module):
             with torch.no_grad():
                 self.running_mean.mul_(1.0 - BN_MOMENTUM).add_(mean_step)
                 self.running_var.mul_(1.0 - BN_MOMENTUM).add_(var_step, alpha=(n - 1) / n)
+        return out.to(self.norm_dtype)
+
+    def _global_batch_norm(self, x: torch.Tensor, mesh) -> torch.Tensor:
+        """Train mode over every rank's rows: the mean, then the biased
+        variance as the mean squared deviation from it (two passes, as
+        F.batch_norm computes it on one device), each a sum all-reduced over
+        the world and differentiable through it; every rank then moves the
+        same running statistics."""
+        dims = [d for d in range(x.dim()) if d != 1]
+        shape = [1, -1] + [1] * (x.dim() - 2)
+        xf = x.float()
+        count = float(x.numel() // x.shape[1] * mesh.world_size)
+        mean = all_reduce_sum(xf.sum(dim=dims)) / count
+        centred = xf - mean.view(shape)
+        var = all_reduce_sum(centred.square().sum(dim=dims)) / count
+        out = centred * torch.rsqrt(var + BN_EPS).view(shape) * self.weight.view(shape) \
+            + self.bias.view(shape)
+        if self.update_stats:
+            with torch.no_grad():
+                self.running_mean.mul_(1.0 - BN_MOMENTUM).add_(mean, alpha=BN_MOMENTUM)
+                self.running_var.mul_(1.0 - BN_MOMENTUM).add_(var, alpha=BN_MOMENTUM)
         return out.to(self.norm_dtype)
 
 

@@ -33,6 +33,7 @@ from seld_tpu_torch.models.layers import (
     Linear,
     run_block,
 )
+from seld_tpu_torch.parallel.sequence import halo_exchange, time_mesh
 
 RESNET50_LAYERS = (3, 4, 6, 3)
 RESNET50_PLANES = (64, 128, 256, 512)
@@ -111,7 +112,12 @@ class ResNet50Encoder(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = torch.relu(self.stem_bn(self.stem(x))).to(self.compute_dtype)
-        x = F.max_pool2d(x, 3, stride=(1, 2), padding=1)
+        mesh = time_mesh()
+        if mesh is None:
+            x = F.max_pool2d(x, 3, stride=(1, 2), padding=1)
+        else:  # time chunks: the neighbours' edge rows, -inf at the window's ends
+            x = halo_exchange(x, 2, 1, float("-inf"), mesh)
+            x = F.max_pool2d(x, 3, stride=(1, 2), padding=(0, 1))
         for name in self.block_names:
             x = run_block(getattr(self, name), x, self.remat)
         return x

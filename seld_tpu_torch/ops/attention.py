@@ -9,6 +9,16 @@ through kernel K3 (seld_tpu_torch.ops.flash_attention), which never
 writes the (T x T) scores to device memory. CPU tensors take the plain
 product at any length, as every kernel wrapper of this package resolves by
 device.
+
+Under a time-sharded mesh (`attention_mesh(mesh, time_sharded=True)`,
+sequence parallelism) q, k and v are this rank's time chunks. When the
+global T (T_local x the model axis) is at least FLASH_MIN_SEQ_LEN, or
+inside force_flash(True), attention runs the ring, kernel K5
+(seld_tpu_torch.ops.ring_attention), which launches K3 per chunk on CUDA
+tensors and its plain version on CPU tensors; otherwise, and inside
+force_flash(False), it is the plain product of the local queries over the
+keys and values all-gathered on the model group, which is what GSPMD's
+partitioned einsum computes in the JAX package.
 """
 
 from __future__ import annotations
@@ -19,6 +29,12 @@ import contextvars
 import torch
 
 from seld_tpu_torch.ops.flash_attention import flash_attention
+from seld_tpu_torch.ops.ring_attention import ring_flash_attention
+from seld_tpu_torch.parallel.sequence import (  # noqa: F401 (attention_mesh: the steps' scope)
+    all_gather_time,
+    attention_mesh,
+    current_mesh,
+)
 
 FLASH_MIN_SEQ_LEN = 512
 
@@ -48,9 +64,14 @@ def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(
             f"force_flash(True) launches kernel K3 and needs CUDA tensors, got {q.device}"
         )
-    use_flash = forced if forced is not None else (
-        q.is_cuda and q.shape[-2] >= FLASH_MIN_SEQ_LEN)
-    if use_flash:
+    mesh, time_sharded = current_mesh()
+    if time_sharded:  # time chunks (one at a 1-way model axis): K5 or the gathered product
+        use_ring = forced if forced is not None else (
+            q.shape[-2] * mesh.n_model >= FLASH_MIN_SEQ_LEN)
+        if use_ring:
+            return ring_flash_attention(q, k, v, mesh.model_group, scale)
+        k, v = all_gather_time(k, 2, mesh), all_gather_time(v, 2, mesh)
+    elif forced if forced is not None else (q.is_cuda and q.shape[-2] >= FLASH_MIN_SEQ_LEN):
         return flash_attention(q, k, v, scale=scale)
     if scale is None:
         scale = q.shape[-1] ** -0.5

@@ -121,6 +121,32 @@ def flash_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.to(q.dtype), lse
 
 
+def chunk_grads_reference(q, k, v, g, lse, delta, scale: float):
+    """The plain per-chunk FA-2 backward with a given lse and delta: (dq,
+    dk, dv) in q's dtype, the CPU counterpart of `launch_dq(...,
+    delta=delta)` followed by `launch_dkv`.
+
+    q, g: (B, H, Tq, Dh) query rows and their output cotangent; k, v: (B,
+    H, Tk, Dh) a chunk of keys and values; lse (B*H, Tq) the logsumexp of
+    ALL keys' scaled scores (the ring's global merge) and delta (B*H, Tq)
+    or (B, H, Tq) = rowsum(g * out) of the final out, both float32. Then
+    p = exp(s - lse) is this chunk's slice of the global softmax and every
+    result is this chunk's exact share of the global gradient sums. In
+    float32, with ds rounded to the inputs' dtype before its two products,
+    as the kernels round it."""
+    b, h, tq, _ = q.shape
+    lse = lse.reshape(b, h, tq, 1)
+    delta = delta.reshape(b, h, tq, 1)
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    p = torch.exp(s - lse)
+    gf = g.float()
+    dv = torch.matmul(p.transpose(-1, -2), gf)
+    ds = (p * (torch.matmul(gf, v.float().transpose(-1, -2)) - delta)).to(q.dtype).float()
+    dq = torch.matmul(ds, k.float()) * scale
+    dk = torch.matmul(ds.transpose(-1, -2), q.float()) * scale
+    return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
+
+
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     if q.dtype not in _DTYPES:
         raise TypeError(f"K3 takes float32 or bfloat16 q, k, v, got {q.dtype}")

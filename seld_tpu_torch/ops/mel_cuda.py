@@ -5,8 +5,13 @@ computes, per frame, the Hann-windowed real FFT as a half-length complex
 FFT in registers (one warp per frame), the power spectrum, its sparse
 mel-filterbank sums and 10*log10(max(mel, amin)), keeping the spectrum
 on chip, and reads the frames in place through their strides.
-`fft_mel_plan` builds the tables it reads. `log_mel_frames` launches it
-for CUDA tensors; for CPU tensors, and only for those, it runs
+`fft_mel_plan` builds the tables it reads. For any other n_fft (fault F2:
+the JAX package computes every n_fft) a second kernel in the same source
+computes the windowed DFT as tiles of float32 products against bases
+whose depth is padded to a multiple of 16 (`dft_kernel_constants`), with
+the frames read in place the same way. The launcher picks the kernel by
+n_fft; each has its own launch counter. `log_mel_frames` launches them for
+CUDA tensors; for CPU tensors, and only for those, it runs
 `log_mel_frames_reference`, the same function as three PyTorch GEMMs.
 """
 
@@ -25,6 +30,7 @@ KERNEL_MELS = 64  # the kernel's largest n_mels (K4's filterbank width)
 KERNEL_N_FFT = (512, 960, 1024, 2048)  # n_fft = 64 R, R in (8, 15, 16, 32)
 _WARP = 32  # lanes of a warp: the kernel's cross-lane FFT length
 _BIN_TILE = 64  # dft_mel_constants pads n_bins to a multiple of it
+DFT_DEPTH_TILE = 16  # the DFT kernel's depth step: its bases' rows are padded to it
 
 
 @functools.lru_cache(maxsize=8)
@@ -51,6 +57,27 @@ def dft_mel_constants(n_fft: int, n_mels: int, sample_rate: int,
     fb = np.zeros((n_bins, width), np.float32)
     fb[:n_freqs, :n_mels] = mel_filterbank(n_freqs, n_mels, sample_rate, f_min, f_max)
     return tuple(torch.from_numpy(a).to(device) for a in (c_re, c_im, fb))
+
+
+def pad_depth(n_fft: int) -> int:
+    """n_fft rounded up to the DFT kernels' depth tile."""
+    return -(-n_fft // DFT_DEPTH_TILE) * DFT_DEPTH_TILE
+
+
+def pad_rows(basis: torch.Tensor, rows: int) -> torch.Tensor:
+    """basis (n, cols) with zero rows appended up to `rows`."""
+    return torch.cat([basis, basis.new_zeros((rows - basis.shape[0], basis.shape[1]))])
+
+
+@functools.lru_cache(maxsize=8)
+def dft_kernel_constants(n_fft: int, n_mels: int, sample_rate: int, f_min: float,
+                         f_max: float | None, device: torch.device):
+    """(C_re, C_im, FB) of the general-n_fft kernel on `device`: those of
+    dft_mel_constants with the bases' rows zero-padded to pad_depth(n_fft),
+    built once per arguments. Callers must not write to them."""
+    c_re, c_im, fb = dft_mel_constants(n_fft, n_mels, sample_rate, f_min, f_max, device)
+    rows = pad_depth(n_fft)
+    return pad_rows(c_re, rows), pad_rows(c_im, rows), fb
 
 
 class FftMelPlan(NamedTuple):
@@ -97,9 +124,11 @@ def _pairs(z: np.ndarray) -> np.ndarray:
 
 
 def check_kernel_shape(n_fft: int, n_mels: int) -> None:
-    """Raise ValueError for an n_fft or n_mels the CUDA kernel does not take."""
-    if n_fft not in KERNEL_N_FFT:
-        raise ValueError(f"K1's CUDA kernel takes n_fft in {KERNEL_N_FFT}, got {n_fft}")
+    """Raise ValueError for an n_fft or n_mels the CUDA kernels do not take:
+    any n_fft >= 1 (the FFT kernel those of KERNEL_N_FFT, the DFT kernel the
+    others), 1 to KERNEL_MELS mels."""
+    if n_fft < 1:
+        raise ValueError(f"K1's CUDA kernel takes n_fft >= 1, got {n_fft}")
     if not 1 <= n_mels <= KERNEL_MELS:
         raise ValueError(f"K1's CUDA kernel computes 1 to {KERNEL_MELS} mels, got {n_mels}")
 
@@ -107,9 +136,11 @@ def check_kernel_shape(n_fft: int, n_mels: int) -> None:
 @functools.lru_cache(maxsize=8)
 def fft_mel_plan(n_fft: int, n_mels: int, sample_rate: int, f_min: float,
                  f_max: float | None, device: torch.device) -> FftMelPlan:
-    """K1's tables for one (n_fft, n_mels, filterbank) on `device`, built
-    once per arguments. Callers must not write to them."""
+    """K1's FFT tables for one (n_fft, n_mels, filterbank) on `device`,
+    built once per arguments. Callers must not write to them."""
     check_kernel_shape(n_fft, n_mels)
+    if n_fft not in KERNEL_N_FFT:
+        raise ValueError(f"K1's FFT kernel takes n_fft in {KERNEL_N_FFT}, got {n_fft}")
     m = n_fft // 2
     r = m // _WARP
     lanes = np.arange(_WARP)
@@ -195,6 +226,20 @@ def _kernel():
     return fn
 
 
+@functools.cache
+def _dft_kernel():
+    from seld_tpu_torch.ops._build import load_library
+
+    fn = load_library("mel_kernel").seld_log_mel_frames_dft
+    fn.argtypes = (
+        [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong]
+        + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 3
+        + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p]
+    )
+    fn.restype = ctypes.c_int
+    return fn
+
+
 def log_mel_frames(frames: torch.Tensor, n_fft: int = 960, n_mels: int = 64,
                    sample_rate: int = 24_000, f_min: float = 0.0,
                    f_max: float | None = None,
@@ -205,9 +250,10 @@ def log_mel_frames(frames: torch.Tensor, n_fft: int = 960, n_mels: int = 64,
     The frames may be any view whose last axis has unit stride, such as
     `features.mel.frame_signal`'s view of the padded waveform: a CUDA
     tensor is read in place by kernel K1, in one launch on the current
-    stream (every launch adds one to `log_mel_frames.launches`), for n_fft
-    in KERNEL_N_FFT and up to KERNEL_MELS mels; a CPU tensor goes through
-    `log_mel_frames_reference` at any n_fft. Anything else raises."""
+    stream, up to KERNEL_MELS mels: the FFT kernel for n_fft in
+    KERNEL_N_FFT (every launch adds one to `log_mel_frames.launches`), the
+    DFT kernel for any other n_fft (`log_mel_frames.dft_launches`); a CPU
+    tensor goes through `log_mel_frames_reference`. Anything else raises."""
     _check_frames(frames, n_fft)
     lead = frames.shape[:-1]
     if frames.device.type == "cpu":
@@ -217,7 +263,6 @@ def log_mel_frames(frames: torch.Tensor, n_fft: int = 960, n_mels: int = 64,
     if frames.device.type != "cuda":
         raise ValueError(f"K1 runs on CUDA or CPU tensors, got {frames.device}")
     check_kernel_shape(n_fft, n_mels)
-    plan = fft_mel_plan(n_fft, n_mels, sample_rate, f_min, f_max, frames.device)
     out = torch.empty((*lead, n_mels), dtype=torch.float32, device=frames.device)
     if out.numel() == 0:
         return out
@@ -225,19 +270,34 @@ def log_mel_frames(frames: torch.Tensor, n_fft: int = 960, n_mels: int = 64,
         n_channels, n_frames, channel_stride, frame_stride = 1, lead[0], 0, frames.stride(0)
     else:
         (n_channels, n_frames), (channel_stride, frame_stride) = lead, frames.stride()[:2]
+    fft = n_fft in KERNEL_N_FFT
     with torch.cuda.device(frames.device):
         stream = torch.cuda.current_stream(frames.device).cuda_stream
-        rc = _kernel()(
-            frames.data_ptr(), channel_stride, frame_stride, n_channels, n_frames, n_fft,
-            plan.window.data_ptr(), plan.lane_twiddles.data_ptr(),
-            plan.warp_twiddles.data_ptr(), plan.split_twiddles.data_ptr(),
-            plan.radix.data_ptr(), plan.bands.data_ptr(), plan.weights.data_ptr(),
-            n_mels, amin, out.data_ptr(), stream,
-        )
+        if fft:
+            plan = fft_mel_plan(n_fft, n_mels, sample_rate, f_min, f_max, frames.device)
+            rc = _kernel()(
+                frames.data_ptr(), channel_stride, frame_stride, n_channels, n_frames, n_fft,
+                plan.window.data_ptr(), plan.lane_twiddles.data_ptr(),
+                plan.warp_twiddles.data_ptr(), plan.split_twiddles.data_ptr(),
+                plan.radix.data_ptr(), plan.bands.data_ptr(), plan.weights.data_ptr(),
+                n_mels, amin, out.data_ptr(), stream,
+            )
+        else:
+            c_re, c_im, fb = dft_kernel_constants(n_fft, n_mels, sample_rate, f_min, f_max,
+                                                  frames.device)
+            rc = _dft_kernel()(
+                frames.data_ptr(), channel_stride, frame_stride, n_channels, n_frames, n_fft,
+                c_re.shape[0], c_re.data_ptr(), c_im.data_ptr(), fb.data_ptr(),
+                c_re.shape[1], n_mels, amin, out.data_ptr(), stream,
+            )
     if rc != 0:
         raise RuntimeError(f"K1 launch failed with CUDA error {rc}")
-    log_mel_frames.launches += 1
+    if fft:
+        log_mel_frames.launches += 1
+    else:
+        log_mel_frames.dft_launches += 1
     return out
 
 
 log_mel_frames.launches = 0
+log_mel_frames.dft_launches = 0

@@ -13,9 +13,13 @@ rFFT oracle of seld_tpu_torch.features.spatial: GCC normalises with
 rsqrt(cr^2 + ci^2 + eps^2), and the lags read only the real parts of the
 cross-spectrum's bins 0 and n_fft / 2.
 
-`spatial_plan` builds the tables it reads. `spatial_features` launches it
-for CUDA tensors, once per call, reading the frames in place through their
-strides; for CPU tensors, and only for those, it runs
+`spatial_plan` builds the tables it reads. For any other n_fft (fault F2)
+a second kernel in the same source computes the same features with the
+windowed DFT as tiles of float32 products against `spatial_constants`
+with the bases' depth padded to a multiple of 16; the launcher picks the
+kernel by n_fft, and each has its own launch counter. `spatial_features`
+launches them for CUDA tensors, once per call, reading the frames in place
+through their strides; for CPU tensors, and only for those, it runs
 `spatial_features_reference`, the same function as float32 GEMMs with
 the TPU kernel's padded constants.
 """
@@ -41,6 +45,8 @@ from seld_tpu_torch.ops.mel_cuda import (
     _unit,
     dft_mel_constants,
     fft_mel_plan,
+    pad_depth,
+    pad_rows,
 )
 
 FEATURE_SETS = {"mel": 0, "mel_iv": 1, "mel_gcc": 2}
@@ -139,9 +145,11 @@ class SpatialPlan(NamedTuple):
 
 
 def check_kernel_shape(n_fft: int, n_mels: int) -> None:
-    """Raise ValueError for an n_fft or n_mels the CUDA kernel does not take."""
-    if n_fft not in KERNEL_N_FFT:
-        raise ValueError(f"K4's CUDA kernel takes n_fft in {KERNEL_N_FFT}, got {n_fft}")
+    """Raise ValueError for an n_fft or n_mels the CUDA kernels do not take:
+    any n_fft >= 1 (the FFT kernel those of KERNEL_N_FFT, the DFT kernel the
+    others), 1 to KERNEL_MELS mels."""
+    if n_fft < 1:
+        raise ValueError(f"K4's CUDA kernel takes n_fft >= 1, got {n_fft}")
     if not 1 <= n_mels <= KERNEL_MELS:
         raise ValueError(f"K4 computes at most {KERNEL_MELS} mels (and at least 1), got {n_mels}")
 
@@ -149,9 +157,11 @@ def check_kernel_shape(n_fft: int, n_mels: int) -> None:
 @functools.lru_cache(maxsize=8)
 def spatial_plan(n_fft: int, n_mels: int, sample_rate: int,
                  device: torch.device) -> SpatialPlan:
-    """K4's tables for one (n_fft, n_mels, sample rate) on `device`, built
-    once per arguments. Callers must not write to them."""
+    """K4's FFT tables for one (n_fft, n_mels, sample rate) on `device`,
+    built once per arguments. Callers must not write to them."""
     check_kernel_shape(n_fft, n_mels)
+    if n_fft not in KERNEL_N_FFT:
+        raise ValueError(f"K4's FFT kernel takes n_fft in {KERNEL_N_FFT}, got {n_fft}")
     mel = fft_mel_plan(n_fft, n_mels, sample_rate, 0.0, None, device)
     m = n_fft // 2
     r = m // _WARP
@@ -196,6 +206,29 @@ def _kernel():
     return fn
 
 
+@functools.cache
+def _dft_kernel():
+    from seld_tpu_torch.ops._build import load_library
+
+    fn = load_library("spatial_kernel").seld_spatial_features_dft
+    fn.argtypes = ([ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong]
+                   + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 6
+                   + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float]
+                   + [ctypes.c_void_p] * 2)
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.lru_cache(maxsize=8)
+def dft_kernel_constants(n_fft: int, n_mels: int, sample_rate: int, device: torch.device):
+    """spatial_constants with the DFT bases' rows zero-padded to
+    pad_depth(n_fft): what the general-n_fft kernel reads. Built once per
+    arguments; callers must not write to them."""
+    c_re, c_im, *rest = spatial_constants(n_fft, n_mels, sample_rate, device)
+    rows = pad_depth(n_fft)
+    return (pad_rows(c_re, rows), pad_rows(c_im, rows), *rest)
+
+
 def spatial_features(frames: torch.Tensor, feature_set: str, n_mels: int = 64,
                      sample_rate: int = 24_000, amin: float = 1e-10,
                      eps: float = 1e-8) -> torch.Tensor:
@@ -206,9 +239,10 @@ def spatial_features(frames: torch.Tensor, feature_set: str, n_mels: int = 64,
     The frames may be any view whose last axis has unit stride, such as
     `features.mel.frame_signal`'s view of the padded waveform: a CUDA
     tensor is read in place by kernel K4, in one launch on the current
-    stream (every launch adds one to `spatial_features.launches`), for
-    n_fft in KERNEL_N_FFT and up to KERNEL_MELS mels; a CPU tensor goes
-    through `spatial_features_reference` at any n_fft. Anything else
+    stream, up to KERNEL_MELS mels: the FFT kernel for n_fft in
+    KERNEL_N_FFT (every launch adds one to `spatial_features.launches`),
+    the DFT kernel for any other n_fft (`spatial_features.dft_launches`); a
+    CPU tensor goes through `spatial_features_reference`. Anything else
     raises."""
     c_out = feature_channels(feature_set)
     _check_frames(frames)
@@ -219,10 +253,25 @@ def spatial_features(frames: torch.Tensor, feature_set: str, n_mels: int = 64,
         raise ValueError(f"K4 runs on CUDA or CPU tensors, got {frames.device}")
     _, t, n_fft = frames.shape
     check_kernel_shape(n_fft, n_mels)
-    plan = spatial_plan(n_fft, n_mels, sample_rate, frames.device)
     out = torch.empty((t, c_out, n_mels), dtype=torch.float32, device=frames.device)
     if t == 0:
         return out
+    if n_fft not in KERNEL_N_FFT:
+        c_re, c_im, fb, fb_norm, lag_re, lag_im = dft_kernel_constants(
+            n_fft, n_mels, sample_rate, frames.device)
+        with torch.cuda.device(frames.device):
+            stream = torch.cuda.current_stream(frames.device).cuda_stream
+            rc = _dft_kernel()(
+                FEATURE_SETS[feature_set], frames.data_ptr(), frames.stride(0),
+                frames.stride(1), t, n_fft, c_re.shape[0], c_re.data_ptr(), c_im.data_ptr(),
+                fb.data_ptr(), fb_norm.data_ptr(), lag_re.data_ptr(), lag_im.data_ptr(),
+                c_re.shape[1], n_mels, amin, eps, out.data_ptr(), stream,
+            )
+        if rc != 0:
+            raise RuntimeError(f"K4 launch failed with CUDA error {rc}")
+        spatial_features.dft_launches += 1
+        return out
+    plan = spatial_plan(n_fft, n_mels, sample_rate, frames.device)
     mel = plan.mel
     with torch.cuda.device(frames.device):
         stream = torch.cuda.current_stream(frames.device).cuda_stream
@@ -241,3 +290,4 @@ def spatial_features(frames: torch.Tensor, feature_set: str, n_mels: int = 64,
 
 
 spatial_features.launches = 0
+spatial_features.dft_launches = 0

@@ -6,6 +6,17 @@ float32 parameters), the composite loss straight from the class bitmask
 kernel K2, forward and backward), backward, one Adam update. The batch
 comes in and a handful of scalar metrics go out as device tensors: nothing
 here reads a value back to the host.
+
+Under a process mesh (`mesh`, with `time_sharded` for sequence
+parallelism) every rank calls the step with the same global batch. The
+step augments the global rows (so SpecAugment and ACS draw what the
+one-device step draws), keeps this rank's rows and time chunk
+(parallel.sharding.shard_batch) and runs the model, the loss and the
+backward on them inside `attention_mesh`, where the layers exchange halos,
+BatchNorm and the loss take global statistics and attention runs the ring
+(K5). The gradients are then summed over every rank before anything
+reads them, so Adam takes the same step on every replica, and the metrics
+are the loss's parts summed over the world: the one-device values.
 """
 
 from __future__ import annotations
@@ -14,11 +25,14 @@ import contextlib
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from seld_tpu_torch import no_tf32
 from seld_tpu_torch.losses import SELDLossFn
 from seld_tpu_torch.losses.seld_loss import _bit_labels
+from seld_tpu_torch.ops.attention import attention_mesh
+from seld_tpu_torch.parallel.sharding import shard_batch
 from seld_tpu_torch.train.state import TrainState
 
 
@@ -44,9 +58,33 @@ def augment_seed(rng: tuple[int, ...], step: int) -> int:
     return int(np.random.SeedSequence((*rng, step, 1)).generate_state(1, np.uint64)[0] >> 1)
 
 
+def _sum_over_world(mesh, tensors) -> None:
+    """Sum the tensors over every rank of the mesh, in place, as one
+    all-reduce of their concatenation per dtype."""
+    by_dtype: dict = {}
+    for t in tensors:
+        by_dtype.setdefault(t.dtype, []).append(t)
+    for group in by_dtype.values():
+        flat = torch.cat([t.reshape(-1) for t in group])
+        dist.all_reduce(flat, group=mesh.world)
+        torch._foreach_copy_(group, [f.view_as(t) for f, t in
+                                     zip(flat.split([t.numel() for t in group]), group)])
+
+
+def _global_metrics(mesh, metrics: dict) -> dict:
+    """The ranks' loss parts summed over the world (the one-device values)."""
+    if mesh is None or mesh.world_size == 1:
+        return metrics
+    keys = list(metrics)
+    values = [metrics[k].detach().float().reshape(1).clone() for k in keys]
+    _sum_over_world(mesh, values)
+    return {k: v.reshape(()) for k, v in zip(keys, values)}
+
+
 def make_train_step(model: nn.Module, loss_fn: SELDLossFn,
                     optimizer: torch.optim.Optimizer, num_classes: int,
-                    accum_steps: int = 1, input_augment=None, spatial_augment=None):
+                    accum_steps: int = 1, input_augment=None, spatial_augment=None,
+                    mesh=None, time_sharded: bool = False):
     """Returns step(state, mel, label_mask, example_mask, rng) ->
     (state, metrics).
 
@@ -68,7 +106,14 @@ def make_train_step(model: nn.Module, loss_fn: SELDLossFn,
     input_augment(generator, mel) -> mel transforms the features
     (SpecAugment). Both are train-side only and run in that order on the
     whole batch before any microbatch split, drawing from one generator
-    on the batch's device seeded with augment_seed(rng, step)."""
+    on the batch's device seeded with augment_seed(rng, step).
+
+    With a `mesh` the step takes the global batch and trains on this
+    rank's block of it (see the module's note); accum_steps must be 1."""
+    if mesh is not None and accum_steps != 1:
+        raise NotImplementedError(
+            "train.accum_steps > 1 under a process mesh is not ported "
+            "(ROADMAP item 10's remainder)")
     if num_classes != loss_fn.grid.num_classes:
         raise ValueError(
             f"num_classes {num_classes} != the loss's grid ({loss_fn.grid.num_classes})"
@@ -90,8 +135,10 @@ def make_train_step(model: nn.Module, loss_fn: SELDLossFn,
                 mel, label_mask = spatial_augment(generator, mel, label_mask)
             if input_augment is not None:
                 mel = input_augment(generator, mel)
+        mel, label_mask, example_mask = shard_batch(mesh, time_sharded, mel, label_mask,
+                                                    example_mask)
         optimizer.zero_grad(set_to_none=True)
-        with _true_f32(model):
+        with _true_f32(model), attention_mesh(mesh, time_sharded):
             if accum_steps == 1:
                 total, breakdown = loss_fn.from_bitmask(model(mel), label_mask, example_mask)
                 total.backward()
@@ -117,15 +164,32 @@ def make_train_step(model: nn.Module, loss_fn: SELDLossFn,
                     total = total + shares[i] * t_i.detach()
                     for k, v in bd_i.items():
                         breakdown[k] = breakdown.get(k, 0.0) + shares[i] * v.detach()
+        if mesh is not None:
+            _sum_over_world(mesh, [p.grad for p in model.parameters() if p.grad is not None])
         optimizer.step()
         state.step += 1
-        return state, {"loss": total, **{k: v.detach() for k, v in breakdown.items()}}
+        return state, _global_metrics(mesh, {"loss": total, **{k: v.detach() for k, v
+                                                               in breakdown.items()}})
 
     return step
 
 
+def _gather_grids(mesh, time_sharded: bool, grid: torch.Tensor) -> torch.Tensor:
+    """Every rank's (B_local, T_local, ...) block of a decoded grid put back
+    into the global (B, T, ...) grid, on every rank."""
+    if mesh is None or mesh.world_size == 1:
+        return grid
+    blocks = [torch.empty_like(grid) for _ in range(mesh.world_size)]
+    dist.all_gather(blocks, grid.contiguous(), group=mesh.world)
+    n_t = mesh.n_model if time_sharded else 1
+    rows = [torch.cat(blocks[d * mesh.n_model:d * mesh.n_model + n_t], dim=1)
+            for d in range(mesh.n_data)]
+    return torch.cat(rows, dim=0)
+
+
 def make_metric_eval_step(model: nn.Module, loss_fn: SELDLossFn, num_classes: int,
-                          bg_bias: float = 0.0, bias_sweep=None):
+                          bg_bias: float = 0.0, bias_sweep=None, mesh=None,
+                          time_sharded: bool = False):
     """An eval step that also decodes class grids, for checkpoint selection
     on a validation metric (train.select_metric) and for `evaluate_model`.
 
@@ -135,7 +199,11 @@ def make_metric_eval_step(model: nn.Module, loss_fn: SELDLossFn, num_classes: in
     ground-truth class per cell decoded from the bitmask, both (B, T, G)
     int8 on the device. With bias_sweep (a list of floats) a fourth value
     follows: the (K, B, T, G) int8 grids decoded at each of those biases
-    from the same forward, one at a time."""
+    from the same forward, one at a time.
+
+    With a `mesh` the step takes the global batch, runs this rank's block
+    and returns the global metrics and grids: the argmax decode is per
+    cell, so each rank decodes its block and the blocks are gathered."""
     if num_classes != loss_fn.grid.num_classes:
         raise ValueError(
             f"num_classes {num_classes} != the loss's grid ({loss_fn.grid.num_classes})"
@@ -150,22 +218,32 @@ def make_metric_eval_step(model: nn.Module, loss_fn: SELDLossFn, num_classes: in
     @torch.no_grad()
     def step(mel, label_mask, example_mask):
         model.eval()
-        out = model(mel)
-        total, breakdown = loss_fn.from_bitmask(out, label_mask, example_mask)
-        result = ({"loss": total, **breakdown}, decode(out, bg_bias),
-                  _bit_labels(label_mask, num_classes).to(torch.int8))
+        mel, label_mask, example_mask = shard_batch(mesh, time_sharded, mel, label_mask,
+                                                    example_mask)
+        with attention_mesh(mesh, time_sharded):
+            out = model(mel)
+            total, breakdown = loss_fn.from_bitmask(out, label_mask, example_mask)
+
+        def gather(grid):
+            return _gather_grids(mesh, time_sharded, grid)
+
+        result = (_global_metrics(mesh, {"loss": total, **breakdown}),
+                  gather(decode(out, bg_bias)),
+                  gather(_bit_labels(label_mask, num_classes).to(torch.int8)))
         if bias_sweep is not None:
-            result += (torch.stack([decode(out, b) for b in bias_sweep]),)
+            result += (torch.stack([gather(decode(out, b)) for b in bias_sweep]),)
         return result
 
     return step
 
 
 def make_eval_step(model: nn.Module, loss_fn: SELDLossFn, num_classes: int,
-                   return_logits: bool = False):
+                   return_logits: bool = False, mesh=None, time_sharded: bool = False):
     """Returns step(mel, label_mask, example_mask) -> metrics (and the
     logits when return_logits): the eval-mode forward and the loss from the
-    bitmask, without gradients."""
+    bitmask, without gradients. With a `mesh` the step takes the global
+    batch, runs this rank's block and returns the global metrics (and this
+    rank's block of the logits)."""
     if num_classes != loss_fn.grid.num_classes:
         raise ValueError(
             f"num_classes {num_classes} != the loss's grid ({loss_fn.grid.num_classes})"
@@ -174,9 +252,12 @@ def make_eval_step(model: nn.Module, loss_fn: SELDLossFn, num_classes: int,
     @torch.no_grad()
     def step(mel, label_mask, example_mask):
         model.eval()
-        out = model(mel)
-        total, breakdown = loss_fn.from_bitmask(out, label_mask, example_mask)
-        metrics = {"loss": total, **breakdown}
+        mel, label_mask, example_mask = shard_batch(mesh, time_sharded, mel, label_mask,
+                                                    example_mask)
+        with attention_mesh(mesh, time_sharded):
+            out = model(mel)
+            total, breakdown = loss_fn.from_bitmask(out, label_mask, example_mask)
+        metrics = _global_metrics(mesh, {"loss": total, **breakdown})
         return (metrics, out) if return_logits else metrics
 
     return step

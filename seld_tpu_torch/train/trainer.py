@@ -10,6 +10,13 @@ per-epoch record in metrics.jsonl, and training_history.json at the end.
 
 Metrics stay on the device until the epoch's summary: one read-back per
 epoch for the train metrics and one for the test metrics, none per step.
+
+Under a process mesh (cfg.mesh; one process per GPU under torchrun) every
+rank builds the same corpora, draws the same batches and runs the steps on
+its block of each (see train/steps.py); every rank holds the whole state,
+so a checkpoint is the same file as a one-device run's and loads in either.
+Rank 0 alone writes checkpoints, metrics.jsonl and the history; the others
+wait for it at a barrier, and every rank loads on resume.
 """
 
 from __future__ import annotations
@@ -25,6 +32,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from seld_tpu_torch import resolve_device
 from seld_tpu_torch.config import Config
@@ -36,6 +44,8 @@ from seld_tpu_torch.features.spatial import feature_channels
 from seld_tpu_torch.features.specaugment import make_spec_augment
 from seld_tpu_torch.losses import SELDLossFn
 from seld_tpu_torch.models import build_model
+from seld_tpu_torch.parallel.mesh import Mesh, mesh_from_config
+from seld_tpu_torch.parallel.sharding import check_divisible
 from seld_tpu_torch.train.checkpoint import CheckpointManager
 from seld_tpu_torch.train.optimizer import (
     current_learning_rate,
@@ -126,6 +136,47 @@ def _replay_schedules(workdir, start_epoch: int, plateau, stopper):
     return min(by_epoch[e][1] for e in replayed)
 
 
+def widest_halo(model_cfg) -> int:
+    """Rows a time chunk lends each neighbour in the widest layer that
+    spans time: the conformer blocks' depthwise convolution (kernel 31 in
+    the flagship, model.conf_kernel_size in the Conformer)."""
+    kernel = 31 if model_cfg.model_type == "resnet_conformer" else model_cfg.conf_kernel_size
+    return max(kernel // 2, 1)
+
+
+def check_mesh_config(cfg: Config, window_frames: int) -> None:
+    """Raise for a run the mesh cannot shard, as the JAX trainer does,
+    before any process group is joined."""
+    mc = cfg.mesh
+    if not mc.shard_time:
+        return
+    model_type = cfg.model.model_type
+    if model_type == "crnn":
+        raise ValueError(
+            "mesh.shard_time is unsupported for the recurrent crnn (the GRU scans time "
+            "sequentially); use conformer / resnet_conformer, or disable time sharding")
+    if model_type not in ("conformer", "resnet_conformer"):
+        raise NotImplementedError(
+            f"mesh.shard_time for model_type={model_type!r} is not ported "
+            "(ROADMAP item 10's remainder)")
+    if window_frames % mc.model_axis:
+        raise ValueError(
+            f"mesh.shard_time: window_frames={window_frames} must divide by the model "
+            f"mesh axis ({mc.model_axis}): pick a window length or mesh shape that "
+            "divides evenly")
+    halo = widest_halo(cfg.model)
+    if mc.model_axis > 1 and window_frames // mc.model_axis < halo:
+        raise ValueError(
+            f"mesh.shard_time: chunks of {window_frames // mc.model_axis} frames "
+            f"({window_frames} over {mc.model_axis}) are narrower than the widest halo "
+            f"({halo} frames): use a longer window or a smaller model axis")
+
+
+def _barrier(mesh: Mesh | None) -> None:
+    if mesh is not None:
+        dist.barrier()
+
+
 def train_model(cfg: Config, train_corpus: WindowedCorpus, test_corpus: WindowedCorpus,
                 workdir: str | Path | None = None, resume: bool = False,
                 device: str | torch.device | None = None):
@@ -151,6 +202,7 @@ def train_model(cfg: Config, train_corpus: WindowedCorpus, test_corpus: Windowed
             f"train.accum_steps={tc.accum_steps}"
         )
 
+    check_mesh_config(cfg, cfg.window.window_frames(cfg.features))
     input_augment = make_spec_augment(tc)
     spatial_augment = None
     if tc.acs_augment:
@@ -159,6 +211,16 @@ def train_model(cfg: Config, train_corpus: WindowedCorpus, test_corpus: Windowed
         spatial_augment = make_acs_augment(cfg.grid.n_el, cfg.grid.n_az,
                                            cfg.features.feature_set)
 
+    mesh = mesh_from_config(cfg.mesh, device)
+    time_sharded = mesh is not None and cfg.mesh.shard_time
+    lead = mesh is None or mesh.rank == 0  # the rank that writes files
+    if mesh is not None:
+        check_divisible(mesh, tc.batch_size, train_corpus.window_frames if time_sharded
+                        else None)
+        logger.info("Process mesh %d x %d (data x model), rank %d; %s", mesh.n_data,
+                    mesh.n_model, mesh.rank,
+                    f"time axis sharded over the model axis ({mesh.n_model}-way)"
+                    if time_sharded else "data parallel")
     model = build_model(cfg.model, cfg.grid, device=device, seed=tc.seed,
                         in_channels=feature_channels(cfg.features.feature_set,
                                                      cfg.model.n_channels))
@@ -174,7 +236,7 @@ def train_model(cfg: Config, train_corpus: WindowedCorpus, test_corpus: Windowed
         tc.patience, tc.min_delta,
     )
 
-    if not resume:
+    if not resume and lead:
         # a fresh run starts from a clean tree: stale checkpoints (possibly
         # of another architecture) must not be reloaded as "best", and
         # metrics.jsonl is appended to, so old records would poison a later
@@ -187,7 +249,15 @@ def train_model(cfg: Config, train_corpus: WindowedCorpus, test_corpus: Windowed
             (workdir / "metrics.jsonl").unlink()
             logger.info("Cleared previous metrics.jsonl (fresh run)")
 
+    _barrier(mesh)
     ckpt = CheckpointManager(workdir, cfg)
+
+    def save(kind, *args, **kwargs):
+        """Rank 0 writes the checkpoint; the others wait for it."""
+        if lead:
+            getattr(ckpt, kind)(*args, **kwargs)
+        _barrier(mesh)
+
     start_epoch = 1
     resume_best_meta = None
     resumed_lr = None
@@ -230,14 +300,17 @@ def train_model(cfg: Config, train_corpus: WindowedCorpus, test_corpus: Windowed
                     tc.accum_steps, tc.batch_size // tc.accum_steps)
     train_step = make_train_step(model, loss_fn, optimizer, cfg.grid.num_classes,
                                  accum_steps=tc.accum_steps, input_augment=input_augment,
-                                 spatial_augment=spatial_augment)
-    eval_step = make_eval_step(eval_model, loss_fn, cfg.grid.num_classes)
+                                 spatial_augment=spatial_augment, mesh=mesh,
+                                 time_sharded=time_sharded)
+    eval_step = make_eval_step(eval_model, loss_fn, cfg.grid.num_classes, mesh=mesh,
+                               time_sharded=time_sharded)
     # With a validation metric the eval pass also decodes predicted and true
     # class grids on the device, and the best checkpoint is chosen on the
     # DCASE2022 metric of the epoch instead of the test loss.
     metric_step = None
     if select != "loss":
-        metric_step = make_metric_eval_step(eval_model, loss_fn, cfg.grid.num_classes)
+        metric_step = make_metric_eval_step(eval_model, loss_fn, cfg.grid.num_classes,
+                                            mesh=mesh, time_sharded=time_sharded)
         logger.info("Best-checkpoint selection on DCASE2022 %s (computed every epoch "
                     "from decoded grids)", select)
 
@@ -321,14 +394,14 @@ def train_model(cfg: Config, train_corpus: WindowedCorpus, test_corpus: Windowed
             if preempt.requested:
                 logger.warning("SIGTERM received: saving a preemption checkpoint at "
                                "epoch %d and exiting cleanly", epoch)
-                ckpt.save_rolling(epoch, state, train_avg["loss"], float("inf"))
+                save("save_rolling", epoch, state, train_avg["loss"], float("inf"))
                 history["preempted_epoch"] = epoch
                 break
 
             if not math.isfinite(train_avg["loss"]):
                 logger.error("Non-finite train loss %.6f at epoch %d: saving an "
                              "emergency checkpoint and aborting", train_avg["loss"], epoch)
-                ckpt.save_rolling(epoch, state, train_avg["loss"], float("inf"))
+                save("save_rolling", epoch, state, train_avg["loss"], float("inf"))
                 history["aborted_epoch"] = epoch
                 break
 
@@ -370,8 +443,9 @@ def train_model(cfg: Config, train_corpus: WindowedCorpus, test_corpus: Windowed
                       "train": train_avg, "test": test_avg}
             if val22 is not None:
                 record["val_dcase2022"] = {k: float(val22[k]) for k in DCASE2022_SUMMARY}
-            with (workdir / "metrics.jsonl").open("a") as fh:
-                fh.write(json.dumps(record) + "\n")
+            if lead:
+                with (workdir / "metrics.jsonl").open("a") as fh:
+                    fh.write(json.dumps(record) + "\n")
             logger.info("Epoch %d/%d - %.1fs | train %.6f | test %.6f | lr %.6f",
                         epoch, tc.num_epochs, time.time() - t0,
                         train_avg["loss"], test_avg["loss"], new_lr)
@@ -383,7 +457,7 @@ def train_model(cfg: Config, train_corpus: WindowedCorpus, test_corpus: Windowed
             if metric_step is None:
                 if test_avg["loss"] < best_test - tc.min_delta:
                     best_test = test_avg["loss"]
-                    ckpt.save_best(epoch, best_state, train_avg["loss"], test_avg["loss"])
+                    save("save_best", epoch, best_state, train_avg["loss"], test_avg["loss"])
                     logger.info("  New best model saved (test loss %.6f)", best_test)
             else:
                 key, sign = SELECT_METRICS[select]
@@ -396,11 +470,11 @@ def train_model(cfg: Config, train_corpus: WindowedCorpus, test_corpus: Windowed
                     best_select = sign * val
                     history["best_val_metric"] = val
                     history["best_val_epoch"] = epoch
-                    ckpt.save_best(epoch, best_state, train_avg["loss"], test_avg["loss"],
-                                   select={"metric": select, "value": val})
+                    save("save_best", epoch, best_state, train_avg["loss"], test_avg["loss"],
+                         select={"metric": select, "value": val})
                     logger.info("  New best model saved (%s %.4f)", select, val)
             if epoch % tc.save_every_n_epochs == 0:
-                ckpt.save_rolling(epoch, state, train_avg["loss"], test_avg["loss"])
+                save("save_rolling", epoch, state, train_avg["loss"], test_avg["loss"])
                 logger.info("  Rolling checkpoint saved (epoch %d)", epoch)
 
             if stopper.step(train_avg["loss"], epoch):
@@ -417,6 +491,7 @@ def train_model(cfg: Config, train_corpus: WindowedCorpus, test_corpus: Windowed
     if restored is not None:
         logger.info("Best model loaded from epoch %d", restored[1]["epoch"])
     hist_path = workdir / "training_history.json"
-    hist_path.write_text(json.dumps(history, indent=2))
-    logger.info("Training history saved to %s", hist_path)
+    if lead:
+        hist_path.write_text(json.dumps(history, indent=2))
+        logger.info("Training history saved to %s", hist_path)
     return state, history

@@ -111,7 +111,7 @@ def test_k1_fewer_mels_on_card(cuda_device):
 @pytest.mark.parametrize("make,n_fft,err", [
     (lambda d: torch.zeros((8, NFFT), dtype=torch.float64, device=d), NFFT, TypeError),
     (lambda d: torch.zeros((8, 2 * NFFT), device=d)[:, ::2], NFFT, ValueError),
-    (lambda d: torch.zeros((8, 976), device=d), 976, ValueError),  # no plan for 976
+    (lambda d: torch.zeros((8, 0), device=d), 0, ValueError),  # no frame at all
     (lambda d: torch.zeros((2, 2, 8, NFFT), device=d), NFFT, ValueError),
 ])
 def test_k1_rejects_what_it_cannot_take(cuda_device, make, n_fft, err):
@@ -119,6 +119,24 @@ def test_k1_rejects_what_it_cannot_take(cuda_device, make, n_fft, err):
     with pytest.raises(err):
         log_mel_frames(make(cuda_device), n_fft=n_fft)
     assert log_mel_frames.launches == before
+
+
+@pytest.mark.parametrize("n_fft", [1200, 600, 17])
+def test_k1_dft_path_every_other_n_fft_on_card(cuda_device, n_fft):
+    """Fault F2: an n_fft the FFT kernel does not take goes through the DFT
+    kernel, contiguous and on frame_signal's view, against the plain version."""
+    g = torch.Generator(device=cuda_device).manual_seed(n_fft)
+    frames = torch.randn((300, n_fft), generator=g, device=cuda_device)
+    wave = 0.1 * torch.randn((2, 40 * 480), generator=g, device=cuda_device)
+    view = frame_signal(wave, n_fft, 480)
+    before = (log_mel_frames.launches, log_mel_frames.dft_launches)
+    got, got_v = log_mel_frames(frames, n_fft=n_fft), log_mel_frames(view, n_fft=n_fft)
+    torch.cuda.synchronize()
+    assert (log_mel_frames.launches, log_mel_frames.dft_launches) == (before[0],
+                                                                      before[1] + 2)
+    torch.testing.assert_close(got, log_mel_frames_reference(frames), atol=DB_ATOL, rtol=0)
+    torch.testing.assert_close(got_v, log_mel_frames_reference(
+        view.reshape(-1, n_fft)).reshape(got_v.shape), atol=DB_ATOL, rtol=0)
 
 
 def _k3_launches():
@@ -568,12 +586,12 @@ def test_k4_is_bit_reproducible_on_card(cuda_device):
     (lambda d: torch.zeros((4, 8, NFFT), dtype=torch.float64, device=d), TypeError),
     (lambda d: torch.zeros((4, 8, 2 * NFFT), device=d)[..., ::2], ValueError),
     (lambda d: torch.zeros((3, 8, NFFT), device=d), ValueError),
-    (lambda d: torch.zeros((4, 8, 976), device=d), ValueError),
+    (lambda d: torch.zeros((4, 8, 0), device=d), ValueError),
 ])
 def test_k4_rejects_what_it_cannot_take(cuda_device, make, err):
     """Raised before any launch: the wrong dtype, a column stride other
-    than 1, a channel count other than 4, an n_fft outside KERNEL_N_FFT,
-    an unknown feature set and more than 64 mels."""
+    than 1, a channel count other than 4, an n_fft of 0 (every n_fft from 1
+    on is taken: fault F2), an unknown feature set and more than 64 mels."""
     before = spatial_features.launches
     with pytest.raises(err):
         spatial_features(make(cuda_device), "mel_iv")
@@ -613,6 +631,20 @@ def test_k4_every_n_fft_on_card(cuda_device, n_fft, feature_set):
     view = _k4_view(300, n_fft, n_fft)
     _k4_check(spatial_features(view, feature_set),
               spatial_features_reference(view.contiguous(), feature_set))
+
+
+@pytest.mark.parametrize("feature_set", K4_SETS)
+@pytest.mark.parametrize("n_fft", [1200, 600])
+def test_k4_dft_path_every_other_n_fft_on_card(cuda_device, n_fft, feature_set):
+    """Fault F2: the DFT kernel on frame_signal's view against the plain
+    version, at the JAX package's bars."""
+    view = _k4_view(61, n_fft, n_fft)
+    before = (spatial_features.launches, spatial_features.dft_launches)
+    got = spatial_features(view, feature_set)
+    torch.cuda.synchronize()
+    assert (spatial_features.launches, spatial_features.dft_launches) == (before[0],
+                                                                          before[1] + 1)
+    _k4_check(got, spatial_features_reference(view.contiguous(), feature_set))
 
 
 @pytest.mark.parametrize("feature_set", K4_SETS)
@@ -787,3 +819,53 @@ def test_remat_matches_plain_on_card(cuda_device, remat):
         torch.testing.assert_close(g1[k], g0[k], atol=1e-4, rtol=0, msg=k)
     for k in b0:
         torch.testing.assert_close(b1[k], b0[k], atol=1e-6, rtol=0, msg=k)
+
+
+def _ring(chunks, w, n, plain):
+    """(out, lse (2, 4, T), dq, dk, dv) over the whole T of the virtual ring."""
+    from seld_tpu_torch.ops.ring_attention import virtual_ring_attention, virtual_ring_backward
+
+    outs, lses = virtual_ring_attention(*chunks, plain=plain)
+    grads = virtual_ring_backward(*chunks, list(w.chunk(n, dim=2)), outs, lses, plain=plain)
+    return (torch.cat(outs, 2), torch.cat([x.view(2, 4, -1) for x in lses], 2),
+            *(torch.cat(x, 2) for x in grads))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [2, 4])
+def test_virtual_ring_matches_k3_on_card(cuda_device, n, dtype):
+    """K5 over n virtual ranks on K3's kernels: in float32 against K3 over
+    the whole T at the JAX ring tests' bars (out, lse, dq, dk, dv); in bf16
+    against the float32 plain ring on the same bf16-rounded inputs, at most
+    1.5x the bf16 plain ring's error, as K3's bf16 tests hold K3 (lse within
+    1e-4); n x n launches of each K3 kernel, no copies."""
+    from seld_tpu_torch.ops.ring_attention import ring_flash_attention
+
+    g = torch.Generator(device=cuda_device).manual_seed(n)
+    q, k, v, w = (torch.randn((2, 4, 512, 64), generator=g, device=cuda_device).to(dtype)
+                  for _ in range(4))
+    counts = (ring_flash_attention.fwd_launches, ring_flash_attention.bwd_dq_launches,
+              ring_flash_attention.bwd_dkv_launches)
+    copies = flash_attention.copies
+    got = _ring([list(x.chunk(n, dim=2)) for x in (q, k, v)], w, n, plain=False)
+    torch.cuda.synchronize()
+    assert (ring_flash_attention.fwd_launches - counts[0],
+            ring_flash_attention.bwd_dq_launches - counts[1],
+            ring_flash_attention.bwd_dkv_launches - counts[2]) == (n * n,) * 3
+    assert flash_attention.copies == copies
+    if dtype == torch.float32:
+        leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        out, lse = flash_attention(*leaves, return_lse=True)
+        want = (out, lse.view(2, 4, -1), *torch.autograd.grad(out, leaves, w))
+        for i, (a, b) in enumerate(zip(got, want)):
+            tol = dict(rtol=2e-4, atol=2e-5) if i < 2 else dict(rtol=3e-4, atol=3e-4)
+            torch.testing.assert_close(a, b, **tol)
+        return
+    plain = _ring([list(x.chunk(n, dim=2)) for x in (q, k, v)], w, n, plain=True)
+    exact = _ring([list(x.float().chunk(n, dim=2)) for x in (q, k, v)], w.float(), n,
+                  plain=True)
+    torch.testing.assert_close(got[1], exact[1], rtol=0, atol=1e-4)
+    for i, name in ((0, "out"), (2, "dq"), (3, "dk"), (4, "dv")):
+        err = (got[i].float() - exact[i]).abs().max().item()
+        plain_err = (plain[i].float() - exact[i]).abs().max().item()
+        assert err <= 1.5 * plain_err + 1e-6, (name, err, plain_err)

@@ -3,7 +3,8 @@ version (the float32 GEMMs its wrapper runs on the CPU) against the Pallas
 kernel in interpret mode and the rFFT oracle; a numpy emulation of the
 CUDA kernel's stage order on the tables of `fft_mel_plan`, against
 numpy's rFFT, the plain version, the Pallas kernel and the JAX rFFT
-oracle at every n_fft the kernel takes; the corpus entry point against
+oracle at every n_fft the FFT kernel takes, and of the general-n_fft DFT
+kernel (fault F2) at n_fft 1200 and 600; the corpus entry point against
 seld_tpu.data.corpus.compute_mel_features; the spatial feature sets
 route to K4 (tests/test_torch_spatial.py holds K4)."""
 
@@ -23,6 +24,7 @@ from seld_tpu_torch.ops.mel_cuda import (
     KERNEL_N_FFT,
     bit_reverse5,
     check_kernel_shape,
+    dft_kernel_constants,
     fft_mel_plan,
     log_mel_frames,
     log_mel_frames_reference,
@@ -298,10 +300,92 @@ def test_log_mel_frames_takes_frame_signal_view():
 
 @pytest.mark.parametrize("n_fft,n_mels", [(976, 64), (480, 64), (4096, 64), (960, 65), (960, 0)])
 def test_kernel_shape_check_names_what_the_card_cannot_take(n_fft, n_mels):
-    with pytest.raises(ValueError, match="K1's CUDA kernel"):
+    """The card takes every n_fft (the FFT kernel those of KERNEL_N_FFT, the
+    DFT kernel the rest) and 1 to 64 mels."""
+    if 1 <= n_mels <= 64:
         check_kernel_shape(n_fft, n_mels)
+    else:
+        with pytest.raises(ValueError, match="K1's CUDA kernel"):
+            check_kernel_shape(n_fft, n_mels)
+    with pytest.raises(ValueError, match="K1's CUDA kernel"):
+        check_kernel_shape(0, 64)
     for ok in KERNEL_N_FFT:
         check_kernel_shape(ok, 64)
+    with pytest.raises(ValueError, match="K1's FFT kernel"):
+        fft_mel_plan(n_fft if n_fft not in KERNEL_N_FFT else 976, 64, SR, 0.0, None,
+                     torch.device("cpu"))
     # the CPU path takes any n_fft
     got = log_mel_frames(torch.zeros((2, 976)), n_fft=976)
     np.testing.assert_allclose(got.numpy(), -100.0, atol=1e-4)
+
+
+# The general-n_fft kernel (fault F2): n_fft 1200 is a 50 ms window at 24 kHz,
+# 600 is not a multiple of the 16-deep tile
+DFT_N_FFT = (1200, 600)
+
+
+def emulate_dft_planes(frames: np.ndarray, c_re: np.ndarray, c_im: np.ndarray, n_fft: int,
+                       chunk_fn) -> None:
+    """The DFT-as-tiles kernels' first stage in their loop order: per
+    64-bin chunk, re and im as float32 sums over the padded depth (frames
+    read as zeros past n_fft), then chunk_fn(b0, re, im) for the chunk's
+    projections."""
+    depth, n_bins = c_re.shape
+    a = np.zeros((frames.shape[0], depth), np.float32)
+    a[:, :n_fft] = frames
+    for b0 in range(0, n_bins, 64):
+        re = np.zeros((frames.shape[0], 64), np.float32)
+        im = np.zeros_like(re)
+        for k in range(depth):
+            re += a[:, k:k + 1] * c_re[k, b0:b0 + 64]
+            im += a[:, k:k + 1] * c_im[k, b0:b0 + 64]
+        chunk_fn(b0, re, im)
+
+
+def emulate_dft_k1(frames: np.ndarray, n_fft: int, n_mels: int, amin: float = 1e-10):
+    """(N, n_fft) float32 frames -> (N, n_mels) dB through the DFT kernel's
+    stages on `dft_kernel_constants`: the padded DFT tiles, the power tile,
+    the chunk's filterbank rows added to the mel sums bin by bin, the log."""
+    c_re, c_im, fb = (x.numpy() for x in dft_kernel_constants(
+        n_fft, n_mels, SR, 0.0, None, torch.device("cpu")))
+    mel = np.zeros((frames.shape[0], fb.shape[1]), np.float32)
+
+    def project(b0, re, im):
+        power = re * re + im * im
+        for b in range(64):
+            mel[:] += power[:, b:b + 1] * fb[b0 + b]
+
+    emulate_dft_planes(frames, c_re, c_im, n_fft, project)
+    return 10.0 * np.log10(np.maximum(mel[:, :n_mels], np.float32(amin)))
+
+
+@pytest.mark.parametrize("n_fft", DFT_N_FFT)
+def test_dft_kernel_constants_pad_the_depth(n_fft):
+    c_re, c_im, fb = dft_kernel_constants(n_fft, NMELS, SR, 0.0, None, torch.device("cpu"))
+    assert c_re.shape[0] % 16 == 0 and n_fft <= c_re.shape[0] < n_fft + 16
+    assert c_re.shape[1] % 64 == 0 and fb.shape == (c_re.shape[1], 64)
+    assert not c_re[n_fft:].any() and not c_im[n_fft:].any()
+    plain_re = port_mel.hann_window(n_fft)[:, None] * np.cos(
+        -2 * np.pi * np.arange(n_fft)[:, None] * np.arange(n_fft // 2 + 1) / n_fft)
+    np.testing.assert_allclose(c_re[:n_fft, :n_fft // 2 + 1].numpy(), plain_re, atol=1e-6)
+
+
+@pytest.mark.parametrize("n_fft", DFT_N_FFT)
+def test_dft_kernel_emulation_matches_plain_pallas_and_jax(n_fft):
+    """The general-n_fft kernel's emulation against the plain version (the
+    same float32 products in another order: 1e-4 dB, as the FFT path's
+    emulation), the JAX rFFT oracle and, where it takes the n_fft (the bins
+    fit its 512 lanes), the Pallas kernel, at the fused kernel's bar."""
+    wave = np.random.default_rng(n_fft).standard_normal(6 * n_fft).astype(np.float32)
+    fr = np.array(frame_signal(jnp.asarray(wave), n_fft, n_fft // 2))
+    got = emulate_dft_k1(fr, n_fft, NMELS)
+    plain = log_mel_frames_reference(torch.from_numpy(fr)).numpy()
+    np.testing.assert_allclose(got, plain, atol=1e-4, rtol=0)
+    oracle = np.asarray(log_mel_spectrogram(jnp.asarray(wave), n_fft=n_fft,
+                                            hop_length=n_fft // 2)).T
+    np.testing.assert_allclose(got, oracle, atol=DB_ATOL, rtol=0)
+    if n_fft // 2 + 1 <= 512:
+        pallas = np.asarray(log_mel_frames_pallas(jnp.asarray(fr), interpret=True))
+        np.testing.assert_allclose(got, pallas, atol=DB_ATOL, rtol=0)
+    silent = emulate_dft_k1(np.zeros((2, n_fft), np.float32), n_fft, NMELS)
+    np.testing.assert_allclose(silent, -100.0, atol=1e-4)

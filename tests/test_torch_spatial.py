@@ -4,7 +4,8 @@ Pallas kernel in interpret mode and the rFFT oracle; a numpy emulation of
 the CUDA kernel's stage order on the tables of `spatial_plan` (K1's
 forward stages per channel, the sparse band sums, the pruned inverse FFT
 of the GCC planes) against the plain version, the Pallas kernel and the
-JAX oracle at every n_fft the kernel takes; the port's own rFFT oracle,
+JAX oracle at every n_fft the FFT kernel takes, and of the general-n_fft
+DFT kernel (fault F2) at n_fft 1200 and 600; the port's own rFFT oracle,
 the corpus entry point for "mel_iv" and "mel_gcc", and the slice as a
 whole: a small "mel_iv" flagship with the same weights, fed the same
 features and served from the same waveform."""
@@ -45,6 +46,7 @@ from seld_tpu_torch.ops.spatial_cuda import (
     spatial_plan,
 )
 from seld_tpu_torch.train.checkpoint import save_checkpoint
+from tests import test_torch_mel
 from tests.test_torch_mel import _complex, band_sums, emulate_rfft
 from tests.test_torch_model import one_torch_thread  # noqa: F401 (autouse)
 
@@ -163,10 +165,19 @@ def test_k4_wrapper_checks_cpu_input(make, err):
 @pytest.mark.parametrize("n_fft,n_mels", [(950, 64), (976, 64), (480, 64), (4096, 64),
                                           (960, 65), (960, 0)])
 def test_kernel_shape_check_names_what_the_card_cannot_take(n_fft, n_mels):
-    with pytest.raises(ValueError, match="K4"):
+    """The card takes every n_fft (the FFT kernel those of KERNEL_N_FFT, the
+    DFT kernel the rest) and 1 to 64 mels."""
+    if 1 <= n_mels <= 64:
         check_kernel_shape(n_fft, n_mels)
+    else:
+        with pytest.raises(ValueError, match="K4"):
+            check_kernel_shape(n_fft, n_mels)
+    with pytest.raises(ValueError, match="K4"):
+        check_kernel_shape(0, 64)
     for ok in KERNEL_N_FFT:
         check_kernel_shape(ok, 64)
+    with pytest.raises(ValueError, match="K4's FFT kernel"):
+        spatial_plan(n_fft if n_fft not in KERNEL_N_FFT else 950, 64, SR, torch.device("cpu"))
 
 
 @pytest.mark.parametrize("feature_set", SETS)
@@ -305,6 +316,75 @@ def test_emulated_k4_matches_pallas_and_jax_oracle(n_fft, feature_set, n_mels):
         pallas = np.asarray(spatial_features_pallas(jnp.asarray(fr), feature_set, n_mels=n_mels,
                                                     interpret=True))
         _assert_features_close(got, pallas)
+
+
+def emulate_dft_k4(frames: np.ndarray, feature_set: str, n_mels: int, amin: float = 1e-10,
+                   eps: float = 1e-8) -> np.ndarray:
+    """(4, T, n_fft) float32 frames -> (T, C_out, n_mels) through the
+    general-n_fft kernel's stages (fault F2) on `dft_kernel_constants`: the
+    padded DFT tiles per channel, each 64-bin chunk's derived planes from
+    the four channels' re / im, their products with the chunk's projection
+    rows added bin by bin, the log of the mel planes."""
+    n_fft = frames.shape[2]
+    c_re, c_im, fb, fb_norm, lag_re, lag_im = (x.numpy() for x in spatial_cuda.
+                                                dft_kernel_constants(n_fft, n_mels, SR,
+                                                                     torch.device("cpu")))
+    t = frames.shape[1]
+    n_out = jax_feature_channels(feature_set)
+    acc = np.zeros((n_out, t, 64), np.float32)
+    xyz = (port_spatial._ACN_X, port_spatial._ACN_Y, port_spatial._ACN_Z)
+    w = port_spatial._ACN_W
+
+    def project(b0, re, im):
+        re, im = re.reshape(4, t, 64), im.reshape(4, t, 64)
+        power = re * re + im * im
+        planes = [(p, fb) for p in power]
+        if feature_set == "mel_iv":
+            energy = (power[w] + (power[xyz[0]] + power[xyz[1]] + power[xyz[2]])
+                      / np.float32(3)) / np.float32(2) + np.float32(eps)
+            inv_e = np.float32(1) / energy
+            planes += [((re[w] * re[c] + im[w] * im[c]) * inv_e, fb_norm) for c in xyz]
+        elif feature_set == "mel_gcc":
+            for i, k in itertools.combinations(range(4), 2):
+                cr = re[i] * re[k] + im[i] * im[k]
+                ci = re[i] * im[k] - im[i] * re[k]
+                inv = np.float32(1) / np.sqrt(cr * cr + ci * ci + np.float32(eps * eps))
+                planes.append(((cr * inv, ci * inv), (lag_re, lag_im)))
+        for o, (plane, mat) in enumerate(planes):
+            for b in range(64):
+                if isinstance(mat, tuple):
+                    acc[o] += plane[0][:, b:b + 1] * mat[0][b0 + b] \
+                        + plane[1][:, b:b + 1] * mat[1][b0 + b]
+                else:
+                    acc[o] += plane[:, b:b + 1] * mat[b0 + b]
+
+    test_torch_mel.emulate_dft_planes(frames.reshape(4 * t, n_fft), c_re, c_im, n_fft,
+                                      project)
+    acc[:4] = 10.0 * np.log10(np.maximum(acc[:4], np.float32(amin)))
+    return acc[:, :, :n_mels].transpose(1, 0, 2)
+
+
+@pytest.mark.parametrize("feature_set", SETS)
+@pytest.mark.parametrize("n_fft", test_torch_mel.DFT_N_FFT)
+def test_dft_kernel_emulation_matches_plain_pallas_and_jax(n_fft, feature_set):
+    """The general-n_fft kernel's emulation against the plain version (1e-4
+    dB on the mel planes, as the FFT path's emulation; the other planes at
+    the fused kernel's PLANE_ATOL: a sum of n_fft float32 terms in order
+    against a blocked GEMM, and PHAT's normalisation magnifies the
+    difference on the faint bins, 1.3e-5 measured at n_fft 1200), the JAX
+    rFFT oracle and, where it takes the n_fft, the Pallas kernel, at the
+    fused kernel's bars."""
+    fr = _frames_at(n_fft)
+    got = emulate_dft_k4(fr, feature_set, NMELS)
+    want = spatial_features_reference(torch.from_numpy(fr), feature_set, NMELS).numpy()
+    assert got.shape == want.shape == (9, jax_feature_channels(feature_set), NMELS)
+    np.testing.assert_allclose(got[:, :4], want[:, :4], atol=1e-4, rtol=0)
+    np.testing.assert_allclose(got[:, 4:], want[:, 4:], atol=PLANE_ATOL, rtol=0)
+    _assert_features_close(got, np.asarray(jax_extract(jnp.asarray(fr), feature_set, n_fft,
+                                                       NMELS, SR)))
+    if n_fft // 2 + 1 <= 512:
+        _assert_features_close(got, np.asarray(spatial_features_pallas(
+            jnp.asarray(fr), feature_set, n_mels=NMELS, interpret=True)))
 
 
 @pytest.mark.parametrize("n_fft", KERNEL_N_FFT)

@@ -31,7 +31,8 @@ Phases, each of which raises on failure:
      on q/k/v strided as the model makes them, two backward runs bit-equal;
      the delta that the bf16 dQ kernel forms against row_delta; times of
      each kernel and of the dQ + dK/dV pair, the plain version and
-     F.scaled_dot_product_attention, their operations bounds and rates;
+     F.scaled_dot_product_attention, their operations bounds and rates,
+     and the host µs of one launch of each;
      kernel K4 (spatial features) against its plain version for "mel",
      "mel_iv" and "mel_gcc" at a 60 s 4-channel clip (T = 3,001 frames),
      at a ragged T = 37, on silence and on the main path's input
@@ -101,15 +102,26 @@ Phases, each of which raises on failure:
      the FFT kernels never);
  12. kernel K5 (ring attention) at K3's main-path shape (B*H = 128,
      T = 1000, Dh = 64) in float32 and bf16: the virtual ring (n ranks in
-     one process on K3's kernels) at n = 2 and 4 against K3 over the whole
-     T and against the plain ring, for out, lse, dq, dk and dv, its K3
-     launches (n x n of each) and no copies; ring forward and backward at
+     one process; a step is one launch of K3's forward kernel with the
+     merge in its epilogue, and one of its dQ and dK/dV kernels with the
+     sums in their stores) at n = 1 (bit-equal to K3), 2 and 4 against K3
+     over the whole T and against the plain ring, for out, lse, dq, dk and
+     dv, its launches (n x n of each, counted by K5 and by K3) and no
+     copies; a profiled n = 4 call (16 kernels forward; 32 backward, dQ
+     and dK/dV in turn with nothing between, then at most the 2 n casts of
+     dk and dv; each step's µs a launch; run right after phase 3, as a
+     profiler session after the later phases' ones can lose device
+     events); the host µs of a ring call; ring forward and backward at
      n = 4 timed against K3 over the whole T, the plain ring and
-     scaled_dot_product_attention, and the bound;
+     scaled_dot_product_attention, and the bound (K3's at the whole T);
+     where a parent tree is unpacked at build/ab/parent (`git archive`),
+     the parent's ring and this one in turns by scripts/ring_ab.py;
  13. sequence parallelism on a 1-rank NCCL group: the ring at n = 1 against
-     K3 (bit-equal) and the plain ring (bf16, 0.05); the flagship's first T = 1000 train step sharded (K5)
-     and data parallel against the unsharded step on the same batch (loss
-     within 1e-5 relative), step times in turns; `torchrun --nproc-per-node
+     K3 (bit-equal) and the plain ring (check_bf16); the flagship's first
+     T = 1000 train step sharded (K5) and data parallel against the
+     unsharded step on the same batch (loss within 1e-5 relative), step
+     times in turns and their medians' extra over the unsharded step;
+     `torchrun --nproc-per-node
      1 chip_smoke.py --sp-worker train --synthetic ... mesh.enable=on
      mesh.shard_time=true|false` (the CLI under torchrun, then the launch
      counts as JSON): every attention of the sharded run through K5, none
@@ -180,10 +192,11 @@ FAMILIES = (
 )
 
 
-def cuda_ms(fn, iters: int = 20, warmup: int = 3, run_ahead: bool = False) -> float:
+def cuda_ms(fn, iters: int = 20, warmup: int = 3, run_ahead: bool = False,
+            spin_ms: float = 25.0) -> float:
     """Mean device time of fn() over iters launches, by CUDA events.
 
-    run_ahead: first occupy the device with a 25 ms spin, so that the host
+    run_ahead: first occupy the device with a spin_ms spin, so that the host
     has queued every launch by the time the device starts on them and the
     events time the device alone. Without it a kernel shorter than the
     host's launch cost (tens of microseconds, and it varies by host) is
@@ -195,7 +208,8 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3, run_ahead: bool = False) -> fl
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
     if run_ahead:
-        torch.cuda._sleep(int(25e-3 * torch.cuda.get_device_properties(0).clock_rate * 1e3))
+        torch.cuda._sleep(int(spin_ms * 1e-3 * torch.cuda.get_device_properties(0).clock_rate
+                              * 1e3))
     start.record()
     for _ in range(iters):
         fn()
@@ -217,9 +231,11 @@ def host_us(fn, calls: int = 200) -> float:
     return elapsed / calls * 1e6
 
 
-def kernel_ms(fn) -> float:
-    """Device time of a kernel-sized fn(): launches queued ahead of the device."""
-    return cuda_ms(fn, run_ahead=True)
+def kernel_ms(fn, host_us_per_call: float = 0.0) -> float:
+    """Device time of a kernel-sized fn(): launches queued ahead of the
+    device, behind a spin of 25 ms or three times the host time of the 20
+    calls, whichever is longer."""
+    return cuda_ms(fn, run_ahead=True, spin_ms=max(25.0, 3 * 20 * host_us_per_call * 1e-3))
 
 
 def phase_device() -> tuple[str, str]:
@@ -309,7 +325,8 @@ def k4_build_report(log: str) -> None:
 def k3_build_report() -> None:
     """K3's wgmma kernels (forward, dQ, dK/dV) at Dh = 64: their dynamic
     shared memory, and where cuobjdump exists, the count of HGMMA (wgmma)
-    instructions in each one's SASS."""
+    instructions in each one's SASS (dQ's instantiation for K3's own
+    launches; the ring modes' has the same products)."""
     import ctypes
 
     from seld_tpu_torch.ops import _build
@@ -333,7 +350,7 @@ def k3_build_report() -> None:
         found = re.search(r"Function : (\S+)", line)
         if found:
             fn = found.group(1)
-        elif "HGMMA" in line and "wgmma_kernelILi64E" in fn:
+        elif "HGMMA" in line and "wgmma_kernelILi64E" in fn and "Lb1E" not in fn:
             counts[next(n for key, n in (("flash_fwd_", "forward"), ("flash_dq_", "dQ"),
                                          ("flash_dkv_", "dK/dV")) if key in fn)] += 1
     print(f"[build] HGMMA instructions in the Dh = 64 SASS: forward {counts['forward']}, dQ "
@@ -826,9 +843,11 @@ def phase_k3(dev: torch.device) -> list[dict]:
             out, lse = k3.launch_forward(q, k, v, scale)
             _, delta = k3.launch_dq(q, k, v, w, out, lse, scale)
             tm["kernel", "fwd"] = kernel_ms(lambda: k3.launch_forward(q, k, v, scale))
-            fwd_host_us = host_us(lambda: k3.launch_forward(q, k, v, scale))
             tm["kernel", "dq"] = kernel_ms(lambda: k3.launch_dq(q, k, v, w, out, lse, scale))
             tm["kernel", "dkv"] = kernel_ms(lambda: k3.launch_dkv(q, k, v, w, lse, delta, scale))
+            k3_host = {"fwd": host_us(lambda: k3.launch_forward(q, k, v, scale)),
+                       "dq": host_us(lambda: k3.launch_dq(q, k, v, w, out, lse, scale)),
+                       "dkv": host_us(lambda: k3.launch_dkv(q, k, v, w, lse, delta, scale))}
             tm["plain", "fwd"] = kernel_ms(lambda: k3.flash_attention_reference(q, k, v))
             tm["library", "fwd"] = kernel_ms(lambda: F.scaled_dot_product_attention(q, k, v))
         leaves = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
@@ -866,8 +885,9 @@ def phase_k3(dev: torch.device) -> list[dict]:
             print(f"[K3] bf16 forward's exponentials: {b * h * t * t / 1e6:.1f} M at 16 a clock "
                   f"per SM ({props.multi_processor_count} SMs at {props.clock_rate / 1e6:.3f} "
                   f"GHz): {exp_ms:.4f} ms, beside the tensor cores' {bd['bound_ms']:.4f} ms")
-        print(f"[K3] {kind} launch_forward: {fwd_host_us:.1f} us of host time a call (no "
-              f"synchronize between calls)")
+        print(f"[K3] {kind} host time a launch (no synchronize between calls): launch_forward "
+              f"{k3_host['fwd']:.1f} us, launch_dq {k3_host['dq']:.1f} us, launch_dkv "
+              f"{k3_host['dkv']:.1f} us")
         for part, label, bound in (("dq", "dQ", "dq"), ("dkv", "dK/dV", "dkv"),
                                    ("pair", "dQ + dK/dV", "bwd")):
             bd, k_ms = bounds[bound], tm["kernel", part]
@@ -899,6 +919,7 @@ def phase_k3(dev: torch.device) -> list[dict]:
                     "plain_ms": tm["plain", part], "bound_ms": bounds[part]["bound_ms"],
                     "bound_by": bounds[part]["bound_by"],
                     "library_ms": tm["library", "fwd" if part == "fwd" else "bwd"],
+                    "host_us": k3_host[part],
                 })
         del leaves, out, lse, delta
     return rows
@@ -2067,38 +2088,25 @@ def phase_f2(dev: torch.device) -> list[dict]:
     return rows
 
 
-def timed_in_turns(runs: dict, turns: int = 3) -> dict:
-    """Median kernel_ms of each fn, in turns (forward, then reversed)."""
+def timed_in_turns(runs: dict, turns: int = 3, host: dict | None = None) -> dict:
+    """Median kernel_ms of each fn, in turns (forward, then reversed); with
+    `host` (µs of host time a call, by name) each spin covers that time."""
     times = defaultdict(list)
     for turn in range(turns):
         for name, fn in (runs.items() if turn % 2 == 0 else reversed(runs.items())):
-            times[name].append(kernel_ms(fn))
+            times[name].append(kernel_ms(fn, (host or {}).get(name, 0.0)))
     return {name: float(np.median(v)) for name, v in times.items()}
 
 
-def k5_bounds(bh: int, t: int, dh: int, n: int, dtype: torch.dtype) -> dict:
-    """The least card time for the ring at n ranks on (bh, t, dh) inputs:
-    K3's bound at the whole T (the same products), plus the bytes of the
-    float32 merge between its chunk launches. Those bytes belong to this
-    unfused design, not to the function (a merge inside K3's epilogue would
-    move none of them), and are counted at their least: forward, n steps
-    each reading the running float32 out, the chunk's out and the two lse
-    rows and writing the running pair (2 mat32 + mat + 3 rows), with no
-    running pair to read on the first step; backward, n steps each reading
-    the chunk's dq, dk and dv and reading and writing their float32
-    accumulators (3 (2 mat32 + mat)), with no accumulator to read on the
-    first step. The final casts are left out."""
-    elem = torch.empty((), dtype=dtype).element_size()
+def k5_bounds(bh: int, t: int, dh: int, dtype: torch.dtype) -> dict:
+    """The least card time for the ring's function on (bh, t, dh) inputs:
+    exact attention at the whole T, whatever the number of ranks, so K3's
+    bound at the whole T (its operations at the tensor cores' peak against
+    q, k, v, out, lse (and dO, delta, dq, dk, dv) each moved once; the
+    larger of the two). The running state's bytes belong to a design with a
+    launch per step, not to the function."""
     k3 = k3_bounds(bh, t, dh, dtype)
-    mat32, mat, row = bh * t * dh * 4, bh * t * dh * elem, bh * t * 4
-    merge = {"fwd": n * (2 * mat32 + mat + 3 * row) - (mat32 + row),
-             "bwd": 3 * (n * (2 * mat32 + mat) - mat32)}
-    out = {}
-    for part in ("fwd", "bwd"):
-        merge_ms = merge[part] / HBM_BYTES_PER_S * 1e3
-        out[part] = {"bound_ms": k3[part]["bound_ms"] + merge_ms,
-                     "bound_by": k3[part]["bound_by"], "merge_ms": merge_ms}
-    return out
+    return {part: k3[part] for part in ("fwd", "bwd")}
 
 
 def close(got: torch.Tensor, want: torch.Tensor, rtol: float, atol: float) -> float:
@@ -2118,15 +2126,131 @@ def ring_run(qs, ks, vs, ws, plain: bool = True):
             *(torch.cat(g, 2) for g in grads))
 
 
+def profiled_kernels(fn) -> list[tuple[str, float]]:
+    """The CUDA kernels of one fn() call on the profiler, in start order:
+    (name, device µs). fn's launches queue behind a 5 ms spin (left out):
+    a profiler session after earlier ones can lose the first device events
+    it sees."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(int(5e-3 * torch.cuda.get_device_properties(0).clock_rate * 1e3))
+        fn()
+        torch.cuda.synchronize()
+    events = sorted((e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+                     and not e.is_user_annotation and "spin_kernel" not in e.name),
+                    key=lambda e: e.time_range.start)
+    return [(e.name, e.time_range.elapsed_us()) for e in events]
+
+
+def ring_steps_us(n: int, kernels: list[tuple[str, float]], kind: str) -> str:
+    """The mean device µs of a lane's K3 launch in each step of a profiled
+    ring call (`kind` of "flash_fwd_", "flash_dq_", "flash_dkv_")."""
+    us = [t for name, t in kernels if kind in name]
+    return " / ".join(f"{sum(us[i * n:(i + 1) * n]) / n:.1f}" for i in range(len(us) // n))
+
+
+def check_ring_kernels(n: int, fwd: list[str], bwd: list[str], kind: str) -> int:
+    """A ring call at n ranks is one K3-family launch a lane and step forward
+    and two backward: the forward n x n forward kernels and nothing else;
+    the backward n dQ then n dK/dV launches a step, and after the last of
+    them at most the 2 n casts of dk and dv at home. In bf16 no other kernel
+    comes before the last K3 launch; in float32 only row_delta's multiply
+    and sum per lane (the first step's delta, as K3's own float32
+    backward forms it). Returns the count of kernels that are not K3's."""
+    fam = "wgmma" if kind == "bf16" else "f32"
+    if len(fwd) != n * n or not all(f"flash_fwd_{fam}_kernel" in x for x in fwd):
+        raise AssertionError(f"K5 {kind} forward at n={n}: kernels {fwd}")
+    flash = [i for i, x in enumerate(bwd) if "flash_" in x]
+    kinds = ["dq" if f"flash_dq_{fam}_kernel" in bwd[i] else
+             "dkv" if f"flash_dkv_{fam}_kernel" in bwd[i] else "?" for i in flash]
+    before = flash[-1] + 1 - len(flash) if flash else 0
+    if (kinds != (["dq"] * n + ["dkv"] * n) * n or before > (0 if kind == "bf16" else 2 * n)
+            or len(bwd) - 1 - (flash[-1] if flash else 0) > 2 * n):
+        raise AssertionError(f"K5 {kind} backward at n={n}: kernels {bwd}")
+    return len(bwd) - 2 * n * n
+
+
+def phase_k5_profile(dev: torch.device) -> dict:
+    """K5 at n = 4 virtual ranks, K3's main-path shape, float32 and bf16,
+    on the profiler: check_ring_kernels, and the device µs of a lane's
+    launch in each step. Run before any other phase profiles: a profiler
+    session after earlier ones can lose device events. Returns the kernel
+    ms of a bf16 call, forward and backward."""
+    from seld_tpu_torch.config import Config, WindowConfig
+    from seld_tpu_torch.ops.ring_attention import virtual_ring_attention, virtual_ring_backward
+
+    cfg = Config(window=WindowConfig(window_seconds=LONG_WINDOW_SECONDS))
+    b, h = cfg.train.batch_size, cfg.model.resnet_conf_n_heads
+    t, dh = cfg.window.window_frames(cfg.features), cfg.model.resnet_conf_d_model // h
+    n, found = 4, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        kind = "bf16" if dtype == torch.bfloat16 else "float32"
+        qs, ks, vs, ws = (list(x.chunk(n, dim=2)) for x in k3_case(dev, b, h, t, dh, dtype, 21))
+        with torch.no_grad():
+            outs, lses = virtual_ring_attention(qs, ks, vs)
+            virtual_ring_backward(qs, ks, vs, ws, outs, lses)
+            profiled = (profiled_kernels(lambda: virtual_ring_attention(qs, ks, vs)),
+                        profiled_kernels(lambda: virtual_ring_backward(qs, ks, vs, ws, outs,
+                                                                       lses)))
+        names = [[name for name, _ in x] for x in profiled]
+        others = check_ring_kernels(n, *names, kind)
+        found[kind] = [sum(us for _, us in x) / 1e3 for x in profiled]
+        print(f"[K5] {kind} ring n={n} on the profiler: forward {len(names[0])} kernels, all "
+              f"K3's forward; backward {len(names[1])}: {2 * n * n} dQ / dK/dV, n of each in "
+              f"turn, nothing between them, and {others} others "
+              f"({sorted(set(x[:90] for x in names[1] if 'flash_' not in x))})")
+        print(f"[K5] {kind} ring n={n}, device us of a lane's launch by step (the first writes "
+              f"the running state, the later ones read it too, the last stores the result): "
+              f"forward {ring_steps_us(n, profiled[0], 'flash_fwd_')}; dQ "
+              f"{ring_steps_us(n, profiled[1], 'flash_dq_')}; dK/dV "
+              f"{ring_steps_us(n, profiled[1], 'flash_dkv_')}; the others "
+              f"{sum(us for name, us in profiled[1] if 'flash_' not in name):.1f} in all; "
+              f"kernel time a call {found[kind][0]:.4f} ms forward, {found[kind][1]:.4f} ms "
+              f"backward")
+        del qs, ks, vs, ws, outs, lses
+    return {"fwd": found["bf16"][0], "bwd": found["bf16"][1]}
+
+
+PARENT_TREE = ROOT / "build" / "ab" / "parent"  # an unpacked `git archive` of the parent commit
+
+
+def parent_ring() -> dict | None:
+    """K5 of the tree at PARENT_TREE and of this one timed in turns (parent,
+    this, this, parent) by scripts/ring_ab.py, each in a process of its own;
+    None when there is no parent tree (it is made beside a run, not kept)."""
+    if not (PARENT_TREE / "seld_tpu_torch").is_dir():
+        print(f"[K5] no parent tree at {PARENT_TREE.relative_to(ROOT)} (unpack `git archive "
+              f"<parent>` there to time the parent design in turns): not timed")
+        return None
+    res = subprocess.run([sys.executable, str(ROOT / "scripts" / "ring_ab.py"), str(PARENT_TREE),
+                          str(ROOT)], cwd=ROOT, capture_output=True, text=True, timeout=900)
+    if res.returncode != 0:
+        raise AssertionError(f"scripts/ring_ab.py failed:\n{res.stdout[-3000:]}\n"
+                             f"{res.stderr[-6000:]}")
+    for line in res.stdout.splitlines()[:-1]:
+        print(line)
+    summary = json.loads(res.stdout.splitlines()[-1])["ring_ab"]
+    for key, values in summary.items():
+        print(f"[K5 A/B] {key}: " + ", ".join(f"{m} {' / '.join(f'{x:.4f}' for x in v)}"
+                                             for m, v in values.items()))
+    return summary
+
+
 def phase_k5(dev: torch.device) -> list[dict]:
     """K5, the ring, at K3's main-path shape (B 16, H 8, T = 1000, Dh 64) in
-    float32 and bf16: the virtual ring (n ranks in this process, K3's kernels
-    per chunk) at n = 2 and 4, in float32 against K3 over the whole T (out,
-    lse, dq, dk, dv) and against the plain ring, in bf16 by check_bf16
-    against the float32 plain ring beside the bf16 plain ring; times of the ring's forward and backward
-    at n = 4, of K3 over the whole T, the plain ring and
-    scaled_dot_product_attention, in turns; the bound and the K3 launches a
-    ring call makes."""
+    float32 and bf16: the virtual ring (n ranks in this process, one K3
+    kernel launch a lane and step forward with the merge in its epilogue,
+    two backward with the sums in their stores) at n = 1 (K3's bits), 2 and
+    4, in float32 against K3 over the whole T (out, lse, dq, dk, dv) and
+    against the plain ring, in bf16 by check_bf16 against the float32 plain
+    ring beside the bf16 plain ring; its launches (n x n of each, counted by
+    K5 and by K3) and no copies (the profiled calls: phase_k5_profile); the
+    host µs of a ring call; times of the ring's forward and backward at
+    n = 4, of K3 over the whole T, the plain ring and
+    scaled_dot_product_attention, in turns; the bound; and, where a parent
+    tree is unpacked, the parent design's ring in turns (parent_ring)."""
     import torch.nn.functional as F
 
     from seld_tpu_torch.config import Config, WindowConfig
@@ -2137,6 +2261,11 @@ def phase_k5(dev: torch.device) -> list[dict]:
         virtual_ring_backward,
     )
 
+    def counts():
+        fa = k3.flash_attention
+        return (k5.fwd_launches, k5.bwd_dq_launches, k5.bwd_dkv_launches, fa.fwd_launches,
+                fa.bwd_dq_launches, fa.bwd_dkv_launches, fa.copies)
+
     cfg = Config(window=WindowConfig(window_seconds=LONG_WINDOW_SECONDS))
     b, h = cfg.train.batch_size, cfg.model.resnet_conf_n_heads
     t, dh = cfg.window.window_frames(cfg.features), cfg.model.resnet_conf_d_model // h
@@ -2145,24 +2274,29 @@ def phase_k5(dev: torch.device) -> list[dict]:
         kind = "bf16" if dtype == torch.bfloat16 else "float32"
         q, k, v, w = k3_case(dev, b, h, t, dh, dtype, seed=21)
         want = k3_run(lambda *a: k3.flash_attention(*a, return_lse=True), q, k, v, w)
+        ref = (want[0], want[1].view(b, h, -1), *want[2:])
         worst = {}
-        for n in (2, 4):
+        for n in (1, 2, 4):
             qs, ks, vs, ws = (list(x.chunk(n, dim=2)) for x in (q, k, v, w))
-            copies = k3.flash_attention.copies
-            before = (k5.fwd_launches, k5.bwd_dq_launches, k5.bwd_dkv_launches)
+            before = counts()
             got = ring_run(qs, ks, vs, ws, plain=False)
             torch.cuda.synchronize()
-            made = tuple(a - c for a, c in zip(
-                (k5.fwd_launches, k5.bwd_dq_launches, k5.bwd_dkv_launches), before))
-            if made != (n * n, n * n, n * n) or k3.flash_attention.copies != copies:
-                raise AssertionError(f"K5 n={n}: K3 launches {made}, expected {n * n} each "
-                                     f"(n lanes x n steps); K3 copies "
-                                     f"{k3.flash_attention.copies - copies}")
-            plain = ring_run(qs, ks, vs, ws)
-            ref = (want[0], want[1].view(b, h, -1), *want[2:])
+            made = tuple(a - c for a, c in zip(counts(), before))
+            if made != (n * n,) * 6 + (0,):
+                raise AssertionError(f"K5 n={n}: launches (K5 fwd, dQ, dK/dV; K3 fwd, dQ, "
+                                     f"dK/dV; K3 copies) {made}, expected {n * n} each "
+                                     f"(n lanes x n steps) and no copy")
             for i, name in enumerate(("out", "lse", "dq", "dk", "dv")):
                 worst[n, name] = (got[i].float() - ref[i].float()).abs().max().item()
-                if dtype == torch.float32:
+            if n == 1:
+                if max(worst[1, x] for x in ("out", "lse", "dq", "dk", "dv")) > 0.0:
+                    raise AssertionError(f"K5 {kind} n=1 differs from K3: {worst}")
+                print(f"[K5] {kind} virtual ring n=1, B*H={b * h} T={t} Dh={dh}: out, lse, dq, "
+                      f"dk, dv bit-equal to K3; launches {made[:3]}")
+                continue
+            plain = ring_run(qs, ks, vs, ws)
+            if dtype == torch.float32:
+                for i, name in enumerate(("out", "lse", "dq", "dk", "dv")):
                     tol = K5_TOL if i < 2 else K5_GRAD_TOL
                     score = max(close(got[i], ref[i], **tol), close(got[i], plain[i], **tol))
                     if not score <= 1.0:
@@ -2171,7 +2305,7 @@ def phase_k5(dev: torch.device) -> list[dict]:
             print(f"[K5] {kind} virtual ring n={n}, B*H={b * h} T={t} Dh={dh}: max |ring - K3 "
                   f"over the whole T| out {worst[n, 'out']:.3e}, lse {worst[n, 'lse']:.3e}, dq "
                   f"{worst[n, 'dq']:.3e}, dk {worst[n, 'dk']:.3e}, dv {worst[n, 'dv']:.3e}; "
-                  f"K3 launches {made}, copies 0")
+                  f"launches {made[:3]} (K5) = {made[3:6]} (K3), copies 0")
             if dtype == torch.bfloat16:
                 exact = ring_run(*(list(x.float().chunk(n, dim=2)) for x in (q, k, v, w)))
                 parts = check_bf16(f"K5 bf16 n={n}", got, plain, exact)
@@ -2179,6 +2313,7 @@ def phase_k5(dev: torch.device) -> list[dict]:
                       f"ring, ring / bf16 plain ring: {parts} (ring at most {K3_BF16_RATIO} x "
                       f"plain)")
                 del exact
+            del plain
         n = 4
         qs, ks, vs, ws = (list(x.chunk(n, dim=2)) for x in (q, k, v, w))
         with torch.no_grad():
@@ -2186,36 +2321,47 @@ def phase_k5(dev: torch.device) -> list[dict]:
             p_outs, p_lses = virtual_ring_attention(qs, ks, vs, plain=True)
             scale = dh ** -0.5
             whole_out, whole_lse = k3.launch_forward(q, k, v, scale)
+
+            def ring_fwd():
+                return virtual_ring_attention(qs, ks, vs)
+
+            def ring_bwd():
+                return virtual_ring_backward(qs, ks, vs, ws, outs, lses)
+
+            host = {"fwd": host_us(ring_fwd, calls=50), "bwd": host_us(ring_bwd, calls=50)}
             fwd = timed_in_turns({
-                "ring": lambda: virtual_ring_attention(qs, ks, vs),
+                "ring": ring_fwd,
                 "K3": lambda: k3.launch_forward(q, k, v, scale),
                 "plain ring": lambda: virtual_ring_attention(qs, ks, vs, plain=True),
-                "sdpa": lambda: F.scaled_dot_product_attention(q, k, v)})
+                "sdpa": lambda: F.scaled_dot_product_attention(q, k, v)},
+                host={"ring": host["fwd"]})
             bwd = timed_in_turns({
-                "ring": lambda: virtual_ring_backward(qs, ks, vs, ws, outs, lses),
+                "ring": ring_bwd,
                 "K3": lambda: k3.launch_dkv(q, k, v, w, whole_lse,
                                             k3.launch_dq(q, k, v, w, whole_out, whole_lse,
                                                          scale)[1], scale),
                 "plain ring": lambda: virtual_ring_backward(qs, ks, vs, ws, p_outs, p_lses,
-                                                            plain=True)})
+                                                            plain=True)},
+                host={"ring": host["bwd"]})
         leaves = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
         o = F.scaled_dot_product_attention(*leaves)
         bwd["sdpa"] = kernel_ms(lambda: torch.autograd.grad(o, leaves, w, retain_graph=True))
         del o, leaves
-        bounds = k5_bounds(b * h, t, dh, n, dtype)
+        bounds = k5_bounds(b * h, t, dh, dtype)
         for part, ms in (("fwd", fwd), ("bwd", bwd)):
             bd = bounds[part]
-            print(f"[K5] {kind} ring {part} n={n}: {ms['ring']:.4f} ms; K3 over the whole T "
-                  f"{ms['K3']:.4f} ms ({ms['ring'] / ms['K3']:.2f}x), plain ring "
-                  f"{ms['plain ring']:.4f} ms, scaled_dot_product_attention {part} "
-                  f"{ms['sdpa']:.4f} ms; bound {bd['bound_ms']:.4f} ms (K3's by "
-                  f"{bd['bound_by']} at the whole T + {bd['merge_ms']:.4f} ms of merge bytes): "
-                  f"ring at {100 * bd['bound_ms'] / ms['ring']:.2f} %")
+            print(f"[K5] {kind} ring {part} n={n}: {ms['ring']:.4f} ms of device time, "
+                  f"{host[part]:.1f} us of host time a call; K3 over the whole T {ms['K3']:.4f} "
+                  f"ms ({ms['ring'] / ms['K3']:.2f}x), plain ring {ms['plain ring']:.4f} ms, "
+                  f"scaled_dot_product_attention {part} {ms['sdpa']:.4f} ms "
+                  f"({ms['ring'] / ms['sdpa']:.2f}x); bound {bd['bound_ms']:.4f} ms (K3's by "
+                  f"{bd['bound_by']} at the whole T): ring at "
+                  f"{100 * bd['bound_ms'] / ms['ring']:.2f} %")
             if dtype == torch.bfloat16:
                 # launches: set by main from the sharded cli train epoch (n = 1)
                 rows.append({
                     "name": f"K5 {part}", "route": "cuda",
-                    "source": "seld_tpu_torch/ops/ring_attention.py",
+                    "source": "seld_tpu_torch/csrc/flash_attention_kernel.cu",
                     "replaces": "seld_tpu/ops/ring_attention.py:53", "launches": None,
                     "timed": f"virtual ring, n = {n}, B*H={b * h} T={t} Dh={dh}",
                     "timed_call_launches": ({"K3 fwd": n * n} if part == "fwd" else
@@ -2224,7 +2370,15 @@ def phase_k5(dev: torch.device) -> list[dict]:
                                                              else ("dq", "dk", "dv"))),
                     "ms": ms["ring"], "plain_ms": ms["plain ring"],
                     "bound_ms": bd["bound_ms"], "bound_by": bd["bound_by"],
-                    "library_ms": ms["sdpa"]})
+                    "library_ms": ms["sdpa"], "host_us": host[part]})
+        del q, k, v, w, outs, lses, p_outs, p_lses, whole_out, whole_lse
+    torch.cuda.empty_cache()
+    parent = parent_ring()
+    if parent is not None:
+        for row in rows:
+            part = row["name"].split()[1]
+            row["parent_ms"] = parent[f"parent bf16 {part}"]["ms"]
+            row["parent_host_us"] = parent[f"parent bf16 {part}"]["host_us"]
     return rows
 
 
@@ -2321,7 +2475,7 @@ def phase_sequence_parallel(dev: torch.device, long_train_loss: float) -> dict:
             print(f"[SP] {name} first train step at T=1000: loss {losses[name]:.9f} "
                   f"(relative to the unsharded step {rel:.3e}); K5's K3 launches {ring}")
         times = defaultdict(list)
-        for turn in range(10):
+        for turn in range(20):  # 18 timed: host time spreads by 10-20 %
             order = list(steps.items()) if turn % 2 == 0 else list(reversed(steps.items()))
             for name, (step, state) in order:
                 torch.cuda.synchronize()
@@ -2332,6 +2486,10 @@ def phase_sequence_parallel(dev: torch.device, long_train_loss: float) -> dict:
         for name, v in times.items():
             print(f"[SP] {name} train step, batch {cfg.train.batch_size} x 1000 frames: median "
                   f"{np.median(v[2:]):.2f} ms of {', '.join(f'{x:.1f}' for x in v[2:])}")
+        unsharded_ms = np.median(times["unsharded"][2:])
+        print(f"[SP] over the unsharded step (medians): sequence parallel "
+              f"{np.median(times['sequence parallel'][2:]) - unsharded_ms:+.2f} ms, data "
+              f"parallel {np.median(times['data parallel'][2:]) - unsharded_ms:+.2f} ms")
         del steps
     finally:
         dist.destroy_process_group()
@@ -2388,6 +2546,7 @@ def main() -> int:
         k2_fwd, k2_bwd = phase_k2(dev)
         k3_rows = phase_k3(dev)
         k4_rows = phase_k4(dev)
+        k5_kernel_ms = phase_k5_profile(dev)
     k1["launches"] = phase_flagship(dev)
     phase_f32(dev)
     counts = phase_train(dev)
@@ -2398,6 +2557,8 @@ def main() -> int:
     with no_tf32():
         f2_rows = phase_f2(dev)
         k5_rows = phase_k5(dev)
+    for row in k5_rows:
+        row["profiled_kernel_ms"] = k5_kernel_ms[row["name"].split()[1]]
     counts = phase_sequence_parallel(dev, long_train_loss)
     k5_rows[0]["launches"] = counts["k5_fwd"]
     k5_rows[1]["launches"] = counts["k5_dq"] + counts["k5_dkv"]

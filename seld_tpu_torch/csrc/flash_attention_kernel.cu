@@ -58,16 +58,46 @@
 // strides and base 16-byte aligned), so the (B, T, H, Dh) layout the model's
 // projections produce is read in place.
 //
+// Ring modes (kernel K5, seld_tpu_torch/ops/ring_attention.py; replaces
+// seld_tpu/ops/ring_attention.py::ring_flash_attention, whose merge and
+// sums the JAX package runs in jnp between the chunk kernels). A ring step
+// runs one of these kernels on one time chunk of the keys and folds its
+// result into a float32 running state that the block's own rows own, in
+// the epilogue, so a step is one launch forward and two backward with no
+// other kernel between steps. Two flags: `read` (fold into the state that
+// an earlier step wrote) and `final_` (store the result in the inputs'
+// dtype; otherwise the state in float32). read = 0, final_ = 1 is K3 itself.
+//   forward   the chunk's normalised o stays float32; with read,
+//             lse' = logaddexp(lse_run, lse_c) and
+//             o = o_run exp(lse_run - lse') + o exp(lse_c - lse'); lse (the
+//             running lse) is read and written in place; final_ stores out
+//             through the TMA store as K3 does, else o_run in float32.
+//   dQ, dK/dV the float32 partial is added to the running sum (read), then
+//             stored in float32 or, final_, in the inputs' dtype.
+// The float32 state is written with 16-byte stores: the four threads of a
+// quad, which share a row of the wgmma accumulator and hold two adjacent
+// columns of every 8, swap pairs with their neighbour so each holds four
+// adjacent columns (quad_gather), and a quad covers 64 contiguous bytes of
+// the row. No shared-memory round trip and no barrier: the state is read
+// and written once a step, and its bytes, not the layout, set the cost.
+// What bounds a ring step: K3's operations, plus the running state's
+// bytes (a design cost; see PERF.md). No atomics: each block owns its
+// rows, so the same inputs give the same bits.
+//
 // C interface (bound with ctypes): every launcher runs on the given stream
 // and returns cudaGetLastError() of its launch, cudaErrorInvalidValue for
 // a shape or type the kernels do not take, or -1 when libcuda refuses a
-// tensor map of a bf16 kernel. `strides` holds (batch, head,
-// time) element strides, three per tensor, in argument order. dtype: 0 is
-// float32, 1 is bfloat16.
+// tensor map of a bf16 kernel. `strides` holds (batch, head, time) element
+// strides, three per tensor, in argument order (zeros for a tensor not
+// given); the launchers encode the bf16 kernels' tensor maps from them
+// (seld_flash_attention_tma_geometry returns what they encode). A kernel's
+// shared-memory limit is set once per device and the SM count is read once.
+// dtype: 0 is float32, 1 is bfloat16.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <atomic>
 #include <cstdint>
 
 #include "hopper.cuh"
@@ -95,8 +125,11 @@ struct Params {
   void* dq;
   void* dk;
   void* dv;
-  Strides qs, ks, vs, os, gs, dqs, dks, dvs;
+  float* run0;  // the ring's float32 state: o (forward), dq, or dk
+  float* run1;  // dv's
+  Strides qs, ks, vs, os, gs, dqs, dks, dvs, r0s, r1s;
   int H, T, n_tiles;
+  int read, final_;  // ring modes (see the top)
   float scale;
 };
 
@@ -271,12 +304,15 @@ using BwdShape = RingShape<DH, bwd_bn(DH), kBwdStages, 2, (2 * kBwdStages * bwd_
 struct WgmmaParams {
   const bf16* out;   // dQ: for delta
   const bf16* dout;  // dQ: for delta
-  float* lse;        // written by the forward, read by the backward
+  float* lse;        // written by the forward (read too with `read`), read by the backward
   float* delta;      // dQ: written unless delta_given; dK/dV: read
-  bf16* d0;          // out, dq, or dk
+  bf16* d0;          // dq or dk (the forward's out goes through its tensor map)
   bf16* d1;          // dv
-  Strides os, gs, d0s, d1s;
+  float* run0;       // the ring's float32 state: o (forward), dq, or dk
+  float* run1;       // dv's
+  Strides os, gs, d0s, d1s, r0s, r1s;
   int H, T, n_row_tiles, n_stream, delta_given;
+  int read, final_;  // ring modes (see the top)
   int n_items;  // forward: heads x row tiles, the work items of its persistent blocks
   float scale;
 };
@@ -339,6 +375,88 @@ __device__ __forceinline__ void store_acc(bf16* dst, long long st, const float (
     for (int j = 0; j < DH / 8; ++j) {
       *reinterpret_cast<__nv_bfloat162*>(rp + 8 * j) =
           __floats2bfloat162_rn(acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]);
+    }
+  }
+}
+
+// The ring modes' float32 state, 16 bytes a thread. In a wgmma accumulator
+// thread t of a quad holds columns 8 j + 2 t, + 1 of its rows; swapping a
+// pair with the neighbour t ^ 1 gives it four adjacent columns of every 16,
+// starting at 16 i + quad_col(t), and the quad 64 contiguous bytes.
+__device__ __forceinline__ int quad_col(int t) { return 8 * (t & 1) + 2 * (t & 2); }
+
+// Columns 16 i + quad_col(t) .. + 3 of row half r (row_g + 8 r). Every lane
+// of the warp takes part (shuffles).
+template <int N>
+__device__ __forceinline__ float4 quad_gather(const float (&acc)[N], int r, int i, int t) {
+  const bool odd = t & 1;
+  const float2 a = make_float2(acc[8 * i + 2 * r], acc[8 * i + 2 * r + 1]);      // j = 2 i
+  const float2 b = make_float2(acc[8 * i + 4 + 2 * r], acc[8 * i + 5 + 2 * r]);  // j = 2 i + 1
+  const float2 keep = odd ? b : a, give = odd ? a : b;
+  const float2 got = make_float2(__shfl_xor_sync(0xffffffffu, give.x, 1),
+                                 __shfl_xor_sync(0xffffffffu, give.y, 1));
+  return odd ? make_float4(got.x, got.y, keep.x, keep.y) : make_float4(keep.x, keep.y, got.x, got.y);
+}
+
+// The inverse of quad_gather: x back into the accumulator's own layout.
+template <int N>
+__device__ __forceinline__ void quad_scatter(float (&acc)[N], int r, int i, int t, float4 x) {
+  const bool odd = t & 1;
+  const float2 lo = make_float2(x.x, x.y), hi = make_float2(x.z, x.w);
+  const float2 keep = odd ? hi : lo, give = odd ? lo : hi;
+  const float2 got = make_float2(__shfl_xor_sync(0xffffffffu, give.x, 1),
+                                 __shfl_xor_sync(0xffffffffu, give.y, 1));
+  const float2 a = odd ? got : keep, b = odd ? keep : got;
+  acc[8 * i + 2 * r] = a.x;
+  acc[8 * i + 2 * r + 1] = a.y;
+  acc[8 * i + 4 + 2 * r] = b.x;
+  acc[8 * i + 5 + 2 * r] = b.y;
+}
+
+__device__ __forceinline__ float4 add4(float4 a, float4 b) {
+  return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
+}
+
+__device__ __forceinline__ float4 scale4(float4 a, float w) {
+  return make_float4(a.x * w, a.y * w, a.z * w, a.w * w);
+}
+
+// torch.logaddexp's formula, for finite a and b
+__device__ __forceinline__ float log_add_exp(float a, float b) {
+  return fmaxf(a, b) + log1pf(expf(-fabsf(a - b)));
+}
+
+// A backward accumulator (dq, dk or dv of rows row_g, row_g + 8, columns
+// below DH) in a ring mode: the running float32 sum `run` plus this
+// partial (read), stored in bf16 to `dst` (final_) or in float32 to run.
+// read = 0, final_ = 1 is K3's own store.
+template <int DH, int N>
+__device__ __forceinline__ void store_ring(bf16* dst, long long st, float* run, long long rst,
+                                           const float (&acc)[N], int row_g, int t_len, int t,
+                                           int read, int final_) {
+  if (!read && final_) {
+    store_acc<DH>(dst, st, acc, row_g, t_len, t);
+    return;
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const long long row = row_g + 8 * r;
+    const bool ok = row < t_len;
+#pragma unroll
+    for (int i = 0; i < DH / 16; ++i) {
+      float4 x = quad_gather(acc, r, i, t);
+      const int col = 16 * i + quad_col(t);
+      float* rp = run + row * rst + col;
+      if (ok && read) x = add4(*reinterpret_cast<const float4*>(rp), x);
+      if (ok && final_) {
+        const __nv_bfloat162 lo = __floats2bfloat162_rn(x.x, x.y);
+        const __nv_bfloat162 hi = __floats2bfloat162_rn(x.z, x.w);
+        *reinterpret_cast<uint2*>(dst + row * st + col) =
+            make_uint2(*reinterpret_cast<const uint32_t*>(&lo),
+                       *reinterpret_cast<const uint32_t*>(&hi));
+      } else if (ok) {
+        *reinterpret_cast<float4*>(rp) = x;
+      }
     }
   }
 }
@@ -529,6 +647,49 @@ __device__ __forceinline__ void values_product(float (&o)[S::DP / 2],
   }
 }
 
+// The forward's epilogue in a ring mode, for this thread's rows row0 and
+// row0 + 8: the chunk's normalised o and its lse_c, folded into the running
+// (o_run, lse) with `read`; lse (the head's row) written back. With
+// final_ the result goes back into o for the out store (to be stored as
+// it is), else to o_run in float32.
+template <int DH, int N>
+__device__ __forceinline__ void fwd_ring_epilogue(float (&o)[N], const float (&m)[2],
+                                                  const float (&l)[2], float scale, float* lse,
+                                                  float* run, long long rst, int row0, int t_len,
+                                                  int t, int read, int final_) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float denom = fmaxf(quad_sum(l[r]), 1e-30f);
+    const float inv = 1.f / denom;
+    const int row = row0 + 8 * r;
+    const bool ok = row < t_len;
+    const float lse_c = m[r] * scale + logf(denom);
+    float lse_new = lse_c, w_run = 0.f, w_c = 1.f;
+    if (read && ok) {
+      const float lse_run = lse[row];
+      lse_new = log_add_exp(lse_run, lse_c);
+      w_run = expf(lse_run - lse_new);
+      w_c = expf(lse_c - lse_new);
+    }
+    float* rp = run + static_cast<long long>(row) * rst;
+#pragma unroll
+    for (int i = 0; i < DH / 16; ++i) {
+      float4 x = scale4(quad_gather(o, r, i, t), inv);
+      const int col = 16 * i + quad_col(t);
+      if (read && ok) {
+        x = add4(scale4(*reinterpret_cast<const float4*>(rp + col), w_run), scale4(x, w_c));
+      }
+      if (final_) {
+        quad_scatter(o, r, i, t, x);
+      } else if (ok) {
+        *reinterpret_cast<float4*>(rp + col) = x;
+      }
+    }
+    __syncwarp();  // every lane of the quad has read lse[row]
+    if (t == 0 && ok) lse[row] = lse_new;
+  }
+}
+
 // The consumer warpgroups take turns issuing their products (named
 // barriers kFwdTurn + wg, round robin), so that one's exponentials run
 // while another's products do; kFwdStoreBar + wg: a warpgroup's out tile
@@ -649,12 +810,23 @@ __global__ void __launch_bounds__(FwdShape<DH>::kThreads, 1)
 
     const long long at = static_cast<long long>(bh) * T;
     float inv[2];
+    if (!p.read && p.final_) {  // K3
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const float denom = fmaxf(quad_sum(l[r]), 1e-30f);
-      inv[r] = 1.f / denom;
-      const int row = m0 + row_w + 8 * r;
-      if (t == 0 && row < T) p.lse[at + row] = m[r] * p.scale + logf(denom);
+      for (int r = 0; r < 2; ++r) {
+        const float denom = fmaxf(quad_sum(l[r]), 1e-30f);
+        inv[r] = 1.f / denom;
+        const int row = m0 + row_w + 8 * r;
+        if (t == 0 && row < T) p.lse[at + row] = m[r] * p.scale + logf(denom);
+      }
+    } else {
+      if (!p.final_) {  // no out tile to stage: the Q buffer goes back now
+        hopper::named_barrier(kFwdStoreBar + wg, 128);
+        if (tw == 0) hopper::mbar_arrive(sm.own_empty(n & 1));
+      }
+      fwd_ring_epilogue<DH>(o, m, l, p.scale, p.lse + at, head_of<float>(p.run0, p.r0s, b, h),
+                            p.r0s.st, m0 + row_w, T, t, p.read, p.final_);
+      if (!p.final_) continue;
+      inv[0] = inv[1] = 1.f;  // o holds the merged, normalised rows
     }
     // out through shared memory and one TMA store per 64-column box: this
     // warpgroup's 64 rows of the Q buffer are free once its S products are
@@ -687,7 +859,11 @@ __global__ void __launch_bounds__(FwdShape<DH>::kThreads, 1)
   }
 }
 
-template <int DH>
+// kRing: the ring modes' store (store_ring); K3's own launches take the
+// instantiation without it. Choosing the store at run time made K3's dQ
+// kernel 3 % slower on the card than with store_acc alone; this
+// instantiation times as the earlier kernel did (PERF.md, section 6).
+template <int DH, bool kRing>
 __global__ void __launch_bounds__(BwdShape<DH>::kThreads, 1)
     flash_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                           const __grid_constant__ CUtensorMap tk,
@@ -790,7 +966,13 @@ __global__ void __launch_bounds__(BwdShape<DH>::kThreads, 1)
     hopper::fence_regs(acc);
     sm.release(s);
   }
-  store_acc<DH>(head_of<bf16>(p.d0, p.d0s, b, h), p.d0s.st, acc, row_g, T, t);
+  if constexpr (kRing) {
+    store_ring<DH>(head_of<bf16>(p.d0, p.d0s, b, h), p.d0s.st,
+                   head_of<float>(p.run0, p.r0s, b, h), p.r0s.st, acc, row_g, T, t, p.read,
+                   p.final_);
+  } else {
+    store_acc<DH>(head_of<bf16>(p.d0, p.d0s, b, h), p.d0s.st, acc, row_g, T, t);
+  }
 }
 
 template <int DH>
@@ -861,8 +1043,10 @@ __global__ void __launch_bounds__(BwdShape<DH>::kThreads, 1)
     hopper::fence_regs(dv);
     sm.release(s);
   }
-  store_acc<DH>(head_of<bf16>(p.d0, p.d0s, b, h), p.d0s.st, dk, row_g, T, t);
-  store_acc<DH>(head_of<bf16>(p.d1, p.d1s, b, h), p.d1s.st, dv, row_g, T, t);
+  store_ring<DH>(head_of<bf16>(p.d0, p.d0s, b, h), p.d0s.st, head_of<float>(p.run0, p.r0s, b, h),
+                 p.r0s.st, dk, row_g, T, t, p.read, p.final_);
+  store_ring<DH>(head_of<bf16>(p.d1, p.d1s, b, h), p.d1s.st, head_of<float>(p.run1, p.r1s, b, h),
+                 p.r1s.st, dv, row_g, T, t, p.read, p.final_);
 }
 
 // ---------------------------------------------------------------------------
@@ -988,8 +1172,43 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_f32_kernel(const Params p)
     o[i].z /= denom;
     o[i].w /= denom;
   }
-  store_row<NC>(head_of<float>(p.out, p.os, b, h), p.os.st, row, T, sub, o);
-  if (sub == 0 && row < T) p.lse[static_cast<long long>(bh) * T + row] = m_run + logf(denom);
+  const long long at = static_cast<long long>(bh) * T + row;
+  float lse_new = m_run + logf(denom);
+  if (p.read && row < T) {  // fold into the ring's running (o_run, lse)
+    const float lse_c = lse_new, lse_run = p.lse[at];
+    lse_new = log_add_exp(lse_run, lse_c);
+    const float w_run = expf(lse_run - lse_new), w_c = expf(lse_c - lse_new);
+    float4 y[NC];
+    load_row<NC>(y, head_of<float>(p.run0, p.r0s, b, h), p.r0s.st, row, T, sub);
+#pragma unroll
+    for (int i = 0; i < NC; ++i) o[i] = add4(scale4(y[i], w_run), scale4(o[i], w_c));
+  }
+  if (p.final_) {
+    store_row<NC>(head_of<float>(p.out, p.os, b, h), p.os.st, row, T, sub, o);
+  } else {
+    store_row<NC>(head_of<float>(p.run0, p.r0s, b, h), p.r0s.st, row, T, sub, o);
+  }
+  __syncwarp();  // every lane of the row has read lse[at]
+  if (sub == 0 && row < T) p.lse[at] = lse_new;
+}
+
+// A float32 backward accumulator in a ring mode: the running sum plus this
+// partial (read), stored to dst (final_) or to the running sum.
+template <int NC>
+__device__ __forceinline__ void store_row_ring(float* dst, long long st, float* run, long long rst,
+                                               int row, int t_len, int sub, float4 (&x)[NC],
+                                               int read, int final_) {
+  if (read) {
+    float4 y[NC];
+    load_row<NC>(y, run, rst, row, t_len, sub);
+#pragma unroll
+    for (int i = 0; i < NC; ++i) x[i] = add4(y[i], x[i]);
+  }
+  if (final_) {
+    store_row<NC>(dst, st, row, t_len, sub, x);
+  } else {
+    store_row<NC>(run, rst, row, t_len, sub, x);
+  }
 }
 
 template <int DH, int BN>
@@ -1028,7 +1247,9 @@ __global__ void __launch_bounds__(kThreads) flash_dq_f32_kernel(const Params p) 
       axpy_share<NC>(acc, pe * (dpv - delta_r) * p.scale, Ks + j * DH, sub);
     }
   }
-  store_row<NC>(head_of<float>(p.dq, p.dqs, b, h), p.dqs.st, row, T, sub, acc);
+  store_row_ring<NC>(head_of<float>(p.dq, p.dqs, b, h), p.dqs.st,
+                     head_of<float>(p.run0, p.r0s, b, h), p.r0s.st, row, T, sub, acc, p.read,
+                     p.final_);
 }
 
 template <int DH, int BN>
@@ -1072,8 +1293,12 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_f32_kernel(const Params p)
       axpy_share<NC>(dk, pe * (dpv - delta_s[i]) * p.scale, Qs + i * DH, sub);
     }
   }
-  store_row<NC>(head_of<float>(p.dk, p.dks, b, h), p.dks.st, row, T, sub, dk);
-  store_row<NC>(head_of<float>(p.dv, p.dvs, b, h), p.dvs.st, row, T, sub, dv);
+  store_row_ring<NC>(head_of<float>(p.dk, p.dks, b, h), p.dks.st,
+                     head_of<float>(p.run0, p.r0s, b, h), p.r0s.st, row, T, sub, dk, p.read,
+                     p.final_);
+  store_row_ring<NC>(head_of<float>(p.dv, p.dvs, b, h), p.dvs.st,
+                     head_of<float>(p.run1, p.r1s, b, h), p.r1s.st, row, T, sub, dv, p.read,
+                     p.final_);
 }
 
 // ---------------------------------------------------------------------------
@@ -1083,6 +1308,7 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_f32_kernel(const Params p)
 enum Pass { kFwd, kDq, kDkv };
 
 constexpr int kTensorMapRefused = -1;  // libcuda refused a TMA tensor map
+constexpr int kMaxDevices = 64;
 
 constexpr int kBnF32 = 32;
 
@@ -1100,27 +1326,89 @@ int launch(Kernel kernel, const Params& p, int n_bh, size_t smem_bytes, void* st
   return static_cast<int>(cudaGetLastError());
 }
 
-// A bf16 launch: tensors q, k, v and out (forward) or dO (backward);
-// geometry nine values each (hopper::encode_bf16_4d), box_rows the rows of
-// each map's 64-column box.
-template <class S, int DH, typename Kernel>
-int launch_wgmma(Kernel kernel, WgmmaParams p, const void* const* tensors,
-                 const long long* geometry, const int (&box_rows)[4], int n_bh, bool persistent,
-                 void* stream) {
-  // first a runtime call: it makes the device's context current on this
-  // thread (autograd's backward thread may have none yet), which the
-  // tensor-map encoding in libcuda needs
-  const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, S::kSmemBytes);
+// A bf16 kernel's devices on which its dynamic shared-memory limit is set.
+struct KernelState {
+  std::atomic<unsigned long long> limit_set{0};
+};
+
+// The devices on which this thread has made that runtime call: it makes
+// the device's context current on the thread, which libcuda's tensor-map
+// encoding needs (autograd's backward thread may have none yet).
+thread_local unsigned long long t_context_bound = 0;
+
+// The calling thread's device, with the kernel's limit set there once (and
+// the call made once per thread and device).
+template <typename Kernel>
+int prepare(Kernel kernel, int smem_bytes, KernelState& state, int* device) {
+  cudaError_t err = cudaGetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (geometry == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  if (*device < 0 || *device >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
+  const unsigned long long bit = 1ull << *device;
+  if ((state.limit_set.load(std::memory_order_acquire) & bit) && (t_context_bound & bit)) return 0;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  state.limit_set.fetch_or(bit, std::memory_order_release);
+  t_context_bound |= bit;
+  return 0;
+}
+
+// The device's SM count, read once.
+int sm_count(int device, int* sms) {
+  static std::atomic<int> cache[kMaxDevices];
+  *sms = cache[device].load(std::memory_order_relaxed);
+  if (*sms > 0) return 0;
+  const cudaError_t err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cache[device].store(*sms, std::memory_order_relaxed);
+  return 0;
+}
+
+// The TMA tensor map of a bf16 (B, H, T, Dh) view with element strides s =
+// (batch, head, time), as ops/flash_attention.py::tma_geometry computes it:
+// dims innermost first (Dh, T, H, B), the byte strides of T, H and B (a dim
+// of size 1 with stride 0 gets 16: TMA takes positive multiples of 16 and
+// never steps over it), the box of 64 columns and box_rows rows.
+void tma_geometry(long long (&geo)[9], const long long* s, int B, int H, int T, int Dh,
+                  int box_rows) {
+  geo[0] = Dh;
+  geo[1] = T;
+  geo[2] = H;
+  geo[3] = B;
+  geo[4] = s[2] != 0 || T > 1 ? s[2] * 2 : 16;
+  geo[5] = s[1] != 0 || H > 1 ? s[1] * 2 : 16;
+  geo[6] = s[0] != 0 || B > 1 ? s[0] * 2 : 16;
+  geo[7] = 64;
+  geo[8] = box_rows;
+}
+
+// The box rows of a bf16 pass's four maps: q, k, v, and out (forward) or dO.
+template <int DH>
+void box_rows(Pass pass, int (&rows)[4]) {
+  if (pass == kFwd) {  // q: the block's rows; out: a warpgroup's
+    using S = FwdShape<DH>;
+    rows[0] = S::kOwnBox;
+    rows[1] = rows[2] = S::BN;
+    rows[3] = 64;
+  } else {
+    rows[0] = rows[1] = rows[2] = rows[3] = BwdShape<DH>::BN;
+  }
+}
+
+// A bf16 launch: the maps of tensors q, k, v and out (forward) or dO
+// (backward), encoded from the first four (batch, head, time) strides.
+template <class S, int DH, typename Kernel>
+int launch_wgmma(Kernel kernel, KernelState& state, Pass pass, WgmmaParams p,
+                 const void* const* tensors, const long long* strides, int B, int n_bh,
+                 bool persistent, void* stream) {
+  int device = 0;
+  int rc = prepare(kernel, S::kSmemBytes, state, &device);
+  if (rc != 0) return rc;
+  int rows[4];
+  box_rows<DH>(pass, rows);
   CUtensorMap maps[4];
   for (int i = 0; i < 4; ++i) {
-    const long long* geo = geometry + 9 * i;
-    const int box = box_rows[i];
-    if (geo[0] != DH || geo[1] != p.T || geo[7] != 64 || geo[8] != box) {
-      return static_cast<int>(cudaErrorInvalidValue);
-    }
+    long long geo[9];
+    tma_geometry(geo, strides + 3 * i, B, p.H, p.T, DH, rows[i]);
     if (!hopper::encode_bf16_4d(&maps[i], tensors[i], geo)) return kTensorMapRefused;
   }
   p.n_row_tiles = (p.T + S::kOwnRows - 1) / S::kOwnRows;
@@ -1129,11 +1417,9 @@ int launch_wgmma(Kernel kernel, WgmmaParams p, const void* const* tensors,
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   if (persistent) {  // one block per SM, each walking its share of the items
     p.n_items = static_cast<int>(blocks);
-    int device = 0, sms = 0;
-    if (cudaGetDevice(&device) != cudaSuccess ||
-        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) != cudaSuccess) {
-      return static_cast<int>(cudaGetLastError());
-    }
+    int sms = 0;
+    rc = sm_count(device, &sms);
+    if (rc != 0) return rc;
     blocks = blocks < sms ? blocks : sms;
   }
   const dim3 grid(static_cast<unsigned int>(blocks));
@@ -1144,22 +1430,27 @@ int launch_wgmma(Kernel kernel, WgmmaParams p, const void* const* tensors,
 
 template <int DH>
 int launch_bf16(Pass pass, const WgmmaParams& p, const void* const* tensors,
-                const long long* geometry, int n_bh, void* stream) {
+                const long long* strides, int B, int n_bh, void* stream) {
   switch (pass) {
     case kFwd: {
-      using S = FwdShape<DH>;  // q: the block's rows; out: a warpgroup's
-      return launch_wgmma<S, DH>(flash_fwd_wgmma_kernel<DH>, p, tensors, geometry,
-                                 {S::kOwnBox, S::BN, S::BN, 64}, n_bh, true, stream);
+      static KernelState state;
+      return launch_wgmma<FwdShape<DH>, DH>(flash_fwd_wgmma_kernel<DH>, state, pass, p, tensors,
+                                            strides, B, n_bh, true, stream);
     }
     case kDq: {
-      using S = BwdShape<DH>;
-      return launch_wgmma<S, DH>(flash_dq_wgmma_kernel<DH>, p, tensors, geometry,
-                                 {S::BN, S::BN, S::BN, S::BN}, n_bh, false, stream);
+      if (p.read || !p.final_) {
+        static KernelState ring_state;
+        return launch_wgmma<BwdShape<DH>, DH>(flash_dq_wgmma_kernel<DH, true>, ring_state, pass,
+                                              p, tensors, strides, B, n_bh, false, stream);
+      }
+      static KernelState state;
+      return launch_wgmma<BwdShape<DH>, DH>(flash_dq_wgmma_kernel<DH, false>, state, pass, p,
+                                            tensors, strides, B, n_bh, false, stream);
     }
     default: {
-      using S = BwdShape<DH>;
-      return launch_wgmma<S, DH>(flash_dkv_wgmma_kernel<DH>, p, tensors, geometry,
-                                 {S::BN, S::BN, S::BN, S::BN}, n_bh, false, stream);
+      static KernelState state;
+      return launch_wgmma<BwdShape<DH>, DH>(flash_dkv_wgmma_kernel<DH>, state, pass, p, tensors,
+                                            strides, B, n_bh, false, stream);
     }
   }
 }
@@ -1210,14 +1501,14 @@ int dispatch_f32(Pass pass, const Params& p, int B, int Dh, void* stream) {
 }
 
 int dispatch_bf16(Pass pass, const WgmmaParams& p, const void* const* tensors,
-                  const long long* geometry, int B, int Dh, void* stream) {
+                  const long long* strides, int B, int Dh, void* stream) {
   int n_bh = 0;
   const int rc = check_shape(B, p.H, p.T, 1, &n_bh);
   if (rc != 0) return rc == 1 ? 0 : rc;
   switch (Dh) {
 #define SELD_HEAD_DIM_CASE(DH_) \
   case DH_:                     \
-    return launch_bf16<DH_>(pass, p, tensors, geometry, n_bh, stream);
+    return launch_bf16<DH_>(pass, p, tensors, strides, B, n_bh, stream);
     SELD_FOR_EACH_HEAD_DIM(SELD_HEAD_DIM_CASE)
 #undef SELD_HEAD_DIM_CASE
     default:
@@ -1227,6 +1518,13 @@ int dispatch_bf16(Pass pass, const WgmmaParams& p, const void* const* tensors,
 
 Strides strides_at(const long long* strides, int i) {
   return Strides{strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
+}
+
+// The ring modes' buffers: a running state wherever a step reads it or
+// does not finish, the output wherever it finishes.
+bool modes_ok(int read, int final_, const void* run, const void* result) {
+  return (read == 0 || read == 1) && (final_ == 0 || final_ == 1) &&
+         (run != nullptr || (!read && final_)) && (result != nullptr || !final_);
 }
 
 }  // namespace
@@ -1246,19 +1544,53 @@ extern "C" int seld_flash_attention_smem_bytes(int Dh, int forward) {
   }
 }
 
-// strides: q, k, v, out; geometry (bf16): q, k, v, out
+// The nine values of each of the four tensor maps that a bf16 launch of
+// `pass` (0 forward, 1 dQ, 2 dK/dV) encodes from its first four tensors'
+// strides, into geometry[36]; cudaErrorInvalidValue for a width the
+// kernels do not take.
+extern "C" int seld_flash_attention_tma_geometry(int pass, const long long* strides, int B, int H,
+                                                 int T, int Dh, long long* geometry) {
+  int rows[4];
+  switch (Dh) {
+#define SELD_HEAD_DIM_CASE(DH_)                               \
+  case DH_:                                                   \
+    box_rows<DH_>(pass == 0 ? kFwd : pass == 1 ? kDq : kDkv, rows); \
+    break;
+    SELD_FOR_EACH_HEAD_DIM(SELD_HEAD_DIM_CASE)
+#undef SELD_HEAD_DIM_CASE
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  for (int i = 0; i < 4; ++i) {
+    long long geo[9];
+    tma_geometry(geo, strides + 3 * i, B, H, T, Dh, rows[i]);
+    for (int j = 0; j < 9; ++j) geometry[9 * i + j] = geo[j];
+  }
+  return 0;
+}
+
+// strides: q, k, v, out, run. run: the ring's float32 running o (out's
+// shape), needed unless read = 0 and final_ = 1; lse is read (read) and
+// written. out is always given (the bf16 forward encodes its map).
 extern "C" int seld_flash_attention_fwd(const void* q, const void* k, const void* v, void* out,
-                                        void* lse, const long long* strides,
-                                        const long long* geometry, int B, int H, int T, int Dh,
-                                        float scale, int dtype, void* stream) {
+                                        void* lse, void* run, const long long* strides, int read,
+                                        int final_, int B, int H, int T, int Dh, float scale,
+                                        int dtype, void* stream) {
+  if (out == nullptr || !modes_ok(read, final_, run, out)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (dtype == 1) {
     WgmmaParams p{};  // out goes through its tensor map
     p.lse = static_cast<float*>(lse);
+    p.run0 = static_cast<float*>(run);
+    p.r0s = strides_at(strides, 4);
     p.H = H;
     p.T = T;
+    p.read = read;
+    p.final_ = final_;
     p.scale = scale;
     const void* tensors[4] = {q, k, v, out};
-    return dispatch_bf16(kFwd, p, tensors, geometry, B, Dh, stream);
+    return dispatch_bf16(kFwd, p, tensors, strides, B, Dh, stream);
   }
   Params p{};
   p.q = q;
@@ -1266,25 +1598,31 @@ extern "C" int seld_flash_attention_fwd(const void* q, const void* k, const void
   p.v = v;
   p.out = out;
   p.lse = static_cast<float*>(lse);
+  p.run0 = static_cast<float*>(run);
   p.qs = strides_at(strides, 0);
   p.ks = strides_at(strides, 1);
   p.vs = strides_at(strides, 2);
   p.os = strides_at(strides, 3);
+  p.r0s = strides_at(strides, 4);
   p.H = H;
   p.T = T;
+  p.read = read;
+  p.final_ = final_;
   p.scale = scale;
   return dispatch_f32(kFwd, p, B, Dh, stream);
 }
 
-// strides: q, k, v, dout, out, dq; geometry (bf16): q, k, v, dout.
-// delta_given = 0: the kernel forms delta from dout and out and writes it
-// to `delta` (bf16 only); 1: it reads `delta`.
+// strides: q, k, v, dout, out, dq, run. delta_given = 0: the kernel forms
+// delta from dout and out and writes it to `delta` (bf16 only); 1: it
+// reads `delta`. run: the ring's float32 running dq, needed unless
+// read = 0 and final_ = 1; dq is written only with final_.
 extern "C" int seld_flash_attention_bwd_dq(const void* q, const void* k, const void* v,
                                            const void* dout, const void* out, const void* lse,
-                                           void* delta, void* dq, const long long* strides,
-                                           const long long* geometry, int delta_given, int B,
-                                           int H, int T, int Dh, float scale, int dtype,
-                                           void* stream) {
+                                           void* delta, void* dq, void* run,
+                                           const long long* strides, int delta_given, int read,
+                                           int final_, int B, int H, int T, int Dh, float scale,
+                                           int dtype, void* stream) {
+  if (!modes_ok(read, final_, run, dq)) return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 1) {
     WgmmaParams p{};
     p.out = static_cast<const bf16*>(out);
@@ -1292,15 +1630,19 @@ extern "C" int seld_flash_attention_bwd_dq(const void* q, const void* k, const v
     p.lse = const_cast<float*>(static_cast<const float*>(lse));
     p.delta = static_cast<float*>(delta);
     p.d0 = static_cast<bf16*>(dq);
+    p.run0 = static_cast<float*>(run);
     p.gs = strides_at(strides, 3);
     p.os = strides_at(strides, 4);
     p.d0s = strides_at(strides, 5);
+    p.r0s = strides_at(strides, 6);
     p.H = H;
     p.T = T;
     p.delta_given = delta_given;
+    p.read = read;
+    p.final_ = final_;
     p.scale = scale;
     const void* tensors[4] = {q, k, v, dout};
-    return dispatch_bf16(kDq, p, tensors, geometry, B, Dh, stream);
+    return dispatch_bf16(kDq, p, tensors, strides, B, Dh, stream);
   }
   if (!delta_given) return static_cast<int>(cudaErrorInvalidValue);
   Params p{};
@@ -1311,37 +1653,53 @@ extern "C" int seld_flash_attention_bwd_dq(const void* q, const void* k, const v
   p.lse = const_cast<float*>(static_cast<const float*>(lse));
   p.delta = static_cast<const float*>(delta);
   p.dq = dq;
+  p.run0 = static_cast<float*>(run);
   p.qs = strides_at(strides, 0);
   p.ks = strides_at(strides, 1);
   p.vs = strides_at(strides, 2);
   p.gs = strides_at(strides, 3);
   p.dqs = strides_at(strides, 5);
+  p.r0s = strides_at(strides, 6);
   p.H = H;
   p.T = T;
+  p.read = read;
+  p.final_ = final_;
   p.scale = scale;
   return dispatch_f32(kDq, p, B, Dh, stream);
 }
 
-// strides: q, k, v, dout, dk, dv; geometry (bf16): q, k, v, dout
+// strides: q, k, v, dout, dk, dv, dk_run, dv_run. The runs: the ring's
+// float32 running dk and dv, needed unless read = 0 and final_ = 1; dk
+// and dv are written only with final_.
 extern "C" int seld_flash_attention_bwd_dkv(const void* q, const void* k, const void* v,
                                             const void* dout, const void* lse, const void* delta,
-                                            void* dk, void* dv, const long long* strides,
-                                            const long long* geometry, int B, int H, int T, int Dh,
-                                            float scale, int dtype, void* stream) {
+                                            void* dk, void* dv, void* dk_run, void* dv_run,
+                                            const long long* strides, int read, int final_, int B,
+                                            int H, int T, int Dh, float scale, int dtype,
+                                            void* stream) {
+  if (!modes_ok(read, final_, dk_run, dk) || !modes_ok(read, final_, dv_run, dv)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (dtype == 1) {
     WgmmaParams p{};
     p.lse = const_cast<float*>(static_cast<const float*>(lse));
     p.delta = const_cast<float*>(static_cast<const float*>(delta));
     p.d0 = static_cast<bf16*>(dk);
     p.d1 = static_cast<bf16*>(dv);
+    p.run0 = static_cast<float*>(dk_run);
+    p.run1 = static_cast<float*>(dv_run);
     p.d0s = strides_at(strides, 4);
     p.d1s = strides_at(strides, 5);
+    p.r0s = strides_at(strides, 6);
+    p.r1s = strides_at(strides, 7);
     p.H = H;
     p.T = T;
     p.delta_given = 1;
+    p.read = read;
+    p.final_ = final_;
     p.scale = scale;
     const void* tensors[4] = {q, k, v, dout};
-    return dispatch_bf16(kDkv, p, tensors, geometry, B, Dh, stream);
+    return dispatch_bf16(kDkv, p, tensors, strides, B, Dh, stream);
   }
   Params p{};
   p.q = q;
@@ -1352,14 +1710,20 @@ extern "C" int seld_flash_attention_bwd_dkv(const void* q, const void* k, const 
   p.delta = static_cast<const float*>(delta);
   p.dk = dk;
   p.dv = dv;
+  p.run0 = static_cast<float*>(dk_run);
+  p.run1 = static_cast<float*>(dv_run);
   p.qs = strides_at(strides, 0);
   p.ks = strides_at(strides, 1);
   p.vs = strides_at(strides, 2);
   p.gs = strides_at(strides, 3);
   p.dks = strides_at(strides, 4);
   p.dvs = strides_at(strides, 5);
+  p.r0s = strides_at(strides, 6);
+  p.r1s = strides_at(strides, 7);
   p.H = H;
   p.T = T;
+  p.read = read;
+  p.final_ = final_;
   p.scale = scale;
   return dispatch_f32(kDkv, p, B, Dh, stream);
 }

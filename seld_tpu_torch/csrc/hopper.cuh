@@ -48,8 +48,8 @@ inline EncodeTiled encode_tiled() {
 
 // A 4-D bf16 tensor map with 128-byte swizzle and zero fill out of bounds.
 // geometry: dims (innermost first), byte strides of dims 1-3, box of dims
-// 0 and 1 (dims 2 and 3 take boxes of 1): nine values, as the Python
-// wrappers compute them. Returns false if libcuda refuses it. It needs
+// 0 and 1 (dims 2 and 3 take boxes of 1): nine values, as the launchers
+// compute them from a tensor's strides. Returns false if libcuda refuses it. It needs
 // a current context on the calling thread (a thread that has
 // made no runtime call yet has none: CUDA_ERROR_INVALID_CONTEXT), so a
 // caller makes a runtime call on the device first.

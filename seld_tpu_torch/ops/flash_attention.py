@@ -12,8 +12,9 @@ backward is exactly those two launches; in float32 `delta` is
 `row_delta`'s torch ops.
 
 In bf16 all three kernels are wgmma products on tiles that TMA stages in
-shared memory, and read q, k, v (and dO) through tensor maps whose
-geometry `tma_geometry` computes here. The forward block owns
+shared memory, and read q, k, v (and dO) through tensor maps that the C
+launchers encode from the strides (`tma_geometry` is the plain version of
+that encoding). The forward block owns
 `fwd_block_rows` queries, 64 per warpgroup, and streams K/V tiles of
 `FWD_BOX_KEYS` keys; each warpgroup issues the next tile's scores before
 this tile's value product and runs the exponentials of the online softmax
@@ -34,13 +35,21 @@ allocated as (B, T, H, Dh) and returned transposed, so the model's
 and only for those, it runs `flash_attention_reference`, the same function
 in plain PyTorch ops with the forward's rounding points, differentiable by
 autograd.
+
+The ring modes (`forward_step`, `dq_step`, `dkv_step`): each kernel can
+fold its result into a float32 running state in its epilogue, for the
+ring attention K5 (ops/ring_attention.py, which holds their plain
+versions). `read` folds into the state an earlier step wrote; `final`
+stores the result in the inputs' dtype, otherwise the float32 state.
+read=False, final=True is K3 itself (`launch_forward`, `launch_dq`,
+`launch_dkv`).
 """
 
 from __future__ import annotations
 
-import array
 import ctypes
 import functools
+import struct
 
 import torch
 
@@ -67,16 +76,16 @@ def bwd_box_rows(dh: int) -> int:
 
 
 def tma_geometry(x: torch.Tensor, box_rows: int) -> tuple[int, ...]:
-    """The TMA tensor map of a (B, H, T, Dh) view, as the bf16 kernels'
-    host code encodes it: dims innermost first (Dh, T, H, B), the byte
-    strides of T, H and B, and the box (64 columns, box_rows rows; one head
-    and one batch). Columns beyond Dh and rows beyond T in a box read as
-    zeros. A dim of size 1 may have stride 0 in PyTorch; TMA takes strides
-    that are positive multiples of 16 bytes, and the stride of a dim of size
-    1 is never used, so it becomes 16."""
+    """The TMA tensor map of a (B, H, T, Dh) view, the plain version of
+    what the bf16 launchers encode in C from its strides: dims innermost
+    first (Dh, T, H, B), the byte strides of T, H and B, and the box (64
+    columns, box_rows rows; one head and one batch). Columns beyond Dh and
+    rows beyond T in a box read as zeros. A dim of size 1 may have stride 0
+    in PyTorch; TMA takes strides that are positive multiples of 16 bytes,
+    and the stride of a dim of size 1 is never used, so it becomes 16."""
     b, h, t, dh = x.shape
     e = x.element_size()
-    sb, sh, st = x.stride()[:3]  # spelled out: this runs on every bf16 launch
+    sb, sh, st = x.stride()[:3]
     return (dh, t, h, b, st * e if st or t > 1 else 16, sh * e if sh or h > 1 else 16,
             sb * e if sb or b > 1 else 16, TMA_BOX_COLS, box_rows)
 
@@ -108,17 +117,24 @@ def flash_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     the two products that consume it, as the kernel rounds it. In bf16 the
     kernel is the closer of the two to float32 in dv: it carries p into
     that product as a bf16 pair, where autograd reuses the rounded p."""
-    b, h, t, _ = q.shape
     if scale is None:
         scale = q.shape[-1] ** -0.5
+    out, lse = attention_f32_reference(q, k, v, scale)
+    return out.to(q.dtype), lse
+
+
+def attention_f32_reference(q, k, v, scale: float):
+    """flash_attention_reference before its last rounding: out in float32
+    (what the forward kernel holds in registers before its epilogue), and
+    lse."""
+    b, h, t, _ = q.shape
     s = _RoundCotangent.apply(torch.matmul(q.float(), k.float().transpose(-1, -2)), q.dtype)
     s = s * scale
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     denom = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
     out = torch.matmul(p.to(v.dtype).float(), v.float()) / denom
-    lse = (m + torch.log(denom)).reshape(b * h, t)
-    return out.to(q.dtype), lse
+    return out, (m + torch.log(denom)).reshape(b * h, t)
 
 
 def chunk_grads_reference(q, k, v, g, lse, delta, scale: float):
@@ -134,17 +150,27 @@ def chunk_grads_reference(q, k, v, g, lse, delta, scale: float):
     result is this chunk's exact share of the global gradient sums. In
     float32, with ds rounded to the inputs' dtype before its two products,
     as the kernels round it."""
+    dq, dk, dv = chunk_partials_reference(q, k, v, g, lse, delta, scale)
+    return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
+
+
+def chunk_partials_reference(q, k, v, g, lse, delta, scale: float, dq: bool = True,
+                             dkv: bool = True):
+    """chunk_grads_reference before its last rounding: the float32 (dq,
+    dk, dv) that the backward kernels hold in registers before their
+    epilogues (None for what is not asked for)."""
     b, h, tq, _ = q.shape
     lse = lse.reshape(b, h, tq, 1)
     delta = delta.reshape(b, h, tq, 1)
     s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
     p = torch.exp(s - lse)
     gf = g.float()
-    dv = torch.matmul(p.transpose(-1, -2), gf)
     ds = (p * (torch.matmul(gf, v.float().transpose(-1, -2)) - delta)).to(q.dtype).float()
-    dq = torch.matmul(ds, k.float()) * scale
-    dk = torch.matmul(ds.transpose(-1, -2), q.float()) * scale
-    return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
+    dq_p = torch.matmul(ds, k.float()) * scale if dq else None
+    if not dkv:
+        return dq_p, None, None
+    dk_p = torch.matmul(ds.transpose(-1, -2), q.float()) * scale
+    return dq_p, dk_p, torch.matmul(p.transpose(-1, -2), gf)
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -180,39 +206,28 @@ def _kernel_ready(x: torch.Tensor) -> torch.Tensor:
     return x.contiguous()
 
 
-def _empty_bthd(like: torch.Tensor) -> torch.Tensor:
+def _empty_bthd(like: torch.Tensor, dtype: torch.dtype | None = None) -> torch.Tensor:
     """An uninitialised (B, H, T, Dh) tensor stored as (B, T, H, Dh)."""
     b, h, t, dh = like.shape
-    return torch.empty((b, t, h, dh), dtype=like.dtype, device=like.device).transpose(1, 2)
+    return torch.empty((b, t, h, dh), dtype=dtype or like.dtype,
+                       device=like.device).transpose(1, 2)
 
 
 @functools.cache
-def _longs_type(n: int):
-    return ctypes.c_longlong * n
+def _packer(n: int):
+    return struct.Struct(f"{n}q").pack
 
 
-def _longs(values):
-    """values as a C long long array; through array.array, as a ctypes
-    array's own constructor takes microseconds a launch."""
-    packed = array.array("q", values)
-    return _longs_type(len(packed)).from_buffer(packed)
+_NO_STRIDES = (0, 0, 0)
 
 
-def _strides(*tensors: torch.Tensor):
-    return _longs([s for x in tensors for s in x.stride()[:3]])
-
-
-def _geometry(*maps):
-    """The bf16 kernels' tensor maps, from (tensor, box rows) pairs; None in
-    float32."""
-    if maps[0][0].dtype != torch.bfloat16:
-        return None
-    return _longs([n for x, rows in maps for n in tma_geometry(x, rows)])
-
-
-def _bwd_geometry(q, k, v, g):
-    rows = bwd_box_rows(q.shape[-1])
-    return _geometry((q, rows), (k, rows), (v, rows), (g, rows))
+def _strides(*tensors) -> bytes:
+    """The (batch, head, time) element strides of each tensor (zeros for
+    None), packed as the C long long array the launchers read: a bytes
+    object crosses ctypes as a pointer to its buffer, cheaper than a ctypes
+    array built per launch."""
+    values = [s for x in tensors for s in (x.stride()[:3] if x is not None else _NO_STRIDES)]
+    return _packer(len(values))(*values)
 
 
 @functools.cache
@@ -221,28 +236,33 @@ def _kernels():
 
     lib = load_library("flash_attention_kernel")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    ll = ctypes.POINTER(ctypes.c_longlong)
     tail = [i, i, i, i, f, i, p]  # B, H, T, Dh, scale, dtype, stream
-    # pointers, strides, geometry, [delta_given], tail
-    lib.seld_flash_attention_fwd.argtypes = [p] * 5 + [ll, ll] + tail
-    lib.seld_flash_attention_bwd_dq.argtypes = [p] * 8 + [ll, ll, i] + tail
-    lib.seld_flash_attention_bwd_dkv.argtypes = [p] * 8 + [ll, ll] + tail
+    # pointers, strides (packed bytes), [delta_given], read, final, tail
+    lib.seld_flash_attention_fwd.argtypes = [p] * 6 + [p, i, i] + tail
+    lib.seld_flash_attention_bwd_dq.argtypes = [p] * 9 + [p, i, i, i] + tail
+    lib.seld_flash_attention_bwd_dkv.argtypes = [p] * 10 + [p, i, i] + tail
+    lib.seld_flash_attention_tma_geometry.argtypes = [i, p, i, i, i, i,
+                                                      ctypes.POINTER(ctypes.c_longlong)]
     fns = (lib.seld_flash_attention_fwd, lib.seld_flash_attention_bwd_dq,
-           lib.seld_flash_attention_bwd_dkv)
+           lib.seld_flash_attention_bwd_dkv, lib.seld_flash_attention_tma_geometry)
     for fn in fns:
         fn.restype = ctypes.c_int
     return fns
 
 
-def _launch(which: int, name: str, tensors, strided, extra, scale: float) -> None:
+def _launch(which: int, name: str, tensors, strided, flags, scale: float) -> None:
     """One kernel launch on the current stream of the first tensor's device;
-    `extra` goes between the strides and the shape."""
+    `tensors` may hold None (a buffer the launch's mode does not use),
+    `flags` go between the strides and the shape."""
     q = tensors[0]
-    # autograd's thread has no current device of its own
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = _kernels()[which](*(x.data_ptr() for x in tensors), _strides(*strided), *extra,
-                               *q.shape, scale, _DTYPES[q.dtype], stream)
+    index = q.device.index
+    args = ([x.data_ptr() if x is not None else None for x in tensors] + [_strides(*strided)]
+            + [*flags, *q.shape, scale, _DTYPES[q.dtype]])
+    if torch.cuda.current_device() == index:
+        rc = _kernels()[which](*args, torch._C._cuda_getCurrentRawStream(index))
+    else:  # the launchers run on the calling thread's current device
+        with torch.cuda.device(index):
+            rc = _kernels()[which](*args, torch._C._cuda_getCurrentRawStream(index))
     if rc == -1:
         raise RuntimeError(f"K3 {name}: libcuda refused a TMA tensor map of "
                            f"{[tuple(x.stride()) for x in strided[:4]]}")
@@ -250,16 +270,67 @@ def _launch(which: int, name: str, tensors, strided, extra, scale: float) -> Non
         raise RuntimeError(f"K3 {name} launch failed with CUDA error {rc}")
 
 
+def tensor_map_geometry(which: int, q, k, v, x) -> list[int]:
+    """The nine values of each tensor map that a bf16 launch of `which` (0
+    forward with x = out, 1 dQ and 2 dK/dV with x = dO) encodes in C: what
+    `tma_geometry` gives for the same tensors and box rows."""
+    found = (ctypes.c_longlong * 36)()
+    rc = _kernels()[3](which, _strides(q, k, v, x), *q.shape, found)
+    if rc != 0:
+        raise ValueError(f"K3 takes no head width {q.shape[-1]}")
+    return list(found)
+
+
+def forward_step(q, k, v, scale: float, out, lse, run, read: bool, final: bool) -> None:
+    """The forward kernel on kernel-ready CUDA tensors in a ring mode,
+    writing into the given buffers: this chunk's normalised float32 result
+    folded into the running (run, lse) with `read` (lse is read and written
+    in place), then stored to out in q's dtype (`final`) or to run in
+    float32. run: float32, out's shape (out itself in float32); None where
+    read=False and final=True, which is K3's own forward."""
+    if q.numel():
+        _launch(0, "forward", (q, k, v, out, lse, run), (q, k, v, out, run),
+                (int(read), int(final)), scale)
+        flash_attention.fwd_launches += 1
+
+
+def dq_step(q, k, v, g, out, lse, scale: float, delta, dq, run, read: bool, final: bool):
+    """The dQ kernel on kernel-ready CUDA tensors in a ring mode: this
+    chunk's float32 dq added to the running float32 `run` (read), stored
+    to dq in q's dtype (final) or to run. Returns delta: without one the
+    bf16 kernel forms rowsum(g * out) and writes it (in float32 it is
+    `row_delta`); with one the kernel reads it."""
+    b, h, t, _ = q.shape
+    given = delta is not None
+    if not given:
+        if q.dtype == torch.bfloat16:
+            delta = torch.empty((b * h, t), dtype=torch.float32, device=q.device)
+        else:
+            delta = row_delta(g, out).view(b * h, t)
+    if q.numel():
+        _launch(1, "dQ", (q, k, v, g, out, lse, delta, dq, run), (q, k, v, g, out, dq, run),
+                (int(given or q.dtype != torch.bfloat16), int(read), int(final)), scale)
+        flash_attention.bwd_dq_launches += 1
+    return delta
+
+
+def dkv_step(q, k, v, g, lse, delta, scale: float, dk, dv, dk_run, dv_run, read: bool,
+             final: bool) -> None:
+    """The dK/dV kernel on kernel-ready CUDA tensors in a ring mode: this
+    chunk's float32 dk and dv added to the running float32 sums (read),
+    stored to dk, dv in q's dtype (final) or to the sums."""
+    if q.numel():
+        _launch(2, "dK/dV", (q, k, v, g, lse, delta, dk, dv, dk_run, dv_run),
+                (q, k, v, g, dk, dv, dk_run, dv_run), (int(read), int(final)), scale)
+        flash_attention.bwd_dkv_launches += 1
+
+
 def launch_forward(q, k, v, scale: float):
     """The forward kernel on kernel-ready CUDA tensors -> (out, lse)."""
     b, h, t, _ = q.shape
     out = _empty_bthd(q)
     lse = torch.empty((b * h, t), dtype=torch.float32, device=q.device)
-    if q.numel():
-        keys = FWD_BOX_KEYS  # out is stored a warpgroup's 64 rows at a time
-        maps = _geometry((q, fwd_block_rows(q.shape[-1])), (k, keys), (v, keys), (out, 64))
-        _launch(0, "forward", (q, k, v, out, lse), (q, k, v, out), (maps,), scale)
-        flash_attention.fwd_launches += 1
+    forward_step(q, k, v, scale, out, lse, None, False, True)
     return out, lse
 
 
@@ -268,32 +339,16 @@ def launch_dq(q, k, v, g, out, lse, scale: float, delta=None):
 
     delta = rowsum(g * out) of each row, float32 (B*H, T). Without `delta`
     the bf16 kernel forms it from g and `out` and writes it beside dq (in
-    float32 it is `row_delta`); with it the kernel reads it, as a ring
-    backward does that runs dQ per chunk with the global lse and a local
-    delta."""
-    b, h, t, _ = q.shape
+    float32 it is `row_delta`); with it the kernel reads it."""
     dq = _empty_bthd(q)
-    given = delta is not None
-    if not given:
-        if q.dtype == torch.bfloat16:
-            delta = torch.empty((b * h, t), dtype=torch.float32, device=q.device)
-        else:
-            delta = row_delta(g, out).view(b * h, t)
-    if q.numel():
-        _launch(1, "dQ", (q, k, v, g, out, lse, delta, dq), (q, k, v, g, out, dq),
-                (_bwd_geometry(q, k, v, g), int(given or q.dtype != torch.bfloat16)), scale)
-        flash_attention.bwd_dq_launches += 1
-    return dq, delta
+    return dq, dq_step(q, k, v, g, out, lse, scale, delta, dq, None, False, True)
 
 
 def launch_dkv(q, k, v, g, lse, delta, scale: float):
     """The dK/dV kernel on kernel-ready CUDA tensors -> (dk, dv); delta as
     launch_dq returns it."""
     dk, dv = _empty_bthd(q), _empty_bthd(q)
-    if q.numel():
-        _launch(2, "dK/dV", (q, k, v, g, lse, delta, dk, dv), (q, k, v, g, dk, dv),
-                (_bwd_geometry(q, k, v, g),), scale)
-        flash_attention.bwd_dkv_launches += 1
+    dkv_step(q, k, v, g, lse, delta, scale, dk, dv, None, None, False, True)
     return dk, dv
 
 

@@ -6,36 +6,43 @@ sequence parallelism every rank of a model group holds its (B, H, T/n, Dh)
 time chunk of q, k and v. K/V chunks travel n - 1 steps around the ring
 (rank m sends to m + 1 and receives from m - 1, `dist.batch_isend_irecv`
 posted before the chunk's kernel, so the transfer overlaps it), and each
-step runs K3's forward kernel on (q_local, k_c, v_c) -> (o_c, lse_c) and
-merges it in float32:
+step runs K3's forward kernel on (q_local, k_c, v_c) in its ring mode
+(csrc/flash_attention_kernel.cu): the epilogue folds the chunk's
+normalised float32 o_c and lse_c into the lane's running float32 pair,
 
     lse' = logaddexp(lse, lse_c),  o = o exp(lse - lse') + o_c exp(lse_c - lse')
 
-from -inf and zeros, cast once at the end. The backward is one more ring
-pass with the GLOBAL lse and the merged out: delta = rowsum(dO * out) is
-formed once (in bf16 by the first dQ launch, in float32 by `row_delta`) and
-given to every later step; dQ accumulates locally in float32, and the
-float32 dK/dV accumulators travel with their chunk and are home after n
-shifts. K5 has no kernel of its own, as the TPU version has no
-`pallas_call` of its own: it launches K3's three kernels per chunk (on CUDA
-tensors always, whatever the chunk's length: a 250-frame chunk is below
-FLASH_MIN_SEQ_LEN and still takes K3), and the merge stays in torch ops,
-as the JAX package computes it in jnp outside the kernels. What bounds it
-is K3's (operations) plus the merge's float32 bytes; see PERF.md.
+which the first step writes and the last stores as out in q's dtype. The
+backward is one more ring pass with the GLOBAL lse and the merged out:
+delta = rowsum(dO * out) is formed once (in bf16 by the first dQ launch, in
+float32 by `row_delta`) and given to every later step; the dQ kernel adds
+its float32 partial into the lane's running dq (the last step stores dq),
+and the dK/dV kernel adds into the float32 dK/dV accumulators that travel
+with their chunk and are home after n shifts, where one cast per lane
+gives dk and dv. A ring step is one launch forward and two backward, with
+nothing between steps; at n = 1 the ring launches exactly K3's three
+kernels in their own mode and gives K3's bits. On CUDA tensors the steps
+launch K3's kernels whatever the chunk's length (a 250-frame chunk is
+below FLASH_MIN_SEQ_LEN and still takes K3). What bounds it is K3's
+operations at the whole T (see PERF.md); the running state's float32
+bytes are this design's cost on top.
 
 The schedule is written once over "lanes", the ranks this process holds:
 the process-group ring holds one (its own rank; shifts are sends and
 receives), the virtual ring holds all n in one process (a shift is a
 rotation of the list, no copy), so one card can run an n-rank ring with
 the same step functions. The virtual ring adds the partials in the same
-order as the process-group ring, so the two agree bit for bit.
+order as the process-group ring, so the two agree bit for bit. In the
+backward the dQ launches of a step are queued before the wait for the
+arriving dK/dV accumulators, so they overlap the transfer.
 
-On CPU tensors the steps are the plain versions, `flash_attention_reference`
-and `chunk_grads_reference`; on CUDA tensors they are K3's kernels, unless a
-virtual-ring caller asks for the plain steps by name (the card's check and
-the plain timing). Every K3 launch the ring makes adds one to
-`ring_flash_attention.fwd_launches`, `.bwd_dq_launches` or
-`.bwd_dkv_launches`.
+On CPU tensors the steps are their plain versions below
+(`forward_step_reference`, `dq_step_reference`, `dkv_step_reference`: the
+kernels' modes and rounding points in torch ops); on CUDA tensors they are
+K3's kernels, unless a virtual-ring caller asks for the plain steps by name
+(the card's check and the plain timing). Every kernel launch the ring makes
+adds one to `ring_flash_attention.fwd_launches`, `.bwd_dq_launches` or
+`.bwd_dkv_launches`, and one to K3's counter of its kind.
 """
 
 from __future__ import annotations
@@ -43,32 +50,15 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
+from seld_tpu_torch.ops import flash_attention as k3
 from seld_tpu_torch.ops.flash_attention import (
     _check,
+    _empty_bthd,
     _kernel_ready,
-    chunk_grads_reference,
-    flash_attention_reference,
-    launch_dkv,
-    launch_dq,
-    launch_forward,
+    attention_f32_reference,
+    chunk_partials_reference,
     row_delta,
 )
-
-
-def _bthd_zeros(like: torch.Tensor) -> torch.Tensor:
-    """float32 zeros of like's (B, H, T, Dh) shape stored as (B, T, H, Dh),
-    the layout of K3's outputs and of the model's heads."""
-    b, h, t, d = like.shape
-    return torch.zeros((b, t, h, d), dtype=torch.float32, device=like.device).transpose(1, 2)
-
-
-def _forward_step(q, k, v, scale: float, plain: bool):
-    """One chunk's (out, lse): K3's forward kernel, or its plain version."""
-    if plain or q.device.type == "cpu":
-        return flash_attention_reference(q, k, v, scale)
-    out = launch_forward(q, k, v, scale)
-    ring_flash_attention.fwd_launches += 1
-    return out
 
 
 def _merge(o_run, lse_run, o_c, lse_c):
@@ -80,19 +70,73 @@ def _merge(o_run, lse_run, o_c, lse_c):
     return o_run * w_old + o_c.float() * w_new, lse_new
 
 
-def _backward_step(q, k, v, g, out, lse, delta, scale: float, plain: bool):
-    """One chunk's (dq, dk, dv, delta) with the global lse: K3's dQ (which
-    forms delta when it is None) and dK/dV kernels, or their plain
-    version."""
-    if plain or q.device.type == "cpu":
-        if delta is None:
-            delta = row_delta(g, out)
-        return (*chunk_grads_reference(q, k, v, g, lse, delta, scale), delta)
-    dq, delta = launch_dq(q, k, v, g, out, lse, scale, delta=delta)
-    dk, dv = launch_dkv(q, k, v, g, lse, delta, scale)
+def _store(total, run, result, final: bool) -> None:
+    """Where a ring mode puts its float32 result: result (cast to its
+    dtype) when final, else the running state."""
+    (result if final else run).copy_(total)
+
+
+def forward_step_reference(q, k, v, scale: float, out, lse, run, read: bool,
+                           final: bool) -> None:
+    """The plain version of `flash_attention.forward_step`: the chunk's
+    float32 normalised out and lse, merged into (run, lse) with `read`,
+    stored to out (final) or run, in place."""
+    o_c, lse_c = attention_f32_reference(q, k, v, scale)
+    if read:
+        o_c, lse_c = _merge(run, lse, o_c, lse_c)
+    lse.copy_(lse_c)
+    _store(o_c, run, out, final)
+
+
+def dq_step_reference(q, k, v, g, out, lse, scale: float, delta, dq, run, read: bool,
+                      final: bool):
+    """The plain version of `flash_attention.dq_step`: the chunk's float32
+    dq added to run (read), stored to dq (final) or run; returns delta."""
+    if delta is None:
+        delta = row_delta(g, out)
+    part = chunk_partials_reference(q, k, v, g, lse, delta, scale, dkv=False)[0]
+    _store(run + part if read else part, run, dq, final)
+    return delta
+
+
+def dkv_step_reference(q, k, v, g, lse, delta, scale: float, dk, dv, dk_run, dv_run,
+                       read: bool, final: bool) -> None:
+    """The plain version of `flash_attention.dkv_step`: the chunk's float32
+    dk and dv added to the running sums (read), stored to dk, dv (final) or
+    the sums."""
+    _, dk_p, dv_p = chunk_partials_reference(q, k, v, g, lse, delta, scale, dq=False)
+    for part, run, result in ((dk_p, dk_run, dk), (dv_p, dv_run, dv)):
+        _store(run + part if read else part, run, result, final)
+
+
+def _forward_step(*args) -> None:
+    k3.forward_step(*args)
+    ring_flash_attention.fwd_launches += 1
+
+
+def _dq_step(*args):
+    delta = k3.dq_step(*args)
     ring_flash_attention.bwd_dq_launches += 1
+    return delta
+
+
+def _dkv_step(*args) -> None:
+    k3.dkv_step(*args)
     ring_flash_attention.bwd_dkv_launches += 1
-    return dq, dk, dv, delta
+
+
+def _steps(q, plain: bool):
+    """(forward, dQ, dK/dV) step functions: the kernels on CUDA tensors,
+    the plain versions on CPU tensors or by name."""
+    if plain or q.device.type == "cpu":
+        return forward_step_reference, dq_step_reference, dkv_step_reference
+    return _forward_step, _dq_step, _dkv_step
+
+
+def _running(result: torch.Tensor) -> torch.Tensor:
+    """The float32 running state beside a result: the result itself when
+    that is float32."""
+    return result if result.dtype == torch.float32 else _empty_bthd(result, torch.float32)
 
 
 class _Done:
@@ -161,48 +205,67 @@ _ACC_TAG = 2  # the dK/dV accumulators' shift; K/V's takes tags 0 and 1
 
 def _ring_forward(ring, qs, ks, vs, scale: float, plain: bool):
     """Each lane's (out in q's dtype, global lse (B*H, T) float32)."""
-    outs = [_bthd_zeros(q) for q in qs]
-    lses = [torch.full((q.shape[0] * q.shape[1], q.shape[2]), float("-inf"),
-                       dtype=torch.float32, device=q.device) for q in qs]
+    n = ring.n
+    step_fn = _steps(qs[0], plain)[0]
+    outs = [_empty_bthd(q) for q in qs]
+    lses = [torch.empty((q.shape[0] * q.shape[1], q.shape[2]), dtype=torch.float32,
+                        device=q.device) for q in qs]
+    runs = [_running(out) if n > 1 else None for out in outs]
     kv = list(zip(ks, vs))
-    for step in range(ring.n):
+    for step in range(n):
         # post the next shift first: it reads the chunks the kernels read
-        shift = ring.rotate(kv) if step + 1 < ring.n else None
+        shift = ring.rotate(kv) if step + 1 < n else None
         for i, q in enumerate(qs):
-            o_c, lse_c = _forward_step(q, *kv[i], scale, plain)
-            outs[i], lses[i] = _merge(outs[i], lses[i], o_c, lse_c)
+            step_fn(q, *kv[i], scale, outs[i], lses[i], runs[i], step > 0, step + 1 == n)
         if shift is not None:
             kv = shift.wait()
-    return [o.to(q.dtype) for o, q in zip(outs, qs)], lses
+    return outs, lses
+
+
+def _accumulators(kv, n: int):
+    """The first step's dK/dV buffers per lane: at n = 1 dk and dv
+    themselves; else float32 accumulators, contiguous (B, T, H, Dh) so
+    that a shift sends them as they are."""
+    if n == 1:
+        return [(_empty_bthd(k), _empty_bthd(v)) for k, v in kv]
+    return [tuple(torch.empty(x.transpose(1, 2).shape, dtype=torch.float32, device=x.device)
+                  for x in pair) for pair in kv]
 
 
 def _ring_backward(ring, qs, ks, vs, gs, outs, lses, scale: float, plain: bool):
     """Each lane's (dq, dk, dv) in its inputs' dtype."""
-    dqs = [_bthd_zeros(q) for q in qs]
+    n = ring.n
+    _, dq_fn, dkv_fn = _steps(qs[0], plain)
+    dqs = [_empty_bthd(q) for q in qs]
+    dq_runs = [_running(dq) if n > 1 else None for dq in dqs]
     deltas = [None] * len(qs)
     kv = list(zip(ks, vs))
-    acc = acc_shift = None
-    for step in range(ring.n):
-        kv_shift = ring.rotate(kv) if step + 1 < ring.n else None
-        parts = []
-        for i, q in enumerate(qs):
-            dq, dk, dv, deltas[i] = _backward_step(q, *kv[i], gs[i], outs[i], lses[i],
-                                                   deltas[i], scale, plain)
-            dqs[i] = dqs[i] + dq.float()
-            parts.append((dk.float(), dv.float()))
+    acc_shift = None
+    for step in range(n):
+        kv_shift = ring.rotate(kv) if step + 1 < n else None
+        read, last = step > 0, step + 1 == n
+        for i, q in enumerate(qs):  # queued before the accumulators' arrival
+            deltas[i] = dq_fn(q, *kv[i], gs[i], outs[i], lses[i], scale, deltas[i], dqs[i],
+                              dq_runs[i], read, last)
         # the dK/dV accumulators travel with their chunk: the one that
-        # arrives now belongs to the chunk this lane just used
-        if acc_shift is not None:
-            acc = acc_shift.wait()
-        acc = parts if acc is None else [(a_k + p_k, a_v + p_v)
-                                         for (a_k, a_v), (p_k, p_v) in zip(acc, parts)]
+        # arrives now belongs to the chunk this lane holds
+        acc = acc_shift.wait() if acc_shift is not None else _accumulators(kv, n)
+        for i, q in enumerate(qs):
+            a_k, a_v = acc[i]
+            if n == 1:  # K3's own mode: dk and dv stored in their dtype
+                dkv_fn(q, *kv[i], gs[i], lses[i], deltas[i], scale, a_k, a_v, None, None,
+                       False, True)
+            else:
+                dkv_fn(q, *kv[i], gs[i], lses[i], deltas[i], scale, None, None,
+                       a_k.transpose(1, 2), a_v.transpose(1, 2), read, False)
         acc_shift = ring.rotate(acc, tag=_ACC_TAG)
         if kv_shift is not None:
             kv = kv_shift.wait()
     acc = acc_shift.wait()  # n shifts: every accumulator is home
-    return ([dq.to(q.dtype) for dq, q in zip(dqs, qs)],
-            [a_k.to(k.dtype) for (a_k, _), k in zip(acc, ks)],
-            [a_v.to(v.dtype) for (_, a_v), v in zip(acc, vs)])
+    if n > 1:
+        acc = [tuple(a.to(x.dtype).transpose(1, 2) for a, x in zip(pair, (k, v)))
+               for pair, k, v in zip(acc, ks, vs)]
+    return dqs, [a_k for a_k, _ in acc], [a_v for _, a_v in acc]
 
 
 def _prepare(q, k, v):

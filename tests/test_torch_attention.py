@@ -7,6 +7,7 @@ Inputs are seeded numpy arrays handed to both packages; weights cross
 through seld_tpu_torch.convert.state_dict_from_jax."""
 
 import functools
+import struct
 
 import jax
 import jax.numpy as jnp
@@ -530,6 +531,10 @@ def test_kernel_ready_copies_a_broadcast_dim():
     assert fa.copies == before + 1
 
 
+def _unpacked(strides: bytes) -> list[int]:
+    return list(struct.unpack(f"{len(strides) // 8}q", strides))
+
+
 @pytest.fixture
 def recorded_launches(monkeypatch):
     """launch_dq / launch_dkv on CPU tensors with `_launch` recording its
@@ -541,29 +546,25 @@ def recorded_launches(monkeypatch):
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_launch_forward_passes_the_three_maps(recorded_launches, dtype):
-    """bf16: the tensor maps of q (a box of the block's queries: 256 up to
-    Dh = 64, 128 above), k and v (a box of 64 keys) and out (a box of one
-    warpgroup's 64 rows); float32 takes none. One launch counted."""
+    """The launch hands over q, k, v and out, whose strides the C launcher
+    encodes the tensor maps from (q's, k's, v's and out's in bf16), no
+    running state, and K3's own mode (read 0, final 1). One launch
+    counted."""
     fa = port_flash.flash_attention
-    for dh, rows in ((32, 64), (80, 64)):
+    for dh in (32, 80):
         q, k, v, _ = (torch.from_numpy(x).to(dtype) for x in _qkvw(70, seed=12, dh=dh))
         before = fa.fwd_launches
         out, lse = port_flash.launch_forward(q, k, v, 0.5)
         assert fa.fwd_launches == before + 1
         assert out.shape == q.shape and out.dtype == dtype and out.transpose(1, 2).is_contiguous()
         assert lse.shape == (B * H, 70) and lse.dtype == torch.float32
-        which, name, tensors, strided, extra, scale = recorded_launches[-1]
+        which, name, tensors, strided, flags, scale = recorded_launches[-1]
         assert (which, name, scale) == (0, "forward", 0.5)
         assert tensors[:3] == (q, k, v) and tensors[3] is out and tensors[4] is lse
-        assert strided == (q, k, v, out)
-        (geometry,) = extra
-        if dtype == torch.bfloat16:  # q's box holds the block's queries
-            want = [*port_flash.tma_geometry(q, port_flash.fwd_block_rows(dh)),
-                    *port_flash.tma_geometry(k, rows), *port_flash.tma_geometry(v, rows),
-                    *port_flash.tma_geometry(out, 64)]
-            assert list(geometry) == want
-        else:
-            assert geometry is None
+        assert tensors[5] is None and strided == (q, k, v, out, None)
+        assert flags == (0, 1)
+        assert _unpacked(port_flash._strides(*strided)) == [
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3], 0, 0, 0]
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -575,20 +576,20 @@ def test_launch_dq_forms_or_takes_delta(recorded_launches, dtype):
     dq, delta = port_flash.launch_dq(q, k, v, w, out, lse, 0.5)
     assert dq.shape == q.shape and dq.dtype == dtype and dq.transpose(1, 2).is_contiguous()
     assert delta.shape == (B * H, 70) and delta.dtype == torch.float32
-    which, name, tensors, strided, extra, scale = recorded_launches[-1]
+    which, name, tensors, strided, flags, scale = recorded_launches[-1]
     assert (which, name, scale) == (1, "dQ", 0.5)
     assert tensors[:6] == (q, k, v, w, out, lse) and tensors[6] is delta and tensors[7] is dq
-    assert strided == (q, k, v, w, out, dq)
-    geometry, given = extra
+    assert tensors[8] is None and strided == (q, k, v, w, out, dq, None)
+    given, read, final = flags
+    assert (read, final) == (0, 1)  # K3's own mode
     if dtype == torch.bfloat16:  # the kernel forms delta: its buffer, flag 0
         assert given == 0
-        assert list(geometry) == [n for x in (q, k, v, w) for n in port_flash.tma_geometry(x, 64)]
     else:  # float32: row_delta's, handed to the kernel
-        assert given == 1 and geometry is None
+        assert given == 1
         torch.testing.assert_close(delta, port_flash.row_delta(w, out).view(B * H, 70))
     mine = torch.ones((B * H, 70))
     _, passed = port_flash.launch_dq(q, k, v, w, out, lse, 0.5, delta=mine)
-    assert passed is mine and recorded_launches[-1][4][1] == 1
+    assert passed is mine and recorded_launches[-1][4][0] == 1
     assert fa.bwd_dq_launches == before + 2
 
 
@@ -598,11 +599,40 @@ def test_launch_dkv_passes_delta_and_the_four_maps(recorded_launches):
     lse, delta = torch.zeros((B * H, 70)), torch.ones((B * H, 70))
     before = fa.bwd_dkv_launches
     dk, dv = port_flash.launch_dkv(q, k, v, w, lse, delta, 0.25)
-    which, name, tensors, strided, extra, scale = recorded_launches[-1]
+    which, name, tensors, strided, flags, scale = recorded_launches[-1]
     assert (which, name, scale) == (2, "dK/dV", 0.25)
     assert tensors[4] is lse and tensors[5] is delta and tensors[6] is dk and tensors[7] is dv
-    assert list(extra[0]) == [n for x in (q, k, v, w) for n in port_flash.tma_geometry(x, 32)]
+    assert tensors[8:] == (None, None) and flags == (0, 1)
+    assert strided[:4] == (q, k, v, w)  # the four maps' tensors, encoded in C
     assert dk.shape == dv.shape == q.shape and fa.bwd_dkv_launches == before + 1
+
+
+@pytest.mark.parametrize("read,final", [(0, 0), (1, 0), (1, 1)])
+def test_ring_modes_pass_their_running_state(recorded_launches, read, final):
+    """The ring modes hand over the float32 running state with its strides
+    and the two flags; the buffers a mode does not write may be None."""
+    fa = port_flash.flash_attention
+    q, k, v, w = (torch.from_numpy(x).bfloat16() for x in _qkvw(70, seed=13))
+    out, lse = port_flash._empty_bthd(q), torch.zeros((B * H, 70))
+    run = port_flash._empty_bthd(q, torch.float32)
+    before = (fa.fwd_launches, fa.bwd_dq_launches, fa.bwd_dkv_launches)
+    port_flash.forward_step(q, k, v, 0.5, out, lse, run, bool(read), bool(final))
+    _, _, tensors, strided, flags, _ = recorded_launches[-1]
+    assert tensors[5] is run and strided[4] is run and flags == (read, final)
+    delta = port_flash.dq_step(q, k, v, w, out, lse, 0.5, None, out, run, bool(read),
+                               bool(final))
+    _, _, tensors, strided, flags, _ = recorded_launches[-1]
+    assert tensors[8] is run and strided[6] is run and flags == (0, read, final)
+    acc = (torch.empty((B, 70, H, DH)), torch.empty((B, 70, H, DH)))
+    port_flash.dkv_step(q, k, v, w, lse, delta, 0.5, None, None, acc[0].transpose(1, 2),
+                        acc[1].transpose(1, 2), bool(read), False)
+    _, _, tensors, strided, flags, _ = recorded_launches[-1]
+    assert tensors[6:8] == (None, None) and flags == (read, 0)
+    assert [x.data_ptr() for x in tensors[8:]] == [a.data_ptr() for a in acc]
+    assert _unpacked(port_flash._strides(*strided))[12:] == [0] * 6 + [
+        70 * H * DH, DH, H * DH] * 2
+    assert (fa.fwd_launches, fa.bwd_dq_launches, fa.bwd_dkv_launches) == tuple(
+        n + 1 for n in before)
 
 
 @pytest.mark.parametrize("need", ["qkv", "kv", "q"])

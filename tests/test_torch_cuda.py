@@ -1,4 +1,4 @@
-"""Kernels K1, K2, K3 and K4 and the port's CUDA guards, on an NVIDIA card.
+"""Kernels K1-K5 and the port's CUDA guards, on an NVIDIA card.
 
 This file imports neither JAX nor seld_tpu, so it runs where only PyTorch
 is installed; the repo's conftest.py needs JAX, so skip it there:
@@ -832,13 +832,15 @@ def _ring(chunks, w, n, plain):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("n", [2, 4])
+@pytest.mark.parametrize("n", [1, 2, 4])
 def test_virtual_ring_matches_k3_on_card(cuda_device, n, dtype):
-    """K5 over n virtual ranks on K3's kernels: in float32 against K3 over
-    the whole T at the JAX ring tests' bars (out, lse, dq, dk, dv); in bf16
-    against the float32 plain ring on the same bf16-rounded inputs, at most
-    1.5x the bf16 plain ring's error, as K3's bf16 tests hold K3 (lse within
-    1e-4); n x n launches of each K3 kernel, no copies."""
+    """K5 over n virtual ranks, one K3-family launch a lane and step forward
+    (the merge in the epilogue) and two backward (the sums in the stores):
+    in float32 against K3 over the whole T at the JAX ring tests' bars
+    (out, lse, dq, dk, dv); in bf16 against the float32 plain ring on the
+    same bf16-rounded inputs, at most 1.5x the bf16 plain ring's error, as
+    K3's bf16 tests hold K3 (lse within 1e-4); at n = 1 K3's bits; n x n
+    launches of each kernel, counted by K5 and by K3; no copies."""
     from seld_tpu_torch.ops.ring_attention import ring_flash_attention
 
     g = torch.Generator(device=cuda_device).manual_seed(n)
@@ -846,17 +848,23 @@ def test_virtual_ring_matches_k3_on_card(cuda_device, n, dtype):
                   for _ in range(4))
     counts = (ring_flash_attention.fwd_launches, ring_flash_attention.bwd_dq_launches,
               ring_flash_attention.bwd_dkv_launches)
+    k3_counts = _k3_launches()
     copies = flash_attention.copies
     got = _ring([list(x.chunk(n, dim=2)) for x in (q, k, v)], w, n, plain=False)
     torch.cuda.synchronize()
     assert (ring_flash_attention.fwd_launches - counts[0],
             ring_flash_attention.bwd_dq_launches - counts[1],
             ring_flash_attention.bwd_dkv_launches - counts[2]) == (n * n,) * 3
+    assert tuple(a - b for a, b in zip(_k3_launches(), k3_counts)) == (n * n,) * 3
     assert flash_attention.copies == copies
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    out, lse = flash_attention(*leaves, return_lse=True)
+    want = (out, lse.view(2, 4, -1), *torch.autograd.grad(out, leaves, w))
+    if n == 1:
+        for name, a, b in zip(("out", "lse", "dq", "dk", "dv"), got, want):
+            assert torch.equal(a, b), name
+        return
     if dtype == torch.float32:
-        leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
-        out, lse = flash_attention(*leaves, return_lse=True)
-        want = (out, lse.view(2, 4, -1), *torch.autograd.grad(out, leaves, w))
         for i, (a, b) in enumerate(zip(got, want)):
             tol = dict(rtol=2e-4, atol=2e-5) if i < 2 else dict(rtol=3e-4, atol=3e-4)
             torch.testing.assert_close(a, b, **tol)
@@ -869,3 +877,79 @@ def test_virtual_ring_matches_k3_on_card(cuda_device, n, dtype):
         err = (got[i].float() - exact[i]).abs().max().item()
         plain_err = (plain[i].float() - exact[i]).abs().max().item()
         assert err <= 1.5 * plain_err + 1e-6, (name, err, plain_err)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_virtual_ring_is_bit_reproducible_on_card(cuda_device, dtype):
+    """No atomics in the ring modes: two runs give the same bits."""
+    g = torch.Generator(device=cuda_device).manual_seed(40)
+    q, k, v, w = (torch.randn((2, 4, 1000, 64), generator=g, device=cuda_device).to(dtype)
+                  for _ in range(4))
+    chunks = [list(x.chunk(4, dim=2)) for x in (q, k, v)]
+    first, second = _ring(chunks, w, 4, plain=False), _ring(chunks, w, 4, plain=False)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def test_virtual_ring_is_one_kernel_a_step_on_card(cuda_device):
+    """A bf16 ring at n = 4 on the profiler: forward, 16 launches of the
+    wgmma forward kernel and nothing else; backward, 16 dQ and 16 dK/dV
+    launches, each step's dQ launches before its dK/dV ones, and no other
+    kernel until the last of them (then only the dk and dv casts at home,
+    2 n at most)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from seld_tpu_torch.ops.ring_attention import virtual_ring_attention, virtual_ring_backward
+
+    q, k, v, w = _k3_case(cuda_device, 2, 8, 1000, 64, torch.bfloat16, seed=41)
+    qs, ks, vs, ws = (list(x.chunk(4, dim=2)) for x in (q, k, v, w))
+    outs, lses = virtual_ring_attention(qs, ks, vs)
+    virtual_ring_backward(qs, ks, vs, ws, outs, lses)
+    torch.cuda.synchronize()
+
+    def kernels(fn):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            # behind a spin (left out): a session can lose the first events it sees
+            torch.cuda._sleep(int(5e-3 * torch.cuda.get_device_properties(0).clock_rate * 1e3))
+            result = fn()
+            torch.cuda.synchronize()
+        events = sorted((e for e in prof.events()
+                         if e.device_type == torch.autograd.DeviceType.CUDA
+                         and not e.is_user_annotation and "spin_kernel" not in e.name),
+                        key=lambda e: e.time_range.start)
+        return result, [e.name for e in events]
+
+    (outs, lses), names = kernels(lambda: virtual_ring_attention(qs, ks, vs))
+    assert len(names) == 16 and all("flash_fwd_wgmma_kernel" in n for n in names), names
+    _, names = kernels(lambda: virtual_ring_backward(qs, ks, vs, ws, outs, lses))
+    flash = [i for i, n in enumerate(names) if "flash_" in n]
+    kinds = ["dq" if "flash_dq_wgmma" in names[i] else "dkv" for i in flash]
+    assert kinds == (["dq"] * 4 + ["dkv"] * 4) * 4, names
+    assert flash == list(range(32)) and len(names) <= 32 + 2 * 4, names
+
+
+@pytest.mark.parametrize("b,h,t,dh", [(2, 8, 1000, 64), (1, 3, 37, 80), (3, 1, 130, 16),
+                                      (1, 1, 64, 128)])
+def test_launchers_encode_the_tensor_maps_of_tma_geometry(cuda_device, b, h, t, dh):
+    """The C launchers' tensor maps, from the strides alone, hold the values
+    of tma_geometry, the plain version of that encoding (the model's layout,
+    contiguous tensors, a size-1 dim with stride 0)."""
+    from seld_tpu_torch.ops.flash_attention import (
+        bwd_box_rows,
+        fwd_block_rows,
+        tensor_map_geometry,
+        tma_geometry,
+    )
+
+    q, k, v, w = _k3_case(cuda_device, b, h, t, dh, torch.bfloat16, seed=42)
+    out = torch.empty((b, t, h, dh), dtype=torch.bfloat16, device=cuda_device).transpose(1, 2)
+    k = k.contiguous()
+    v = v.contiguous()
+    if b == 1:  # the batch dim with stride 0
+        v = v.as_strided(v.shape, (0, *v.stride()[1:]))
+    rows = bwd_box_rows(dh)
+    assert tensor_map_geometry(0, q, k, v, out) == [
+        *tma_geometry(q, fwd_block_rows(dh)), *tma_geometry(k, 64), *tma_geometry(v, 64),
+        *tma_geometry(out, 64)]
+    for which in (1, 2):
+        assert tensor_map_geometry(which, q, k, v, w) == [
+            n for x in (q, k, v, w) for n in tma_geometry(x, rows)]

@@ -80,8 +80,8 @@ Phases, each of which raises on failure:
      memory holds no framed copy), and timed train steps of the recipe
      with both augmentation hooks, one of them profiled.
   9. the other grid backbones at full width (the JAX package's defaults):
-     `cli verify` (OK for the flagship, the CSPDarkNet, the CRNN and the
-     Conformer), then for the CRNN, the Conformer and the small
+     `cli verify` (OK for all six backbones: the flagship, the CSPDarkNet,
+     the CRNN, the Conformer and the two ACCDOA families), then for the CRNN, the Conformer and the small
      CSPDarkNet `cli train --synthetic` for one epoch at batch 16 and
      T = 250 (K2's and K1's launch counts exact), a 60 s predict from the
      best checkpoint (K1 once, K3 never; median of five timed calls, peak
@@ -126,8 +126,25 @@ Phases, each of which raises on failure:
      mesh.shard_time=true|false` (the CLI under torchrun, then the launch
      counts as JSON): every attention of the sharded run through K5, none
      of the data-parallel run's, epoch losses against phase 7's.
-It prints the launch counts of phases 9 and 10, one JSON line of kernel
-figures, the nvidia-smi line, and last {"ok": true, "device": {...}}.
+ 14. the ACCDOA families at full width (the JAX package's defaults: CNN
+     64-512, d_model 256, 4 heads, 2 blocks, 13 classes, bf16) on synthetic
+     WAV files in the STARSS22 layout: accdoa_conformer on mel_iv with ACS
+     (K4) and multi_accdoa_conformer (3 tracks) on mel (K1), each through
+     `cli train` (1 epoch, batch 16, T = 250), `cli eval
+     --accdoa-threshold-sweep`, `cli calibrate`, `cli predict --calibration`
+     of a seeded 60 s clip and `cli score` of its CSV against the clip's
+     ground truth, every step's launches exact (K1 or K4 once per clip
+     built or served, K2 never); the device decode of the clip's vectors
+     against the host decode (equal but for a vector at a cell edge), two
+     runs bit-equal; five timed predicts and timed train steps, one of each
+     profiled; multi-ACCDOA at 20 s windows (T = 1000): a 60 s predict (K3
+     forward once per block and forward) and timed train steps (forward,
+     dQ and dK/dV once per block); then `cli calibrate` of phase 6's
+     flagship run (the grid bg_bias path: K2's forward once per eval step
+     of each pass) and `cli predict --calibration` (K1 once).
+It prints the launch counts of phases 9, 10 and 14, one JSON line of
+kernel figures (each row's `launches_accdoa`: its launches on phase 14's
+paths), the nvidia-smi line, and last {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -1323,9 +1340,10 @@ def phase_f32(dev: torch.device) -> None:
           f"loss {metrics['loss'].item():.6f}")
 
 
-def phase_train(dev: torch.device) -> dict:
-    """The training main path through the CLI, then resume and serving.
-    Returns the launch counts of the first (counted) run."""
+def phase_train(dev: torch.device, run_dir: Path) -> dict:
+    """The training main path through the CLI under run_dir (kept for
+    phase 14's calibration), then resume and serving. Returns the launch
+    counts of the first (counted) run."""
     from seld_tpu_torch import cli
     from seld_tpu_torch.config import Config
     from seld_tpu_torch.infer import SELDPredictor
@@ -1342,7 +1360,7 @@ def phase_train(dev: torch.device) -> dict:
     train_steps = -(-(2 * 30 * fps // hop) // cfg.train.batch_size)
     eval_steps = -(-(20 * fps // hop) // cfg.train.batch_size)
     (ROOT / "build").mkdir(exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+    with contextlib.nullcontext(str(run_dir)) as tmp:
         args = ["train", "--synthetic", f"data.base_path={tmp}",
                 "train.save_every_n_epochs=1"]
         grid_loss_terms.fwd_launches = grid_loss_terms.bwd_launches = 0
@@ -1413,35 +1431,47 @@ def phase_train(dev: torch.device) -> dict:
 
 def time_train_steps(dev: torch.device, cfg, tag: str = "[train]") -> dict:
     """Wall time of cfg's train steps on seeded synthetic batches (host
-    clock around a step that ends in a synchronize), K3's launches in one
-    more step, and one step under torch.profiler. Returns the losses of
-    the timed steps, the median step ms, the peak device memory in GiB and
-    those K3 counts."""
+    clock around a step that ends in a synchronize), K3's and K2's launches
+    in one more step, and one step under torch.profiler. An ACCDOA model
+    trains on the corpus's ACCDOA targets with its own loss and ACS hook.
+    Returns the losses of the timed steps, the median step ms, the peak
+    device memory in GiB, those K3 counts and the K2 counts."""
+    from seld_tpu_torch.accdoa import ACCDOALossFn, ADPITLossFn
     from seld_tpu_torch.data.sampler import BatchIterator, place_batch
     from seld_tpu_torch.data.synthetic import synthetic_corpus
-    from seld_tpu_torch.features.acs import make_acs_augment
+    from seld_tpu_torch.features.acs import make_acs_augment, make_acs_augment_accdoa
     from seld_tpu_torch.features.spatial import feature_channels
     from seld_tpu_torch.features.specaugment import make_spec_augment
     from seld_tpu_torch.losses import SELDLossFn
     from seld_tpu_torch.models import build_model
+    from seld_tpu_torch.models.registry import ACCDOA_MODELS, MULTI_ACCDOA_MODELS
     from seld_tpu_torch.ops.flash_attention import flash_attention as fa
+    from seld_tpu_torch.ops.loss_cuda import grid_loss_terms
     from seld_tpu_torch.train.optimizer import make_optimizer
     from seld_tpu_torch.train.state import create_train_state
     from seld_tpu_torch.train.steps import make_train_step
 
+    accdoa = cfg.model.model_type in ACCDOA_MODELS
+    multi = cfg.model.model_type in MULTI_ACCDOA_MODELS
     corpus = synthetic_corpus(cfg, n_files=2, seconds=30.0, seed=0, device=dev)
     model = build_model(cfg.model, cfg.grid, device=dev, seed=0,
                         in_channels=feature_channels(cfg.features.feature_set,
                                                      cfg.model.n_channels))
     optimizer = make_optimizer(model.parameters(), cfg.train.learning_rate,
                                cfg.train.weight_decay)
-    spatial_augment = (make_acs_augment(cfg.grid.n_el, cfg.grid.n_az, cfg.features.feature_set)
-                       if cfg.train.acs_augment else None)
-    step = make_train_step(model, SELDLossFn(cfg.loss, cfg.grid), optimizer,
+    spatial_augment = None
+    if cfg.train.acs_augment:
+        spatial_augment = (make_acs_augment_accdoa(cfg.features.feature_set, multi) if accdoa
+                           else make_acs_augment(cfg.grid.n_el, cfg.grid.n_az,
+                                                 cfg.features.feature_set))
+    loss_fn = ((ADPITLossFn() if multi else ACCDOALossFn()) if accdoa
+               else SELDLossFn(cfg.loss, cfg.grid))
+    step = make_train_step(model, loss_fn, optimizer,
                            cfg.grid.num_classes, input_augment=make_spec_augment(cfg.train),
                            spatial_augment=spatial_augment)
     state = create_train_state(model, optimizer)
-    batches = [place_batch(b, dev) for b in BatchIterator(corpus, cfg.train.batch_size)][:3]
+    batches = [(p[0], p[3] if accdoa else p[1], p[2]) for p in (
+        place_batch(b, dev) for b in BatchIterator(corpus, cfg.train.batch_size))][:3]
     times, losses = [], []
     torch.cuda.reset_peak_memory_stats()
     for i in range(13):
@@ -1457,10 +1487,12 @@ def time_train_steps(dev: torch.device, cfg, tag: str = "[train]") -> dict:
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     mel, mask, em = batches[0]
     fa.fwd_launches = fa.bwd_dq_launches = fa.bwd_dkv_launches = 0
+    grid_loss_terms.fwd_launches = grid_loss_terms.bwd_launches = 0
     step(state, mel, mask, em, (0, 1))
     torch.cuda.synchronize()
     k3 = {"k3_fwd": fa.fwd_launches, "k3_dq": fa.bwd_dq_launches,
           "k3_dkv": fa.bwd_dkv_launches}
+    k2 = {"k2_fwd": grid_loss_terms.fwd_launches, "k2_bwd": grid_loss_terms.bwd_launches}
     print(f"{tag} train step, batch {cfg.train.batch_size} x {corpus.window_frames} frames "
           f"x {corpus.mel.shape[1]} feature channels, {cfg.model.compute_dtype}: median "
           f"{step_ms:.2f} ms of {', '.join(f'{t:.1f}' for t in steady)} (first "
@@ -1468,9 +1500,10 @@ def time_train_steps(dev: torch.device, cfg, tag: str = "[train]") -> dict:
           f"{cfg.train.batch_size / (step_ms * 1e-3):.1f} windows/s; peak device memory "
           f"{peak_gib:.2f} GiB; K3 launches in one step: forward {k3['k3_fwd']}, dQ "
           f"{k3['k3_dq']}, dK/dV {k3['k3_dkv']}")
-    profile_call("train step" if tag == "[train]" else f"{tag[1:-1]} train step",
+    what = tag.strip("[]").replace("][", " ")
+    profile_call("train step" if tag == "[train]" else f"{what} train step",
                  lambda: step(state, mel, mask, em, (0, 1)), step_ms)
-    return {"losses": losses, "step_ms": step_ms, "peak_gib": peak_gib, "k3": k3}
+    return {"losses": losses, "step_ms": step_ms, "peak_gib": peak_gib, "k3": k3, "k2": k2}
 
 
 def phase_long_window(dev: torch.device) -> dict:
@@ -1785,20 +1818,24 @@ BACKBONES = (  # (model_type, overrides): full width, the JAX package's defaults
 )
 
 
-def serve_clip(pred, wave, tag: str) -> dict:
-    """One counted predict of the 60 s clip (K1, K3 forward counts), then
-    five timed ones; checks the class grid."""
+def serve_clip(pred, wave, tag: str, profile: bool = False) -> dict:
+    """One counted predict of the 60 s clip (K1, K4, K3 forward counts),
+    then five timed ones, and with `profile` one more under torch.profiler;
+    checks the class grid."""
     from seld_tpu_torch.ops.flash_attention import flash_attention as fa
     from seld_tpu_torch.ops.mel_cuda import log_mel_frames
+    from seld_tpu_torch.ops.spatial_cuda import spatial_features
 
     pred.predict_waveform(wave)  # warm-up
     torch.cuda.synchronize()
     log_mel_frames.launches = fa.fwd_launches = fa.bwd_dq_launches = fa.bwd_dkv_launches = 0
+    spatial_features.launches = 0
     torch.cuda.reset_peak_memory_stats()
     classes = pred.predict_waveform(wave).classes
     torch.cuda.synchronize()
-    counts = {"k1": log_mel_frames.launches, "k3_fwd": fa.fwd_launches,
-              "k3_dq": fa.bwd_dq_launches, "k3_dkv": fa.bwd_dkv_launches}
+    counts = {"k1": log_mel_frames.launches, "k4": spatial_features.launches,
+              "k3_fwd": fa.fwd_launches, "k3_dq": fa.bwd_dq_launches,
+              "k3_dkv": fa.bwd_dkv_launches}
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     grid = pred.cfg.grid
     t_frames = 1 + CLIP_SECONDS * pred.cfg.features.sample_rate // pred.cfg.features.hop_length
@@ -1813,10 +1850,14 @@ def serve_clip(pred, wave, tag: str) -> dict:
         times.append((time.perf_counter() - t0) * 1e3)
     clip_ms = float(np.median(times))
     print(f"{tag} SELDPredictor at {pred.cfg.window.window_seconds:g} s windows: "
-          f"{CLIP_SECONDS} s clip -> classes {classes.shape}; K1 {counts['k1']}, K3 forward "
-          f"{counts['k3_fwd']} launches; {clip_ms:.2f} ms per clip (median of "
+          f"{CLIP_SECONDS} s clip -> classes {classes.shape}; K1 {counts['k1']}, K4 "
+          f"{counts['k4']}, K3 forward {counts['k3_fwd']} launches; {clip_ms:.2f} ms per clip "
+          f"(median of "
           f"{', '.join(f'{x:.2f}' for x in times)}) = {CLIP_SECONDS / (clip_ms * 1e-3):.1f} "
           f"audio-s/s; peak device memory {peak_gib:.2f} GiB")
+    if profile:
+        what = tag.strip("[]").replace("][", " ")
+        profile_call(f"{what} predict", lambda: pred.predict_waveform(wave), clip_ms)
     return counts
 
 
@@ -1842,7 +1883,7 @@ def phase_backbones(dev: torch.device) -> dict:
     ok = [line.split(":")[0].strip() for line in printed.getvalue().splitlines()
           if "OK |" in line]
     print("\n".join(f"[verify] {line}" for line in printed.getvalue().splitlines()))
-    if rc != 0 or ok != ["resnet_conformer", "cnn", "crnn", "conformer"]:
+    if rc != 0 or ok != list(cli.VERIFY_BACKBONES):
         raise AssertionError(f"cli verify: rc {rc}, OK for {ok}")
 
     fps = Config().features.sample_rate // Config().features.hop_length
@@ -1890,7 +1931,7 @@ def phase_backbones(dev: torch.device) -> dict:
                   f"{record['train']['loss']:.6f}, test {record['test']['loss']:.6f}; peak "
                   f"device memory {peak_gib:.2f} GiB")
             served = serve_clip(pred, wave, tag)
-            if served != {"k1": 1, "k3_fwd": 0, "k3_dq": 0, "k3_dkv": 0}:
+            if served != {"k1": 1, "k4": 0, "k3_fwd": 0, "k3_dq": 0, "k3_dkv": 0}:
                 raise AssertionError(f"{name} serving at T = 250: launches {served}")
             del pred
             found[name] = {"train": counts, "predict": served}
@@ -1903,7 +1944,8 @@ def phase_backbones(dev: torch.device) -> dict:
                 win = long_cfg.window.window_frames(long_cfg.features)
                 forwards = -(-(-(-(1 + CLIP_SECONDS * fps) // win)) // 8)
                 blocks = long_cfg.model.conf_n_layers
-                if served != {"k1": 1, "k3_fwd": forwards * blocks, "k3_dq": 0, "k3_dkv": 0}:
+                if served != {"k1": 1, "k4": 0, "k3_fwd": forwards * blocks, "k3_dq": 0,
+                              "k3_dkv": 0}:
                     raise AssertionError(f"conformer serving at T = {win}: launches {served}")
                 del pred
                 found["conformer_long"] = {"predict": served}
@@ -1917,6 +1959,296 @@ def phase_backbones(dev: torch.device) -> dict:
                 raise AssertionError(f"conformer train step at T = {win}: K3 launches {k3}")
             found["conformer_long"]["train_step"] = k3
     return found
+
+
+ACCDOA_FAMILIES = (  # (model_type, overrides): full width, the JAX package's defaults
+    ("accdoa_conformer", ["model.model_type=accdoa_conformer", "features.feature_set=mel_iv",
+                          "targets.accdoa=true", "train.acs_augment=true"]),
+    ("multi_accdoa_conformer", ["model.model_type=multi_accdoa_conformer",
+                                "targets.accdoa=true", "targets.accdoa_tracks=3"]),
+)
+THRESHOLD_SWEEP = "0.3,0.4,0.5,0.6,0.7"
+EDGE_DEG = 1e-3  # a decoded angle this close to a cell edge may round either way
+
+
+def reset_launches() -> None:
+    from seld_tpu_torch.ops.flash_attention import flash_attention as fa
+    from seld_tpu_torch.ops.loss_cuda import grid_loss_terms
+    from seld_tpu_torch.ops.mel_cuda import log_mel_frames
+    from seld_tpu_torch.ops.spatial_cuda import spatial_features
+
+    log_mel_frames.launches = spatial_features.launches = 0
+    grid_loss_terms.fwd_launches = grid_loss_terms.bwd_launches = 0
+    fa.fwd_launches = fa.bwd_dq_launches = fa.bwd_dkv_launches = 0
+
+
+def launches() -> dict:
+    """K1, K2, K3 and K4's launches since reset_launches(), after a
+    synchronize."""
+    from seld_tpu_torch.ops.flash_attention import flash_attention as fa
+    from seld_tpu_torch.ops.loss_cuda import grid_loss_terms
+    from seld_tpu_torch.ops.mel_cuda import log_mel_frames
+    from seld_tpu_torch.ops.spatial_cuda import spatial_features
+
+    torch.cuda.synchronize()
+    return {"k1": log_mel_frames.launches, "k2_fwd": grid_loss_terms.fwd_launches,
+            "k2_bwd": grid_loss_terms.bwd_launches, "k3_fwd": fa.fwd_launches,
+            "k3_dq": fa.bwd_dq_launches, "k3_dkv": fa.bwd_dkv_launches,
+            "k4": spatial_features.launches}
+
+
+def only(**counts) -> dict:
+    """The launches() dict of a path that launches these kernels and no other."""
+    return {**dict.fromkeys(("k1", "k2_fwd", "k2_bwd", "k3_fwd", "k3_dq", "k3_dkv", "k4"), 0),
+            **counts}
+
+
+def cli_json(argv: list[str]) -> dict:
+    """Run a CLI command that prints JSON; its parsed output."""
+    from seld_tpu_torch import cli
+
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        rc = cli.main(argv)
+    if rc != 0:
+        raise AssertionError(f"cli {argv[0]}: rc {rc}")
+    return json.loads(printed.getvalue())
+
+
+def near_cell_edge(vectors: np.ndarray, n_el: int, n_az: int, threshold: float) -> np.ndarray:
+    """(..., 3) vectors -> (...) bool: the float64 azimuth or elevation lies
+    within EDGE_DEG of a cell edge, or the norm within 1e-6 of the threshold,
+    where a float32 ulp of atan2 / asin on one device or the other can move
+    the decode."""
+    v = vectors.astype(np.float64)
+    norm = np.linalg.norm(v, axis=-1)
+    az = np.degrees(np.arctan2(v[..., 1], v[..., 0]))
+    el = np.degrees(np.arcsin(np.clip(v[..., 2] / np.maximum(norm, 1e-9), -1, 1)))
+    ja, je = (az + 180.0) / 360.0 * n_az, (el + 90.0) / 180.0 * n_el
+    return ((np.abs(ja - np.round(ja)) * 360.0 / n_az < EDGE_DEG)
+            | (np.abs(je - np.round(je)) * 180.0 / n_el < EDGE_DEG)
+            | (np.abs(norm - threshold) < 1e-6))
+
+
+def check_device_decode(pred, wave, tag: str) -> dict:
+    """The model's vectors for the clip decoded on the card against the
+    host decode of the same vectors (single-ACCDOA: the numpy decode;
+    multi-ACCDOA: the numpy vote decode of the class-activity map made on
+    the CPU): equal, but for frames with a vector at a cell edge; two
+    device runs bit-equal; the served class grid equal to the device
+    decode."""
+    from seld_tpu_torch.accdoa import (
+        decode_accdoa_to_grid,
+        decode_accdoa_to_grid_np,
+        decode_multi_accdoa_to_grid,
+        decode_vote_grid_np,
+        multi_accdoa_class_activity,
+    )
+    from seld_tpu_torch.data.corpus import compute_mel_features
+
+    grid, th = pred.cfg.grid, pred.accdoa_threshold
+    mel = compute_mel_features(wave, pred.cfg.features, pred.device)
+    t_total, win = mel.shape[0], pred.win
+    n = -(-t_total // win)
+    mel = torch.cat([mel, mel.new_zeros((n * win - t_total, *mel.shape[1:]))])
+    vectors = torch.cat(list(pred._batched(mel.reshape(n, win, *mel.shape[1:]),
+                                           pred._raw_apply)))
+    multi = pred.kind == "multi_accdoa"
+    decode = decode_multi_accdoa_to_grid if multi else decode_accdoa_to_grid
+    args = (grid.n_el, grid.n_az, grid.num_classes, th)
+    on_card = decode(vectors, *args)
+    if not torch.equal(on_card, decode(vectors, *args)):
+        raise AssertionError(f"{tag} device decode: two runs differ")
+    v = vectors.cpu()
+    if multi:
+        host = decode_vote_grid_np(
+            multi_accdoa_class_activity(v, grid.n_el, grid.n_az, th).numpy(), grid.num_classes)
+    else:
+        host = decode_accdoa_to_grid_np(v.numpy(), *args)
+    got = on_card.cpu().numpy().reshape(n * win, -1)
+    differ = (got != host.reshape(n * win, -1)).any(axis=1)
+    edge = near_cell_edge(v.numpy(), grid.n_el, grid.n_az, th).reshape(n * win, -1).any(axis=1)
+    if (differ & ~edge).any():
+        raise AssertionError(f"{tag} device decode differs from the host decode in "
+                             f"{int((differ & ~edge).sum())} frames with no vector at a cell edge")
+    served = pred.predict_waveform(wave).classes
+    if not np.array_equal(served, got[:t_total]):
+        raise AssertionError(f"{tag} served classes differ from the device decode")
+    active = int((got != grid.num_classes - 1).sum())
+    print(f"{tag} device decode at threshold {th:g} of {tuple(vectors.shape)} vectors: "
+          f"{active} active cells; equal to the host decode in {n * win - int(differ.sum())} "
+          f"of {n * win} frames ({int(differ.sum())} differ, each with a vector within "
+          f"{EDGE_DEG:g} deg of a cell edge); two runs bit-equal; the served grid equal")
+    return {"active_cells": active, "frames_differing": int(differ.sum())}
+
+
+def phase_accdoa(dev: torch.device, flagship_run: Path) -> dict:
+    """The ACCDOA families at full width (d_model 256, 4 heads, 2 blocks,
+    CNN 64-512, 13 classes, bf16) on synthetic WAV files in the STARSS22
+    layout: for accdoa_conformer on mel_iv with ACS (K4) and
+    multi_accdoa_conformer on mel (K1), `cli train` (1 epoch), `cli eval
+    --accdoa-threshold-sweep`, `cli calibrate`, `cli predict --calibration`
+    of a 60 s clip, `cli score` of its CSV against its ground truth, every
+    step's launches exact (K2 never); the device decode against the host
+    decode; timed and profiled predicts and train steps; multi-ACCDOA at
+    20 s windows (K3 once per block and forward). Then `cli calibrate` and
+    `cli predict --calibration` of phase 6's flagship run (K2's forward once
+    per eval step). Returns every path's launches."""
+    from seld_tpu_torch import cli
+    from seld_tpu_torch.calibrate import DEFAULT_BIAS_GRID
+    from seld_tpu_torch.config import Config, parse_overrides
+    from seld_tpu_torch.data.audio import load_wav
+    from seld_tpu_torch.data.synthetic import synthetic_raw_files
+    from seld_tpu_torch.infer import SELDPredictor
+    from seld_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
+
+    base = Config()
+    fps = base.features.sample_rate // base.features.hop_length
+    hop = base.window.hop_frames(base.features)
+    train_steps = -(-(2 * 30 * fps // hop) // base.train.batch_size)
+    eval_steps = -(-(20 * fps // hop) // base.train.batch_size)
+    found = {}
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        root = Path(tmp)
+        write_starss_layout(root, base, train_files=2, train_seconds=30.0, test_seconds=20.0)
+        (clip_wav,), (clip_csv,) = synthetic_raw_files(root / "clip", base, n_files=1,
+                                                       seconds=float(CLIP_SECONDS), seed=2)
+        gt = root / "gt"
+        gt.mkdir()
+        shutil.copy(clip_csv, gt)
+        wave, _ = load_wav(clip_wav)
+
+        def predict_and_score(name, checkpoint, calib_path):
+            out = root / f"out_{name}"
+            reset_launches()
+            if cli.main(["predict", "--checkpoint", str(checkpoint), "--calibration",
+                         str(calib_path), "--wavs", clip_wav, "--out", str(out)]) != 0:
+                raise AssertionError(f"cli predict {name} failed")
+            counts = launches()
+            scored = cli_json(["score", "--pred-dir", str(out / "predictions"),
+                               "--gt-dir", str(gt)])
+            if scored["n_files"] != 1 or not math.isfinite(scored["SELD_error"]):
+                raise AssertionError(f"cli score {name}: {scored}")
+            print(f"[{name}] cli predict --calibration of the {CLIP_SECONDS} s clip: launches "
+                  f"{counts}; cli score against its ground truth: ER {scored['ER']:.3f} F "
+                  f"{scored['F_macro']:.3f} LE {scored['LE_macro']:.1f} deg LR "
+                  f"{scored['LR_macro']:.3f} SELD_error {scored['SELD_error']:.4f}")
+            return counts
+
+        for name, overrides in ACCDOA_FAMILIES:
+            tag = f"[{name}]"
+            cfg = parse_overrides(base, overrides)
+            feature = "k4" if cfg.features.feature_set == "mel_iv" else "k1"
+            args = [f"data.base_path={root}", f"data.checkpoint_dirname=ckpt_{name}", *overrides]
+            work = root / f"ckpt_{name}"
+            reset_launches()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            if cli.main(["train", *args, "train.num_epochs=1",
+                         "train.save_every_n_epochs=1"]) != 0:
+                raise AssertionError(f"cli train {name} failed")
+            wall_s = time.perf_counter() - t0
+            trained = launches()
+            if trained != only(**{feature: 3}):
+                raise AssertionError(f"{name} cli train launches {trained}")
+            (record,) = [json.loads(x) for x in (work / "metrics.jsonl").read_text().splitlines()]
+            if not all(math.isfinite(record[s][k]) for s in ("train", "test")
+                       for k in record[s]):
+                raise AssertionError(f"{name} metrics.jsonl: {record}")
+            print(f"{tag} cli train {' '.join(overrides)}: 1 epoch of {train_steps} train + "
+                  f"{eval_steps} eval steps in {wall_s:.1f} s from 3 WAV files: launches "
+                  f"{trained}; losses {record['train']}, test {record['test']}; peak device "
+                  f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+            reset_launches()
+            report = cli_json(["eval", *args, "--accdoa-threshold-sweep", THRESHOLD_SWEEP])
+            evaluated = launches()
+            sweep = report["accdoa_threshold_sweep"]
+            if (evaluated != only(**{feature: 3}) or len(sweep["metrics"]) != 5
+                    or abs(report["test_loss"] - record["test"]["loss"]) > 1e-4):
+                raise AssertionError(f"{name} cli eval: launches {evaluated}, sweep {sweep}, "
+                                     f"test loss {report['test_loss']}")
+            print(f"{tag} cli eval --accdoa-threshold-sweep {THRESHOLD_SWEEP}: launches "
+                  f"{evaluated}; test loss {report['test_loss']:.6f} (the trainer's "
+                  f"{record['test']['loss']:.6f}); SELD_error by threshold "
+                  f"{ {k: round(v['SELD_error'], 4) for k, v in sweep['metrics'].items()} }, "
+                  f"best {sweep['best']['accdoa_threshold']}")
+
+            reset_launches()
+            calib = cli_json(["calibrate", *args, "--accdoa-threshold-sweep", THRESHOLD_SWEEP])
+            calibrated = launches()
+            if (calibrated != only(**{feature: 3}) or calib["model_type"] != name
+                    or calib["accdoa_threshold"] not in map(float, THRESHOLD_SWEEP.split(","))):
+                raise AssertionError(f"{name} cli calibrate: launches {calibrated}, {calib}")
+            print(f"{tag} cli calibrate: launches {calibrated}; accdoa_threshold "
+                  f"{calib['accdoa_threshold']}, median_filter {calib['median_filter']}, val "
+                  f"SELD_error {calib['val_metrics']['SELD_error']:.4f}")
+            best = sorted((work / "best").glob("epoch_*.pt"))[0]
+            served_cli = predict_and_score(name, best, work / "decode_calibration.json")
+            if served_cli != only(**{feature: 1}):
+                raise AssertionError(f"{name} cli predict: launches {served_cli}")
+
+            pred = SELDPredictor(best, batch_windows=8, device=dev,
+                                 accdoa_threshold=calib["accdoa_threshold"])
+            decoded = check_device_decode(pred, wave, tag)
+            served = serve_clip(pred, wave, tag, profile=True)
+            if served != {k: v for k, v in only(**{feature: 1}).items() if k in served}:
+                raise AssertionError(f"{name} serving: launches {served}")
+            del pred
+            timed = time_train_steps(dev, cfg, tag=tag)
+            if (not all(math.isfinite(x) for x in timed["losses"]) or any(timed["k3"].values())
+                    or any(timed["k2"].values())):
+                raise AssertionError(f"{name} timed steps: {timed}")
+            found[name] = {"cli train": trained, "cli eval": evaluated,
+                           "cli calibrate": calibrated, "cli predict": served_cli,
+                           "decode": decoded, "train step": {**timed["k3"], **timed["k2"]}}
+
+            if name == "multi_accdoa_conformer":  # 20 s windows: attention through K3
+                long_cfg = cfg.replace_path("window.window_seconds", LONG_WINDOW_SECONDS)
+                _, state, _ = load_checkpoint(best)
+                save_checkpoint(root / "long.pt", state, long_cfg)
+                pred = SELDPredictor(root / "long.pt", batch_windows=8, device=dev)
+                served = serve_clip(pred, wave, f"{tag}[long]", profile=True)
+                win = long_cfg.window.window_frames(long_cfg.features)
+                forwards = -(-(-(-(1 + CLIP_SECONDS * fps) // win)) // 8)
+                blocks = long_cfg.model.conf_n_layers
+                if served != {"k1": 1, "k4": 0, "k3_fwd": forwards * blocks, "k3_dq": 0,
+                              "k3_dkv": 0}:
+                    raise AssertionError(f"{name} serving at T = {win}: launches {served}")
+                del pred
+                timed = time_train_steps(dev, long_cfg, tag=f"{tag}[long]")
+                step = {**timed["k3"], **timed["k2"]}
+                if step != {"k3_fwd": blocks, "k3_dq": blocks, "k3_dkv": blocks, "k2_fwd": 0,
+                            "k2_bwd": 0} or not all(math.isfinite(x) for x in timed["losses"]):
+                    raise AssertionError(f"{name} train step at T = {win}: {step}, "
+                                         f"losses {timed['losses']}")
+                found[f"{name} T = {win}"] = {"predict": served, "train step": step}
+
+        # the grid path of calibration: phase 6's flagship run
+        reset_launches()
+        calib = cli_json(["calibrate", "--synthetic", f"data.base_path={flagship_run}"])
+        calibrated = launches()
+        if (calibrated != only(k1=3, k2_fwd=2 * eval_steps) or calib["bg_bias"] not in
+                DEFAULT_BIAS_GRID or calib["model_type"] != "resnet_conformer"):
+            raise AssertionError(f"flagship cli calibrate: launches {calibrated}, {calib}")
+        print(f"[calibrate] cli calibrate of the flagship run: launches {calibrated} (two "
+              f"passes of {eval_steps} eval steps); bg_bias {calib['bg_bias']}, median_filter "
+              f"{calib['median_filter']}, val SELD_error "
+              f"{calib['val_metrics']['SELD_error']:.4f}")
+        best = sorted((flagship_run / "checkpoints" / "best").glob("epoch_*.pt"))[0]
+        served_cli = predict_and_score("resnet_conformer", best,
+                                       flagship_run / "checkpoints" / "decode_calibration.json")
+        if served_cli != only(k1=1):
+            raise AssertionError(f"flagship cli predict --calibration: launches {served_cli}")
+        found["resnet_conformer"] = {"cli calibrate": calibrated, "cli predict": served_cli}
+    return found
+
+
+def accdoa_launches(found: dict, key: str) -> dict:
+    """One kernel's launches on every counted path of phase 14."""
+    return {f"{model} {path}": counts[key] for model, paths in found.items()
+            for path, counts in paths.items() if key in counts}
 
 
 FLAGSHIP_OPTIONS = (("as it is", []), ("norm_dtype=bfloat16", ["model.norm_dtype=bfloat16"]),
@@ -2549,7 +2881,9 @@ def main() -> int:
         k5_kernel_ms = phase_k5_profile(dev)
     k1["launches"] = phase_flagship(dev)
     phase_f32(dev)
-    counts = phase_train(dev)
+    (ROOT / "build").mkdir(exist_ok=True)
+    flagship_run = Path(tempfile.mkdtemp(dir=ROOT / "build"))
+    counts = phase_train(dev, flagship_run)
     k2_fwd["launches"], k2_bwd["launches"] = counts["k2_fwd"], counts["k2_bwd"]
     counts, long_train_loss = phase_long_window(dev)
     for row, key in zip(k3_rows, ("k3_fwd", "k3_dq", "k3_dkv")):
@@ -2572,6 +2906,14 @@ def main() -> int:
     print(f"[paths] launches by path: {json.dumps(phase_backbones(dev))}")
     print(f"[paths] K3 launches a T = 1000 flagship step by option: "
           f"{json.dumps(phase_flagship_options(dev))}")
+    try:
+        found = phase_accdoa(dev, flagship_run)
+    finally:
+        shutil.rmtree(flagship_run, ignore_errors=True)
+    print(f"[paths] launches on the ACCDOA and calibration paths: {json.dumps(found)}")
+    for row, key in ((k1, "k1"), (k2_fwd, "k2_fwd"), (k2_bwd, "k2_bwd"),
+                     *zip(k3_rows, ("k3_fwd", "k3_dq", "k3_dkv")), (k4_rows[0], "k4")):
+        row["launches_accdoa"] = accdoa_launches(found, key)
     print(json.dumps({"kernels": [k1, k2_fwd, k2_bwd, *k3_rows, *k4_rows, *f2_rows,
                                   *k5_rows]}))
     print(smi)

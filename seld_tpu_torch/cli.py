@@ -1,5 +1,5 @@
-"""Command line (counterpart: seld_tpu/cli.py `train`, `eval`, `verify`
-and `predict`).
+"""Command line (counterpart: seld_tpu/cli.py `train`, `eval`, `verify`,
+`predict`, `calibrate` and `score`).
 
     python -m seld_tpu_torch.cli train [--synthetic] [--resume] [--eval-after] \
         [--device cpu] [k.e.y=value ...]
@@ -19,13 +19,35 @@ shard_time (M = 1) it is data parallel. Each process uses cuda:LOCAL_RANK
 and NCCL (one GPU per rank); --device cpu uses gloo. Rank 0 writes the
 files.
 
+An ACCDOA model (model.model_type=accdoa_conformer or
+multi_accdoa_conformer) switches targets.accdoa on, and multi-ACCDOA
+targets.accdoa_tracks to 3.
+
     python -m seld_tpu_torch.cli eval [--synthetic] [--bg-bias B] \
-        [--bg-bias-sweep B1,B2] [--median-filter W] [--median-filter-sweep W1,W2] \
+        [--bg-bias-sweep B1,B2] [--accdoa-threshold T] [--accdoa-threshold-sweep T1,T2] \
+        [--median-filter W] [--median-filter-sweep W1,W2] [--calibration FILE] \
         [--use-checkpoint best|latest] [--device cpu] [k.e.y=value ...]
 
 scores the checkpoints under <data.base_path>/checkpoints on the test
 split and prints the report (losses, cell accuracies, "dcase" and
 "dcase2022" metrics) as JSON on standard output.
+
+    python -m seld_tpu_torch.cli calibrate [--synthetic] [--bg-bias-sweep B1,B2] \
+        [--accdoa-threshold-sweep T1,T2] [--median-widths W1,W2] \
+        [--use-checkpoint best|latest] [--out FILE] [--device cpu] [k.e.y=value ...]
+
+tunes the run's decode (the background bias of a grid model or the
+activity threshold of an ACCDOA model, then the median-filter width) on
+the test split, which should then be a validation split, and writes
+<data.base_path>/checkpoints/decode_calibration.json unless --out names
+another file; `eval` and `predict` take it back with --calibration FILE,
+where a flag given explicitly wins over the file.
+
+    python -m seld_tpu_torch.cli score --pred-dir P --gt-dir G [--macro-over all|gt] \
+        [k.e.y=value ...]
+
+prints the official DCASE2022 metrics of the prediction CSVs under P
+against the ground-truth CSVs of the same names under G.
 
     python -m seld_tpu_torch.cli verify [--frames T] [--device cpu]
 
@@ -33,7 +55,8 @@ checks every backbone's output shape on a (2, T, C, 64) input, C the
 feature set's channel count (4, 7 for mel_iv, 10 for mel_gcc).
 
     python -m seld_tpu_torch.cli predict --checkpoint FILE --wavs A.wav ... \
-        [--out DIR] [--overlap F] [--bg-bias B] [--median-filter W] [--device cpu]
+        [--out DIR] [--overlap F] [--bg-bias B] [--accdoa-threshold T] \
+        [--median-filter W] [--calibration FILE] [--device cpu]
 
 writes DIR/predictions/<wav stem>.csv with the STARSS22-style metadata
 rows of each clip; FILE may be a checkpoint that `train` wrote. All run on
@@ -51,12 +74,48 @@ from pathlib import Path
 logger = logging.getLogger("seld_tpu_torch")
 
 
+def _normalize_config(cfg):
+    """ACCDOA models train and score on ACCDOA targets: three tracks of them
+    for multi-ACCDOA."""
+    from seld_tpu_torch.models.registry import ACCDOA_MODELS, MULTI_ACCDOA_MODELS
+
+    if cfg.model.model_type in ACCDOA_MODELS and not cfg.targets.accdoa:
+        logger.info("model %s: enabling targets.accdoa", cfg.model.model_type)
+        cfg = cfg.replace_path("targets.accdoa", True)
+    if cfg.model.model_type in MULTI_ACCDOA_MODELS and cfg.targets.accdoa_tracks == 1:
+        logger.info("model %s: setting targets.accdoa_tracks=3", cfg.model.model_type)
+        cfg = cfg.replace_path("targets.accdoa_tracks", 3)
+    return cfg
+
+
+def _apply_calibration(args, run_cfg) -> None:
+    """Fill the decode flags that were not given (None) from the file of
+    --calibration, after checking it against run_cfg, the config of the
+    checkpoint the command serves: an explicit flag, 0 included, wins over
+    the file."""
+    from seld_tpu_torch.calibrate import check_calibration_matches, load_calibration
+
+    calib = load_calibration(args.calibration)
+    check_calibration_matches(calib, run_cfg)
+    applied = []
+    for knob, convert in (("bg_bias", float), ("accdoa_threshold", float),
+                          ("median_filter", int)):
+        if knob in calib and getattr(args, knob) is None:
+            setattr(args, knob, convert(calib[knob]))
+            applied.append(f"{knob}={getattr(args, knob):g}")
+    logger.info("Applied calibration %s: %s", args.calibration,
+                ", ".join(applied) if applied else "(no unset knobs)")
+
+
 def cmd_predict(args) -> int:
     from seld_tpu_torch.infer import SELDPredictor
+    from seld_tpu_torch.train.checkpoint import load_checkpoint
 
+    if args.calibration:
+        _apply_calibration(args, load_checkpoint(args.checkpoint)[0])
     predictor = SELDPredictor(
-        args.checkpoint, bg_bias=args.bg_bias, median_filter=args.median_filter,
-        device=args.device,
+        args.checkpoint, bg_bias=args.bg_bias or 0.0, median_filter=args.median_filter or 0,
+        accdoa_threshold=args.accdoa_threshold, device=args.device,
     )
     out_dir = Path(args.out) / "predictions"
     for wav in args.wavs:
@@ -95,15 +154,16 @@ def cmd_train(args) -> int:
     from seld_tpu_torch import resolve_device
     from seld_tpu_torch.config import Config, parse_overrides
     from seld_tpu_torch.parallel.multihost import launched_world_size
-    from seld_tpu_torch.train.trainer import train_model
+    from seld_tpu_torch.train.trainer import check_mesh_config, train_model
 
     device = resolve_device(args.device)
-    cfg = parse_overrides(Config(), args.overrides)
+    cfg = _normalize_config(parse_overrides(Config(), args.overrides))
     if args.eval_after and (cfg.mesh.enable == "on" or (
             cfg.mesh.enable == "auto" and launched_world_size() > 1)):
         raise NotImplementedError(
             "train --eval-after under a process mesh is not ported (evaluation under a "
             "mesh is ROADMAP item 10's remainder)")
+    check_mesh_config(cfg, cfg.window.window_frames(cfg.features))  # before any corpus
     train_c, test_c = _build_corpora(cfg, args.synthetic, device)
     try:
         _, history = train_model(cfg, train_c, test_c, workdir=cfg.data.checkpoint_path,
@@ -136,6 +196,8 @@ def _evaluate(cfg, args, test_corpus, device) -> int:
         save_visualizations=False,
         bg_bias=getattr(args, "bg_bias", None) or 0.0,
         bg_bias_sweep=_csv(getattr(args, "bg_bias_sweep", None), float),
+        accdoa_threshold=getattr(args, "accdoa_threshold", None),
+        accdoa_threshold_sweep=_csv(getattr(args, "accdoa_threshold_sweep", None), float),
         median_filter=getattr(args, "median_filter", None) or 0,
         median_filter_sweep=_csv(getattr(args, "median_filter_sweep", None), int),
         use_checkpoint=getattr(args, "use_checkpoint", "best"),
@@ -149,22 +211,67 @@ def _evaluate(cfg, args, test_corpus, device) -> int:
 def cmd_eval(args) -> int:
     from seld_tpu_torch import resolve_device
     from seld_tpu_torch.config import Config, parse_overrides
+    from seld_tpu_torch.train.checkpoint import load_checkpoint_config
 
     device = resolve_device(args.device)
-    cfg = parse_overrides(Config(), args.overrides)
+    cfg = _normalize_config(parse_overrides(Config(), args.overrides))
+    if args.calibration:
+        _apply_calibration(args, load_checkpoint_config(cfg.data.checkpoint_path) or cfg)
     _, test_c = _build_corpora(cfg, args.synthetic, device)
     return _evaluate(cfg, args, test_c, device)
 
 
-# backbones of seld_tpu's `verify`, in its order; the port has the first
+def cmd_calibrate(args) -> int:
+    """Tune the decode on the test split (point the data at a validation
+    split: calibrating on the test split spoils its evaluation) and write
+    the calibration file."""
+    from seld_tpu_torch import resolve_device
+    from seld_tpu_torch.calibrate import run_calibration, write_calibration
+    from seld_tpu_torch.config import Config, parse_overrides
+
+    device = resolve_device(args.device)
+    cfg = _normalize_config(parse_overrides(Config(), args.overrides))
+    _, val_c = _build_corpora(cfg, args.synthetic, device)
+    calib = run_calibration(
+        cfg, val_c, cfg.data.checkpoint_path, bias_grid=_csv(args.bg_bias_sweep, float),
+        threshold_grid=_csv(args.accdoa_threshold_sweep, float),
+        median_widths=_csv(args.median_widths, int), use_checkpoint=args.use_checkpoint,
+        device=device)
+    out = Path(args.out) if args.out else (
+        Path(cfg.data.checkpoint_path) / "decode_calibration.json")
+    write_calibration(calib, out)
+    print(json.dumps({k: v for k, v in calib.items()
+                      if k not in ("knob_sweep", "median_sweep")}, indent=2))
+    return 0
+
+
+def cmd_score(args) -> int:
+    """Official DCASE2022 metrics of prediction CSVs against ground-truth
+    CSVs; no model and no device."""
+    from seld_tpu_torch.config import Config, parse_overrides
+    from seld_tpu_torch.eval.score import match_csv_dirs, score_csv_pairs
+
+    cfg = parse_overrides(Config(), args.overrides)
+    pairs = match_csv_dirs(args.pred_dir, args.gt_dir)
+    logger.info("Scoring %d CSV pair(s)", len(pairs))
+    result = score_csv_pairs(pairs, cfg, macro_over=args.macro_over)
+    logger.info("DCASE2022 (official): ER %.3f F %.3f LE_CD %.1f deg LR_CD %.3f | "
+                "SELD_error %.3f (%d files, Nref %d)", result["ER"], result["F_macro"],
+                result["LE_macro"], result["LR_macro"], result["SELD_error"],
+                result["n_files"], result["Nref"])
+    print(json.dumps(result, indent=2))
+    return 0
+
+
+# backbones of seld_tpu's `verify`, in its order
 VERIFY_BACKBONES = ("resnet_conformer", "cnn", "crnn", "conformer", "accdoa_conformer",
                     "multi_accdoa_conformer")
 
 
 def cmd_verify(args) -> int:
     """Shape contract of every backbone: a (2, T, C, F) input gives finite
-    class-major (2, T, M, G) logits. Backbones the port does not have yet
-    are listed as such and fail nothing."""
+    class-major (2, T, M, G) logits, (2, T, M - 1, 3) ACCDOA vectors or
+    (2, T, 3, M - 1, 3) multi-ACCDOA vectors."""
     import torch
 
     from seld_tpu_torch import resolve_device
@@ -177,15 +284,17 @@ def cmd_verify(args) -> int:
     b, t = 2, args.frames
     c = feature_channels(cfg.features.feature_set, cfg.model.n_channels)
     x = torch.zeros((b, t, c, cfg.model.n_mels), device=device)
-    expect = (b, t, cfg.grid.num_classes, cfg.grid.n_cells)
+    events = cfg.grid.num_classes - 1
     failures = 0
     for model_type in VERIFY_BACKBONES:
+        if model_type == "multi_accdoa_conformer":
+            expect = (b, t, 3, events, 3)
+        elif model_type == "accdoa_conformer":
+            expect = (b, t, events, 3)
+        else:
+            expect = (b, t, cfg.grid.num_classes, cfg.grid.n_cells)
         mcfg = ModelConfig(model_type=model_type, compute_dtype="float32")
-        try:
-            model = build_model(mcfg, cfg.grid, device=device, seed=0, in_channels=c)
-        except NotImplementedError as e:
-            print(f"{model_type:>22}: NOT PORTED ({e})")
-            continue
+        model = build_model(mcfg, cfg.grid, device=device, seed=0, in_channels=c)
         with torch.inference_mode():
             out = model(x)
         ok = tuple(out.shape) == expect and bool(torch.isfinite(out).all())
@@ -220,14 +329,52 @@ def build_parser() -> argparse.ArgumentParser:
                    help="reduce the background logit by B before decoding (default 0)")
     p.add_argument("--bg-bias-sweep", default=None, metavar="B1,B2,...",
                    help="also report DCASE2022 metrics at each of these biases, and the best")
+    p.add_argument("--accdoa-threshold", type=float, default=None, metavar="T",
+                   help="vector-norm activity threshold of ACCDOA decodes (default 0.5)")
+    p.add_argument("--accdoa-threshold-sweep", default=None, metavar="T1,T2,...",
+                   help="also report DCASE2022 metrics at each of these thresholds, and the "
+                   "best")
     p.add_argument("--median-filter", type=int, default=None, metavar="W",
                    help="odd W-frame majority smoothing of the class grids (default 0: off)")
     p.add_argument("--median-filter-sweep", default=None, metavar="W1,W2,...",
                    help="also report DCASE2022 metrics at each of these widths, and the best")
+    p.add_argument("--calibration", default=None, metavar="FILE",
+                   help="take --bg-bias / --accdoa-threshold / --median-filter from a "
+                   "`calibrate` file; a flag given explicitly wins")
     p.add_argument("--use-checkpoint", default="best", choices=("best", "latest"),
                    help="score the best checkpoint, or the newest rolling one")
     p.add_argument("--device", default=None, help=device_help)
     p.set_defaults(fn=cmd_eval)
+    p = sub.add_parser(
+        "calibrate", help="tune the decode (bias or threshold, then median width) on the "
+        "test split, which should be a validation split; writes decode_calibration.json")
+    p.add_argument("overrides", nargs="*", help="dotted config overrides, k.e.y=value")
+    p.add_argument("--synthetic", action="store_true",
+                   help="calibrate on the seeded synthetic test clip instead of STARSS22")
+    p.add_argument("--bg-bias-sweep", default=None, metavar="B1,B2,...",
+                   help="candidate background biases of a grid model "
+                   "(default -1,-0.5,0,0.5,1,1.5,2,3)")
+    p.add_argument("--accdoa-threshold-sweep", default=None, metavar="T1,T2,...",
+                   help="candidate activity thresholds of an ACCDOA model "
+                   "(default 0.2,0.3,0.4,0.5,0.6,0.7)")
+    p.add_argument("--median-widths", default=None, metavar="W1,W2,...",
+                   help="candidate median-filter widths (default 1,3,5,7; 1 is off)")
+    p.add_argument("--use-checkpoint", default="best", choices=("best", "latest"),
+                   help="calibrate the best checkpoint, or the newest rolling one")
+    p.add_argument("--out", default=None,
+                   help="output file (default <checkpoint_path>/decode_calibration.json)")
+    p.add_argument("--device", default=None, help=device_help)
+    p.set_defaults(fn=cmd_calibrate)
+    p = sub.add_parser("score", help="official DCASE2022 metrics of prediction CSVs "
+                       "against ground-truth CSVs")
+    p.add_argument("overrides", nargs="*", help="dotted config overrides, k.e.y=value")
+    p.add_argument("--pred-dir", required=True, help="directory of predicted CSVs")
+    p.add_argument("--gt-dir", required=True,
+                   help="directory of ground-truth CSVs (matched by file name)")
+    p.add_argument("--macro-over", choices=("all", "gt"), default="all",
+                   help="macro-average over all classes (official) or only those in the "
+                   "ground truth")
+    p.set_defaults(fn=cmd_score)
     p = sub.add_parser("verify", help="output-shape contract of every backbone")
     p.add_argument("overrides", nargs="*", help="dotted config overrides, k.e.y=value")
     p.add_argument("--frames", type=int, default=250, help="input frames T (default 250)")
@@ -242,10 +389,15 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--overlap", type=float, default=0.0,
                    help="window overlap in [0, 1): average class probabilities "
                    "over overlapping windows before decoding")
-    p.add_argument("--bg-bias", type=float, default=0.0, metavar="B",
-                   help="reduce the background logit by B before decoding")
-    p.add_argument("--median-filter", type=int, default=0, metavar="W",
+    p.add_argument("--bg-bias", type=float, default=None, metavar="B",
+                   help="reduce the background logit by B before decoding (grid models)")
+    p.add_argument("--accdoa-threshold", type=float, default=None, metavar="T",
+                   help="vector-norm activity threshold of ACCDOA decodes (default 0.5)")
+    p.add_argument("--median-filter", type=int, default=None, metavar="W",
                    help="odd W-frame majority smoothing of the class grid")
+    p.add_argument("--calibration", default=None, metavar="FILE",
+                   help="take --bg-bias / --accdoa-threshold / --median-filter from a "
+                   "`calibrate` file; a flag given explicitly wins")
     p.add_argument("--device", default=None, help=device_help)
     p.set_defaults(fn=cmd_predict)
     return parser

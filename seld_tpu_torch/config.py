@@ -3,8 +3,7 @@
 The port's own copy of the sections of seld_tpu/config.py, with the same
 defaults, field names, dotted `key=value` overrides and dict round-trip,
 so a config dict stored by either package rebuilds the same run here.
-Fields whose reader is not ported (ACCDOA tracks, QAT, distillation,
-profiling, the mesh's ZeRO-1 and FSDP switches, the Pallas toggle) are
+Fields whose reader is not ported (QAT, distillation, profiling, the mesh's ZeRO-1 and FSDP switches, the Pallas toggle) are
 left out:
 `config_from_dict` ignores them, exactly as seld_tpu ignores unknown
 keys, and an override of one raises `parse_overrides`'s unknown-field
@@ -124,8 +123,9 @@ class TargetConfig:
     frames. The Gaussian spatial augmentation (train side only) paints a
     2-sigma region around each source's direction, displaced once per
     source by a draw keyed on (augmentation_seed, file, class, source).
-    ACCDOA targets are not ported yet: switching them on raises where the
-    corpus is built."""
+    accdoa also builds ACCDOA targets beside the bitmask (seld_tpu_torch.accdoa):
+    (T, C, 3) vectors with accdoa_tracks = 1, the (T, 6, 4, C) ADPIT layout of
+    multi-ACCDOA above it."""
 
     metadata_frame_ms: int = 100
     label_frame_ms: int = 20
@@ -134,6 +134,7 @@ class TargetConfig:
     sigma_elevation: float = 5.0
     augmentation_seed: int = 0
     accdoa: bool = False
+    accdoa_tracks: int = 1
 
     @property
     def fanout(self) -> int:

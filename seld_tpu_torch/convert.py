@@ -118,6 +118,15 @@ def _conformer_layers(cfg: ModelConfig):
     return layers + _GRID_HEAD
 
 
+def _accdoa_conformer_layers(cfg: ModelConfig):
+    """The Conformer's encoder and blocks with the ACCDOA head's Dense,
+    whose outputs flax orders (track, class, axis) as the port does."""
+    layers = _cnn_encoder_layers(cfg) + [("proj", "proj", "dense")]
+    for i in range(cfg.conf_n_layers):
+        layers += _conformer_block_layers(i)
+    return layers + [("accdoa", "accdoa", "dense")]
+
+
 def _cspdarknet_layers(cfg: ModelConfig):
     def cbs(jax_path, port_name):  # ConvBnSiLU
         return [(f"{jax_path}/Conv_0", f"{port_name}.conv", "conv"),
@@ -147,6 +156,8 @@ _LAYERS = {
     "conformer": _conformer_layers,
     "cnn": _cspdarknet_layers,
     "cspdarknet": _cspdarknet_layers,
+    "accdoa_conformer": _accdoa_conformer_layers,
+    "multi_accdoa_conformer": _accdoa_conformer_layers,
 }
 
 

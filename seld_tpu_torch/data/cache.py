@@ -3,7 +3,9 @@
 A finished WindowedCorpus is stored as one .npz keyed on the inputs that
 determine it: the ordered file lists (resolved path, size, mtime), the
 feature, grid, window and target configs and the train flag. Any change
-of a file or a knob gives another key. The key also holds this package's
+of a file or a knob gives another key (targets.accdoa and
+targets.accdoa_tracks among them, so a grid-only entry never serves an
+ACCDOA request); an entry built with ACCDOA targets stores them too. The key also holds this package's
 tag and its own format version, so a cache directory that a JAX run
 filled is never read as the port's: the two packages' features differ by
 up to 5e-3 dB, and the JAX corpus has fields the port's lacks.
@@ -71,11 +73,14 @@ def _save_corpus(path: Path, corpus: WindowedCorpus, key: str) -> None:
         "n_az": corpus.n_az,
         "num_classes": corpus.num_classes,
     }
+    arrays = dict(mel=corpus.mel, label_mask=corpus.label_mask, starts=corpus.starts,
+                  meta=np.frombuffer(json.dumps(meta).encode(), dtype=np.uint8))
+    if corpus.accdoa is not None:
+        arrays["accdoa"] = corpus.accdoa
     fd, tmp = tempfile.mkstemp(dir=path.parent, suffix=".npz.tmp")
     try:
         with os.fdopen(fd, "wb") as fh:
-            np.savez(fh, mel=corpus.mel, label_mask=corpus.label_mask, starts=corpus.starts,
-                     meta=np.frombuffer(json.dumps(meta).encode(), dtype=np.uint8))
+            np.savez(fh, **arrays)
         os.replace(tmp, path)
     except BaseException:
         if os.path.exists(tmp):
@@ -94,6 +99,7 @@ def _load_corpus(path: Path, key: str) -> WindowedCorpus:
             total_frames=int(meta["total_frames"]),
             n_el=int(meta["n_el"]), n_az=int(meta["n_az"]),
             num_classes=int(meta["num_classes"]),
+            accdoa=z["accdoa"] if "accdoa" in z.files else None,
         )
 
 

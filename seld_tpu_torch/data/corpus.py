@@ -8,10 +8,11 @@ and the kernels read that view in place, in one launch per clip: K1
 kernels treat every frame on its own: the JAX package's 128/1024/8192
 frame tiers exist for XLA's static shapes and have no counterpart here.
 
-A corpus keeps its features and its (T, G) uint16 label bitmasks as numpy
-arrays on the host, concatenated over the files; windows are start
-offsets into them, not copies. The last window is padded with zero
-features and background labels.
+A corpus keeps its features and its (T, G) uint16 label bitmasks (and,
+with targets.accdoa, its ACCDOA targets) as numpy arrays on the host,
+concatenated over the files; windows are start offsets into them, not
+copies. The last window is padded with zero features, background labels
+and zero ACCDOA targets.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ import numpy as np
 import torch
 
 from seld_tpu_torch import resolve_device
+from seld_tpu_torch.accdoa import rasterize_accdoa_targets, rasterize_adpit_targets
 from seld_tpu_torch.config import FeatureConfig, GridConfig, TargetConfig, WindowConfig
 from seld_tpu_torch.data.audio import load_wav
 from seld_tpu_torch.features.mel import frame_signal
@@ -70,6 +72,8 @@ class WindowedCorpus:
     mel:        (T_pad, C, n_mels) float32
     label_mask: (T_pad, G) uint16 class bitmask (0 == background)
     starts:     (W,) int32 window start frames
+    accdoa:     (T_pad, M - 1, 3) single-ACCDOA or (T_pad, 6, 4, M - 1)
+                ADPIT targets per targets.accdoa_tracks, or None
     """
 
     mel: np.ndarray
@@ -80,14 +84,26 @@ class WindowedCorpus:
     n_el: int
     n_az: int
     num_classes: int
+    accdoa: np.ndarray | None = None
 
     def __len__(self) -> int:
         return len(self.starts)
 
+    def _offsets(self, idxs: np.ndarray) -> np.ndarray:
+        return self.starts[np.asarray(idxs)][:, None] + np.arange(self.window_frames)
+
     def gather(self, idxs: np.ndarray):
         """Windows idxs -> (B, win, C, F) float32, (B, win, G) uint16."""
-        offs = self.starts[np.asarray(idxs)][:, None] + np.arange(self.window_frames)
+        offs = self._offsets(idxs)
         return self.mel[offs], self.label_mask[offs]
+
+    def gather_accdoa(self, idxs: np.ndarray) -> np.ndarray:
+        """Windows idxs -> (B, win, ...) float32 ACCDOA targets (a corpus
+        built with targets.accdoa)."""
+        if self.accdoa is None:
+            raise ValueError("the corpus was built without ACCDOA targets "
+                             "(targets.accdoa=false)")
+        return self.accdoa[self._offsets(idxs)]
 
 
 def build_corpus(audio_files, metadata_files, feat: FeatureConfig, grid: GridConfig,
@@ -97,18 +113,15 @@ def build_corpus(audio_files, metadata_files, feat: FeatureConfig, grid: GridCon
     unless named: kernel K1 or K4) and its label bitmask, crop both to their
     common length, concatenate, pad and index the windows. With train and
     targets.use_gaussian_augmentation the labels are Gaussian regions,
-    keyed on each file's index in the list."""
+    keyed on each file's index in the list. With targets.accdoa the
+    ACCDOA (or, above one track, ADPIT) targets are built beside them from
+    the same rows."""
     device = resolve_device(device)
     if len(audio_files) != len(metadata_files):
         raise ValueError(
             f"{len(audio_files)} audio files but {len(metadata_files)} metadata files"
         )
-    if targets.accdoa:
-        raise NotImplementedError(
-            "targets.accdoa: ACCDOA targets are not ported yet (ROADMAP: the "
-            "ACCDOA families)"
-        )
-    mels, masks = [], []
+    mels, masks, accdoas = [], [], []
     for idx, (apath, mpath) in enumerate(zip(audio_files, metadata_files)):
         wave, sr = load_wav(apath)
         mel = compute_mel_features(wave, feat, device).cpu().numpy()  # (T_mel, C, F)
@@ -128,9 +141,16 @@ def build_corpus(audio_files, metadata_files, feat: FeatureConfig, grid: GridCon
         t_common = min(mel.shape[0], mask.shape[0])
         mels.append(mel[:t_common])
         masks.append(mask[:t_common])
+        if targets.accdoa:
+            rasterize = (rasterize_adpit_targets if targets.accdoa_tracks > 1
+                         else rasterize_accdoa_targets)
+            acc = rasterize(frames, classes, az, el, t_lab,
+                            num_event_classes=grid.num_classes - 1, fanout=targets.fanout)
+            accdoas.append(acc[:t_common])
 
     mel = np.concatenate(mels, axis=0)
     mask = np.concatenate(masks, axis=0)
+    accdoa = np.concatenate(accdoas, axis=0) if targets.accdoa else None
     total = mel.shape[0]
     win = window.window_frames(feat)
     hop = window.hop_frames(feat)
@@ -139,8 +159,11 @@ def build_corpus(audio_files, metadata_files, feat: FeatureConfig, grid: GridCon
     if pad > 0:
         mel = np.concatenate([mel, np.zeros((pad, *mel.shape[1:]), mel.dtype)], axis=0)
         mask = np.concatenate([mask, np.zeros((pad, mask.shape[1]), mask.dtype)], axis=0)
+        if accdoa is not None:
+            accdoa = np.concatenate([accdoa, np.zeros((pad, *accdoa.shape[1:]), accdoa.dtype)],
+                                    axis=0)
     logger.info("Corpus: %d files, %d frames, %d windows of %d frames (hop %d)",
                 len(audio_files), total, len(starts), win, hop)
     return WindowedCorpus(mel=mel, label_mask=mask, starts=starts, window_frames=win,
                           total_frames=total, n_el=grid.n_el, n_az=grid.n_az,
-                          num_classes=grid.num_classes)
+                          num_classes=grid.num_classes, accdoa=accdoa)

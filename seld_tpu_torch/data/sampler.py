@@ -25,6 +25,7 @@ class Batch:
     mel: np.ndarray  # (B, T, C, F) float32
     label_mask: np.ndarray  # (B, T, G) uint16
     n_valid: int  # rows [0, n_valid) are real; the rest are padding
+    accdoa: np.ndarray | None = None  # (B, T, ...) float32 when the corpus has them
 
 
 class BatchIterator:
@@ -54,7 +55,8 @@ class BatchIterator:
         if n_valid < self.batch_size:  # pad the tail batch to the static shape
             idxs = np.resize(idxs, self.batch_size)
         mel, mask = self.corpus.gather(idxs)
-        return Batch(mel=mel, label_mask=mask, n_valid=n_valid)
+        accdoa = self.corpus.gather_accdoa(idxs) if self.corpus.accdoa is not None else None
+        return Batch(mel=mel, label_mask=mask, n_valid=n_valid, accdoa=accdoa)
 
     def __iter__(self):
         order = self._epoch_indices()
@@ -85,7 +87,7 @@ class BatchIterator:
 
 def place_batch(batch: Batch, device: torch.device):
     """Batch -> (mel float32, label_mask int16, example_mask float32) on
-    `device`.
+    `device`, and the float32 ACCDOA targets fourth when the batch has them.
 
     The uint16 masks are reinterpreted as int16 here, once: the same two
     bytes per cell go up, at most 13 bits are set, and torch shifts and
@@ -95,6 +97,8 @@ def place_batch(batch: Batch, device: torch.device):
     step that is running."""
     em = (np.arange(batch.mel.shape[0]) < batch.n_valid).astype(np.float32)
     arrays = (batch.mel, batch.label_mask.view(np.int16), em)
+    if batch.accdoa is not None:
+        arrays += (batch.accdoa.astype(np.float32, copy=False),)
     tensors = [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
     if device.type == "cuda":
         return tuple(t.pin_memory().to(device, non_blocking=True) for t in tensors)

@@ -1,18 +1,19 @@
-"""Model evaluation for grid models (counterpart:
-seld_tpu/eval/evaluate.py::evaluate_model).
+"""Model evaluation (counterpart: seld_tpu/eval/evaluate.py::evaluate_model).
 
   * the architecture is rebuilt from the config stored in the checkpoint,
     not from the live one;
   * the device returns int8 class grids and scalar losses per batch, never
-    the logits;
+    the logits: grid models decode by argmax (after an optional background
+    bias), the ACCDOA families by their activity threshold, every sweep
+    candidate from the one forward per batch;
   * the report carries the cell accuracies, the frame-level SELD variant
     ("dcase") and the official DCASE2022 metrics ("dcase2022"), under the
     JAX package's keys.
 
 Left to their own slices of the port, and therefore no parameters here:
-test-time augmentation, the int8 forward, a device mesh and the ACCDOA
-activity threshold. `save_visualizations=True` raises: the PNG renderer
-(viz.py) is not ported.
+test-time augmentation, the int8 forward and a device mesh.
+`save_visualizations=True` raises: the PNG renderer (viz.py) is not
+ported.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ import numpy as np
 import torch
 
 from seld_tpu_torch import resolve_device
+from seld_tpu_torch.accdoa import ACCDOALossFn, ADPITLossFn, grid_decoder
 from seld_tpu_torch.config import Config
 from seld_tpu_torch.data.corpus import WindowedCorpus
 from seld_tpu_torch.data.sampler import BatchIterator, place_batch
@@ -33,8 +35,10 @@ from seld_tpu_torch.eval.metrics import (
     seld_metrics,
 )
 from seld_tpu_torch.features.spatial import feature_channels
+from seld_tpu_torch.infer import validate_accdoa_threshold
 from seld_tpu_torch.losses import SELDLossFn
 from seld_tpu_torch.models import build_model
+from seld_tpu_torch.models.registry import ACCDOA_MODELS, MULTI_ACCDOA_MODELS
 from seld_tpu_torch.postprocess import smooth_classes, validate_width
 from seld_tpu_torch.train.checkpoint import checkpoint_file, load_checkpoint_config
 from seld_tpu_torch.train.completion import workdir_incomplete_reason
@@ -68,6 +72,8 @@ def evaluate_model(
     save_visualizations: bool = False,
     bg_bias: float = 0.0,
     bg_bias_sweep=None,
+    accdoa_threshold: float | None = None,
+    accdoa_threshold_sweep=None,
     median_filter: int = 0,
     median_filter_sweep=None,
     use_checkpoint: str = "best",
@@ -86,7 +92,16 @@ def evaluate_model(
     `SELDPredictor(bg_bias=...)`; losses stay on the unbiased logits.
     bg_bias_sweep (floats): every bias decoded on the device from the one
     forward per batch; the report gains a DCASE2022 row per bias and the
-    bias with the least SELD_error.
+    bias with the least SELD_error. Grid models only: on an ACCDOA model
+    either is a ValueError.
+
+    accdoa_threshold (ACCDOA families): the vector-norm activity threshold
+    of every decode (None: 0.5), the operating point of
+    `SELDPredictor(accdoa_threshold=...)`; losses stay on the raw vectors.
+    accdoa_threshold_sweep (floats): every threshold decoded on the device
+    from the one forward per batch, with a DCASE2022 row per threshold and
+    the one with the least SELD_error. On a grid model either is a
+    ValueError.
 
     median_filter (odd frames): majority smoothing of each window's
     decoded grid before the metrics, the eval gate of
@@ -135,6 +150,19 @@ def evaluate_model(
             logger.warning("checkpoint architecture (%s) differs from the live config (%s); "
                            "using the checkpoint's", stored_cfg.model, cfg.model)
         cfg = cfg.replace_path("model", stored_cfg.model)
+    accdoa_mode = cfg.model.model_type in ACCDOA_MODELS
+    if accdoa_mode and (bg_bias or bg_bias_sweep is not None):
+        raise ValueError("bg_bias applies to grid models only — ACCDOA decodes have no "
+                         "background logit")
+    acc_th = validate_accdoa_threshold(accdoa_threshold, accdoa_mode)
+    if accdoa_threshold_sweep is not None:
+        accdoa_threshold_sweep = [validate_accdoa_threshold(t, accdoa_mode)
+                                  for t in accdoa_threshold_sweep]
+        if not accdoa_threshold_sweep:
+            raise ValueError("accdoa_threshold_sweep must list at least one threshold")
+    if accdoa_mode and test_corpus.accdoa is None:
+        raise ValueError(f"evaluating {cfg.model.model_type} needs a test corpus built with "
+                         "targets.accdoa=true")
 
     checkpoint_kind = use_checkpoint
     path = checkpoint_file(checkpoint_dir, use_checkpoint)
@@ -157,11 +185,19 @@ def evaluate_model(
                 meta["epoch"], meta["test_loss"], device)
 
     grid, num_classes = cfg.grid, cfg.grid.num_classes
-    step = make_metric_eval_step(model, SELDLossFn(cfg.loss, grid), num_classes,
-                                 bg_bias=float(bg_bias), bias_sweep=bg_bias_sweep)
+    if accdoa_mode:
+        multi = cfg.model.model_type in MULTI_ACCDOA_MODELS
+        step = make_metric_eval_step(
+            model, ADPITLossFn() if multi else ACCDOALossFn(), num_classes,
+            accdoa_decoder=grid_decoder(multi, grid.n_el, grid.n_az, num_classes),
+            accdoa_threshold=acc_th, threshold_sweep=accdoa_threshold_sweep)
+    else:
+        step = make_metric_eval_step(model, SELDLossFn(cfg.loss, grid), num_classes,
+                                     bg_bias=float(bg_bias), bias_sweep=bg_bias_sweep)
     losses, preds, trues, sweep_rows = [], [], [], []
     for batch in BatchIterator(test_corpus, cfg.train.batch_size, shuffle=False, prefetch=2):
-        metrics, pred, true, *swept = step(*place_batch(batch, device))
+        mel, mask, em, *acc = place_batch(batch, device)
+        metrics, pred, true, *swept = step(mel, mask, em, acc[0] if accdoa_mode else None)
         losses.append(metrics)
         preds.append(pred[:batch.n_valid].cpu().numpy())
         trues.append(true[:batch.n_valid].cpu().numpy())
@@ -195,13 +231,15 @@ def evaluate_model(
             logger.info("  class %2d F %.3f LE %6.1f deg LR %.3f (Nref %d)",
                         c, cw["F"][c], cw["LE"][c], cw["LR"][c], nref)
 
-    bias_report = None
-    if bg_bias_sweep is not None:
+    knob_report = None
+    knob, flag, values = (("accdoa_threshold", "--accdoa-threshold", accdoa_threshold_sweep)
+                          if accdoa_mode else ("bg_bias", "--bg-bias", bg_bias_sweep))
+    if values is not None:
         # keys are repr(float): near-identical candidates keep their own rows
-        swept = {repr(b): np.concatenate([rows[k] for rows in sweep_rows], axis=0)
-                 for k, b in enumerate(bg_bias_sweep)}
-        bias_report = _sweep_report("bg_bias", "--bg-bias", bg_bias_sweep, repr,
-                                    lambda b: swept[repr(b)], true_classes, grid, num_classes)
+        swept = {repr(v): np.concatenate([rows[k] for rows in sweep_rows], axis=0)
+                 for k, v in enumerate(values)}
+        knob_report = _sweep_report(knob, flag, values, repr, lambda v: swept[repr(v)],
+                                    true_classes, grid, num_classes)
     mf_report = None
     if median_filter_sweep is not None:
         mf_report = _sweep_report(
@@ -224,7 +262,8 @@ def evaluate_model(
         "checkpoint_kind": checkpoint_kind,
         "quantized_int8": False,
         "bg_bias": float(bg_bias),
-        **({"bg_bias_sweep": bias_report} if bias_report else {}),
+        **({"accdoa_threshold": acc_th} if accdoa_mode else {}),
+        **({f"{knob}_sweep": knob_report} if knob_report else {}),
         "median_filter": int(median_filter),
         **({"median_filter_sweep": mf_report} if mf_report else {}),
         **({"training_incomplete": training_incomplete} if training_incomplete else {}),

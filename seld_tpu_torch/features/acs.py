@@ -1,5 +1,5 @@
 """FOA spatial augmentation, the audio-channel-swap family "ACS"
-(counterpart: seld_tpu/features/acs.py, grid targets).
+(counterpart: seld_tpu/features/acs.py).
 
 The 16 label-exact rigid transforms of an FOA scene: azimuth rotations by
 multiples of 90 degrees, an optional azimuth reflection and an optional
@@ -17,7 +17,11 @@ GCC-PHAT changes sign per pair. The tables are numpy, copied from the
 JAX package; `apply_acs` applies given per-sample transforms to a batch
 of tensors (one channel gather and sign multiply, one cell gather), and
 `make_acs_augment` builds the train step's hook that draws them from a
-torch.Generator. The ACCDOA variant waits for the ACCDOA families.
+torch.Generator. For the ACCDOA families `apply_acs_accdoa` and
+`make_acs_augment_accdoa` transform the features alike and rotate the
+target vectors with the signed permutation the IV planes get: the last
+axis of (B, T, C, 3) single-ACCDOA targets, axis 3 of (B, T, 6, 4, C)
+ADPIT targets with their activity channel left as it is.
 """
 
 from __future__ import annotations
@@ -137,6 +141,24 @@ def _device_tables(n_el: int, n_az: int, device: torch.device):
             torch.from_numpy(ch_sign).to(device))
 
 
+@functools.lru_cache(maxsize=8)
+def _vector_device_tables(multi: bool, device: torch.device):
+    """(perm (16, 3), sign (16, 3)) of the direction vectors, or with the
+    ADPIT activity channel prepended, (16, 4), untouched."""
+    vperm, vsign = vector_tables("mel_iv")
+    if multi:
+        vperm = np.concatenate([np.zeros((N_TRANSFORMS, 1), vperm.dtype), vperm + 1], axis=1)
+        vsign = np.concatenate([np.ones((N_TRANSFORMS, 1), vsign.dtype), vsign], axis=1)
+    return (torch.from_numpy(vperm.astype(np.int64)).to(device),
+            torch.from_numpy(np.ascontiguousarray(vsign)).to(device))
+
+
+def _acs_features(feats: torch.Tensor, t: torch.Tensor, ch_perm, ch_sign) -> torch.Tensor:
+    b, frames, c, f = feats.shape
+    perm = ch_perm[t][:, None, :, None].expand(b, frames, c, f)
+    return feats.gather(2, perm) * ch_sign[t][:, None, :, None]
+
+
 def apply_acs(feats: torch.Tensor, mask: torch.Tensor, t: torch.Tensor, n_el: int,
               n_az: int) -> tuple[torch.Tensor, torch.Tensor]:
     """Transform t[b] applied to sample b: feats (B, T, 7, F) "mel_iv"
@@ -144,11 +166,25 @@ def apply_acs(feats: torch.Tensor, mask: torch.Tensor, t: torch.Tensor, n_el: in
     [0, 16) on their device -> (feats, mask), new tensors."""
     cell_gather, ch_perm, ch_sign = _device_tables(n_el, n_az, feats.device)
     t = t.long()
-    b, frames, c, f = feats.shape
-    perm = ch_perm[t][:, None, :, None].expand(b, frames, c, f)
-    feats = feats.gather(2, perm) * ch_sign[t][:, None, :, None]
-    cells = cell_gather[t][:, None, :].expand(b, frames, mask.shape[2])
+    feats = _acs_features(feats, t, ch_perm, ch_sign)
+    cells = cell_gather[t][:, None, :].expand(mask.shape)
     return feats, mask.gather(2, cells)
+
+
+def apply_acs_accdoa(feats: torch.Tensor, targets: torch.Tensor, t: torch.Tensor,
+                     multi: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+    """Transform t[b] applied to sample b of "mel_iv" features and ACCDOA
+    targets: (B, T, C, 3) vectors, or with multi (B, T, 6, 4, C) ADPIT
+    slots -> (feats, targets), new tensors."""
+    _, ch_perm, ch_sign = _device_tables(18, 36, feats.device)
+    perm, sign = _vector_device_tables(multi, feats.device)
+    t = t.long()
+    feats = _acs_features(feats, t, ch_perm, ch_sign)
+    if multi:  # permute and sign axis 3, [activity, x, y, z]
+        idx, s = perm[t][:, None, None, :, None], sign[t][:, None, None, :, None]
+    else:  # permute and sign the last axis, (x, y, z)
+        idx, s = perm[t][:, None, None, :], sign[t][:, None, None, :]
+    return feats, targets.gather(3, idx.expand(targets.shape)) * s
 
 
 def make_acs_augment(n_el: int, n_az: int, feature_set: str = "mel_iv"):
@@ -162,5 +198,21 @@ def make_acs_augment(n_el: int, n_az: int, feature_set: str = "mel_iv"):
         t = torch.randint(0, N_TRANSFORMS, (feats.shape[0],), generator=generator,
                           device=feats.device)
         return apply_acs(feats, mask, t, n_el, n_az)
+
+    return augment
+
+
+def make_acs_augment_accdoa(feature_set: str = "mel_iv", multi: bool = False):
+    """The train step's hook for ACCDOA-family targets: augment(generator,
+    feats, targets) -> (feats, targets), one transform per sample drawn as
+    make_acs_augment draws it; targets (B, T, C, 3) vectors or, with
+    multi, (B, T, 6, 4, C) ADPIT slots. Raises ValueError unless
+    feature_set is "mel_iv"."""
+    acs_tables(18, 36, feature_set)
+
+    def augment(generator: torch.Generator, feats: torch.Tensor, targets: torch.Tensor):
+        t = torch.randint(0, N_TRANSFORMS, (feats.shape[0],), generator=generator,
+                          device=feats.device)
+        return apply_acs_accdoa(feats, targets, t, multi)
 
     return augment

@@ -1,13 +1,14 @@
 """Serving: WAV in -> per-frame grid predictions + event rows
-(counterpart: seld_tpu/infer.py, `Prediction` and `SELDPredictor` for
-grid models).
+(counterpart: seld_tpu/infer.py, `Prediction`, `SELDPredictor` and
+`validate_accdoa_threshold`).
 
 A predictor loads a checkpoint once (the architecture and the feature
 set come from the config stored in it), computes features on the device
 (log-mel through K1, "mel_iv" / "mel_gcc" through K4), runs the
-eval-mode model over fixed-shape batches of windows, and decodes the
-class-major logits by argmax into a (T, G) class grid, which
-`Prediction` turns into STARSS22-style metadata rows.
+eval-mode model over fixed-shape batches of windows, and decodes its
+output on the device into a (T, G) class grid, which `Prediction` turns
+into STARSS22-style metadata rows: grid logits by argmax, ACCDOA and
+multi-ACCDOA vectors by their activity threshold (seld_tpu_torch.accdoa).
 """
 
 from __future__ import annotations
@@ -20,15 +21,37 @@ import numpy as np
 import torch
 
 from seld_tpu_torch import resolve_device
+from seld_tpu_torch.accdoa import (
+    decode_accdoa_to_grid,
+    decode_multi_accdoa_to_grid,
+    decode_vote_grid,
+    multi_accdoa_class_activity,
+)
 from seld_tpu_torch.data.audio import load_wav
 from seld_tpu_torch.data.corpus import compute_mel_features
 from seld_tpu_torch.features.spatial import feature_channels
 from seld_tpu_torch.grid import cell_centers
 from seld_tpu_torch.models import build_model
+from seld_tpu_torch.models.registry import ACCDOA_MODELS, MULTI_ACCDOA_MODELS
 from seld_tpu_torch.postprocess import smooth_classes, validate_width
 from seld_tpu_torch.train.checkpoint import load_checkpoint
 
 logger = logging.getLogger(__name__)
+
+
+def validate_accdoa_threshold(threshold, accdoa_mode: bool) -> float:
+    """The one check of the ACCDOA activity threshold (the predictor and
+    evaluation call it): None means the DCASE2022 baseline's 0.5; a value
+    needs an ACCDOA family and must be >= 0 (norms are non-negative)."""
+    if threshold is None:
+        return 0.5
+    if not accdoa_mode:
+        raise ValueError("accdoa_threshold applies to ACCDOA / multi-ACCDOA models only — "
+                         "grid models tune their operating point with bg_bias")
+    threshold = float(threshold)
+    if threshold < 0:
+        raise ValueError(f"accdoa_threshold must be >= 0, got {threshold}")
+    return threshold
 
 
 @dataclass
@@ -82,10 +105,11 @@ class Prediction:
 
 
 class SELDPredictor:
-    """Checkpoint-backed predictor for grid models."""
+    """Checkpoint-backed predictor; `kind` is "grid", "accdoa" or
+    "multi_accdoa", after the checkpoint's model_type."""
 
     def __init__(self, checkpoint, batch_windows: int = 8, bg_bias: float = 0.0,
-                 median_filter: int = 0,
+                 median_filter: int = 0, accdoa_threshold: float | None = None,
                  device: str | torch.device | None = None):
         """checkpoint: a file written by train.checkpoint.save_checkpoint.
 
@@ -93,11 +117,16 @@ class SELDPredictor:
         included, is zero-padded to this batch so the model always runs
         at one shape.
 
-        bg_bias: background-logit decode bias: the background class's
-        logit is reduced by this amount before every argmax or softmax.
+        bg_bias: background-logit decode bias (grid models): the background
+        class's logit is reduced by this amount before every argmax or
+        softmax.
 
         median_filter: odd temporal window (frames) of majority smoothing
         on the decoded class grid; 0 disables it.
+
+        accdoa_threshold: the vector-norm activity threshold of ACCDOA and
+        multi-ACCDOA decodes (None: 0.5), the ACCDOA counterpart of bg_bias,
+        tuned with `eval --accdoa-threshold-sweep`.
 
         device: CUDA unless named; no CUDA device raises."""
         self.device = resolve_device(device)
@@ -110,28 +139,73 @@ class SELDPredictor:
         self.model.load_state_dict(state)
         self.batch_windows = int(batch_windows)
         self.win = self.cfg.window.window_frames(self.cfg.features)
+        model_type = self.cfg.model.model_type
+        self.accdoa_mode = model_type in ACCDOA_MODELS
+        self.kind = ("multi_accdoa" if model_type in MULTI_ACCDOA_MODELS
+                     else "accdoa" if self.accdoa_mode else "grid")
         self.bg_bias = float(bg_bias)
+        if self.bg_bias and self.accdoa_mode:
+            raise ValueError("bg_bias applies to grid models only — ACCDOA decodes have no "
+                             "background logit")
+        self.accdoa_threshold = validate_accdoa_threshold(accdoa_threshold, self.accdoa_mode)
         self.median_filter = validate_width(median_filter)
         logger.info("Predictor: %s from epoch %d on %s",
                     self.cfg.model.model_type, self.epoch, self.device)
 
     @torch.inference_mode()
     def _raw_apply(self, mel: torch.Tensor) -> torch.Tensor:
-        """(B, win, C, F) -> (B, win, M, G) float32 logits, background
-        class reduced by bg_bias."""
+        """(B, win, C, F) -> the model's float32 output: (B, win, M, G)
+        logits with the background class reduced by bg_bias, or ACCDOA
+        vectors."""
         out = self.model(mel)
         if self.bg_bias:
             out[:, :, -1, :] -= self.bg_bias
         return out
 
+    @torch.inference_mode()
     def _forward(self, mel: torch.Tensor) -> torch.Tensor:
-        """(B, win, C, F) -> (B, win, G) int8 argmax class."""
-        return torch.argmax(self._raw_apply(mel), dim=2).to(torch.int8)
+        """(B, win, C, F) -> (B, win, G) int8 class per cell."""
+        out = self._raw_apply(mel)
+        grid = self.cfg.grid
+        if self.kind == "grid":
+            return torch.argmax(out, dim=2).to(torch.int8)
+        decode = decode_multi_accdoa_to_grid if self.kind == "multi_accdoa" else \
+            decode_accdoa_to_grid
+        return decode(out, grid.n_el, grid.n_az, grid.num_classes, self.accdoa_threshold)
 
     def _forward_probs(self, mel: torch.Tensor) -> torch.Tensor:
-        """(B, win, C, F) -> (B, win, M, G) float16 class probabilities,
-        the representation overlapped windows average."""
-        return torch.softmax(self._raw_apply(mel), dim=2).to(torch.float16)
+        """(B, win, C, F) -> the float16 representation overlapped windows
+        average (_rep_from_raw)."""
+        return self._rep_from_raw(self._raw_apply(mel))
+
+    @torch.inference_mode()
+    def _rep_from_raw(self, out: torch.Tensor) -> torch.Tensor:
+        """The model's output -> its averageable per-frame representation,
+        float16: (B, win, M, G) softmax probabilities (grid), the (B, win,
+        C, 3) vectors (single-ACCDOA: a mean vector shrinks where windows
+        disagree), or the (B, win, C, G) {0, 1} class-activity map
+        (multi-ACCDOA: the track order is arbitrary per forward, the map
+        is not)."""
+        if self.kind == "grid":
+            return torch.softmax(out, dim=2).to(torch.float16)
+        if self.kind == "multi_accdoa":
+            grid = self.cfg.grid
+            out = multi_accdoa_class_activity(out, grid.n_el, grid.n_az, self.accdoa_threshold)
+        return out.to(torch.float16)
+
+    @torch.inference_mode()
+    def _decode_avg(self, avg: torch.Tensor) -> np.ndarray:
+        """The coverage-averaged representation (T, ...) float32 -> (T, G)
+        int8 class grid, decoded on the device."""
+        grid = self.cfg.grid
+        if self.kind == "grid":
+            classes = torch.argmax(avg, dim=1).to(torch.int8)
+        elif self.kind == "multi_accdoa":
+            classes = decode_vote_grid(avg, grid.num_classes)
+        else:
+            classes = decode_accdoa_to_grid(avg, grid.n_el, grid.n_az, grid.num_classes,
+                                            self.accdoa_threshold)
+        return classes.cpu().numpy()
 
     def _batched(self, windows: torch.Tensor, fn):
         """Run fn over batch_windows-sized batches of windows, zero-padding
@@ -157,16 +231,15 @@ class SELDPredictor:
     def predict_waveform(self, wave, overlap: float = 0.0) -> Prediction:
         """wave: float32 (C, N) at the configured sample rate.
 
-        overlap=0 tiles non-overlapping windows and decodes each by argmax.
-        overlap in (0, 1) strides windows at hop = win * (1 - overlap),
-        averages the softmax probabilities over each frame's coverage in
+        overlap=0 tiles non-overlapping windows and decodes each. overlap in
+        (0, 1) strides windows at hop = win * (1 - overlap), averages the
+        representation of _rep_from_raw over each frame's coverage in
         float32 on the device, and decodes the average."""
         if not 0.0 <= overlap < 1.0:
             raise ValueError(f"overlap must be in [0, 1), got {overlap}")
         mel = compute_mel_features(wave, self.cfg.features, self.device)  # (T, C, F)
         if overlap > 0.0:
-            avg = self._average_probs(mel, overlap)
-            return self._prediction(torch.argmax(avg, dim=1).to(torch.int8).cpu().numpy())
+            return self._prediction(self._decode_avg(self._average_probs(mel, overlap)))
         t_total = mel.shape[0]
         win = self.win
         n_windows = -(-t_total // win)
@@ -179,8 +252,9 @@ class SELDPredictor:
         return self._prediction(classes.cpu().numpy())
 
     def _average_probs(self, mel: torch.Tensor, overlap: float) -> torch.Tensor:
-        """(T, C, F) features -> (T, M, G) float32 class probabilities
-        averaged over the windows that cover each frame, windows strided at
+        """(T, C, F) features -> (T, ...) float32 representation (class
+        probabilities, ACCDOA vectors or class-activity votes) averaged over
+        the windows that cover each frame, windows strided at
         hop = win * (1 - overlap) plus one window covering the tail."""
         t_total = mel.shape[0]
         win = self.win
@@ -199,7 +273,7 @@ class SELDPredictor:
             if prob_sum is None:
                 total = t_total + max(pad_t, 0)
                 prob_sum = torch.zeros((total, *probs.shape[2:]), device=self.device)
-                count = torch.zeros((total, 1, 1), device=self.device)
+                count = torch.zeros((total, *(1,) * (probs.dim() - 2)), device=self.device)
             for p in probs:  # (win, M, G), accumulated in window order
                 s = starts[row]
                 prob_sum[s:s + win] += p.float()

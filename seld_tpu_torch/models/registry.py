@@ -1,6 +1,8 @@
 """Model registry: ModelConfig -> nn.Module (counterpart:
-seld_tpu/models/registry.py). Every backbone maps (B, T, C, F) features
-to (B, T, M, G) class-major logits."""
+seld_tpu/models/registry.py). Every grid backbone maps (B, T, C, F)
+features to (B, T, M, G) class-major logits; the ACCDOA families map them
+to (B, T, M - 1, 3) vectors, or (B, T, 3, M - 1, 3) for multi-ACCDOA
+(seld_tpu_torch.accdoa)."""
 
 from __future__ import annotations
 
@@ -20,36 +22,48 @@ from seld_tpu_torch.models.resnet_conformer import SELDResNetConformer
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 REMAT = ("none", "resnet", "conformer", "all")
 
-# Families of the JAX package that this port does not have yet, with the
-# ROADMAP item that brings each.
-_NOT_PORTED = {
-    "accdoa_conformer": "the ACCDOA families",
-    "multi_accdoa_conformer": "the ACCDOA families",
-}
+ACCDOA_MODELS = {"accdoa_conformer", "multi_accdoa_conformer"}
+MULTI_ACCDOA_MODELS = {"multi_accdoa_conformer"}
 
 
-def _crnn(cfg: ModelConfig, grid_size, in_channels: int, dt: dict) -> nn.Module:
-    return SELDCRNN(grid_size, cfg.num_classes, cfg.crnn_cnn_channels, cfg.crnn_rnn_hidden,
+def _grid_size(grid: GridConfig) -> tuple[int, int]:
+    return grid.n_el, grid.n_az
+
+
+def _crnn(cfg: ModelConfig, grid: GridConfig, in_channels: int, dt: dict) -> nn.Module:
+    return SELDCRNN(_grid_size(grid), cfg.num_classes, cfg.crnn_cnn_channels, cfg.crnn_rnn_hidden,
                     cfg.crnn_rnn_layers, in_channels, cfg.n_mels, dropout=cfg.crnn_dropout,
                     **dt)
 
 
-def _conformer(cfg: ModelConfig, grid_size, in_channels: int, dt: dict) -> nn.Module:
-    return SELDConformer(grid_size, cfg.num_classes, cfg.crnn_cnn_channels, cfg.conf_d_model,
+def _conformer(cfg: ModelConfig, grid: GridConfig, in_channels: int, dt: dict) -> nn.Module:
+    return SELDConformer(_grid_size(grid), cfg.num_classes, cfg.crnn_cnn_channels, cfg.conf_d_model,
                          cfg.conf_n_heads, cfg.conf_n_layers, cfg.conf_kernel_size,
                          in_channels, cfg.n_mels, dropout=cfg.conf_dropout, remat=cfg.remat,
                          **dt)
 
 
-def _resnet_conformer(cfg: ModelConfig, grid_size, in_channels: int, dt: dict) -> nn.Module:
-    return SELDResNetConformer(grid_size, cfg.num_classes, cfg.resnet_conf_d_model,
+def _resnet_conformer(cfg: ModelConfig, grid: GridConfig, in_channels: int,
+                      dt: dict) -> nn.Module:
+    return SELDResNetConformer(_grid_size(grid), cfg.num_classes, cfg.resnet_conf_d_model,
                                cfg.resnet_conf_n_heads, cfg.resnet_conf_n_layers,
                                n_channels=in_channels, n_mels=cfg.n_mels,
                                dropout=cfg.resnet_dropout, remat=cfg.remat, **dt)
 
 
-def _cspdarknet(cfg: ModelConfig, grid_size, in_channels: int, dt: dict) -> nn.Module:
-    return SELDCSPDarkNet(grid_size, cfg.num_classes, cfg.csp_use_small, in_channels, **dt)
+def _cspdarknet(cfg: ModelConfig, grid: GridConfig, in_channels: int, dt: dict) -> nn.Module:
+    return SELDCSPDarkNet(_grid_size(grid), cfg.num_classes, cfg.csp_use_small, in_channels,
+                          **dt)
+
+
+def _accdoa_conformer(cfg: ModelConfig, grid: GridConfig, in_channels: int, dt: dict,
+                      tracks: int = 1) -> nn.Module:
+    from seld_tpu_torch.accdoa import SELDConformerACCDOA
+
+    return SELDConformerACCDOA(grid.num_classes - 1, tracks, cfg.crnn_cnn_channels,
+                               cfg.conf_d_model, cfg.conf_n_heads, cfg.conf_n_layers,
+                               cfg.conf_kernel_size, in_channels, cfg.n_mels,
+                               dropout=cfg.conf_dropout, remat=cfg.remat, **dt)
 
 
 MODEL_REGISTRY = {
@@ -58,6 +72,10 @@ MODEL_REGISTRY = {
     "resnet_conformer": _resnet_conformer,
     "cnn": _cspdarknet,  # the reference's name for CSPDarkNet
     "cspdarknet": _cspdarknet,
+    # ACCDOA output representation (vectors, not grid logits)
+    "accdoa_conformer": _accdoa_conformer,
+    # multi-ACCDOA: 3 track slots per class (ADPIT training)
+    "multi_accdoa_conformer": lambda cfg, grid, c, dt: _accdoa_conformer(cfg, grid, c, dt, 3),
 }
 
 
@@ -104,11 +122,6 @@ def build_model(model_cfg: ModelConfig, grid_cfg: GridConfig | None = None,
     package)."""
     device = resolve_device(device)
     grid_cfg = grid_cfg or GridConfig(num_classes=model_cfg.num_classes)
-    if model_cfg.model_type in _NOT_PORTED:
-        raise NotImplementedError(
-            f"model_type {model_cfg.model_type!r} is not ported yet "
-            f"(ROADMAP: {_NOT_PORTED[model_cfg.model_type]})"
-        )
     if model_cfg.model_type not in MODEL_REGISTRY:
         raise ValueError(f"unknown model_type {model_cfg.model_type!r}; "
                          f"available: {sorted(MODEL_REGISTRY)}")
@@ -126,8 +139,7 @@ def build_model(model_cfg: ModelConfig, grid_cfg: GridConfig | None = None,
               norm_dtype=_DTYPES[model_cfg.norm_dtype])
     with torch.device("meta"):
         model = MODEL_REGISTRY[model_cfg.model_type](
-            model_cfg, (grid_cfg.n_el, grid_cfg.n_az),
-            model_cfg.n_channels if in_channels is None else in_channels, dt)
+            model_cfg, grid_cfg, model_cfg.n_channels if in_channels is None else in_channels, dt)
     model = model.to_empty(device=device).eval()
     if seed is not None:
         init_parameters(model, torch.Generator().manual_seed(seed))

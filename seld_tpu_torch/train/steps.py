@@ -5,7 +5,9 @@ float32 parameters), the composite loss straight from the class bitmask
 (`loss_fn.from_bitmask`, which on the card runs the softmax region through
 kernel K2, forward and backward), backward, one Adam update. The batch
 comes in and a handful of scalar metrics go out as device tensors: nothing
-here reads a value back to the host.
+here reads a value back to the host. A loss without `from_bitmask` (the
+ACCDOA and ADPIT losses of seld_tpu_torch.accdoa) takes the batch's
+targets as they come, ACCDOA vectors, in place of the bitmask.
 
 Under a process mesh (`mesh`, with `time_sharded` for sequence
 parallelism) every rank calls the step with the same global batch. The
@@ -81,15 +83,30 @@ def _global_metrics(mesh, metrics: dict) -> dict:
     return {k: v.reshape(()) for k, v in zip(keys, values)}
 
 
+def _loss(loss_fn, out, targets, example_mask):
+    """(total, breakdown): a grid loss straight from the bitmask, any other
+    loss (ACCDOA, ADPIT) from its own targets."""
+    if hasattr(loss_fn, "from_bitmask"):
+        return loss_fn.from_bitmask(out, targets, example_mask)
+    return loss_fn(out, targets, example_mask)
+
+
+def _check_classes(loss_fn, num_classes: int) -> None:
+    grid = getattr(loss_fn, "grid", None)
+    if grid is not None and num_classes != grid.num_classes:
+        raise ValueError(f"num_classes {num_classes} != the loss's grid ({grid.num_classes})")
+
+
 def make_train_step(model: nn.Module, loss_fn: SELDLossFn,
                     optimizer: torch.optim.Optimizer, num_classes: int,
                     accum_steps: int = 1, input_augment=None, spatial_augment=None,
                     mesh=None, time_sharded: bool = False):
-    """Returns step(state, mel, label_mask, example_mask, rng) ->
+    """Returns step(state, mel, targets, example_mask, rng) ->
     (state, metrics).
 
-    mel (B, T, C, F) float32, label_mask (B, T, G) integer bitmask,
-    example_mask (B,) validity weights or None, all on the model's device;
+    mel (B, T, C, F) float32, targets the (B, T, G) integer label bitmask
+    (or, for a loss without from_bitmask, its ACCDOA targets), example_mask
+    (B,) validity weights or None, all on the model's device;
     rng a tuple of ints, (seed, epoch) in the trainer. The step updates the
     model, the optimizer and state.step in place. metrics holds "loss" and
     the loss breakdown as detached device scalars.
@@ -101,8 +118,8 @@ def make_train_step(model: nn.Module, loss_fn: SELDLossFn,
     decomposable terms (MSE, AIUR) that equals the full-batch gradient,
     padded tail batches included: an all-padding microbatch adds 0.
 
-    spatial_augment(generator, mel, label_mask) -> (mel, label_mask)
-    transforms features and labels together (the ACS scene transforms);
+    spatial_augment(generator, mel, targets) -> (mel, targets)
+    transforms features and targets together (the ACS scene transforms);
     input_augment(generator, mel) -> mel transforms the features
     (SpecAugment). Both are train-side only and run in that order on the
     whole batch before any microbatch split, drawing from one generator
@@ -114,16 +131,13 @@ def make_train_step(model: nn.Module, loss_fn: SELDLossFn,
         raise NotImplementedError(
             "train.accum_steps > 1 under a process mesh is not ported "
             "(ROADMAP item 10's remainder)")
-    if num_classes != loss_fn.grid.num_classes:
-        raise ValueError(
-            f"num_classes {num_classes} != the loss's grid ({loss_fn.grid.num_classes})"
-        )
+    _check_classes(loss_fn, num_classes)
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
 
     generator = None
 
-    def step(state: TrainState, mel, label_mask, example_mask, rng):
+    def step(state: TrainState, mel, targets, example_mask, rng):
         nonlocal generator
         model.train()
         model.seed_dropout(dropout_seed(rng, state.step))
@@ -132,15 +146,15 @@ def make_train_step(model: nn.Module, loss_fn: SELDLossFn,
                 generator = torch.Generator(device=mel.device)
             generator.manual_seed(augment_seed(rng, state.step))
             if spatial_augment is not None:
-                mel, label_mask = spatial_augment(generator, mel, label_mask)
+                mel, targets = spatial_augment(generator, mel, targets)
             if input_augment is not None:
                 mel = input_augment(generator, mel)
-        mel, label_mask, example_mask = shard_batch(mesh, time_sharded, mel, label_mask,
-                                                    example_mask)
+        mel, targets, example_mask = shard_batch(mesh, time_sharded, mel, targets,
+                                                 example_mask)
         optimizer.zero_grad(set_to_none=True)
         with _true_f32(model), attention_mesh(mesh, time_sharded):
             if accum_steps == 1:
-                total, breakdown = loss_fn.from_bitmask(model(mel), label_mask, example_mask)
+                total, breakdown = _loss(loss_fn, model(mel), targets, example_mask)
                 total.backward()
                 total = total.detach()
             else:
@@ -156,10 +170,8 @@ def make_train_step(model: nn.Module, loss_fn: SELDLossFn,
                 total, breakdown = 0.0, {}
                 for i in range(accum_steps):
                     rows = slice(i * mb, (i + 1) * mb)
-                    t_i, bd_i = loss_fn.from_bitmask(
-                        model(mel[rows]), label_mask[rows],
-                        None if example_mask is None else example_mask[rows],
-                    )
+                    t_i, bd_i = _loss(loss_fn, model(mel[rows]), targets[rows],
+                                      None if example_mask is None else example_mask[rows])
                     (shares[i] * t_i).backward()
                     total = total + shares[i] * t_i.detach()
                     for k, v in bd_i.items():
@@ -189,49 +201,58 @@ def _gather_grids(mesh, time_sharded: bool, grid: torch.Tensor) -> torch.Tensor:
 
 def make_metric_eval_step(model: nn.Module, loss_fn: SELDLossFn, num_classes: int,
                           bg_bias: float = 0.0, bias_sweep=None, mesh=None,
-                          time_sharded: bool = False):
+                          time_sharded: bool = False, accdoa_decoder=None,
+                          accdoa_threshold: float = 0.5, threshold_sweep=None):
     """An eval step that also decodes class grids, for checkpoint selection
     on a validation metric (train.select_metric) and for `evaluate_model`.
 
-    Returns step(mel, label_mask, example_mask) -> (metrics, pred_cls,
-    true_cls): the loss from the unbiased logits, the argmax class per cell
-    of the logits (their background class reduced by bg_bias first) and the
-    ground-truth class per cell decoded from the bitmask, both (B, T, G)
-    int8 on the device. With bias_sweep (a list of floats) a fourth value
-    follows: the (K, B, T, G) int8 grids decoded at each of those biases
-    from the same forward, one at a time.
+    Returns step(mel, label_mask, example_mask, loss_targets=None) ->
+    (metrics, pred_cls, true_cls): the loss from the unbiased logits, the
+    argmax class per cell of the logits (their background class reduced by
+    bg_bias first) and the ground-truth class per cell decoded from the
+    bitmask, both (B, T, G) int8 on the device. With bias_sweep (a list of
+    floats) a fourth value follows: the (K, B, T, G) int8 grids decoded at
+    each of those biases from the same forward, one at a time.
+
+    For an ACCDOA model, accdoa_decoder(vectors, threshold) -> (B, T, G)
+    int8 decodes the vectors (seld_tpu_torch.accdoa.grid_decoder with the
+    grid bound) at accdoa_threshold in place of the argmax, threshold_sweep takes
+    bias_sweep's place, and the loss is loss_fn(vectors, loss_targets,
+    example_mask) on the raw vectors.
 
     With a `mesh` the step takes the global batch, runs this rank's block
     and returns the global metrics and grids: the argmax decode is per
     cell, so each rank decodes its block and the blocks are gathered."""
-    if num_classes != loss_fn.grid.num_classes:
-        raise ValueError(
-            f"num_classes {num_classes} != the loss's grid ({loss_fn.grid.num_classes})"
-        )
+    _check_classes(loss_fn, num_classes)
+    if accdoa_decoder is None:
+        knob, sweep = bg_bias, bias_sweep
 
-    def decode(logits, bias):
-        if bias:
-            logits = logits.clone()
-            logits[:, :, -1, :] -= bias
-        return torch.argmax(logits, dim=2).to(torch.int8)
+        def decode(logits, bias):
+            if bias:
+                logits = logits.clone()
+                logits[:, :, -1, :] -= bias
+            return torch.argmax(logits, dim=2).to(torch.int8)
+    else:
+        knob, sweep, decode = accdoa_threshold, threshold_sweep, accdoa_decoder
 
     @torch.no_grad()
-    def step(mel, label_mask, example_mask):
+    def step(mel, label_mask, example_mask, loss_targets=None):
         model.eval()
-        mel, label_mask, example_mask = shard_batch(mesh, time_sharded, mel, label_mask,
-                                                    example_mask)
+        targets = label_mask if loss_targets is None else loss_targets
+        mel, label_mask, targets, example_mask = shard_batch(
+            mesh, time_sharded, mel, label_mask, targets, example_mask)
         with attention_mesh(mesh, time_sharded):
             out = model(mel)
-            total, breakdown = loss_fn.from_bitmask(out, label_mask, example_mask)
+            total, breakdown = _loss(loss_fn, out, targets, example_mask)
 
         def gather(grid):
             return _gather_grids(mesh, time_sharded, grid)
 
         result = (_global_metrics(mesh, {"loss": total, **breakdown}),
-                  gather(decode(out, bg_bias)),
+                  gather(decode(out, knob)),
                   gather(_bit_labels(label_mask, num_classes).to(torch.int8)))
-        if bias_sweep is not None:
-            result += (torch.stack([gather(decode(out, b)) for b in bias_sweep]),)
+        if sweep is not None:
+            result += (torch.stack([gather(decode(out, k)) for k in sweep]),)
         return result
 
     return step
@@ -239,24 +260,21 @@ def make_metric_eval_step(model: nn.Module, loss_fn: SELDLossFn, num_classes: in
 
 def make_eval_step(model: nn.Module, loss_fn: SELDLossFn, num_classes: int,
                    return_logits: bool = False, mesh=None, time_sharded: bool = False):
-    """Returns step(mel, label_mask, example_mask) -> metrics (and the
+    """Returns step(mel, targets, example_mask) -> metrics (and the
     logits when return_logits): the eval-mode forward and the loss from the
-    bitmask, without gradients. With a `mesh` the step takes the global
-    batch, runs this rank's block and returns the global metrics (and this
-    rank's block of the logits)."""
-    if num_classes != loss_fn.grid.num_classes:
-        raise ValueError(
-            f"num_classes {num_classes} != the loss's grid ({loss_fn.grid.num_classes})"
-        )
+    bitmask (or an ACCDOA loss's own targets), without gradients. With a
+    `mesh` the step takes the global batch, runs this rank's block and
+    returns the global metrics (and this rank's block of the logits)."""
+    _check_classes(loss_fn, num_classes)
 
     @torch.no_grad()
-    def step(mel, label_mask, example_mask):
+    def step(mel, targets, example_mask):
         model.eval()
-        mel, label_mask, example_mask = shard_batch(mesh, time_sharded, mel, label_mask,
-                                                    example_mask)
+        mel, targets, example_mask = shard_batch(mesh, time_sharded, mel, targets,
+                                                 example_mask)
         with attention_mesh(mesh, time_sharded):
             out = model(mel)
-            total, breakdown = loss_fn.from_bitmask(out, label_mask, example_mask)
+            total, breakdown = _loss(loss_fn, out, targets, example_mask)
         metrics = _global_metrics(mesh, {"loss": total, **breakdown})
         return (metrics, out) if return_logits else metrics
 

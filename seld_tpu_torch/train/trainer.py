@@ -7,6 +7,10 @@ checkpoint on the test loss (or on a DCASE2022 validation metric,
 train.select_metric), a rolling checkpoint every N epochs, resume
 from the newest rolling checkpoint, an optional parameter EMA, a
 per-epoch record in metrics.jsonl, and training_history.json at the end.
+The ACCDOA families (model.model_type accdoa_conformer /
+multi_accdoa_conformer) train on the corpora's ACCDOA targets with the
+ACCDOA or ADPIT loss, rotate those targets under ACS, and decode their
+vectors at the 0.5 activity threshold for a validation metric.
 
 Metrics stay on the device until the epoch's summary: one read-back per
 epoch for the train metrics and one for the test metrics, none per step.
@@ -35,16 +39,19 @@ import torch
 import torch.distributed as dist
 
 from seld_tpu_torch import resolve_device
+from seld_tpu_torch.accdoa import ACCDOALossFn, ADPITLossFn, grid_decoder
 from seld_tpu_torch.config import Config
 from seld_tpu_torch.data.corpus import WindowedCorpus
 from seld_tpu_torch.data.sampler import BatchIterator, device_prefetch, place_batch
 from seld_tpu_torch.eval.metrics import DCASE2022_SUMMARY, dcase2022_metrics
-from seld_tpu_torch.features.acs import make_acs_augment
+from seld_tpu_torch.features.acs import make_acs_augment, make_acs_augment_accdoa
 from seld_tpu_torch.features.spatial import feature_channels
 from seld_tpu_torch.features.specaugment import make_spec_augment
 from seld_tpu_torch.losses import SELDLossFn
 from seld_tpu_torch.models import build_model
+from seld_tpu_torch.models.registry import ACCDOA_MODELS, MULTI_ACCDOA_MODELS
 from seld_tpu_torch.parallel.mesh import Mesh, mesh_from_config
+from seld_tpu_torch.parallel.multihost import launched_world_size
 from seld_tpu_torch.parallel.sharding import check_divisible
 from seld_tpu_torch.train.checkpoint import CheckpointManager
 from seld_tpu_torch.train.optimizer import (
@@ -148,6 +155,11 @@ def check_mesh_config(cfg: Config, window_frames: int) -> None:
     """Raise for a run the mesh cannot shard, as the JAX trainer does,
     before any process group is joined."""
     mc = cfg.mesh
+    if (cfg.model.model_type in ACCDOA_MODELS and mc.enable != "off"
+            and launched_world_size() > 1):
+        raise NotImplementedError(
+            f"{cfg.model.model_type} under a process mesh of more than one rank is not "
+            "ported (ROADMAP item 10's remainder)")
     if not mc.shard_time:
         return
     model_type = cfg.model.model_type
@@ -203,13 +215,20 @@ def train_model(cfg: Config, train_corpus: WindowedCorpus, test_corpus: Windowed
         )
 
     check_mesh_config(cfg, cfg.window.window_frames(cfg.features))
+    accdoa_mode = cfg.model.model_type in ACCDOA_MODELS
+    multi = cfg.model.model_type in MULTI_ACCDOA_MODELS
+    if accdoa_mode and (train_corpus.accdoa is None or test_corpus.accdoa is None):
+        raise ValueError(f"{cfg.model.model_type} trains on ACCDOA targets: build the "
+                         "corpora with targets.accdoa=true")
     input_augment = make_spec_augment(tc)
     spatial_augment = None
     if tc.acs_augment:
         # a named error unless the feature set carries signed direction
         # (mel_iv), raised before anything is built or cleared
-        spatial_augment = make_acs_augment(cfg.grid.n_el, cfg.grid.n_az,
-                                           cfg.features.feature_set)
+        spatial_augment = (make_acs_augment_accdoa(cfg.features.feature_set, multi)
+                           if accdoa_mode else
+                           make_acs_augment(cfg.grid.n_el, cfg.grid.n_az,
+                                            cfg.features.feature_set))
 
     mesh = mesh_from_config(cfg.mesh, device)
     time_sharded = mesh is not None and cfg.mesh.shard_time
@@ -224,7 +243,10 @@ def train_model(cfg: Config, train_corpus: WindowedCorpus, test_corpus: Windowed
     model = build_model(cfg.model, cfg.grid, device=device, seed=tc.seed,
                         in_channels=feature_channels(cfg.features.feature_set,
                                                      cfg.model.n_channels))
-    loss_fn = SELDLossFn(cfg.loss, cfg.grid)
+    if accdoa_mode:
+        loss_fn = ADPITLossFn() if multi else ACCDOALossFn()
+    else:
+        loss_fn = SELDLossFn(cfg.loss, cfg.grid)
     optimizer = make_optimizer(model.parameters(), tc.learning_rate, tc.weight_decay)
     state = create_train_state(model, optimizer)
     logger.info("Model %s: %s parameters on %s", cfg.model.model_type,
@@ -294,7 +316,8 @@ def train_model(cfg: Config, train_corpus: WindowedCorpus, test_corpus: Windowed
                     tc.specaugment_freq_masks, tc.specaugment_freq_width)
     if spatial_augment is not None:
         logger.info("ACS spatial augmentation on: per-sample draw from the 16 FOA scene "
-                    "transforms (features + grid labels)")
+                    "transforms (features + %s)", "ACCDOA targets" if accdoa_mode else
+                    "grid labels")
     if tc.accum_steps > 1:
         logger.info("Gradient accumulation: %d microbatches of %d",
                     tc.accum_steps, tc.batch_size // tc.accum_steps)
@@ -309,8 +332,10 @@ def train_model(cfg: Config, train_corpus: WindowedCorpus, test_corpus: Windowed
     # DCASE2022 metric of the epoch instead of the test loss.
     metric_step = None
     if select != "loss":
-        metric_step = make_metric_eval_step(eval_model, loss_fn, cfg.grid.num_classes,
-                                            mesh=mesh, time_sharded=time_sharded)
+        metric_step = make_metric_eval_step(
+            eval_model, loss_fn, cfg.grid.num_classes, mesh=mesh, time_sharded=time_sharded,
+            accdoa_decoder=(grid_decoder(multi, cfg.grid.n_el, cfg.grid.n_az,
+                                         cfg.grid.num_classes) if accdoa_mode else None))
         logger.info("Best-checkpoint selection on DCASE2022 %s (computed every epoch "
                     "from decoded grids)", select)
 
@@ -339,7 +364,10 @@ def train_model(cfg: Config, train_corpus: WindowedCorpus, test_corpus: Windowed
                               prefetch=cfg.data.prefetch_depth)
 
     def place(batch):
-        return place_batch(batch, device)
+        """(mel, loss targets, example mask, label mask): the loss targets
+        are the bitmask, or an ACCDOA model's vectors."""
+        mel, mask, em, *acc = place_batch(batch, device)
+        return mel, acc[0] if accdoa_mode else mask, em, mask
 
     history = {"train_losses": [], "test_losses": [], "lr": []}
     if metric_step is not None:
@@ -373,12 +401,12 @@ def train_model(cfg: Config, train_corpus: WindowedCorpus, test_corpus: Windowed
         for epoch in range(start_epoch, tc.num_epochs + 1):
             t0 = time.time()
             train_metrics = []
-            for i, (mel, mask, em) in enumerate(
+            for i, (mel, targets, em, _) in enumerate(
                 device_prefetch(train_iter, place, depth=cfg.data.prefetch_depth)
             ):
                 if cosine is not None:
                     set_learning_rate(optimizer, cosine((epoch - 1) * steps_per_epoch + i))
-                _, metrics = train_step(state, mel, mask, em, (tc.seed, epoch))
+                _, metrics = train_step(state, mel, targets, em, (tc.seed, epoch))
                 if ema_model is not None:
                     with torch.no_grad():  # the shadow keeps the live BatchNorm statistics
                         torch._foreach_lerp_(ema_params, live_params, 1.0 - tc.ema_decay)
@@ -408,15 +436,15 @@ def train_model(cfg: Config, train_corpus: WindowedCorpus, test_corpus: Windowed
             val22 = None
             if metric_step is None:
                 eval_metrics = [
-                    eval_step(mel, mask, em)
-                    for mel, mask, em in device_prefetch(test_iter, place,
-                                                         depth=cfg.data.prefetch_depth)
+                    eval_step(mel, targets, em)
+                    for mel, targets, em, _ in device_prefetch(test_iter, place,
+                                                               depth=cfg.data.prefetch_depth)
                 ]
             else:
                 eval_metrics, preds, trues = [], [], []
-                for mel, mask, em in device_prefetch(test_iter, place,
-                                                     depth=cfg.data.prefetch_depth):
-                    m, p, t = metric_step(mel, mask, em)
+                for mel, targets, em, mask in device_prefetch(test_iter, place,
+                                                              depth=cfg.data.prefetch_depth):
+                    m, p, t = metric_step(mel, mask, em, targets)
                     eval_metrics.append(m)
                     n_valid = int(em.sum().item())  # the padded tail's rows drop out
                     preds.append(p[:n_valid].cpu().numpy())

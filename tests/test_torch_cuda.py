@@ -953,3 +953,87 @@ def test_launchers_encode_the_tensor_maps_of_tma_geometry(cuda_device, b, h, t, 
     for which in (1, 2):
         assert tensor_map_geometry(which, q, k, v, w) == [
             n for x in (q, k, v, w) for n in tma_geometry(x, rows)]
+
+
+# --- the ACCDOA families on the card ------------------------------------------
+
+
+def _accdoa_vectors(lead, seed, threshold=0.5):
+    """(..., 13, 3) vectors whose directions lie at least 0.5 degrees inside
+    their cells (atan2 and asin round differently on the card and the CPU,
+    by an ulp: no decode may hinge on one), norms from 0 to 1.5 and some one
+    float32 ulp either side of the threshold."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    shape = (*lead, 13)
+    az = np.radians(rng.integers(0, 36, shape) * 10.0 - 180.0 + rng.uniform(0.5, 9.5, shape))
+    el = np.radians(rng.integers(0, 18, shape) * 10.0 - 90.0 + rng.uniform(0.5, 9.5, shape))
+    norm = rng.uniform(0.0, 1.5, shape)
+    th = np.float32(threshold)
+    norm.reshape(-1)[::7] = np.nextafter(th, np.float32(2))
+    norm.reshape(-1)[3::7] = np.nextafter(th, np.float32(0))
+    v = np.stack([np.cos(el) * np.cos(az), np.cos(el) * np.sin(az), np.sin(el)], -1)
+    return torch.from_numpy((v * norm[..., None]).astype(np.float32))
+
+
+def test_accdoa_scatter_decodes_match_the_cpu_on_card(cuda_device):
+    """Every device decode of seld_tpu_torch.accdoa on CUDA against the same
+    function on the CPU (held to the JAX package in tests/test_torch_accdoa.py):
+    equal, and two runs bit-equal."""
+    from seld_tpu_torch import accdoa
+
+    single = _accdoa_vectors((16, 250), 0)
+    multi = torch.stack([_accdoa_vectors((8, 250), k) for k in range(3)], dim=2)
+    cases = [(accdoa.decode_accdoa_to_grid, single), (accdoa.decode_multi_accdoa_to_grid, multi)]
+    for decode, v in cases:
+        want = decode(v, 18, 36, 14, 0.5)
+        got = decode(v.to(cuda_device), 18, 36, 14, 0.5)
+        assert torch.equal(got, decode(v.to(cuda_device), 18, 36, 14, 0.5))
+        assert torch.equal(got.cpu(), want) and (want != 13).any()
+    act = accdoa.multi_accdoa_class_activity(multi, 18, 36, 0.5)
+    got = accdoa.multi_accdoa_class_activity(multi.to(cuda_device), 18, 36, 0.5)
+    assert torch.equal(got.cpu(), act)
+    assert torch.equal(accdoa.decode_vote_grid(got, 14).cpu(), accdoa.decode_vote_grid(act, 14))
+
+
+def test_multi_accdoa_at_long_windows_runs_k3_on_card(cuda_device):
+    """A small float32 multi-ACCDOA model at T = 1000: the forward launches
+    K3's forward once per block and agrees with the plain attention; an
+    ADPIT train step launches forward, dQ and dK/dV once per block and K2
+    never."""
+    from seld_tpu_torch.accdoa import ADPITLossFn
+    from seld_tpu_torch.models import build_model
+    from seld_tpu_torch.train.optimizer import make_optimizer
+    from seld_tpu_torch.train.state import create_train_state
+    from seld_tpu_torch.train.steps import make_train_step
+
+    cfg = _port_cfg(["model.model_type=multi_accdoa_conformer", "model.crnn_cnn_channels=8,16",
+                     "model.conf_d_model=64", "model.conf_n_heads=2",
+                     "model.compute_dtype=float32"])
+    model = build_model(cfg.model, cfg.grid, device=cuda_device, seed=0)
+    gen = torch.Generator(device=cuda_device).manual_seed(2)
+    x = torch.randn((2, 1000, 4, 64), device=cuda_device, generator=gen)
+    flash_attention.fwd_launches = 0
+    with torch.no_grad():
+        got = model(x)
+        assert flash_attention.fwd_launches == cfg.model.conf_n_layers
+        with force_flash(False):
+            want = model(x)
+    assert got.shape == (2, 1000, 3, 13, 3)
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
+    targets = torch.zeros((2, 1000, 6, 4, 13), device=cuda_device)
+    targets[:, :, 0, 0, 2] = 1.0
+    targets[:, :, 0, 1, 2] = 1.0
+    optimizer = make_optimizer(model.parameters(), 1e-3, 1e-4)
+    step = make_train_step(model, ADPITLossFn(), optimizer, cfg.grid.num_classes)
+    flash_attention.fwd_launches = flash_attention.bwd_dq_launches = 0
+    flash_attention.bwd_dkv_launches = 0
+    grid_loss_terms.fwd_launches = grid_loss_terms.bwd_launches = 0
+    _, metrics = step(create_train_state(model, optimizer), x, targets, None, (0, 1))
+    torch.cuda.synchronize()
+    n = cfg.model.conf_n_layers
+    assert (flash_attention.fwd_launches, flash_attention.bwd_dq_launches,
+            flash_attention.bwd_dkv_launches) == (n, n, n)
+    assert (grid_loss_terms.fwd_launches, grid_loss_terms.bwd_launches) == (0, 0)
+    assert torch.isfinite(metrics["loss"]) and list(metrics) == ["loss", "adpit"]

@@ -535,9 +535,10 @@ def test_cli_verify_reports_every_backbone(capsys):
     lines = capsys.readouterr().out.splitlines()
     assert len(lines) == 6
     assert all("(2, 6, 14, 648) OK" in line for line in lines[:4])
-    assert [line.split(":")[0].strip() for line in lines[:4]] == [
-        "resnet_conformer", "cnn", "crnn", "conformer"]
-    assert all("NOT PORTED" in line and "ROADMAP" in line for line in lines[4:])
+    assert [line.split(":")[0].strip() for line in lines] == [
+        "resnet_conformer", "cnn", "crnn", "conformer", "accdoa_conformer",
+        "multi_accdoa_conformer"]
+    assert "(2, 6, 13, 3) OK" in lines[4] and "(2, 6, 3, 13, 3) OK" in lines[5]
     assert port_main(["verify", "--frames", "4", "--device", "cpu",
                       "grid.cell_degrees=30"]) == 0
     assert "(2, 4, 14, 72) OK" in capsys.readouterr().out

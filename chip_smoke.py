@@ -94,12 +94,16 @@ Phases, each of which raises on failure:
      time by family (the profile lines), peak device memory and K3's
      launches a step (remat recomputes each conformer block: 8 forward
      launches instead of 4).
- 11. fault F2's general-n_fft kernels of K1 and K4 (the DFT as tiles) at
-     n_fft 1200 and 600 against their plain versions, contiguous and in
-     place, timed against the plain version and the library chain; a seeded
-     flagship with features.n_fft=1200 and one with 600 serving the 60 s
-     clip with "mel", "mel_iv" and "mel_gcc" (the DFT kernels once each,
-     the FFT kernels never);
+ 11. K1's and K4's kernels at n_fft outside 512 / 960 / 1024 / 2048: the
+     mixed-radix kernels (a Stockham FFT in shared memory) at n_fft 1200
+     and 600 against their plain versions, contiguous and in place, timed
+     in turns against the plain version, the library chain and the DFT
+     tiles at the same n_fft; at 640, 882, 1764 and 1920 checked, each
+     launch on the mixed-radix counter; the DFT tiles at 1202 checked and
+     timed; the register kernels re-timed at their four n_fft; a seeded
+     flagship with features.n_fft 1200, 600 and 1202 serving the 60 s clip
+     with "mel", "mel_iv" and "mel_gcc" (the mixed-radix kernel once each
+     at 1200 and 600, the DFT tiles once at 1202, no other K1 or K4 kernel);
  12. kernel K5 (ring attention) at K3's main-path shape (B*H = 128,
      T = 1000, Dh = 64) in float32 and bf16: the virtual ring (n ranks in
      one process; a step is one launch of K3's forward kernel with the
@@ -193,8 +197,8 @@ FAMILIES = (
     ("K3 flash attention forward", r"flash_fwd_"),
     ("K3 flash attention dQ", r"flash_dq_"),
     ("K3 flash attention dK/dV", r"flash_dkv_"),
-    ("K1 log-mel", r"log_mel_kernel"),
-    ("K4 spatial features", r"spatial_kernel"),
+    ("K1 log-mel", r"log_mel_(mixed_|dft_)?kernel"),
+    ("K4 spatial features", r"spatial_(mixed_|dft_)?kernel"),
     ("K2 grid loss forward", r"grid_loss_fwd_kernel"),
     ("K2 grid loss backward", r"grid_loss_bwd_kernel"),
     ("optimizer (multi-tensor)", r"multi_tensor"),
@@ -284,13 +288,18 @@ def phase_build() -> None:
         # ptxas names each entry function, then its resources; of K1's, K2's
         # and K3's instantiations only the main path's are shown (n_fft = 960
         # as R = 15 with float2 loads, M = 14, Dh = 64); K3's wgmma kernels
-        # (forward, dQ, dK/dV) and every instantiation of K4's FFT kernel must
-        # not spill; the general-n_fft kernels of K1 and K4 are printed
+        # (forward, dQ, dK/dV), every instantiation of K4's FFT kernel and the
+        # mixed-radix kernels of K1 and K4 must not spill; the DFT-tile and
+        # mixed-radix kernels of K1 and K4 are printed
         shown, entry = True, ""
         for line in info["log"].splitlines():
             if "_dft_kernel" in entry and ("registers" in line or "spill" in line):
-                # the general-n_fft kernels of K1 and K4 (fault F2), every one
+                # the DFT-tile kernels of K1 and K4, every one
                 print(f"[build]   {entry.split('dft')[-1][:30]}: {line.strip()}")
+            mixed = re.search(r"log_mel_mixed_kernel|spatial_mixed_kernelILi\d", entry)
+            if mixed and ("registers" in line or "spill" in line):
+                # the mixed-radix kernels of K1 and K4, every one: none may spill
+                print(f"[build]   {mixed.group(0).replace('ILi', ' set ')}: {line.strip()}")
             if "Compiling entry function" in line:
                 entry = line.split("'")[1]
                 shown = (("grid_loss" not in line or "ILi14E" in line)
@@ -299,7 +308,8 @@ def phase_build() -> None:
                          and "spatial_kernel" not in line)
                 if shown and ("grid_loss" in line or "flash_" in line or "log_mel" in line):
                     print(f"[build]   {entry}:")
-            elif "spill" in line and ("wgmma" in entry or "spatial_kernel" in entry
+            elif "spill" in line and ("wgmma" in entry or "mixed_kernel" in entry
+                                      or "spatial_kernel" in entry
                                       and "_dft_kernel" not in entry):
                 spills = [int(n) for n in re.findall(r"(\d+) bytes spill", line)]
                 if any(spills):
@@ -2282,7 +2292,13 @@ def phase_flagship_options(dev: torch.device) -> dict:
     return found
 
 
-F2_N_FFT = (1200, 600)  # a 50 ms window at 24 kHz, and one not divisible by 16
+# K1's and K4's kernels at other n_fft: the mixed-radix kernels timed at
+# 1200 (50 ms at 24 kHz) and 600, checked at 640, 882, 1764 and 1920 (40
+# ms at 16 kHz, 20 ms and 40 ms at 44.1 kHz, 40 ms at 48 kHz); the DFT
+# tiles at 1202 = 2 x 601
+MIXED_TIMED_N_FFT = (1200, 600)
+MIXED_CHECKED_N_FFT = (640, 882, 1764, 1920)
+DFT_N_FFT = 1202
 # K5 against K3 over the whole T: the JAX ring tests' bars in float32
 # (tests/test_pallas_kernels.py:421-465); bf16 by check_bf16, as K3
 K5_TOL = dict(rtol=2e-4, atol=2e-5)
@@ -2293,14 +2309,36 @@ SP_LOSS_RTOL = 1e-5  # sharded against unsharded first-step loss on one card
 SP_EPOCH_RTOL = 1e-3
 
 
+def k1_counts() -> tuple[int, int, int]:
+    """K1's launches by kernel: register FFT, mixed-radix, DFT tiles."""
+    from seld_tpu_torch.ops.mel_cuda import log_mel_frames as k1
+
+    return k1.launches, k1.mixed_launches, k1.dft_launches
+
+
+def k4_counts() -> tuple[int, int, int]:
+    """K4's launches by kernel: register FFT, mixed-radix, DFT tiles."""
+    from seld_tpu_torch.ops.spatial_cuda import spatial_features as k4
+
+    return k4.launches, k4.mixed_launches, k4.dft_launches
+
+
+def moved(before: tuple, after: tuple) -> tuple:
+    return tuple(a - b for a, b in zip(after, before))
+
+
 def phase_f2(dev: torch.device) -> list[dict]:
-    """Fault F2's general-n_fft kernels (the DFT as tiles) of K1 and K4 at
-    n_fft 1200 and 600 against their plain versions, contiguous and on
-    frame_signal's in-place view of a padded 60 s clip, timed in turns
-    against the plain version and the library chain; then the path that
-    runs them: a seeded flagship at each n_fft serving the 60 s clip for
-    "mel", "mel_iv" and "mel_gcc" (K1's or K4's DFT kernel once each, the
-    FFT kernels never)."""
+    """K1's and K4's kernels at n_fft outside 512 / 960 / 1024 / 2048.
+    The mixed-radix kernels at n_fft 1200 and 600 against their plain
+    versions, contiguous and on frame_signal's in-place view of a padded
+    60 s clip, timed in turns against the plain version, the library chain
+    and the DFT tiles at the same n_fft (through their C entry: `launch`);
+    at 640, 882, 1764 and 1920 checked alone; the DFT tiles at 1202 checked
+    and timed; the register kernels re-timed at their four n_fft in the
+    same call. Then the path that runs them: a seeded flagship at n_fft
+    1200, 600 and 1202 serving the 60 s clip for "mel", "mel_iv" and
+    "mel_gcc", each launch count exact (the mixed-radix kernel once at
+    1200 and 600, the DFT tiles once at 1202, nothing else)."""
     import torch.nn.functional as F
 
     from seld_tpu_torch.config import Config, FeatureConfig, parse_overrides
@@ -2309,85 +2347,146 @@ def phase_f2(dev: torch.device) -> list[dict]:
     from seld_tpu_torch.features.spatial import feature_channels
     from seld_tpu_torch.infer import SELDPredictor
     from seld_tpu_torch.models import build_model
-    from seld_tpu_torch.ops.mel_cuda import log_mel_frames, log_mel_frames_reference
+    from seld_tpu_torch.ops import mel_cuda, spatial_cuda
+    from seld_tpu_torch.ops.mel_cuda import KERNEL_N_FFT, log_mel_frames, log_mel_frames_reference
     from seld_tpu_torch.ops.spatial_cuda import spatial_features, spatial_features_reference
     from seld_tpu_torch.train.checkpoint import save_checkpoint
 
     feat = FeatureConfig()
     n_mels, hop, sr = feat.n_mels, feat.hop_length, feat.sample_rate
     t_main = 1 + CLIP_SECONDS * sr // hop
+    n = 4 * t_main
     g = torch.Generator(device=dev).manual_seed(11)
     wave = 0.1 * torch.randn((4, CLIP_SECONDS * sr), generator=g, device=dev)
-    rows = []
-    for nf in F2_N_FFT:
-        frames = torch.randn((4 * t_main, nf), generator=g, device=dev)
+    k1_path = {1: "register FFT", 2: "mixed-radix", 3: "DFT tiles"}
+
+    def check(nf: int, path: int) -> tuple[float, float, float]:
+        """K1 (contiguous and in place) and K4 (every set, in place and on the
+        contiguous copy) at nf, each launch on kernel `path` (1-based in the
+        counts); their largest errors: K1 dB, K4 dB, K4 other planes."""
+        frames = torch.randn((n, nf), generator=g, device=dev)
+        view = frame_signal(wave, nf, hop)
+        copy = view.contiguous()
+        want = tuple(2 if i == path - 1 else 0 for i in range(3))
+        before = k1_counts()
+        got, got_v = log_mel_frames(frames, n_fft=nf), log_mel_frames(view, n_fft=nf)
+        torch.cuda.synchronize()
+        if moved(before, k1_counts()) != want:
+            raise AssertionError(f"K1 at n_fft={nf}: launches {moved(before, k1_counts())}, "
+                                 f"expected {want}")
+        e1 = max(k1_check(f"{k1_path[path]} n_fft={nf}", got, log_mel_frames_reference(frames)),
+                 k1_check(f"{k1_path[path]} n_fft={nf} in place", got_v,
+                          log_mel_frames_reference(copy.reshape(-1, nf)).reshape(got_v.shape)))
+        e4 = [0.0, 0.0]
+        for fs in ("mel", "mel_iv", "mel_gcc"):
+            before = k4_counts()
+            out_v, out_c = spatial_features(view, fs), spatial_features(copy, fs)
+            torch.cuda.synchronize()
+            if moved(before, k4_counts()) != want:
+                raise AssertionError(f"K4 {fs} at n_fft={nf}: launches "
+                                     f"{moved(before, k4_counts())}, expected {want}")
+            ref = spatial_features_reference(copy, fs)
+            for what, out in (("in place", out_v), ("contiguous", out_c)):
+                errs = k4_errors(out, ref)
+                k4_check(f"{k1_path[path]} n_fft={nf} {fs} {what}", errs)
+                e4 = [max(e4[0], errs[0]), max(e4[1], errs[1])]
+        print(f"[F2] {k1_path[path]} n_fft={nf}: K1 N={n} max |kernel - plain| {e1:.3e} dB "
+              f"(contiguous and in place); K4 T={t_main} mel / mel_iv / mel_gcc, in place and "
+              f"contiguous, {e4[0]:.3e} dB / {e4[1]:.3e}; launches {want[path - 1]} a check")
+        return e1, *e4
+
+    def timed(nf: int, path: str) -> list[dict]:
+        """K1 and K4 (mel_iv, mel_gcc, in place) at nf on kernel `path`
+        ("mixed" or "dft"), in turns with the plain version, the library
+        chain and, for "mixed", the DFT tiles at the same nf; their rows."""
+        name = "mixed-radix" if path == "mixed" else "DFT path"
+        frames = torch.randn((n, nf), generator=g, device=dev)
         padded = F.pad(wave, (nf // 2, nf // 2), mode="reflect")
         view = frame_signal(wave, nf, hop)
+        copy = view.contiguous()
         window = torch.from_numpy(hann_window(nf)).to(dev)
         fb = torch.from_numpy(mel_filterbank(nf // 2 + 1, n_mels, sr)).to(dev)
-        before = (log_mel_frames.launches, log_mel_frames.dft_launches)
-        got = log_mel_frames(frames, n_fft=nf)
-        got_v = log_mel_frames(view, n_fft=nf)
-        torch.cuda.synchronize()
-        if (log_mel_frames.launches, log_mel_frames.dft_launches) != (before[0],
-                                                                      before[1] + 2):
-            raise AssertionError(f"K1 at n_fft={nf} did not take the DFT kernel")
-        err = max(k1_check(f"DFT path n_fft={nf}", got, log_mel_frames_reference(frames)),
-                  k1_check(f"DFT path n_fft={nf} in place", got_v, log_mel_frames_reference(
-                      view.reshape(-1, nf)).reshape(got_v.shape)))
-        runs = {"kernel": lambda: log_mel_frames(frames, n_fft=nf),
+        err = max(k1_check(f"{name} n_fft={nf}", mel_cuda.launch(path, frames, nf),
+                           log_mel_frames_reference(frames)),
+                  k1_check(f"{name} n_fft={nf} in place", mel_cuda.launch(path, view, nf),
+                           log_mel_frames_reference(copy.reshape(-1, nf)).reshape(
+                               4, t_main, n_mels)))
+        runs = {"kernel": lambda: mel_cuda.launch(path, frames, nf),
                 "plain": lambda: log_mel_frames_reference(frames),
                 "stft chain": lambda: library_log_mel(frames, window, fb),
-                "kernel in place": lambda: log_mel_frames(view, n_fft=nf)}
+                "kernel in place": lambda: mel_cuda.launch(path, view, nf)}
+        if path == "mixed":
+            runs["DFT tiles"] = lambda: mel_cuda.launch("dft", frames, nf)
         ms = timed_in_turns(runs)
-        b = k1_bound(frames.shape[0], nf, fb)
-        print(f"[F2] K1 DFT path n_fft={nf}, N={frames.shape[0]}: max |kernel - plain| "
-              f"{err:.3e} dB; kernel {ms['kernel']:.4f} ms, in place "
-              f"{ms['kernel in place']:.4f} ms, plain {ms['plain']:.4f} ms, stft chain "
-              f"{ms['stft chain']:.4f} ms; bound {b['bound_ms']:.4f} ms by {b['bound_by']}: "
-              f"kernel at {100 * b['bound_ms'] / ms['kernel']:.2f} %; its own DFT-as-tiles "
-              f"arithmetic {b['gemm_flops'] / 1e9:.2f} GFLOP, f32 floor {b['gemm_ms']:.4f} ms")
-        rows.append({"name": f"K1 DFT path n_fft={nf}", "route": "cuda",
-                     "source": "seld_tpu_torch/csrc/mel_kernel.cu",
-                     "replaces": "seld_tpu/ops/mel_pallas.py:77", "launches": None,
-                     "max_abs_err": err, "ms": ms["kernel"], "plain_ms": ms["plain"],
-                     "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
-                     "library_ms": ms["stft chain"]})
-        contiguous = view.contiguous()
-        for feature_set in ("mel_iv", "mel_gcc"):
-            before = (spatial_features.launches, spatial_features.dft_launches)
-            got = spatial_features(view, feature_set)
-            torch.cuda.synchronize()
-            if (spatial_features.launches, spatial_features.dft_launches) != (before[0],
-                                                                          before[1] + 1):
-                raise AssertionError(f"K4 at n_fft={nf} did not take the DFT kernel")
-            errs = k4_errors(got, spatial_features_reference(contiguous, feature_set))
-            k4_check(f"DFT path n_fft={nf} {feature_set}", errs)
-            runs = {"kernel": lambda: spatial_features(view, feature_set),
-                    "plain": lambda: spatial_features_reference(contiguous, feature_set),
-                    "rFFT chain": lambda: oracle.extract_feature_frames(
-                        contiguous, feature_set, nf, n_mels, sr)}
+        b = k1_bound(n, nf, fb)
+        print(f"[F2] K1 {name} n_fft={nf}, N={n}: max |kernel - plain| {err:.3e} dB; kernel "
+              f"{ms['kernel']:.4f} ms, in place {ms['kernel in place']:.4f} ms, plain "
+              f"{ms['plain']:.4f} ms, stft chain {ms['stft chain']:.4f} ms"
+              + (f", DFT tiles {ms['DFT tiles']:.4f} ms" if path == "mixed" else "")
+              + f"; bound {b['bound_ms']:.4f} ms by {b['bound_by']}: kernel at "
+              f"{100 * b['bound_ms'] / ms['kernel']:.2f} %, "
+              f"{ms['stft chain'] / ms['kernel']:.2f}x the stft chain's speed")
+        rows = [{"name": f"K1 {name} n_fft={nf}", "route": "cuda",
+                 "source": "seld_tpu_torch/csrc/mel_kernel.cu",
+                 "replaces": "seld_tpu/ops/mel_pallas.py:77", "launches": None,
+                 "max_abs_err": err, "ms": ms["kernel"], "plain_ms": ms["plain"],
+                 "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
+                 "library_ms": ms["stft chain"], "in_place_ms": ms["kernel in place"],
+                 **({"dft_tiles_ms": ms["DFT tiles"]} if path == "mixed" else {})}]
+        for fs in ("mel_iv", "mel_gcc"):
+            errs = k4_errors(spatial_cuda.launch(path, view, fs),
+                             spatial_features_reference(copy, fs))
+            k4_check(f"{name} n_fft={nf} {fs}", errs)
+            runs = {"kernel": lambda: spatial_cuda.launch(path, view, fs),
+                    "plain": lambda: spatial_features_reference(copy, fs),
+                    "rFFT chain": lambda: oracle.extract_feature_frames(copy, fs, nf, n_mels, sr)}
+            if path == "mixed":
+                runs["DFT tiles"] = lambda: spatial_cuda.launch("dft", view, fs)
             ms = timed_in_turns(runs)
-            b = k4_bound(t_main, nf, fb, feature_set, input_bytes=padded.numel() * 4)
-            print(f"[F2] K4 DFT path {feature_set} n_fft={nf}, T={t_main} in place: max "
-                  f"|kernel - plain| {errs[0]:.3e} dB / {errs[1]:.3e}; kernel "
-                  f"{ms['kernel']:.4f} ms, plain {ms['plain']:.4f} ms, rFFT chain "
-                  f"{ms['rFFT chain']:.4f} ms; bound {b['bound_ms']:.4f} ms by "
-                  f"{b['bound_by']}: kernel at {100 * b['bound_ms'] / ms['kernel']:.2f} %")
-            rows.append({"name": f"K4 {feature_set} DFT path n_fft={nf}", "route": "cuda",
+            b = k4_bound(t_main, nf, fb, fs, input_bytes=padded.numel() * 4)
+            print(f"[F2] K4 {name} {fs} n_fft={nf}, T={t_main} in place: max |kernel - plain| "
+                  f"{errs[0]:.3e} dB / {errs[1]:.3e}; kernel {ms['kernel']:.4f} ms, plain "
+                  f"{ms['plain']:.4f} ms, rFFT chain {ms['rFFT chain']:.4f} ms"
+                  + (f", DFT tiles {ms['DFT tiles']:.4f} ms" if path == "mixed" else "")
+                  + f"; bound {b['bound_ms']:.4f} ms by {b['bound_by']}: kernel at "
+                  f"{100 * b['bound_ms'] / ms['kernel']:.2f} %, "
+                  f"{ms['rFFT chain'] / ms['kernel']:.2f}x the rFFT chain's speed")
+            rows.append({"name": f"K4 {fs} {name} n_fft={nf}", "route": "cuda",
                          "source": "seld_tpu_torch/csrc/spatial_kernel.cu",
                          "replaces": "seld_tpu/ops/spatial_pallas.py:132", "launches": None,
                          "max_abs_err": max(errs), "ms": ms["kernel"],
                          "plain_ms": ms["plain"], "bound_ms": b["bound_ms"],
-                         "bound_by": b["bound_by"], "library_ms": ms["rFFT chain"]})
+                         "bound_by": b["bound_by"], "library_ms": ms["rFFT chain"],
+                         **({"dft_tiles_ms": ms["DFT tiles"]} if path == "mixed" else {})})
+        return rows
 
-    # the path: a flagship at each of F2_N_FFT serving the clip
+    rows = []
+    for nf in MIXED_TIMED_N_FFT:
+        check(nf, 2)
+        rows += timed(nf, "mixed")
+    for nf in MIXED_CHECKED_N_FFT:
+        check(nf, 2)
+    check(DFT_N_FFT, 3)
+    rows += timed(DFT_N_FFT, "dft")
+    for nf in KERNEL_N_FFT:  # the register kernels, re-timed beside the new ones
+        frames = torch.randn((n, nf), generator=g, device=dev)
+        view = frame_signal(wave, nf, hop)
+        ms = timed_in_turns({"K1": lambda: log_mel_frames(frames, n_fft=nf),
+                             "K1 in place": lambda: log_mel_frames(view, n_fft=nf),
+                             **{f"K4 {fs} in place": (lambda fs=fs: spatial_features(view, fs))
+                                for fs in ("mel_iv", "mel_gcc")}})
+        print(f"[F2] register FFT n_fft={nf}: " + ", ".join(f"{k} {v:.4f} ms"
+                                                          for k, v in ms.items()))
+    del frames, view
+
+    # the path: a flagship at each n_fft serving the clip
     clip = (0.1 * np.random.default_rng(0).standard_normal((4, CLIP_SECONDS * sr))
             ).astype(np.float32)
     (ROOT / "build").mkdir(exist_ok=True)
     served = {}
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
-        for nf, feature_set in itertools.product(F2_N_FFT, ("mel", "mel_iv", "mel_gcc")):
+        for nf, feature_set in itertools.product((*MIXED_TIMED_N_FFT, DFT_N_FFT),
+                                                 ("mel", "mel_iv", "mel_gcc")):
             cfg = parse_overrides(Config(), [f"features.n_fft={nf}",
                                              f"features.feature_set={feature_set}"])
             model = build_model(cfg.model, cfg.grid, device=dev, seed=0, in_channels=(
@@ -2397,21 +2496,22 @@ def phase_f2(dev: torch.device) -> list[dict]:
             pred = SELDPredictor(Path(tmp) / f"{feature_set}.pt", batch_windows=8, device=dev)
             pred.predict_waveform(clip)  # warm-up
             torch.cuda.synchronize()
-            log_mel_frames.launches = log_mel_frames.dft_launches = 0
-            spatial_features.launches = spatial_features.dft_launches = 0
+            for counter in (log_mel_frames, spatial_features):
+                counter.launches = counter.mixed_launches = counter.dft_launches = 0
             classes = pred.predict_waveform(clip).classes
             torch.cuda.synchronize()
-            counts = (log_mel_frames.launches, log_mel_frames.dft_launches,
-                      spatial_features.launches, spatial_features.dft_launches)
-            want = (0, 1, 0, 0) if feature_set == "mel" else (0, 0, 0, 1)
+            counts = k1_counts() + k4_counts()
+            slot = (1 if nf != DFT_N_FFT else 2) + (0 if feature_set == "mel" else 3)
+            want = tuple(int(i == slot) for i in range(6))
             if counts != want or classes.shape != (t_main, cfg.grid.n_cells):
-                raise AssertionError(f"n_fft={nf} {feature_set} predict: launches "
-                                     f"(K1 FFT, K1 DFT, K4 FFT, K4 DFT) {counts}, expected "
+                raise AssertionError(f"n_fft={nf} {feature_set} predict: launches (K1 FFT, "
+                                     f"mixed, DFT; K4 FFT, mixed, DFT) {counts}, expected "
                                      f"{want}; classes {classes.shape}")
-            served[nf, feature_set] = counts[1] + counts[3]
+            served[nf, feature_set] = counts[slot]
             print(f"[F2] SELDPredictor, features.n_fft={nf} {feature_set}: 60 s clip -> "
-                  f"classes {tuple(classes.shape)}; launches K1 FFT / DFT {counts[0]} / "
-                  f"{counts[1]}, K4 FFT / DFT {counts[2]} / {counts[3]}")
+                  f"classes {tuple(classes.shape)}; launches K1 FFT / mixed / DFT "
+                  f"{counts[0]} / {counts[1]} / {counts[2]}, K4 FFT / mixed / DFT "
+                  f"{counts[3]} / {counts[4]} / {counts[5]}")
             del pred
     for row in rows:
         nf = int(row["name"].rsplit("=", 1)[1])

@@ -81,7 +81,7 @@ def resources(log: str) -> dict[str, dict]:
 
 def bind(lib: Path):
     fn = ctypes.CDLL(str(lib)).seld_spatial_features
-    fn.argtypes = spatial_cuda._kernel().argtypes
+    fn.argtypes = spatial_cuda._ARGTYPES["seld_spatial_features"]
     fn.restype = ctypes.c_int
     return fn
 
@@ -113,14 +113,14 @@ def main() -> int:
     g = torch.Generator(device=dev).manual_seed(4)
     wave = 0.1 * torch.randn((4, 60 * 24_000), generator=g, device=dev)
     view = frame_signal(wave, 960, 480)
-    wrapper_fn = spatial_cuda._kernel
+    wrapper_fn = spatial_cuda._entry
 
     def run(name, fs):
-        spatial_cuda._kernel = lambda: kernels[name]
+        spatial_cuda._entry = lambda entry: kernels[name]
         try:
             return spatial_cuda.spatial_features(view, fs)
         finally:
-            spatial_cuda._kernel = wrapper_fn
+            spatial_cuda._entry = wrapper_fn
 
     for fs in SETS:
         want = run("kept", fs)

@@ -41,7 +41,25 @@
 //     memory (warp_fft.cuh's `band_sums`) and writes their dB: one
 //     coalesced row per frame.
 //
-// Other n_fft (F2): `log_mel_dft_kernel` below, the DFT as tiles (the
+// Other n_fft: ops/mel_cuda.py::kernel_path routes each n_fft to one of
+// three kernels in this file.
+//
+// Even n_fft whose half M has no prime factor above 7, 64 <= n_fft <=
+// 4096 (1200, 600, 640, 882, 1764, 1920, ...): `log_mel_mixed_kernel`
+// below, the same function with mixed_fft.cuh's stage: one warp per frame,
+// the frame loaded with the window into a Stockham mixed-radix FFT of M
+// points (radices 2, 3, 4, 5, 7, 8) in the warp's shared memory, the real
+// split, |X[k]|^2 written over the warp's buffer, then `band_sums` as
+// above. Its bound is the register kernel's (the bytes, and an FFT's
+// arithmetic), but each pass reads and writes M complex values of shared
+// memory and each butterfly loads its twiddles from the plan's W_M table,
+// where the register kernel shuffles: four passes at n_fft 1200. Dynamic
+// shared memory: two buffers of (M + M / 16 + 1) x 8 bytes a warp, as many
+// warps a block (1 to 8) as fit in 48 KB: 4 warps and 40.8 KB at n_fft
+// 1200, 8 and 40.9 KB at 600, 1 and 34.8 KB at 4096.
+//
+// Every other n_fft (odd, or a half with a larger prime factor, such as
+// 1202 = 2 x 601): `log_mel_dft_kernel` below, the DFT as tiles (the
 // design the FFT replaced, taking any n_fft): a block owns 64 frames and
 // loops over 64-bin chunks of the spectrum; per chunk a 64 x (64 + 64) x
 // n_depth product over 16-deep shared-memory tiles of the frames and of the
@@ -64,8 +82,10 @@
 
 #include <cuda_runtime.h>
 
+#include <algorithm>
 #include <cstring>
 
+#include "mixed_fft.cuh"
 #include "warp_fft.cuh"
 
 namespace {
@@ -76,6 +96,7 @@ using warp_fft::SpecRow;
 
 constexpr int kWarpsPerBlock = 8;
 constexpr int kMaxMels = 64;
+constexpr int kMixedBlockBytes = 48 * 1024;  // the mixed-radix kernel's buffers a block
 
 // The plan's tables are those warp_fft.cuh lists.
 template <int R, bool kVec2>
@@ -178,6 +199,81 @@ extern "C" int seld_log_mel_frames(const void* x, long long channel_stride,
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+namespace {
+
+// The mixed-radix path: tables as mixed_fft.cuh lists, bands and weights
+// as the register kernel's; blockDim.x / 32 warps, each with two buffers.
+__global__ void __launch_bounds__(kWarp * kWarpsPerBlock)
+log_mel_mixed_kernel(const float* __restrict__ x, long long channel_stride,
+                     long long frame_stride, int n_frames, int total, bool vec2,
+                     const float2* __restrict__ window2, const float2* __restrict__ twiddles,
+                     const float2* __restrict__ split_tw, const int* __restrict__ bands,
+                     const float* __restrict__ weights, int n_mels, float amin,
+                     float* __restrict__ out, const __grid_constant__ mixed_fft::Plan plan) {
+  extern __shared__ float2 buffers[];  // two rows of mixed_fft::pitch(M) a warp
+
+  const int lane = threadIdx.x % kWarp;
+  const int warp = threadIdx.x / kWarp;
+  const int f = blockIdx.x * (blockDim.x / kWarp) + warp;
+  if (f >= total) return;  // whole warps only: nothing below syncs the block
+  const int ch = f / n_frames;
+  const int t = f - ch * n_frames;
+  float2* a = buffers + 2 * warp * mixed_fft::pitch(plan.m);
+  float2* b = a + mixed_fft::pitch(plan.m);
+
+  const float2* z = mixed_fft::forward(x + ch * channel_stride + t * frame_stride, vec2,
+                                       window2, a, b, lane, twiddles, plan);
+  float* pw = reinterpret_cast<float*>(z == a ? b : a);  // the power of bins 0..M
+  mixed_fft::real_split(z, lane, plan.m, split_tw,
+                        [&](int k, float re, float im) { pw[k] = fmaf(re, re, im * im); });
+  __syncwarp();
+
+  float* row = out + static_cast<long long>(f) * n_mels;
+  warp_fft::band_sums(
+      lane, n_mels, bands, weights, [&](int k) { return pw[k]; },
+      [&](int m, float acc) { row[m] = 10.f * log10f(fmaxf(acc, amin)); });
+}
+
+}  // namespace
+
+// The mixed-radix path. frames as seld_log_mel_frames takes them, any
+// alignment; n_fft even with M = n_fft / 2 from 32 to 2048 and the
+// product of the n_pass radices (each 2, 3, 4, 5, 7 or 8); consts: host
+// pointer to the plan's 8 complex butterfly constants; window, twiddles,
+// split_tw: the plan's device tables; out: (n_channels * n_frames, n_mels).
+extern "C" int seld_log_mel_frames_mixed(const void* x, long long channel_stride,
+                                         long long frame_stride, int n_channels, int n_frames,
+                                         int n_fft, const void* window, const void* twiddles,
+                                         const void* split_tw, const int* radices, int n_pass,
+                                         const float* consts, const void* bands,
+                                         const void* weights, int n_mels, float amin, void* out,
+                                         void* stream) {
+  mixed_fft::Plan plan;
+  if (n_channels < 0 || n_frames < 0 || n_mels < 1 || n_mels > kMaxMels ||
+      static_cast<long long>(n_channels) * n_frames > 0x7fffffffLL ||
+      !mixed_fft::make_plan(n_fft, radices, n_pass, consts, &plan)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int total = n_channels * n_frames;
+  if (total == 0) return 0;
+  const bool vec2 = reinterpret_cast<unsigned long long>(x) % 8 == 0 &&
+                    channel_stride % 2 == 0 && frame_stride % 2 == 0;
+  // warps a block: as many as keep its buffers within 48 KB, 1 to 8
+  const int warp_bytes = 2 * mixed_fft::pitch(plan.m) * static_cast<int>(sizeof(float2));
+  const int warps = std::max(1, std::min(kWarpsPerBlock, kMixedBlockBytes / warp_bytes));
+  const int smem = warps * warp_bytes;
+  const cudaError_t err = cudaFuncSetAttribute(
+      log_mel_mixed_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((total + warps - 1) / warps);
+  log_mel_mixed_kernel<<<grid, kWarp * warps, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), channel_stride, frame_stride, n_frames, total, vec2,
+      static_cast<const float2*>(window), static_cast<const float2*>(twiddles),
+      static_cast<const float2*>(split_tw), static_cast<const int*>(bands),
+      static_cast<const float*>(weights), n_mels, amin, static_cast<float*>(out), plan);
+  return static_cast<int>(cudaGetLastError());
 }
 
 namespace {

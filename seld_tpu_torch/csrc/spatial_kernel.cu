@@ -65,7 +65,31 @@
 //     code, so a signed permutation of the channels permutes and signs
 //     the planes exactly (the ACS commutation).
 //
-// Other n_fft (F2): `spatial_dft_kernel` below, the DFT as tiles (the design
+// Other n_fft: ops/mel_cuda.py::kernel_path routes each n_fft to one of
+// three kernels in this file.
+//
+// Even n_fft whose half M has no prime factor above 7, 64 <= n_fft <=
+// 4096: `spatial_mixed_kernel` below, the same features on K1's
+// mixed-radix stage (mixed_fft.cuh). One block of four warps per frame,
+// warp c on channel c: the Stockham FFT of channel c between its two rows
+// of dynamic shared memory, the real split writing X_c[0..M] in natural
+// order to the row that does not hold Z, the mel planes by `band_sums` as
+// above. "mel_iv" as above (the intensities over the .x of three spectra
+// rows). "mel_gcc": after a block barrier the 128 threads walk the bins
+// and write the six pairs' PHAT cross-spectra over rows 0-5 (a thread
+// reads all four spectra at its bin before it writes that bin of any
+// row); after a second barrier warp w inverts pairs w and w + 4, with row
+// 6 + w as its other buffer (two rows more for this set): the inverse real
+// split (irfft's Re C[0] and Re C[M] only), its conjugate, then the forward
+// passes of the same plan, so that the inverse FFT is conj(FFT(conj Z)) on
+// the same twiddles; the lags are the complex samples z[0..15] and
+// z[M-16..M-1] of that full inverse (no pass is pruned), conjugated and
+// scaled by 2 / n_fft. Silence gives exact zeros and -100 dB, and every
+// channel and pair goes through the same code, as above. Dynamic shared
+// memory: 8 (10 for "mel_gcc") rows of (M + M / 16 + 1) x 8 bytes, 40.8 /
+// 51.0 KB at n_fft 1200.
+//
+// Every other n_fft: `spatial_dft_kernel` below, the DFT as tiles (the design
 // the FFT replaced, taking any n_fft): a block owns 16 frames of all 4
 // channels, 64 DFT rows frame-major and channel-minor, so the thread that
 // owns a frame holds its 4 channels' re / im at 4 bins in registers and
@@ -97,6 +121,7 @@
 
 #include <cstring>
 
+#include "mixed_fft.cuh"
 #include "warp_fft.cuh"
 
 namespace {
@@ -129,6 +154,37 @@ __device__ __forceinline__ float2 inverse_split(float2 a, float2 p, float2 tw) {
                      fmaf(tw.x, dif.y, fmaf(-tw.y, dif.x, sum.y)));
 }
 
+// The per-bin arithmetic of the derived planes, shared by the register and
+// mixed-radix kernels. iv: the energy-normalised intensities of X, Y, Z
+// from the four spectra's re / im (ACN order) at one bin.
+__device__ __forceinline__ void intensity_vector(const float (&re)[kChannels],
+                                                 const float (&im)[kChannels], float eps,
+                                                 float (&iv)[3]) {
+  float p[kChannels];
+#pragma unroll
+  for (int ch = 0; ch < kChannels; ++ch) p[ch] = fmaf(re[ch], re[ch], im[ch] * im[ch]);
+  const float energy = (p[kW] + (p[kX] + p[kY] + p[kZ]) / 3.f) / 2.f + eps;
+  const float inv_e = 1.f / energy;
+  const int xyz[3] = {kX, kY, kZ};
+#pragma unroll
+  for (int q = 0; q < 3; ++q) iv[q] = (re[kW] * re[xyz[q]] + im[kW] * im[xyz[q]]) * inv_e;
+}
+
+// The PHAT-normalised cross-spectrum conj(S_i) S_j at one bin.
+__device__ __forceinline__ float2 phat(float ar, float ai, float br, float bi, float eps2) {
+  const float cr = ar * br + ai * bi;
+  const float ci = ar * bi - ai * br;
+  const float inv = rsqrtf(cr * cr + ci * ci + eps2);
+  return make_float2(cr * inv, ci * inv);
+}
+
+// Pair q of (0,1) (0,2) (0,3) (1,2) (1,3) (2,3): its channels i < j.
+__device__ __forceinline__ int pair_first(int q) { return (q >= 3) + (q >= 5); }
+__device__ __forceinline__ int pair_second(int q) {
+  const int i = pair_first(q);
+  return q + 1 - i * (5 - i) / 2;
+}
+
 // One GCC-PHAT plane of a frame, one warp: spectra i and j are rows of
 // shared memory; writes the n_mels lag columns of `plane`. lag_tw (R, 32)
 // float2: (2 / n_fft) exp(2 pi i k2 n / M) at [k2][lane], n = lane for
@@ -142,20 +198,16 @@ __device__ __forceinline__ void gcc_plane(const float* re_i, const float* im_i,
                                           float* __restrict__ plane, int n_mels) {
   using Row = SpecRow<R>;
   constexpr int M = R * kWarp;
-  auto phat = [&](int k) {
+  auto cross = [&](int k) {
     const int a = Row::at(k);
-    const float ar = re_i[a], ai = im_i[a], br = re_j[a], bi = im_j[a];
-    const float cr = ar * br + ai * bi;  // conj(S_i) S_j
-    const float ci = ar * bi - ai * br;
-    const float inv = rsqrtf(cr * cr + ci * ci + eps2);
-    return make_float2(cr * inv, ci * inv);
+    return phat(re_i[a], im_i[a], re_j[a], im_j[a], eps2);
   };
   const int k1 = warp_fft::brev5(lane);
   float2 z[R];
 #pragma unroll
-  for (int r = 0; r < R; ++r) z[r] = phat(r + R * k1);
+  for (int r = 0; r < R; ++r) z[r] = cross(r + R * k1);
   if (lane == 0) z[0].y = 0.f;  // irfft reads Re C[0] only
-  const float nyq = phat(M).x;  // and Re C[M]: every lane reads it (a broadcast)
+  const float nyq = cross(M).x;  // and Re C[M]: every lane reads it (a broadcast)
 
   // inverse real split, in place: bins k and M - k of a lane's registers r
   // and R - r pair with registers R - r and r of lane 31 - lane; register
@@ -253,19 +305,15 @@ spatial_kernel(const float* __restrict__ x, long long channel_stride, long long 
     __syncthreads();
     for (int k = threadIdx.x; k <= M; k += kThreads) {
       const int a = Row::at(k);
-      float re[kChannels], im[kChannels], p[kChannels];
+      float re[kChannels], im[kChannels], iv[3];
 #pragma unroll
       for (int ch = 0; ch < kChannels; ++ch) {
         re[ch] = re_s[ch][a];
         im[ch] = im_s[ch][a];
-        p[ch] = fmaf(re[ch], re[ch], im[ch] * im[ch]);
       }
-      const float energy = (p[kW] + (p[kX] + p[kY] + p[kZ]) / 3.f) / 2.f + eps;
-      const float inv_e = 1.f / energy;
-      const int xyz[3] = {kX, kY, kZ};
+      intensity_vector(re, im, eps, iv);
 #pragma unroll
-      for (int q = 0; q < 3; ++q)
-        re_s[q][a] = (re[kW] * re[xyz[q]] + im[kW] * im[xyz[q]]) * inv_e;
+      for (int q = 0; q < 3; ++q) re_s[q][a] = iv[q];
     }
     __syncthreads();
     if (c > 0) {
@@ -277,9 +325,7 @@ spatial_kernel(const float* __restrict__ x, long long channel_stride, long long 
   } else if constexpr (kSet == kMelGcc) {
     __syncthreads();
     for (int q = c; q < 6; q += kChannels) {
-      // pair q of (0,1) (0,2) (0,3) (1,2) (1,3) (2,3)
-      const int i = (q >= 3) + (q >= 5);
-      const int j = q + 1 - i * (5 - i) / 2;
+      const int i = pair_first(q), j = pair_second(q);
       gcc_plane<R>(re_s[i], im_s[i], re_s[j], im_s[j], lane, warp_tw, split_tw, lag_tw,
                    eps * eps, row + (4 + q) * n_mels, n_mels);
     }
@@ -368,6 +414,159 @@ extern "C" int seld_spatial_features(int feature_set, const void* x, long long c
                                  lt, wt, st, gt, bd, wg, nw, n_mels, amin, eps, o, rc, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+namespace {
+
+// The mixed-radix path (tables as mixed_fft.cuh lists; norm_weights as
+// spatial_kernel's). scale = 2 / n_fft. Rows of mixed_fft::pitch(M): warp
+// c's two buffers are rows c and 4 + c; "mel_gcc" adds rows 8 and 9.
+template <int kSet>
+__global__ void __launch_bounds__(kChannels * kWarp)
+spatial_mixed_kernel(const float* __restrict__ x, long long channel_stride,
+                     long long frame_stride, bool vec2, const float2* __restrict__ window2,
+                     const float2* __restrict__ twiddles, const float2* __restrict__ split_tw,
+                     const int* __restrict__ bands, const float* __restrict__ weights,
+                     const float* __restrict__ norm_weights, int n_mels, float amin, float eps,
+                     float scale, float* __restrict__ out,
+                     const __grid_constant__ mixed_fft::Plan plan) {
+  using mixed_fft::at;
+  extern __shared__ float2 rows[];
+  const int m = plan.m;
+  const int pitch = mixed_fft::pitch(m);
+  const int lane = threadIdx.x % kWarp;
+  const int c = threadIdx.x / kWarp;  // the warp's channel
+  const long long t = blockIdx.x;
+  float* row = out + t * kOutPlanes<kSet> * n_mels;
+
+  float2* a = rows + c * pitch;
+  float2* b = rows + (kChannels + c) * pitch;
+  const float2* z = mixed_fft::forward(x + c * channel_stride + t * frame_stride, vec2, window2,
+                                       a, b, lane, twiddles, plan);
+  // X_c in the other buffer: every warp ran the same passes, so the four
+  // spectra are rows s .. s + 3, s = 0 or 4
+  float2* spec = z == a ? b : a;
+  const int s0 = z == a ? kChannels : 0;
+  mixed_fft::real_split(z, lane, m, split_tw,
+                        [&](int k, float re, float im) { spec[at(k)] = make_float2(re, im); });
+  __syncwarp();
+  warp_fft::band_sums(
+      lane, n_mels, bands, weights,
+      [&](int k) {
+        const float2 v = spec[at(k)];
+        return fmaf(v.x, v.x, v.y * v.y);
+      },
+      [&](int mel, float acc) { row[c * n_mels + mel] = 10.f * log10f(fmaxf(acc, amin)); });
+  if constexpr (kSet == kMelIv) {
+    __syncthreads();
+    for (int k = threadIdx.x; k <= m; k += kThreads) {
+      const int i = at(k);
+      float re[kChannels], im[kChannels], iv[3];
+#pragma unroll
+      for (int ch = 0; ch < kChannels; ++ch) {
+        const float2 v = rows[(s0 + ch) * pitch + i];
+        re[ch] = v.x;
+        im[ch] = v.y;
+      }
+      intensity_vector(re, im, eps, iv);
+#pragma unroll
+      for (int q = 0; q < 3; ++q) rows[(s0 + q) * pitch + i].x = iv[q];
+    }
+    __syncthreads();
+    if (c > 0) {
+      const float2* iv = rows + (s0 + c - 1) * pitch;
+      warp_fft::band_sums(
+          lane, n_mels, bands, norm_weights, [&](int k) { return iv[at(k)].x; },
+          [&](int mel, float acc) { row[(3 + c) * n_mels + mel] = acc; });
+    }
+  } else if constexpr (kSet == kMelGcc) {
+    // the six PHAT cross-spectra over rows 0-5 (a thread reads the four
+    // spectra at its bin before it writes that bin of any row)
+    __syncthreads();
+    const float eps2 = eps * eps;
+    for (int k = threadIdx.x; k <= m; k += kThreads) {
+      const int i = at(k);
+      float2 v[kChannels];
+#pragma unroll
+      for (int ch = 0; ch < kChannels; ++ch) v[ch] = rows[(s0 + ch) * pitch + i];
+#pragma unroll
+      for (int q = 0; q < 6; ++q) {
+        const float2 si = v[pair_first(q)], sj = v[pair_second(q)];
+        rows[q * pitch + i] = phat(si.x, si.y, sj.x, sj.y, eps2);
+      }
+    }
+    __syncthreads();
+    // warp c inverts pairs c and c + 4, with row 6 + c as its other buffer
+    float2* scratch = rows + (6 + c) * pitch;
+    for (int q = c; q < 6; q += kChannels) {
+      float2* cross = rows + q * pitch;
+      // the inverse real split, conjugated; irfft reads Re C[0] and Re C[M] only
+      for (int k = lane; k < m; k += kWarp) {
+        float2 u = cross[at(k)];
+        float2 v = cross[at(m - k)];
+        if (k == 0) u.y = v.y = 0.f;
+        const float2 w = inverse_split(u, v, __ldg(split_tw + k));
+        scratch[at(k)] = make_float2(w.x, -w.y);
+      }
+      __syncwarp();
+      const float2* r = mixed_fft::buffer_passes(scratch, cross, lane, 0, 1, twiddles, plan);
+      // lane l holds complex sample n = l (lanes 0-15) or M - 32 + l (16-31):
+      // (x[2n], x[2n + 1]) = conj of it times 2 / n_fft, lags 2 l, 2 l + 1
+      // and 2 l - 64, 2 l - 63
+      const float2 zn = r[at(lane < 16 ? lane : m - 2 * 16 + lane)];
+      float* plane = row + (4 + q) * n_mels;
+      const int col = (lane < 16 ? 2 * lane : 2 * lane - 2 * kWarp) + n_mels / 2;
+      if (col >= 0 && col < n_mels) plane[col] = zn.x * scale;
+      if (col + 1 >= 0 && col + 1 < n_mels) plane[col + 1] = -zn.y * scale;
+      __syncwarp();  // the next pair reuses the scratch row
+    }
+  }
+}
+
+}  // namespace
+
+// The mixed-radix path. feature_set and frames as seld_spatial_features
+// takes them, any alignment; n_fft even with M = n_fft / 2 from 32 to 2048
+// and the product of the n_pass radices (each 2, 3, 4, 5, 7 or 8);
+// consts: host pointer to the plan's 8 complex butterfly constants;
+// window, twiddles, split_tw, bands, weights, norm_weights: the plan's
+// device tables; scale: 2 / n_fft; out: (n_frames, C_out, n_mels).
+extern "C" int seld_spatial_features_mixed(int feature_set, const void* x,
+                                           long long channel_stride, long long frame_stride,
+                                           int n_frames, int n_fft, const void* window,
+                                           const void* twiddles, const void* split_tw,
+                                           const int* radices, int n_pass, const float* consts,
+                                           const void* bands, const void* weights,
+                                           const void* norm_weights, int n_mels, float amin,
+                                           float eps, float scale, void* out, void* stream) {
+  mixed_fft::Plan plan;
+  if (n_frames < 0 || n_mels < 1 || n_mels > kMaxMels ||
+      !mixed_fft::make_plan(n_fft, radices, n_pass, consts, &plan)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (n_frames == 0) return 0;
+  const bool vec2 = reinterpret_cast<unsigned long long>(x) % 8 == 0 &&
+                    channel_stride % 2 == 0 && frame_stride % 2 == 0;
+  const int n_rows = feature_set == kMelGcc ? 10 : 2 * kChannels;
+  const int smem = n_rows * mixed_fft::pitch(plan.m) * static_cast<int>(sizeof(float2));
+  auto launch = [&](auto kernel) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    kernel<<<n_frames, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(x), channel_stride, frame_stride, vec2,
+        static_cast<const float2*>(window), static_cast<const float2*>(twiddles),
+        static_cast<const float2*>(split_tw), static_cast<const int*>(bands),
+        static_cast<const float*>(weights), static_cast<const float*>(norm_weights), n_mels,
+        amin, eps, scale, static_cast<float*>(out), plan);
+    return static_cast<int>(cudaGetLastError());
+  };
+  switch (feature_set) {
+    case kMel: return launch(spatial_mixed_kernel<kMel>);
+    case kMelIv: return launch(spatial_mixed_kernel<kMelIv>);
+    case kMelGcc: return launch(spatial_mixed_kernel<kMelGcc>);
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 

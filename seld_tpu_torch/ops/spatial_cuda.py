@@ -13,15 +13,18 @@ rFFT oracle of seld_tpu_torch.features.spatial: GCC normalises with
 rsqrt(cr^2 + ci^2 + eps^2), and the lags read only the real parts of the
 cross-spectrum's bins 0 and n_fft / 2.
 
-`spatial_plan` builds the tables it reads. For any other n_fft (fault F2)
-a second kernel in the same source computes the same features with the
-windowed DFT as tiles of float32 products against `spatial_constants`
-with the bases' depth padded to a multiple of 16; the launcher picks the
-kernel by n_fft, and each has its own launch counter. `spatial_features`
-launches them for CUDA tensors, once per call, reading the frames in place
-through their strides; for CPU tensors, and only for those, it runs
-`spatial_features_reference`, the same function as float32 GEMMs with
-the TPU kernel's padded constants.
+`spatial_plan` builds the tables it reads. Two more kernels in the same
+source take the other n_fft, routed as K1 routes them
+(`mel_cuda.kernel_path`): "mixed", the same stages on K1's mixed-radix
+Stockham FFT in shared memory (csrc/mixed_fft.cuh; tables from
+`mixed_spatial_plan`), the GCC planes through a full inverse FFT of the
+same plan; "dft", the windowed DFT as tiles of float32 products against
+`spatial_constants` with the bases' depth padded to a multiple of 16.
+Each kernel has its own launch counter. `spatial_features` launches the
+one its n_fft takes for CUDA tensors, once per call, reading the frames in
+place through their strides, and raises if the launch fails; for CPU
+tensors, and only for those, it runs `spatial_features_reference`, the
+same function as float32 GEMMs with the TPU kernel's padded constants.
 """
 
 from __future__ import annotations
@@ -41,10 +44,13 @@ from seld_tpu_torch.ops.mel_cuda import (
     KERNEL_MELS,
     KERNEL_N_FFT,
     FftMelPlan,
+    MixedFftPlan,
     _pairs,
     _unit,
     dft_mel_constants,
     fft_mel_plan,
+    kernel_path,
+    mixed_fft_plan,
     pad_depth,
     pad_rows,
 )
@@ -146,8 +152,8 @@ class SpatialPlan(NamedTuple):
 
 def check_kernel_shape(n_fft: int, n_mels: int) -> None:
     """Raise ValueError for an n_fft or n_mels the CUDA kernels do not take:
-    any n_fft >= 1 (the FFT kernel those of KERNEL_N_FFT, the DFT kernel the
-    others), 1 to KERNEL_MELS mels."""
+    any n_fft >= 1 (one of the three kernels, by `kernel_path`), 1 to
+    KERNEL_MELS mels."""
     if n_fft < 1:
         raise ValueError(f"K4's CUDA kernel takes n_fft >= 1, got {n_fft}")
     if not 1 <= n_mels <= KERNEL_MELS:
@@ -165,10 +171,7 @@ def spatial_plan(n_fft: int, n_mels: int, sample_rate: int,
     mel = fft_mel_plan(n_fft, n_mels, sample_rate, 0.0, None, device)
     m = n_fft // 2
     r = m // _WARP
-    fb_norm = column_normalised(mel_filterbank(m + 1, n_mels, sample_rate))
-    first, count, offset = mel.bands.cpu().numpy()
-    norm = np.concatenate([fb_norm[f:f + c, band]
-                           for band, (f, c) in enumerate(zip(first, count))])
+    norm = packed_norm_weights(mel.bands, n_fft, n_mels, sample_rate)
     lanes = np.arange(_WARP)
     n = np.where(lanes < _WARP // 2, lanes, m - _WARP + lanes)
     lag_tw = (2.0 / n_fft) * np.conj(_unit(np.arange(r)[:, None] * n[None, :], m))
@@ -176,8 +179,40 @@ def spatial_plan(n_fft: int, n_mels: int, sample_rate: int,
     def dev(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
-    return SpatialPlan(mel=mel, norm_weights=dev(norm.astype(np.float32)),
-                       lag_twiddles=dev(_pairs(lag_tw)))
+    return SpatialPlan(mel=mel, norm_weights=dev(norm), lag_twiddles=dev(_pairs(lag_tw)))
+
+
+def packed_norm_weights(bands: torch.Tensor, n_fft: int, n_mels: int,
+                        sample_rate: int) -> np.ndarray:
+    """(nnz,) float32 the column-normalised filterbank FB_norm packed with
+    FB's bands (first bin, bin count per band): the same bins, other weights."""
+    fb_norm = column_normalised(mel_filterbank(n_fft // 2 + 1, n_mels, sample_rate))
+    first, count, _ = bands.cpu().numpy()
+    return np.concatenate([fb_norm[f:f + c, band]
+                           for band, (f, c) in enumerate(zip(first, count))]).astype(np.float32)
+
+
+class MixedSpatialPlan(NamedTuple):
+    """The tables of K4's mixed-radix kernel: K1's mixed-radix plan
+    (mel_cuda.MixedFftPlan) for this n_fft, n_mels and sample rate, FB_norm
+    packed with its bands (as SpatialPlan's), and the GCC inverse's scale
+    2 / n_fft (float64 rounded once)."""
+
+    mel: MixedFftPlan
+    norm_weights: torch.Tensor
+    scale: float
+
+
+@functools.lru_cache(maxsize=8)
+def mixed_spatial_plan(n_fft: int, n_mels: int, sample_rate: int,
+                       device: torch.device) -> MixedSpatialPlan:
+    """K4's mixed-radix tables for one (n_fft, n_mels, sample rate) on
+    `device`, built once per arguments. Callers must not write to them."""
+    check_kernel_shape(n_fft, n_mels)
+    mel = mixed_fft_plan(n_fft, n_mels, sample_rate, 0.0, None, device)
+    norm = packed_norm_weights(mel.bands, n_fft, n_mels, sample_rate)
+    return MixedSpatialPlan(mel=mel, norm_weights=torch.from_numpy(norm).to(device),
+                            scale=float(np.float32(2.0 / n_fft)))
 
 
 def _check_frames(frames: torch.Tensor) -> None:
@@ -193,32 +228,6 @@ def _check_frames(frames: torch.Tensor) -> None:
         )
 
 
-@functools.cache
-def _kernel():
-    from seld_tpu_torch.ops._build import load_library
-
-    fn = load_library("spatial_kernel").seld_spatial_features
-    fn.argtypes = ([ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong]
-                   + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 9
-                   + [ctypes.c_int, ctypes.c_float, ctypes.c_float]
-                   + [ctypes.c_void_p] * 2)
-    fn.restype = ctypes.c_int
-    return fn
-
-
-@functools.cache
-def _dft_kernel():
-    from seld_tpu_torch.ops._build import load_library
-
-    fn = load_library("spatial_kernel").seld_spatial_features_dft
-    fn.argtypes = ([ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong]
-                   + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 6
-                   + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float]
-                   + [ctypes.c_void_p] * 2)
-    fn.restype = ctypes.c_int
-    return fn
-
-
 @functools.lru_cache(maxsize=8)
 def dft_kernel_constants(n_fft: int, n_mels: int, sample_rate: int, device: torch.device):
     """spatial_constants with the DFT bases' rows zero-padded to
@@ -227,6 +236,34 @@ def dft_kernel_constants(n_fft: int, n_mels: int, sample_rate: int, device: torc
     c_re, c_im, *rest = spatial_constants(n_fft, n_mels, sample_rate, device)
     rows = pad_depth(n_fft)
     return (pad_rows(c_re, rows), pad_rows(c_im, rows), *rest)
+
+
+# argument types of the C entries of csrc/spatial_kernel.cu
+_HEAD = [ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong]
+_ARGTYPES = {
+    "seld_spatial_features": (
+        _HEAD + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 9
+        + [ctypes.c_int, ctypes.c_float, ctypes.c_float] + [ctypes.c_void_p] * 2),
+    "seld_spatial_features_mixed": (
+        _HEAD + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 4 + [ctypes.c_int]
+        + [ctypes.c_void_p] * 4 + [ctypes.c_int] + [ctypes.c_float] * 3
+        + [ctypes.c_void_p] * 2),
+    "seld_spatial_features_dft": (
+        _HEAD + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 6
+        + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float]
+        + [ctypes.c_void_p] * 2),
+}
+
+
+@functools.cache
+def _entry(name: str):
+    """The C entry `name` of csrc/spatial_kernel.cu, with its argument types."""
+    from seld_tpu_torch.ops._build import load_library
+
+    fn = getattr(load_library("spatial_kernel"), name)
+    fn.argtypes = _ARGTYPES[name]
+    fn.restype = ctypes.c_int
+    return fn
 
 
 def spatial_features(frames: torch.Tensor, feature_set: str, n_mels: int = 64,
@@ -239,16 +276,29 @@ def spatial_features(frames: torch.Tensor, feature_set: str, n_mels: int = 64,
     The frames may be any view whose last axis has unit stride, such as
     `features.mel.frame_signal`'s view of the padded waveform: a CUDA
     tensor is read in place by kernel K4, in one launch on the current
-    stream, up to KERNEL_MELS mels: the FFT kernel for n_fft in
-    KERNEL_N_FFT (every launch adds one to `spatial_features.launches`),
-    the DFT kernel for any other n_fft (`spatial_features.dft_launches`); a
-    CPU tensor goes through `spatial_features_reference`. Anything else
-    raises."""
-    c_out = feature_channels(feature_set)
+    stream, up to KERNEL_MELS mels, of the kernel `kernel_path(n_fft)`
+    names (`launch`); a CPU tensor goes through `spatial_features_reference`.
+    Anything else raises."""
+    feature_channels(feature_set)  # raises on an unknown set
     _check_frames(frames)
     if frames.device.type == "cpu":
         return spatial_features_reference(frames, feature_set, n_mels, sample_rate,
                                           amin, eps)
+    return launch(kernel_path(frames.shape[2]), frames, feature_set, n_mels, sample_rate,
+                  amin, eps)
+
+
+def launch(path: str, frames: torch.Tensor, feature_set: str, n_mels: int = 64,
+           sample_rate: int = 24_000, amin: float = 1e-10,
+           eps: float = 1e-8) -> torch.Tensor:
+    """K4's kernel `path` ("fft", "mixed" or "dft") on CUDA frames, as
+    `spatial_features` launches the one kernel_path(n_fft) names; each
+    launch adds one to its counter: `spatial_features.launches`,
+    `.mixed_launches` or `.dft_launches`. The DFT tiles take any n_fft, the
+    other two only their own (ValueError). A failed launch raises
+    RuntimeError."""
+    c_out = feature_channels(feature_set)
+    _check_frames(frames)
     if frames.device.type != "cuda":
         raise ValueError(f"K4 runs on CUDA or CPU tensors, got {frames.device}")
     _, t, n_fft = frames.shape
@@ -256,38 +306,49 @@ def spatial_features(frames: torch.Tensor, feature_set: str, n_mels: int = 64,
     out = torch.empty((t, c_out, n_mels), dtype=torch.float32, device=frames.device)
     if t == 0:
         return out
-    if n_fft not in KERNEL_N_FFT:
-        c_re, c_im, fb, fb_norm, lag_re, lag_im = dft_kernel_constants(
-            n_fft, n_mels, sample_rate, frames.device)
-        with torch.cuda.device(frames.device):
-            stream = torch.cuda.current_stream(frames.device).cuda_stream
-            rc = _dft_kernel()(
-                FEATURE_SETS[feature_set], frames.data_ptr(), frames.stride(0),
-                frames.stride(1), t, n_fft, c_re.shape[0], c_re.data_ptr(), c_im.data_ptr(),
-                fb.data_ptr(), fb_norm.data_ptr(), lag_re.data_ptr(), lag_im.data_ptr(),
-                c_re.shape[1], n_mels, amin, eps, out.data_ptr(), stream,
-            )
-        if rc != 0:
-            raise RuntimeError(f"K4 launch failed with CUDA error {rc}")
-        spatial_features.dft_launches += 1
-        return out
-    plan = spatial_plan(n_fft, n_mels, sample_rate, frames.device)
-    mel = plan.mel
+    head = (FEATURE_SETS[feature_set], frames.data_ptr(), frames.stride(0), frames.stride(1),
+            t, n_fft)
     with torch.cuda.device(frames.device):
         stream = torch.cuda.current_stream(frames.device).cuda_stream
-        rc = _kernel()(
-            FEATURE_SETS[feature_set], frames.data_ptr(), frames.stride(0), frames.stride(1),
-            t, n_fft, mel.window.data_ptr(), mel.lane_twiddles.data_ptr(),
-            mel.warp_twiddles.data_ptr(), mel.split_twiddles.data_ptr(),
-            plan.lag_twiddles.data_ptr(), mel.radix.data_ptr(), mel.bands.data_ptr(),
-            mel.weights.data_ptr(), plan.norm_weights.data_ptr(), n_mels, amin, eps,
-            out.data_ptr(), stream,
-        )
+        if path == "fft":
+            plan = spatial_plan(n_fft, n_mels, sample_rate, frames.device)
+            mel = plan.mel
+            rc = _entry("seld_spatial_features")(
+                *head, mel.window.data_ptr(), mel.lane_twiddles.data_ptr(),
+                mel.warp_twiddles.data_ptr(), mel.split_twiddles.data_ptr(),
+                plan.lag_twiddles.data_ptr(), mel.radix.data_ptr(), mel.bands.data_ptr(),
+                mel.weights.data_ptr(), plan.norm_weights.data_ptr(), n_mels, amin, eps,
+                out.data_ptr(), stream,
+            )
+            counter = "launches"
+        elif path == "mixed":
+            plan = mixed_spatial_plan(n_fft, n_mels, sample_rate, frames.device)
+            mel = plan.mel
+            rc = _entry("seld_spatial_features_mixed")(
+                *head, mel.window.data_ptr(), mel.twiddles.data_ptr(),
+                mel.split_twiddles.data_ptr(), mel.radices.data_ptr(), mel.radices.numel(),
+                mel.consts.data_ptr(), mel.bands.data_ptr(), mel.weights.data_ptr(),
+                plan.norm_weights.data_ptr(), n_mels, amin, eps, plan.scale, out.data_ptr(),
+                stream,
+            )
+            counter = "mixed_launches"
+        elif path == "dft":
+            c_re, c_im, fb, fb_norm, lag_re, lag_im = dft_kernel_constants(
+                n_fft, n_mels, sample_rate, frames.device)
+            rc = _entry("seld_spatial_features_dft")(
+                *head, c_re.shape[0], c_re.data_ptr(), c_im.data_ptr(), fb.data_ptr(),
+                fb_norm.data_ptr(), lag_re.data_ptr(), lag_im.data_ptr(), c_re.shape[1],
+                n_mels, amin, eps, out.data_ptr(), stream,
+            )
+            counter = "dft_launches"
+        else:
+            raise ValueError(f"K4's kernels are 'fft', 'mixed' and 'dft', got {path!r}")
     if rc != 0:
-        raise RuntimeError(f"K4 launch failed with CUDA error {rc}")
-    spatial_features.launches += 1
+        raise RuntimeError(f"K4's {path} kernel failed to launch: CUDA error {rc}")
+    setattr(spatial_features, counter, getattr(spatial_features, counter) + 1)
     return out
 
 
 spatial_features.launches = 0
+spatial_features.mixed_launches = 0
 spatial_features.dft_launches = 0

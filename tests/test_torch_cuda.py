@@ -121,22 +121,39 @@ def test_k1_rejects_what_it_cannot_take(cuda_device, make, n_fft, err):
     assert log_mel_frames.launches == before
 
 
-@pytest.mark.parametrize("n_fft", [1200, 600, 17])
-def test_k1_dft_path_every_other_n_fft_on_card(cuda_device, n_fft):
-    """Fault F2: an n_fft the FFT kernel does not take goes through the DFT
-    kernel, contiguous and on frame_signal's view, against the plain version."""
-    g = torch.Generator(device=cuda_device).manual_seed(n_fft)
-    frames = torch.randn((300, n_fft), generator=g, device=cuda_device)
-    wave = 0.1 * torch.randn((2, 40 * 480), generator=g, device=cuda_device)
+def _k1_counts():
+    return (log_mel_frames.launches, log_mel_frames.mixed_launches, log_mel_frames.dft_launches)
+
+
+def _k1_other_n_fft(device, n_fft, want):
+    """K1 at an n_fft outside KERNEL_N_FFT, contiguous and on frame_signal's
+    view: the launch counts (FFT, mixed-radix, DFT tiles) move by `want`,
+    and the output is the plain version's."""
+    g = torch.Generator(device=device).manual_seed(n_fft)
+    frames = torch.randn((300, n_fft), generator=g, device=device)
+    wave = 0.1 * torch.randn((2, 40 * 480), generator=g, device=device)
     view = frame_signal(wave, n_fft, 480)
-    before = (log_mel_frames.launches, log_mel_frames.dft_launches)
+    before = _k1_counts()
     got, got_v = log_mel_frames(frames, n_fft=n_fft), log_mel_frames(view, n_fft=n_fft)
     torch.cuda.synchronize()
-    assert (log_mel_frames.launches, log_mel_frames.dft_launches) == (before[0],
-                                                                      before[1] + 2)
+    assert tuple(a - b for a, b in zip(_k1_counts(), before)) == want
     torch.testing.assert_close(got, log_mel_frames_reference(frames), atol=DB_ATOL, rtol=0)
     torch.testing.assert_close(got_v, log_mel_frames_reference(
         view.reshape(-1, n_fft)).reshape(got_v.shape), atol=DB_ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("n_fft", [17, 1202])
+def test_k1_dft_path_every_other_n_fft_on_card(cuda_device, n_fft):
+    """An n_fft neither FFT kernel takes (odd; 1202 = 2 x 601) goes through
+    the DFT tiles."""
+    _k1_other_n_fft(cuda_device, n_fft, (0, 0, 2))
+
+
+@pytest.mark.parametrize("n_fft", [1200, 600, 640, 882, 1764, 1920])
+def test_k1_mixed_path_on_card(cuda_device, n_fft):
+    """An even n_fft with a 7-smooth half goes through the mixed-radix
+    kernel, once a call (882: an odd M = 441)."""
+    _k1_other_n_fft(cuda_device, n_fft, (0, 2, 0))
 
 
 def _k3_launches():
@@ -633,18 +650,41 @@ def test_k4_every_n_fft_on_card(cuda_device, n_fft, feature_set):
               spatial_features_reference(view.contiguous(), feature_set))
 
 
-@pytest.mark.parametrize("feature_set", K4_SETS)
-@pytest.mark.parametrize("n_fft", [1200, 600])
-def test_k4_dft_path_every_other_n_fft_on_card(cuda_device, n_fft, feature_set):
-    """Fault F2: the DFT kernel on frame_signal's view against the plain
-    version, at the JAX package's bars."""
+def _k4_counts():
+    return (spatial_features.launches, spatial_features.mixed_launches,
+            spatial_features.dft_launches)
+
+
+def _k4_other_n_fft(n_fft, feature_set, want):
+    """K4 at an n_fft outside KERNEL_N_FFT on frame_signal's view and on its
+    contiguous copy: the launch counts (FFT, mixed-radix, DFT tiles) move by
+    `want`, and the output is the plain version's, at the JAX package's bars."""
     view = _k4_view(61, n_fft, n_fft)
-    before = (spatial_features.launches, spatial_features.dft_launches)
-    got = spatial_features(view, feature_set)
+    contiguous = view.contiguous()
+    before = _k4_counts()
+    got, got_c = spatial_features(view, feature_set), spatial_features(contiguous, feature_set)
     torch.cuda.synchronize()
-    assert (spatial_features.launches, spatial_features.dft_launches) == (before[0],
-                                                                          before[1] + 1)
-    _k4_check(got, spatial_features_reference(view.contiguous(), feature_set))
+    assert tuple(a - b for a, b in zip(_k4_counts(), before)) == want
+    want_out = spatial_features_reference(contiguous, feature_set)
+    _k4_check(got, want_out)
+    _k4_check(got_c, want_out)
+
+
+@pytest.mark.parametrize("feature_set", K4_SETS)
+@pytest.mark.parametrize("n_fft", [17, 1202])
+def test_k4_dft_path_every_other_n_fft_on_card(cuda_device, n_fft, feature_set):
+    """An n_fft neither FFT kernel takes goes through the DFT tiles."""
+    _k4_other_n_fft(n_fft, feature_set, (0, 0, 2))
+
+
+@pytest.mark.parametrize("feature_set", K4_SETS)
+@pytest.mark.parametrize("n_fft", [1200, 600, 640, 882, 1764, 1920])
+def test_k4_mixed_path_on_card(cuda_device, n_fft, feature_set):
+    """An even n_fft with a 7-smooth half goes through the mixed-radix
+    kernel, once a call; silence gives -100 dB and exact zeros."""
+    _k4_other_n_fft(n_fft, feature_set, (0, 2, 0))
+    quiet = spatial_features(torch.zeros((4, 5, n_fft), device="cuda"), feature_set)
+    assert (quiet[:, :4] + 100.0).abs().max().item() <= 1e-4 and not quiet[:, 4:].any()
 
 
 @pytest.mark.parametrize("feature_set", K4_SETS)

@@ -1,10 +1,12 @@
 """The port's log-mel front-end against seld_tpu's: kernel K1's plain
 version (the float32 GEMMs its wrapper runs on the CPU) against the Pallas
-kernel in interpret mode and the rFFT oracle; a numpy emulation of the
-CUDA kernel's stage order on the tables of `fft_mel_plan`, against
+kernel in interpret mode and the rFFT oracle; numpy emulations of the
+CUDA kernels' stage orders, on the tables of `fft_mel_plan` (the register
+FFT, at every n_fft it takes) and of `mixed_fft_plan` (the mixed-radix
+Stockham FFT, at n_fft 1200, 600, 640, 882, 1764 and 1920), against
 numpy's rFFT, the plain version, the Pallas kernel and the JAX rFFT
-oracle at every n_fft the FFT kernel takes, and of the general-n_fft DFT
-kernel (fault F2) at n_fft 1200 and 600; the corpus entry point against
+oracle; the routing of every n_fft to one of the three kernels; the
+general-n_fft DFT kernel's emulation at n_fft 1202 and 17; the corpus entry point against
 seld_tpu.data.corpus.compute_mel_features; the spatial feature sets
 route to K4 (tests/test_torch_spatial.py holds K4)."""
 
@@ -22,12 +24,17 @@ from seld_tpu_torch.data.corpus import compute_mel_features
 from seld_tpu_torch.features import mel as port_mel
 from seld_tpu_torch.ops.mel_cuda import (
     KERNEL_N_FFT,
+    MIXED_N_FFT_RANGE,
+    FftMelPlan,
     bit_reverse5,
     check_kernel_shape,
     dft_kernel_constants,
     fft_mel_plan,
+    kernel_path,
     log_mel_frames,
     log_mel_frames_reference,
+    mixed_fft_plan,
+    mixed_radices,
 )
 from tests.test_torch_model import one_torch_thread  # noqa: F401 (autouse)
 
@@ -197,6 +204,78 @@ def emulate_rfft(frames: np.ndarray, plan) -> np.ndarray:
     return spec
 
 
+def _dft4(a0, a1, a2, a3):
+    t0, t1, t2, t3 = a0 + a2, a0 - a2, a1 + a3, a1 - a3
+    return [t0 + t2, t1 - 1j * t3, t0 - t2, t1 + 1j * t3]
+
+
+def _butterfly(v: list, consts: np.ndarray) -> list:
+    """The mixed-radix kernel's R-point DFT of v[0..R) (mixed_fft.cuh's
+    dft / dft3 / dft4 / dft5 / dft7 / dft8), natural order in and out."""
+    r = len(v)
+    if r == 2:
+        return [v[0] + v[1], v[0] - v[1]]
+    if r == 3:
+        return list(_dft3(v[0], v[1], v[2], consts[0]))
+    if r == 4:
+        return _dft4(*v)
+    if r == 5:
+        return _dft5(v, consts[1], consts[2])
+    if r == 8:
+        e, o = _dft4(*v[0::2]), _dft4(*v[1::2])
+        h = consts[6].real  # W_8^1 = (h, -h)
+        o[1] = h * (o[1].real + o[1].imag) + 1j * h * (o[1].imag - o[1].real)
+        o[2] = o[2].imag - 1j * o[2].real
+        o[3] = h * (o[3].imag - o[3].real) - 1j * h * (o[3].real + o[3].imag)
+        return [e[k] + o[k] for k in range(4)] + [e[k] - o[k] for k in range(4)]
+    assert r == 7
+    s1, s2, s3 = (v[j] + v[7 - j] for j in (1, 2, 3))
+    d1, d2, d3 = (v[j] - v[7 - j] for j in (1, 2, 3))
+    (c1, c2, c3), (n1, n2, n3) = consts[3:6].real, -consts[3:6].imag
+    p = [v[0] + c1 * s1 + c2 * s2 + c3 * s3, v[0] + c2 * s1 + c3 * s2 + c1 * s3,
+         v[0] + c3 * s1 + c1 * s2 + c2 * s3]
+    q = [n1 * d1 + n2 * d2 + n3 * d3, n2 * d1 - n3 * d2 - n1 * d3, n3 * d1 - n1 * d2 + n2 * d3]
+    return ([v[0] + ((s1 + s2) + s3)] + [p[k] - 1j * q[k] for k in range(3)]
+            + [p[k] + 1j * q[k] for k in (2, 1, 0)])
+
+
+def emulate_stockham(z: np.ndarray, plan) -> np.ndarray:
+    """(N, M) complex64 -> DFT_M over the last axis through mixed_fft.cuh's
+    passes: per radix R of the plan, after passes whose radices multiply to
+    ns, butterfly j reads j + r M / R, multiplies by W_M^(r (j mod ns) M /
+    (ns R)) from the plan's table, and writes (j // ns) ns R + j mod ns +
+    r ns."""
+    m = z.shape[1]
+    tw, consts = _complex(plan.twiddles), _complex(plan.consts)
+    ns = 1
+    for r in plan.radices.tolist():
+        nb = m // r
+        j = np.arange(nb)
+        k = j % ns
+        v = [z[:, j + i * nb] * (tw[i * k * (m // (ns * r))] if i and ns > 1 else 1)
+             for i in range(r)]
+        out = np.empty_like(z)
+        for i, y in enumerate(_butterfly(v, consts)):
+            out[:, (j // ns) * ns * r + k + i * ns] = y
+        z = out
+        ns *= r
+    return z
+
+
+def emulate_mixed_rfft(frames: np.ndarray, plan) -> np.ndarray:
+    """(N, n_fft) float32 frames -> (N, n_fft/2 + 1) complex64 spectra
+    through the mixed-radix stage: the packing and window, the Stockham
+    passes, the real split with the partner bin M - k read back."""
+    m = frames.shape[1] // 2
+    xw = frames * plan.window.numpy()
+    z = emulate_stockham((xw[:, 0::2] + 1j * xw[:, 1::2]).astype(np.complex64), plan)
+    b = np.conj(z[:, (m - np.arange(m)) % m])
+    spec = np.empty((frames.shape[0], m + 1), np.complex64)
+    spec[:, :m] = np.float32(0.5) * (z + b) + _complex(plan.split_twiddles) * (z - b)
+    spec[:, m] = z[:, 0].real - z[:, 0].imag
+    return spec
+
+
 def band_sums(values: np.ndarray, plan, weights=None) -> np.ndarray:
     """(N, n_fft/2 + 1) per-bin values -> (N, n_mels) sums over each
     band's packed bins, with the plan's filterbank weights or others
@@ -209,19 +288,28 @@ def band_sums(values: np.ndarray, plan, weights=None) -> np.ndarray:
 
 def _emulate_k1(frames: np.ndarray, plan, n_mels: int, amin: float = 1e-10):
     """(N, n_fft) float32 frames -> (power (N, n_fft/2 + 1), dB (N, n_mels))
-    through the kernel's stages: `emulate_rfft`, the power, the sparse mel
-    sums and the log."""
-    x = emulate_rfft(frames, plan)
+    through the stages of the kernel whose plan this is: `emulate_rfft` or
+    `emulate_mixed_rfft`, the power, the sparse mel sums and the log."""
+    x = (emulate_rfft if isinstance(plan, FftMelPlan) else emulate_mixed_rfft)(frames, plan)
     power = x.real * x.real + x.imag * x.imag
     mel = band_sums(power, plan)
     return power, 10.0 * np.log10(np.maximum(mel, np.float32(amin)))
 
 
 def _plan(n_fft, n_mels=NMELS):
-    return fft_mel_plan(n_fft, n_mels, SR, 0.0, None, torch.device("cpu"))
+    """The tables of the FFT kernel that takes n_fft: the register or the
+    mixed-radix kernel's."""
+    make = fft_mel_plan if kernel_path(n_fft) == "fft" else mixed_fft_plan
+    return make(n_fft, n_mels, SR, 0.0, None, torch.device("cpu"))
 
 
-@pytest.fixture(scope="module", params=KERNEL_N_FFT)
+# The mixed-radix kernel's n_fft: 50 ms at 24 kHz, 25 ms, 40 ms at 16 kHz,
+# 20 ms at 44.1 kHz, 40 ms at 44.1 kHz, 40 ms at 48 kHz
+MIXED_N_FFT = (1200, 600, 640, 882, 1764, 1920)
+FFT_N_FFT = KERNEL_N_FFT + MIXED_N_FFT  # both FFT kernels
+
+
+@pytest.fixture(scope="module", params=FFT_N_FFT)
 def fft_case(request):
     """A seeded waveform of 12 frames at this n_fft (hop n_fft / 2), its
     JAX frames and the JAX rFFT oracle's dB."""
@@ -263,7 +351,7 @@ def test_fft_plan_matches_pallas_and_jax_oracle(fft_case):
 
 
 @pytest.mark.parametrize("n_mels", [40, 64])
-@pytest.mark.parametrize("n_fft", KERNEL_N_FFT)
+@pytest.mark.parametrize("n_fft", FFT_N_FFT)
 def test_sparse_filterbank_expands_to_mel_filterbank(n_fft, n_mels):
     plan = _plan(n_fft, n_mels)
     first, count, offset = plan.bands.numpy()
@@ -275,7 +363,7 @@ def test_sparse_filterbank_expands_to_mel_filterbank(n_fft, n_mels):
     assert offset[-1] + count[-1] == w.size <= 2 * (n_fft // 2 + 1)  # a bin in two bands at most
 
 
-@pytest.mark.parametrize("n_fft", KERNEL_N_FFT)
+@pytest.mark.parametrize("n_fft", FFT_N_FFT)
 def test_fft_plan_fewer_mels_and_silence(n_fft):
     fr = np.random.default_rng(7).standard_normal((5, n_fft)).astype(np.float32)
     _, got = _emulate_k1(fr, _plan(n_fft, 40), 40)
@@ -300,8 +388,8 @@ def test_log_mel_frames_takes_frame_signal_view():
 
 @pytest.mark.parametrize("n_fft,n_mels", [(976, 64), (480, 64), (4096, 64), (960, 65), (960, 0)])
 def test_kernel_shape_check_names_what_the_card_cannot_take(n_fft, n_mels):
-    """The card takes every n_fft (the FFT kernel those of KERNEL_N_FFT, the
-    DFT kernel the rest) and 1 to 64 mels."""
+    """The card takes every n_fft (one of three kernels, by kernel_path) and
+    1 to 64 mels."""
     if 1 <= n_mels <= 64:
         check_kernel_shape(n_fft, n_mels)
     else:
@@ -319,9 +407,68 @@ def test_kernel_shape_check_names_what_the_card_cannot_take(n_fft, n_mels):
     np.testing.assert_allclose(got.numpy(), -100.0, atol=1e-4)
 
 
-# The general-n_fft kernel (fault F2): n_fft 1200 is a 50 ms window at 24 kHz,
-# 600 is not a multiple of the 16-deep tile
-DFT_N_FFT = (1200, 600)
+def _expected_path(n_fft: int) -> str:
+    """kernel_path's rule, written out again: the register FFT at its four
+    n_fft, the mixed-radix FFT at an even n_fft from 64 to 4096 whose half
+    has no prime factor above 7, the DFT tiles everywhere else."""
+    if n_fft in KERNEL_N_FFT:
+        return "fft"
+    half = n_fft // 2
+    for p in (2, 3, 5, 7):
+        while half % p == 0:
+            half //= p
+    return "mixed" if n_fft % 2 == 0 and 64 <= n_fft <= 4096 and half == 1 else "dft"
+
+
+@pytest.mark.parametrize("n_fft,path", [
+    (17, "dft"), (60, "dft"), (64, "mixed"), (512, "fft"), (600, "mixed"), (640, "mixed"),
+    (882, "mixed"), (960, "fft"), (1200, "mixed"), (1202, "dft"), (1764, "mixed"),
+    (1920, "mixed"), (2048, "fft"), (4096, "mixed"), (4097, "dft"), (4116, "dft"),
+])
+def test_kernel_path_routes_each_n_fft(n_fft, path):
+    """17 is odd, 60 has a 7-smooth half below the floor (M = 30 < 32: K4's
+    64 lags would overlap), 1202 = 2 x 601, 4116 = 2 x 2 x 3 x 7^3 is past
+    the cap; the mixed-radix plan refuses what it does not take."""
+    assert kernel_path(n_fft) == path == _expected_path(n_fft)
+    if path == "mixed":
+        plan = mixed_fft_plan(n_fft, NMELS, SR, 0.0, None, torch.device("cpu"))
+        radices = plan.radices.tolist()
+        assert np.prod(radices) == n_fft // 2 and radices == sorted(radices, reverse=True)
+        assert set(radices) <= {2, 3, 4, 5, 7, 8} and radices.count(2) + radices.count(4) <= 1
+    else:
+        with pytest.raises(ValueError, match="mixed-radix"):
+            mixed_fft_plan(n_fft, NMELS, SR, 0.0, None, torch.device("cpu"))
+
+
+def test_kernel_path_sweep_512_to_4097():
+    lo, hi = MIXED_N_FFT_RANGE
+    paths = {n: kernel_path(n) for n in range(512, 4098)}
+    assert all(path == _expected_path(n) for n, path in paths.items())
+    assert [n for n, p in paths.items() if p == "fft"] == list(KERNEL_N_FFT)
+    mixed = [n for n, p in paths.items() if p == "mixed"]
+    assert (lo, hi) == (64, 4096) and mixed[-1] == hi and {1200, 1764, 1920} <= set(mixed)
+    assert mixed_radices(1) == () and mixed_radices(601) is None
+
+
+def test_mixed_plan_tables():
+    """Twiddles W_M^j and split twiddles -(i/2) W_N^k from float64, the
+    butterflies' constants W_3^1, W_5^1, W_5^2, W_7^1..3, W_8^1."""
+    plan = mixed_fft_plan(1200, NMELS, SR, 0.0, None, torch.device("cpu"))
+    j = np.arange(600)
+    np.testing.assert_allclose(_complex(plan.twiddles), np.exp(-2j * np.pi * j / 600), atol=1e-7)
+    np.testing.assert_allclose(_complex(plan.split_twiddles),
+                               -0.5j * np.exp(-2j * np.pi * j / 1200), atol=1e-7)
+    want = [np.exp(-2j * np.pi * a / b) for a, b in ((1, 3), (1, 5), (2, 5), (1, 7), (2, 7),
+                                                    (3, 7), (1, 8))] + [0]
+    np.testing.assert_allclose(_complex(plan.consts), want, atol=1e-7)
+    np.testing.assert_array_equal(plan.window.numpy(), hann_window(1200))
+
+
+# The DFT-tile kernel takes every n_fft; it runs where neither FFT kernel
+# does (1202 = 2 x 601), and its emulation is held at 1200 and 600 too,
+# where it ran before the mixed-radix kernel (600: not a multiple of the
+# 16-deep tile)
+DFT_N_FFT = (1200, 600, 1202)
 
 
 def emulate_dft_planes(frames: np.ndarray, c_re: np.ndarray, c_im: np.ndarray, n_fft: int,

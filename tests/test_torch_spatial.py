@@ -1,11 +1,14 @@
 """The port's spatial front-end against seld_tpu's: kernel K4's plain
 version (the float32 GEMMs its wrapper runs on the CPU) against the
-Pallas kernel in interpret mode and the rFFT oracle; a numpy emulation of
-the CUDA kernel's stage order on the tables of `spatial_plan` (K1's
-forward stages per channel, the sparse band sums, the pruned inverse FFT
-of the GCC planes) against the plain version, the Pallas kernel and the
-JAX oracle at every n_fft the FFT kernel takes, and of the general-n_fft
-DFT kernel (fault F2) at n_fft 1200 and 600; the port's own rFFT oracle,
+Pallas kernel in interpret mode and the rFFT oracle; numpy emulations of
+the CUDA kernels' stage orders, on the tables of `spatial_plan` (K1's
+register FFT per channel, the sparse band sums, the pruned inverse FFT
+of the GCC planes, at every n_fft that kernel takes) and of
+`mixed_spatial_plan` (K1's mixed-radix FFT per channel, the band sums, a
+full inverse FFT of the GCC planes by the same passes, at n_fft 1200,
+600, 640, 882, 1764 and 1920), against the plain version, the Pallas
+kernel and the JAX oracle, and of the general-n_fft DFT kernel at n_fft
+1200, 600 and 1202; the port's own rFFT oracle,
 the corpus entry point for "mel_iv" and "mel_gcc", and the slice as a
 whole: a small "mel_iv" flagship with the same weights, fed the same
 features and served from the same waveform."""
@@ -37,9 +40,10 @@ from seld_tpu_torch.features.mel import frame_signal
 from seld_tpu_torch.infer import SELDPredictor
 from seld_tpu_torch.models import build_model as build_port_model
 from seld_tpu_torch.ops import spatial_cuda
-from seld_tpu_torch.ops.mel_cuda import KERNEL_N_FFT, bit_reverse5
+from seld_tpu_torch.ops.mel_cuda import KERNEL_N_FFT, bit_reverse5, kernel_path
 from seld_tpu_torch.ops.spatial_cuda import (
     check_kernel_shape,
+    mixed_spatial_plan,
     spatial_constants,
     spatial_features,
     spatial_features_reference,
@@ -47,7 +51,15 @@ from seld_tpu_torch.ops.spatial_cuda import (
 )
 from seld_tpu_torch.train.checkpoint import save_checkpoint
 from tests import test_torch_mel
-from tests.test_torch_mel import _complex, band_sums, emulate_rfft
+from tests.test_torch_mel import (
+    FFT_N_FFT,
+    MIXED_N_FFT,
+    _complex,
+    band_sums,
+    emulate_mixed_rfft,
+    emulate_rfft,
+    emulate_stockham,
+)
 from tests.test_torch_model import one_torch_thread  # noqa: F401 (autouse)
 
 SR, NFFT, HOP, NMELS = 24_000, 960, 480, 64
@@ -229,7 +241,7 @@ def emulate_lags(cross: np.ndarray, plan, n_mels: int) -> np.ndarray:
     (only the real parts of bins 0 and M), the inverse real split, the
     five cross-lane stages inverted in the opposite order and the pruned
     lane sum with the lag twiddles."""
-    n, m = cross.shape[0], cross.shape[1] - 1
+    m = cross.shape[1] - 1
     r = m // 32
     lanes = np.arange(32)
     k1 = bit_reverse5(lanes)
@@ -248,9 +260,15 @@ def emulate_lags(cross: np.ndarray, plan, n_mels: int) -> np.ndarray:
         v = z * warp[s][:, None] if s < 4 else z
         p = v[:, lanes ^ h]
         z = np.where(((lanes & h) != 0)[None, :, None], p - v, p + v)
-    acc = (z * _complex(plan.lag_twiddles).T).sum(axis=2)  # (N, 32)
+    return _lag_columns((z * _complex(plan.lag_twiddles).T).sum(axis=2), n_mels)
+
+
+def _lag_columns(acc: np.ndarray, n_mels: int) -> np.ndarray:
+    """(N, 32) complex samples (x[2n], x[2n + 1]) of lane l's n = l (lanes
+    0-15) or M - 32 + l (lanes 16-31) -> the (N, n_mels) lag columns."""
+    lanes = np.arange(32)
     lag = np.where(lanes < 16, 2 * lanes, 2 * lanes - 64)
-    out = np.zeros((n, n_mels), np.float32)
+    out = np.zeros((acc.shape[0], n_mels), np.float32)
     for part, shift in ((acc.real, 0), (acc.imag, 1)):
         col = lag + shift + n_mels // 2
         keep = (col >= 0) & (col < n_mels)
@@ -258,12 +276,39 @@ def emulate_lags(cross: np.ndarray, plan, n_mels: int) -> np.ndarray:
     return out
 
 
+def emulate_mixed_lags(cross: np.ndarray, plan, n_mels: int) -> np.ndarray:
+    """(N, n_fft/2 + 1) complex64 cross-spectra -> (N, n_mels) lags through
+    the mixed-radix kernel's GCC stages: the inverse real split in natural
+    order (only the real parts of bins 0 and M), its conjugate through the
+    forward Stockham passes, the conjugate of the samples the lags need,
+    times 2 / n_fft."""
+    m = cross.shape[1] - 1
+    k = np.arange(m)
+    a, b = cross[:, :m].astype(np.complex64), cross[:, m - k].astype(np.complex64)
+    a[:, 0], b[:, 0] = a[:, 0].real, b[:, 0].real
+    b = np.conj(b)
+    z = np.float32(0.5) * (a + b) + np.conj(_complex(plan.mel.split_twiddles)) * (a - b)
+    r = emulate_stockham(np.conj(z), plan.mel)
+    lanes = np.arange(32)
+    return _lag_columns(np.conj(r[:, np.where(lanes < 16, lanes, m - 32 + lanes)])
+                        * np.float32(plan.scale), n_mels)
+
+
+def _k4_stages(n_fft: int, n_mels: int):
+    """(plan, forward stage, GCC stage) of the FFT kernel that takes n_fft:
+    the register kernel's or the mixed-radix kernel's."""
+    if kernel_path(n_fft) == "fft":
+        return spatial_plan(n_fft, n_mels, SR, torch.device("cpu")), emulate_rfft, emulate_lags
+    return (mixed_spatial_plan(n_fft, n_mels, SR, torch.device("cpu")), emulate_mixed_rfft,
+            emulate_mixed_lags)
+
+
 def emulate_k4(frames: np.ndarray, feature_set: str, n_mels: int, amin: float = 1e-10,
                eps: float = 1e-8) -> np.ndarray:
     """(4, T, n_fft) float32 frames -> (T, C_out, n_mels) through the
-    kernel's stages on the tables of `spatial_plan`."""
-    plan = spatial_plan(frames.shape[2], n_mels, SR, torch.device("cpu"))
-    spec = [emulate_rfft(f, plan.mel) for f in frames]  # 4 x (T, M + 1)
+    stages of the FFT kernel that takes n_fft, on its plan's tables."""
+    plan, rfft, lags = _k4_stages(frames.shape[2], n_mels)
+    spec = [rfft(f, plan.mel) for f in frames]  # 4 x (T, M + 1)
     power = [x.real * x.real + x.imag * x.imag for x in spec]
     planes = [10.0 * np.log10(np.maximum(band_sums(p, plan.mel), np.float32(amin)))
               for p in power]
@@ -278,7 +323,7 @@ def emulate_k4(frames: np.ndarray, feature_set: str, n_mels: int, amin: float = 
         for i, j in itertools.combinations(range(4), 2):
             cross = np.conj(spec[i]) * spec[j]
             mag = cross.real * cross.real + cross.imag * cross.imag + np.float32(eps) ** 2
-            planes.append(emulate_lags(cross / np.sqrt(mag), plan, n_mels))
+            planes.append(lags(cross / np.sqrt(mag), plan, n_mels))
     return np.stack(planes, axis=1)
 
 
@@ -290,16 +335,20 @@ def _frames_at(n_fft: int) -> np.ndarray:
 
 @pytest.mark.parametrize("n_mels", [64, 40])
 @pytest.mark.parametrize("feature_set", SETS)
-@pytest.mark.parametrize("n_fft", KERNEL_N_FFT)
+@pytest.mark.parametrize("n_fft", FFT_N_FFT)
 def test_emulated_k4_matches_plain(n_fft, feature_set, n_mels):
     fr = _frames_at(n_fft)
     got = emulate_k4(fr, feature_set, n_mels)
     want = spatial_features_reference(torch.from_numpy(fr), feature_set, n_mels).numpy()
     assert got.shape == want.shape == (9, jax_feature_channels(feature_set), n_mels)
     # float32 FFTs against float32 GEMMs (tests/test_torch_mel.py holds K1's
-    # emulation to its plain version at the same 1e-4 dB)
+    # emulation to its plain version at the same 1e-4 dB); the mixed-radix
+    # sizes' other planes at K4's bar PLANE_ATOL, as the DFT path's: at
+    # n_fft 1200 the plain version's GCC planes lie 1.9e-5 from a float64
+    # computation of them, the emulation's 1e-6
     np.testing.assert_allclose(got[:, :4], want[:, :4], atol=1e-4, rtol=0)
-    np.testing.assert_allclose(got[:, 4:], want[:, 4:], atol=1e-5, rtol=0)
+    np.testing.assert_allclose(got[:, 4:], want[:, 4:], rtol=0,
+                               atol=1e-5 if kernel_path(n_fft) == "fft" else PLANE_ATOL)
 
 
 @pytest.mark.parametrize("n_mels", [64, 40])
@@ -316,6 +365,22 @@ def test_emulated_k4_matches_pallas_and_jax_oracle(n_fft, feature_set, n_mels):
         pallas = np.asarray(spatial_features_pallas(jnp.asarray(fr), feature_set, n_mels=n_mels,
                                                     interpret=True))
         _assert_features_close(got, pallas)
+
+
+@pytest.mark.parametrize("feature_set", ["mel_iv", "mel_gcc"])
+@pytest.mark.parametrize("n_fft", MIXED_N_FFT)
+def test_emulated_mixed_k4_matches_pallas_and_jax_oracle(n_fft, feature_set):
+    """The mixed-radix kernel's emulation against the JAX rFFT oracle at
+    every n_fft it is held to here, and the Pallas kernel where that takes
+    the n_fft (600, 640, 882), at the fused kernel's bars; both sets carry
+    the 4 mel planes ("mel" alone is test_emulated_k4_matches_plain's)."""
+    fr = _frames_at(n_fft)
+    got = emulate_k4(fr, feature_set, NMELS)
+    _assert_features_close(got, np.asarray(jax_extract(jnp.asarray(fr), feature_set, n_fft,
+                                                       NMELS, SR)))
+    if n_fft // 2 + 1 <= 512:
+        _assert_features_close(got, np.asarray(spatial_features_pallas(
+            jnp.asarray(fr), feature_set, n_mels=NMELS, interpret=True)))
 
 
 def emulate_dft_k4(frames: np.ndarray, feature_set: str, n_mels: int, amin: float = 1e-10,
@@ -387,7 +452,7 @@ def test_dft_kernel_emulation_matches_plain_pallas_and_jax(n_fft, feature_set):
             jnp.asarray(fr), feature_set, n_mels=NMELS, interpret=True)))
 
 
-@pytest.mark.parametrize("n_fft", KERNEL_N_FFT)
+@pytest.mark.parametrize("n_fft", FFT_N_FFT)
 def test_emulated_k4_on_silence(n_fft):
     got = emulate_k4(np.zeros((4, 3, n_fft), np.float32), "mel_gcc", NMELS)
     np.testing.assert_allclose(got[:, :4], -100.0, atol=1e-4)
@@ -397,9 +462,9 @@ def test_emulated_k4_on_silence(n_fft):
 
 
 @pytest.mark.parametrize("n_mels", [64, 40])
-@pytest.mark.parametrize("n_fft", KERNEL_N_FFT)
+@pytest.mark.parametrize("n_fft", FFT_N_FFT)
 def test_packed_norm_filterbank_expands_to_fb_norm(n_fft, n_mels):
-    plan = spatial_plan(n_fft, n_mels, SR, torch.device("cpu"))
+    plan = _k4_stages(n_fft, n_mels)[0]
     first, count, offset = plan.mel.bands.numpy()
     w = plan.norm_weights.numpy()
     assert w.size == plan.mel.weights.numel()
@@ -412,7 +477,7 @@ def test_packed_norm_filterbank_expands_to_fb_norm(n_fft, n_mels):
 
 
 @pytest.mark.parametrize("n_mels", [64, 40])
-@pytest.mark.parametrize("n_fft", KERNEL_N_FFT)
+@pytest.mark.parametrize("n_fft", FFT_N_FFT)
 def test_emulated_pruned_inverse_matches_lag_matrices(n_fft, n_mels):
     """Any cross-spectrum, not only a PHAT-normalised one: the pruned
     inverse FFT is the product with the TPU kernel's lag matrices."""
@@ -420,11 +485,29 @@ def test_emulated_pruned_inverse_matches_lag_matrices(n_fft, n_mels):
     m = n_fft // 2
     cross = (rng.standard_normal((5, m + 1)) + 1j * rng.standard_normal((5, m + 1))
              ).astype(np.complex64)
-    got = emulate_lags(cross, spatial_plan(n_fft, n_mels, SR, torch.device("cpu")), n_mels)
+    plan, _, lags = _k4_stages(n_fft, n_mels)
+    got = lags(cross, plan, n_mels)
     lag_re, lag_im = (c.numpy()[:m + 1, :n_mels]
                       for c in spatial_constants(n_fft, n_mels, SR, torch.device("cpu"))[4:])
     want = cross.real @ lag_re + cross.imag @ lag_im
     np.testing.assert_allclose(got, want, atol=1e-6, rtol=0)
+
+
+@pytest.mark.parametrize("n_fft", [960, 1200, 882])
+def test_emulated_gcc_lag_peak_of_a_delayed_channel(n_fft):
+    """The FFT kernels' GCC stages on test_gcc_lag_peak_of_a_delayed_channel's
+    construction, framed at n_fft with hop n_fft / 2: the pair (0, 1) peaks
+    at lag +7 (the register kernel at 960, the mixed-radix kernel at 1200
+    and 882, an odd M = 441)."""
+    rng = np.random.default_rng(0)
+    n, delay = 8 * n_fft, 7
+    base = rng.standard_normal(n + 64).astype(np.float32)
+    wave = np.stack([base[64:64 + n], base[64 - delay:64 - delay + n],
+                     rng.standard_normal(n).astype(np.float32),
+                     rng.standard_normal(n).astype(np.float32)])
+    framed = frame_signal(torch.from_numpy(wave), n_fft, n_fft // 2).contiguous().numpy()
+    got = emulate_k4(framed, "mel_gcc", NMELS)
+    assert int(got[:, 4].mean(axis=0).argmax()) == 32 + delay
 
 
 @pytest.mark.parametrize("feature_set", ["mel_iv", "mel_gcc"])

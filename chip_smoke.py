@@ -146,9 +146,32 @@ Phases, each of which raises on failure:
      dQ and dK/dV once per block); then `cli calibrate` of phase 6's
      flagship run (the grid bg_bias path: K2's forward once per eval step
      of each pass) and `cli predict --calibration` (K1 once).
-It prints the launch counts of phases 9, 10 and 14, one JSON line of
+ 15. the predictor side of serving on the full-width flagship, seeded
+     weights saved as checkpoints: F3, predicts of 100-, 479-, 481- and
+     700-sample clips ("mel" and "mel_iv") equal to stream_predict of the
+     same clip; the seeded 60 s clip streamed through StreamingSession in
+     1 s (predict_file's split), 0.37 s and whole chunks at overlap 0 and
+     0.5, the classes bit-equal to the offline predict ([stream] lines),
+     K1 ("mel") or K4 ("mel_iv") launches equal to the session's frame
+     blocks; offline and streamed predict ms (median of five) and peak
+     memory; ACS test-time augmentation on "mel_iv" at T = 250 and
+     T = 1000 (window.window_seconds=20.0): identity TTA bit-equal to the
+     plain predict, TTA16 at folds 1 and 2 against a float64 host loop
+     over _raw_apply of each permuted view (the same decisions outside a
+     1e-3 top-2 band), exact launches (K4 once, 16 x batches / fold model
+     forwards, K3 forward 4 a forward at T = 1000), a TTA16 stream
+     bit-equal to offline TTA16, plain and TTA16 predict ms; the ACCDOA
+     families' identity TTA equal to their plain decode; then a 2-epoch
+     `cli train --synthetic` of the mel_iv flagship, `average-ckpts --last
+     2` and `predict` of the average, `eval --tta --bg-bias-sweep` (K2
+     forward once a step: the loss stays on the plain forward), `calibrate
+     --tta`, `predict --calibration` (TTA turned on by the file: the CSV of
+     `predict --tta` with its knobs), and `predict --stream --tta --overlap
+     0.5` of the seeded mel_iv flagship (the CSV of `--tta --overlap 0.5`).
+It prints the launch counts of phases 9, 10, 14 and 15, one JSON line of
 kernel figures (each row's `launches_accdoa`: its launches on phase 14's
-paths), the nvidia-smi line, and last {"ok": true, "device": {...}}.
+paths; `launches_stream` and `launches_tta`: on phase 15's), the
+nvidia-smi line, and last {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -2969,6 +2992,366 @@ def phase_sequence_parallel(dev: torch.device, long_train_loss: float) -> dict:
     return sp
 
 
+TTA_MARGIN = 1e-3  # tests/test_torch_predict.py::MARGIN: a top-2 gap the float32 sums can reorder
+STREAM_CHUNKINGS = (("1 s", None), ("0.37 s", 0.37), ("whole", 0.0))  # None: predict_file's split
+
+
+def seeded_checkpoint(path: Path, overrides: list[str], device: torch.device,
+                      seed: int = 0) -> Path:
+    """A model of Config() with the overrides, seeded on `device`, saved at
+    path."""
+    from seld_tpu_torch.config import Config, parse_overrides
+    from seld_tpu_torch.features.spatial import feature_channels
+    from seld_tpu_torch.models import build_model
+    from seld_tpu_torch.train.checkpoint import save_checkpoint
+
+    cfg = parse_overrides(Config(), overrides)
+    model = build_model(cfg.model, cfg.grid, device=device, seed=seed,
+                        in_channels=feature_channels(cfg.features.feature_set))
+    save_checkpoint(path, model, cfg)
+    return path
+
+
+def chunked(wave: np.ndarray, seconds, sr: int) -> list:
+    """The clip's chunks: predict_file's 1 s np.array_split (None), chunks
+    of `seconds`, or the whole clip (0)."""
+    if seconds is None:
+        return np.array_split(wave, max(1, wave.shape[1] // sr), axis=1)
+    if not seconds:
+        return [wave]
+    size = int(seconds * sr)
+    return [wave[:, i:i + size] for i in range(0, wave.shape[1], size)]
+
+
+def stream_once(pred, chunks, overlap: float) -> tuple[np.ndarray, int, dict]:
+    """One StreamingSession over the chunks: (classes, the frame blocks it
+    featurized, the launches counted from its first push to its flush)."""
+    from seld_tpu_torch.stream import StreamingSession
+
+    s = StreamingSession(pred, overlap=overlap)
+    reset_launches()
+    parts = [c for chunk in chunks for _, c in s.push(chunk)]
+    parts += [c for _, c in s.flush()]
+    counts = launches()
+    return np.concatenate(parts), s.frame_blocks, counts
+
+
+def timed_predict(fn, reps: int = 5) -> tuple[float, list[float], float]:
+    """(median ms, the ms of each call, peak device GiB of one call) of fn()."""
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times)), times, torch.cuda.max_memory_allocated() / 2**30
+
+
+def padded_windows(pred, wave) -> tuple[torch.Tensor, int]:
+    """The clip's non-overlapping windows as predict_waveform tiles them,
+    and its frame count."""
+    from seld_tpu_torch.data.corpus import compute_mel_features
+
+    mel = compute_mel_features(wave, pred.cfg.features, pred.device)
+    t, win = mel.shape[0], pred.win
+    n = -(-t // win)
+    mel = torch.cat([mel, mel.new_zeros((n * win - t, *mel.shape[1:]))])
+    return mel.reshape(n, win, *mel.shape[1:]), t
+
+
+def reference_tta_probs(pred, wave) -> torch.Tensor:
+    """The plain loop of TTA16 for a grid predictor: each batch of windows
+    (zero-padded to batch_windows, as _batched pads it) through _raw_apply
+    once per permuted and signed view, each view's logits mapped back to
+    the original cells on the host in float64 (softmax, inverse cell
+    gather) and averaged -> (T, M, G) float64 mean probabilities."""
+    from seld_tpu_torch.features.acs import acs_tables
+
+    grid = pred.cfg.grid
+    cell_gather, ch_perm, ch_sign = acs_tables(grid.n_el, grid.n_az, "mel_iv")
+    windows, t = padded_windows(pred, wave)
+    bw = pred.batch_windows
+    acc = torch.zeros((windows.shape[0], pred.win, grid.num_classes, grid.n_cells),
+                      dtype=torch.float64)
+    for start in range(0, windows.shape[0], bw):
+        batch = windows[start:start + bw]
+        valid = batch.shape[0]
+        batch = torch.cat([batch, batch.new_zeros((bw - valid, *batch.shape[1:]))])
+        for v in range(16):
+            perm = torch.as_tensor(ch_perm[v], dtype=torch.long, device=batch.device)
+            sign = torch.as_tensor(ch_sign[v], device=batch.device)
+            out = pred._raw_apply(batch[:, :, perm] * sign[:, None])[:valid].double().cpu()
+            inverse = torch.from_numpy(np.argsort(cell_gather[v]))
+            acc[start:start + valid] += torch.softmax(out, dim=2)[..., inverse]
+    return (acc / 16.0).reshape(-1, grid.num_classes, grid.n_cells)[:t]
+
+
+def same_decisions(tag: str, got: np.ndarray, want: np.ndarray, margin: np.ndarray) -> int:
+    """Cells that differ, none of them outside the TTA_MARGIN band."""
+    differ = got != want
+    outside = int((differ & (margin > TTA_MARGIN)).sum())
+    if outside or got.shape != want.shape:
+        raise AssertionError(f"{tag}: {outside} cells differ outside the {TTA_MARGIN} band")
+    return int(differ.sum())
+
+
+def count_forwards(pred) -> list:
+    """A list that gets the batch size of every model forward of pred."""
+    calls = []
+    pred.model.register_forward_hook(lambda m, i, o: calls.append(i[0].shape[0]))
+    return calls
+
+
+def serving_tta(dev, path: Path, wave, tag: str) -> dict:
+    """TTA on a mel_iv flagship: identity TTA bit-equal to the plain predict;
+    TTA16 against reference_tta_probs; fold 2 against it; exact launches
+    (K4 once, 16 x batches forwards / fold, K3 forward 4 a forward at
+    T >= 512); a stream under TTA bit-equal to offline TTA; plain and TTA16
+    predicts timed."""
+    from seld_tpu_torch.infer import SELDPredictor
+
+    sr = 24_000
+    pred = SELDPredictor(path, batch_windows=8, device=dev)
+    calls = count_forwards(pred)
+    plain = pred.predict_waveform(wave).classes
+    plain_ms, plain_times, plain_gib = timed_predict(lambda: pred.predict_waveform(wave))
+    windows = -(-(1 + wave.shape[1] // pred.cfg.features.hop_length) // pred.win)
+    batches = -(-windows // pred.batch_windows)
+    flash = pred.win >= 512
+    found = {}
+
+    pred.tta((0,))
+    if not np.array_equal(pred.predict_waveform(wave).classes, plain):
+        raise AssertionError(f"{tag} identity TTA differs from the plain predict")
+
+    ref = reference_tta_probs(pred, wave)
+    ref_classes = ref.argmax(dim=1).to(torch.int8).numpy()
+    top = torch.topk(ref, 2, dim=1).values
+    margin = (top[:, 0] - top[:, 1]).numpy()
+    results = {}
+    for fold in (1, 2):
+        pred.tta(None, fold=fold)
+        pred.predict_waveform(wave)  # warm-up
+        calls.clear()
+        reset_launches()
+        results[fold] = pred.predict_waveform(wave).classes
+        counts = launches()
+        forwards = 16 * batches // fold
+        want = only(k4=1, k3_fwd=4 * forwards if flash else 0)
+        if counts != want or len(calls) != forwards or set(calls) != {8 * fold}:
+            raise AssertionError(f"{tag} TTA16 fold {fold}: launches {counts} (want {want}), "
+                                 f"{len(calls)} forwards of batch {set(calls)} (want {forwards})")
+        found[f"TTA16 fold {fold}"] = counts
+        differ = same_decisions(f"{tag} TTA16 fold {fold} against the float64 reference loop",
+                                results[fold], ref_classes, margin)
+        print(f"{tag} TTA16 fold {fold}: {windows} windows in {batches} batches of 8 -> "
+              f"{len(calls)} forwards of batch {8 * fold}; launches {counts}; against the "
+              f"float64 reference loop {differ} of {ref_classes.size} cells differ, all inside "
+              f"the {TTA_MARGIN} top-2 band ({int((margin <= TTA_MARGIN).sum())} cells in it)")
+    differ = same_decisions(f"{tag} TTA16 fold 2 against fold 1", results[2], results[1], margin)
+    print(f"{tag} TTA16 fold 2 against fold 1: {differ} cells differ, all inside the band")
+
+    pred.tta(None)
+    streamed, frame_blocks, counts = stream_once(pred, chunked(wave, None, sr), 0.0)
+    if not np.array_equal(streamed, results[1]) or counts["k4"] != frame_blocks:
+        raise AssertionError(f"{tag} stream under TTA16: launches {counts}, frame blocks "
+                             f"{frame_blocks}, equal {np.array_equal(streamed, results[1])}")
+    found["TTA16 stream 1 s"] = counts
+    tta_ms, tta_times, tta_gib = timed_predict(lambda: pred.predict_waveform(wave))
+    print(f"[stream] {tag} TTA16 stream in 1 s chunks bit-equal to offline TTA16 "
+          f"({streamed.size} cells, agreement 100 %); K4 {counts['k4']} launches = "
+          f"{frame_blocks} frame blocks")
+    print(f"{tag} predict of the {CLIP_SECONDS} s clip at T = {pred.win}: plain {plain_ms:.2f} ms "
+          f"(median of {', '.join(f'{x:.2f}' for x in plain_times)}; peak {plain_gib:.2f} GiB), "
+          f"TTA16 {tta_ms:.2f} ms (median of {', '.join(f'{x:.2f}' for x in tta_times)}; peak "
+          f"{tta_gib:.2f} GiB): {tta_ms / plain_ms:.1f}x")
+    found["ms"] = {"plain": plain_ms, "tta16": tta_ms, "plain_peak_gib": plain_gib,
+                   "tta16_peak_gib": tta_gib}
+    return found
+
+
+def phase_serving(dev: torch.device) -> dict:
+    """Phase 15: the predictor side of serving on the full-width flagship
+    (seeded weights saved as checkpoints): F3's tiny clips, streaming of
+    the 60 s clip (K1 / K4 once per frame block) bit-equal to offline,
+    TTA at T = 250 and 1000, the ACCDOA families under TTA, and the CLI
+    chain train -> average-ckpts -> predict -> eval --tta -> calibrate
+    --tta -> predict --calibration -> predict --stream --tta. Returns
+    every path's launches."""
+    from seld_tpu_torch import cli
+    from seld_tpu_torch.config import Config
+    from seld_tpu_torch.data.audio import load_wav
+    from seld_tpu_torch.data.synthetic import synthetic_raw_files
+    from seld_tpu_torch.infer import SELDPredictor
+    from seld_tpu_torch.stream import stream_predict
+
+    base = Config()
+    sr = base.features.sample_rate
+    wave = (0.1 * np.random.default_rng(0).standard_normal((4, CLIP_SECONDS * sr))
+            ).astype(np.float32)
+    found = {}
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        root = Path(tmp)
+        mel_path = seeded_checkpoint(root / "mel.pt", [], dev)
+        iv_path = seeded_checkpoint(root / "mel_iv.pt", ["features.feature_set=mel_iv"], dev)
+        long_path = seeded_checkpoint(root / "long.pt", [
+            "features.feature_set=mel_iv", f"window.window_seconds={LONG_WINDOW_SECONDS}"], dev)
+        for feature_set, path in (("mel", mel_path), ("mel_iv", iv_path)):
+            tag = f"[serve {feature_set}]"
+            key = "k1" if feature_set == "mel" else "k4"
+            pred = SELDPredictor(path, batch_windows=8, device=dev)
+            for n in (100, 479, 481, 700):  # F3: tiny clips
+                clip = wave[:, :n]
+                offline = pred.predict_waveform(clip).classes
+                if (offline.shape != (1 + n // 480, base.grid.n_cells)
+                        or not np.array_equal(stream_predict(pred, [clip]).classes, offline)):
+                    raise AssertionError(f"{tag} F3: the {n}-sample clip")
+            print(f"{tag} F3: predicts of 100-, 479-, 481- and 700-sample clips answer, each "
+                  f"equal to stream_predict of the same clip")
+            for overlap in (0.0, 0.5):
+                offline = pred.predict_waveform(wave, overlap=overlap).classes
+                for name, seconds in STREAM_CHUNKINGS:
+                    streamed, frame_blocks, counts = stream_once(
+                        pred, chunked(wave, seconds, sr), overlap)
+                    same_shape = streamed.shape == offline.shape
+                    agree = float((streamed == offline).mean()) if same_shape else 0.0
+                    differ = int((streamed != offline).sum()) if same_shape else -1
+                    print(f"[stream] {feature_set} overlap {overlap:g} chunks {name}: "
+                          f"{offline.shape[0]} frames x {offline.shape[1]} cells, agreement "
+                          f"{100 * agree:.4f} % ({differ} cells differ); {key.upper()} "
+                          f"launches {counts[key]} = frame blocks {frame_blocks}; launches "
+                          f"{counts}")
+                    if agree != 1.0 or counts != only(**{key: frame_blocks}):
+                        raise AssertionError(f"{tag} stream overlap {overlap} chunks {name}")
+                    found[f"{feature_set} stream overlap {overlap:g} chunks {name}"] = counts
+            off_ms, off_times, off_gib = timed_predict(lambda: pred.predict_waveform(wave))
+            st_ms, st_times, st_gib = timed_predict(
+                lambda: stream_predict(pred, chunked(wave, None, sr)))
+            print(f"{tag} {CLIP_SECONDS} s clip: offline {off_ms:.2f} ms (median of "
+                  f"{', '.join(f'{x:.2f}' for x in off_times)}; peak {off_gib:.2f} GiB), "
+                  f"streamed in 1 s chunks {st_ms:.2f} ms (median of "
+                  f"{', '.join(f'{x:.2f}' for x in st_times)}; peak {st_gib:.2f} GiB)")
+            found[f"{feature_set} ms"] = {"offline": off_ms, "streamed": st_ms,
+                                          "offline_peak_gib": off_gib, "streamed_peak_gib": st_gib}
+            del pred
+
+        for path, tag in ((iv_path, "[tta T = 250]"), (long_path, "[tta T = 1000]")):
+            for k, v in serving_tta(dev, path, wave, tag).items():
+                found[f"{tag.strip('[]')} {k}"] = v
+
+        for model_type in ("accdoa_conformer", "multi_accdoa_conformer"):
+            path = seeded_checkpoint(root / f"{model_type}.pt", [
+                f"model.model_type={model_type}", "features.feature_set=mel_iv"], dev)
+            pred = SELDPredictor(path, batch_windows=8, device=dev, accdoa_threshold=0.3)
+            plain = pred.predict_waveform(wave).classes
+            ident = pred.tta((0,)).predict_waveform(wave).classes
+            pred.tta(None)
+            reset_launches()
+            full = pred.predict_waveform(wave).classes
+            counts = launches()
+            if not np.array_equal(ident, plain) or counts != only(k4=1) or full.max() > 13:
+                raise AssertionError(f"[{model_type}] TTA: identity equal "
+                                     f"{np.array_equal(ident, plain)}, launches {counts}")
+            print(f"[{model_type}] identity TTA equal to the plain decode "
+                  f"({int((plain != 13).sum())} active cells); TTA16 "
+                  f"({'votes' if model_type.startswith('multi') else 'mean vectors'}): "
+                  f"{int((full != 13).sum())} active cells, launches {counts}")
+            found[f"{model_type} TTA16"] = counts
+            del pred
+
+        # the command line on a short mel_iv flagship run
+        (clip_wav,), _ = synthetic_raw_files(root / "clip", base, n_files=1,
+                                             seconds=float(CLIP_SECONDS), seed=2)
+        work = root / "run" / "checkpoints"
+        args = [f"data.base_path={root / 'run'}", "features.feature_set=mel_iv"]
+        fps = sr // base.features.hop_length
+        eval_steps = -(-(20 * fps // base.window.hop_frames(base.features))
+                       // base.train.batch_size)
+        reset_launches()
+        t0 = time.perf_counter()
+        if cli.main(["train", "--synthetic", *args, "train.num_epochs=2",
+                     "train.save_every_n_epochs=1"]) != 0:
+            raise AssertionError("cli train failed")
+        trained = launches()
+        rolling = sorted((work / "rolling").glob("epoch_*.pt"))
+        if trained["k4"] != 3 or len(rolling) < 2:
+            raise AssertionError(f"cli train: launches {trained}, rolling {rolling}")
+        print(f"[cli] train --synthetic features.feature_set=mel_iv, 2 epochs in "
+              f"{time.perf_counter() - t0:.1f} s: launches {trained}; rolling checkpoints "
+              f"{[p.name for p in rolling]}")
+        if cli.main(["average-ckpts", "--checkpoint-dir", str(work), "--output-dir",
+                     str(root / "swa"), "--last", "2"]) != 0:
+            raise AssertionError("cli average-ckpts failed")
+        (avg,) = (root / "swa" / "best").glob("epoch_*.pt")
+        sources = torch.load(avg, map_location="cpu", weights_only=True)["meta"]["swa_sources"]
+
+        def predict_csv(name, checkpoint, *flags):
+            out = root / f"out_{len(found)}"
+            reset_launches()
+            if cli.main(["predict", "--checkpoint", str(checkpoint), "--wavs", clip_wav,
+                         "--out", str(out), *flags]) != 0:
+                raise AssertionError(f"cli predict {name} failed")
+            counts = launches()
+            (csv,) = (out / "predictions").glob("*.csv")
+            found[f"cli predict {name}"] = counts
+            return csv.read_text(), counts
+
+        _, counts = predict_csv("swa", avg)
+        if counts != only(k4=1) or sources != [1, 2]:
+            raise AssertionError(f"predict of the average: launches {counts}, sources {sources}")
+        print(f"[cli] average-ckpts --last 2 -> {avg.relative_to(root)} (swa_sources {sources}); "
+              f"predict from it: launches {counts}")
+        reset_launches()
+        report = cli_json(["eval", "--synthetic", *args, "--tta", "--bg-bias-sweep", "0,1,2"])
+        evaluated = launches()
+        swept = report["bg_bias_sweep"]["metrics"]
+        if evaluated != only(k4=3, k2_fwd=eval_steps) or len(swept) != 3:
+            raise AssertionError(f"cli eval --tta: launches {evaluated}")
+        found["cli eval --tta"] = evaluated
+        print(f"[cli] eval --tta --bg-bias-sweep 0,1,2: launches {evaluated} ({eval_steps} eval "
+              f"steps: K2 forward {evaluated['k2_fwd'] // eval_steps} a step, on the plain "
+              f"forward's loss); test loss {report['test_loss']:.6f}; SELD_error by bias "
+              f"{ {k: round(v['SELD_error'], 4) for k, v in swept.items()} }")
+        reset_launches()
+        calib = cli_json(["calibrate", "--synthetic", *args, "--tta"])
+        calibrated = launches()
+        if (calibrated != only(k4=3, k2_fwd=2 * eval_steps) or not calib["tta"]
+                or calib["tta_transforms"] != list(range(16))):
+            raise AssertionError(f"cli calibrate --tta: launches {calibrated}, {calib}")
+        found["cli calibrate --tta"] = calibrated
+        print(f"[cli] calibrate --tta: launches {calibrated}; bg_bias {calib['bg_bias']}, "
+              f"median_filter {calib['median_filter']}, tta {calib['tta']}")
+        (best,) = (work / "best").glob("epoch_*.pt")
+        by_file, counts = predict_csv("--calibration (tta)", best, "--calibration",
+                                      str(work / "decode_calibration.json"))
+        by_flags, _ = predict_csv("--tta with its knobs", best, "--tta", "--bg-bias",
+                                  str(calib["bg_bias"]),
+                                  "--median-filter", str(calib["median_filter"]))
+        if by_file != by_flags or counts != only(k4=1):
+            raise AssertionError(f"predict --calibration: launches {counts}, CSV equal to "
+                                 f"--tta with the knobs {by_file == by_flags}")
+        print(f"[cli] predict --calibration (TTA on from the file): launches {counts}; CSV "
+              f"equal to predict --tta --bg-bias {calib['bg_bias']} --median-filter "
+              f"{calib['median_filter']}")
+        # the short run predicts background everywhere: the seeded flagship's
+        # CSV has rows to compare
+        offline_csv, _ = predict_csv("--tta --overlap 0.5", iv_path, "--tta", "--overlap",
+                                     "0.5")
+        stream_csv, counts = predict_csv("--stream --tta --overlap 0.5", iv_path, "--stream",
+                                         "--tta", "--overlap", "0.5")
+        if stream_csv != offline_csv or not stream_csv or counts["k4"] < 2:
+            raise AssertionError(f"predict --stream --tta --overlap 0.5: launches {counts}, "
+                                 f"CSV equal {stream_csv == offline_csv}")
+        print(f"[cli] predict --stream --tta --overlap 0.5 of the seeded mel_iv flagship: CSV "
+              f"equal to --tta --overlap 0.5 ({len(stream_csv.splitlines())} rows); launches "
+              f"{counts}")
+    return found
+
+
 def main() -> int:
     name, smi = phase_device()
     dev = torch.device("cuda")
@@ -3014,6 +3397,13 @@ def main() -> int:
     for row, key in ((k1, "k1"), (k2_fwd, "k2_fwd"), (k2_bwd, "k2_bwd"),
                      *zip(k3_rows, ("k3_fwd", "k3_dq", "k3_dkv")), (k4_rows[0], "k4")):
         row["launches_accdoa"] = accdoa_launches(found, key)
+    served = phase_serving(dev)
+    print(f"[paths] launches on the serving paths: {json.dumps(served)}")
+    for row, key in ((k1, "k1"), (k2_fwd, "k2_fwd"), (k3_rows[0], "k3_fwd"), (k4_rows[0], "k4")):
+        row["launches_stream"] = {p: c[key] for p, c in served.items()
+                                  if "stream" in p and key in c}
+        row["launches_tta"] = {p: c[key] for p, c in served.items()
+                               if "stream" not in p and key in c and "tta" in p.lower()}
     print(json.dumps({"kernels": [k1, k2_fwd, k2_bwd, *k3_rows, *k4_rows, *f2_rows,
                                   *k5_rows]}))
     print(smi)

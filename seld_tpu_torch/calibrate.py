@@ -10,9 +10,12 @@ Two evaluation passes over the corpus:
   pass 2  fixes the best one and sweeps the median-filter width on the
           host, every width from one more forward per batch.
 
-The file keeps the JAX package's keys, so either package reads what the
-other wrote. The port decodes the plain forward only: a file tuned under
-test-time augmentation or int8 (its "tta" or "int8" true) raises on load.
+With tta_transforms both passes run the test-time-augmented decode
+(seld_tpu_torch.tta), whose optimum differs from the plain decode's, and
+the file says so ("tta", "tta_transforms"): `predict` and `eval
+--calibration` then turn TTA on. The file keeps the JAX package's keys, so
+either package reads what the other wrote. A file tuned on the int8
+forward (its "int8" true) raises on load: that forward is not ported.
 """
 
 from __future__ import annotations
@@ -41,13 +44,16 @@ DEFAULT_MEDIAN_WIDTHS = (1, 3, 5, 7)
 _METRIC_KEYS = ("ER", "F_macro", "LE_macro", "LR_macro", "SELD_error")
 
 
-def run_calibration(cfg: Config, val_corpus, checkpoint_dir, *, bias_grid=None,
-                    threshold_grid=None, median_widths=None, use_checkpoint: str = "best",
+def run_calibration(cfg: Config, val_corpus, checkpoint_dir, *, tta_transforms=None,
+                    bias_grid=None, threshold_grid=None, median_widths=None,
+                    use_checkpoint: str = "best",
                     device: str | torch.device | None = None) -> dict:
     """The two passes on `device` (CUDA unless named); returns the
     calibration dict, not yet written. The knob family, model_type and
     feature_set follow the config stored in the checkpoint, which is what
-    evaluate_model runs."""
+    evaluate_model runs. tta_transforms: None calibrates the plain decode,
+    a transform subset (seld_tpu_torch.tta.validate_transforms) the TTA
+    decode."""
     stored = load_checkpoint_config(checkpoint_dir)
     eff_cfg = stored if stored is not None else cfg
     if eff_cfg.model.model_type in ACCDOA_MODELS:
@@ -63,9 +69,10 @@ def run_calibration(cfg: Config, val_corpus, checkpoint_dir, *, bias_grid=None,
         knob = "bg_bias"
         values = [float(b) for b in (bias_grid or DEFAULT_BIAS_GRID)]
     widths = [int(w) for w in (median_widths or DEFAULT_MEDIAN_WIDTHS)]
-    common = dict(use_checkpoint=use_checkpoint, device=device)
+    common = dict(use_checkpoint=use_checkpoint, device=device, tta_transforms=tta_transforms)
 
-    logger.info("Calibration pass 1/2: %s sweep over %s", knob, values)
+    logger.info("Calibration pass 1/2: %s sweep over %s (tta=%s)", knob, values,
+                tta_transforms is not None)
     r1 = evaluate_model(cfg, val_corpus, checkpoint_dir, **{f"{knob}_sweep": values}, **common)
     sweep_report = r1[f"{knob}_sweep"]
     best_knob = float(sweep_report["best"][knob])
@@ -82,8 +89,9 @@ def run_calibration(cfg: Config, val_corpus, checkpoint_dir, *, bias_grid=None,
         "feature_set": eff_cfg.features.feature_set,
         "checkpoint": str(checkpoint_dir),
         "use_checkpoint": use_checkpoint,
-        "tta": False,
-        "tta_transforms": None,
+        "tta": tta_transforms is not None,
+        "tta_transforms": (None if tta_transforms is None
+                           else [int(t) for t in tta_transforms]),
         "int8": False,
         "int8_weight_only": False,
         knob: best_knob,
@@ -109,7 +117,7 @@ def write_calibration(calib: dict, out_path) -> Path:
 
 def load_calibration(path) -> dict:
     """A decode_calibration.json, checked: its version, its keys, exactly one
-    operating-point knob, and a decode path the port has (no TTA, no int8)."""
+    operating-point knob, and a decode path the port has (no int8)."""
     path = Path(path)
     if not path.exists():
         raise FileNotFoundError(f"calibration file not found: {path}")
@@ -124,9 +132,6 @@ def load_calibration(path) -> dict:
     if ("bg_bias" in calib) == ("accdoa_threshold" in calib):
         raise ValueError(f"{path}: calibration must carry exactly one operating-point knob "
                          "(bg_bias for grid models, accdoa_threshold for ACCDOA)")
-    if calib.get("tta"):
-        raise NotImplementedError(f"{path} was tuned under test-time augmentation, which is "
-                                  "not ported (ROADMAP item 8): recalibrate without --tta")
     if calib.get("int8"):
         raise NotImplementedError(f"{path} was tuned on the int8 forward, which is not ported "
                                   "(ROADMAP item 9): recalibrate without --int8")

@@ -1,5 +1,5 @@
 """Command line (counterpart: seld_tpu/cli.py `train`, `eval`, `verify`,
-`predict`, `calibrate` and `score`).
+`predict`, `calibrate`, `score` and `average-ckpts`).
 
     python -m seld_tpu_torch.cli train [--synthetic] [--resume] [--eval-after] \
         [--device cpu] [k.e.y=value ...]
@@ -26,22 +26,27 @@ targets.accdoa_tracks to 3.
     python -m seld_tpu_torch.cli eval [--synthetic] [--bg-bias B] \
         [--bg-bias-sweep B1,B2] [--accdoa-threshold T] [--accdoa-threshold-sweep T1,T2] \
         [--median-filter W] [--median-filter-sweep W1,W2] [--calibration FILE] \
-        [--use-checkpoint best|latest] [--device cpu] [k.e.y=value ...]
+        [--tta] [--tta-transforms 0,4] [--use-checkpoint best|latest] [--device cpu] \
+        [k.e.y=value ...]
 
 scores the checkpoints under <data.base_path>/checkpoints on the test
 split and prints the report (losses, cell accuracies, "dcase" and
-"dcase2022" metrics) as JSON on standard output.
+"dcase2022" metrics) as JSON on standard output; --tta decodes the
+ACS test-time-augmented forward ("mel_iv" models), losses staying on the
+plain one.
 
     python -m seld_tpu_torch.cli calibrate [--synthetic] [--bg-bias-sweep B1,B2] \
-        [--accdoa-threshold-sweep T1,T2] [--median-widths W1,W2] \
-        [--use-checkpoint best|latest] [--out FILE] [--device cpu] [k.e.y=value ...]
+        [--accdoa-threshold-sweep T1,T2] [--median-widths W1,W2] [--tta] \
+        [--tta-transforms 0,4] [--use-checkpoint best|latest] [--out FILE] \
+        [--device cpu] [k.e.y=value ...]
 
 tunes the run's decode (the background bias of a grid model or the
 activity threshold of an ACCDOA model, then the median-filter width) on
 the test split, which should then be a validation split, and writes
 <data.base_path>/checkpoints/decode_calibration.json unless --out names
 another file; `eval` and `predict` take it back with --calibration FILE,
-where a flag given explicitly wins over the file.
+where a flag given explicitly wins over the file, and a file tuned with
+--tta turns TTA on.
 
     python -m seld_tpu_torch.cli score --pred-dir P --gt-dir G [--macro-over all|gt] \
         [k.e.y=value ...]
@@ -55,12 +60,22 @@ checks every backbone's output shape on a (2, T, C, 64) input, C the
 feature set's channel count (4, 7 for mel_iv, 10 for mel_gcc).
 
     python -m seld_tpu_torch.cli predict --checkpoint FILE --wavs A.wav ... \
-        [--out DIR] [--overlap F] [--bg-bias B] [--accdoa-threshold T] \
-        [--median-filter W] [--calibration FILE] [--device cpu]
+        [--out DIR] [--overlap F] [--stream] [--tta] [--tta-transforms 0,4] \
+        [--tta-fold K] [--bg-bias B] [--accdoa-threshold T] [--median-filter W] \
+        [--calibration FILE] [--device cpu]
 
 writes DIR/predictions/<wav stem>.csv with the STARSS22-style metadata
-rows of each clip; FILE may be a checkpoint that `train` wrote. All run on
-the CUDA card unless --device names another.
+rows of each clip; FILE may be a checkpoint that `train` wrote. --stream
+feeds each clip in 1 s chunks through a StreamingSession (the same CSV);
+--tta averages the 16 ACS scene transforms (or the listed ones) of a
+"mel_iv" model.
+
+    python -m seld_tpu_torch.cli average-ckpts --checkpoint-dir RUN \
+        --output-dir OUT [--last N | --steps E1,E2]
+
+averages the run's rolling checkpoints (SWA) into OUT/best. All but
+`score` and `average-ckpts` run on the CUDA card unless --device names
+another.
 """
 
 from __future__ import annotations
@@ -88,11 +103,30 @@ def _normalize_config(cfg):
     return cfg
 
 
+def _parse_tta_transforms(spec: str | None):
+    """The transform subset of --tta-transforms; None means all 16."""
+    if not spec:
+        return None
+    return tuple(int(t) for t in spec.split(",") if t.strip())
+
+
+def _tta_transforms(args):
+    """The validated transform subset a command's --tta / --tta-transforms
+    ask for, or None."""
+    from seld_tpu_torch.tta import validate_transforms
+
+    if getattr(args, "tta", False) or getattr(args, "tta_transforms", None):
+        return validate_transforms(_parse_tta_transforms(getattr(args, "tta_transforms", None)))
+    return None
+
+
 def _apply_calibration(args, run_cfg) -> None:
     """Fill the decode flags that were not given (None) from the file of
     --calibration, after checking it against run_cfg, the config of the
     checkpoint the command serves: an explicit flag, 0 included, wins over
-    the file."""
+    the file. A file tuned under TTA turns TTA on with its transforms, its
+    knobs being that decode's optimum, unless --tta or --tta-transforms was
+    given."""
     from seld_tpu_torch.calibrate import check_calibration_matches, load_calibration
 
     calib = load_calibration(args.calibration)
@@ -103,6 +137,11 @@ def _apply_calibration(args, run_cfg) -> None:
         if knob in calib and getattr(args, knob) is None:
             setattr(args, knob, convert(calib[knob]))
             applied.append(f"{knob}={getattr(args, knob):g}")
+    if calib.get("tta") and not (args.tta or args.tta_transforms):
+        args.tta = True
+        if calib.get("tta_transforms"):
+            args.tta_transforms = ",".join(str(t) for t in calib["tta_transforms"])
+        applied.append("tta=on")
     logger.info("Applied calibration %s: %s", args.calibration,
                 ", ".join(applied) if applied else "(no unset knobs)")
 
@@ -117,10 +156,14 @@ def cmd_predict(args) -> int:
         args.checkpoint, bg_bias=args.bg_bias or 0.0, median_filter=args.median_filter or 0,
         accdoa_threshold=args.accdoa_threshold, device=args.device,
     )
+    transforms = _tta_transforms(args)
+    if transforms is not None:
+        predictor.tta(transforms, fold=args.tta_fold)
     out_dir = Path(args.out) / "predictions"
     for wav in args.wavs:
         csv_out = out_dir / f"{Path(wav).stem}.csv"
-        pred = predictor.predict_file(wav, csv_out=csv_out, overlap=args.overlap)
+        pred = predictor.predict_file(wav, csv_out=csv_out, overlap=args.overlap,
+                                      stream=args.stream)
         logger.info("%s: %d frames, %d active cells -> %s",
                     wav, pred.classes.shape[0], len(pred.events()), csv_out)
     return 0
@@ -202,6 +245,7 @@ def _evaluate(cfg, args, test_corpus, device) -> int:
         median_filter_sweep=_csv(getattr(args, "median_filter_sweep", None), int),
         use_checkpoint=getattr(args, "use_checkpoint", "best"),
         device=device,
+        tta_transforms=_tta_transforms(args),
     )
     printable = {k: v for k, v in results.items() if k != "visualizations"}
     print(json.dumps(printable, indent=2, default=str))
@@ -236,7 +280,7 @@ def cmd_calibrate(args) -> int:
         cfg, val_c, cfg.data.checkpoint_path, bias_grid=_csv(args.bg_bias_sweep, float),
         threshold_grid=_csv(args.accdoa_threshold_sweep, float),
         median_widths=_csv(args.median_widths, int), use_checkpoint=args.use_checkpoint,
-        device=device)
+        device=device, tta_transforms=_tta_transforms(args))
     out = Path(args.out) if args.out else (
         Path(cfg.data.checkpoint_path) / "decode_calibration.json")
     write_calibration(calib, out)
@@ -260,6 +304,18 @@ def cmd_score(args) -> int:
                 result["LE_macro"], result["LR_macro"], result["SELD_error"],
                 result["n_files"], result["Nref"])
     print(json.dumps(result, indent=2))
+    return 0
+
+
+def cmd_average_ckpts(args) -> int:
+    """SWA: average the run's rolling checkpoints into a new best one; no
+    device."""
+    from seld_tpu_torch.tools.average_ckpt import average_checkpoints
+
+    summary = average_checkpoints(args.checkpoint_dir, args.output_dir, last=args.last,
+                                  steps=_csv(args.steps, int))
+    logger.info("SWA checkpoint written: %s (averaged epochs %s, %s params)",
+                args.output_dir, summary["steps"], f"{summary['n_params']:,}")
     return 0
 
 
@@ -305,6 +361,15 @@ def cmd_verify(args) -> int:
     return 1 if failures else 0
 
 
+def _add_tta_flags(p, what: str) -> None:
+    p.add_argument("--tta", action="store_true",
+                   help=f"ACS test-time augmentation: {what} averaged over the 16 label-exact "
+                   "FOA scene transforms (16x the forwards; features.feature_set=mel_iv)")
+    p.add_argument("--tta-transforms", default=None, metavar="T1,T2,...",
+                   help="comma-separated transform subset for TTA (e.g. 0,1,2,3: the four "
+                   "azimuth rotations); implies --tta")
+
+
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(prog="python -m seld_tpu_torch.cli")
     sub = parser.add_subparsers(dest="command", required=True)
@@ -339,10 +404,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--median-filter-sweep", default=None, metavar="W1,W2,...",
                    help="also report DCASE2022 metrics at each of these widths, and the best")
     p.add_argument("--calibration", default=None, metavar="FILE",
-                   help="take --bg-bias / --accdoa-threshold / --median-filter from a "
-                   "`calibrate` file; a flag given explicitly wins")
+                   help="take --bg-bias / --accdoa-threshold / --median-filter (and TTA, "
+                   "for a file tuned under it) from a `calibrate` file; a flag given "
+                   "explicitly wins")
     p.add_argument("--use-checkpoint", default="best", choices=("best", "latest"),
                    help="score the best checkpoint, or the newest rolling one")
+    _add_tta_flags(p, "the decodes (every metric and sweep; losses stay plain)")
     p.add_argument("--device", default=None, help=device_help)
     p.set_defaults(fn=cmd_eval)
     p = sub.add_parser(
@@ -363,6 +430,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="calibrate the best checkpoint, or the newest rolling one")
     p.add_argument("--out", default=None,
                    help="output file (default <checkpoint_path>/decode_calibration.json)")
+    _add_tta_flags(p, "the decode both passes tune")
     p.add_argument("--device", default=None, help=device_help)
     p.set_defaults(fn=cmd_calibrate)
     p = sub.add_parser("score", help="official DCASE2022 metrics of prediction CSVs "
@@ -389,6 +457,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--overlap", type=float, default=0.0,
                    help="window overlap in [0, 1): average class probabilities "
                    "over overlapping windows before decoding")
+    p.add_argument("--stream", action="store_true",
+                   help="bounded-memory streaming inference in 1 s chunks (the same CSV)")
+    _add_tta_flags(p, "predictions")
+    p.add_argument("--tta-fold", type=int, default=1, metavar="K",
+                   help="TTA views in each forward's batch (must divide the transform count; "
+                   "folds agree to ~1e-6, streaming stays bit-equal at one fold)")
     p.add_argument("--bg-bias", type=float, default=None, metavar="B",
                    help="reduce the background logit by B before decoding (grid models)")
     p.add_argument("--accdoa-threshold", type=float, default=None, metavar="T",
@@ -396,10 +470,22 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--median-filter", type=int, default=None, metavar="W",
                    help="odd W-frame majority smoothing of the class grid")
     p.add_argument("--calibration", default=None, metavar="FILE",
-                   help="take --bg-bias / --accdoa-threshold / --median-filter from a "
-                   "`calibrate` file; a flag given explicitly wins")
+                   help="take --bg-bias / --accdoa-threshold / --median-filter (and TTA, "
+                   "for a file tuned under it) from a `calibrate` file; a flag given "
+                   "explicitly wins")
     p.add_argument("--device", default=None, help=device_help)
     p.set_defaults(fn=cmd_predict)
+    p = sub.add_parser("average-ckpts", help="SWA: average a run's rolling checkpoints into "
+                       "a new best checkpoint")
+    p.add_argument("--checkpoint-dir", required=True,
+                   help="the run's checkpoint tree (<data.base_path>/checkpoints)")
+    p.add_argument("--output-dir", required=True,
+                   help="the new tree; the average is written to OUTPUT_DIR/best")
+    p.add_argument("--last", type=int, default=None, metavar="N",
+                   help="average the newest N rolling checkpoints (default: all)")
+    p.add_argument("--steps", default=None, metavar="E1,E2,...",
+                   help="average these epochs' rolling checkpoints (wins over --last)")
+    p.set_defaults(fn=cmd_average_ckpts)
     return parser
 
 

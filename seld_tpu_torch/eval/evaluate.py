@@ -10,8 +10,10 @@
     ("dcase") and the official DCASE2022 metrics ("dcase2022"), under the
     JAX package's keys.
 
-Left to their own slices of the port, and therefore no parameters here:
-test-time augmentation, the int8 forward and a device mesh.
+With `tta_transforms` the decodes, and so every metric and sweep, come
+from the ACS test-time-augmented forward (seld_tpu_torch.tta); the
+losses stay on the plain forward. Left to their own slices of the port,
+and therefore no parameters here: the int8 forward and a device mesh.
 `save_visualizations=True` raises: the PNG renderer (viz.py) is not
 ported.
 """
@@ -24,7 +26,13 @@ import numpy as np
 import torch
 
 from seld_tpu_torch import resolve_device
-from seld_tpu_torch.accdoa import ACCDOALossFn, ADPITLossFn, grid_decoder
+from seld_tpu_torch.accdoa import (
+    ACCDOALossFn,
+    ADPITLossFn,
+    decode_accdoa_to_grid,
+    decode_vote_grid,
+    grid_decoder,
+)
 from seld_tpu_torch.config import Config
 from seld_tpu_torch.data.corpus import WindowedCorpus
 from seld_tpu_torch.data.sampler import BatchIterator, place_batch
@@ -35,7 +43,7 @@ from seld_tpu_torch.eval.metrics import (
     seld_metrics,
 )
 from seld_tpu_torch.features.spatial import feature_channels
-from seld_tpu_torch.infer import validate_accdoa_threshold
+from seld_tpu_torch.infer import bias_background_logits, validate_accdoa_threshold
 from seld_tpu_torch.losses import SELDLossFn
 from seld_tpu_torch.models import build_model
 from seld_tpu_torch.models.registry import ACCDOA_MODELS, MULTI_ACCDOA_MODELS
@@ -43,6 +51,7 @@ from seld_tpu_torch.postprocess import smooth_classes, validate_width
 from seld_tpu_torch.train.checkpoint import checkpoint_file, load_checkpoint_config
 from seld_tpu_torch.train.completion import workdir_incomplete_reason
 from seld_tpu_torch.train.steps import make_metric_eval_step
+from seld_tpu_torch.tta import make_tta_forward, validate_transforms
 
 logger = logging.getLogger(__name__)
 
@@ -65,6 +74,55 @@ def _sweep_report(name: str, flag: str, values, key_of, grids_of, true_classes, 
     return report
 
 
+def _tta_decode(model, kind: str, grid, feature_set: str, transforms, bg_bias: float,
+                bias_sweep, acc_th: float, threshold_sweep):
+    """The decode of an eval batch under test-time augmentation: mel ->
+    (pred (B, T, G) int8, the (K, B, T, G) int8 grids of the sweep or None),
+    each from the TTA average of its kind. A sweep candidate that enters
+    each view (a grid bias before the softmax, a multi-ACCDOA threshold
+    before the vote) is swept inside the TTA forward, with the main decode's
+    value as its last row, so the views run once; single-ACCDOA candidates
+    threshold the averaged vectors."""
+    common = dict(n_el=grid.n_el, n_az=grid.n_az, feature_set=feature_set,
+                  transforms=transforms, kind=kind)
+
+    def grids(x, axis):
+        return torch.argmax(x, dim=axis).to(torch.int8)
+
+    if kind == "grid" and bias_sweep is not None:
+        fwd = make_tta_forward(model, bias_sweep=[*bias_sweep, bg_bias], **common)
+
+        def decode(mel):
+            probs = fwd(mel)
+            return grids(probs[-1], 2), grids(probs[:-1], 3)
+    elif kind == "grid":
+        fwd = make_tta_forward(
+            lambda m: bias_background_logits(model(m), bg_bias) if bg_bias else model(m),
+            **common)
+
+        def decode(mel):
+            return grids(fwd(mel), 2), None
+    elif kind == "multi_accdoa":
+        fwd = make_tta_forward(model, activity_threshold=acc_th,
+                               threshold_sweep=(None if threshold_sweep is None
+                                                else [*threshold_sweep, acc_th]), **common)
+
+        def decode(mel):
+            votes = decode_vote_grid(fwd(mel), grid.num_classes)
+            return (votes, None) if threshold_sweep is None else (votes[-1], votes[:-1])
+    else:
+        fwd = make_tta_forward(model, **common)
+
+        def decode(mel):
+            vectors = fwd(mel)
+            pred = decode_accdoa_to_grid(vectors, grid.n_el, grid.n_az, grid.num_classes, acc_th)
+            if threshold_sweep is None:
+                return pred, None
+            return pred, torch.stack([decode_accdoa_to_grid(
+                vectors, grid.n_el, grid.n_az, grid.num_classes, th) for th in threshold_sweep])
+    return decode
+
+
 def evaluate_model(
     cfg: Config,
     test_corpus: WindowedCorpus,
@@ -78,6 +136,7 @@ def evaluate_model(
     median_filter_sweep=None,
     use_checkpoint: str = "best",
     device: str | torch.device | None = None,
+    tta_transforms=None,
 ) -> dict:
     """Score the checkpoint tree under `checkpoint_dir` on `test_corpus`,
     on `device` (CUDA unless named).
@@ -109,6 +168,12 @@ def evaluate_model(
     filter runs on the host on the gathered grids, so widths cost no
     forward; the report gains a row per width and the best one. The
     bg_bias_sweep rows stay unfiltered.
+
+    tta_transforms: an ACS transform subset (seld_tpu_torch.tta; "mel_iv"
+    features only): every decode, and so every metric, comes from the
+    TTA-averaged forward (mean probabilities, mean vectors or votes), and
+    each sweep calibrates that decode; the losses stay on the plain
+    forward, comparable across runs.
 
     save_visualizations=True raises: the PNG renderer is not ported, so
     the report's "visualizations" list stays empty."""
@@ -185,15 +250,25 @@ def evaluate_model(
                 meta["epoch"], meta["test_loss"], device)
 
     grid, num_classes = cfg.grid, cfg.grid.num_classes
+    multi = cfg.model.model_type in MULTI_ACCDOA_MODELS
+    tta_decode = None
+    if tta_transforms is not None:
+        tta_transforms = validate_transforms(tta_transforms)
+        tta_decode = _tta_decode(
+            model, "multi_accdoa" if multi else "accdoa" if accdoa_mode else "grid", grid,
+            (stored_cfg or cfg).features.feature_set, tta_transforms, float(bg_bias),
+            bg_bias_sweep, acc_th, accdoa_threshold_sweep)
+        logger.info("Eval TTA enabled (%d transforms)", len(tta_transforms))
     if accdoa_mode:
-        multi = cfg.model.model_type in MULTI_ACCDOA_MODELS
         step = make_metric_eval_step(
             model, ADPITLossFn() if multi else ACCDOALossFn(), num_classes,
             accdoa_decoder=grid_decoder(multi, grid.n_el, grid.n_az, num_classes),
-            accdoa_threshold=acc_th, threshold_sweep=accdoa_threshold_sweep)
+            accdoa_threshold=acc_th, threshold_sweep=accdoa_threshold_sweep,
+            tta_decode=tta_decode)
     else:
         step = make_metric_eval_step(model, SELDLossFn(cfg.loss, grid), num_classes,
-                                     bg_bias=float(bg_bias), bias_sweep=bg_bias_sweep)
+                                     bg_bias=float(bg_bias), bias_sweep=bg_bias_sweep,
+                                     tta_decode=tta_decode)
     losses, preds, trues, sweep_rows = [], [], [], []
     for batch in BatchIterator(test_corpus, cfg.train.batch_size, shuffle=False, prefetch=2):
         mel, mask, em, *acc = place_batch(batch, device)

@@ -58,13 +58,32 @@ def num_stft_frames(n_samples: int, hop_length: int) -> int:
     return 1 + n_samples // hop_length
 
 
+def reflect_indices(n: int, pad: int) -> np.ndarray:
+    """Source index of each sample of an n-sample signal reflect-padded by
+    `pad` on both sides, as np.pad(mode="reflect") builds it for any pad:
+    the index folded with period 2(n - 1), and sample 0 repeated when
+    n = 1."""
+    pos = np.arange(-pad, n + pad)
+    if n == 1:
+        return np.zeros_like(pos)
+    period = 2 * (n - 1)
+    folded = np.mod(pos, period)
+    return np.where(folded >= n, period - folded, folded)
+
+
 def frame_signal(x: torch.Tensor, n_fft: int, hop_length: int) -> torch.Tensor:
     """(..., n) signal -> (..., T, n_fft) center-padded frames, a strided
-    view of the reflect-padded signal, T = 1 + n // hop."""
+    view of the reflect-padded signal, T = 1 + n // hop. A signal of at most
+    n_fft // 2 samples reflects more than once, as np.pad does: its padded
+    buffer is one index gather on the signal's device."""
     lead, n = x.shape[:-1], x.shape[-1]
     t_frames = num_stft_frames(n, hop_length)
     pad = n_fft // 2
-    flat = F.pad(x.reshape(-1, n), (pad, pad), mode="reflect")
+    flat = x.reshape(-1, n)
+    if n > pad:
+        flat = F.pad(flat, (pad, pad), mode="reflect")
+    else:
+        flat = flat[:, torch.from_numpy(reflect_indices(n, pad)).to(x.device)]
     need = (t_frames - 1) * hop_length + n_fft
     if flat.shape[-1] < need:
         flat = F.pad(flat, (0, need - flat.shape[-1]))

@@ -9,6 +9,9 @@ eval-mode model over fixed-shape batches of windows, and decodes its
 output on the device into a (T, G) class grid, which `Prediction` turns
 into STARSS22-style metadata rows: grid logits by argmax, ACCDOA and
 multi-ACCDOA vectors by their activity threshold (seld_tpu_torch.accdoa).
+`SELDPredictor.tta` swaps in the test-time-augmented forwards
+(seld_tpu_torch.tta); `predict_file(stream=True)` feeds the clip through a
+StreamingSession (seld_tpu_torch.stream), bit-equal to the offline path.
 """
 
 from __future__ import annotations
@@ -37,6 +40,15 @@ from seld_tpu_torch.postprocess import smooth_classes, validate_width
 from seld_tpu_torch.train.checkpoint import load_checkpoint
 
 logger = logging.getLogger(__name__)
+
+
+def bias_background_logits(out: torch.Tensor, bias) -> torch.Tensor:
+    """Class-major (B, T, M, G) grid logits with the background class's
+    (last) row reduced by `bias`, as a new tensor: the one encoding of the
+    decode bias, which the predictor, TTA and evaluation all call."""
+    out = out.clone()
+    out[:, :, -1, :] -= bias
+    return out
 
 
 def validate_accdoa_threshold(threshold, accdoa_mode: bool) -> float:
@@ -149,6 +161,8 @@ class SELDPredictor:
                              "background logit")
         self.accdoa_threshold = validate_accdoa_threshold(accdoa_threshold, self.accdoa_mode)
         self.median_filter = validate_width(median_filter)
+        self._tta_transforms = None
+        self._tta_fold = 1
         logger.info("Predictor: %s from epoch %d on %s",
                     self.cfg.model.model_type, self.epoch, self.device)
 
@@ -158,9 +172,7 @@ class SELDPredictor:
         logits with the background class reduced by bg_bias, or ACCDOA
         vectors."""
         out = self.model(mel)
-        if self.bg_bias:
-            out[:, :, -1, :] -= self.bg_bias
-        return out
+        return bias_background_logits(out, self.bg_bias) if self.bg_bias else out
 
     @torch.inference_mode()
     def _forward(self, mel: torch.Tensor) -> torch.Tensor:
@@ -206,6 +218,48 @@ class SELDPredictor:
             classes = decode_accdoa_to_grid(avg, grid.n_el, grid.n_az, grid.num_classes,
                                             self.accdoa_threshold)
         return classes.cpu().numpy()
+
+    def tta(self, transforms=None, fold: int = 1) -> "SELDPredictor":
+        """Serve with ACS test-time augmentation (seld_tpu_torch.tta): every
+        window is predicted under each selected FOA scene transform (None:
+        all 16), each output mapped back with the exact inverse and the
+        views averaged: mean probabilities (grid, decoded by argmax), mean
+        vectors (single-ACCDOA, thresholded), or class-activity votes
+        (multi-ACCDOA, decode_vote_grid). `fold` views share one forward's
+        batch. Needs features.feature_set "mel_iv". Replaces the plain and
+        the overlap forwards, so streaming and overlap run under TTA too,
+        bit-equal to offline at one fold. Costs len(transforms) forwards a
+        batch."""
+        from seld_tpu_torch.tta import make_tta_forward, validate_transforms
+
+        sel = validate_transforms(transforms)
+        grid = self.cfg.grid
+        tta_fwd = make_tta_forward(self._raw_apply, grid.n_el, grid.n_az,
+                                   self.cfg.features.feature_set, transforms=sel,
+                                   kind=self.kind, activity_threshold=self.accdoa_threshold,
+                                   fold=fold)
+
+        @torch.inference_mode()
+        def forward_tta(mel: torch.Tensor) -> torch.Tensor:
+            avg = tta_fwd(mel)
+            if self.kind == "multi_accdoa":
+                return decode_vote_grid(avg, grid.num_classes)
+            if self.kind == "accdoa":
+                return decode_accdoa_to_grid(avg, grid.n_el, grid.n_az, grid.num_classes,
+                                             self.accdoa_threshold)
+            return torch.argmax(avg, dim=2).to(torch.int8)
+
+        @torch.inference_mode()
+        def forward_probs_tta(mel: torch.Tensor) -> torch.Tensor:
+            # the TTA average is each kind's averageable representation
+            return tta_fwd(mel).to(torch.float16)
+
+        self._forward = forward_tta
+        self._forward_probs = forward_probs_tta
+        self._tta_transforms = sel
+        self._tta_fold = int(fold)
+        logger.info("Predictor: TTA enabled (%d transforms, fold %d)", len(sel), fold)
+        return self
 
     def _batched(self, windows: torch.Tensor, fn):
         """Run fn over batch_windows-sized batches of windows, zero-padding
@@ -281,16 +335,25 @@ class SELDPredictor:
                 row += 1
         return prob_sum[:t_total] / torch.clamp_min(count[:t_total], 1.0)
 
-    def predict_file(self, wav_path, csv_out=None, overlap: float = 0.0) -> Prediction:
+    def predict_file(self, wav_path, csv_out=None, overlap: float = 0.0,
+                     stream: bool = False) -> Prediction:
         """Decode a WAV, predict, and optionally write the metadata rows
-        as CSV."""
+        as CSV. stream=True feeds the clip in 1 s chunks through a
+        StreamingSession (seld_tpu_torch.stream), bit-equal to the offline
+        predict, overlap included."""
         wave, sr = load_wav(wav_path)
         if sr != self.cfg.features.sample_rate:
             raise ValueError(
                 f"{wav_path}: sample rate {sr} != configured "
                 f"{self.cfg.features.sample_rate}"
             )
-        pred = self.predict_waveform(wave, overlap=overlap)
+        if stream:
+            from seld_tpu_torch.stream import stream_predict
+
+            chunks = np.array_split(wave, max(1, wave.shape[1] // sr), axis=1)
+            pred = stream_predict(self, chunks, overlap=overlap)
+        else:
+            pred = self.predict_waveform(wave, overlap=overlap)
         if not (pred.classes != pred.background_class).any():
             logger.warning("%s: no events detected (all cells background)", wav_path)
         if csv_out is not None:

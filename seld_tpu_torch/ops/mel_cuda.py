@@ -21,7 +21,8 @@ n_fft, so two more kernels in the same source take the others, and
 Each kernel reads the frames in place and has its own launch counter.
 `log_mel_frames` launches them for CUDA tensors and raises if a launch
 fails; for CPU tensors, and only for those, it runs
-`log_mel_frames_reference`, the same function as three PyTorch GEMMs.
+`log_mel_frames_reference`, the same function as three PyTorch GEMMs, on
+blocks of CPU_BLOCK_FRAMES frames (`in_frame_blocks`).
 """
 
 from __future__ import annotations
@@ -37,6 +38,11 @@ from seld_tpu_torch.features.mel import hann_window, mel_filterbank
 
 KERNEL_MELS = 64  # the kernel's largest n_mels (K4's filterbank width)
 KERNEL_N_FFT = (512, 960, 1024, 2048)  # n_fft = 64 R, R in (8, 15, 16, 32)
+# A CPU GEMM's row depends on the row count it was called with; the plain
+# versions run on the CPU in blocks of this many frames, the last one
+# zero-padded, so that a frame's features do not depend on how many frames
+# came with it (streaming's bit-equality with the whole clip)
+CPU_BLOCK_FRAMES = 64
 MIXED_N_FFT_RANGE = (64, 4096)  # its n_fft: M = n_fft / 2 from 32 (GCC's 64 lags) to 2048
 _WARP = 32  # lanes of a warp: the kernel's cross-lane FFT length
 _BIN_TILE = 64  # dft_mel_constants pads n_bins to a multiple of it
@@ -300,6 +306,21 @@ def log_mel_frames_reference(frames: torch.Tensor, n_mels: int = 64,
     return (10.0 * torch.log10(torch.clamp_min(mel, amin)))[:, :n_mels].contiguous()
 
 
+def in_frame_blocks(fn, frames: torch.Tensor, axis: int, out_axis: int) -> torch.Tensor:
+    """fn over blocks of CPU_BLOCK_FRAMES frames of `frames` along `axis`,
+    the last block zero-padded; the outputs concatenated along `out_axis`
+    and cut to the frame count."""
+    n = frames.shape[axis]
+    padded = -(-n // CPU_BLOCK_FRAMES) * CPU_BLOCK_FRAMES
+    shape = list(frames.shape)
+    shape[axis] = padded - n
+    frames = torch.cat([frames, frames.new_zeros(shape)], dim=axis)
+    out = torch.cat([fn(block.contiguous())
+                     for block in frames.split(CPU_BLOCK_FRAMES, dim=axis)],
+                    dim=out_axis)
+    return out.narrow(out_axis, 0, n)
+
+
 def _check_frames(frames: torch.Tensor, n_fft: int) -> None:
     if frames.dtype != torch.float32:
         raise TypeError(f"K1 takes float32 frames, got {frames.dtype}")
@@ -353,12 +374,14 @@ def log_mel_frames(frames: torch.Tensor, n_fft: int = 960, n_mels: int = 64,
     `features.mel.frame_signal`'s view of the padded waveform: a CUDA
     tensor is read in place by kernel K1, in one launch on the current
     stream, up to KERNEL_MELS mels, of the kernel `kernel_path(n_fft)`
-    names (`launch`); a CPU tensor goes through `log_mel_frames_reference`.
-    Anything else raises."""
+    names (`launch`); a CPU tensor goes through `log_mel_frames_reference`,
+    in blocks of CPU_BLOCK_FRAMES frames. Anything else raises."""
     _check_frames(frames, n_fft)
     if frames.device.type == "cpu":
-        return log_mel_frames_reference(
-            frames.reshape(-1, n_fft), n_mels, sample_rate, f_min, f_max, amin
+        return in_frame_blocks(
+            lambda block: log_mel_frames_reference(block, n_mels, sample_rate, f_min,
+                                                   f_max, amin),
+            frames.reshape(-1, n_fft), 0, 0,
         ).reshape(*frames.shape[:-1], n_mels)
     return launch(kernel_path(n_fft), frames, n_fft, n_mels, sample_rate, f_min, f_max, amin)
 

@@ -49,6 +49,7 @@ from seld_tpu_torch.ops.mel_cuda import (
     _unit,
     dft_mel_constants,
     fft_mel_plan,
+    in_frame_blocks,
     kernel_path,
     mixed_fft_plan,
     pad_depth,
@@ -277,13 +278,15 @@ def spatial_features(frames: torch.Tensor, feature_set: str, n_mels: int = 64,
     `features.mel.frame_signal`'s view of the padded waveform: a CUDA
     tensor is read in place by kernel K4, in one launch on the current
     stream, up to KERNEL_MELS mels, of the kernel `kernel_path(n_fft)`
-    names (`launch`); a CPU tensor goes through `spatial_features_reference`.
-    Anything else raises."""
+    names (`launch`); a CPU tensor goes through `spatial_features_reference`,
+    in blocks of mel_cuda.CPU_BLOCK_FRAMES frames. Anything else raises."""
     feature_channels(feature_set)  # raises on an unknown set
     _check_frames(frames)
     if frames.device.type == "cpu":
-        return spatial_features_reference(frames, feature_set, n_mels, sample_rate,
-                                          amin, eps)
+        return in_frame_blocks(
+            lambda block: spatial_features_reference(block, feature_set, n_mels,
+                                                     sample_rate, amin, eps),
+            frames, 1, 0)
     return launch(kernel_path(frames.shape[2]), frames, feature_set, n_mels, sample_rate,
                   amin, eps)
 

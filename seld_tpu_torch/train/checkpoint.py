@@ -40,11 +40,14 @@ def _to_cpu(obj):
 
 
 def save_checkpoint(path, model: nn.Module | dict, cfg: Config, epoch: int = 0,
-                    optimizer: torch.optim.Optimizer | None = None, step: int = 0,
+                    optimizer: torch.optim.Optimizer | dict | None = None, step: int = 0,
                     meta: dict | None = None) -> None:
     """Write `model` (a module or a state_dict), `cfg` and, for a file to
-    resume from, the optimizer and step counter to `path`."""
+    resume from, the optimizer (or its state_dict) and step counter to
+    `path`."""
     state = model.state_dict() if isinstance(model, nn.Module) else model
+    if optimizer is not None and not isinstance(optimizer, dict):
+        optimizer = optimizer.state_dict()
     path = Path(path)
     path.parent.mkdir(parents=True, exist_ok=True)
     tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
@@ -53,7 +56,7 @@ def save_checkpoint(path, model: nn.Module | dict, cfg: Config, epoch: int = 0,
             "config": config_to_dict(cfg),
             "state_dict": _to_cpu(state),
             "epoch": int(epoch),
-            "optimizer": None if optimizer is None else _to_cpu(optimizer.state_dict()),
+            "optimizer": _to_cpu(optimizer),
             "step": int(step),
             "meta": dict(meta or {}),
         },
@@ -68,7 +71,7 @@ def load_checkpoint(path) -> tuple[Config, dict[str, torch.Tensor], int]:
     return config_from_dict(blob["config"]), blob["state_dict"], int(blob["epoch"])
 
 
-def _epoch_files(directory: Path) -> list[tuple[int, Path]]:
+def epoch_files(directory: Path) -> list[tuple[int, Path]]:
     """(epoch, file) of every checkpoint in `directory`, oldest first."""
     found = []
     for f in directory.glob("epoch_*.pt"):
@@ -101,7 +104,7 @@ class CheckpointManager:
             meta["select"] = select
         save_checkpoint(path, state.model, self.cfg, epoch, state.optimizer,
                         state.step, meta)
-        others = [f for _, f in _epoch_files(directory) if f != path]
+        others = [f for _, f in epoch_files(directory) if f != path]
         for stale in others[:max(len(others) - (keep - 1), 0)]:
             stale.unlink()
         return path
@@ -115,7 +118,7 @@ class CheckpointManager:
                           epoch, state, train_loss, test_loss)
 
     def best_path(self) -> Path | None:
-        files = _epoch_files(self.best_dir)
+        files = epoch_files(self.best_dir)
         return files[-1][1] if files else None
 
     def best_meta(self) -> dict | None:
@@ -138,20 +141,20 @@ class CheckpointManager:
 
     def restore_best(self, state: TrainState):
         """Load the best checkpoint into `state` -> (state, meta) or None."""
-        return self._restore(_epoch_files(self.best_dir), state)
+        return self._restore(epoch_files(self.best_dir), state)
 
     def restore_latest(self, state: TrainState):
         """Resume point: load the newest rolling checkpoint into `state`
         (weights, optimizer moments and learning rate, step counter)
         -> (state, meta) or None."""
-        return self._restore(_epoch_files(self.rolling_dir), state)
+        return self._restore(epoch_files(self.rolling_dir), state)
 
 
 def checkpoint_file(directory, kind: str) -> Path | None:
     """The newest file of a run's "best" or "latest" (rolling) checkpoints,
     or None; creates nothing."""
     sub = {"best": "best", "latest": "rolling"}[kind]
-    files = _epoch_files(Path(directory).absolute() / sub)
+    files = epoch_files(Path(directory).absolute() / sub)
     return files[-1][1] if files else None
 
 
@@ -159,7 +162,7 @@ def load_checkpoint_config(directory) -> Config | None:
     """The config stored inside a run's checkpoint tree."""
     directory = Path(directory).absolute()
     for sub in ("best", "rolling"):
-        files = _epoch_files(directory / sub)
+        files = epoch_files(directory / sub)
         if files:
             return load_checkpoint(files[-1][1])[0]
     return None

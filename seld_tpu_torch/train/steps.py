@@ -31,6 +31,7 @@ import torch.distributed as dist
 from torch import nn
 
 from seld_tpu_torch import no_tf32
+from seld_tpu_torch.infer import bias_background_logits
 from seld_tpu_torch.losses import SELDLossFn
 from seld_tpu_torch.losses.seld_loss import _bit_labels
 from seld_tpu_torch.ops.attention import attention_mesh
@@ -202,7 +203,8 @@ def _gather_grids(mesh, time_sharded: bool, grid: torch.Tensor) -> torch.Tensor:
 def make_metric_eval_step(model: nn.Module, loss_fn: SELDLossFn, num_classes: int,
                           bg_bias: float = 0.0, bias_sweep=None, mesh=None,
                           time_sharded: bool = False, accdoa_decoder=None,
-                          accdoa_threshold: float = 0.5, threshold_sweep=None):
+                          accdoa_threshold: float = 0.5, threshold_sweep=None,
+                          tta_decode=None):
     """An eval step that also decodes class grids, for checkpoint selection
     on a validation metric (train.select_metric) and for `evaluate_model`.
 
@@ -220,6 +222,10 @@ def make_metric_eval_step(model: nn.Module, loss_fn: SELDLossFn, num_classes: in
     bias_sweep's place, and the loss is loss_fn(vectors, loss_targets,
     example_mask) on the raw vectors.
 
+    tta_decode(mel) -> (pred_cls, swept grids or None) takes the decode's
+    place: the grids of a test-time-augmented forward (evaluate_model's
+    `tta_transforms`, one device), the loss still from the plain forward.
+
     With a `mesh` the step takes the global batch, runs this rank's block
     and returns the global metrics and grids: the argmax decode is per
     cell, so each rank decodes its block and the blocks are gathered."""
@@ -229,8 +235,7 @@ def make_metric_eval_step(model: nn.Module, loss_fn: SELDLossFn, num_classes: in
 
         def decode(logits, bias):
             if bias:
-                logits = logits.clone()
-                logits[:, :, -1, :] -= bias
+                logits = bias_background_logits(logits, bias)
             return torch.argmax(logits, dim=2).to(torch.int8)
     else:
         knob, sweep, decode = accdoa_threshold, threshold_sweep, accdoa_decoder
@@ -248,9 +253,12 @@ def make_metric_eval_step(model: nn.Module, loss_fn: SELDLossFn, num_classes: in
         def gather(grid):
             return _gather_grids(mesh, time_sharded, grid)
 
-        result = (_global_metrics(mesh, {"loss": total, **breakdown}),
-                  gather(decode(out, knob)),
-                  gather(_bit_labels(label_mask, num_classes).to(torch.int8)))
+        metrics = _global_metrics(mesh, {"loss": total, **breakdown})
+        labels = _bit_labels(label_mask, num_classes).to(torch.int8)
+        if tta_decode is not None:
+            pred, swept = tta_decode(mel)
+            return (metrics, pred, labels) + (() if swept is None else (swept,))
+        result = (metrics, gather(decode(out, knob)), gather(labels))
         if sweep is not None:
             result += (torch.stack([gather(decode(out, k)) for k in sweep]),)
         return result

@@ -103,8 +103,9 @@ def _calib(knob, model_type, feature_set="mel", **extra):
     ({"accdoa_threshold": 0.3}, "multi_accdoa_conformer", "mel"),
 ])
 def test_calibration_files_round_trip_between_the_packages(tmp_path, knob, model_type,
-                                                           feature_set):
-    calib = _calib(knob, model_type, feature_set)
+                                                           feature_set, tta=None):
+    calib = _calib(knob, model_type, feature_set,
+                   **({} if tta is None else {"tta": True, "tta_transforms": tta}))
     over = [f"model.model_type={model_type}", f"features.feature_set={feature_set}"]
     jax_calibrate.write_calibration(calib, tmp_path / "jax.json")
     got = port_calibrate.load_calibration(tmp_path / "jax.json")
@@ -119,14 +120,28 @@ def test_calibration_files_round_trip_between_the_packages(tmp_path, knob, model
         port_calibrate.check_calibration_matches(got, other)
 
 
+@pytest.mark.parametrize("knob,model_type,feature_set", [
+    ({"bg_bias": 0.5}, "resnet_conformer", "mel_iv"),
+    ({"accdoa_threshold": 0.3}, "multi_accdoa_conformer", "mel_iv"),
+])
+def test_tta_calibration_files_round_trip_between_the_packages(tmp_path, knob, model_type,
+                                                               feature_set):
+    test_calibration_files_round_trip_between_the_packages(tmp_path, knob, model_type,
+                                                           feature_set, tta=[0, 5, 10])
+
+
 @pytest.mark.parametrize("extra,match", [
-    ({"tta": True, "tta_transforms": [0, 4]}, "ROADMAP item 8"),
-    ({"int8": True}, "ROADMAP item 9"),
+    # test-time augmentation is ported: its file loads
+    pytest.param({"tta": True, "tta_transforms": [0, 4]}, None, id="extra0-ROADMAP item 8"),
+    pytest.param({"int8": True}, "ROADMAP item 9", id="extra1-ROADMAP item 9"),
 ])
 def test_calibration_of_an_unported_decode_path_names_its_roadmap_item(tmp_path, extra, match):
-    jax_calibrate.write_calibration(_calib({"bg_bias": 1.0}, "resnet_conformer", **extra),
-                                    tmp_path / "c.json")
+    calib = _calib({"bg_bias": 1.0}, "resnet_conformer", **extra)
+    jax_calibrate.write_calibration(calib, tmp_path / "c.json")
     jax_calibrate.load_calibration(tmp_path / "c.json")  # a valid JAX file
+    if match is None:
+        assert port_calibrate.load_calibration(tmp_path / "c.json") == calib
+        return
     with pytest.raises(NotImplementedError, match=match):
         port_calibrate.load_calibration(tmp_path / "c.json")
 
@@ -268,3 +283,37 @@ def test_cli_train_eval_calibrate_predict_score(tmp_path, family):
         port_main(["predict", "--checkpoint", str(best), "--wavs", wavs[0], "--out",
                    str(tmp_path / "x"), "--device", "cpu", "--calibration",
                    str(tmp_path / "other.json")])
+
+
+def test_predict_calibration_of_a_tta_file_turns_tta_on(tmp_path):
+    """A file tuned under TTA serves under TTA with its transforms: the CSV
+    equals the same knobs and transforms given as flags; an explicit
+    --tta-transforms wins over the file's."""
+    from seld_tpu_torch.data.audio import write_wav
+    from seld_tpu_torch.models import build_model
+    from seld_tpu_torch.train.checkpoint import save_checkpoint
+
+    cfg = pc.parse_overrides(pc.Config(), [*TINY_CLI, "model.model_type=conformer",
+                                           "features.feature_set=mel_iv"])
+    model = build_model(cfg.model, cfg.grid, device="cpu", seed=3, in_channels=7)
+    save_checkpoint(tmp_path / "m.pt", model, cfg)
+    port_calibrate.write_calibration(
+        _calib({"bg_bias": 0.25}, "conformer", "mel_iv", tta=True, tta_transforms=[0, 6]),
+        tmp_path / "c.json")
+    wave = (0.2 * np.random.default_rng(4).standard_normal((4, 36_000))).astype(np.float32)
+    write_wav(tmp_path / "x.wav", wave, 24_000)
+    outs = {}
+    for name, flags in (("file", ["--calibration", str(tmp_path / "c.json")]),
+                        ("flags", ["--bg-bias", "0.25", "--median-filter", "3",
+                                   "--tta-transforms", "0,6"]),
+                        ("plain", ["--bg-bias", "0.25", "--median-filter", "3"]),
+                        ("wins", ["--calibration", str(tmp_path / "c.json"),
+                                  "--tta-transforms", "0,6,12"]),
+                        ("wins_flags", ["--bg-bias", "0.25", "--median-filter", "3",
+                                        "--tta-transforms", "0,6,12"])):
+        assert port_main(["predict", "--checkpoint", str(tmp_path / "m.pt"), "--wavs",
+                          str(tmp_path / "x.wav"), "--out", str(tmp_path / name), "--device",
+                          "cpu", *flags]) == 0
+        outs[name] = (tmp_path / name / "predictions" / "x.csv").read_text()
+    assert outs["file"] == outs["flags"] != outs["plain"]
+    assert outs["wins"] == outs["wins_flags"]

@@ -1077,3 +1077,73 @@ def test_multi_accdoa_at_long_windows_runs_k3_on_card(cuda_device):
             flash_attention.bwd_dkv_launches) == (n, n, n)
     assert (grid_loss_terms.fwd_launches, grid_loss_terms.bwd_launches) == (0, 0)
     assert torch.isfinite(metrics["loss"]) and list(metrics) == ["loss", "adpit"]
+
+
+def _tiny_predictor(cuda_device, tmp_path, feature_set, batch_windows=3):
+    """A seeded float32 tiny Conformer on `feature_set`, saved and served."""
+    from seld_tpu_torch.features.spatial import feature_channels
+    from seld_tpu_torch.infer import SELDPredictor
+    from seld_tpu_torch.models import build_model
+    from seld_tpu_torch.train.checkpoint import save_checkpoint
+
+    cfg = _port_cfg(["model.model_type=conformer", "model.crnn_cnn_channels=8,16",
+                     "model.conf_d_model=32", "model.conf_n_heads=2", "model.conf_n_layers=1",
+                     "model.compute_dtype=float32", "window.window_seconds=0.4",
+                     f"features.feature_set={feature_set}"])
+    model = build_model(cfg.model, cfg.grid, device=cuda_device, seed=0,
+                        in_channels=feature_channels(feature_set))
+    save_checkpoint(tmp_path / f"{feature_set}.pt", model, cfg)
+    return SELDPredictor(tmp_path / f"{feature_set}.pt", batch_windows=batch_windows,
+                         device=cuda_device)
+
+
+@pytest.mark.parametrize("feature_set", ["mel", "mel_iv"])
+@pytest.mark.parametrize("overlap", [0.0, 0.5])
+def test_stream_equals_offline_on_card(cuda_device, tmp_path, feature_set, overlap):
+    """Streaming on the card: each frame block one K1 ("mel") or K4
+    ("mel_iv") launch on the uploaded segment's strided view, the classes
+    bit-equal to the offline predict for several chunkings and tiny clips."""
+    import numpy as np
+
+    from seld_tpu_torch.stream import StreamingSession
+
+    pred = _tiny_predictor(cuda_device, tmp_path, feature_set)
+    kernel = log_mel_frames if feature_set == "mel" else spatial_features
+    wave = (0.2 * np.random.default_rng(1).standard_normal((4, 77_777))).astype(np.float32)
+    for n in (100, 479, 481, 700, wave.shape[1]):
+        clip = wave[:, :n]
+        want = pred.predict_waveform(clip, overlap=overlap).classes
+        for size in (480, 8_888, 24_000, n):
+            s = StreamingSession(pred, overlap=overlap)
+            kernel.launches = 0
+            parts = [c for i in range(0, n, size) for _, c in s.push(clip[:, i:i + size])]
+            parts += [c for _, c in s.flush()]
+            torch.cuda.synchronize()
+            assert kernel.launches == s.frame_blocks >= 1
+            np.testing.assert_array_equal(np.concatenate(parts), want, err_msg=f"{n} {size}")
+
+
+def test_tta16_launch_counts_on_card(cuda_device, tmp_path):
+    """TTA16 on "mel_iv": K4 once per predict (the views permute the
+    features), 16 model forwards per batch of windows (8 at fold 2), and
+    identity TTA bit-equal to the plain predict."""
+    import numpy as np
+
+    pred = _tiny_predictor(cuda_device, tmp_path, "mel_iv", batch_windows=2)
+    wave = (0.2 * np.random.default_rng(2).standard_normal((4, 3 * 24_000))).astype(np.float32)
+    plain = pred.predict_waveform(wave).classes
+    calls = []
+    pred.model.register_forward_hook(lambda m, i, o: calls.append(i[0].shape[0]))
+    n_windows = -(-(1 + wave.shape[1] // 480) // pred.win)
+    batches = -(-n_windows // 2)
+    for transforms, fold, forwards in (((0,), 1, batches), (None, 1, 16 * batches),
+                                       (None, 2, 8 * batches)):
+        pred.tta(transforms, fold=fold)
+        calls.clear()
+        spatial_features.launches = 0
+        got = pred.predict_waveform(wave).classes
+        torch.cuda.synchronize()
+        assert spatial_features.launches == 1
+        assert len(calls) == forwards and set(calls) == {2 * fold}
+        if transforms == (0,):
+            np.testing.assert_array_equal(got, plain)

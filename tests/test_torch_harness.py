@@ -39,7 +39,8 @@ def test_import_leaves_jax_and_seld_tpu_out():
         "seld_tpu_torch.train.completion, seld_tpu_torch.ops.flash_attention, "
         "seld_tpu_torch.ops.spatial_cuda, seld_tpu_torch.features.acs, "
         "seld_tpu_torch.features.specaugment, seld_tpu_torch.targets.gaussian, "
-        "seld_tpu_torch.data.cache\n"
+        "seld_tpu_torch.data.cache, seld_tpu_torch.stream, seld_tpu_torch.tta, "
+        "seld_tpu_torch.tools.average_ckpt\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'seld_tpu'))\n"
         "print(bad)\n"
@@ -221,7 +222,8 @@ def test_k1_wrapper_takes_plain_version_for_cpu_tensors(monkeypatch):
     monkeypatch.setattr(mel_cuda, "log_mel_frames_reference", spy)
     before = mel_cuda.log_mel_frames.launches
     out = mel_cuda.log_mel_frames(torch.zeros((5, 960)))
-    assert calls == [(5, 960)] and out.shape == (5, 64)
+    # one block of CPU_BLOCK_FRAMES frames, the 5 given and zero rows
+    assert calls == [(mel_cuda.CPU_BLOCK_FRAMES, 960)] and out.shape == (5, 64)
     assert mel_cuda.log_mel_frames.launches == before  # no kernel launched
 
 

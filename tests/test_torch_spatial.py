@@ -39,7 +39,7 @@ from seld_tpu_torch.features import spatial as port_spatial
 from seld_tpu_torch.features.mel import frame_signal
 from seld_tpu_torch.infer import SELDPredictor
 from seld_tpu_torch.models import build_model as build_port_model
-from seld_tpu_torch.ops import spatial_cuda
+from seld_tpu_torch.ops import mel_cuda, spatial_cuda
 from seld_tpu_torch.ops.mel_cuda import KERNEL_N_FFT, bit_reverse5, kernel_path
 from seld_tpu_torch.ops.spatial_cuda import (
     check_kernel_shape,
@@ -228,7 +228,8 @@ def test_k4_wrapper_takes_plain_version_for_cpu_tensors(monkeypatch):
     monkeypatch.setattr(spatial_cuda, "spatial_features_reference", spy)
     before = spatial_features.launches
     out = spatial_features(torch.zeros((4, 5, NFFT)), "mel_gcc")
-    assert calls == [(4, 5, NFFT)] and out.shape == (5, 10, 64)
+    # one block of CPU_BLOCK_FRAMES frames, the 5 given and zero frames
+    assert calls == [(4, mel_cuda.CPU_BLOCK_FRAMES, NFFT)] and out.shape == (5, 10, 64)
     assert spatial_features.launches == before  # no kernel launched
 
 

@@ -168,10 +168,35 @@ Phases, each of which raises on failure:
      --tta`, `predict --calibration` (TTA turned on by the file: the CSV of
      `predict --tta` with its knobs), and `predict --stream --tta --overlap
      0.5` of the seeded mel_iv flagship (the CSV of `--tta --overlap 0.5`).
-It prints the launch counts of phases 9, 10, 14 and 15, one JSON line of
-kernel figures (each row's `launches_accdoa`: its launches on phase 14's
-paths; `launches_stream` and `launches_tta`: on phase 15's), the
-nvidia-smi line, and last {"ok": true, "device": {...}}.
+ 16. the serving daemon and the artifact on the full-width flagship, seeded
+     weights: the slot check (does a row's output depend on its batch slot,
+     or on the rows beside it? each row of a batch of 8 alone among zeros
+     in every slot, in its own slot among another stream's windows, the
+     batch permuted and run twice, bit for bit, at T = 250 and 1000 on mel
+     and mel_iv); K3's host µs a forward through launch_forward and through
+     the operator seld_tpu_torch::flash_attention_fwd, in turns; export at
+     T = 250 and 1000 on mel and mel_iv (the operator 4 times in each
+     program's graph at T = 1000, 0 at T = 250; the artifact's 60 s predict
+     bit-equal to the checkpoint's at overlap 0 and 0.5; K1 or K4 once and
+     K3 forward 4 a forward through the artifact; both predicts timed; the
+     artifact's size on disk; the T = 1000 mel artifact written by `cli
+     export` of a run's best checkpoint); SELDServer on 127.0.0.1:0 serving 1 and 4
+     concurrent streams of the 60 s clip in 1 s chunks with and without
+     --batch-streams at overlap 0 and 0.5, 4 streams in chunks of 1, 0.7,
+     1.3 and 1.9 s (batching must run fewer forwards than the device
+     lock), and 4 batched streams at T = 1000 (every stream equal to
+     offline, K1 / K4 launches equal to the streams' frame blocks, K3
+     forward 4 a forward; per-stream wall ms and audio-seconds served per
+     second); `cli serve --artifact --port 0 --max-streams 2
+     --batch-streams` of the T = 1000 mel artifact in a new process (the
+     program loaded there, K3's operator in it), two streams equal to the
+     artifact's offline predict; the phase's steps timed; peak memory.
+It prints the launch counts of phases 9, 10, 14, 15 and 16, one JSON line
+of kernel figures (each row's `launches_accdoa`: its launches on phase
+14's paths; `launches_stream` and `launches_tta`: on phase 15's;
+`launches_served` and `launches_artifact` on K1, K3 forward and K4: on
+phase 16's; K3 forward's `host_us_operator`), the nvidia-smi line, and
+last {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -3352,6 +3377,355 @@ def phase_serving(dev: torch.device) -> dict:
     return found
 
 
+SLOT_CASES = (("mel", 250), ("mel_iv", 250), ("mel", 1000), ("mel_iv", 1000))
+
+
+def clip_waves(n: int, sr: int = 24_000) -> list:
+    """n seeded 60 s clips, the first of them the clip every phase serves."""
+    return [(0.1 * np.random.default_rng(seed).standard_normal((4, CLIP_SECONDS * sr))
+             ).astype(np.float32) for seed in range(n)]
+
+
+def slot_check(pred, windows: torch.Tensor, tag: str) -> dict:
+    """Does a row's output depend on its batch slot, or on the rows beside
+    it? One batch of batch_windows windows through _raw_apply (float32
+    logits), then: the same batch again (determinism); the batch permuted
+    (reversed, then rolled by 3); each row alone among zeros in every slot;
+    each row in its own slot among another stream's windows. Every
+    comparison is bit for bit against the row in the first batch."""
+    bw = pred.batch_windows
+    rows, others = windows[:bw], windows[bw:2 * bw]
+    base = pred._raw_apply(rows)
+    again = bool(torch.equal(pred._raw_apply(rows), base))
+    perm = torch.roll(torch.arange(bw - 1, -1, -1), 3).to(rows.device)
+    permuted = pred._raw_apply(rows[perm])
+    diffs = [(permuted - base[perm]).abs().max().item()]
+    own_zeros = own_beside = other_slots = 0
+    for i in range(bw):
+        for slot in range(bw):
+            batch = torch.zeros_like(rows)
+            batch[slot] = rows[i]
+            got = pred._raw_apply(batch)[slot]
+            diffs.append((got - base[i]).abs().max().item())
+            if slot == i:
+                own_zeros += bool(torch.equal(got, base[i]))
+            else:
+                other_slots += bool(torch.equal(got, base[i]))
+        mixed = others.clone()
+        mixed[i] = rows[i]
+        own_beside += bool(torch.equal(pred._raw_apply(mixed)[i], base[i]))
+    found = {"deterministic": again, "permuted": bool(torch.equal(permuted, base[perm])),
+             "own_slot_among_zeros": own_zeros, "own_slot_among_others": own_beside,
+             "other_slots": other_slots,
+             "neighbours_matter": own_zeros < bw or own_beside < bw,
+             "slot_matters": other_slots < bw * (bw - 1)}
+    print(f"[slots] {tag} batch of {bw}: the batch twice bit-equal {again}; permuted "
+          f"{found['permuted']}; each row in its own slot among zeros bit-equal {own_zeros} of "
+          f"{bw}, among another stream's windows {own_beside} of {bw}; alone in another slot "
+          f"{other_slots} of {bw * (bw - 1)}; largest logit difference {max(diffs):.3e}")
+    return found
+
+
+def program_ops(path: Path) -> int:
+    """The nodes of an exported program that call K3's forward operator."""
+    with open(path, "rb") as f:
+        graph = torch.export.load(f).graph
+    return sum("flash_attention_fwd" in str(n.target) for n in graph.nodes)
+
+
+def k3_host_us_by_route(dev) -> dict:
+    """Host µs of one K3 forward at the main path's shape (B*H = 128,
+    T = 1000, Dh = 64, bf16), no synchronize between calls: launch_forward
+    (the eager route, as phase 3 times it) and the operator an exported
+    program calls, in turns."""
+    from seld_tpu_torch.ops import flash_attention as k3
+
+    q, k, v, _ = k3_case(dev, 16, 8, 1000, 64, torch.bfloat16, seed=3)
+    scale = 64 ** -0.5
+    routes = {"launch_forward": lambda: k3.launch_forward(q, k, v, scale),
+              "operator": lambda: torch.ops.seld_tpu_torch.flash_attention_fwd(q, k, v, scale)}
+    found = defaultdict(list)
+    with torch.no_grad():
+        eager = k3.launch_forward(q, k, v, scale)
+        via_op = routes["operator"]()
+        if not all(torch.equal(a, b) for a, b in zip(eager, via_op)):
+            raise AssertionError("K3's operator differs from launch_forward")
+        for name in ("launch_forward", "operator", "operator", "launch_forward"):
+            found[name].append(host_us(routes[name]))
+    print(f"[K3 op] host µs of one forward at B*H = 128, T = 1000, Dh = 64, bf16 (200 calls "
+          f"each, in turns): launch_forward {found['launch_forward']}, the operator "
+          f"seld_tpu_torch::flash_attention_fwd {found['operator']}; outputs bit-equal")
+    return {k: float(np.median(v)) for k, v in found.items()}
+
+
+def export_check(dev, live, export, out: Path, waves: list, tag: str) -> dict:
+    """export() writes the artifact `out` of the checkpoint `live` serves;
+    then: K3's operator in both programs' graphs (4 at T >= 512, else 0),
+    the artifact-backed predict of the 60 s clip bit-equal to the
+    checkpoint-backed one at overlap 0 and 0.5, its launches (K1 or K4 once,
+    K3 forward 4 a forward at T >= 512), both predicts timed, and the
+    artifact's size on disk."""
+    from seld_tpu_torch.infer import SELDPredictor
+
+    t0 = time.perf_counter()
+    export()
+    export_s = time.perf_counter() - t0
+    art = SELDPredictor.from_artifact(out, device=dev)
+    flash = live.win >= 512
+    ops = (program_ops(out), program_ops(Path(f"{out}.probs")))
+    if ops != ((4, 4) if flash else (0, 0)):
+        raise AssertionError(f"{tag} K3's operator in the programs' graphs: {ops}")
+    wave = waves[0]
+    for overlap in (0.0, 0.5):
+        if not np.array_equal(art.predict_waveform(wave, overlap=overlap).classes,
+                              live.predict_waveform(wave, overlap=overlap).classes):
+            raise AssertionError(f"{tag} artifact predict at overlap {overlap} differs")
+    key = "k1" if live.cfg.features.feature_set == "mel" else "k4"
+    windows = -(-(1 + wave.shape[1] // live.cfg.features.hop_length) // live.win)
+    forwards = -(-windows // 8)
+    reset_launches()
+    art.predict_waveform(wave)
+    counts = launches()
+    if counts != only(**{key: 1, "k3_fwd": 4 * forwards if flash else 0}):
+        raise AssertionError(f"{tag} artifact predict launches {counts}")
+    art_ms, art_times, art_gib = timed_predict(lambda: art.predict_waveform(wave))
+    live_ms, live_times, live_gib = timed_predict(lambda: live.predict_waveform(wave))
+    size = sum(Path(f"{out}{s}").stat().st_size for s in ("", ".probs", ".json"))
+    print(f"[export] {tag}: export {export_s:.1f} s; K3's operator in the graphs {ops}; "
+          f"artifact predict bit-equal to the checkpoint's at overlap 0 and 0.5; launches "
+          f"{counts} ({forwards} forwards); {CLIP_SECONDS} s clip: artifact {art_ms:.2f} ms "
+          f"(median of {', '.join(f'{x:.2f}' for x in art_times)}; peak {art_gib:.2f} GiB), "
+          f"checkpoint {live_ms:.2f} ms (median of {', '.join(f'{x:.2f}' for x in live_times)}; "
+          f"peak {live_gib:.2f} GiB); artifact on disk {size / 1e6:.1f} MB")
+    return {"launches": counts, "artifact_ms": art_ms, "checkpoint_ms": live_ms,
+            "megabytes": size / 1e6, "export_s": export_s}
+
+
+def phase_artifact_checks(dev: torch.device, root: Path) -> tuple[dict, list]:
+    """Phase 16's first half: the slot check, K3's host µs by route and the
+    exports at T = 250 and 1000 on mel and mel_iv (SLOT_CASES' order; the
+    T = 1000 mel one through `cli export` of a run's best checkpoint, the
+    others through export_serving); returns ({tag: export_check's dict,
+    "slots": the slot finding}, [(checkpoint, its predictor)] in
+    SLOT_CASES' order; each one's artifact is root/<its stem>.pt2)."""
+    from seld_tpu_torch import cli
+    from seld_tpu_torch.export import export_serving
+    from seld_tpu_torch.infer import SELDPredictor
+
+    waves = clip_waves(4)
+    found, preds, slots = {}, {}, {}
+    for feature_set, t in SLOT_CASES:
+        tag = f"{feature_set} T = {t}"
+        path = seeded_checkpoint(root / f"{feature_set}_{t}.pt", [
+            f"features.feature_set={feature_set}",
+            f"window.window_seconds={t * 0.02:g}"], dev)
+        preds[tag] = (path, SELDPredictor(path, batch_windows=8, device=dev))
+        windows = torch.cat([padded_windows(preds[tag][1], w)[0] for w in waves])
+        slots[tag] = slot_check(preds[tag][1], windows, tag)
+        del windows
+    slot_matters = any(f["slot_matters"] for f in slots.values())
+    neighbours_matter = any(f["neighbours_matter"] for f in slots.values())
+    print(f"[slots] finding, at T = 250 and 1000 on mel and mel_iv: a row's output "
+          f"{'DEPENDS' if slot_matters else 'does not depend'} on its batch slot, and "
+          f"{'DEPENDS' if neighbours_matter else 'does not depend'} on the rows beside it")
+    found["k3 host us"] = k3_host_us_by_route(dev)
+    for i, (tag, (path, pred)) in enumerate(preds.items()):
+        out = root / f"{path.stem}.pt2"
+        if i == 2:  # the CLI: the run's newest best checkpoint, no --checkpoint
+            run = root / "run"
+            (run / "checkpoints" / "best").mkdir(parents=True)
+            shutil.copy(path, run / "checkpoints" / "best" / "epoch_0003.pt")
+            def export(argv=("export", f"data.base_path={run}", "--out", str(out))):
+                if cli.main(list(argv)) != 0:
+                    raise AssertionError("cli export failed")
+        else:
+            export = lambda path=path, out=out: export_serving(path, out, batch_windows=8,
+                                                               device=dev)
+        found[tag] = export_check(dev, pred, export, out, waves, f"[{tag}]")
+    found["slots"] = slots
+    return found, list(preds.values())
+
+
+def frame_blocks_of(pred, chunks, overlap: float) -> int:
+    """The frame blocks (K1 or K4 launches) a StreamingSession makes of the
+    chunks, counted by a session that runs no window."""
+    from seld_tpu_torch.stream import StreamingSession
+
+    s = StreamingSession(pred, overlap=overlap)
+    s._emit_ready = lambda final: []
+    for chunk in chunks:
+        s.push(chunk)
+    s.flush()
+    return s.frame_blocks
+
+
+def serve_streams(pred, wave, chunk_seconds: list, overlap: float, batch: bool,
+                  tag: str, wait_s: float = 0.0) -> dict:
+    """A SELDServer on 127.0.0.1:0 serving one stream of the clip per entry
+    of chunk_seconds (that stream's chunk length), all at once, each through
+    stream_client in its own thread: every stream's classes equal to the
+    offline predict; K1 or K4 launches equal to the streams' frame blocks
+    and K3 forward 4 a model forward at T >= 512; each stream's wall ms and
+    the audio-seconds served per second."""
+    import threading
+
+    from seld_tpu_torch.serve import SELDServer, stream_client
+
+    sr = pred.cfg.features.sample_rate
+    key = "k1" if pred.cfg.features.feature_set == "mel" else "k4"
+    offline = pred.predict_waveform(wave, overlap=overlap).classes
+    streams = [chunked(wave, c, sr) for c in chunk_seconds]
+    blocks = sum(frame_blocks_of(pred, chunks, overlap) for chunks in streams)
+    forwards = []
+    hook = pred.model.register_forward_hook(lambda m, i, o: forwards.append(1)) \
+        if pred.model is not None else None
+    server = SELDServer(pred, port=0, batch_streams=batch, batch_wait_s=wait_s)
+    serving = server.serve_background()
+    results, walls = {}, {}
+
+    def run(k):
+        t0 = time.perf_counter()
+        results[k] = stream_client("127.0.0.1", server.port, streams[k], overlap=overlap,
+                                   timeout=300)[0]
+        walls[k] = (time.perf_counter() - t0) * 1e3
+
+    threads = [threading.Thread(target=run, args=(k,)) for k in range(len(streams))]
+    try:
+        reset_launches()
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        total_s = time.perf_counter() - t0
+        counts = launches()
+    finally:
+        server.shutdown()
+        server.server_close()
+        serving.join(timeout=60)
+        if hook is not None:
+            hook.remove()
+    if any(t.is_alive() for t in threads) or len(results) != len(streams):
+        raise AssertionError(f"{tag}: a stream did not finish")
+    for k, classes in results.items():
+        if classes.shape != offline.shape or not np.array_equal(classes, offline):
+            raise AssertionError(f"{tag}: stream {k} differs from the offline predict")
+    calls = server.batcher.batches_run if batch else len(forwards)
+    want = only(**{key: blocks, "k3_fwd": 4 * calls if pred.win >= 512 else 0})
+    if counts != want:
+        raise AssertionError(f"{tag}: launches {counts}, want {want}")
+    served = len(streams) * wave.shape[1] / sr / total_s
+    print(f"[serve] {tag}: {len(streams)} stream(s) of the {CLIP_SECONDS} s clip in "
+          f"{'/'.join(f'{c:g}' for c in chunk_seconds)} s chunks, overlap {overlap:g}, "
+          f"{f'batched, wait {wait_s * 1e3:g} ms' if batch else 'device lock'}: every stream "
+          f"equal to offline "
+          f"({offline.size} cells each); {key.upper()} {counts[key]} launches = frame blocks "
+          f"{blocks}; {calls} forwards ({'batches_run' if batch else 'solo'}), K3 forward "
+          f"{counts['k3_fwd']}; per-stream wall ms "
+          f"{', '.join(f'{walls[k]:.1f}' for k in sorted(walls))}; "
+          f"{served:.1f} audio-s served per s")
+    return {"launches": counts, "forwards": calls, "wall_ms": [walls[k] for k in sorted(walls)],
+            "audio_s_per_s": served}
+
+
+def cli_chain(dev, art: Path, wave) -> dict:
+    """`cli serve --artifact ART --port 0 --max-streams 2 --batch-streams`
+    in a new process (which loads the artifact alone), driven by two
+    concurrent streams of stream_client: both equal to the artifact's
+    offline predict in this process, and the server exits by itself."""
+    import threading
+
+    from seld_tpu_torch.infer import SELDPredictor
+    from seld_tpu_torch.serve import stream_client
+
+    offline = SELDPredictor.from_artifact(art, device=dev).predict_waveform(wave).classes
+    proc = subprocess.Popen([sys.executable, "-m", "seld_tpu_torch.cli", "serve", "--artifact",
+                             str(art), "--port", "0", "--max-streams", "2", "--batch-streams"],
+                            cwd=ROOT, stderr=subprocess.PIPE, text=True)
+    try:
+        port = None
+        t0 = time.perf_counter()
+        for line in proc.stderr:
+            found = re.search(r"Serving \S+ on 127\.0\.0\.1:(\d+)", line)
+            if found:
+                port = int(found.group(1))
+                break
+        if port is None:
+            raise AssertionError("cli serve printed no Serving line")
+        ready_s = time.perf_counter() - t0
+        results = {}
+        chunks = chunked(wave, None, 24_000)
+        threads = [threading.Thread(target=lambda k=k: results.setdefault(
+            k, stream_client("127.0.0.1", port, chunks, timeout=300)[0])) for k in range(2)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        rc = proc.wait(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    if rc != 0 or len(results) != 2 or not all(np.array_equal(c, offline)
+                                                for c in results.values()):
+        raise AssertionError(f"cli serve --artifact: rc {rc}, {len(results)} streams")
+    print(f"[cli] serve --artifact {art.name} (from cli export) --port 0 --max-streams 2 "
+          f"--batch-streams in a new process (ready in {ready_s:.1f} s): two concurrent "
+          f"streams of stream_client, each equal to the artifact's offline predict in this "
+          f"process; the server exited with rc {rc} after them")
+    return {"ready_s": ready_s}
+
+
+def phase_daemon(dev: torch.device) -> dict:
+    """Phase 16: the serving daemon and the artifact on the full-width
+    flagship (seeded weights): the slot check, K3's host µs by route, the
+    exports at T = 250 and 1000 on mel and mel_iv, the daemon at 1 and 4
+    streams with and without batching at overlap 0 and 0.5, 4 streams that
+    drift apart, T = 1000 once, and `cli serve` of the T = 1000 artifact
+    that `cli export` wrote in a new process. Returns every path's
+    launches."""
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    steps = {}
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        root = Path(tmp)
+        found, ((_, short_mel), _, (long_mel, _), (_, long_iv)) = phase_artifact_checks(dev,
+                                                                                     root)
+        steps["slot check and exports"] = time.perf_counter() - t_phase
+        wave = clip_waves(1)[0]
+        for overlap in (0.0, 0.5):
+            for n in (1, 4):
+                for batch in (False, True):
+                    tag = f"mel T = 250 {n} stream{'s' if n > 1 else ''} overlap {overlap:g} " \
+                          f"{'batched' if batch else 'solo'}"
+                    found[f"serve {tag}"] = serve_streams(short_mel, wave, [1.0] * n, overlap,
+                                                          batch, f"[{tag}]")
+        mixed = (1.0, 0.7, 1.3, 1.9)  # streams that drift apart: their next slots differ
+        for batch in (False, True):
+            tag = f"mel T = 250 4 streams mixed chunks {'batched' if batch else 'solo'}"
+            found[f"serve {tag}"] = serve_streams(short_mel, wave, list(mixed), 0.0, batch,
+                                                  f"[{tag}]")
+        solo = found["serve mel T = 250 4 streams mixed chunks solo"]["forwards"]
+        batched = found["serve mel T = 250 4 streams mixed chunks batched"]["forwards"]
+        if not batched < solo:
+            raise AssertionError(f"batching ran {batched} forwards against {solo} solo")
+        lockstep = {b: found[f"serve mel T = 250 4 streams overlap 0 {b}"]["forwards"]
+                    for b in ("solo", "batched")}
+        print(f"[serve] forwards for 4 streams started together: in 1 s chunks "
+              f"{lockstep['solo']} solo, {lockstep['batched']} batched; in chunks of "
+              f"{'/'.join(f'{c:g}' for c in mixed)} s {solo} solo, {batched} batched")
+        found["serve mel_iv T = 1000 4 streams batched"] = serve_streams(
+            long_iv, wave, [1.0] * 4, 0.0, True, "[mel_iv T = 1000 4 streams batched]")
+        steps["serving"] = time.perf_counter() - t_phase - sum(steps.values())
+        found["cli chain"] = cli_chain(dev, root / f"{long_mel.stem}.pt2", wave)
+        steps["cli serve"] = time.perf_counter() - t_phase - sum(steps.values())
+    print(f"[daemon] phase 16 took {time.perf_counter() - t_phase:.1f} s "
+          f"({', '.join(f'{k} {v:.1f} s' for k, v in steps.items())}); peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return found
+
+
 def main() -> int:
     name, smi = phase_device()
     dev = torch.device("cuda")
@@ -3404,6 +3778,15 @@ def main() -> int:
                                   if "stream" in p and key in c}
         row["launches_tta"] = {p: c[key] for p, c in served.items()
                                if "stream" not in p and key in c and "tta" in p.lower()}
+    daemon = phase_daemon(dev)
+    print(f"[paths] launches on the daemon and artifact paths: "
+          f"{json.dumps({k: v['launches'] for k, v in daemon.items() if 'launches' in v})}")
+    for row, key in ((k1, "k1"), (k3_rows[0], "k3_fwd"), (k4_rows[0], "k4")):
+        row["launches_served"] = {p[len("serve "):]: c["launches"][key]
+                                  for p, c in daemon.items() if p.startswith("serve ")}
+        row["launches_artifact"] = {p: c["launches"][key] for p, c in daemon.items()
+                                    if "artifact_ms" in c}
+    k3_rows[0]["host_us_operator"] = daemon["k3 host us"]["operator"]
     print(json.dumps({"kernels": [k1, k2_fwd, k2_bwd, *k3_rows, *k4_rows, *f2_rows,
                                   *k5_rows]}))
     print(smi)

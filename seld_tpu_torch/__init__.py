@@ -19,8 +19,10 @@ over the model axis and attention as the ring, K5, which runs K3's
 kernels per time chunk. Evaluation:
 losses, cell accuracies and the DCASE2022 metrics of a checkpoint tree on
 a test corpus. Serving also streams chunked audio (stream.py), averages
-the ACS scene transforms at test time (tta.py), and averages rolling
-checkpoints (tools/average_ckpt.py). It imports torch and never JAX or seld_tpu; module names
+the ACS scene transforms at test time (tta.py), averages rolling
+checkpoints (tools/average_ckpt.py), serves many live streams over TCP
+with their windows batched across streams (serve.py), and ships a model
+as a torch.export artifact (export.py). It imports torch and never JAX or seld_tpu; module names
 follow seld_tpu so each piece's counterpart is easy to find.
 
 Entry points run on the card: a device of None means CUDA, and raises

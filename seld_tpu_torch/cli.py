@@ -1,5 +1,5 @@
 """Command line (counterpart: seld_tpu/cli.py `train`, `eval`, `verify`,
-`predict`, `calibrate`, `score` and `average-ckpts`).
+`predict`, `calibrate`, `score`, `average-ckpts`, `export` and `serve`).
 
     python -m seld_tpu_torch.cli train [--synthetic] [--resume] [--eval-after] \
         [--device cpu] [k.e.y=value ...]
@@ -59,23 +59,47 @@ against the ground-truth CSVs of the same names under G.
 checks every backbone's output shape on a (2, T, C, 64) input, C the
 feature set's channel count (4, 7 for mel_iv, 10 for mel_gcc).
 
-    python -m seld_tpu_torch.cli predict --checkpoint FILE --wavs A.wav ... \
-        [--out DIR] [--overlap F] [--stream] [--tta] [--tta-transforms 0,4] \
-        [--tta-fold K] [--bg-bias B] [--accdoa-threshold T] [--median-filter W] \
-        [--calibration FILE] [--device cpu]
+    python -m seld_tpu_torch.cli predict [k.e.y=value ...] --wavs A.wav ... \
+        [--checkpoint FILE | --artifact FILE] [--out DIR] [--overlap F] [--stream] \
+        [--tta] [--tta-transforms 0,4] [--tta-fold K] [--bg-bias B] \
+        [--accdoa-threshold T] [--median-filter W] [--calibration FILE] [--device cpu]
 
-writes DIR/predictions/<wav stem>.csv with the STARSS22-style metadata
-rows of each clip; FILE may be a checkpoint that `train` wrote. --stream
+writes DIR/predictions/<wav stem>.csv (DIR: --out, else
+<data.base_path>/outputs) with the STARSS22-style metadata rows of each
+clip. It serves FILE, any checkpoint that `train` wrote, or without
+--checkpoint the newest best checkpoint under <data.base_path>/checkpoints,
+or an artifact of `export` (--artifact: its bias, threshold and median
+width came with it; --median-filter still overrides the width). --stream
 feeds each clip in 1 s chunks through a StreamingSession (the same CSV);
 --tta averages the 16 ACS scene transforms (or the listed ones) of a
 "mel_iv" model.
+
+    python -m seld_tpu_torch.cli export [k.e.y=value ...] --out FILE \
+        [--checkpoint FILE] [--batch-windows N] [--bg-bias B] [--median-filter W] \
+        [--accdoa-threshold T] [--calibration FILE] [--device cpu]
+
+writes the serving artifact (seld_tpu_torch.export): FILE and FILE.probs,
+the two forwards as torch.export programs with the weights inside, and
+the sidecar FILE.json. The programs run only on the device type they were
+exported for, so --device takes the place of the JAX package's
+--platforms.
+
+    python -m seld_tpu_torch.cli serve [k.e.y=value ...] [--checkpoint FILE | \
+        --artifact FILE] [--host H] [--port P] [--max-streams N] [--batch-streams] \
+        [--batch-wait-ms MS] [--bg-bias B] [--accdoa-threshold T] [--device cpu]
+
+runs the TCP streaming daemon (seld_tpu_torch.serve; port 0 picks a free
+one, which the "Serving ... on host:port" log line names); --max-streams
+exits after N completed streams, --batch-streams packs the windows of
+concurrent streams into shared forwards.
 
     python -m seld_tpu_torch.cli average-ckpts --checkpoint-dir RUN \
         --output-dir OUT [--last N | --steps E1,E2]
 
 averages the run's rolling checkpoints (SWA) into OUT/best. All but
 `score` and `average-ckpts` run on the CUDA card unless --device names
-another.
+another. int8 (--int8-calib-wavs, --int8-weight-only) is ROADMAP item 9
+and is refused.
 """
 
 from __future__ import annotations
@@ -129,6 +153,9 @@ def _apply_calibration(args, run_cfg) -> None:
     given."""
     from seld_tpu_torch.calibrate import check_calibration_matches, load_calibration
 
+    if getattr(args, "artifact", None):
+        raise ValueError("--calibration does not compose with --artifact: export with "
+                         "--calibration instead — the artifact then carries the tuned decode")
     calib = load_calibration(args.calibration)
     check_calibration_matches(calib, run_cfg)
     applied = []
@@ -137,7 +164,12 @@ def _apply_calibration(args, run_cfg) -> None:
         if knob in calib and getattr(args, knob) is None:
             setattr(args, knob, convert(calib[knob]))
             applied.append(f"{knob}={getattr(args, knob):g}")
-    if calib.get("tta") and not (args.tta or args.tta_transforms):
+    if calib.get("tta") and not (getattr(args, "tta", False)
+                                 or getattr(args, "tta_transforms", None)):
+        if not hasattr(args, "tta"):
+            raise ValueError("this calibration was tuned under TTA, which this command cannot "
+                             "apply — recalibrate without --tta, or use predict/eval "
+                             "--calibration")
         args.tta = True
         if calib.get("tta_transforms"):
             args.tta_transforms = ",".join(str(t) for t in calib["tta_transforms"])
@@ -146,26 +178,120 @@ def _apply_calibration(args, run_cfg) -> None:
                 ", ".join(applied) if applied else "(no unset knobs)")
 
 
+def _serving_checkpoint(args, cfg) -> Path:
+    """--checkpoint FILE, or else the newest best checkpoint of the run
+    under cfg.data.checkpoint_path."""
+    from seld_tpu_torch.train.checkpoint import checkpoint_file
+
+    if args.checkpoint:
+        return Path(args.checkpoint)
+    found = checkpoint_file(cfg.data.checkpoint_path, "best")
+    if found is None:
+        raise FileNotFoundError(f"no best checkpoint under {cfg.data.checkpoint_path}/best "
+                                "(train first, or pass --checkpoint FILE)")
+    return found
+
+
+def _refuse_with_artifact(args) -> None:
+    """The decode knobs an artifact baked at export time (the JAX package's
+    refusals, word for word)."""
+    if args.bg_bias:
+        raise ValueError("--bg-bias does not compose with --artifact: the bias is baked at "
+                         "export time (export --bg-bias)")
+    if args.accdoa_threshold is not None:
+        raise ValueError("--accdoa-threshold does not compose with --artifact: the threshold "
+                         "is baked at export time (export --accdoa-threshold)")
+
+
+def _refuse_int8(args) -> None:
+    if getattr(args, "int8_calib_wavs", None) or getattr(args, "int8_weight_only", False):
+        raise NotImplementedError("int8 serving (--int8-calib-wavs, --int8-weight-only) is "
+                                  "not ported (ROADMAP item 9)")
+
+
 def cmd_predict(args) -> int:
+    from seld_tpu_torch.config import Config, parse_overrides
     from seld_tpu_torch.infer import SELDPredictor
+    from seld_tpu_torch.postprocess import validate_width
     from seld_tpu_torch.train.checkpoint import load_checkpoint
 
-    if args.calibration:
-        _apply_calibration(args, load_checkpoint(args.checkpoint)[0])
-    predictor = SELDPredictor(
-        args.checkpoint, bg_bias=args.bg_bias or 0.0, median_filter=args.median_filter or 0,
-        accdoa_threshold=args.accdoa_threshold, device=args.device,
-    )
+    cfg = parse_overrides(Config(), args.overrides)
+    if args.artifact:
+        if args.calibration:
+            _apply_calibration(args, cfg)  # raises: it does not compose
+        _refuse_with_artifact(args)
+        predictor = SELDPredictor.from_artifact(args.artifact, device=args.device)
+        if args.median_filter is not None:  # a host-side post-op: 0 turns it off
+            predictor.median_filter = validate_width(args.median_filter)
+    else:
+        checkpoint = _serving_checkpoint(args, cfg)
+        if args.calibration:
+            _apply_calibration(args, load_checkpoint(checkpoint)[0])
+        predictor = SELDPredictor(
+            checkpoint, bg_bias=args.bg_bias or 0.0, median_filter=args.median_filter or 0,
+            accdoa_threshold=args.accdoa_threshold, device=args.device,
+        )
     transforms = _tta_transforms(args)
     if transforms is not None:
         predictor.tta(transforms, fold=args.tta_fold)
-    out_dir = Path(args.out) / "predictions"
+    out_dir = Path(args.out or cfg.data.output_path) / "predictions"
     for wav in args.wavs:
         csv_out = out_dir / f"{Path(wav).stem}.csv"
         pred = predictor.predict_file(wav, csv_out=csv_out, overlap=args.overlap,
                                       stream=args.stream)
         logger.info("%s: %d frames, %d active cells -> %s",
                     wav, pred.classes.shape[0], len(pred.events()), csv_out)
+    return 0
+
+
+def cmd_export(args) -> int:
+    """The serving artifact of a checkpoint, with the decode that flags or a
+    calibration file give baked in."""
+    from seld_tpu_torch.config import Config, parse_overrides
+    from seld_tpu_torch.export import export_serving
+    from seld_tpu_torch.train.checkpoint import load_checkpoint
+
+    _refuse_int8(args)
+    cfg = parse_overrides(Config(), args.overrides)
+    checkpoint = _serving_checkpoint(args, cfg)
+    if args.calibration:
+        _apply_calibration(args, load_checkpoint(checkpoint)[0])
+    out = export_serving(checkpoint, args.out, batch_windows=args.batch_windows,
+                         bg_bias=args.bg_bias or 0.0, median_filter=args.median_filter or 0,
+                         accdoa_threshold=args.accdoa_threshold, device=args.device)
+    logger.info("Serving artifact written: %s", out)
+    return 0
+
+
+def cmd_serve(args) -> int:
+    """The TCP streaming daemon (seld_tpu_torch.serve has the protocol)."""
+    from seld_tpu_torch.config import Config, parse_overrides
+    from seld_tpu_torch.infer import SELDPredictor
+    from seld_tpu_torch.serve import SELDServer
+
+    cfg = parse_overrides(Config(), args.overrides)
+    if args.artifact:
+        if args.int8_calib_wavs:
+            raise ValueError("--int8-calib-wavs does not compose with --artifact: int8 is baked "
+                             "at export time (export --int8-calib-wavs)")
+        _refuse_with_artifact(args)
+        predictor = SELDPredictor.from_artifact(args.artifact, device=args.device)
+    else:
+        _refuse_int8(args)
+        predictor = SELDPredictor(_serving_checkpoint(args, cfg), bg_bias=args.bg_bias,
+                                  accdoa_threshold=args.accdoa_threshold, device=args.device)
+    server = SELDServer(predictor, host=args.host, port=args.port,
+                        max_streams=args.max_streams, batch_streams=args.batch_streams,
+                        batch_wait_s=args.batch_wait_ms / 1000.0)
+    logger.info("Serving %s on %s:%d (float%s) — Ctrl-C to stop",
+                predictor.cfg.model.model_type, args.host, server.port,
+                ", cross-stream batching" if args.batch_streams else "")
+    try:
+        server.serve_forever()
+    except KeyboardInterrupt:
+        logger.info("serve: interrupted, shutting down")
+    finally:
+        server.server_close()
     return 0
 
 
@@ -370,6 +496,14 @@ def _add_tta_flags(p, what: str) -> None:
                    "azimuth rotations); implies --tta")
 
 
+def _add_checkpoint_flags(p) -> None:
+    p.add_argument("--checkpoint", default=None,
+                   help="checkpoint file (default: the newest best checkpoint under "
+                   "<data.base_path>/checkpoints)")
+    p.add_argument("--artifact", default=None,
+                   help="serve an `export` artifact instead of a checkpoint")
+
+
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(prog="python -m seld_tpu_torch.cli")
     sub = parser.add_subparsers(dest="command", required=True)
@@ -449,11 +583,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default=None, help=device_help)
     p.set_defaults(fn=cmd_verify)
     p = sub.add_parser("predict", help="WAV file(s) -> STARSS22-style CSV per clip")
-    p.add_argument("--checkpoint", required=True,
-                   help="checkpoint file written by seld_tpu_torch.train.checkpoint")
+    p.add_argument("overrides", nargs="*", help="dotted config overrides, k.e.y=value")
+    _add_checkpoint_flags(p)
     p.add_argument("--wavs", nargs="+", required=True)
-    p.add_argument("--out", default="outputs",
-                   help="output directory; CSVs go to OUT/predictions")
+    p.add_argument("--out", default=None,
+                   help="output directory (default <data.base_path>/outputs); CSVs go to "
+                   "OUT/predictions")
     p.add_argument("--overlap", type=float, default=0.0,
                    help="window overlap in [0, 1): average class probabilities "
                    "over overlapping windows before decoding")
@@ -472,9 +607,59 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--calibration", default=None, metavar="FILE",
                    help="take --bg-bias / --accdoa-threshold / --median-filter (and TTA, "
                    "for a file tuned under it) from a `calibrate` file; a flag given "
-                   "explicitly wins")
+                   "explicitly wins; not with --artifact (export --calibration)")
     p.add_argument("--device", default=None, help=device_help)
     p.set_defaults(fn=cmd_predict)
+    p = sub.add_parser("export", help="the serving artifact: torch.export programs of the "
+                       "forwards, weights inside, and a JSON sidecar")
+    p.add_argument("overrides", nargs="*", help="dotted config overrides, k.e.y=value")
+    p.add_argument("--checkpoint", default=None,
+                   help="checkpoint file (default: the run's newest best checkpoint)")
+    p.add_argument("--out", required=True,
+                   help="artifact path; OUT.probs and OUT.json are written beside it")
+    p.add_argument("--batch-windows", type=int, default=8,
+                   help="windows a forward (the programs' fixed batch)")
+    p.add_argument("--bg-bias", type=float, default=None, metavar="B",
+                   help="bake a background decode bias into the programs (grid models)")
+    p.add_argument("--median-filter", type=int, default=None, metavar="W",
+                   help="record a median-filter width in the sidecar (a host-side post-op "
+                   "that from_artifact applies)")
+    p.add_argument("--accdoa-threshold", type=float, default=None, metavar="T",
+                   help="bake an ACCDOA activity threshold into the programs")
+    p.add_argument("--calibration", default=None, metavar="FILE",
+                   help="bake a `calibrate` file's decode (bias or threshold into the "
+                   "programs, median width into the sidecar); a file tuned under TTA is "
+                   "refused (an artifact serves the plain forward)")
+    p.add_argument("--int8-calib-wavs", nargs="+", default=None,
+                   help="not ported (ROADMAP item 9): refused")
+    p.add_argument("--int8-weight-only", action="store_true",
+                   help="not ported (ROADMAP item 9): refused")
+    p.add_argument("--device", default=None,
+                   help="the device type the programs run on (default: cuda); the JAX "
+                   "package's --platforms")
+    p.set_defaults(fn=cmd_export)
+    p = sub.add_parser("serve", help="the TCP streaming daemon (bit-equal to offline "
+                       "prediction; bounded memory per stream)")
+    p.add_argument("overrides", nargs="*", help="dotted config overrides, k.e.y=value")
+    _add_checkpoint_flags(p)
+    p.add_argument("--host", default="127.0.0.1")
+    p.add_argument("--port", type=int, default=8771, help="0 picks a free port")
+    p.add_argument("--max-streams", type=int, default=0,
+                   help="exit after N completed streams (0: run until interrupted)")
+    p.add_argument("--batch-streams", action="store_true",
+                   help="pack the windows of concurrent streams into shared forwards "
+                   "(every stream stays bit-equal to offline)")
+    p.add_argument("--batch-wait-ms", type=float, default=0.0,
+                   help="with --batch-streams: hold a partial batch open this long for more "
+                   "streams to join (0: never delay a free worker)")
+    p.add_argument("--bg-bias", type=float, default=0.0, metavar="B",
+                   help="background decode bias (grid models); not with --artifact")
+    p.add_argument("--accdoa-threshold", type=float, default=None, metavar="T",
+                   help="ACCDOA activity threshold (default 0.5); not with --artifact")
+    p.add_argument("--int8-calib-wavs", nargs="+", default=None,
+                   help="not ported (ROADMAP item 9): refused")
+    p.add_argument("--device", default=None, help=device_help)
+    p.set_defaults(fn=cmd_serve)
     p = sub.add_parser("average-ckpts", help="SWA: average a run's rolling checkpoints into "
                        "a new best checkpoint")
     p.add_argument("--checkpoint-dir", required=True,

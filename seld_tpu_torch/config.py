@@ -25,6 +25,7 @@ class DataConfig:
     base_path: str = "."
     audio_dirname: str = "foa_dev"
     metadata_dirname: str = "metadata_dev"
+    output_dirname: str = "outputs"
     checkpoint_dirname: str = "checkpoints"
 
     use_full_dataset: bool = True
@@ -45,6 +46,10 @@ class DataConfig:
     @property
     def metadata_path(self) -> Path:
         return Path(self.base_path) / self.metadata_dirname
+
+    @property
+    def output_path(self) -> Path:
+        return Path(self.base_path) / self.output_dirname
 
     @property
     def checkpoint_path(self) -> Path:

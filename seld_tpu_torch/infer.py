@@ -11,7 +11,10 @@ into STARSS22-style metadata rows: grid logits by argmax, ACCDOA and
 multi-ACCDOA vectors by their activity threshold (seld_tpu_torch.accdoa).
 `SELDPredictor.tta` swaps in the test-time-augmented forwards
 (seld_tpu_torch.tta); `predict_file(stream=True)` feeds the clip through a
-StreamingSession (seld_tpu_torch.stream), bit-equal to the offline path.
+StreamingSession (seld_tpu_torch.stream), bit-equal to the offline path;
+`SELDPredictor.from_artifact` serves an artifact of seld_tpu_torch.export
+in place of a checkpoint; `dispatch` is the serving daemon's hook for
+batching windows across streams (seld_tpu_torch.serve).
 """
 
 from __future__ import annotations
@@ -117,8 +120,8 @@ class Prediction:
 
 
 class SELDPredictor:
-    """Checkpoint-backed predictor; `kind` is "grid", "accdoa" or
-    "multi_accdoa", after the checkpoint's model_type."""
+    """A checkpoint's predictor (or an artifact's: from_artifact); `kind`
+    is "grid", "accdoa" or "multi_accdoa", after the model_type."""
 
     def __init__(self, checkpoint, batch_windows: int = 8, bg_bias: float = 0.0,
                  median_filter: int = 0, accdoa_threshold: float | None = None,
@@ -163,21 +166,67 @@ class SELDPredictor:
         self.median_filter = validate_width(median_filter)
         self._tta_transforms = None
         self._tta_fold = 1
+        # cross-stream window dispatcher (seld_tpu_torch.serve.WindowBatcher):
+        # when set, _batched hands it the rows
+        self.dispatch = None
         logger.info("Predictor: %s from epoch %d on %s",
                     self.cfg.model.model_type, self.epoch, self.device)
 
-    @torch.inference_mode()
-    def _raw_apply(self, mel: torch.Tensor) -> torch.Tensor:
+    @classmethod
+    def from_artifact(cls, artifact, device: str | torch.device | None = None
+                      ) -> "SELDPredictor":
+        """A predictor from an `export_serving` artifact alone (no checkpoint,
+        no model code): config, window, batch, output kind, bias, threshold
+        and median width come from the sidecar `<artifact>.json`, and the two
+        forwards are the exported programs `<artifact>` and
+        `<artifact>.probs`. Every serving surface works as with a
+        checkpoint (predict_waveform, predict_file, streaming, the daemon);
+        `tta()` raises, as the programs are the plain forwards. An artifact
+        runs only on the device type it was exported for: another raises,
+        naming both; device None means CUDA, as everywhere."""
+        from seld_tpu_torch.config import config_from_dict
+        from seld_tpu_torch.export import load_program, read_sidecar
+
+        device = resolve_device(device)
+        sidecar = read_sidecar(artifact)
+        if sidecar["platforms"] != [device.type]:
+            raise ValueError(
+                f"{artifact} was exported for {sidecar['platforms']} and cannot run on "
+                f"{device.type}: export it again with --device {device.type}")
+        self = cls.__new__(cls)
+        self.device = device
+        self.cfg = config_from_dict(sidecar["config"])
+        self.epoch = int(sidecar["source_epoch"])
+        self.model = None
+        self.batch_windows = int(sidecar["batch_windows"])
+        self.win = int(sidecar["window_frames"])
+        model_type = sidecar["model_type"]
+        self.accdoa_mode = model_type in ACCDOA_MODELS
+        self.kind = ("multi_accdoa" if model_type in MULTI_ACCDOA_MODELS
+                     else "accdoa" if self.accdoa_mode else "grid")
+        self.bg_bias = float(sidecar["bg_bias"])  # baked into both programs
+        # baked into the programs too; single-ACCDOA's overlap decode reads it
+        self.accdoa_threshold = float(sidecar["accdoa_threshold"])
+        self.median_filter = validate_width(sidecar["median_filter"])
+        self._tta_transforms = None
+        self._tta_fold = 1
+        self.dispatch = None
+        self._forward = torch.inference_mode()(load_program(artifact))
+        self._forward_probs = torch.inference_mode()(load_program(f"{artifact}.probs"))
+        logger.info("Predictor: %s from artifact %s (epoch %d) on %s", model_type, artifact,
+                    self.epoch, device)
+        return self
+
+    def _raw(self, mel: torch.Tensor) -> torch.Tensor:
         """(B, win, C, F) -> the model's float32 output: (B, win, M, G)
         logits with the background class reduced by bg_bias, or ACCDOA
-        vectors."""
+        vectors. The undecorated bodies (_raw, _decode, _rep) are what
+        seld_tpu_torch.export traces."""
         out = self.model(mel)
         return bias_background_logits(out, self.bg_bias) if self.bg_bias else out
 
-    @torch.inference_mode()
-    def _forward(self, mel: torch.Tensor) -> torch.Tensor:
-        """(B, win, C, F) -> (B, win, G) int8 class per cell."""
-        out = self._raw_apply(mel)
+    def _decode(self, out: torch.Tensor) -> torch.Tensor:
+        """The model's output -> (B, win, G) int8 class per cell."""
         grid = self.cfg.grid
         if self.kind == "grid":
             return torch.argmax(out, dim=2).to(torch.int8)
@@ -185,13 +234,22 @@ class SELDPredictor:
             decode_accdoa_to_grid
         return decode(out, grid.n_el, grid.n_az, grid.num_classes, self.accdoa_threshold)
 
-    def _forward_probs(self, mel: torch.Tensor) -> torch.Tensor:
-        """(B, win, C, F) -> the float16 representation overlapped windows
-        average (_rep_from_raw)."""
-        return self._rep_from_raw(self._raw_apply(mel))
+    @torch.inference_mode()
+    def _raw_apply(self, mel: torch.Tensor) -> torch.Tensor:
+        return self._raw(mel)
 
     @torch.inference_mode()
-    def _rep_from_raw(self, out: torch.Tensor) -> torch.Tensor:
+    def _forward(self, mel: torch.Tensor) -> torch.Tensor:
+        """(B, win, C, F) -> (B, win, G) int8 class per cell."""
+        return self._decode(self._raw(mel))
+
+    @torch.inference_mode()
+    def _forward_probs(self, mel: torch.Tensor) -> torch.Tensor:
+        """(B, win, C, F) -> the float16 representation overlapped windows
+        average (_rep)."""
+        return self._rep(self._raw(mel))
+
+    def _rep(self, out: torch.Tensor) -> torch.Tensor:
         """The model's output -> its averageable per-frame representation,
         float16: (B, win, M, G) softmax probabilities (grid), the (B, win,
         C, 3) vectors (single-ACCDOA: a mean vector shrinks where windows
@@ -232,6 +290,9 @@ class SELDPredictor:
         batch."""
         from seld_tpu_torch.tta import make_tta_forward, validate_transforms
 
+        if self.model is None:
+            raise RuntimeError("an artifact serves the plain forward it was exported with: "
+                               "TTA needs the checkpoint (SELDPredictor(checkpoint).tta())")
         sel = validate_transforms(transforms)
         grid = self.cfg.grid
         tta_fwd = make_tta_forward(self._raw_apply, grid.n_el, grid.n_az,
@@ -261,16 +322,24 @@ class SELDPredictor:
         logger.info("Predictor: TTA enabled (%d transforms, fold %d)", len(sel), fold)
         return self
 
-    def _batched(self, windows: torch.Tensor, fn):
-        """Run fn over batch_windows-sized batches of windows, zero-padding
-        the last one, and yield the valid rows of each result."""
+    def _batched(self, windows: torch.Tensor, fn, lead: int = 0):
+        """Run fn over batch_windows-sized batches of windows, the first
+        window in batch slot `lead` (a stream's windows take the slots they
+        take offline), zeros in the slots before it and after the last, and
+        yield the windows' rows of each result; with a dispatcher set, hand
+        it the windows and their first slot."""
+        if self.dispatch is not None and windows.shape[0] > 0:
+            yield self.dispatch(fn, windows, lead)
+            return
+        if lead:
+            windows = torch.cat([windows.new_zeros((lead, *windows.shape[1:])), windows])
         bw = self.batch_windows
         for start in range(0, windows.shape[0], bw):
             chunk = windows[start:start + bw]
             n_valid = chunk.shape[0]
             if n_valid < bw:
                 chunk = torch.cat([chunk, chunk.new_zeros((bw - n_valid, *chunk.shape[1:]))])
-            yield fn(chunk)[:n_valid]
+            yield fn(chunk)[lead if start == 0 else 0:n_valid]
 
     def _smooth(self, classes: np.ndarray) -> np.ndarray:
         if self.median_filter <= 1:
@@ -287,7 +356,7 @@ class SELDPredictor:
 
         overlap=0 tiles non-overlapping windows and decodes each. overlap in
         (0, 1) strides windows at hop = win * (1 - overlap), averages the
-        representation of _rep_from_raw over each frame's coverage in
+        representation of _rep over each frame's coverage in
         float32 on the device, and decodes the average."""
         if not 0.0 <= overlap < 1.0:
             raise ValueError(f"overlap must be in [0, 1), got {overlap}")

@@ -16,6 +16,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -72,8 +73,12 @@ def build(name: str) -> dict | None:
     return {"seconds": time.perf_counter() - t0, "log": res.stdout}
 
 
+_BUILD_LOCK = threading.Lock()  # threads of one process share build()'s temporary name
+
+
 @functools.cache
 def load_library(name: str) -> ctypes.CDLL:
     """The loaded kernel library for csrc/<name>.cu, built if needed."""
-    build(name)
+    with _BUILD_LOCK:
+        build(name)
     return ctypes.CDLL(str(library_path(name)))

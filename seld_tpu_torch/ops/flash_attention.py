@@ -52,6 +52,9 @@ import functools
 import struct
 
 import torch
+from torch import compiler
+
+from seld_tpu_torch.ops.counters import bump
 
 MAX_HEAD_DIM = 128  # the kernels are instantiated for multiples of 16 up to here
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -202,7 +205,7 @@ def _kernel_ready(x: torch.Tensor) -> torch.Tensor:
             and all(s % per16 == 0 and (s or n == 1)
                     for s, n in zip(x.stride()[:-1], x.shape[:-1]))):
         return x
-    flash_attention.copies += 1
+    bump(flash_attention, "copies")
     return x.contiguous()
 
 
@@ -291,7 +294,7 @@ def forward_step(q, k, v, scale: float, out, lse, run, read: bool, final: bool) 
     if q.numel():
         _launch(0, "forward", (q, k, v, out, lse, run), (q, k, v, out, run),
                 (int(read), int(final)), scale)
-        flash_attention.fwd_launches += 1
+        bump(flash_attention, "fwd_launches")
 
 
 def dq_step(q, k, v, g, out, lse, scale: float, delta, dq, run, read: bool, final: bool):
@@ -310,7 +313,7 @@ def dq_step(q, k, v, g, out, lse, scale: float, delta, dq, run, read: bool, fina
     if q.numel():
         _launch(1, "dQ", (q, k, v, g, out, lse, delta, dq, run), (q, k, v, g, out, dq, run),
                 (int(given or q.dtype != torch.bfloat16), int(read), int(final)), scale)
-        flash_attention.bwd_dq_launches += 1
+        bump(flash_attention, "bwd_dq_launches")
     return delta
 
 
@@ -322,7 +325,7 @@ def dkv_step(q, k, v, g, lse, delta, scale: float, dk, dv, dk_run, dv_run, read:
     if q.numel():
         _launch(2, "dK/dV", (q, k, v, g, lse, delta, dk, dv, dk_run, dv_run),
                 (q, k, v, g, dk, dv, dk_run, dv_run), (int(read), int(final)), scale)
-        flash_attention.bwd_dkv_launches += 1
+        bump(flash_attention, "bwd_dkv_launches")
 
 
 def launch_forward(q, k, v, scale: float):
@@ -391,6 +394,34 @@ class _FlashAttention(torch.autograd.Function):
         return dq, dk if need_dk else None, dv if need_dv else None, None
 
 
+@torch.library.custom_op("seld_tpu_torch::flash_attention_fwd", mutates_args=(),
+                         device_types="cpu")
+def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        scale: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """K3's forward as an operator, (out, lse), that torch.export records
+    by name, so that an exported program (seld_tpu_torch.export) launches
+    the kernel where it runs. `flash_attention` calls it only while
+    exporting: an operator call costs host time that the eager path does
+    not pay. CUDA tensors launch the forward kernel (adding one to
+    `flash_attention.fwd_launches`, from a loaded program too); CPU tensors
+    run `flash_attention_reference`; there is no other device. out is
+    (B, H, T, Dh) stored as (B, T, H, Dh) on both. Inference only: no
+    backward is registered, and the ring modes are not exposed."""
+    out, lse = flash_attention_reference(q, k, v, scale)
+    return _empty_bthd(q).copy_(out), lse
+
+
+@flash_attention_fwd.register_kernel("cuda")
+def _flash_attention_fwd_cuda(q, k, v, scale):
+    return launch_forward(_kernel_ready(q), _kernel_ready(k), _kernel_ready(v), scale)
+
+
+@flash_attention_fwd.register_fake
+def _flash_attention_fwd_fake(q, k, v, scale):
+    b, h, t, _ = q.shape
+    return _empty_bthd(q), q.new_empty((b * h, t), dtype=torch.float32)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     scale: float | None = None, return_lse: bool = False):
     """Exact softmax attention of (B, H, T, Dh) q, k, v in float32 or
@@ -401,10 +432,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     CUDA tensors go through kernel K3 (a forward launch adds one to
     `flash_attention.fwd_launches`, the backward one each to
     `.bwd_dq_launches` and `.bwd_dkv_launches`); CPU tensors go through
-    `flash_attention_reference`. Anything else raises."""
+    `flash_attention_reference`. Anything else raises. While torch.export
+    traces, the forward is the operator `flash_attention_fwd`."""
     _check(q, k, v)
     scale = float(q.shape[-1] ** -0.5 if scale is None else scale)
-    if q.device.type == "cpu":
+    if compiler.is_exporting():
+        out, lse = flash_attention_fwd(q, k, v, scale)
+    elif q.device.type == "cpu":
         out, lse = flash_attention_reference(q, k, v, scale)
     elif q.device.type == "cuda":
         out, lse = _FlashAttention.apply(q, k, v, scale)

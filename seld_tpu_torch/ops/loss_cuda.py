@@ -22,6 +22,7 @@ import functools
 import torch
 
 from seld_tpu_torch.targets.rasterize import decode_class_bitmask
+from seld_tpu_torch.ops.counters import bump
 
 MAX_CLASSES = 16  # the kernels' compile-time ceiling on M
 _MASK_DTYPES = (torch.int16, torch.uint16, torch.int32, torch.int64)
@@ -102,7 +103,7 @@ class _GridLossTerms(torch.autograd.Function):
                                    sq.data_ptr(), pbg.data_ptr(), n, m, g, stream)
             if rc != 0:
                 raise RuntimeError(f"K2 forward launch failed with CUDA error {rc}")
-            grid_loss_terms.fwd_launches += 1
+            bump(grid_loss_terms, "fwd_launches")
         ctx.save_for_backward(logits_mg, mask16)
         return sq, pbg
 
@@ -129,7 +130,7 @@ class _GridLossTerms(torch.autograd.Function):
                 )
             if rc != 0:
                 raise RuntimeError(f"K2 backward launch failed with CUDA error {rc}")
-            grid_loss_terms.bwd_launches += 1
+            bump(grid_loss_terms, "bwd_launches")
         return dx, None
 
 

@@ -35,6 +35,7 @@ import numpy as np
 import torch
 
 from seld_tpu_torch.features.mel import hann_window, mel_filterbank
+from seld_tpu_torch.ops.counters import bump
 
 KERNEL_MELS = 64  # the kernel's largest n_mels (K4's filterbank width)
 KERNEL_N_FFT = (512, 960, 1024, 2048)  # n_fft = 64 R, R in (8, 15, 16, 32)
@@ -439,7 +440,7 @@ def launch(path: str, frames: torch.Tensor, n_fft: int = 960, n_mels: int = 64,
             raise ValueError(f"K1's kernels are 'fft', 'mixed' and 'dft', got {path!r}")
     if rc != 0:
         raise RuntimeError(f"K1's {path} kernel failed to launch: CUDA error {rc}")
-    setattr(log_mel_frames, counter, getattr(log_mel_frames, counter) + 1)
+    bump(log_mel_frames, counter)
     return out
 
 

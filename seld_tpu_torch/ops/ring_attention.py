@@ -51,6 +51,7 @@ import torch
 import torch.distributed as dist
 
 from seld_tpu_torch.ops import flash_attention as k3
+from seld_tpu_torch.ops.counters import bump
 from seld_tpu_torch.ops.flash_attention import (
     _check,
     _empty_bthd,
@@ -111,18 +112,18 @@ def dkv_step_reference(q, k, v, g, lse, delta, scale: float, dk, dv, dk_run, dv_
 
 def _forward_step(*args) -> None:
     k3.forward_step(*args)
-    ring_flash_attention.fwd_launches += 1
+    bump(ring_flash_attention, "fwd_launches")
 
 
 def _dq_step(*args):
     delta = k3.dq_step(*args)
-    ring_flash_attention.bwd_dq_launches += 1
+    bump(ring_flash_attention, "bwd_dq_launches")
     return delta
 
 
 def _dkv_step(*args) -> None:
     k3.dkv_step(*args)
-    ring_flash_attention.bwd_dkv_launches += 1
+    bump(ring_flash_attention, "bwd_dkv_launches")
 
 
 def _steps(q, plain: bool):

@@ -39,6 +39,7 @@ import torch
 
 from seld_tpu_torch.features.mel import mel_filterbank
 from seld_tpu_torch.features.spatial import _ACN_W, _ACN_X, _ACN_Y, _ACN_Z, feature_channels
+from seld_tpu_torch.ops.counters import bump
 from seld_tpu_torch.ops.mel_cuda import (
     _WARP,
     KERNEL_MELS,
@@ -348,7 +349,7 @@ def launch(path: str, frames: torch.Tensor, feature_set: str, n_mels: int = 64,
             raise ValueError(f"K4's kernels are 'fft', 'mixed' and 'dft', got {path!r}")
     if rc != 0:
         raise RuntimeError(f"K4's {path} kernel failed to launch: CUDA error {rc}")
-    setattr(spatial_features, counter, getattr(spatial_features, counter) + 1)
+    bump(spatial_features, counter)
     return out
 
 

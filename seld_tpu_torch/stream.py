@@ -14,7 +14,8 @@ the offline framer at flush (np.pad's multi-fold reflection).
 Windows run through `predictor._batched` at the predictor's batch shape,
 each in the batch slot it takes in the offline predict (slot = its index
 modulo batch_windows), so a window's output is computed at the same shape
-and place as offline. With overlap the per-frame representation (class
+and place as offline, under the daemon's batcher (seld_tpu_torch.serve)
+too. With overlap the per-frame representation (class
 probabilities, ACCDOA vectors or multi-ACCDOA votes, or their TTA
 averages) accumulates in float32 on the device in the offline window
 order and is decoded by `predictor._decode_avg`.
@@ -133,12 +134,11 @@ class StreamingSession:
 
     def _run(self, windows: torch.Tensor, fn) -> torch.Tensor:
         """fn over windows through predictor._batched, each window in the
-        batch slot its index takes offline."""
+        batch slot its index takes offline (under the daemon's batcher
+        too)."""
         lead = self._windows_run % self.p.batch_windows
         self._windows_run += windows.shape[0]
-        if lead:
-            windows = torch.cat([windows.new_zeros((lead, *windows.shape[1:])), windows])
-        return torch.cat(list(self.p._batched(windows, fn)))[lead:]
+        return torch.cat(list(self.p._batched(windows, fn, lead)))
 
     def _drop_mel(self, n: int) -> None:
         self._mel = self._mel[n:]

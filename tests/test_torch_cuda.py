@@ -1147,3 +1147,95 @@ def test_tta16_launch_counts_on_card(cuda_device, tmp_path):
         assert len(calls) == forwards and set(calls) == {2 * fold}
         if transforms == (0,):
             np.testing.assert_array_equal(got, plain)
+
+
+def test_k3_operator_launches_the_kernel_on_card(cuda_device):
+    """K3's forward as the operator an exported program calls: the kernel's
+    bits (out and lse) and one counted launch a call."""
+    from seld_tpu_torch.ops.flash_attention import _kernel_ready
+
+    g = torch.Generator(device=cuda_device).manual_seed(17)
+    q, k, v = (torch.randn((2, 4, 600, 64), generator=g, device=cuda_device)
+               .to(torch.bfloat16) for _ in range(3))
+    want = launch_forward(_kernel_ready(q), _kernel_ready(k), _kernel_ready(v), 0.125)
+    before = flash_attention.fwd_launches
+    got = torch.ops.seld_tpu_torch.flash_attention_fwd(q, k, v, 0.125)
+    torch.cuda.synchronize()
+    assert flash_attention.fwd_launches == before + 1
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def test_artifact_runs_k3_inside_the_program_on_card(cuda_device, tmp_path):
+    """A tiny Conformer at 600-frame windows exported on the card: K3's
+    operator once in each program's graph, one forward launch a batch from
+    the loaded program, the artifact's predict bit-equal to the
+    checkpoint's at overlap 0 and 0.5."""
+    import numpy as np
+
+    from seld_tpu_torch.export import export_serving
+    from seld_tpu_torch.features.spatial import feature_channels
+    from seld_tpu_torch.infer import SELDPredictor
+    from seld_tpu_torch.models import build_model
+    from seld_tpu_torch.train.checkpoint import save_checkpoint
+
+    cfg = _port_cfg(["model.model_type=conformer", "model.crnn_cnn_channels=8,16",
+                     "model.conf_d_model=32", "model.conf_n_heads=2", "model.conf_n_layers=1",
+                     "model.compute_dtype=bfloat16", "window.window_seconds=12.0"])
+    model = build_model(cfg.model, cfg.grid, device=cuda_device, seed=0,
+                        in_channels=feature_channels(cfg.features.feature_set))
+    save_checkpoint(tmp_path / "long.pt", model, cfg)
+    out = export_serving(tmp_path / "long.pt", tmp_path / "long.pt2", batch_windows=2,
+                         device=cuda_device)
+    for path in (out, tmp_path / "long.pt2.probs"):
+        with open(path, "rb") as f:
+            nodes = torch.export.load(f).graph.nodes
+        assert sum("flash_attention_fwd" in str(n.target) for n in nodes) == 1
+    live = SELDPredictor(tmp_path / "long.pt", batch_windows=2, device=cuda_device)
+    art = SELDPredictor.from_artifact(out, device=cuda_device)
+    wave = (0.2 * np.random.default_rng(5).standard_normal((4, 30 * 24_000))).astype(np.float32)
+    for overlap in (0.0, 0.5):
+        np.testing.assert_array_equal(art.predict_waveform(wave, overlap=overlap).classes,
+                                      live.predict_waveform(wave, overlap=overlap).classes)
+    flash_attention.fwd_launches = 0
+    art.predict_waveform(wave)
+    torch.cuda.synchronize()
+    assert flash_attention.fwd_launches == 2  # 3 windows of 600 frames: 2 batches of 2
+
+
+def test_batched_daemon_streams_equal_offline_on_card(cuda_device, tmp_path):
+    """Three concurrent streams through the daemon with cross-stream
+    batching, chunked differently: each bit-equal to the offline predict
+    (every window in its offline batch slot), K1 launches = the streams'
+    frame blocks."""
+    import threading
+
+    import numpy as np
+
+    from seld_tpu_torch.serve import SELDServer, stream_client
+
+    pred = _tiny_predictor(cuda_device, tmp_path, "mel", batch_windows=4)
+    wave = (0.2 * np.random.default_rng(3).standard_normal((4, 6 * 24_000))).astype(np.float32)
+    want = pred.predict_waveform(wave).classes
+    server = SELDServer(pred, port=0, batch_streams=True)
+    serving = server.serve_background()
+    results = {}
+    sizes = (24_000, 17_000, 9_000)
+    threads = [threading.Thread(target=lambda n=n: results.setdefault(n, stream_client(
+        "127.0.0.1", server.port, [wave[:, i:i + n] for i in range(0, wave.shape[1], n)],
+        timeout=60)[0])) for n in sizes]
+    log_mel_frames.launches = 0
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+        torch.cuda.synchronize()
+    finally:
+        server.shutdown()
+        server.server_close()
+        serving.join(timeout=60)
+    assert sorted(results) == sorted(sizes)
+    for n, classes in results.items():
+        np.testing.assert_array_equal(classes, want, err_msg=str(n))
+    assert log_mel_frames.launches == sum(-(-wave.shape[1] // n) + 1 for n in sizes)
+    assert server.batcher.rows_run > 0

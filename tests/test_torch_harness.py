@@ -40,7 +40,8 @@ def test_import_leaves_jax_and_seld_tpu_out():
         "seld_tpu_torch.ops.spatial_cuda, seld_tpu_torch.features.acs, "
         "seld_tpu_torch.features.specaugment, seld_tpu_torch.targets.gaussian, "
         "seld_tpu_torch.data.cache, seld_tpu_torch.stream, seld_tpu_torch.tta, "
-        "seld_tpu_torch.tools.average_ckpt\n"
+        "seld_tpu_torch.tools.average_ckpt, seld_tpu_torch.serve, seld_tpu_torch.export, "
+        "seld_tpu_torch.ops.counters\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'seld_tpu'))\n"
         "print(bad)\n"

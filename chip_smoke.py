@@ -191,12 +191,32 @@ Phases, each of which raises on failure:
      --batch-streams` of the T = 1000 mel artifact in a new process (the
      program loaded there, K3's operator in it), two streams equal to the
      artifact's offline predict; the phase's steps timed; peak memory.
-It prints the launch counts of phases 9, 10, 14, 15 and 16, one JSON line
-of kernel figures (each row's `launches_accdoa`: its launches on phase
-14's paths; `launches_stream` and `launches_tta`: on phase 15's;
+ 17. int8 (seld_tpu_torch/quant.py) on the full-width flagship, seeded
+     weights: torch._int_mm (cuBLASLt's int8 GEMM) bit-equal to its
+     float64 plain version at every distinct (rows, K, N) of the T = 250
+     int8 forward, each timed against a bf16 torch.matmul of its shape
+     and its bound, and int8_matmul's padding at shapes off the GEMM's
+     rules; the seeded 60 s clip predicted bf16, int8 and weight-only at
+     T = 250 on mel and T = 1000 on mel_iv (median of five each, peak
+     memory, the cells that agree with the bf16 grid, exact K1 / K4 / K3
+     forward and int8 GEMM launches; each profiled once: kernel time by
+     family); the int8 stream bit-equal to the offline int8 predict; int8
+     under TTA (3 views) with exact launches, equal whichever of tta()
+     and quantize() came first; the int8 and
+     weight-only artifacts (export --int8-calib-wavs), their grids equal to
+     the predictor's, their sizes; a one-epoch `cli train --synthetic
+     train.qat=true` at T = 250 (K2 and K1 exact), `cli eval --int8` and
+     `--int8 --int8-weight-only` of it (K2 forward once a step); timed QAT
+     and plain train steps at T = 1000 (K3 forward, dQ, dK/dV 4 each);
+     `cli serve --int8-calib-wavs` serving one stream equal to the offline
+     int8 predict; the phase's seconds.
+It prints the launch counts of phases 9, 10, 14, 15, 16 and 17, one JSON
+line of kernel figures (each row's `launches_accdoa`: its launches on
+phase 14's paths; `launches_stream` and `launches_tta`: on phase 15's;
 `launches_served` and `launches_artifact` on K1, K3 forward and K4: on
-phase 16's; K3 forward's `host_us_operator`), the nvidia-smi line, and
-last {"ok": true, "device": {...}}.
+phase 16's; K3 forward's `host_us_operator`; `launches_int8` and
+`launches_qat` on K1, K2, K3 and K4: on phase 17's), the nvidia-smi
+line, and last {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -225,6 +245,7 @@ ROOT = Path(__file__).resolve().parent
 # H100 SXM peaks from NVIDIA's data sheet, at the 700 W power limit
 F32_FLOPS = 67e12  # float32 outside the tensor cores
 BF16_FLOPS = 989e12  # dense bf16 in the tensor cores
+INT8_OPS = 1979e12  # dense int8 in the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 K1_TOL_DB = 5e-3  # float32 DFT-as-GEMM against float32 GEMMs / rFFT
 # K4's IV and GCC planes: the JAX package's bar for its spatial kernel
@@ -1487,11 +1508,12 @@ def phase_train(dev: torch.device, run_dir: Path) -> dict:
     return counts
 
 
-def time_train_steps(dev: torch.device, cfg, tag: str = "[train]") -> dict:
+def time_train_steps(dev: torch.device, cfg, tag: str = "[train]", qat: bool = False) -> dict:
     """Wall time of cfg's train steps on seeded synthetic batches (host
     clock around a step that ends in a synchronize), K3's and K2's launches
     in one more step, and one step under torch.profiler. An ACCDOA model
-    trains on the corpus's ACCDOA targets with its own loss and ACS hook.
+    trains on the corpus's ACCDOA targets with its own loss and ACS hook;
+    qat=True makes the steps quantization-aware (int8 fake-quant).
     Returns the losses of the timed steps, the median step ms, the peak
     device memory in GiB, those K3 counts and the K2 counts."""
     from seld_tpu_torch.accdoa import ACCDOALossFn, ADPITLossFn
@@ -1526,7 +1548,7 @@ def time_train_steps(dev: torch.device, cfg, tag: str = "[train]") -> dict:
                else SELDLossFn(cfg.loss, cfg.grid))
     step = make_train_step(model, loss_fn, optimizer,
                            cfg.grid.num_classes, input_augment=make_spec_augment(cfg.train),
-                           spatial_augment=spatial_augment)
+                           spatial_augment=spatial_augment, qat=qat)
     state = create_train_state(model, optimizer)
     batches = [(p[0], p[3] if accdoa else p[1], p[2]) for p in (
         place_batch(b, dev) for b in BatchIterator(corpus, cfg.train.batch_size))][:3]
@@ -3726,6 +3748,337 @@ def phase_daemon(dev: torch.device) -> dict:
     return found
 
 
+INT8_TTA = (0, 5, 10)  # the views of phase 17's int8 TTA predict
+INT8_T1000 = ["features.feature_set=mel_iv", f"window.window_seconds={LONG_WINDOW_SECONDS}"]
+
+
+def int_mm_calls(fn) -> list:
+    """The (rows, K, N) of every torch._int_mm call fn() makes."""
+    seen, real = [], torch._int_mm
+
+    def recording(a, b):
+        seen.append((a.shape[0], a.shape[1], b.shape[1]))
+        return real(a, b)
+
+    torch._int_mm = recording
+    try:
+        fn()
+        torch.cuda.synchronize()
+    finally:
+        torch._int_mm = real
+    return seen
+
+
+def check_int_mm(dev, shapes: list) -> dict:
+    """torch._int_mm bit-equal to its float64 plain version at each shape,
+    timed against a bf16 torch.matmul of the shape, beside the int8 bound
+    (2 m k n at 1,979 TOP/s, or the bytes at 3.35 TB/s); int8_matmul's
+    padding at shapes off the GEMM's rules. Returns the ms sums."""
+    from seld_tpu_torch.quant import int8_matmul, int8_matmul_reference
+
+    gen = torch.Generator(device=dev).manual_seed(17)
+    sums = {"int8": 0.0, "bf16": 0.0, "bound": 0.0}
+    for m, k, n in sorted(set(shapes)):
+        a = torch.randint(-127, 128, (m, k), generator=gen, device=dev, dtype=torch.int8)
+        w = torch.randint(-127, 128, (n, k), generator=gen, device=dev, dtype=torch.int8)
+        got = torch._int_mm(a, w.t())
+        if not torch.equal(got, int8_matmul_reference(a, w)):
+            raise AssertionError(f"[int8] _int_mm ({m}, {k}) x ({k}, {n}) differs from its plain "
+                                 "version")
+        ab, wb = a.to(torch.bfloat16), w.to(torch.bfloat16)
+        t8 = kernel_ms(lambda: torch._int_mm(a, w.t()))
+        t16 = kernel_ms(lambda: torch.matmul(ab, wb.t()))
+        bound = max(2 * m * k * n / INT8_OPS, (m * k + k * n + 4 * m * n) / HBM_BYTES_PER_S) * 1e3
+        n_calls = shapes.count((m, k, n))
+        sums["int8"] += n_calls * t8
+        sums["bf16"] += n_calls * t16
+        sums["bound"] += n_calls * bound
+        print(f"[int8] _int_mm ({m}, {k}) x ({k}, {n}) x {n_calls} a forward: bit-equal to the "
+              f"float64 product; {t8:.4f} ms against bf16 matmul {t16:.4f} ms "
+              f"({t16 / t8:.2f}x); bound {bound:.4f} ms ({bound / t8:.1%})")
+    for m, k, n in ((3, 36, 39), (16, 63, 14), (17, 90, 117), (1000, 36, 64)):
+        a = torch.randint(-127, 128, (m, k), generator=gen, device=dev, dtype=torch.int8)
+        w = torch.randint(-127, 128, (n, k), generator=gen, device=dev, dtype=torch.int8)
+        if not torch.equal(int8_matmul(a, w), int8_matmul_reference(a, w)):
+            raise AssertionError(f"[int8] int8_matmul ({m}, {k}, {n}) padded differs")
+    print(f"[int8] {len(shapes)} _int_mm calls a T = 250 forward at {len(set(shapes))} shapes: "
+          f"{sums['int8']:.3f} ms of GEMM against bf16 matmuls' {sums['bf16']:.3f} ms, bound "
+          f"{sums['bound']:.3f} ms; int8_matmul padded to the GEMM's rules at (3, 36, 39), "
+          f"(16, 63, 14), (17, 90, 117), (1000, 36, 64): exact")
+    return sums
+
+
+def int8_launches() -> dict:
+    """launches() with the int8 GEMMs since the last reset_int8()."""
+    from seld_tpu_torch.quant import int8_matmul
+
+    return {**launches(), "int8_mm": int8_matmul.launches}
+
+
+def reset_int8() -> None:
+    from seld_tpu_torch.quant import int8_matmul
+
+    reset_launches()
+    int8_matmul.launches = 0
+
+
+def int8_predicts(dev, path: Path, wave, tag: str) -> dict:
+    """The clip predicted bf16, int8 and weight-only (each calibrated on the
+    clip): one counted predict each (K1 / K4 once, K3 forward 4 a forward
+    at T >= 512, int8 GEMMs one a quantized layer a forward), then five
+    timed each, in turns, and one profiled each; the agreement with the
+    bf16 grid."""
+    from seld_tpu_torch.infer import SELDPredictor
+    from seld_tpu_torch.quant import eligible_names
+
+    preds = {"bf16": SELDPredictor(path, batch_windows=8, device=dev)}
+    preds["int8"] = SELDPredictor(path, batch_windows=8, device=dev).quantize(calib_waves=[wave])
+    preds["weight-only"] = SELDPredictor(path, batch_windows=8, device=dev).quantize(
+        calib_waves=[wave], weight_only=True)
+    p = preds["bf16"]
+    key = "k1" if p.cfg.features.feature_set == "mel" else "k4"
+    n_windows = -(-(1 + CLIP_SECONDS * p.cfg.features.sample_rate // p.cfg.features.hop_length)
+                  // p.win)
+    forwards = -(-n_windows // 8)
+    layers = len(eligible_names(p.cfg.model))
+    found, grids = {}, {}
+    for mode, pred in preds.items():
+        pred.predict_waveform(wave)
+        reset_int8()
+        grids[mode] = pred.predict_waveform(wave).classes
+        counts = int8_launches()
+        want = {**only(**{key: 1, "k3_fwd": 4 * forwards if p.win >= 512 else 0}),
+                "int8_mm": layers * forwards if mode == "int8" else 0}
+        if counts != want:
+            raise AssertionError(f"{tag} {mode} predict: launches {counts}, want {want}")
+        found[mode] = counts
+    times = {}
+    for mode in (*preds, "bf16"):
+        ms, each, peak = timed_predict(lambda pred=preds[mode]: pred.predict_waveform(wave))
+        times.setdefault(mode, []).append((ms, each, peak))
+    for mode, runs in times.items():
+        agree = float((grids[mode] == grids["bf16"]).mean())
+        medians = " / ".join(f"{ms:.2f} ms (of {', '.join(f'{x:.1f}' for x in each)})"
+                             for ms, each, _ in runs)
+        print(f"{tag} {mode} predict of the {CLIP_SECONDS} s clip ({n_windows} windows, "
+              f"{forwards} forwards): median {medians}; peak "
+              f"{max(pk for _, _, pk in runs):.2f} GiB; {agree:.4%} of cells equal to bf16; "
+              f"launches {found[mode]}")
+        found[f"{mode} ms"] = [ms for ms, _, _ in runs]
+    for mode, pred in preds.items():
+        profile_call(f"{tag.strip('[]')} {mode} predict",
+                     lambda pred=pred: pred.predict_waveform(wave), found[f"{mode} ms"][0])
+    found["int8 / bf16"] = found["int8 ms"][0] / found["bf16 ms"][0]
+    found["weight-only / bf16"] = found["weight-only ms"][0] / found["bf16 ms"][0]
+    print(f"{tag} int8 / bf16 {found['int8 / bf16']:.2f}x, weight-only / bf16 "
+          f"{found['weight-only / bf16']:.2f}x (the first bf16 run's median)")
+    return found, preds
+
+
+def cli_serve_int8(dev, path: Path, calib_wav: Path, wave) -> dict:
+    """`cli serve --int8-calib-wavs` in a thread of this process: one stream
+    of the clip in 1 s chunks equal to the offline int8 predict of a
+    predictor calibrated on the same WAV."""
+    import threading
+
+    from seld_tpu_torch import cli
+    from seld_tpu_torch.data.audio import load_wav
+    from seld_tpu_torch.infer import SELDPredictor
+    from seld_tpu_torch.serve import stream_client
+
+    rc = {}
+    thread = threading.Thread(target=lambda: rc.setdefault("rc", cli.main([
+        "serve", "--checkpoint", str(path), "--port", "0", "--max-streams", "1",
+        "--int8-calib-wavs", str(calib_wav)])))
+    log = logging.getLogger("seld_tpu_torch")
+    level = log.level
+    log.setLevel(logging.INFO)
+    try:
+        with log_messages("seld_tpu_torch") as messages:
+            t0 = time.perf_counter()
+            thread.start()
+            port = None
+            while port is None and thread.is_alive() and time.perf_counter() - t0 < 300:
+                found = [re.search(r"Serving \S+ on 127\.0\.0\.1:(\d+) \(int8", m)
+                         for m in list(messages)]
+                port = next((int(m.group(1)) for m in found if m), None)
+                time.sleep(0.05)
+        if port is None:
+            raise AssertionError("cli serve --int8-calib-wavs printed no int8 Serving line")
+        ready_s = time.perf_counter() - t0
+        reset_int8()
+        t1 = time.perf_counter()
+        classes = stream_client("127.0.0.1", port, chunked(wave, None, 24_000), timeout=300)[0]
+        wall_ms = (time.perf_counter() - t1) * 1e3
+        counts = int8_launches()
+        thread.join(timeout=120)
+    finally:
+        log.setLevel(level)
+    offline = SELDPredictor(path, batch_windows=8, device=dev).quantize(
+        calib_waves=[load_wav(calib_wav)[0]]).predict_waveform(wave).classes
+    if thread.is_alive() or rc.get("rc") != 0 or not np.array_equal(classes, offline):
+        raise AssertionError(f"cli serve --int8-calib-wavs: rc {rc}, the stream "
+                             f"{'equals' if np.array_equal(classes, offline) else 'differs from'}"
+                             " the offline int8 predict")
+    print(f"[int8] cli serve --int8-calib-wavs (ready in {ready_s:.1f} s): one stream of the "
+          f"{CLIP_SECONDS} s clip in 1 s chunks equal to the offline int8 predict, {wall_ms:.1f} "
+          f"ms; launches {counts}")
+    return counts
+
+
+def phase_int8(dev: torch.device) -> tuple[dict, dict]:
+    """Phase 17: int8 and QAT on the full-width flagship (see the module's
+    docstring). Returns ({path: launches} of the int8 paths, of the QAT
+    paths)."""
+    from seld_tpu_torch import cli
+    from seld_tpu_torch.config import Config, parse_overrides
+    from seld_tpu_torch.data.audio import load_wav, write_wav
+    from seld_tpu_torch.export import export_serving
+    from seld_tpu_torch.infer import SELDPredictor
+    from seld_tpu_torch.ops.loss_cuda import grid_loss_terms
+    from seld_tpu_torch.ops.mel_cuda import log_mel_frames
+    from seld_tpu_torch.quant import eligible_names
+
+    t_phase = time.perf_counter()
+    steps, int8, qat = {}, {}, {}
+    sr = Config().features.sample_rate
+    wave = clip_waves(1)[0]
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        root = Path(tmp)
+        short = seeded_checkpoint(root / "mel_250.pt", [], dev)
+        long = seeded_checkpoint(root / "mel_iv_1000.pt", INT8_T1000, dev)
+        found, preds = int8_predicts(dev, short, wave, "[int8 mel T = 250]")
+        layers = len(eligible_names(preds["bf16"].cfg.model))  # the flagship's 96
+        int8["predict mel T = 250"] = found["int8"]
+        sums = check_int_mm(dev, int_mm_calls(lambda: preds["int8"].predict_waveform(wave)))
+        steps["T = 250 predicts and GEMMs"] = time.perf_counter() - t_phase
+        p8 = preds["int8"]
+        offline = p8.predict_waveform(wave).classes
+        streamed, blocks, counts = stream_once(p8, chunked(wave, None, sr), 0.0)
+        if not np.array_equal(streamed, offline) or counts["k1"] != blocks:
+            raise AssertionError(f"[int8] the int8 stream differs from offline or K1 {counts} != "
+                                 f"{blocks} frame blocks")
+        int8["stream mel T = 250"] = counts
+        print(f"[int8] the int8 stream of the {CLIP_SECONDS} s clip in 1 s chunks: equal to the "
+              f"offline int8 predict; K1 {counts['k1']} launches = {blocks} frame blocks")
+        found_long, long_preds = int8_predicts(dev, long, wave, "[int8 mel_iv T = 1000]")
+        int8["predict mel_iv T = 1000"] = found_long["int8"]
+        del preds, long_preds
+        steps["T = 1000 predicts"] = time.perf_counter() - t_phase - sum(steps.values())
+        iv = seeded_checkpoint(root / "mel_iv_250.pt", ["features.feature_set=mel_iv"], dev)
+        first = SELDPredictor(iv, batch_windows=8, device=dev).quantize(calib_waves=[wave])
+        first.tta(INT8_TTA)
+        then = SELDPredictor(iv, batch_windows=8, device=dev).tta(INT8_TTA)
+        then.quantize(calib_waves=[wave])
+        reset_int8()
+        got = first.predict_waveform(wave).classes
+        counts = int8_launches()
+        n_windows = -(-(1 + CLIP_SECONDS * sr // first.cfg.features.hop_length) // first.win)
+        forwards = len(INT8_TTA) * -(-n_windows // 8)
+        want = {**only(k4=1), "int8_mm": layers * forwards}
+        if counts != want or not np.array_equal(got, then.predict_waveform(wave).classes):
+            raise AssertionError(f"[int8] TTA + int8: launches {counts}, want {want}, or the "
+                                 "orders differ")
+        int8["tta mel_iv T = 250"] = counts
+        print(f"[int8] int8 under TTA ({len(INT8_TTA)} views), mel_iv T = 250: the grid is the "
+              f"same whichever of tta() and quantize() came first; launches {counts} "
+              f"({forwards} forwards)")
+        del first, then
+        calib_wav = root / "clip.wav"
+        write_wav(calib_wav, wave, sr)
+        calib = [load_wav(calib_wav)[0]]
+        for weight_only in (False, True):
+            mode = "weight-only" if weight_only else "int8"
+            art = root / f"{mode}.pt2"
+            t0 = time.perf_counter()
+            export_serving(short, art, batch_windows=8, device=dev, int8_calib_waves=calib,
+                           int8_weight_only=weight_only)
+            export_s = time.perf_counter() - t0
+            served = SELDPredictor.from_artifact(art, device=dev)
+            live = SELDPredictor(short, batch_windows=8, device=dev).quantize(
+                calib_waves=calib, weight_only=weight_only)
+            reset_int8()
+            got = served.predict_waveform(wave).classes
+            counts = int8_launches()
+            if (not served.quantized or served.int8_weight_only != weight_only
+                    or not np.array_equal(got, live.predict_waveform(wave).classes)):
+                raise AssertionError(f"[int8] the {mode} artifact's grid differs from the "
+                                     "predictor's")
+            with open(art, "rb") as f:
+                graph = torch.export.load(f).graph
+            gemms = sum("_int_mm" in str(n.target) for n in graph.nodes)
+            if gemms != (0 if weight_only else layers):
+                raise AssertionError(f"[int8] the {mode} program holds {gemms} _int_mm nodes")
+            int8[f"artifact {mode}"] = counts
+            print(f"[int8] {mode} artifact of the mel T = 250 flagship (export "
+                  f"--int8-calib-wavs{' --int8-weight-only' if weight_only else ''}): exported "
+                  f"in {export_s:.1f} s, {art.stat().st_size / 1e6:.1f} MB + "
+                  f"{Path(f'{art}.probs').stat().st_size / 1e6:.1f} MB on disk, {gemms} "
+                  f"aten._int_mm nodes in a program; its {CLIP_SECONDS} s predict equal to the "
+                  f"predictor's {mode} grid; launches {counts}")
+            del served, live
+        steps["stream, TTA, artifacts"] = time.perf_counter() - t_phase - sum(steps.values())
+        int8["cli serve"] = cli_serve_int8(dev, short, calib_wav, load_wav(calib_wav)[0])
+
+        cfg = Config()
+        hop = cfg.window.hop_frames(cfg.features)
+        fps = sr // cfg.features.hop_length
+        train_steps = -(-(2 * 30 * fps // hop) // cfg.train.batch_size)
+        eval_steps = -(-(20 * fps // hop) // cfg.train.batch_size)
+        run = root / "qat"
+        grid_loss_terms.fwd_launches = grid_loss_terms.bwd_launches = 0
+        log_mel_frames.launches = 0
+        t0 = time.perf_counter()
+        if cli.main(["train", "--synthetic", f"data.base_path={run}", "train.qat=true",
+                     "train.num_epochs=1", "train.save_every_n_epochs=1"]) != 0:
+            raise AssertionError("cli train train.qat=true failed")
+        torch.cuda.synchronize()
+        counts = {"k2_fwd": grid_loss_terms.fwd_launches,
+                  "k2_bwd": grid_loss_terms.bwd_launches, "k1": log_mel_frames.launches}
+        want = {"k2_fwd": train_steps + eval_steps, "k2_bwd": train_steps, "k1": 3}
+        (record,) = [json.loads(x) for x in
+                     (run / "checkpoints" / "metrics.jsonl").read_text().splitlines()]
+        if counts != want or not math.isfinite(record["train"]["loss"]):
+            raise AssertionError(f"cli train train.qat=true: launches {counts}, want {want}; "
+                                 f"{record}")
+        qat["cli train T = 250"] = counts
+        print(f"[qat] cli train --synthetic train.qat=true, 1 epoch of {train_steps} train + "
+              f"{eval_steps} eval steps in {time.perf_counter() - t0:.1f} s: K2 forward "
+              f"{counts['k2_fwd']}, backward {counts['k2_bwd']}, K1 {counts['k1']}; train loss "
+              f"{record['train']['loss']:.6f}, test {record['test']['loss']:.6f}")
+        for flags in (["--int8"], ["--int8", "--int8-weight-only"]):
+            reset_int8()
+            report = cli_json(["eval", "--synthetic", f"data.base_path={run}", *flags])
+            counts = int8_launches()
+            # the corpora of --synthetic: three clips; the calibration forwards are float
+            want = {**only(k1=3, k2_fwd=eval_steps),
+                    "int8_mm": 0 if len(flags) > 1 else layers * eval_steps}
+            if counts != want or not report["quantized_int8"]:
+                raise AssertionError(f"cli eval {' '.join(flags)}: launches {counts}, want {want}")
+            int8[f"cli eval {' '.join(flags)}"] = counts
+            print(f"[int8] cli eval {' '.join(flags)} of the QAT run: test loss "
+                  f"{report['test_loss']:.6f}, SELD_error {report['dcase2022']['SELD_error']:.4f}; "
+                  f"launches {counts} (the calibration forwards are float)")
+        steps["cli serve, train, eval"] = time.perf_counter() - t_phase - sum(steps.values())
+    long_cfg = parse_overrides(Config(), [f"window.window_seconds={LONG_WINDOW_SECONDS}"])
+    timed = {}
+    for name, on in (("plain", False), ("QAT", True)):
+        timed[name] = time_train_steps(dev, long_cfg, tag=f"[qat][{name} T = 1000]", qat=on)
+        want = {"k3_fwd": 4, "k3_dq": 4, "k3_dkv": 4}
+        if timed[name]["k3"] != want or timed[name]["k2"] != {"k2_fwd": 1, "k2_bwd": 1}:
+            raise AssertionError(f"{name} step at T = 1000: launches {timed[name]}")
+    qat["train step T = 1000"] = {**timed["QAT"]["k3"], **timed["QAT"]["k2"]}
+    print(f"[qat] T = 1000 train step: QAT {timed['QAT']['step_ms']:.2f} ms against plain "
+          f"{timed['plain']['step_ms']:.2f} ms ({timed['QAT']['step_ms'] / timed['plain']['step_ms']:.2f}x); "
+          f"peak {timed['QAT']['peak_gib']:.2f} / {timed['plain']['peak_gib']:.2f} GiB")
+    steps["T = 1000 steps"] = time.perf_counter() - t_phase - sum(steps.values())
+    print(f"[int8] phase 17 took {time.perf_counter() - t_phase:.1f} s "
+          f"({', '.join(f'{k} {v:.1f} s' for k, v in steps.items())}); GEMM ms a T = 250 "
+          f"forward {json.dumps(sums)}")
+    return int8, qat
+
+
 def main() -> int:
     name, smi = phase_device()
     dev = torch.device("cuda")
@@ -3787,6 +4140,13 @@ def main() -> int:
         row["launches_artifact"] = {p: c["launches"][key] for p, c in daemon.items()
                                     if "artifact_ms" in c}
     k3_rows[0]["host_us_operator"] = daemon["k3 host us"]["operator"]
+    int8, qat = phase_int8(dev)
+    print(f"[paths] launches on the int8 and QAT paths: "
+          f"{json.dumps({'int8': int8, 'qat': qat})}")
+    for row, key in ((k1, "k1"), (k2_fwd, "k2_fwd"), (k2_bwd, "k2_bwd"),
+                     *zip(k3_rows, ("k3_fwd", "k3_dq", "k3_dkv")), (k4_rows[0], "k4")):
+        row["launches_int8"] = {p: c[key] for p, c in int8.items() if key in c}
+        row["launches_qat"] = {p: c[key] for p, c in qat.items() if key in c}
     print(json.dumps({"kernels": [k1, k2_fwd, k2_bwd, *k3_rows, *k4_rows, *f2_rows,
                                   *k5_rows]}))
     print(smi)

@@ -22,7 +22,11 @@ a test corpus. Serving also streams chunked audio (stream.py), averages
 the ACS scene transforms at test time (tta.py), averages rolling
 checkpoints (tools/average_ckpt.py), serves many live streams over TCP
 with their windows batched across streams (serve.py), and ships a model
-as a torch.export artifact (export.py). It imports torch and never JAX or seld_tpu; module names
+as a torch.export artifact (export.py). int8 (quant.py): post-training
+quantization of the convolutions and dense layers, their products as
+int8 GEMMs (torch._int_mm, cuBLASLt on the card), weight-only int8, and
+quantization-aware training (train.qat), under every serving, evaluation
+and export path. It imports torch and never JAX or seld_tpu; module names
 follow seld_tpu so each piece's counterpart is easy to find.
 
 Entry points run on the card: a device of None means CUDA, and raises

@@ -13,9 +13,11 @@ Two evaluation passes over the corpus:
 With tta_transforms both passes run the test-time-augmented decode
 (seld_tpu_torch.tta), whose optimum differs from the plain decode's, and
 the file says so ("tta", "tta_transforms"): `predict` and `eval
---calibration` then turn TTA on. The file keeps the JAX package's keys, so
-either package reads what the other wrote. A file tuned on the int8
-forward (its "int8" true) raises on load: that forward is not ported.
+--calibration` then turn TTA on. With int8 both passes run the int8
+forward (seld_tpu_torch.quant), and the file says so ("int8",
+"int8_weight_only"): `predict` and `eval --calibration` then turn int8 on,
+and `export --calibration` asks for --int8-calib-wavs. The file keeps the
+JAX package's keys, so either package reads what the other wrote.
 """
 
 from __future__ import annotations
@@ -45,6 +47,7 @@ _METRIC_KEYS = ("ER", "F_macro", "LE_macro", "LR_macro", "SELD_error")
 
 
 def run_calibration(cfg: Config, val_corpus, checkpoint_dir, *, tta_transforms=None,
+                    int8: bool = False, int8_weight_only: bool = False,
                     bias_grid=None, threshold_grid=None, median_widths=None,
                     use_checkpoint: str = "best",
                     device: str | torch.device | None = None) -> dict:
@@ -69,10 +72,11 @@ def run_calibration(cfg: Config, val_corpus, checkpoint_dir, *, tta_transforms=N
         knob = "bg_bias"
         values = [float(b) for b in (bias_grid or DEFAULT_BIAS_GRID)]
     widths = [int(w) for w in (median_widths or DEFAULT_MEDIAN_WIDTHS)]
-    common = dict(use_checkpoint=use_checkpoint, device=device, tta_transforms=tta_transforms)
+    common = dict(use_checkpoint=use_checkpoint, device=device, tta_transforms=tta_transforms,
+                  int8=int8, int8_weight_only=int8_weight_only)
 
-    logger.info("Calibration pass 1/2: %s sweep over %s (tta=%s)", knob, values,
-                tta_transforms is not None)
+    logger.info("Calibration pass 1/2: %s sweep over %s (tta=%s int8=%s)", knob, values,
+                tta_transforms is not None, int8)
     r1 = evaluate_model(cfg, val_corpus, checkpoint_dir, **{f"{knob}_sweep": values}, **common)
     sweep_report = r1[f"{knob}_sweep"]
     best_knob = float(sweep_report["best"][knob])
@@ -92,8 +96,8 @@ def run_calibration(cfg: Config, val_corpus, checkpoint_dir, *, tta_transforms=N
         "tta": tta_transforms is not None,
         "tta_transforms": (None if tta_transforms is None
                            else [int(t) for t in tta_transforms]),
-        "int8": False,
-        "int8_weight_only": False,
+        "int8": bool(int8),
+        "int8_weight_only": bool(int8_weight_only),
         knob: best_knob,
         "median_filter": best_w,
         "val_metrics": final,
@@ -116,8 +120,8 @@ def write_calibration(calib: dict, out_path) -> Path:
 
 
 def load_calibration(path) -> dict:
-    """A decode_calibration.json, checked: its version, its keys, exactly one
-    operating-point knob, and a decode path the port has (no int8)."""
+    """A decode_calibration.json, checked: its version, its keys and exactly
+    one operating-point knob."""
     path = Path(path)
     if not path.exists():
         raise FileNotFoundError(f"calibration file not found: {path}")
@@ -132,9 +136,6 @@ def load_calibration(path) -> dict:
     if ("bg_bias" in calib) == ("accdoa_threshold" in calib):
         raise ValueError(f"{path}: calibration must carry exactly one operating-point knob "
                          "(bg_bias for grid models, accdoa_threshold for ACCDOA)")
-    if calib.get("int8"):
-        raise NotImplementedError(f"{path} was tuned on the int8 forward, which is not ported "
-                                  "(ROADMAP item 9): recalibrate without --int8")
     return calib
 
 

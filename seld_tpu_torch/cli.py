@@ -26,19 +26,21 @@ targets.accdoa_tracks to 3.
     python -m seld_tpu_torch.cli eval [--synthetic] [--bg-bias B] \
         [--bg-bias-sweep B1,B2] [--accdoa-threshold T] [--accdoa-threshold-sweep T1,T2] \
         [--median-filter W] [--median-filter-sweep W1,W2] [--calibration FILE] \
-        [--tta] [--tta-transforms 0,4] [--use-checkpoint best|latest] [--device cpu] \
-        [k.e.y=value ...]
+        [--tta] [--tta-transforms 0,4] [--int8 [--int8-weight-only]] \
+        [--use-checkpoint best|latest] [--device cpu] [k.e.y=value ...]
 
 scores the checkpoints under <data.base_path>/checkpoints on the test
 split and prints the report (losses, cell accuracies, "dcase" and
 "dcase2022" metrics) as JSON on standard output; --tta decodes the
 ACS test-time-augmented forward ("mel_iv" models), losses staying on the
-plain one.
+plain one; --int8 scores the int8 post-training-quantized forward
+(seld_tpu_torch.quant, calibrated on the first eval batches; losses too),
+--int8-weight-only its weight-only variant.
 
     python -m seld_tpu_torch.cli calibrate [--synthetic] [--bg-bias-sweep B1,B2] \
         [--accdoa-threshold-sweep T1,T2] [--median-widths W1,W2] [--tta] \
-        [--tta-transforms 0,4] [--use-checkpoint best|latest] [--out FILE] \
-        [--device cpu] [k.e.y=value ...]
+        [--tta-transforms 0,4] [--int8 [--int8-weight-only]] \
+        [--use-checkpoint best|latest] [--out FILE] [--device cpu] [k.e.y=value ...]
 
 tunes the run's decode (the background bias of a grid model or the
 activity threshold of an ACCDOA model, then the median-filter width) on
@@ -46,7 +48,7 @@ the test split, which should then be a validation split, and writes
 <data.base_path>/checkpoints/decode_calibration.json unless --out names
 another file; `eval` and `predict` take it back with --calibration FILE,
 where a flag given explicitly wins over the file, and a file tuned with
---tta turns TTA on.
+--tta (--int8) turns TTA (int8) on.
 
     python -m seld_tpu_torch.cli score --pred-dir P --gt-dir G [--macro-over all|gt] \
         [k.e.y=value ...]
@@ -61,8 +63,9 @@ feature set's channel count (4, 7 for mel_iv, 10 for mel_gcc).
 
     python -m seld_tpu_torch.cli predict [k.e.y=value ...] --wavs A.wav ... \
         [--checkpoint FILE | --artifact FILE] [--out DIR] [--overlap F] [--stream] \
-        [--tta] [--tta-transforms 0,4] [--tta-fold K] [--bg-bias B] \
-        [--accdoa-threshold T] [--median-filter W] [--calibration FILE] [--device cpu]
+        [--tta] [--tta-transforms 0,4] [--tta-fold K] [--int8 [--int8-calib N]] \
+        [--bg-bias B] [--accdoa-threshold T] [--median-filter W] [--calibration FILE] \
+        [--device cpu]
 
 writes DIR/predictions/<wav stem>.csv (DIR: --out, else
 <data.base_path>/outputs) with the STARSS22-style metadata rows of each
@@ -72,34 +75,41 @@ or an artifact of `export` (--artifact: its bias, threshold and median
 width came with it; --median-filter still overrides the width). --stream
 feeds each clip in 1 s chunks through a StreamingSession (the same CSV);
 --tta averages the 16 ACS scene transforms (or the listed ones) of a
-"mel_iv" model.
+"mel_iv" model; --int8 serves the int8 post-training-quantized forward,
+its activation scales calibrated on the first N clips (--int8-calib N,
+default 1).
 
     python -m seld_tpu_torch.cli export [k.e.y=value ...] --out FILE \
         [--checkpoint FILE] [--batch-windows N] [--bg-bias B] [--median-filter W] \
-        [--accdoa-threshold T] [--calibration FILE] [--device cpu]
+        [--accdoa-threshold T] [--calibration FILE] \
+        [--int8-calib-wavs C.wav ... [--int8-weight-only]] [--device cpu]
 
 writes the serving artifact (seld_tpu_torch.export): FILE and FILE.probs,
 the two forwards as torch.export programs with the weights inside, and
 the sidecar FILE.json. The programs run only on the device type they were
 exported for, so --device takes the place of the JAX package's
---platforms.
+--platforms. --int8-calib-wavs exports the int8 forwards, calibrated on
+those WAVs (int8 weights and scales inside), --int8-weight-only their
+weight-only variant.
 
     python -m seld_tpu_torch.cli serve [k.e.y=value ...] [--checkpoint FILE | \
         --artifact FILE] [--host H] [--port P] [--max-streams N] [--batch-streams] \
-        [--batch-wait-ms MS] [--bg-bias B] [--accdoa-threshold T] [--device cpu]
+        [--batch-wait-ms MS] [--bg-bias B] [--accdoa-threshold T] \
+        [--int8-calib-wavs C.wav ...] [--device cpu]
 
 runs the TCP streaming daemon (seld_tpu_torch.serve; port 0 picks a free
 one, which the "Serving ... on host:port" log line names); --max-streams
 exits after N completed streams, --batch-streams packs the windows of
-concurrent streams into shared forwards.
+concurrent streams into shared forwards; --int8-calib-wavs serves the int8
+forward calibrated on those WAVs.
 
     python -m seld_tpu_torch.cli average-ckpts --checkpoint-dir RUN \
         --output-dir OUT [--last N | --steps E1,E2]
 
 averages the run's rolling checkpoints (SWA) into OUT/best. All but
 `score` and `average-ckpts` run on the CUDA card unless --device names
-another. int8 (--int8-calib-wavs, --int8-weight-only) is ROADMAP item 9
-and is refused.
+another. `train ... train.qat=true` trains quantization-aware (int8
+fake-quant with straight-through gradients).
 """
 
 from __future__ import annotations
@@ -150,7 +160,9 @@ def _apply_calibration(args, run_cfg) -> None:
     checkpoint the command serves: an explicit flag, 0 included, wins over
     the file. A file tuned under TTA turns TTA on with its transforms, its
     knobs being that decode's optimum, unless --tta or --tta-transforms was
-    given."""
+    given; one tuned under int8 turns --int8 (and --int8-weight-only) on, or
+    for `export` demands --int8-calib-wavs (the JAX package's rules, word
+    for word)."""
     from seld_tpu_torch.calibrate import check_calibration_matches, load_calibration
 
     if getattr(args, "artifact", None):
@@ -174,6 +186,21 @@ def _apply_calibration(args, run_cfg) -> None:
         if calib.get("tta_transforms"):
             args.tta_transforms = ",".join(str(t) for t in calib["tta_transforms"])
         applied.append("tta=on")
+    if calib.get("int8"):
+        if hasattr(args, "int8") and not args.int8:
+            args.int8 = True
+            applied.append("int8=on")
+        elif hasattr(args, "int8_calib_wavs") and not args.int8_calib_wavs:
+            # export: int8 weights need a calibration pass over audio
+            raise ValueError("this calibration was tuned under int8 — pass --int8-calib-wavs "
+                             "so export can bake the quantized forward")
+        if calib.get("int8_weight_only"):
+            if not hasattr(args, "int8_weight_only"):
+                raise ValueError("this calibration was tuned under int8 weight-only "
+                                 "quantization, which this command cannot apply")
+            if not args.int8_weight_only:
+                args.int8_weight_only = True
+                applied.append("int8_weight_only=on")
     logger.info("Applied calibration %s: %s", args.calibration,
                 ", ".join(applied) if applied else "(no unset knobs)")
 
@@ -203,10 +230,10 @@ def _refuse_with_artifact(args) -> None:
                          "is baked at export time (export --accdoa-threshold)")
 
 
-def _refuse_int8(args) -> None:
-    if getattr(args, "int8_calib_wavs", None) or getattr(args, "int8_weight_only", False):
-        raise NotImplementedError("int8 serving (--int8-calib-wavs, --int8-weight-only) is "
-                                  "not ported (ROADMAP item 9)")
+def _load_waves(paths) -> list:
+    from seld_tpu_torch.data.audio import load_wav
+
+    return [load_wav(path)[0] for path in paths]
 
 
 def cmd_predict(args) -> int:
@@ -219,6 +246,9 @@ def cmd_predict(args) -> int:
     if args.artifact:
         if args.calibration:
             _apply_calibration(args, cfg)  # raises: it does not compose
+        if args.int8:
+            raise ValueError("--int8 does not compose with --artifact: int8 is baked at export "
+                             "time (export --int8-calib-wavs)")
         _refuse_with_artifact(args)
         predictor = SELDPredictor.from_artifact(args.artifact, device=args.device)
         if args.median_filter is not None:  # a host-side post-op: 0 turns it off
@@ -231,6 +261,9 @@ def cmd_predict(args) -> int:
             checkpoint, bg_bias=args.bg_bias or 0.0, median_filter=args.median_filter or 0,
             accdoa_threshold=args.accdoa_threshold, device=args.device,
         )
+    if args.int8:
+        # activation scales self-calibrated on the first clip(s) served
+        predictor.quantize(calib_waves=_load_waves(args.wavs[:max(1, args.int8_calib)]))
     transforms = _tta_transforms(args)
     if transforms is not None:
         predictor.tta(transforms, fold=args.tta_fold)
@@ -251,14 +284,19 @@ def cmd_export(args) -> int:
     from seld_tpu_torch.export import export_serving
     from seld_tpu_torch.train.checkpoint import load_checkpoint
 
-    _refuse_int8(args)
     cfg = parse_overrides(Config(), args.overrides)
     checkpoint = _serving_checkpoint(args, cfg)
     if args.calibration:
         _apply_calibration(args, load_checkpoint(checkpoint)[0])
+    if args.int8_weight_only and not args.int8_calib_wavs:
+        raise ValueError("--int8-weight-only requires --int8-calib-wavs (the calibration pass "
+                         "discovers the quantizable layers)")
     out = export_serving(checkpoint, args.out, batch_windows=args.batch_windows,
                          bg_bias=args.bg_bias or 0.0, median_filter=args.median_filter or 0,
-                         accdoa_threshold=args.accdoa_threshold, device=args.device)
+                         accdoa_threshold=args.accdoa_threshold, device=args.device,
+                         int8_calib_waves=(_load_waves(args.int8_calib_wavs)
+                                           if args.int8_calib_wavs else None),
+                         int8_weight_only=args.int8_weight_only)
     logger.info("Serving artifact written: %s", out)
     return 0
 
@@ -277,14 +315,16 @@ def cmd_serve(args) -> int:
         _refuse_with_artifact(args)
         predictor = SELDPredictor.from_artifact(args.artifact, device=args.device)
     else:
-        _refuse_int8(args)
         predictor = SELDPredictor(_serving_checkpoint(args, cfg), bg_bias=args.bg_bias,
                                   accdoa_threshold=args.accdoa_threshold, device=args.device)
+    if args.int8_calib_wavs:
+        predictor.quantize(calib_waves=_load_waves(args.int8_calib_wavs))
     server = SELDServer(predictor, host=args.host, port=args.port,
                         max_streams=args.max_streams, batch_streams=args.batch_streams,
                         batch_wait_s=args.batch_wait_ms / 1000.0)
-    logger.info("Serving %s on %s:%d (float%s) — Ctrl-C to stop",
+    logger.info("Serving %s on %s:%d (%s%s) — Ctrl-C to stop",
                 predictor.cfg.model.model_type, args.host, server.port,
+                "int8" if predictor.quantized else "float",
                 ", cross-stream batching" if args.batch_streams else "")
     try:
         server.serve_forever()
@@ -354,12 +394,23 @@ def _csv(spec, convert):
     return [convert(x) for x in str(spec).split(",") if x.strip()] if spec else None
 
 
+def _int8_flags(args) -> tuple[bool, bool]:
+    """(--int8, --int8-weight-only) of eval or calibrate (False for a parser
+    without them)."""
+    int8 = getattr(args, "int8", False)
+    int8_weight_only = getattr(args, "int8_weight_only", False)
+    if int8_weight_only and not int8:
+        raise ValueError("--int8-weight-only requires --int8")
+    return int8, int8_weight_only
+
+
 def _evaluate(cfg, args, test_corpus, device) -> int:
     """Score cfg's checkpoint tree and print the report as JSON. `train
     --eval-after` comes here with the train parser's namespace, which has
     none of the decode flags: they keep their defaults."""
     from seld_tpu_torch.eval import evaluate_model
 
+    int8, int8_weight_only = _int8_flags(args)
     results = evaluate_model(
         cfg, test_corpus, cfg.data.checkpoint_path,
         save_visualizations=False,
@@ -372,6 +423,8 @@ def _evaluate(cfg, args, test_corpus, device) -> int:
         use_checkpoint=getattr(args, "use_checkpoint", "best"),
         device=device,
         tta_transforms=_tta_transforms(args),
+        int8=int8,
+        int8_weight_only=int8_weight_only,
     )
     printable = {k: v for k, v in results.items() if k != "visualizations"}
     print(json.dumps(printable, indent=2, default=str))
@@ -387,6 +440,7 @@ def cmd_eval(args) -> int:
     cfg = _normalize_config(parse_overrides(Config(), args.overrides))
     if args.calibration:
         _apply_calibration(args, load_checkpoint_config(cfg.data.checkpoint_path) or cfg)
+    _int8_flags(args)  # before the corpus is built
     _, test_c = _build_corpora(cfg, args.synthetic, device)
     return _evaluate(cfg, args, test_c, device)
 
@@ -401,9 +455,11 @@ def cmd_calibrate(args) -> int:
 
     device = resolve_device(args.device)
     cfg = _normalize_config(parse_overrides(Config(), args.overrides))
+    int8, int8_weight_only = _int8_flags(args)
     _, val_c = _build_corpora(cfg, args.synthetic, device)
     calib = run_calibration(
-        cfg, val_c, cfg.data.checkpoint_path, bias_grid=_csv(args.bg_bias_sweep, float),
+        cfg, val_c, cfg.data.checkpoint_path, int8=int8,
+        int8_weight_only=int8_weight_only, bias_grid=_csv(args.bg_bias_sweep, float),
         threshold_grid=_csv(args.accdoa_threshold_sweep, float),
         median_widths=_csv(args.median_widths, int), use_checkpoint=args.use_checkpoint,
         device=device, tta_transforms=_tta_transforms(args))
@@ -496,6 +552,15 @@ def _add_tta_flags(p, what: str) -> None:
                    "azimuth rotations); implies --tta")
 
 
+def _add_int8_flags(p, what: str) -> None:
+    p.add_argument("--int8", action="store_true",
+                   help=f"{what} the int8 post-training-quantized forward (self-calibrated "
+                   "on the first eval batches)")
+    p.add_argument("--int8-weight-only", action="store_true",
+                   help="with --int8: quantize weights only (compute-dtype products: the "
+                   "export --int8-weight-only numerics)")
+
+
 def _add_checkpoint_flags(p) -> None:
     p.add_argument("--checkpoint", default=None,
                    help="checkpoint file (default: the newest best checkpoint under "
@@ -538,12 +603,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--median-filter-sweep", default=None, metavar="W1,W2,...",
                    help="also report DCASE2022 metrics at each of these widths, and the best")
     p.add_argument("--calibration", default=None, metavar="FILE",
-                   help="take --bg-bias / --accdoa-threshold / --median-filter (and TTA, "
-                   "for a file tuned under it) from a `calibrate` file; a flag given "
+                   help="take --bg-bias / --accdoa-threshold / --median-filter (and TTA or "
+                   "int8, for a file tuned under it) from a `calibrate` file; a flag given "
                    "explicitly wins")
     p.add_argument("--use-checkpoint", default="best", choices=("best", "latest"),
                    help="score the best checkpoint, or the newest rolling one")
     _add_tta_flags(p, "the decodes (every metric and sweep; losses stay plain)")
+    _add_int8_flags(p, "score")
     p.add_argument("--device", default=None, help=device_help)
     p.set_defaults(fn=cmd_eval)
     p = sub.add_parser(
@@ -565,6 +631,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--out", default=None,
                    help="output file (default <checkpoint_path>/decode_calibration.json)")
     _add_tta_flags(p, "the decode both passes tune")
+    _add_int8_flags(p, "tune the decode of")
     p.add_argument("--device", default=None, help=device_help)
     p.set_defaults(fn=cmd_calibrate)
     p = sub.add_parser("score", help="official DCASE2022 metrics of prediction CSVs "
@@ -595,6 +662,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--stream", action="store_true",
                    help="bounded-memory streaming inference in 1 s chunks (the same CSV)")
     _add_tta_flags(p, "predictions")
+    p.add_argument("--int8", action="store_true",
+                   help="int8 post-training-quantized inference; activation scales "
+                   "self-calibrate on the input clips (not with --artifact)")
+    p.add_argument("--int8-calib", type=int, default=1, metavar="N",
+                   help="number of input clips used for int8 calibration")
     p.add_argument("--tta-fold", type=int, default=1, metavar="K",
                    help="TTA views in each forward's batch (must divide the transform count; "
                    "folds agree to ~1e-6, streaming stays bit-equal at one fold)")
@@ -605,8 +677,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--median-filter", type=int, default=None, metavar="W",
                    help="odd W-frame majority smoothing of the class grid")
     p.add_argument("--calibration", default=None, metavar="FILE",
-                   help="take --bg-bias / --accdoa-threshold / --median-filter (and TTA, "
-                   "for a file tuned under it) from a `calibrate` file; a flag given "
+                   help="take --bg-bias / --accdoa-threshold / --median-filter (and TTA or "
+                   "int8, for a file tuned under it) from a `calibrate` file; a flag given "
                    "explicitly wins; not with --artifact (export --calibration)")
     p.add_argument("--device", default=None, help=device_help)
     p.set_defaults(fn=cmd_predict)
@@ -629,11 +701,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--calibration", default=None, metavar="FILE",
                    help="bake a `calibrate` file's decode (bias or threshold into the "
                    "programs, median width into the sidecar); a file tuned under TTA is "
-                   "refused (an artifact serves the plain forward)")
+                   "refused (an artifact serves the plain forward), one tuned under int8 "
+                   "needs --int8-calib-wavs")
     p.add_argument("--int8-calib-wavs", nargs="+", default=None,
-                   help="not ported (ROADMAP item 9): refused")
+                   help="export the int8 PTQ forward instead, calibrated on these WAVs (int8 "
+                   "weights and scales bake into the programs)")
     p.add_argument("--int8-weight-only", action="store_true",
-                   help="not ported (ROADMAP item 9): refused")
+                   help="with --int8-calib-wavs: quantize weights only (int8 storage, "
+                   "compute-dtype products: a smaller artifact at near-float accuracy)")
     p.add_argument("--device", default=None,
                    help="the device type the programs run on (default: cuda); the JAX "
                    "package's --platforms")
@@ -657,7 +732,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--accdoa-threshold", type=float, default=None, metavar="T",
                    help="ACCDOA activity threshold (default 0.5); not with --artifact")
     p.add_argument("--int8-calib-wavs", nargs="+", default=None,
-                   help="not ported (ROADMAP item 9): refused")
+                   help="serve the int8 PTQ forward, calibrated on these WAVs; not with "
+                   "--artifact")
     p.add_argument("--device", default=None, help=device_help)
     p.set_defaults(fn=cmd_serve)
     p = sub.add_parser("average-ckpts", help="SWA: average a run's rolling checkpoints into "

@@ -3,8 +3,8 @@
 The port's own copy of the sections of seld_tpu/config.py, with the same
 defaults, field names, dotted `key=value` overrides and dict round-trip,
 so a config dict stored by either package rebuilds the same run here.
-Fields whose reader is not ported (QAT, distillation, profiling, the mesh's ZeRO-1 and FSDP switches, the Pallas toggle) are
-left out:
+Fields whose reader is not ported (distillation, profiling, the mesh's
+ZeRO-1 and FSDP switches, the Pallas toggle) are left out:
 `config_from_dict` ignores them, exactly as seld_tpu ignores unknown
 keys, and an override of one raises `parse_overrides`'s unknown-field
 error. Each comes back with the code that reads it.
@@ -234,6 +234,11 @@ class TrainConfig:
     # Split each batch into N microbatches, add their gradients weighted by
     # each one's share of the example mask, and apply one optimizer update.
     accum_steps: int = 1
+    # Quantization-aware training: the int8 PTQ layer set (trunk convs,
+    # dense layers, the grid head) fake-quantizes its weights and inputs to
+    # the int8 grid with straight-through gradients inside the train step,
+    # so the trained weights survive int8 serving (`predict --int8`).
+    qat: bool = False
     # Exponential moving average of the parameters (0 = off): the EMA
     # weights are evaluated and stored in the best checkpoint; rolling
     # checkpoints keep the raw weights for an exact resume.

@@ -22,6 +22,11 @@ as seld_tpu/tools/torch_import.py maps them).
 
 Every leaf the model needs must be present, and every leaf given must be
 used: a missing or unknown key raises KeyError.
+
+`quant_tree_from_jax` carries a seld_tpu int8 quant tree ({JAX module
+path: {"w_q", "s_w", "s_x", "bias"}}, seld_tpu/quant.py) across the same
+way: w_q by the layer's kernel layout, a logits head's (M, G) scales and
+bias flattened to the port's M*G rows, s_x as it is.
 """
 
 from __future__ import annotations
@@ -223,3 +228,47 @@ def state_dict_from_jax(variables_np: Mapping, model_cfg: ModelConfig) -> dict[s
     if leaves:
         raise KeyError(f"JAX variables the port does not know: {sorted(leaves)[:5]}")
     return state
+
+
+def quant_tree_from_jax(jax_qtree_np: Mapping, model_cfg: ModelConfig) -> dict[str, dict]:
+    """A seld_tpu quant tree (numpy leaves) -> the port's
+    {module name: {"w_q", "s_w", "s_x", "bias"}} (seld_tpu_torch.quant) on
+    the CPU. Each of the model's eligible layers must be in the tree, and
+    every key of the tree must be one of them: KeyError otherwise."""
+    from seld_tpu_torch.quant import ELIGIBLE_KINDS
+
+    if model_cfg.model_type not in _LAYERS:
+        raise NotImplementedError(
+            f"no converter for model_type {model_cfg.model_type!r} yet"
+        )
+    layers = {jax_path: (port, kind) for jax_path, port, kind
+              in _LAYERS[model_cfg.model_type](model_cfg) if kind in ELIGIBLE_KINDS}
+    unknown = sorted(set(jax_qtree_np) - set(layers))
+    if unknown:
+        raise KeyError(f"quant tree layers the port does not know: {unknown[:5]}")
+    missing = sorted(set(layers) - set(jax_qtree_np))
+    if missing:
+        raise KeyError(f"the quant tree has no {missing[0]!r} ({len(missing)} eligible "
+                       "layers missing)")
+    out = {}
+    for jax_path, (port, kind) in layers.items():
+        entry = {k: np.asarray(v) for k, v in jax_qtree_np[jax_path].items()}
+        for leaf in ("w_q", "s_w"):
+            if leaf not in entry:
+                raise KeyError(f"quant tree entry {jax_path!r} has no {leaf!r}")
+        w_q = entry.pop("w_q")
+        if kind in ("conv", "conv_bias"):
+            w_q = w_q.transpose(3, 2, 0, 1)
+        elif kind == "logits":
+            w_q = w_q.reshape(w_q.shape[0], -1).T
+        else:
+            w_q = w_q.T
+        port_entry = {"w_q": torch.from_numpy(np.ascontiguousarray(w_q, dtype=np.int8))}
+        for leaf, value in entry.items():
+            if leaf not in ("s_w", "s_x", "bias"):
+                raise KeyError(f"quant tree entry {jax_path!r} has an unknown leaf {leaf!r}")
+            value = value.astype(np.float32)
+            port_entry[leaf] = torch.from_numpy(
+                np.array(value if leaf == "s_x" else value.reshape(-1), order="C"))
+        out[port] = port_entry
+    return out

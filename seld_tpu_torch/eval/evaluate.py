@@ -12,8 +12,10 @@
 
 With `tta_transforms` the decodes, and so every metric and sweep, come
 from the ACS test-time-augmented forward (seld_tpu_torch.tta); the
-losses stay on the plain forward. Left to their own slices of the port,
-and therefore no parameters here: the int8 forward and a device mesh.
+losses stay on the plain forward. With `int8` the model is the int8
+post-training-quantized one (seld_tpu_torch.quant), calibrated on the
+first batches of the corpus, for the losses and the decodes alike. Left to
+its own slice of the port, and therefore no parameter here: a device mesh.
 `save_visualizations=True` raises: the PNG renderer (viz.py) is not
 ported.
 """
@@ -47,7 +49,9 @@ from seld_tpu_torch.infer import bias_background_logits, validate_accdoa_thresho
 from seld_tpu_torch.losses import SELDLossFn
 from seld_tpu_torch.models import build_model
 from seld_tpu_torch.models.registry import ACCDOA_MODELS, MULTI_ACCDOA_MODELS
+from seld_tpu_torch.parallel.sequence import current_mesh
 from seld_tpu_torch.postprocess import smooth_classes, validate_width
+from seld_tpu_torch.quant import QuantizedModel, quantize_model
 from seld_tpu_torch.train.checkpoint import checkpoint_file, load_checkpoint_config
 from seld_tpu_torch.train.completion import workdir_incomplete_reason
 from seld_tpu_torch.train.steps import make_metric_eval_step
@@ -137,6 +141,9 @@ def evaluate_model(
     use_checkpoint: str = "best",
     device: str | torch.device | None = None,
     tta_transforms=None,
+    int8: bool = False,
+    int8_weight_only: bool = False,
+    int8_calib_batches: int = 4,
 ) -> dict:
     """Score the checkpoint tree under `checkpoint_dir` on `test_corpus`,
     on `device` (CUDA unless named).
@@ -175,6 +182,13 @@ def evaluate_model(
     each sweep calibrates that decode; the losses stay on the plain
     forward, comparable across runs.
 
+    int8: evaluate the int8 post-training-quantized forward (the accuracy
+    gate of `predict --int8` and of int8 artifacts), its activation scales
+    calibrated on the first int8_calib_batches batches of train.batch_size
+    windows of test_corpus; int8_weight_only quantizes the weights only. The
+    losses (K2's forward on the card), the decodes and TTA all run it. Not
+    under a device mesh: the quantized forward runs on one device.
+
     save_visualizations=True raises: the PNG renderer is not ported, so
     the report's "visualizations" list stays empty."""
     if save_visualizations:
@@ -183,6 +197,11 @@ def evaluate_model(
             "(ROADMAP item 11: tools); pass save_visualizations=False"
         )
     device = resolve_device(device)
+    if int8 and current_mesh()[0] is not None:
+        raise ValueError("eval --int8 does not compose with a device mesh — the quantized "
+                         "forward runs single-device, like the predictor")
+    if int8_weight_only and not int8:
+        raise ValueError("int8_weight_only requires int8")
     if use_checkpoint not in ("best", "latest"):
         raise ValueError(f"use_checkpoint must be 'best' or 'latest', got {use_checkpoint!r}")
     median_filter = validate_width(median_filter)
@@ -248,6 +267,15 @@ def evaluate_model(
     model.load_state_dict(blob["state_dict"])
     logger.info("Loaded checkpoint epoch %d (test loss %.6f) on %s",
                 meta["epoch"], meta["test_loss"], device)
+
+    if int8:
+        bs = cfg.train.batch_size
+        calib = [test_corpus.gather(np.arange(start, min(start + bs, len(test_corpus))))[0]
+                 for start in range(0, min(int8_calib_batches * bs, len(test_corpus)), bs)]
+        tree = quantize_model(model, calib, weight_only=int8_weight_only)
+        model = QuantizedModel(model, tree)
+        logger.info("Eval int8 PTQ: %d quantized layers, %d calibration batches%s", len(tree),
+                    len(calib), ", weight-only" if int8_weight_only else "")
 
     grid, num_classes = cfg.grid, cfg.grid.num_classes
     multi = cfg.model.model_type in MULTI_ACCDOA_MODELS
@@ -335,7 +363,7 @@ def evaluate_model(
         "visualizations": [],
         "checkpoint_epoch": meta["epoch"],
         "checkpoint_kind": checkpoint_kind,
-        "quantized_int8": False,
+        "quantized_int8": bool(int8),
         "bg_bias": float(bg_bias),
         **({"accdoa_threshold": acc_th} if accdoa_mode else {}),
         **({f"{knob}_sweep": knob_report} if knob_report else {}),

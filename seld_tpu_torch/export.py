@@ -14,6 +14,14 @@ where the JAX package writes StableHLO, the trained weights inside:
                  every surface (predict, streaming, the daemon) from the
                  artifact alone.
 
+With int8 calibration data (`int8_calib_waves` / `int8_calib_mel`) the
+programs are the int8 post-training-quantized forwards
+(seld_tpu_torch.quant): the int8 weights and their scales are buffers of
+the program, the quantized layers' float weights are left out of it, and
+the int8 products are `aten._int_mm` nodes (cuBLASLt's int8 GEMM on CUDA).
+`int8_weight_only` keeps int8 weights dequantized to the compute dtype: a
+smaller artifact with float products.
+
 As in JAX, the programs start at features: the predictor computes them
 before the program, through K1 ("mel") or K4 ("mel_iv", "mel_gcc"). At
 windows of 512 frames and more on CUDA, each conformer block's attention
@@ -38,34 +46,45 @@ logger = logging.getLogger(__name__)
 
 
 class _Forward(torch.nn.Module):
-    """One forward of a predictor as a module for torch.export: the model,
-    whose weights the program lifts, then `head` on its output."""
+    """One forward of a predictor as a module for torch.export: `net` (the
+    model, or its QuantizedModel), whose weights the program lifts, the
+    predictor's bias, then `head` on its output."""
 
-    def __init__(self, predictor, head):
+    def __init__(self, predictor, net, head):
         super().__init__()
-        self.model = predictor.model
+        self.net = net
         self.predictor = predictor
         self.head = head
 
     def forward(self, mel: torch.Tensor) -> torch.Tensor:
-        return self.head(self.predictor._raw(mel))
+        return self.head(self.predictor._biased(self.net(mel)))
 
 
 def export_serving(checkpoint, out_path, batch_windows: int = 8, bg_bias: float = 0.0,
                    median_filter: int = 0, accdoa_threshold: float | None = None,
-                   device: str | torch.device | None = None) -> Path:
+                   device: str | torch.device | None = None, int8_calib_waves=None,
+                   int8_calib_mel=None, int8_weight_only: bool = False) -> Path:
     """Export the checkpoint's forwards for `device` (CUDA unless named);
     returns the artifact's path. bg_bias (grid models) and
     accdoa_threshold (ACCDOA models) bake into both programs;
     median_filter, a host-side post-op, is recorded in the sidecar for
-    from_artifact to apply."""
+    from_artifact to apply. int8_calib_waves ((C, N) float32 waveforms)
+    and/or int8_calib_mel ((B, win, C, F) batches) export the int8 forwards
+    (SELDPredictor.quantize), weight-only with int8_weight_only."""
     from seld_tpu_torch.config import config_to_dict
     from seld_tpu_torch.features.spatial import feature_channels
     from seld_tpu_torch.infer import SELDPredictor
     from seld_tpu_torch.postprocess import validate_width
+    from seld_tpu_torch.quant import QuantizedModel, without_float_weights
 
     p = SELDPredictor(checkpoint, batch_windows=batch_windows, bg_bias=bg_bias,
                       accdoa_threshold=accdoa_threshold, device=device)
+    net = p.model
+    if int8_calib_waves is not None or int8_calib_mel is not None:
+        p.quantize(calib_waves=int8_calib_waves, calib_mel=int8_calib_mel,
+                   weight_only=int8_weight_only)
+        tree = p._qmodel.quant_tree()
+        net = QuantizedModel(without_float_weights(p.model, tree), tree)
     cfg = p.cfg
     mel = torch.zeros((p.batch_windows, p.win,
                        feature_channels(cfg.features.feature_set, cfg.model.n_channels),
@@ -74,7 +93,7 @@ def export_serving(checkpoint, out_path, batch_windows: int = 8, bg_bias: float 
     out_path.parent.mkdir(parents=True, exist_ok=True)
     with torch.no_grad():
         for path, head in ((out_path, p._decode), (Path(f"{out_path}.probs"), p._rep)):
-            program = torch.export.export(_Forward(p, head), (mel,))
+            program = torch.export.export(_Forward(p, net, head), (mel,))
             with open(path, "wb") as f:  # a file object: torch names no suffix then
                 torch.export.save(program, f)
     sidecar = {
@@ -91,17 +110,18 @@ def export_serving(checkpoint, out_path, batch_windows: int = 8, bg_bias: float 
         "has_probs": True,
         "platforms": [p.device.type],
         "source_epoch": p.epoch,
-        "quantized_int8": False,
-        "int8_weight_only": False,
+        "quantized_int8": p.quantized,
+        "int8_weight_only": p.int8_weight_only,
         "bg_bias": p.bg_bias,
         "accdoa_threshold": p.accdoa_threshold,
         "median_filter": validate_width(median_filter),
         "config": config_to_dict(cfg),
     }
     Path(f"{out_path}.json").write_text(json.dumps(sidecar, indent=2))
-    logger.info("Exported %s (%s, epoch %d) -> %s (%.1f MB, platforms %s)",
-                cfg.model.model_type, cfg.features.feature_set, p.epoch, out_path,
-                out_path.stat().st_size / 1e6, sidecar["platforms"])
+    logger.info("Exported %s (%s, epoch %d%s) -> %s (%.1f MB, platforms %s)",
+                cfg.model.model_type, cfg.features.feature_set, p.epoch,
+                ", int8 weight-only" if p.int8_weight_only else ", int8" if p.quantized
+                else "", out_path, out_path.stat().st_size / 1e6, sidecar["platforms"])
     return out_path
 
 

@@ -15,6 +15,8 @@ StreamingSession (seld_tpu_torch.stream), bit-equal to the offline path;
 `SELDPredictor.from_artifact` serves an artifact of seld_tpu_torch.export
 in place of a checkpoint; `dispatch` is the serving daemon's hook for
 batching windows across streams (seld_tpu_torch.serve).
+`SELDPredictor.quantize` switches the forwards to int8 post-training
+quantization (seld_tpu_torch.quant), under every one of those surfaces.
 """
 
 from __future__ import annotations
@@ -166,6 +168,8 @@ class SELDPredictor:
         self.median_filter = validate_width(median_filter)
         self._tta_transforms = None
         self._tta_fold = 1
+        self._qmodel = None  # quant.QuantizedModel after quantize()
+        self.quantized = self.int8_weight_only = False
         # cross-stream window dispatcher (seld_tpu_torch.serve.WindowBatcher):
         # when set, _batched hands it the rows
         self.dispatch = None
@@ -210,6 +214,10 @@ class SELDPredictor:
         self.median_filter = validate_width(sidecar["median_filter"])
         self._tta_transforms = None
         self._tta_fold = 1
+        self._qmodel = None
+        # int8 is baked into the programs at export time
+        self.quantized = bool(sidecar["quantized_int8"])
+        self.int8_weight_only = bool(sidecar["int8_weight_only"])
         self.dispatch = None
         self._forward = torch.inference_mode()(load_program(artifact))
         self._forward_probs = torch.inference_mode()(load_program(f"{artifact}.probs"))
@@ -218,11 +226,13 @@ class SELDPredictor:
         return self
 
     def _raw(self, mel: torch.Tensor) -> torch.Tensor:
-        """(B, win, C, F) -> the model's float32 output: (B, win, M, G)
-        logits with the background class reduced by bg_bias, or ACCDOA
-        vectors. The undecorated bodies (_raw, _decode, _rep) are what
-        seld_tpu_torch.export traces."""
-        out = self.model(mel)
+        """(B, win, C, F) -> the model's float32 output (int8 after
+        quantize()): (B, win, M, G) logits with the background class reduced
+        by bg_bias, or ACCDOA vectors. The undecorated bodies (_biased,
+        _decode, _rep) are what seld_tpu_torch.export traces."""
+        return self._biased((self.model if self._qmodel is None else self._qmodel)(mel))
+
+    def _biased(self, out: torch.Tensor) -> torch.Tensor:
         return bias_background_logits(out, self.bg_bias) if self.bg_bias else out
 
     def _decode(self, out: torch.Tensor) -> torch.Tensor:
@@ -319,7 +329,48 @@ class SELDPredictor:
         self._forward_probs = forward_probs_tta
         self._tta_transforms = sel
         self._tta_fold = int(fold)
-        logger.info("Predictor: TTA enabled (%d transforms, fold %d)", len(sel), fold)
+        logger.info("Predictor: TTA enabled (%d transforms, fold %d%s)", len(sel), fold,
+                    ", int8" if self.quantized else "")
+        return self
+
+    def quantize(self, calib_waves=None, calib_mel=None,
+                 weight_only: bool = False) -> "SELDPredictor":
+        """Serve int8 post-training-quantized (seld_tpu_torch.quant): the
+        trunk convolutions, the dense layers and the head run int8 x int8 ->
+        int32 products (cuBLASLt's int8 GEMM on the card), with activation
+        scales calibrated on `calib_waves` (raw (C, N) float32 waveforms,
+        each cut into its whole windows, a clip shorter than one window
+        zero-padded to one) and/or `calib_mel` ((B, win, C, F) feature
+        batches). weight_only=True keeps int8 weights and computes in the
+        compute dtype. Every forward reads the quantized model at call
+        time, so quantize() composes with tta() in either order, with
+        streaming and with the daemon's dispatch; the windows keep their
+        offline batch slots, so streamed int8 grids equal offline ones."""
+        if self.model is None:
+            raise RuntimeError("artifact-backed predictors cannot re-quantize: int8 is baked "
+                               "at export time (export --int8-calib-wavs)")
+        from seld_tpu_torch.quant import QuantizedModel, quantize_model
+
+        batches = []
+        for wave in calib_waves if calib_waves is not None else ():
+            mel = compute_mel_features(np.asarray(wave, np.float32), self.cfg.features,
+                                       self.device)
+            n = max(mel.shape[0] // self.win, 1)
+            pad = n * self.win - mel.shape[0]
+            if pad > 0:
+                mel = torch.cat([mel, mel.new_zeros((pad, *mel.shape[1:]))])
+            batches.append(mel[:n * self.win].reshape(n, self.win, *mel.shape[1:]))
+        if calib_mel is not None:
+            batches.extend(torch.as_tensor(np.asarray(b, np.float32)) for b in calib_mel)
+        if not batches:
+            raise ValueError("int8 quantization needs calibration data: pass calib_waves "
+                             "and/or calib_mel")
+        tree = quantize_model(self.model, batches, weight_only=weight_only)
+        self._qmodel = QuantizedModel(self.model, tree)
+        self.quantized, self.int8_weight_only = True, bool(weight_only)
+        logger.info("Predictor: int8 PTQ enabled (%d quantized layers, %d calibration "
+                    "batches%s)", len(tree), len(batches),
+                    ", weight-only" if weight_only else "")
         return self
 
     def _batched(self, windows: torch.Tensor, fn, lead: int = 0):

@@ -39,6 +39,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from seld_tpu_torch import quant
 from seld_tpu_torch.ops.attention import multi_head_attention
 from seld_tpu_torch.parallel.sequence import (
     all_reduce_sum,
@@ -66,9 +67,17 @@ class Linear(nn.Linear):
         self.compute_dtype = compute_dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = quant.layer_forward(self, x)  # int8 or fake-quant inside their contexts
+        if y is not None:
+            return y
         dt = self.compute_dtype
         bias = None if self.bias is None else self.bias.to(dt)
         return F.linear(x.to(dt), self.weight.to(dt), bias)
+
+    def product(self, x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+        """x @ weight.T in the compute dtype, without the bias."""
+        dt = self.compute_dtype
+        return F.linear(x.to(dt), weight.to(dt))
 
 
 class Conv2d(nn.Conv2d):
@@ -88,9 +97,18 @@ class Conv2d(nn.Conv2d):
         self.compute_dtype = compute_dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = quant.layer_forward(self, x)  # int8 or fake-quant inside their contexts
+        if y is not None:
+            return y
+        return self.product(x, self.weight, self.bias)
+
+    def product(self, x: torch.Tensor, weight: torch.Tensor,
+                bias: torch.Tensor | None = None) -> torch.Tensor:
+        """The convolution of x with `weight` (and `bias`) in the compute
+        dtype."""
         dt = self.compute_dtype
-        x, weight = x.to(dt), self.weight.to(dt)
-        bias = None if self.bias is None else self.bias.to(dt)
+        x, weight = x.to(dt), weight.to(dt)
+        bias = None if bias is None else bias.to(dt)
         padding = self.padding
         mesh = time_mesh()
         if mesh is not None and padding[0]:  # (B, C, T, F): time from the neighbours
@@ -301,20 +319,23 @@ def run_block(block: nn.Module, x: torch.Tensor, remat: bool) -> torch.Tensor:
     preserve_rng_state does not restore: the generator is set back to its
     state before the forward for the recompute, and forward again after
     it. A train-mode BatchNorm would update its running statistics a second
-    time: the recompute holds them. Every kernel of the block (K3's forward
-    included) launches again in the recompute."""
+    time: the recompute holds them. Under quant.qat() the recompute
+    fake-quantizes as the forward did (a ContextVar, which the autograd
+    thread that runs the backward does not see). Every kernel of the block
+    (K3's forward included) launches again in the recompute."""
     if not (remat and torch.is_grad_enabled()):
         return block(x)
     generator = next((m.generator for m in block.modules()
                       if isinstance(m, Dropout) and m.generator is not None), None)
     start = None if generator is None else generator.get_state()
+    fake_quant = quant.qat_enabled()  # the backward may run on another thread
     calls = []
 
     def run(x):
         if not calls:  # the forward
             calls.append(1)
             return block(x)
-        with _replaying(block, generator, start):  # the recompute
+        with _replaying(block, generator, start), quant.qat(fake_quant):  # the recompute
             return block(x)
 
     return checkpoint(run, x, use_reentrant=False)

@@ -141,6 +141,7 @@ def build_model(model_cfg: ModelConfig, grid_cfg: GridConfig | None = None,
         model = MODEL_REGISTRY[model_cfg.model_type](
             model_cfg, grid_cfg, model_cfg.n_channels if in_channels is None else in_channels, dt)
     model = model.to_empty(device=device).eval()
+    model.model_cfg = model_cfg  # the layer list quant.py reads
     if seed is not None:
         init_parameters(model, torch.Generator().manual_seed(seed))
     return model

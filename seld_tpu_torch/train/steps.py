@@ -30,13 +30,18 @@ import torch
 import torch.distributed as dist
 from torch import nn
 
-from seld_tpu_torch import no_tf32
+from seld_tpu_torch import no_tf32, quant
 from seld_tpu_torch.infer import bias_background_logits
 from seld_tpu_torch.losses import SELDLossFn
 from seld_tpu_torch.losses.seld_loss import _bit_labels
 from seld_tpu_torch.ops.attention import attention_mesh
 from seld_tpu_torch.parallel.sharding import shard_batch
 from seld_tpu_torch.train.state import TrainState
+
+
+QAT_MESH_ERROR = ("train.qat under a process mesh of more than one rank is not ported "
+                  "(ROADMAP item 10's remainder: fake-quant's live absmax would be each "
+                  "rank's own)")
 
 
 def _true_f32(model: nn.Module):
@@ -101,7 +106,7 @@ def _check_classes(loss_fn, num_classes: int) -> None:
 def make_train_step(model: nn.Module, loss_fn: SELDLossFn,
                     optimizer: torch.optim.Optimizer, num_classes: int,
                     accum_steps: int = 1, input_augment=None, spatial_augment=None,
-                    mesh=None, time_sharded: bool = False):
+                    mesh=None, time_sharded: bool = False, qat: bool = False):
     """Returns step(state, mel, targets, example_mask, rng) ->
     (state, metrics).
 
@@ -126,12 +131,20 @@ def make_train_step(model: nn.Module, loss_fn: SELDLossFn,
     whole batch before any microbatch split, drawing from one generator
     on the batch's device seeded with augment_seed(rng, step).
 
+    qat=True trains quantization-aware: the forward runs inside
+    quant.qat(), where the eligible layers (the int8 PTQ set) fake-quantize
+    their inputs and weights with straight-through gradients; a remat
+    recompute does too.
+
     With a `mesh` the step takes the global batch and trains on this
-    rank's block of it (see the module's note); accum_steps must be 1."""
+    rank's block of it (see the module's note); accum_steps must be 1, and
+    qat needs a mesh of one rank."""
     if mesh is not None and accum_steps != 1:
         raise NotImplementedError(
             "train.accum_steps > 1 under a process mesh is not ported "
             "(ROADMAP item 10's remainder)")
+    if qat and mesh is not None and mesh.world_size > 1:
+        raise NotImplementedError(QAT_MESH_ERROR)
     _check_classes(loss_fn, num_classes)
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
@@ -153,7 +166,7 @@ def make_train_step(model: nn.Module, loss_fn: SELDLossFn,
         mel, targets, example_mask = shard_batch(mesh, time_sharded, mel, targets,
                                                  example_mask)
         optimizer.zero_grad(set_to_none=True)
-        with _true_f32(model), attention_mesh(mesh, time_sharded):
+        with _true_f32(model), attention_mesh(mesh, time_sharded), quant.qat(qat):
             if accum_steps == 1:
                 total, breakdown = _loss(loss_fn, model(mel), targets, example_mask)
                 total.backward()

@@ -5,8 +5,10 @@ Adam with coupled L2, ReduceLROnPlateau on the test loss (or a per-step
 warmup + cosine schedule), early stopping on the train loss, a best
 checkpoint on the test loss (or on a DCASE2022 validation metric,
 train.select_metric), a rolling checkpoint every N epochs, resume
-from the newest rolling checkpoint, an optional parameter EMA, a
-per-epoch record in metrics.jsonl, and training_history.json at the end.
+from the newest rolling checkpoint, an optional parameter EMA,
+quantization-aware training (train.qat: int8 fake-quant in the train
+step, seld_tpu_torch.quant), a per-epoch record in metrics.jsonl, and
+training_history.json at the end.
 The ACCDOA families (model.model_type accdoa_conformer /
 multi_accdoa_conformer) train on the corpora's ACCDOA targets with the
 ACCDOA or ADPIT loss, rotate those targets under ACS, and decode their
@@ -62,6 +64,7 @@ from seld_tpu_torch.train.optimizer import (
 from seld_tpu_torch.train.schedule import EarlyStopping, ReduceLROnPlateau, WarmupCosine
 from seld_tpu_torch.train.state import TrainState, create_train_state, param_count
 from seld_tpu_torch.train.steps import (
+    QAT_MESH_ERROR,
     make_eval_step,
     make_metric_eval_step,
     make_train_step,
@@ -160,6 +163,8 @@ def check_mesh_config(cfg: Config, window_frames: int) -> None:
         raise NotImplementedError(
             f"{cfg.model.model_type} under a process mesh of more than one rank is not "
             "ported (ROADMAP item 10's remainder)")
+    if cfg.train.qat and mc.enable != "off" and launched_world_size() > 1:
+        raise NotImplementedError(QAT_MESH_ERROR)
     if not mc.shard_time:
         return
     model_type = cfg.model.model_type
@@ -321,10 +326,13 @@ def train_model(cfg: Config, train_corpus: WindowedCorpus, test_corpus: Windowed
     if tc.accum_steps > 1:
         logger.info("Gradient accumulation: %d microbatches of %d",
                     tc.accum_steps, tc.batch_size // tc.accum_steps)
+    if tc.qat:
+        logger.info("Quantization-aware training: int8 fake-quant with straight-through "
+                    "gradients on the PTQ layer set")
     train_step = make_train_step(model, loss_fn, optimizer, cfg.grid.num_classes,
                                  accum_steps=tc.accum_steps, input_augment=input_augment,
                                  spatial_augment=spatial_augment, mesh=mesh,
-                                 time_sharded=time_sharded)
+                                 time_sharded=time_sharded, qat=tc.qat)
     eval_step = make_eval_step(eval_model, loss_fn, cfg.grid.num_classes, mesh=mesh,
                                time_sharded=time_sharded)
     # With a validation metric the eval pass also decodes predicted and true

@@ -1239,3 +1239,46 @@ def test_batched_daemon_streams_equal_offline_on_card(cuda_device, tmp_path):
         np.testing.assert_array_equal(classes, want, err_msg=str(n))
     assert log_mel_frames.launches == sum(-(-wave.shape[1] // n) + 1 for n in sizes)
     assert server.batcher.rows_run > 0
+
+
+@pytest.mark.parametrize("m,k,n", [(3, 36, 39), (16, 63, 14), (17, 90, 117), (64_000, 40, 64),
+                                   (2_000, 512, 2048), (2_000, 1024, 9072)])
+def test_int8_matmul_is_exact_on_card(cuda_device, m, k, n):
+    """cuBLASLt's int8 GEMM through int8_matmul, padded to its shape rules
+    where a shape breaks them, bit-equal to the float64 product."""
+    from seld_tpu_torch.quant import int8_matmul, int8_matmul_reference
+
+    g = torch.Generator(device=cuda_device).manual_seed(m + k + n)
+    a = torch.randint(-127, 128, (m, k), generator=g, device=cuda_device, dtype=torch.int8)
+    w = torch.randint(-127, 128, (n, k), generator=g, device=cuda_device, dtype=torch.int8)
+    before = int8_matmul.launches
+    got = int8_matmul(a, w)
+    assert int8_matmul.launches == before + 1 and got.dtype == torch.int32
+    assert torch.equal(got, int8_matmul_reference(a, w))
+
+
+@pytest.mark.parametrize("feature_set", ["mel", "mel_iv"])
+def test_int8_predict_stream_and_tta_on_card(cuda_device, tmp_path, feature_set):
+    """The int8 predictor on the card: one int8 GEMM a quantized layer a
+    forward, the stream bit-equal to offline, and int8 under TTA equal
+    whichever of tta() and quantize() came first."""
+    import numpy as np
+
+    from seld_tpu_torch.quant import eligible_names, int8_matmul
+    from seld_tpu_torch.stream import stream_predict
+
+    pred = _tiny_predictor(cuda_device, tmp_path, feature_set, batch_windows=2)
+    wave = (0.2 * np.random.default_rng(3).standard_normal((4, 3 * 24_000))).astype(np.float32)
+    pred.quantize(calib_waves=[wave])
+    n_windows = -(-(1 + wave.shape[1] // 480) // pred.win)
+    int8_matmul.launches = 0
+    offline = pred.predict_waveform(wave).classes
+    torch.cuda.synchronize()
+    assert int8_matmul.launches == len(eligible_names(pred.cfg.model)) * -(-n_windows // 2)
+    chunks = [wave[:, i:i + 8_888] for i in range(0, wave.shape[1], 8_888)]
+    np.testing.assert_array_equal(stream_predict(pred, chunks).classes, offline)
+    if feature_set == "mel_iv":
+        first = pred.tta((0, 5)).predict_waveform(wave).classes
+        other = _tiny_predictor(cuda_device, tmp_path, feature_set, batch_windows=2).tta((0, 5))
+        other.quantize(calib_waves=[wave])
+        np.testing.assert_array_equal(other.predict_waveform(wave).classes, first)

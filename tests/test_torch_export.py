@@ -5,7 +5,7 @@ tests/test_export.py's cases (both programs bit-equal to the live
 predictor; `cli export`; from_artifact against the checkpoint predictor at
 overlap 0 and 0.5, streaming included, for grid, ACCDOA and multi-ACCDOA
 models; `predict --artifact`; `--median-filter 0` over the sidecar's width;
-int8 refused naming ROADMAP item 9), the refusals, an artifact loaded in a
+the int8 export's refusals), the refusals, an artifact loaded in a
 fresh interpreter with no model code, the port's artifact against JAX's on
 the same weights, `torch.library.opcheck` and a CPU export of K3's
 operator, and `cli predict data.base_path=RUN` serving the run's best
@@ -166,9 +166,17 @@ print("STANDALONE OK", tuple(y.shape))
 @pytest.mark.parametrize("flags", [["--int8-calib-wavs", "c.wav"], ["--int8-weight-only"]],
                          ids=["calib_wavs", "weight_only"])
 def test_int8_export_is_refused_naming_item_9(runs, tmp_path, flags):
-    with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
-        port_main(["export", f"data.base_path={runs['grid']}", "--out",
-                   str(tmp_path / "m.pt2"), "--device", "cpu", *flags])
+    """int8 export (ROADMAP item 9) is ported; what it refuses, it refuses as
+    the JAX package does, before any file is written: calibration audio
+    that is not there, and --int8-weight-only without --int8-calib-wavs."""
+    argv = ["export", f"data.base_path={runs['grid']}", "--out", str(tmp_path / "m.pt2"),
+            "--device", "cpu", *[str(tmp_path / f) if f.endswith(".wav") else f for f in flags]]
+    if "--int8-weight-only" in flags:
+        with pytest.raises(ValueError, match="--int8-weight-only requires --int8-calib-wavs"):
+            port_main(argv)
+    else:
+        with pytest.raises(FileNotFoundError):
+            port_main(argv)
     assert not (tmp_path / "m.pt2").exists()
 
 

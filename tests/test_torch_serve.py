@@ -4,7 +4,7 @@ stream bit-equal to the port's offline predict, plain and overlapped,
 sequential and concurrent, batched across streams or not; the protocol's
 errors; the max_streams exit; the batcher's packing, its fn boundaries,
 its error path, its queue drain and its close; a stream served from an
-artifact), int8 refused naming ROADMAP item 9, `cli serve`, and against
+artifact), int8's refusals, `cli serve`, and against
 the JAX package: its client driving the port's server, the port's served
 stream against seld_tpu's offline predict on the same weights, and batch
 rows permuted bit-equal for each tiny backbone. Every thread join and
@@ -170,8 +170,10 @@ def test_max_streams_clean_exit(ckpt, wave):
 
 @pytest.mark.parametrize("artifact", [False, True], ids=["checkpoint", "artifact"])
 def test_served_int8_is_refused(ckpt, tmp_path, artifact):
-    """int8 serving is ROADMAP item 9; with --artifact, the JAX package's
-    refusal word for word."""
+    """int8 serving (ROADMAP item 9) is ported (tests/test_torch_quant.py
+    serves it); what it refuses: calibration audio that is not there,
+    before a port is bound, and, with --artifact, the JAX package's refusal
+    word for word."""
     wav = tmp_path / "calib.wav"
     args = ["serve", "--checkpoint", str(ckpt), "--port", "0", "--device", "cpu",
             "--int8-calib-wavs", str(wav)]
@@ -180,7 +182,7 @@ def test_served_int8_is_refused(ckpt, tmp_path, artifact):
                            "--artifact: int8 is baked at export time"):
             port_main([*args, "--artifact", str(tmp_path / "a.pt2")])
     else:
-        with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
+        with pytest.raises(FileNotFoundError):
             port_main(args)
     shutil.rmtree(tmp_path, ignore_errors=True)
 

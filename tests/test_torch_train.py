@@ -628,7 +628,7 @@ def test_cli_train_synthetic_on_the_cpu(tmp_path):
     assert (work / "training_history.json").exists() and list((work / "best").iterdir())
 
 
-@pytest.mark.parametrize("override", ["train.qat=true", "train.prng_impl=rbg",
+@pytest.mark.parametrize("override", ["train.distill_alpha=0.5", "train.prng_impl=rbg",
                                       "train.distill_ckpt=x", "mesh.shard_opt_state=true",
                                       "train.profile_steps=3"])
 def test_override_of_an_unported_field_is_an_unknown_key(override):

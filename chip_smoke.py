@@ -210,13 +210,31 @@ Phases, each of which raises on failure:
      and plain train steps at T = 1000 (K3 forward, dQ, dK/dV 4 each);
      `cli serve --int8-calib-wavs` serving one stream equal to the offline
      int8 predict; the phase's seconds.
-It prints the launch counts of phases 9, 10, 14, 15, 16 and 17, one JSON
-line of kernel figures (each row's `launches_accdoa`: its launches on
+ 18. knowledge distillation (seld_tpu_torch/distill.py) with phase 6's
+     trained flagship as the teacher: `cli train --synthetic
+     model.model_type=crnn train.distill_ckpt=<its checkpoints>` for one
+     epoch at full width (the "Distillation: teacher resnet_conformer ...
+     -> student crnn" line, finite kd and hard in metrics.jsonl, K2
+     forward = train + eval steps, backward = train steps, K1 3, K3 0);
+     the distilled CRNN train step timed against the plain one (step ms,
+     peak memory, each profiled: kernel ms by family), the teacher's eval
+     forward alone (timed, profiled) and the grid KD loss alone at
+     (16, 250, 14, 648), forward and forward + backward, against its
+     bytes bound; one QAT + distill step whose teacher output is the
+     teacher's eval forward bit for bit; a seeded T = 1000 flagship
+     teacher distilling a default Conformer (K3 forward 4 + the student's
+     blocks a step, dQ and dK/dV the student's); a seeded
+     multi_accdoa_conformer teacher distilling a multi_accdoa_conformer
+     under `distill_track_matching` permutation and position (K2 never;
+     the first step's permutation-invariant KD at most the slot-wise one).
+It prints the launch counts of phases 9, 10, 14, 15, 16, 17 and 18, one
+JSON line of kernel figures (each row's `launches_accdoa`: its launches on
 phase 14's paths; `launches_stream` and `launches_tta`: on phase 15's;
 `launches_served` and `launches_artifact` on K1, K3 forward and K4: on
 phase 16's; K3 forward's `host_us_operator`; `launches_int8` and
-`launches_qat` on K1, K2, K3 and K4: on phase 17's), the nvidia-smi
-line, and last {"ok": true, "device": {...}}.
+`launches_qat` on K1, K2, K3 and K4: on phase 17's; `launches_distill` on
+K1, K2 and K3: on phase 18's), the nvidia-smi line, and last {"ok": true,
+"device": {...}}.
 """
 
 from __future__ import annotations
@@ -1508,14 +1526,17 @@ def phase_train(dev: torch.device, run_dir: Path) -> dict:
     return counts
 
 
-def time_train_steps(dev: torch.device, cfg, tag: str = "[train]", qat: bool = False) -> dict:
+def time_train_steps(dev: torch.device, cfg, tag: str = "[train]", qat: bool = False,
+                     distill=None, profile: bool = True) -> dict:
     """Wall time of cfg's train steps on seeded synthetic batches (host
     clock around a step that ends in a synchronize), K3's and K2's launches
-    in one more step, and one step under torch.profiler. An ACCDOA model
-    trains on the corpus's ACCDOA targets with its own loss and ACS hook;
-    qat=True makes the steps quantization-aware (int8 fake-quant).
-    Returns the losses of the timed steps, the median step ms, the peak
-    device memory in GiB, those K3 counts and the K2 counts."""
+    in one more step, and one step under torch.profiler (unless not
+    `profile`). An ACCDOA model trains on the corpus's ACCDOA targets with
+    its own loss and ACS hook; qat=True makes the steps quantization-aware
+    (int8 fake-quant); distill (a DistillSpec) makes them distilling.
+    Returns the losses of the timed steps, the metrics of the first, the
+    median step ms, the peak device memory in GiB, those K3 counts and the
+    K2 counts."""
     from seld_tpu_torch.accdoa import ACCDOALossFn, ADPITLossFn
     from seld_tpu_torch.data.sampler import BatchIterator, place_batch
     from seld_tpu_torch.data.synthetic import synthetic_corpus
@@ -1548,11 +1569,11 @@ def time_train_steps(dev: torch.device, cfg, tag: str = "[train]", qat: bool = F
                else SELDLossFn(cfg.loss, cfg.grid))
     step = make_train_step(model, loss_fn, optimizer,
                            cfg.grid.num_classes, input_augment=make_spec_augment(cfg.train),
-                           spatial_augment=spatial_augment, qat=qat)
+                           spatial_augment=spatial_augment, qat=qat, distill=distill)
     state = create_train_state(model, optimizer)
     batches = [(p[0], p[3] if accdoa else p[1], p[2]) for p in (
         place_batch(b, dev) for b in BatchIterator(corpus, cfg.train.batch_size))][:3]
-    times, losses = [], []
+    times, losses, first = [], [], None
     torch.cuda.reset_peak_memory_stats()
     for i in range(13):
         mel, mask, em = batches[i % len(batches)]
@@ -1562,6 +1583,7 @@ def time_train_steps(dev: torch.device, cfg, tag: str = "[train]", qat: bool = F
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
         losses.append(metrics["loss"].item())
+        first = first or {k: v.item() for k, v in metrics.items()}
     steady = times[3:]
     step_ms = float(np.median(steady))
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
@@ -1581,9 +1603,11 @@ def time_train_steps(dev: torch.device, cfg, tag: str = "[train]", qat: bool = F
           f"{peak_gib:.2f} GiB; K3 launches in one step: forward {k3['k3_fwd']}, dQ "
           f"{k3['k3_dq']}, dK/dV {k3['k3_dkv']}")
     what = tag.strip("[]").replace("][", " ")
-    profile_call("train step" if tag == "[train]" else f"{what} train step",
-                 lambda: step(state, mel, mask, em, (0, 1)), step_ms)
-    return {"losses": losses, "step_ms": step_ms, "peak_gib": peak_gib, "k3": k3, "k2": k2}
+    if profile:
+        profile_call("train step" if tag == "[train]" else f"{what} train step",
+                     lambda: step(state, mel, mask, em, (0, 1)), step_ms)
+    return {"losses": losses, "first": first, "step_ms": step_ms, "peak_gib": peak_gib,
+            "k3": k3, "k2": k2}
 
 
 def phase_long_window(dev: torch.device) -> dict:
@@ -4079,6 +4103,207 @@ def phase_int8(dev: torch.device) -> tuple[dict, dict]:
     return int8, qat
 
 
+KD_OPS_PER_ELEMENT = 16  # the grid KD's forward: two scaled log-softmaxes, exp, sub, mul, sum
+KD_BWD_OPS_PER_ELEMENT = 8  # its gradient w.r.t. the student: softmax - teacher, scaled
+
+
+def kd_loss_timing(dev, teacher, student, mel, kd, temperature: float) -> dict:
+    """The grid KD loss alone at the main path's shape: the student's and
+    teacher's logits of one batch, the forward and the forward + backward
+    (w.r.t. the student's logits) timed with the launches queued ahead,
+    against the larger of their bytes over HBM (each input read once, the
+    gradient written once) and their float32 operations."""
+    with torch.no_grad():
+        s_out, t_out = student(mel), teacher(mel)
+    s = s_out.detach().requires_grad_()
+    em = torch.ones(mel.shape[0], device=dev)
+    n = s.numel()
+
+    def forward():
+        return kd(s, t_out, em, temperature=temperature)
+
+    def both():
+        forward().backward()
+
+    rows = {}
+    for what, fn, nbytes, ops in (
+            ("forward", forward, s.nbytes + t_out.nbytes, KD_OPS_PER_ELEMENT * n),
+            ("forward + backward", both, 2 * s.nbytes + t_out.nbytes,
+             (KD_OPS_PER_ELEMENT + KD_BWD_OPS_PER_ELEMENT) * n)):
+        ms = kernel_ms(fn, host_us(fn, calls=50))
+        by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_FLOPS * 1e3
+        bound = max(by_bytes, by_ops)
+        rows[what] = {"ms": ms, "bound_ms": bound,
+                      "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
+        print(f"[distill] grid KD loss {what} at {tuple(s.shape)} ({s.dtype} student, "
+              f"{t_out.dtype} teacher logits): {ms:.4f} ms; bound {bound:.4f} ms by "
+              f"{rows[what]['bound_by']} ({nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} GFLOP) = "
+              f"{bound / ms:.1%} of it")
+    return rows
+
+
+def mel_t(cfg) -> int:
+    return cfg.window.window_frames(cfg.features)
+
+
+def phase_distill(dev: torch.device, flagship_run: Path) -> dict:
+    """Phase 18: knowledge distillation (seld_tpu_torch/distill.py) with phase
+    6's trained flagship as the teacher. Returns {path: launches}."""
+    from seld_tpu_torch import cli
+    from seld_tpu_torch.config import Config, parse_overrides
+    from seld_tpu_torch.distill import load_teacher
+    from seld_tpu_torch.losses import SELDLossFn
+    from seld_tpu_torch.models import build_model
+    from seld_tpu_torch.train.optimizer import make_optimizer
+    from seld_tpu_torch.train.state import create_train_state
+    from seld_tpu_torch.train.steps import make_train_step
+
+    t_phase = time.perf_counter()
+    found, steps = {}, {}
+    teacher_dir = flagship_run / "checkpoints"
+    crnn = ["model.model_type=crnn"]
+    cfg = parse_overrides(Config(), crnn)
+    hop = cfg.window.hop_frames(cfg.features)
+    fps = cfg.features.sample_rate // cfg.features.hop_length
+    train_steps = -(-(2 * 30 * fps // hop) // cfg.train.batch_size)
+    eval_steps = -(-(20 * fps // hop) // cfg.train.batch_size)
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        root = Path(tmp)
+        log = logging.getLogger("seld_tpu_torch")
+        level = log.level
+        log.setLevel(logging.INFO)
+        reset_launches()
+        t0 = time.perf_counter()
+        try:
+            with log_messages("seld_tpu_torch") as messages:
+                rc = cli.main(["train", "--synthetic", f"data.base_path={root / 'crnn'}", *crnn,
+                               f"train.distill_ckpt={teacher_dir}", "train.num_epochs=1",
+                               "train.save_every_n_epochs=1"])
+        finally:
+            log.setLevel(level)
+        wall_s = time.perf_counter() - t0
+        counts = launches()
+        lines = [m for m in messages if m.startswith("Distillation: teacher")]
+        (record,) = [json.loads(x) for x in
+                     (root / "crnn" / "checkpoints" / "metrics.jsonl").read_text().splitlines()]
+        want = only(k1=3, k2_fwd=train_steps + eval_steps, k2_bwd=train_steps)
+        if (rc != 0 or counts != want or len(lines) != 1
+                or not lines[0].startswith("Distillation: teacher resnet_conformer (epoch ")
+                or "-> student crnn; alpha=0.5 temperature=2" not in lines[0]
+                or not all(math.isfinite(record["train"][k]) for k in ("loss", "kd", "hard"))):
+            raise AssertionError(f"cli train with train.distill_ckpt: rc {rc}, launches {counts}, "
+                                 f"want {want}; log {lines}; {record}")
+        found["cli train flagship -> crnn T = 250"] = counts
+        print(f"[distill] cli train --synthetic model.model_type=crnn train.distill_ckpt=<phase "
+              f"6's run>, 1 epoch of {train_steps} train + {eval_steps} eval steps in "
+              f"{wall_s:.1f} s: '{lines[0]}'; train loss {record['train']['loss']:.6f} = 0.5 "
+              f"hard {record['train']['hard']:.6f} + 0.5 kd {record['train']['kd']:.6f}, test "
+              f"{record['test']['loss']:.6f}; launches {counts}")
+        steps["cli train"] = time.perf_counter() - t_phase
+
+        spec, _ = load_teacher(cfg, teacher_dir, dev)
+        timed = {}
+        for name, distill in (("plain", None), ("distilled", spec)):
+            timed[name] = time_train_steps(dev, cfg, tag=f"[distill][{name} crnn T = 250]",
+                                           distill=distill)
+            if timed[name]["k2"] != {"k2_fwd": 1, "k2_bwd": 1} or any(timed[name]["k3"].values()):
+                raise AssertionError(f"{name} CRNN step: launches {timed[name]}")
+        found["step flagship -> crnn T = 250"] = {**timed["distilled"]["k2"],
+                                                  **timed["distilled"]["k3"]}
+        plain, dist = timed["plain"], timed["distilled"]
+        print(f"[distill] CRNN train step at T = {mel_t(cfg)}, batch {cfg.train.batch_size}: "
+              f"distilled "
+              f"{dist['step_ms']:.2f} ms against plain {plain['step_ms']:.2f} ms (+"
+              f"{dist['step_ms'] - plain['step_ms']:.2f} ms, {dist['step_ms'] / plain['step_ms']:.2f}x);"
+              f" peak {dist['peak_gib']:.2f} against {plain['peak_gib']:.2f} GiB (+"
+              f"{dist['peak_gib'] - plain['peak_gib']:.2f} GiB)")
+        gen = torch.Generator(device=dev).manual_seed(18)
+        mel = torch.randn((cfg.train.batch_size, mel_t(cfg), 4, cfg.model.n_mels), device=dev,
+                          generator=gen)
+        with torch.no_grad():
+            teacher_ms = cuda_ms(lambda: spec.teacher(mel), iters=10)
+            profile_call("distill teacher forward T = 250", lambda: spec.teacher(mel), teacher_ms)
+        print(f"[distill] the flagship teacher's eval forward alone at batch "
+              f"{cfg.train.batch_size}, T = {mel_t(cfg)}: {teacher_ms:.2f} ms")
+        student = build_model(cfg.model, cfg.grid, device=dev, seed=0)
+        kd_rows = kd_loss_timing(dev, spec.teacher, student, mel, spec.kd, spec.temperature)
+        del student
+        steps["T = 250 steps"] = time.perf_counter() - t_phase - sum(steps.values())
+
+        # QAT on the student: the teacher's output inside the step is its
+        # plain eval forward on the same batch
+        model = build_model(cfg.model, cfg.grid, device=dev, seed=0)
+        optimizer = make_optimizer(model.parameters(), 1e-3, 1e-4)
+        step = make_train_step(model, SELDLossFn(cfg.loss, cfg.grid), optimizer, cfg.grid.num_classes,
+                               qat=True, distill=spec)
+        mask = torch.randint(0, 2 ** 13, (*mel.shape[:2], cfg.grid.n_cells), device=dev,
+                             generator=gen).to(torch.int16)
+        seen = []
+        hook = spec.teacher.register_forward_hook(lambda m, i, out: seen.append(out))
+        reset_launches()
+        try:
+            _, metrics = step(create_train_state(model, optimizer), mel, mask, None, (0, 1))
+        finally:
+            hook.remove()
+        counts = launches()
+        with torch.no_grad():
+            want_out = spec.teacher(mel)
+        if (len(seen) != 1 or not torch.equal(seen[0], want_out)
+                or counts != only(k2_fwd=1, k2_bwd=1)
+                or not all(torch.isfinite(v) for v in metrics.values())):
+            raise AssertionError(f"QAT + distill step: teacher outputs {len(seen)}, launches "
+                                 f"{counts}, metrics {metrics}")
+        found["QAT step flagship -> crnn T = 250"] = counts
+        print(f"[distill] QAT + distill CRNN step: the teacher's output inside the step is its "
+              f"eval forward bit for bit; kd {metrics['kd'].item():.6f}, hard "
+              f"{metrics['hard'].item():.6f}; launches {counts}")
+        del model, optimizer, step, seen, want_out, spec
+
+        # T = 1000: a seeded flagship teacher distills a default Conformer
+        long = [f"window.window_seconds={LONG_WINDOW_SECONDS}"]
+        seeded_checkpoint(root / "t1000" / "best" / "epoch_0000.pt", long, dev, seed=1)
+        lcfg = parse_overrides(Config(), ["model.model_type=conformer", *long])
+        lspec, _ = load_teacher(lcfg, root / "t1000", dev)
+        r = time_train_steps(dev, lcfg, tag="[distill][flagship -> conformer T = 1000]",
+                             distill=lspec)
+        n_s, n_t = lcfg.model.conf_n_layers, Config().model.resnet_conf_n_layers
+        want = {"k3_fwd": n_t + n_s, "k3_dq": n_s, "k3_dkv": n_s}
+        if r["k3"] != want or r["k2"] != {"k2_fwd": 1, "k2_bwd": 1}:
+            raise AssertionError(f"distilled Conformer step at T = 1000: launches {r}, want "
+                                 f"K3 {want}")
+        found["step flagship -> conformer T = 1000"] = {**r["k2"], **r["k3"]}
+        del lspec
+        steps["T = 1000 step"] = time.perf_counter() - t_phase - sum(steps.values())
+
+        # multi-ACCDOA under both track matchings
+        multi = ACCDOA_FAMILIES[1][1]
+        seeded_checkpoint(root / "multi" / "best" / "epoch_0000.pt", multi, dev, seed=1)
+        kd_first = {}
+        for matching in ("permutation", "position"):
+            mcfg = parse_overrides(Config(), [*multi, f"train.distill_track_matching={matching}"])
+            mspec, _ = load_teacher(mcfg, root / "multi", dev)
+            r = time_train_steps(dev, mcfg, tag=f"[distill][multi-ACCDOA {matching}]",
+                                 distill=mspec, profile=False)
+            if (r["k2"] != {"k2_fwd": 0, "k2_bwd": 0} or any(r["k3"].values())
+                    or not math.isfinite(r["first"]["kd"])):
+                raise AssertionError(f"multi-ACCDOA distill ({matching}): {r}")
+            found[f"step multi-ACCDOA {matching} T = 250"] = {**r["k2"], **r["k3"]}
+            kd_first[matching] = r["first"]["kd"]
+        if not kd_first["permutation"] <= kd_first["position"]:
+            raise AssertionError(f"permutation-invariant KD above the slot-wise one: {kd_first}")
+        print(f"[distill] multi_accdoa_conformer under a seeded multi_accdoa_conformer teacher: "
+              f"first-step KD {kd_first['permutation']:.6f} permutation-invariant <= "
+              f"{kd_first['position']:.6f} slot-wise; K2 never")
+        steps["multi-ACCDOA steps"] = time.perf_counter() - t_phase - sum(steps.values())
+    found["timings"] = {"plain_ms": plain["step_ms"], "distilled_ms": dist["step_ms"],
+                        "plain_peak_gib": plain["peak_gib"], "distilled_peak_gib": dist["peak_gib"],
+                        "teacher_forward_ms": teacher_ms, "kd": kd_rows}
+    print(f"[distill] phase 18 took {time.perf_counter() - t_phase:.1f} s "
+          f"({', '.join(f'{k} {v:.1f} s' for k, v in steps.items())})")
+    return found
+
+
 def main() -> int:
     name, smi = phase_device()
     dev = torch.device("cuda")
@@ -4118,9 +4343,16 @@ def main() -> int:
           f"{json.dumps(phase_flagship_options(dev))}")
     try:
         found = phase_accdoa(dev, flagship_run)
+        distilled = phase_distill(dev, flagship_run)
     finally:
         shutil.rmtree(flagship_run, ignore_errors=True)
     print(f"[paths] launches on the ACCDOA and calibration paths: {json.dumps(found)}")
+    timings = distilled.pop("timings")
+    print(f"[paths] launches on the distillation paths: {json.dumps(distilled)}")
+    print(f"[distill] timings {json.dumps(timings)}")
+    for row, key in ((k1, "k1"), (k2_fwd, "k2_fwd"), (k2_bwd, "k2_bwd"),
+                     *zip(k3_rows, ("k3_fwd", "k3_dq", "k3_dkv"))):
+        row["launches_distill"] = {p: c[key] for p, c in distilled.items() if key in c}
     for row, key in ((k1, "k1"), (k2_fwd, "k2_fwd"), (k2_bwd, "k2_bwd"),
                      *zip(k3_rows, ("k3_fwd", "k3_dq", "k3_dkv")), (k4_rows[0], "k4")):
         row["launches_accdoa"] = accdoa_launches(found, key)

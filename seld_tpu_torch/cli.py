@@ -109,7 +109,11 @@ forward calibrated on those WAVs.
 averages the run's rolling checkpoints (SWA) into OUT/best. All but
 `score` and `average-ckpts` run on the CUDA card unless --device names
 another. `train ... train.qat=true` trains quantization-aware (int8
-fake-quant with straight-through gradients).
+fake-quant with straight-through gradients). `train ...
+train.distill_ckpt=DIR [train.distill_alpha=A train.distill_temperature=T
+train.distill_track_matching=permutation|position]` distills from the
+teacher whose checkpoint tree is DIR (its best checkpoint; same features,
+window and grid, same output kind), training on (1 - A) * hard + A * kd.
 """
 
 from __future__ import annotations
@@ -574,7 +578,9 @@ def build_parser() -> argparse.ArgumentParser:
     sub = parser.add_subparsers(dest="command", required=True)
     device_help = "torch device (default: cuda; 'cpu' runs the plain versions on the CPU)"
     p = sub.add_parser("train", help="train per config; key=value overrides")
-    p.add_argument("overrides", nargs="*", help="dotted config overrides, k.e.y=value")
+    p.add_argument("overrides", nargs="*",
+                   help="dotted config overrides, k.e.y=value (train.qat=true: quantization-"
+                        "aware; train.distill_ckpt=DIR: distill from the teacher run DIR)")
     p.add_argument("--synthetic", action="store_true",
                    help="train on seeded synthetic clips instead of STARSS22")
     p.add_argument("--resume", action="store_true",

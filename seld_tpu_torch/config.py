@@ -3,8 +3,8 @@
 The port's own copy of the sections of seld_tpu/config.py, with the same
 defaults, field names, dotted `key=value` overrides and dict round-trip,
 so a config dict stored by either package rebuilds the same run here.
-Fields whose reader is not ported (distillation, profiling, the mesh's
-ZeRO-1 and FSDP switches, the Pallas toggle) are left out:
+Fields whose reader is not ported (profiling, the mesh's ZeRO-1 and FSDP
+switches, the Pallas toggle) are left out:
 `config_from_dict` ignores them, exactly as seld_tpu ignores unknown
 keys, and an override of one raises `parse_overrides`'s unknown-field
 error. Each comes back with the code that reads it.
@@ -243,6 +243,21 @@ class TrainConfig:
     # weights are evaluated and stored in the best checkpoint; rolling
     # checkpoints keep the raw weights for an exact resume.
     ema_decay: float = 0.0
+    # Knowledge distillation (empty = off): a trained teacher's checkpoint
+    # tree. The teacher (architecture from its stored config, best weights:
+    # the EMA weights when it trained with ema_decay) runs an eval-mode
+    # forward on the student's augmented batches in the train step, and the
+    # objective becomes (1 - alpha) * hard_loss + alpha * kd_loss (a
+    # T^2-scaled KL over classes for grid heads, a vector MSE for ACCDOA).
+    # Teacher and student share features, window, grid and output kind;
+    # seld_tpu_torch/distill.py.
+    distill_ckpt: str = ""
+    distill_alpha: float = 0.5
+    distill_temperature: float = 2.0
+    # Multi-ACCDOA KD track matching: "permutation" takes the min over the
+    # N! orderings of the teacher's tracks per (frame, class), as the hard
+    # ADPIT loss does; "position" is the plain slot-wise MSE.
+    distill_track_matching: str = "permutation"
     # SpecAugment inside the train step (0 masks = off): per sample, masks
     # of up to `width` frames / mel bins filled with the sample's
     # per-channel mean.

@@ -44,6 +44,11 @@ QAT_MESH_ERROR = ("train.qat under a process mesh of more than one rank is not p
                   "rank's own)")
 
 
+DISTILL_MESH_ERROR = ("train.distill_ckpt under a process mesh of more than one rank is not "
+                      "ported (ROADMAP item 10's remainder: the KD term's normaliser "
+                      "sum(w * em) would be each rank's own)")
+
+
 def _true_f32(model: nn.Module):
     """A float32 model computes in true float32: TF32 off around the
     forward and the backward (the model's own forward only covers itself)."""
@@ -106,7 +111,8 @@ def _check_classes(loss_fn, num_classes: int) -> None:
 def make_train_step(model: nn.Module, loss_fn: SELDLossFn,
                     optimizer: torch.optim.Optimizer, num_classes: int,
                     accum_steps: int = 1, input_augment=None, spatial_augment=None,
-                    mesh=None, time_sharded: bool = False, qat: bool = False):
+                    mesh=None, time_sharded: bool = False, qat: bool = False,
+                    distill=None):
     """Returns step(state, mel, targets, example_mask, rng) ->
     (state, metrics).
 
@@ -136,20 +142,44 @@ def make_train_step(model: nn.Module, loss_fn: SELDLossFn,
     their inputs and weights with straight-through gradients; a remat
     recompute does too.
 
+    distill (seld_tpu_torch.distill.DistillSpec) adds knowledge
+    distillation: per batch, or per microbatch under accumulation, the
+    teacher runs its eval-mode forward under no_grad on the mel the student
+    sees (after ACS, SpecAugment and shard_batch, inside the same
+    attention_mesh, outside quant.qat(): only the student is
+    fake-quantized; in true float32 for a float32 teacher) and the loss
+    becomes (1 - alpha) * hard + alpha * kd, with "hard" and "kd" in the
+    breakdown. The teacher draws from no generator, so the student's
+    dropout and augmentation are those of the plain step.
+
     With a `mesh` the step takes the global batch and trains on this
     rank's block of it (see the module's note); accum_steps must be 1, and
-    qat needs a mesh of one rank."""
+    qat and distill need a mesh of one rank."""
     if mesh is not None and accum_steps != 1:
         raise NotImplementedError(
             "train.accum_steps > 1 under a process mesh is not ported "
             "(ROADMAP item 10's remainder)")
     if qat and mesh is not None and mesh.world_size > 1:
         raise NotImplementedError(QAT_MESH_ERROR)
+    if distill is not None and mesh is not None and mesh.world_size > 1:
+        raise NotImplementedError(DISTILL_MESH_ERROR)
     _check_classes(loss_fn, num_classes)
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
 
     generator = None
+
+    def forward_loss(mel, targets, example_mask):
+        with quant.qat(qat):
+            out = model(mel)
+        total, breakdown = _loss(loss_fn, out, targets, example_mask)
+        if distill is None:
+            return total, breakdown
+        with torch.no_grad(), _true_f32(distill.teacher):
+            t_out = distill.teacher(mel)
+        kd = distill.kd(out, t_out, example_mask, temperature=distill.temperature)
+        return ((1.0 - distill.alpha) * total + distill.alpha * kd,
+                {**breakdown, "hard": total, "kd": kd})
 
     def step(state: TrainState, mel, targets, example_mask, rng):
         nonlocal generator
@@ -166,9 +196,9 @@ def make_train_step(model: nn.Module, loss_fn: SELDLossFn,
         mel, targets, example_mask = shard_batch(mesh, time_sharded, mel, targets,
                                                  example_mask)
         optimizer.zero_grad(set_to_none=True)
-        with _true_f32(model), attention_mesh(mesh, time_sharded), quant.qat(qat):
+        with _true_f32(model), attention_mesh(mesh, time_sharded):
             if accum_steps == 1:
-                total, breakdown = _loss(loss_fn, model(mel), targets, example_mask)
+                total, breakdown = forward_loss(mel, targets, example_mask)
                 total.backward()
                 total = total.detach()
             else:
@@ -184,8 +214,8 @@ def make_train_step(model: nn.Module, loss_fn: SELDLossFn,
                 total, breakdown = 0.0, {}
                 for i in range(accum_steps):
                     rows = slice(i * mb, (i + 1) * mb)
-                    t_i, bd_i = _loss(loss_fn, model(mel[rows]), targets[rows],
-                                      None if example_mask is None else example_mask[rows])
+                    t_i, bd_i = forward_loss(mel[rows], targets[rows], None
+                                             if example_mask is None else example_mask[rows])
                     (shares[i] * t_i).backward()
                     total = total + shares[i] * t_i.detach()
                     for k, v in bd_i.items():

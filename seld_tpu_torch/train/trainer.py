@@ -7,8 +7,9 @@ checkpoint on the test loss (or on a DCASE2022 validation metric,
 train.select_metric), a rolling checkpoint every N epochs, resume
 from the newest rolling checkpoint, an optional parameter EMA,
 quantization-aware training (train.qat: int8 fake-quant in the train
-step, seld_tpu_torch.quant), a per-epoch record in metrics.jsonl, and
-training_history.json at the end.
+step, seld_tpu_torch.quant), knowledge distillation from a trained
+teacher's checkpoint tree (train.distill_ckpt, seld_tpu_torch.distill), a
+per-epoch record in metrics.jsonl, and training_history.json at the end.
 The ACCDOA families (model.model_type accdoa_conformer /
 multi_accdoa_conformer) train on the corpora's ACCDOA targets with the
 ACCDOA or ADPIT loss, rotate those targets under ACS, and decode their
@@ -64,6 +65,7 @@ from seld_tpu_torch.train.optimizer import (
 from seld_tpu_torch.train.schedule import EarlyStopping, ReduceLROnPlateau, WarmupCosine
 from seld_tpu_torch.train.state import TrainState, create_train_state, param_count
 from seld_tpu_torch.train.steps import (
+    DISTILL_MESH_ERROR,
     QAT_MESH_ERROR,
     make_eval_step,
     make_metric_eval_step,
@@ -165,6 +167,8 @@ def check_mesh_config(cfg: Config, window_frames: int) -> None:
             "ported (ROADMAP item 10's remainder)")
     if cfg.train.qat and mc.enable != "off" and launched_world_size() > 1:
         raise NotImplementedError(QAT_MESH_ERROR)
+    if cfg.train.distill_ckpt and mc.enable != "off" and launched_world_size() > 1:
+        raise NotImplementedError(DISTILL_MESH_ERROR)
     if not mc.shard_time:
         return
     model_type = cfg.model.model_type
@@ -263,6 +267,23 @@ def train_model(cfg: Config, train_corpus: WindowedCorpus, test_corpus: Windowed
         tc.patience, tc.min_delta,
     )
 
+    distill = None
+    if tc.distill_ckpt:
+        from seld_tpu_torch.distill import load_teacher, teacher_variable_count
+
+        if not 0.0 <= tc.distill_alpha <= 1.0:
+            raise ValueError(f"train.distill_alpha must be in [0, 1], got {tc.distill_alpha}")
+        if tc.distill_temperature <= 0.0:
+            raise ValueError(
+                f"train.distill_temperature must be > 0 (it divides the logits inside the "
+                f"KD loss), got {tc.distill_temperature}")
+        distill, t_meta = load_teacher(cfg, tc.distill_ckpt, device)
+        logger.info(
+            "Distillation: teacher %s (epoch %d, %s params) -> student %s; "
+            "alpha=%g temperature=%g", distill.teacher.model_cfg.model_type,
+            t_meta.get("epoch", -1), f"{teacher_variable_count(distill.teacher):,}",
+            cfg.model.model_type, tc.distill_alpha, tc.distill_temperature)
+
     if not resume and lead:
         # a fresh run starts from a clean tree: stale checkpoints (possibly
         # of another architecture) must not be reloaded as "best", and
@@ -332,7 +353,7 @@ def train_model(cfg: Config, train_corpus: WindowedCorpus, test_corpus: Windowed
     train_step = make_train_step(model, loss_fn, optimizer, cfg.grid.num_classes,
                                  accum_steps=tc.accum_steps, input_augment=input_augment,
                                  spatial_augment=spatial_augment, mesh=mesh,
-                                 time_sharded=time_sharded, qat=tc.qat)
+                                 time_sharded=time_sharded, qat=tc.qat, distill=distill)
     eval_step = make_eval_step(eval_model, loss_fn, cfg.grid.num_classes, mesh=mesh,
                                time_sharded=time_sharded)
     # With a validation metric the eval pass also decodes predicted and true
@@ -486,8 +507,12 @@ def train_model(cfg: Config, train_corpus: WindowedCorpus, test_corpus: Windowed
                         epoch, tc.num_epochs, time.time() - t0,
                         train_avg["loss"], test_avg["loss"], new_lr)
             for k in train_avg:
-                if k != "loss":
+                if k == "loss":
+                    continue
+                if k in test_avg:
                     logger.info("    %s: train %.6f test %.6f", k, train_avg[k], test_avg[k])
+                else:  # train-only terms (the distillation's kd / hard split)
+                    logger.info("    %s: train %.6f", k, train_avg[k])
 
             best_state = state if ema_model is None else TrainState(state.step, ema_model, None)
             if metric_step is None:

@@ -1282,3 +1282,74 @@ def test_int8_predict_stream_and_tta_on_card(cuda_device, tmp_path, feature_set)
         other = _tiny_predictor(cuda_device, tmp_path, feature_set, batch_windows=2).tta((0, 5))
         other.quantize(calib_waves=[wave])
         np.testing.assert_array_equal(other.predict_waveform(wave).classes, first)
+
+
+DISTILL_TEACHER = ["model.model_type=conformer", "model.crnn_cnn_channels=8,16",
+                   "model.conf_d_model=64", "model.conf_n_heads=2", "model.conf_n_layers=1"]
+DISTILL_STUDENT = [*DISTILL_TEACHER[:-1], "model.conf_n_layers=2"]
+
+
+def _distilling_step(cuda_device, qat=False, t=512):
+    """A bf16 distilling train step of a 2-block Conformer student under a
+    1-block Conformer teacher (seeded weights) at T frames, with a seeded
+    batch: (step, state, spec, mel, mask)."""
+    from functools import partial
+
+    from seld_tpu_torch.distill import DistillSpec, grid_kd_loss
+    from seld_tpu_torch.losses.seld_loss import make_class_weights
+    from seld_tpu_torch.models import build_model
+    from seld_tpu_torch.train.optimizer import make_optimizer
+    from seld_tpu_torch.train.state import create_train_state
+    from seld_tpu_torch.train.steps import make_train_step
+
+    tcfg, cfg = _port_cfg(DISTILL_TEACHER), _port_cfg(DISTILL_STUDENT)
+    teacher = build_model(tcfg.model, tcfg.grid, device=cuda_device, seed=1)
+    spec = DistillSpec(teacher=teacher.requires_grad_(False).eval(), alpha=0.5,
+                       temperature=2.0, kd=partial(grid_kd_loss, class_weights=make_class_weights(
+                           14).to(cuda_device)))
+    model = build_model(cfg.model, cfg.grid, device=cuda_device, seed=0)
+    gen = torch.Generator(device=cuda_device).manual_seed(4)
+    mel = torch.randn((4, t, 4, 64), device=cuda_device, generator=gen)
+    mask = torch.randint(0, 2 ** 13, (4, t, cfg.grid.n_cells), device=cuda_device,
+                         generator=gen).to(torch.int16)
+    optimizer = make_optimizer(model.parameters(), 1e-3, 1e-4)
+    step = make_train_step(model, SELDLossFn(cfg.loss, cfg.grid), optimizer,
+                           cfg.grid.num_classes, qat=qat, distill=spec)
+    return step, create_train_state(model, optimizer), spec, mel, mask
+
+
+def test_distilling_step_launch_counts_on_card(cuda_device):
+    """At T = 512 the teacher's forward runs K3's forward once a block and
+    the student's forward and backward once a block each: forward 1 + 2,
+    dQ and dK/dV 2; K2 forward and backward once (the hard loss); the KD
+    terms finite."""
+    step, state, _, mel, mask = _distilling_step(cuda_device)
+    flash_attention.fwd_launches = flash_attention.bwd_dq_launches = 0
+    flash_attention.bwd_dkv_launches = 0
+    grid_loss_terms.fwd_launches = grid_loss_terms.bwd_launches = 0
+    log_mel_frames.launches = 0
+    _, metrics = step(state, mel, mask, None, (0, 1))
+    torch.cuda.synchronize()
+    assert (flash_attention.fwd_launches, flash_attention.bwd_dq_launches,
+            flash_attention.bwd_dkv_launches) == (3, 2, 2)
+    assert (grid_loss_terms.fwd_launches, grid_loss_terms.bwd_launches) == (1, 1)
+    assert log_mel_frames.launches == 0
+    assert set(metrics) == {"loss", "class_mse", "hard", "kd"}
+    assert all(torch.isfinite(v) for v in metrics.values())
+
+
+@pytest.mark.parametrize("qat", [False, True], ids=["plain", "qat"])
+def test_distilling_step_teacher_equals_its_eval_forward_on_card(cuda_device, qat):
+    """The teacher's output inside the step is its eval forward on the same
+    batch bit for bit, with and without QAT on the student (the teacher
+    runs outside quant.qat())."""
+    step, state, spec, mel, mask = _distilling_step(cuda_device, qat=qat)
+    seen = []
+    hook = spec.teacher.register_forward_hook(lambda m, i, out: seen.append(out))
+    try:
+        step(state, mel, mask, None, (0, 1))
+    finally:
+        hook.remove()
+    with torch.no_grad():
+        want = spec.teacher(mel)
+    assert len(seen) == 1 and torch.equal(seen[0], want)

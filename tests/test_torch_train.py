@@ -628,9 +628,9 @@ def test_cli_train_synthetic_on_the_cpu(tmp_path):
     assert (work / "training_history.json").exists() and list((work / "best").iterdir())
 
 
-@pytest.mark.parametrize("override", ["train.distill_alpha=0.5", "train.prng_impl=rbg",
-                                      "train.distill_ckpt=x", "mesh.shard_opt_state=true",
-                                      "train.profile_steps=3"])
+@pytest.mark.parametrize("override", ["train.viz_loss_components_every=1",
+                                      "train.prng_impl=rbg", "mesh.shard_params=true",
+                                      "mesh.shard_opt_state=true", "train.profile_steps=3"])
 def test_override_of_an_unported_field_is_an_unknown_key(override):
     with pytest.raises(KeyError, match="unknown config field"):
         pc.parse_overrides(pc.Config(), [override])
@@ -647,6 +647,53 @@ def test_left_out_options_name_their_roadmap_item(override, synthetic, monkeypat
     with pytest.raises(NotImplementedError, match="ROADMAP item 10"):
         port_main(args + (["--synthetic"] if synthetic else []))
     assert not list(tmp_path.iterdir())
+
+
+def test_distillation_under_a_mesh_names_its_roadmap_item(monkeypatch, tmp_path):
+    """train.distill_ckpt under a process mesh of more than one rank raises
+    naming ROADMAP item 10 before any corpus is built or file written."""
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    with pytest.raises(NotImplementedError, match="ROADMAP item 10"):
+        port_main(["train", "--synthetic", "--device", "cpu", f"data.base_path={tmp_path}",
+                   f"train.distill_ckpt={tmp_path / 'teacher'}"])
+    assert not list(tmp_path.iterdir())
+
+
+def test_one_rank_mesh_distilling_step_equals_the_unmeshed_step(small):
+    """A distilling step on a 1-rank gloo mesh: loss, kd, hard, parameters
+    and statistics bit-equal to the step without a mesh."""
+    from functools import partial
+
+    from seld_tpu_torch.distill import DistillSpec, grid_kd_loss
+    from seld_tpu_torch.losses.seld_loss import make_class_weights
+    from seld_tpu_torch.parallel.mesh import make_mesh
+    from seld_tpu_torch.parallel.multihost import initialize_multihost
+
+    _, variables, port_cfg = small
+    teacher = _port_model(variables, port_cfg).requires_grad_(False).eval()
+    spec = DistillSpec(teacher=teacher, alpha=0.5, temperature=2.0,
+                       kd=partial(grid_kd_loss, class_weights=make_class_weights(14)))
+    batch = _port_batch(*_batch(14, n_valid=3))
+    runs = []
+    for meshed in (False, True):
+        mesh = None
+        if meshed:
+            assert initialize_multihost(torch.device("cpu"))
+            mesh = make_mesh()
+        try:
+            port = _port_model(variables, port_cfg)
+            opt = port_optimizer.make_optimizer(port.parameters(), 1e-3, 1e-4)
+            step = make_port_train_step(port, PortLossFn(pc.LossConfig(), pc.GridConfig()),
+                                        opt, 14, mesh=mesh, distill=spec)
+            _, metrics = step(create_port_state(port, opt), *batch, (0, 1))
+        finally:
+            if meshed:
+                torch.distributed.destroy_process_group()
+        runs.append((port.state_dict(), metrics))
+    (plain, want), (sharded, got) = runs
+    assert set(got) == set(want) == {"loss", "class_mse", "hard", "kd"}
+    assert all(torch.equal(got[k], want[k]) for k in want)
+    assert all(torch.equal(sharded[k], plain[k]) for k in plain)
 
 
 def test_config_dict_of_the_jax_package_loads_in_the_port():

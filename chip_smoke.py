@@ -65,9 +65,18 @@ Phases, each of which raises on failure:
   7. long windows at full width (window.window_seconds=20.0, T = 1000, so
      attention runs through K3): SELDPredictor serving the 60 s clip, K3's
      forward count against the forwards taken; `cli train --synthetic` for
-     one epoch, K3's three counts at exactly four per step; `cli eval
-     --synthetic` on that run, its JSON report parsed; timed predicts and
-     train steps and one step under torch.profiler;
+     one epoch with train.viz_loss_components_every=1, K3's three counts at
+     exactly four per step and four more forward, read around the
+     loss-component dashboard's eval forward; `cli eval --synthetic` on
+     that run, its JSON report parsed, with its default 5 prediction PNGs
+     (K3 forward four more, read around their one forward), each decoded by
+     matplotlib and of a frame with events; `[viz]` lines with the
+     dashboard's and the visualization pass's forward and rendering times;
+     tools.replot of the run's metrics.jsonl. Where matplotlib is not
+     installed the dashboard's forward still runs and its rendering logs a
+     warning, `cli eval` takes --num-visualizations 0 and replot prints its
+     table only; then timed predicts and train steps and one step under
+     torch.profiler;
   8. the accuracy recipe at full width (features.feature_set=mel_iv,
      train.acs_augment, targets.use_gaussian_augmentation, 2 + 2
      SpecAugment masks, data.cache_dir) on synthetic WAV files in the
@@ -240,6 +249,7 @@ K1, K2 and K3: on phase 18's), the nvidia-smi line, and last {"ok": true,
 from __future__ import annotations
 
 import contextlib
+import importlib.util
 import io
 import itertools
 import json
@@ -1613,10 +1623,18 @@ def time_train_steps(dev: torch.device, cfg, tag: str = "[train]", qat: bool = F
 def phase_long_window(dev: torch.device) -> dict:
     """The long-window path at full width: 20 s windows are T = 1000 frames,
     so every conformer block's attention runs through K3. Serve, train
-    through the CLI, evaluate through the CLI; returns K3's launch counts of
-    the training run."""
+    through the CLI with a loss-component dashboard (one more eval forward),
+    evaluate through the CLI with its default 5 prediction PNGs (one more
+    forward of their windows), replot the run's loss curves; returns K3's
+    launch counts of the training run, with those of the two forwards
+    under "k3_fwd_viz". Without matplotlib nothing is drawn: see phase 7
+    in the module's docstring."""
     from seld_tpu_torch import cli
     from seld_tpu_torch.config import Config, WindowConfig
+    from seld_tpu_torch.data.synthetic import synthetic_corpus
+    from seld_tpu_torch.eval import evaluate
+    from seld_tpu_torch.tools import replot
+    from seld_tpu_torch.train import trainer
     from seld_tpu_torch.infer import SELDPredictor
     from seld_tpu_torch.models import build_model
     from seld_tpu_torch.ops.flash_attention import flash_attention as fa
@@ -1629,6 +1647,27 @@ def phase_long_window(dev: torch.device) -> dict:
     def k3_reset():
         fa.fwd_launches = fa.bwd_dq_launches = fa.bwd_dkv_launches = 0
 
+    viz_launches = {}
+
+    @contextlib.contextmanager
+    def k3_fwd_inside(module, name: str, label: str):
+        """module.name wrapped for the block: K3's forward launches inside
+        its calls are added up under viz_launches[label]."""
+        inner = getattr(module, name)
+
+        def wrapped(*args, **kwargs):
+            before = fa.fwd_launches
+            out = inner(*args, **kwargs)
+            viz_launches[label] = viz_launches.get(label, 0) + fa.fwd_launches - before
+            return out
+
+        setattr(module, name, wrapped)
+        try:
+            yield
+        finally:
+            setattr(module, name, inner)
+
+    have_mpl = importlib.util.find_spec("matplotlib") is not None
     cfg = Config(window=WindowConfig(window_seconds=LONG_WINDOW_SECONDS))
     win = cfg.window.window_frames(cfg.features)
     blocks = cfg.model.resnet_conf_n_layers
@@ -1682,24 +1721,49 @@ def phase_long_window(dev: torch.device) -> dict:
         eval_steps = -(-(20 * fps // hop) // cfg.train.batch_size)
         args = ["--synthetic", f"data.base_path={tmp}",
                 f"window.window_seconds={LONG_WINDOW_SECONDS}", "train.num_epochs=1",
-                "train.save_every_n_epochs=1"]
+                "train.save_every_n_epochs=1", "train.viz_loss_components_every=1"]
         k3_reset()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        if cli.main(["train", *args]) != 0:
-            raise AssertionError("cli train at long windows failed")
+        with (log_messages("seld_tpu_torch.train.trainer") as logged,
+              k3_fwd_inside(trainer, "_loss_dashboard", "train dashboard")):
+            if cli.main(["train", *args]) != 0:
+                raise AssertionError("cli train at long windows failed")
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
         counts = k3_counts()
-        want = {"k3_fwd": (train_steps + eval_steps) * blocks, "k3_dq": train_steps * blocks,
-                "k3_dkv": train_steps * blocks}
-        if counts != want:
+        # the dashboard's eval forward of the first test batch: once per block
+        want = {"k3_fwd": (train_steps + eval_steps + 1) * blocks,
+                "k3_dq": train_steps * blocks, "k3_dkv": train_steps * blocks}
+        if counts != want or viz_launches != {"train dashboard": blocks}:
             raise AssertionError(f"K3 launches on the long-window training path {counts}, "
-                                 f"expected {want}")
+                                 f"expected {want}; in the dashboard {viz_launches}, "
+                                 f"expected {blocks}")
         work = Path(tmp) / "checkpoints"
         (record,) = [json.loads(x) for x in (work / "metrics.jsonl").read_text().splitlines()]
         if not all(math.isfinite(record[s]["loss"]) for s in ("train", "test")):
             raise AssertionError(f"long-window metrics.jsonl: {record}")
+        outputs = Path(tmp) / "outputs"
+        (dash,) = [m for m in logged if "Loss-component dashboard: forward" in m]
+        dash_ms = float(re.search(r"([\d.]+) ms", dash).group(1))
+        if have_mpl:
+            pngs = [outputs / "loss_curves.png", *sorted(
+                (outputs / "train_visualizations").glob("loss_components_epoch1_f*.png"))]
+            if len(pngs) != 2 or not all(decodes(p) for p in pngs):
+                raise AssertionError(f"cli train PNGs at long windows: {pngs}")
+            (rendered,) = [m for m in logged if "Loss-component dashboard rendered" in m]
+            drawn = (f"rendering {float(re.search(r'([\d.]+) ms', rendered).group(1)):.1f} ms "
+                     f"-> {pngs[1].name}; loss_curves.png")
+        else:
+            failed = [m for m in logged if "failed: No module named 'matplotlib'" in m]
+            if len(failed) != 2 or list(outputs.rglob("*.png")):
+                raise AssertionError(f"cli train without matplotlib: {failed}")
+            drawn = "rendering not run: matplotlib is not installed on this machine"
+        frame = re.search(r"batch \d+, frame \d+", dash).group(0)
+        print(f"[viz] train loss-component dashboard at T = {win} (first test batch of "
+              f"{cfg.train.batch_size} windows, {frame} chosen on the card): K3 forward "
+              f"{viz_launches['train dashboard']} launches, forward and frame choice "
+              f"{dash_ms:.1f} ms; {drawn}")
         print(f"[long] cli train --synthetic window.window_seconds={LONG_WINDOW_SECONDS:g}, 1 "
               f"epoch of {train_steps} train + {eval_steps} eval steps in {wall_s:.1f} s: K3 "
               f"forward {counts['k3_fwd']}, dQ {counts['k3_dq']}, dK/dV {counts['k3_dkv']} "
@@ -1707,18 +1771,24 @@ def phase_long_window(dev: torch.device) -> dict:
               f"{record['test']['loss']:.6f}; peak device memory "
               f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
-        # evaluate
+        # evaluate, with the default 5 prediction PNGs: one more forward
         k3_reset()
         printed = io.StringIO()
-        with contextlib.redirect_stdout(printed):
-            rc = cli.main(["eval", *args[:3]])
+        with (log_messages("seld_tpu_torch.eval.evaluate") as logged,
+              contextlib.redirect_stdout(printed),
+              k3_fwd_inside(evaluate, "_visualize", "eval visualization pass")):
+            rc = cli.main(["eval", *args[:3],
+                           *([] if have_mpl else ["--num-visualizations", "0"])])
         report = json.loads(printed.getvalue())
         evaluated = k3_counts()
-        if (rc != 0 or evaluated != {"k3_fwd": eval_steps * blocks, "k3_dq": 0, "k3_dkv": 0}
+        if (rc != 0 or evaluated != {"k3_fwd": (eval_steps + int(have_mpl)) * blocks, "k3_dq": 0,
+                                     "k3_dkv": 0}
+                or viz_launches.get("eval visualization pass") != (blocks if have_mpl else None)
                 or report["checkpoint_epoch"] != 1 or "SELD_error" not in report["dcase2022"]
                 or not math.isfinite(report["test_loss"])):
-            raise AssertionError(f"cli eval at long windows: rc {rc}, K3 {evaluated}, report "
-                                 f"keys {sorted(report)}")
+            raise AssertionError(f"cli eval at long windows: rc {rc}, K3 {evaluated}, around "
+                                 f"the visualization forwards {viz_launches}, report keys "
+                                 f"{sorted(report)}")
         if abs(report["test_loss"] - record["test"]["loss"]) > 1e-4:
             raise AssertionError(f"cli eval test loss {report['test_loss']} != the trainer's "
                                  f"{record['test']['loss']} for the same checkpoint")
@@ -1726,11 +1796,57 @@ def phase_long_window(dev: torch.device) -> dict:
               f"({report['checkpoint_kind']}), test loss {report['test_loss']:.6f}, overall "
               f"accuracy {report['overall_accuracy']:.2f} %, DCASE2022 SELD_error "
               f"{report['dcase2022']['SELD_error']:.4f}; K3 forward {evaluated['k3_fwd']} "
-              f"launches over {eval_steps} eval steps")
+              f"launches over {eval_steps} eval steps"
+              + (" and the visualization forward" if have_mpl else ""))
+        metrics = replot.load_metrics(work / "metrics.jsonl")
+        if not have_mpl:
+            print("[viz] eval visualization pass and tools.replot's PNG not run: matplotlib is "
+                  "not installed on this machine (cli eval --num-visualizations 0)")
+            print(f"[viz] tools.replot table of the run's metrics.jsonl:\n"
+                  f"{replot.summarize(metrics)}")
+        else:
+            # the PNGs: min(5, frames with events), each of a frame with
+            # events of the test clip (the CLI's seeded one)
+            test_c = synthetic_corpus(cfg, n_files=1, seconds=20.0, seed=1, train=False,
+                                      device=dev)
+            named = {}
+            for p in (outputs / "test_visualizations").glob("test_viz_*.png"):
+                k, w, t = map(int, re.fullmatch(r"test_viz_(\d+)_window(\d+)_frame(\d+)\.png",
+                                                p.name).groups())
+                named[k] = (w, t, decodes(p), bool(test_c.gather([w])[1][0, t].any()))
+            n_viz = min(5, report["num_frames_with_events"])
+            if sorted(named) != list(range(1, n_viz + 1)) or not all(
+                    ok and events for _, _, ok, events in named.values()):
+                raise AssertionError(f"cli eval PNGs at long windows: {named}, expected {n_viz}")
+            (saved,) = [m for m in logged if "prediction visualizations" in m]
+            viz_ms = [float(x) for x in re.findall(r"([\d.]+) ms", saved)]
+            n_windows = len({w for w, *_ in named.values()})
+            print(f"[viz] eval visualization pass at T = {win}: {n_viz} PNGs of {n_windows} "
+                  f"windows, K3 forward {viz_launches['eval visualization pass']} launches; "
+                  f"forward {viz_ms[0]:.1f} ms, rendering {viz_ms[1]:.1f} ms "
+                  f"({viz_ms[1] / n_viz:.1f} ms a PNG)")
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                replot.main([str(work / "metrics.jsonl"), "--out", str(outputs / "replot.png")])
+            replot_ms = (time.perf_counter() - t0) * 1e3
+            if not decodes(outputs / "replot.png"):
+                raise AssertionError("replot of the long-window run wrote no PNG")
+            print(f"[viz] tools.replot of the run's metrics.jsonl ({len(metrics)} epoch): "
+                  f"{replot_ms:.1f} ms (host only)")
+    counts["k3_fwd_viz"] = dict(viz_launches)
     losses = time_train_steps(dev, cfg, tag="[long]")["losses"]
     if not losses[-1] < losses[0]:
         raise AssertionError(f"long-window train loss did not fall over the timed steps: {losses}")
     return counts, record["train"]["loss"]
+
+
+def decodes(path: Path) -> bool:
+    """Whether matplotlib decodes the PNG at path to a non-empty RGBA
+    array."""
+    from matplotlib import image as mpimg
+
+    pixels = mpimg.imread(path)
+    return pixels.ndim == 3 and pixels.shape[-1] == 4 and pixels.size > 0
 
 
 RECIPE = ["features.feature_set=mel_iv", "train.acs_augment=true",
@@ -1842,7 +1958,7 @@ def phase_spatial(dev: torch.device) -> dict:
         spatial_features.launches = 0
         printed = io.StringIO()
         with log_messages("seld_tpu_torch") as logged, contextlib.redirect_stdout(printed):
-            rc = cli.main(["eval", *args])
+            rc = cli.main(["eval", *args, "--num-visualizations", "0"])
         report = json.loads(printed.getvalue())
         hits = [m for m in logged if m.startswith("Corpus cache hit")]
         best_record = next(r for r in records if r["epoch"] == report["checkpoint_epoch"])
@@ -2266,7 +2382,8 @@ def phase_accdoa(dev: torch.device, flagship_run: Path) -> dict:
                   f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
             reset_launches()
-            report = cli_json(["eval", *args, "--accdoa-threshold-sweep", THRESHOLD_SWEEP])
+            report = cli_json(["eval", *args, "--accdoa-threshold-sweep", THRESHOLD_SWEEP,
+                               "--num-visualizations", "0"])
             evaluated = launches()
             sweep = report["accdoa_threshold_sweep"]
             if (evaluated != only(**{feature: 3}) or len(sweep["metrics"]) != 5
@@ -3377,7 +3494,8 @@ def phase_serving(dev: torch.device) -> dict:
         print(f"[cli] average-ckpts --last 2 -> {avg.relative_to(root)} (swa_sources {sources}); "
               f"predict from it: launches {counts}")
         reset_launches()
-        report = cli_json(["eval", "--synthetic", *args, "--tta", "--bg-bias-sweep", "0,1,2"])
+        report = cli_json(["eval", "--synthetic", *args, "--tta", "--bg-bias-sweep", "0,1,2",
+                           "--num-visualizations", "0"])
         evaluated = launches()
         swept = report["bg_bias_sweep"]["metrics"]
         if evaluated != only(k4=3, k2_fwd=eval_steps) or len(swept) != 3:
@@ -4073,7 +4191,8 @@ def phase_int8(dev: torch.device) -> tuple[dict, dict]:
               f"{record['train']['loss']:.6f}, test {record['test']['loss']:.6f}")
         for flags in (["--int8"], ["--int8", "--int8-weight-only"]):
             reset_int8()
-            report = cli_json(["eval", "--synthetic", f"data.base_path={run}", *flags])
+            report = cli_json(["eval", "--synthetic", f"data.base_path={run}", *flags,
+                               "--num-visualizations", "0"])
             counts = int8_launches()
             # the corpora of --synthetic: three clips; the calibration forwards are float
             want = {**only(k1=3, k2_fwd=eval_steps),
@@ -4323,6 +4442,7 @@ def main() -> int:
     counts, long_train_loss = phase_long_window(dev)
     for row, key in zip(k3_rows, ("k3_fwd", "k3_dq", "k3_dkv")):
         row["launches"] = counts[key]
+    k3_rows[0]["launches_viz"] = counts["k3_fwd_viz"]
     with no_tf32():
         f2_rows = phase_f2(dev)
         k5_rows = phase_k5(dev)

@@ -73,7 +73,8 @@ def run_calibration(cfg: Config, val_corpus, checkpoint_dir, *, tta_transforms=N
         values = [float(b) for b in (bias_grid or DEFAULT_BIAS_GRID)]
     widths = [int(w) for w in (median_widths or DEFAULT_MEDIAN_WIDTHS)]
     common = dict(use_checkpoint=use_checkpoint, device=device, tta_transforms=tta_transforms,
-                  int8=int8, int8_weight_only=int8_weight_only)
+                  int8=int8, int8_weight_only=int8_weight_only, num_visualizations=0,
+                  save_visualizations=False)
 
     logger.info("Calibration pass 1/2: %s sweep over %s (tta=%s int8=%s)", knob, values,
                 tta_transforms is not None, int8)

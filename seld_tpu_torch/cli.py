@@ -2,13 +2,15 @@
 `predict`, `calibrate`, `score`, `average-ckpts`, `export` and `serve`).
 
     python -m seld_tpu_torch.cli train [--synthetic] [--resume] [--eval-after] \
-        [--device cpu] [k.e.y=value ...]
+        [--num-visualizations N] [--device cpu] [k.e.y=value ...]
 
 trains per config (every config field is a dotted key=value override, e.g.
 data.base_path=RUN train.num_epochs=2) and writes best/ and rolling/
 checkpoints, metrics.jsonl and training_history.json under
-<data.base_path>/checkpoints; --eval-after then scores the result as `eval`
-does. Over several processes, one GPU each:
+<data.base_path>/checkpoints, and <data.base_path>/outputs/loss_curves.png
+(with train.viz_loss_components_every=K also a loss-component dashboard
+every K epochs under outputs/train_visualizations); --eval-after then
+scores the result as `eval` does. Over several processes, one GPU each:
 
     torchrun --standalone --nproc-per-node N -m seld_tpu_torch.cli train \
         mesh.enable=on mesh.model_axis=M mesh.shard_time=true [k.e.y=value ...]
@@ -27,11 +29,13 @@ targets.accdoa_tracks to 3.
         [--bg-bias-sweep B1,B2] [--accdoa-threshold T] [--accdoa-threshold-sweep T1,T2] \
         [--median-filter W] [--median-filter-sweep W1,W2] [--calibration FILE] \
         [--tta] [--tta-transforms 0,4] [--int8 [--int8-weight-only]] \
-        [--use-checkpoint best|latest] [--device cpu] [k.e.y=value ...]
+        [--use-checkpoint best|latest] [--num-visualizations N] [--device cpu] \
+        [k.e.y=value ...]
 
 scores the checkpoints under <data.base_path>/checkpoints on the test
 split and prints the report (losses, cell accuracies, "dcase" and
-"dcase2022" metrics) as JSON on standard output; --tta decodes the
+"dcase2022" metrics) as JSON on standard output, and renders N (default 5)
+frames with events as PNGs under <data.base_path>/outputs/test_visualizations; --tta decodes the
 ACS test-time-augmented forward ("mel_iv" models), losses staying on the
 plain one; --int8 scores the int8 post-training-quantized forward
 (seld_tpu_torch.quant, calibrated on the first eval batches; losses too),
@@ -409,7 +413,8 @@ def _int8_flags(args) -> tuple[bool, bool]:
 
 
 def _evaluate(cfg, args, test_corpus, device) -> int:
-    """Score cfg's checkpoint tree and print the report as JSON. `train
+    """Score cfg's checkpoint tree, render --num-visualizations PNGs and
+    print the report, without its list of PNGs, as JSON. `train
     --eval-after` comes here with the train parser's namespace, which has
     none of the decode flags: they keep their defaults."""
     from seld_tpu_torch.eval import evaluate_model
@@ -417,7 +422,7 @@ def _evaluate(cfg, args, test_corpus, device) -> int:
     int8, int8_weight_only = _int8_flags(args)
     results = evaluate_model(
         cfg, test_corpus, cfg.data.checkpoint_path,
-        save_visualizations=False,
+        num_visualizations=getattr(args, "num_visualizations", 5),
         bg_bias=getattr(args, "bg_bias", None) or 0.0,
         bg_bias_sweep=_csv(getattr(args, "bg_bias_sweep", None), float),
         accdoa_threshold=getattr(args, "accdoa_threshold", None),
@@ -565,6 +570,12 @@ def _add_int8_flags(p, what: str) -> None:
                    "export --int8-weight-only numerics)")
 
 
+def _add_viz_flag(p) -> None:
+    p.add_argument("--num-visualizations", type=int, default=5, metavar="N",
+                   help="PNGs of N frames with events into outputs/test_visualizations, "
+                   "from one more forward of their windows (default 5; 0: none)")
+
+
 def _add_checkpoint_flags(p) -> None:
     p.add_argument("--checkpoint", default=None,
                    help="checkpoint file (default: the newest best checkpoint under "
@@ -587,11 +598,12 @@ def build_parser() -> argparse.ArgumentParser:
                    help="continue from the newest rolling checkpoint")
     p.add_argument("--eval-after", action="store_true",
                    help="score the run as `eval` does once training returns")
+    _add_viz_flag(p)
     p.add_argument("--device", default=None, help=device_help)
     p.set_defaults(fn=cmd_train)
     p = sub.add_parser(
         "eval", help="score the run's checkpoints on the test split; prints the report "
-        "as JSON (no PNG visualisations: the renderer is not ported)")
+        "as JSON and renders prediction PNGs into outputs/test_visualizations")
     p.add_argument("overrides", nargs="*", help="dotted config overrides, k.e.y=value")
     p.add_argument("--synthetic", action="store_true",
                    help="score on the seeded synthetic test clip instead of STARSS22")
@@ -616,6 +628,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="score the best checkpoint, or the newest rolling one")
     _add_tta_flags(p, "the decodes (every metric and sweep; losses stay plain)")
     _add_int8_flags(p, "score")
+    _add_viz_flag(p)
     p.add_argument("--device", default=None, help=device_help)
     p.set_defaults(fn=cmd_eval)
     p = sub.add_parser(

@@ -269,6 +269,11 @@ class TrainConfig:
     # scene transforms, applied to features and labels inside the train
     # step. Needs features.feature_set="mel_iv".
     acs_augment: bool = False
+    # Render the loss-component dashboard (viz.visualize_loss_components)
+    # of the first test batch every N epochs, 0 = off: an eval-mode forward
+    # on the training device into <output>/train_visualizations. Grid
+    # models only: an ACCDOA model logs a warning and renders none.
+    viz_loss_components_every: int = 0
 
 
 @dataclass(frozen=True)

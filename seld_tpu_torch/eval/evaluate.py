@@ -16,13 +16,18 @@ losses stay on the plain forward. With `int8` the model is the int8
 post-training-quantized one (seld_tpu_torch.quant), calibrated on the
 first batches of the corpus, for the losses and the decodes alike. Left to
 its own slice of the port, and therefore no parameter here: a device mesh.
-`save_visualizations=True` raises: the PNG renderer (viz.py) is not
-ported.
+
+With `save_visualizations` a second pass renders GT / prediction /
+agreement PNGs (seld_tpu_torch.viz) of frames with events, chosen as the
+JAX package chooses them, from one more forward of just their windows.
 """
 
 from __future__ import annotations
 
 import logging
+import random
+import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -52,6 +57,7 @@ from seld_tpu_torch.models.registry import ACCDOA_MODELS, MULTI_ACCDOA_MODELS
 from seld_tpu_torch.parallel.sequence import current_mesh
 from seld_tpu_torch.postprocess import smooth_classes, validate_width
 from seld_tpu_torch.quant import QuantizedModel, quantize_model
+from seld_tpu_torch.targets.rasterize import bitmask_to_dense
 from seld_tpu_torch.train.checkpoint import checkpoint_file, load_checkpoint_config
 from seld_tpu_torch.train.completion import workdir_incomplete_reason
 from seld_tpu_torch.train.steps import make_metric_eval_step
@@ -127,11 +133,62 @@ def _tta_decode(model, kind: str, grid, feature_set: str, transforms, bg_bias: f
     return decode
 
 
+def _visualize(model, test_corpus: WindowedCorpus, chosen: list[dict], output_path: Path,
+               grid, device: torch.device, bg_bias: float, accdoa_decode) -> list[dict]:
+    """The second pass: one eval-mode forward of the sorted set of windows
+    of the chosen frames, and a PNG per frame of its ground truth against
+    the decode rule's view of the output: the logits with bg_bias applied,
+    or an ACCDOA model's grid decode (accdoa_decode) as one-hot class maps.
+    Only the chosen frames come back to the host. Returns the chosen
+    frames' records with their save_path."""
+    from seld_tpu_torch.viz import visualize_grid_predictions
+
+    num_classes = grid.num_classes
+    viz_dir = output_path / "test_visualizations"
+    viz_dir.mkdir(parents=True, exist_ok=True)
+    windows = sorted({d["window_idx"] for d in chosen})
+    row_of = {w: i for i, w in enumerate(windows)}
+    rows = np.asarray([row_of[d["window_idx"]] for d in chosen])
+    times = np.asarray([d["time_idx"] for d in chosen])
+    mel, mask = test_corpus.gather(np.asarray(windows))
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        model.eval()
+        out = model(torch.from_numpy(np.ascontiguousarray(mel)).to(device))
+        at = (torch.from_numpy(rows).to(device), torch.from_numpy(times).to(device))
+        if accdoa_decode is not None:
+            cls = accdoa_decode(out)[at].long().cpu().numpy()  # (K, G)
+            # class-major one-hot (K, M, G)
+            preds = np.moveaxis(np.eye(num_classes, dtype=np.float32)[cls], -1, 1)
+        else:
+            logits = bias_background_logits(out, bg_bias) if bg_bias else out
+            preds = logits[at].float().cpu().numpy()  # class-major (K, M, G)
+    forward_ms = (time.perf_counter() - t0) * 1e3
+
+    t0 = time.perf_counter()
+    dense = np.moveaxis(bitmask_to_dense(mask[rows, times], num_classes), -1, -2)  # (K, M, G)
+    records = []
+    for k, d in enumerate(chosen):
+        t = d["time_idx"]
+        save_path = viz_dir / f"test_viz_{k + 1}_window{d['window_idx']}_frame{t}.png"
+        visualize_grid_predictions(
+            dense[k], preds[k], time_frame=t, grid_size=(grid.n_el, grid.n_az),
+            num_classes=num_classes, title_prefix=f"Window {d['window_idx']}, ",
+            save_path=save_path)
+        records.append({**d, "save_path": str(save_path)})
+    logger.info("Saved %d prediction visualizations to %s (forward of %d windows %.1f ms, "
+                "rendering %.1f ms)", len(records), viz_dir, len(windows), forward_ms,
+                (time.perf_counter() - t0) * 1e3)
+    return records
+
+
 def evaluate_model(
     cfg: Config,
     test_corpus: WindowedCorpus,
     checkpoint_dir,
-    save_visualizations: bool = False,
+    num_visualizations: int = 5,
+    save_visualizations: bool = True,
+    seed: int = 0,
     bg_bias: float = 0.0,
     bg_bias_sweep=None,
     accdoa_threshold: float | None = None,
@@ -182,20 +239,27 @@ def evaluate_model(
     each sweep calibrates that decode; the losses stay on the plain
     forward, comparable across runs.
 
+    num_visualizations, save_visualizations, seed: with save_visualizations
+    and num_visualizations > 0, random.Random(seed) samples that many of the
+    frames with events (in np.nonzero order over the true class grids), and
+    one eval-mode forward of their windows on `device` renders each as
+    <output_path>/test_visualizations/test_viz_{k}_window{w}_frame{t}.png;
+    the report's "visualizations" lists their window_idx, time_idx,
+    num_active and save_path. That forward is the model the report scores
+    (the int8 one under int8), never the TTA one, with bg_bias applied
+    before the argmax; an ACCDOA model's vectors are decoded at the
+    activity threshold and drawn as one-hot class maps. It is a forward of
+    its own batch, so at a cell where two classes nearly tie its grid can
+    differ from the first pass's (a row's output on the card depends on its
+    batch slot), as the JAX package's second pass, a jitted call of its
+    own, can.
+
     int8: evaluate the int8 post-training-quantized forward (the accuracy
     gate of `predict --int8` and of int8 artifacts), its activation scales
     calibrated on the first int8_calib_batches batches of train.batch_size
     windows of test_corpus; int8_weight_only quantizes the weights only. The
     losses (K2's forward on the card), the decodes and TTA all run it. Not
-    under a device mesh: the quantized forward runs on one device.
-
-    save_visualizations=True raises: the PNG renderer is not ported, so
-    the report's "visualizations" list stays empty."""
-    if save_visualizations:
-        raise NotImplementedError(
-            "save_visualizations: the PNG renderer (seld_tpu/viz.py) is not ported yet "
-            "(ROADMAP item 11: tools); pass save_visualizations=False"
-        )
+    under a device mesh: the quantized forward runs on one device."""
     device = resolve_device(device)
     if int8 and current_mesh()[0] is not None:
         raise ValueError("eval --int8 does not compose with a device mesh — the quantized "
@@ -351,16 +415,28 @@ def evaluate_model(
                        else smooth_classes(raw_pred_classes, w, num_classes)),
             true_classes, grid, num_classes)
 
-    n_event_frames = int(((true_classes != grid.background_class).sum(-1) > 0).sum())
-    logger.info("Found %d frames with active events", n_event_frames)
+    active_per_frame = (true_classes != grid.background_class).sum(-1)  # (N, T)
+    frames_with_events = [
+        {"window_idx": int(w), "time_idx": int(t), "num_active": int(active_per_frame[w, t])}
+        for w, t in zip(*np.nonzero(active_per_frame))]
+    logger.info("Found %d frames with active events", len(frames_with_events))
+    viz_records = []
+    if save_visualizations and frames_with_events and num_visualizations > 0:
+        chosen = random.Random(seed).sample(
+            frames_with_events, min(num_visualizations, len(frames_with_events)))
+        chosen.sort(key=lambda d: d["num_active"], reverse=True)
+        decode = (None if not accdoa_mode else
+                  lambda out: grid_decoder(multi, grid.n_el, grid.n_az, num_classes)(out, acc_th))
+        viz_records = _visualize(model, test_corpus, chosen, Path(cfg.data.output_path), grid,
+                                 device, float(bg_bias), decode)
     return {
         "test_loss": avg["loss"],
         **{k: v for k, v in avg.items() if k != "loss"},
         **acc,
         "dcase": dcase,
         "dcase2022": dcase22,
-        "num_frames_with_events": n_event_frames,
-        "visualizations": [],
+        "num_frames_with_events": len(frames_with_events),
+        "visualizations": viz_records,
         "checkpoint_epoch": meta["epoch"],
         "checkpoint_kind": checkpoint_kind,
         "quantized_int8": bool(int8),

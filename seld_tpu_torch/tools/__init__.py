@@ -1,1 +1,2 @@
-"""Tools over a run's checkpoints (counterpart: seld_tpu/tools)."""
+"""Tools over a run's checkpoints, metrics and targets (counterpart:
+seld_tpu/tools)."""

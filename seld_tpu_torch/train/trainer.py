@@ -9,7 +9,9 @@ from the newest rolling checkpoint, an optional parameter EMA,
 quantization-aware training (train.qat: int8 fake-quant in the train
 step, seld_tpu_torch.quant), knowledge distillation from a trained
 teacher's checkpoint tree (train.distill_ckpt, seld_tpu_torch.distill), a
-per-epoch record in metrics.jsonl, and training_history.json at the end.
+per-epoch record in metrics.jsonl, training_history.json and the
+loss-curve PNG at the end, and every train.viz_loss_components_every
+epochs a loss-component dashboard of the first test batch (seld_tpu_torch.viz).
 The ACCDOA families (model.model_type accdoa_conformer /
 multi_accdoa_conformer) train on the corpora's ACCDOA targets with the
 ACCDOA or ADPIT loss, rotate those targets under ACS, and decode their
@@ -56,6 +58,7 @@ from seld_tpu_torch.models.registry import ACCDOA_MODELS, MULTI_ACCDOA_MODELS
 from seld_tpu_torch.parallel.mesh import Mesh, mesh_from_config
 from seld_tpu_torch.parallel.multihost import launched_world_size
 from seld_tpu_torch.parallel.sharding import check_divisible
+from seld_tpu_torch.targets.rasterize import decode_class_bitmask
 from seld_tpu_torch.train.checkpoint import CheckpointManager
 from seld_tpu_torch.train.optimizer import (
     current_learning_rate,
@@ -169,6 +172,11 @@ def check_mesh_config(cfg: Config, window_frames: int) -> None:
         raise NotImplementedError(QAT_MESH_ERROR)
     if cfg.train.distill_ckpt and mc.enable != "off" and launched_world_size() > 1:
         raise NotImplementedError(DISTILL_MESH_ERROR)
+    if (cfg.train.viz_loss_components_every > 0 and mc.enable != "off"
+            and launched_world_size() > 1):
+        raise NotImplementedError(
+            "train.viz_loss_components_every under a process mesh of more than one rank is "
+            "not ported (ROADMAP item 10's remainder)")
     if not mc.shard_time:
         return
     model_type = cfg.model.model_type
@@ -191,6 +199,43 @@ def check_mesh_config(cfg: Config, window_frames: int) -> None:
             f"mesh.shard_time: chunks of {window_frames // mc.model_axis} frames "
             f"({window_frames} over {mc.model_axis}) are narrower than the widest halo "
             f"({halo} frames): use a longer window or a smaller model axis")
+
+
+def _loss_dashboard(model, test_corpus: WindowedCorpus, cfg: Config, device: torch.device,
+                    epoch: int) -> None:
+    """Render the loss-component dashboard of the first test batch into
+    <output>/train_visualizations. The eval-mode forward, the target decode
+    and the choice of the frame (viz.visualize_loss_components' rule: the
+    most non-background GT cells, the first such (batch, time)) run on
+    `device` and raise; only that frame's logits and targets come to the
+    host. Only the rendering is best-effort: a failure there logs a
+    warning."""
+    batch = next(iter(BatchIterator(test_corpus, cfg.train.batch_size, shuffle=False,
+                                    prefetch=0)))
+    m = cfg.grid.num_classes
+    t0 = time.perf_counter()
+    mel, mask = place_batch(batch, device)[:2]
+    with torch.no_grad():
+        model.eval()
+        logits = model(mel)
+    targets = decode_class_bitmask(mask, m, class_major=True)  # (B, T, M, G)
+    counts = (targets.argmax(2) != m - 1).sum(-1)  # (B, T)
+    b, t = divmod(int(counts.flatten().argmax()), counts.shape[1])
+    frame_logits = logits[b, t].float().cpu().numpy()
+    frame_targets = targets[b, t].cpu().numpy()
+    logger.info("  Loss-component dashboard: forward and frame choice %.1f ms (epoch %d, "
+                "batch %d, frame %d)", (time.perf_counter() - t0) * 1e3, epoch, b, t)
+    t0 = time.perf_counter()
+    try:
+        from seld_tpu_torch.viz import draw_loss_components
+
+        draw_loss_components(frame_logits, frame_targets, b, t, n_el=cfg.grid.n_el,
+                             n_az=cfg.grid.n_az, epoch=epoch,
+                             save_dir=Path(cfg.data.output_path) / "train_visualizations")
+    except Exception as e:  # rendering is best-effort, never kills training
+        logger.warning("  loss-component viz failed: %s", e)
+        return
+    logger.info("  Loss-component dashboard rendered in %.1f ms", (time.perf_counter() - t0) * 1e3)
 
 
 def _barrier(mesh: Mesh | None) -> None:
@@ -229,6 +274,12 @@ def train_model(cfg: Config, train_corpus: WindowedCorpus, test_corpus: Windowed
     if accdoa_mode and (train_corpus.accdoa is None or test_corpus.accdoa is None):
         raise ValueError(f"{cfg.model.model_type} trains on ACCDOA targets: build the "
                          "corpora with targets.accdoa=true")
+    viz_every = tc.viz_loss_components_every
+    if viz_every > 0 and accdoa_mode:
+        logger.warning("train.viz_loss_components_every: the loss-component dashboard takes "
+                       "grid logits, and %s emits vectors: no dashboard is rendered",
+                       cfg.model.model_type)
+        viz_every = 0
     input_augment = make_spec_augment(tc)
     spatial_augment = None
     if tc.acs_augment:
@@ -537,6 +588,8 @@ def train_model(cfg: Config, train_corpus: WindowedCorpus, test_corpus: Windowed
             if epoch % tc.save_every_n_epochs == 0:
                 save("save_rolling", epoch, state, train_avg["loss"], test_avg["loss"])
                 logger.info("  Rolling checkpoint saved (epoch %d)", epoch)
+            if viz_every > 0 and epoch % viz_every == 0:
+                _loss_dashboard(eval_model, test_corpus, cfg, device, epoch)
 
             if stopper.step(train_avg["loss"], epoch):
                 logger.info(
@@ -548,6 +601,16 @@ def train_model(cfg: Config, train_corpus: WindowedCorpus, test_corpus: Windowed
 
     history.update(best_train_loss=stopper.best, best_test_loss=best_test,
                    best_epoch=stopper.best_epoch, total_epochs=epoch)
+    if lead:
+        try:
+            from seld_tpu_torch.viz import plot_loss_curves
+
+            out_dir = Path(cfg.data.output_path)
+            out_dir.mkdir(parents=True, exist_ok=True)
+            plot_loss_curves(history["train_losses"], history["test_losses"],
+                             save_path=out_dir / "loss_curves.png")
+        except Exception as e:  # rendering is best-effort, never kills training
+            logger.warning("loss-curve plot failed: %s", e)
     restored = ckpt.restore_best(state)
     if restored is not None:
         logger.info("Best model loaded from epoch %d", restored[1]["epoch"])

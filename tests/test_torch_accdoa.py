@@ -483,7 +483,8 @@ def test_evaluate_model_holds_to_jax_decodes_and_metrics(run):
     loss JAX's loss of those outputs."""
     cfg, work, test_c, multi = run
     report = evaluate_model(cfg, test_c, work, accdoa_threshold=0.4,
-                            accdoa_threshold_sweep=SWEEP, device="cpu")
+                            accdoa_threshold_sweep=SWEEP, device="cpu",
+                            save_visualizations=False)
     blob = torch.load(checkpoint_file(work, "best"), weights_only=True)
     model = build_port_model(cfg.model, cfg.grid, device="cpu", seed=None)
     model.load_state_dict(blob["state_dict"])

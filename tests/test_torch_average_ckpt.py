@@ -169,10 +169,12 @@ def test_cli_average_ckpts_serves_through_predict_and_eval(run):
     (avg,) = (base / "swa" / "best").glob("epoch_*.pt")
     assert torch.load(avg, weights_only=True)["meta"]["swa_sources"] == [2, 3]
     assert _predict_csv(base, "swa", avg, wav) is not None
-    report = _json_of(["eval", "--synthetic", "--device", "cpu", *over,
+    report = _json_of(["eval", "--synthetic", "--device", "cpu",
+                       "--num-visualizations", "0", *over,
                        "data.checkpoint_dirname=swa"])
     assert report["checkpoint_epoch"] == 3 and np.isfinite(report["test_loss"])
-    plain = _json_of(["eval", "--synthetic", "--device", "cpu", *over])
+    plain = _json_of(["eval", "--synthetic", "--device", "cpu",
+                      "--num-visualizations", "0", *over])
     assert report["test_loss"] != plain["test_loss"]  # another model: the average
 
 
@@ -183,8 +185,10 @@ def test_cli_tta_eval_calibrate_and_predict(run):
     offline TTA."""
     base, over, wav = run
     work = base / "checkpoints"
-    plain = _json_of(["eval", "--synthetic", "--device", "cpu", *over])
-    tta = _json_of(["eval", "--synthetic", "--device", "cpu", "--tta-transforms", TRANSFORMS,
+    plain = _json_of(["eval", "--synthetic", "--device", "cpu",
+                      "--num-visualizations", "0", *over])
+    tta = _json_of(["eval", "--synthetic", "--device", "cpu",
+                    "--num-visualizations", "0", "--tta-transforms", TRANSFORMS,
                     "--bg-bias-sweep", "0,1", *over])
     assert tta["test_loss"] == plain["test_loss"]
     assert list(tta["bg_bias_sweep"]["metrics"]) == ["0.0", "1.0"]
@@ -193,7 +197,8 @@ def test_cli_tta_eval_calibrate_and_predict(run):
                       "--out", str(base / "calib.json"), *over])
     assert calib["tta"] is True and calib["tta_transforms"] == [0, 5, 10]
     assert load_calibration(base / "calib.json")["tta_transforms"] == [0, 5, 10]
-    applied = _json_of(["eval", "--synthetic", "--device", "cpu", "--calibration",
+    applied = _json_of(["eval", "--synthetic", "--device", "cpu",
+                        "--num-visualizations", "0", "--calibration",
                         str(base / "calib.json"), *over])
     assert applied["bg_bias"] == calib["bg_bias"]
     assert applied["dcase2022"]["SELD_error"] == pytest.approx(

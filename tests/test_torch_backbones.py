@@ -377,7 +377,8 @@ def test_cli_train_eval_predict_tiny_crnn(tmp_path, capsys):
         cfg, _, _ = load_checkpoint(best)
         assert cfg.model.model_type == "crnn" and cfg.model.crnn_cnn_channels == (8, 16)
         capsys.readouterr()
-        assert port_main(["eval", "--synthetic", "--device", "cpu", *overrides]) == 0
+        assert port_main(["eval", "--synthetic", "--device", "cpu", "--num-visualizations",
+                          "0", *overrides]) == 0
         report = json.loads(capsys.readouterr().out)
         assert np.isfinite(report["test_loss"]) and "SELD_error" in report["dcase2022"]
         pcfg = pc.parse_overrides(pc.Config(), overrides)

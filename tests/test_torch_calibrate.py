@@ -241,7 +241,8 @@ def test_cli_train_eval_calibrate_predict_score(tmp_path, family):
     sweep = ",".join(map(str, values))
     work = tmp_path / "checkpoints"
     assert port_main(["train", "--synthetic", "--device", "cpu", *over]) == 0
-    report = _json_of(["eval", "--synthetic", "--device", "cpu", f"{flag}-sweep", sweep,
+    report = _json_of(["eval", "--synthetic", "--device", "cpu",
+                       "--num-visualizations", "0", f"{flag}-sweep", sweep,
                        *over])
     assert list(report[f"{knob}_sweep"]["metrics"]) == [repr(v) for v in values]
     assert report[knob] == default and np.isfinite(report[term])
@@ -250,7 +251,8 @@ def test_cli_train_eval_calibrate_predict_score(tmp_path, family):
     path = work / "decode_calibration.json"
     assert port_calibrate.load_calibration(path)[knob] == calib[knob] in values
     assert calib["model_type"] == over[len(TINY_CLI)].split("=")[1]
-    applied = _json_of(["eval", "--synthetic", "--device", "cpu", "--calibration", str(path),
+    applied = _json_of(["eval", "--synthetic", "--device", "cpu",
+                        "--num-visualizations", "0", "--calibration", str(path),
                         *over])
     assert applied[knob] == calib[knob] and applied["median_filter"] == calib["median_filter"]
 

@@ -1079,6 +1079,55 @@ def test_multi_accdoa_at_long_windows_runs_k3_on_card(cuda_device):
     assert torch.isfinite(metrics["loss"]) and list(metrics) == ["loss", "adpit"]
 
 
+def test_evaluate_model_visualizes_at_long_windows_on_card(cuda_device, tmp_path,
+                                                           monkeypatch):
+    """evaluate_model at T = 1000 with two visualizations: K3's forward once
+    per block for every eval batch and once per block for the one forward
+    of the visualization pass, whose two chosen frames reach the renderer
+    as finite class-major grids with their ground truth. The renderer is a
+    recording stand-in, so the card's machine needs no matplotlib."""
+    import sys
+    import types
+
+    import numpy as np
+
+    from seld_tpu_torch.data.synthetic import synthetic_corpus
+    from seld_tpu_torch.eval import evaluate_model
+    from seld_tpu_torch.models import build_model
+    from seld_tpu_torch.targets.rasterize import bitmask_to_dense
+    from seld_tpu_torch.train.checkpoint import save_checkpoint
+
+    drawn = []
+    renderer = types.ModuleType("seld_tpu_torch.viz")
+    renderer.visualize_grid_predictions = lambda gt, pred, **kw: drawn.append((gt, pred, kw))
+    monkeypatch.setitem(sys.modules, "seld_tpu_torch.viz", renderer)
+    cfg = _port_cfg(["model.model_type=conformer", "model.crnn_cnn_channels=8,16",
+                     "model.conf_d_model=64", "model.conf_n_heads=2",
+                     "model.compute_dtype=float32", "window.window_seconds=20.0",
+                     "train.batch_size=4", f"data.base_path={tmp_path}"])
+    model = build_model(cfg.model, cfg.grid, device=cuda_device, seed=0)
+    save_checkpoint(tmp_path / "checkpoints" / "best" / "epoch_0001.pt", model, cfg, epoch=1,
+                    meta={"epoch": 1, "train_loss": 0.0, "test_loss": 0.0})
+    corpus = synthetic_corpus(cfg, n_files=1, seconds=30.0, seed=1, train=False,
+                              device=cuda_device)
+    assert corpus.window_frames == 1000
+    flash_attention.fwd_launches = 0
+    report = evaluate_model(cfg, corpus, tmp_path / "checkpoints", num_visualizations=2,
+                            device=cuda_device)
+    torch.cuda.synchronize()
+    eval_steps = -(-len(corpus) // cfg.train.batch_size)
+    assert flash_attention.fwd_launches == (eval_steps + 1) * cfg.model.conf_n_layers
+    assert len(report["visualizations"]) == len(drawn) == 2
+    m, g = cfg.grid.num_classes, cfg.grid.n_cells
+    for record, (gt, pred, kw) in zip(report["visualizations"], drawn):
+        assert str(kw["save_path"]) == record["save_path"]
+        assert record["save_path"].startswith(str(tmp_path / "outputs" / "test_visualizations"))
+        assert pred.shape == gt.shape == (m, g) and np.isfinite(pred).all()
+        mask = corpus.gather([record["window_idx"]])[1][0, record["time_idx"]]
+        assert mask.any()
+        np.testing.assert_array_equal(gt, bitmask_to_dense(mask, m).T)
+
+
 def _tiny_predictor(cuda_device, tmp_path, feature_set, batch_windows=3):
     """A seeded float32 tiny Conformer on `feature_set`, saved and served."""
     from seld_tpu_torch.features.spatial import feature_channels

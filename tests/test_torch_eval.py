@@ -289,7 +289,7 @@ def run(tmp_path_factory):
 @pytest.fixture(scope="module")
 def report(run):
     cfg, work, test_c, _ = run
-    return evaluate_model(cfg, test_c, work, device="cpu")
+    return evaluate_model(cfg, test_c, work, device="cpu", save_visualizations=False)
 
 
 @pytest.fixture(scope="module")
@@ -396,7 +396,7 @@ def test_evaluate_model_grids_and_metrics_match_jax(report, port_side, jax_side,
 def test_bg_bias_moves_decisions_not_losses(report, run, port_side, jax_side):
     cfg, work, test_c, _ = run
     biased = evaluate_model(cfg, test_c, work, bg_bias=2.0, bg_bias_sweep=[0.0, 2.0],
-                            device="cpu")
+                            device="cpu", save_visualizations=False)
     assert biased["bg_bias"] == 2.0 and biased["test_loss"] == report["test_loss"]
     assert not (port_side[2] != jax_side[3])[port_side[4] > MARGIN].any()
     grid = cfg.grid
@@ -415,7 +415,7 @@ def test_bg_bias_moves_decisions_not_losses(report, run, port_side, jax_side):
 def test_median_filter_and_its_sweep(report, run, port_side):
     cfg, work, test_c, _ = run
     smoothed = evaluate_model(cfg, test_c, work, median_filter=3, median_filter_sweep=[1, 3],
-                              device="cpu")
+                              device="cpu", save_visualizations=False)
     grid = cfg.grid
     want = smooth_classes(port_side[0], 3, grid.num_classes)
     _assert_same(smoothed["dcase2022"], port_metrics.dcase2022_metrics(
@@ -434,26 +434,26 @@ def test_median_filter_and_its_sweep(report, run, port_side):
 
 def test_use_checkpoint_latest_fallback_and_refusals(run, tmp_path):
     cfg, work, test_c, _ = run
-    latest = evaluate_model(cfg, test_c, work, use_checkpoint="latest", device="cpu")
+    latest = evaluate_model(cfg, test_c, work, use_checkpoint="latest", device="cpu",
+                            save_visualizations=False)
     assert latest["checkpoint_kind"] == "latest" and latest["checkpoint_epoch"] == 2
     with pytest.raises(ValueError, match="'best' or 'latest'"):
         evaluate_model(cfg, test_c, work, use_checkpoint="newest", device="cpu")
     with pytest.raises(FileNotFoundError, match=str(tmp_path)):
         evaluate_model(cfg, test_c, tmp_path, device="cpu")
     assert not list(tmp_path.iterdir())  # looking for checkpoints creates nothing
-    with pytest.raises(NotImplementedError, match="ROADMAP item 11"):
-        evaluate_model(cfg, test_c, work, save_visualizations=True, device="cpu")
     # only rolling checkpoints: "best" falls back to the newest of them, and says so
     (tmp_path / "rolling").mkdir()
     (tmp_path / "rolling" / "epoch_0002.pt").symlink_to(work / "rolling" / "epoch_0002.pt")
-    fallen = evaluate_model(cfg, test_c, tmp_path, device="cpu")
+    fallen = evaluate_model(cfg, test_c, tmp_path, device="cpu", save_visualizations=False)
     assert fallen["checkpoint_kind"] == "latest" and fallen["test_loss"] == latest["test_loss"]
 
 
 def test_architecture_comes_from_the_checkpoint(run, report):
     cfg, work, test_c, _ = run
     other = pc.parse_overrides(cfg, ["model.resnet_conf_d_model=64", "model.resnet_conf_n_heads=4"])
-    assert evaluate_model(other, test_c, work, device="cpu")["test_loss"] == report["test_loss"]
+    assert evaluate_model(other, test_c, work, device="cpu",
+                          save_visualizations=False)["test_loss"] == report["test_loss"]
 
 
 def test_report_of_a_preempted_run_says_training_incomplete(run, report):
@@ -462,7 +462,7 @@ def test_report_of_a_preempted_run_says_training_incomplete(run, report):
     kept = hist.read_text()
     try:
         hist.write_text(json.dumps({**history, "preempted_epoch": 2}))
-        stamped = evaluate_model(cfg, test_c, work, device="cpu")
+        stamped = evaluate_model(cfg, test_c, work, device="cpu", save_visualizations=False)
     finally:
         hist.write_text(kept)
     assert stamped["training_incomplete"] == {"preempted_epoch": 2}
@@ -503,6 +503,7 @@ def test_cli_eval_prints_the_report_of_the_run(run, report):
     printed = io.StringIO()
     with contextlib.redirect_stdout(printed):
         rc = port_main(["eval", "--synthetic", "--device", "cpu", "--use-checkpoint", "best",
+                        "--num-visualizations", "0",
                         "--bg-bias", "0.5", "--median-filter-sweep", "1,3",
                         *_cli_overrides(work.parent)])
     got = json.loads(printed.getvalue())
@@ -516,6 +517,7 @@ def test_cli_train_eval_after_and_eval_without_a_checkpoint(tmp_path):
     printed = io.StringIO()
     with contextlib.redirect_stdout(printed):
         rc = port_main(["train", "--synthetic", "--eval-after", "--device", "cpu",
+                        "--num-visualizations", "0",
                         "train.num_epochs=1", "window.hop_seconds=4.0",
                         *[o for o in _cli_overrides(tmp_path) if not o.startswith("window.hop")]])
     got = json.loads(printed.getvalue())

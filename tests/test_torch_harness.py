@@ -41,9 +41,28 @@ def test_import_leaves_jax_and_seld_tpu_out():
         "seld_tpu_torch.features.specaugment, seld_tpu_torch.targets.gaussian, "
         "seld_tpu_torch.data.cache, seld_tpu_torch.stream, seld_tpu_torch.tta, "
         "seld_tpu_torch.tools.average_ckpt, seld_tpu_torch.serve, seld_tpu_torch.export, "
-        "seld_tpu_torch.ops.counters\n"
+        "seld_tpu_torch.ops.counters, seld_tpu_torch.viz, seld_tpu_torch.tools.replot, "
+        "seld_tpu_torch.tools.augment_compare\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'seld_tpu'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    res = subprocess.run([sys.executable, "-c", probe], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_matplotlib_is_imported_only_to_draw():
+    """Every entry point imports seld_tpu_torch.viz, and with it matplotlib,
+    only where it draws a PNG: a machine without matplotlib trains, scores
+    with --num-visualizations 0, predicts and serves."""
+    probe = (
+        "import sys, seld_tpu_torch.eval, seld_tpu_torch.train.trainer, seld_tpu_torch.cli, "
+        "seld_tpu_torch.calibrate, seld_tpu_torch.tools.replot, "
+        "seld_tpu_torch.tools.augment_compare, seld_tpu_torch.serve, seld_tpu_torch.export\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] == 'matplotlib' "
+        "or m == 'seld_tpu_torch.viz')\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )

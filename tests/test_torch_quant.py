@@ -485,7 +485,7 @@ def corpus(run):
 def test_evaluate_model_int8_and_weight_only(run, corpus):
     base, cfg, _ = run
     reports = {mode: evaluate_model(cfg, corpus, cfg.data.checkpoint_path, device="cpu",
-                                    **kw)
+                                    save_visualizations=False, **kw)
                for mode, kw in (("float", {}), ("int8", {"int8": True}),
                                 ("weight_only", {"int8": True, "int8_weight_only": True}))}
     assert [r["quantized_int8"] for r in reports.values()] == [False, True, True]

@@ -628,7 +628,7 @@ def test_cli_train_synthetic_on_the_cpu(tmp_path):
     assert (work / "training_history.json").exists() and list((work / "best").iterdir())
 
 
-@pytest.mark.parametrize("override", ["train.viz_loss_components_every=1",
+@pytest.mark.parametrize("override", ["train.log_every_steps=5",
                                       "train.prng_impl=rbg", "mesh.shard_params=true",
                                       "mesh.shard_opt_state=true", "train.profile_steps=3"])
 def test_override_of_an_unported_field_is_an_unknown_key(override):

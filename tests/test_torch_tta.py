@@ -226,8 +226,8 @@ def test_evaluate_model_under_tta_is_jax_decodes_of_the_port_averages(eval_run):
     knob = {"grid": {"bg_bias": 0.5}, "accdoa": {"accdoa_threshold": 0.02},
             "multi_accdoa": {"accdoa_threshold": 0.4}}[kind]
     report = evaluate_model(cfg, test_c, work, tta_transforms=SUBSET, device="cpu",
-                            **sweep_kw, **knob)
-    plain = evaluate_model(cfg, test_c, work, device="cpu")
+                            save_visualizations=False, **sweep_kw, **knob)
+    plain = evaluate_model(cfg, test_c, work, device="cpu", save_visualizations=False)
     assert report["test_loss"] == plain["test_loss"]
 
     main_value = next(iter(knob.values()))

@@ -1,10 +1,15 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (seld_tpu_torch) on one NVIDIA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--phases 1,7,...]
 
+runs every phase below, or with --phases the listed ones, the device and
+the build (1, 2) and what a listed phase needs (6 for 14 and 18, 7 for 13);
+the last line is the same either way, and the kernels line needs phase 3.
 Phases, each of which raises on failure:
-  1. the device: its name, and name and power limit from nvidia-smi;
+  1. the device: its name, and name and power limit from nvidia-smi; `cli
+     info`'s JSON: platform "gpu", one device of that name, the config
+     equal to Config()'s;
   2. build every CUDA kernel from seld_tpu_torch/csrc into build/kernels,
      one nvcc per source, all started together; K3's wgmma kernels
      (forward, dQ, dK/dV) must not spill at any width, and where cuobjdump
@@ -52,7 +57,14 @@ Phases, each of which raises on failure:
      reset just before that call and read just after it (exactly 1). The
      clip's features hold no framed copy (their peak device memory). Then
      timed predicts, and one more under torch.profiler for the device's
-     busy share and the kernel time by kernel family;
+     busy share and the kernel time by kernel family; then the reference
+     PyTorch pipeline's checkpoint of those weights (a reference-layout
+     .pth that reference_state_dict writes) through `cli import-torch`,
+     every imported tensor equal to the weights, and `cli predict` from the
+     imported checkpoint of the clip written as a float32 WAV and as an
+     EXTENSIBLE float32 WAV: K1 once each, the class grid equal to
+     predict_waveform's of the in-memory clip with the weights loaded in
+     process, bit for bit; the imported checkpoint's predict timed;
   5. the model in true float32 (TF32 off) on the card against the CPU on
      one window with the same weights, and the TF32 switches held off
      through a float32 train step's forward and backward;
@@ -65,9 +77,13 @@ Phases, each of which raises on failure:
   7. long windows at full width (window.window_seconds=20.0, T = 1000, so
      attention runs through K3): SELDPredictor serving the 60 s clip, K3's
      forward count against the forwards taken; `cli train --synthetic` for
-     one epoch with train.viz_loss_components_every=1, K3's three counts at
-     exactly four per step and four more forward, read around the
-     loss-component dashboard's eval forward; `cli eval --synthetic` on
+     one epoch with train.viz_loss_components_every=1 and
+     train.profile_steps=2, K3's three counts at exactly four per step and
+     four more forward, read around the loss-component dashboard's eval
+     forward; the trace of train steps 1 and 2 read back by
+     tools.profile_summary ([profile-tool] lines: top rows, categories),
+     which must count by kernel name exactly 2 K2 forward, 2 K2 backward
+     and 8 each of K3's forward, dQ and dK/dV; `cli eval --synthetic` on
      that run, its JSON report parsed, with its default 5 prediction PNGs
      (K3 forward four more, read around their one forward), each decoded by
      matplotlib and of a frame with events; `[viz]` lines with the
@@ -242,8 +258,11 @@ phase 14's paths; `launches_stream` and `launches_tta`: on phase 15's;
 `launches_served` and `launches_artifact` on K1, K3 forward and K4: on
 phase 16's; K3 forward's `host_us_operator`; `launches_int8` and
 `launches_qat` on K1, K2, K3 and K4: on phase 17's; `launches_distill` on
-K1, K2 and K3: on phase 18's), the nvidia-smi line, and last {"ok": true,
-"device": {...}}.
+K1, K2 and K3: on phase 18's; `launches_traced` on K2 and K3: counted by
+name in phase 7's trace; `launches_import` on K1: phase 4's imported
+predicts), the seconds of the whole run, the nvidia-smi line, and last
+{"ok": true, "device": {...}}. The CLI logs to standard output; before the
+last lines every thread is joined and the log handlers are taken off it.
 """
 
 from __future__ import annotations
@@ -257,6 +276,7 @@ import logging
 import math
 import re
 import shutil
+import struct
 import subprocess
 import sys
 import tempfile
@@ -366,6 +386,16 @@ def phase_device() -> tuple[str, str]:
     ).stdout.strip().splitlines()[0]
     print(f"[device] {name}; torch {torch.__version__}, CUDA {torch.version.cuda}; "
           f"{torch.cuda.device_count()} visible")
+    from seld_tpu_torch.config import Config, config_to_dict
+
+    info = cli_json(["info"])
+    devices = info["devices"]
+    if (devices["platform"] != "gpu" or devices["device_count"] != torch.cuda.device_count()
+            or devices["device_count"] != 1 or name not in devices["devices"][0]
+            or info["config"] != json.loads(json.dumps(config_to_dict(Config())))):
+        raise AssertionError(f"cli info: {devices}")
+    print(f"[device] cli info: platform {devices['platform']}, {devices['device_count']} "
+          f"device: {devices['devices'][0]}; its config equals Config()'s")
     return name, smi
 
 
@@ -1279,7 +1309,7 @@ def phase_k4(dev: torch.device) -> list[dict]:
     return rows
 
 
-def phase_flagship(dev: torch.device) -> int:
+def phase_flagship(dev: torch.device) -> tuple[int, dict]:
     from seld_tpu_torch.config import Config
     from seld_tpu_torch.infer import SELDPredictor
     from seld_tpu_torch.models import build_model
@@ -1292,6 +1322,7 @@ def phase_flagship(dev: torch.device) -> int:
         model = build_model(cfg.model, cfg.grid, device=dev, seed=0)
         n_params = sum(p.numel() for p in model.parameters())
         save_checkpoint(Path(tmp) / "flagship.pt", model, cfg)
+        state_dict = {k: v.detach().cpu() for k, v in model.state_dict().items()}
         del model
         pred = SELDPredictor(Path(tmp) / "flagship.pt", batch_windows=8, device=dev)
     sr = cfg.features.sample_rate
@@ -1359,7 +1390,280 @@ def phase_flagship(dev: torch.device) -> int:
           f"{CLIP_SECONDS / (clip_ms * 1e-3):.1f} audio-s/s; model forward "
           f"{forward_ms:.3f} ms per batch of {pred.batch_windows} windows")
     profile_call("predict", lambda: pred.predict_waveform(wave), clip_ms)
-    return launches
+    return launches, phase_import(dev, pred, state_dict, cfg, wave)
+
+
+def flax_variables(state_dict: dict, model_cfg) -> dict[str, np.ndarray]:
+    """The port's state_dict -> the seld_tpu variables it came from, as
+    {"params/<path>/<leaf>" or "batch_stats/<path>/<leaf>": numpy}: the
+    inverse of seld_tpu_torch.convert.state_dict_from_jax for the layer
+    kinds of a grid backbone without a GRU."""
+    from seld_tpu_torch.convert import _LAYERS
+
+    sd = {k: v.detach().cpu().numpy() for k, v in state_dict.items()}
+    out = {}
+    for jax_path, port, kind in _LAYERS[model_cfg.model_type](model_cfg):
+        def put(leaf, value, collection="params"):
+            out[f"{collection}/{jax_path}/{leaf}"] = np.ascontiguousarray(value)
+
+        w = sd.get(f"{port}.weight")
+        if kind in ("conv", "conv_bias"):
+            put("kernel", w.transpose(2, 3, 1, 0))
+        elif kind == "dense":
+            put("kernel", w.T)
+        elif kind == "depthwise":
+            put("kernel", w.transpose(2, 1, 0))
+        elif kind == "logits":
+            m, g = model_cfg.num_classes, w.shape[0] // model_cfg.num_classes
+            put("kernel", w.T.reshape(-1, m, g))
+            put("bias", sd[f"{port}.bias"].reshape(m, g))
+        elif kind in ("ln", "bn"):
+            put("scale", w)
+        else:
+            raise ValueError(f"no inverse for layer kind {kind!r}")
+        if kind in ("conv_bias", "dense", "depthwise", "ln", "bn"):
+            put("bias", sd[f"{port}.bias"])
+        if kind == "bn":
+            put("mean", sd[f"{port}.running_mean"], "batch_stats")
+            put("var", sd[f"{port}.running_var"], "batch_stats")
+    return out
+
+
+def reference_state_dict(variables: dict, model_cfg, num_classes: int) -> dict[str, np.ndarray]:
+    """seld_tpu variables ({"params/<path>/<leaf>": ...}, as flax_variables
+    gives them) -> the state_dict of the reference PyTorch pipeline's model:
+    the inverse of seld_tpu_torch/tools/torch_import.py, under the key names
+    its functions read. Of a GRU's r and z biases the whole sum goes into
+    bias_ih and zeros into bias_hh, which the import folds back."""
+    v = dict(variables)
+    ref = {}
+
+    def take(collection, path):
+        return np.asarray(v.pop(f"{collection}/{path}"), np.float32)
+
+    def conv2d(prefix, tp, bias=False):
+        ref[f"{tp}.weight"] = take("params", f"{prefix}/kernel").transpose(3, 2, 0, 1)
+        if bias:
+            ref[f"{tp}.bias"] = take("params", f"{prefix}/bias")
+
+    def linear(prefix, tp):
+        ref[f"{tp}.weight"] = take("params", f"{prefix}/kernel").T
+        ref[f"{tp}.bias"] = take("params", f"{prefix}/bias")
+
+    def norm(prefix, tp):
+        ref[f"{tp}.weight"] = take("params", f"{prefix}/scale")
+        ref[f"{tp}.bias"] = take("params", f"{prefix}/bias")
+
+    def bn(prefix, tp):
+        norm(prefix, tp)
+        ref[f"{tp}.running_mean"] = take("batch_stats", f"{prefix}/mean")
+        ref[f"{tp}.running_var"] = take("batch_stats", f"{prefix}/var")
+        ref[f"{tp}.num_batches_tracked"] = np.array(100, np.int64)
+
+    def cnn_encoder():
+        for i in range(len(model_cfg.crnn_cnn_channels)):
+            conv2d(f"CNNEncoder_0/ConvBlock_{i}/Conv_0", f"cnn_blocks.{i}.conv")
+            bn(f"CNNEncoder_0/ConvBlock_{i}/BatchNorm_0", f"cnn_blocks.{i}.bn")
+
+    def grid_head(tp):
+        linear("GridHead_0/Dense_0", f"{tp}.0")
+        norm("GridHead_0/LayerNorm_0", f"{tp}.1")
+        kernel = take("params", "GridHead_0/logits/kernel")  # (hidden, M, G)
+        ref[f"{tp}.4.weight"] = kernel.transpose(0, 2, 1).reshape(kernel.shape[0], -1).T
+        ref[f"{tp}.4.bias"] = take("params", "GridHead_0/logits/bias").T.reshape(-1)
+
+    def conformer_blocks(n):
+        for i in range(n):
+            tb, fb = f"conformer_blocks.{i}", f"block_{i}"
+            for ff_t, ff_f in (("ff1", "FeedForward_0"), ("ff2", "FeedForward_1")):
+                linear(f"{fb}/{ff_f}/Dense_0", f"{tb}.{ff_t}.linear1")
+                linear(f"{fb}/{ff_f}/Dense_1", f"{tb}.{ff_t}.linear2")
+                norm(f"{fb}/{ff_f}/LayerNorm_0", f"{tb}.{ff_t}.norm")
+            for w in ("w_q", "w_k", "w_v", "w_o"):
+                linear(f"{fb}/MultiHeadSelfAttention_0/{w}", f"{tb}.attn.{w}")
+            norm(f"{fb}/MultiHeadSelfAttention_0/LayerNorm_0", f"{tb}.attn.norm")
+            cm = f"{fb}/ConformerConvModule_0"
+            norm(f"{cm}/LayerNorm_0", f"{tb}.conv.layer_norm")
+            for dense, conv in (("Dense_0", "pointwise_conv1"), ("Dense_1", "pointwise_conv2")):
+                kernel = take("params", f"{cm}/{dense}/kernel")  # (I, O) -> (O, I, 1)
+                ref[f"{tb}.conv.{conv}.weight"] = kernel.T[..., None]
+                ref[f"{tb}.conv.{conv}.bias"] = take("params", f"{cm}/{dense}/bias")
+            ref[f"{tb}.conv.depthwise_conv.weight"] = take(
+                "params", f"{cm}/depthwise/kernel").transpose(2, 1, 0)
+            ref[f"{tb}.conv.depthwise_conv.bias"] = take("params", f"{cm}/depthwise/bias")
+            bn(f"{cm}/BatchNorm_0", f"{tb}.conv.batch_norm")
+            norm(f"{fb}/LayerNorm_0", f"{tb}.norm")
+
+    def gru(prefix, suffix):
+        gates = "rzn"
+        ref[f"rnn.weight_ih_{suffix}"] = np.concatenate(
+            [take("params", f"{prefix}/i{g}/kernel").T for g in gates])
+        ref[f"rnn.weight_hh_{suffix}"] = np.concatenate(
+            [take("params", f"{prefix}/h{g}/kernel").T for g in gates])
+        ref[f"rnn.bias_ih_{suffix}"] = np.concatenate(
+            [take("params", f"{prefix}/i{g}/bias") for g in gates])
+        b_hn = take("params", f"{prefix}/hn/bias")
+        ref[f"rnn.bias_hh_{suffix}"] = np.concatenate([np.zeros_like(b_hn)] * 2 + [b_hn])
+
+    def conv_bn_silu(prefix, tp):
+        conv2d(f"{prefix}/Conv_0", f"{tp}.conv")
+        bn(f"{prefix}/BatchNorm_0", f"{tp}.bn")
+
+    kind = model_cfg.model_type
+    if kind == "resnet_conformer":
+        enc = "ResNet50Encoder_0"
+        conv2d(f"{enc}/stem", "encoder.conv1")
+        bn(f"{enc}/stem_bn", "encoder.bn1")
+        for stage, blocks in enumerate((3, 4, 6, 3), start=1):
+            for b in range(blocks):
+                tb, fb = f"encoder.layer{stage}.{b}", f"{enc}/stage{stage}_block{b}"
+                for c in (1, 2, 3):
+                    conv2d(f"{fb}/conv{c}", f"{tb}.conv{c}")
+                    bn(f"{fb}/bn{c}", f"{tb}.bn{c}")
+                if f"params/{fb}/downsample/kernel" in v:
+                    conv2d(f"{fb}/downsample", f"{tb}.downsample.0")
+                    bn(f"{fb}/downsample_bn", f"{tb}.downsample.1")
+        linear("proj", "proj")
+        conformer_blocks(model_cfg.resnet_conf_n_layers)
+        grid_head("head")
+    elif kind in ("crnn", "conformer"):
+        cnn_encoder()
+        if kind == "crnn":
+            for layer in range(model_cfg.crnn_rnn_layers):
+                gru(f"BiGRU_0/GRUCell_{2 * layer}", f"l{layer}")
+                gru(f"BiGRU_0/GRUCell_{2 * layer + 1}", f"l{layer}_reverse")
+        else:
+            linear("proj", "proj")
+            conformer_blocks(model_cfg.conf_n_layers)
+        grid_head("fnn")
+    elif kind in ("cnn", "cspdarknet"):
+        conv_bn_silu("backbone/stem", "backbone.stem")
+        for s in range(4):
+            ts, c3 = f"backbone.stage{s + 1}", f"backbone/c3_{s}"
+            conv_bn_silu(f"backbone/down{s}", f"{ts}.0")
+            for cv in ("cv1", "cv2", "cv3"):
+                conv_bn_silu(f"{c3}/{cv}", f"{ts}.1.{cv}")
+            i = 0
+            while f"params/{c3}/m{i}/ConvBnSiLU_0/Conv_0/kernel" in v:
+                conv_bn_silu(f"{c3}/m{i}/ConvBnSiLU_0", f"{ts}.1.m.{i}.cv1")
+                conv_bn_silu(f"{c3}/m{i}/ConvBnSiLU_1", f"{ts}.1.m.{i}.cv2")
+                i += 1
+        for cv in ("cv1", "cv2"):
+            conv_bn_silu(f"backbone/sppf/{cv}", f"backbone.stage4.2.{cv}")
+        for p in ("p3", "p4", "p5"):
+            conv2d(f"reduce_{p}", f"reduce_{p}", bias=True)
+        conv2d("fuse1/Conv_0", "conv_fuse.0")
+        bn("fuse1/BatchNorm_0", "conv_fuse.1")
+        conv2d("fuse2/Conv_0", "conv_fuse.3")
+        bn("fuse2/BatchNorm_0", "conv_fuse.4")
+        linear("cls1", "classifier.0")
+        norm("LayerNorm_0", "classifier.1")
+        linear("cls2", "classifier.4")
+    else:
+        raise ValueError(f"the reference pipeline has no {kind!r}")
+    if v:
+        raise KeyError(f"variables the reference layout does not take: {sorted(v)[:5]}")
+    return {k: np.ascontiguousarray(x) for k, x in ref.items()}
+
+
+GUID_TAIL = b"\x00\x00\x00\x00\x10\x00\x80\x00\x00\xaa\x00\x38\x9b\x71"  # KSDATAFORMAT_SUBTYPE
+
+
+def write_float_wav(path: Path, wave: np.ndarray, sr: int, extensible: bool) -> None:
+    """wave (C, N) as a float32 WAV: WAVE_FORMAT_IEEE_FLOAT, or
+    WAVE_FORMAT_EXTENSIBLE with the IEEE-float SubFormat."""
+    c = wave.shape[0]
+    fmt = struct.pack("<HHIIHH", 0xFFFE if extensible else 3, c, sr, sr * c * 4, c * 4, 32)
+    if extensible:
+        fmt += struct.pack("<HHIH", 22, 32, 0, 3) + GUID_TAIL
+    data = np.ascontiguousarray(wave.T, dtype="<f4").tobytes()
+    body = (b"WAVE" + b"fmt " + struct.pack("<I", len(fmt)) + fmt
+            + b"data" + struct.pack("<I", len(data)) + data)
+    path.write_bytes(b"RIFF" + struct.pack("<I", len(body)) + body)
+
+
+def phase_import(dev: torch.device, pred, state_dict: dict, cfg, wave: np.ndarray) -> dict:
+    """The reference pipeline's checkpoint of the flagship's weights (a
+    reference-layout .pth written by reference_state_dict) through `cli
+    import-torch`; the imported checkpoint equal to the weights tensor for
+    tensor; `cli predict` of the clip written as a float32 WAV and as an
+    EXTENSIBLE float32 WAV from the imported checkpoint: K1 once each, the
+    CSV (every active cell of the class grid) equal to that of
+    pred.predict_waveform on the in-memory clip (the same weights loaded in
+    process); the imported checkpoint's predict timed. Returns its numbers."""
+    from seld_tpu_torch import cli
+    from seld_tpu_torch.data.audio import decode_wav
+    from seld_tpu_torch.infer import SELDPredictor
+    from seld_tpu_torch.train.checkpoint import load_checkpoint
+
+    sr = cfg.features.sample_rate
+    want = pred.predict_waveform(wave).classes
+    found, grids = {}, []
+    predict_file = SELDPredictor.predict_file
+
+    def recorded(self, *args, **kwargs):  # the class grid behind the CLI's CSV
+        out = predict_file(self, *args, **kwargs)
+        grids.append(out.classes)
+        return out
+
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        tmp = Path(tmp)
+        ref = reference_state_dict(flax_variables(state_dict, cfg.model), cfg.model,
+                                   cfg.grid.num_classes)
+        torch.save({"model_state_dict": {k: torch.from_numpy(x) for k, x in ref.items()},
+                    "epoch": 3, "test_loss": 0.25}, tmp / "reference.pth")
+        t0 = time.perf_counter()
+        if cli.main(["import-torch", "--torch-checkpoint", str(tmp / "reference.pth"),
+                     f"data.base_path={tmp / 'run'}"]) != 0:
+            raise AssertionError("cli import-torch failed")
+        found["import_s"] = time.perf_counter() - t0
+        best = tmp / "run" / "checkpoints" / "best" / "epoch_0003.pt"
+        _, imported, epoch = load_checkpoint(best)
+        differ = [k for k, t in state_dict.items() if not torch.equal(imported[k], t.cpu())]
+        if epoch != 3 or imported.keys() != state_dict.keys() or differ:
+            raise AssertionError(f"cli import-torch: epoch {epoch}, tensors that differ "
+                                 f"{differ[:5]}")
+        for tag, extensible in (("float32", False), ("EXTENSIBLE float32", True)):
+            path = tmp / f"clip_{'ext' if extensible else 'f32'}.wav"
+            write_float_wav(path, wave, sr, extensible)
+            if not np.array_equal(decode_wav(path)[0], wave):
+                raise AssertionError(f"the {tag} WAV does not decode to the clip")
+            reset_launches()
+            SELDPredictor.predict_file = recorded
+            try:
+                t0 = time.perf_counter()
+                rc = cli.main(["predict", "--checkpoint", str(best), "--wavs", str(path),
+                               "--out", str(tmp / tag)])
+                cli_ms = (time.perf_counter() - t0) * 1e3
+            finally:
+                SELDPredictor.predict_file = predict_file
+            counts = launches()
+            csv = tmp / tag / "predictions" / f"{path.stem}.csv"
+            same = np.array_equal(grids[-1], want)
+            if rc != 0 or counts != only(k1=1) or not csv.exists() or not same:
+                raise AssertionError(f"cli predict of the imported checkpoint, {tag} WAV: rc "
+                                     f"{rc}, launches {counts}, the class grid "
+                                     f"{'equals' if same else 'differs from'} the in-process one")
+            found[f"cli_predict_ms {tag}"] = cli_ms
+        imported_pred = SELDPredictor(best, batch_windows=pred.batch_windows, device=dev)
+        imported_pred.predict_waveform(wave)  # warm-up
+        times = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            imported_pred.predict_waveform(wave)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        found["predict_ms"] = float(np.median(times))
+    print(f"[import] cli import-torch of a reference-layout .pth of the flagship's weights: "
+          f"{found['import_s']:.2f} s, every tensor equal; cli predict from the imported "
+          f"checkpoint of the {CLIP_SECONDS} s clip as a float32 WAV "
+          f"({found['cli_predict_ms float32']:.1f} ms) and as an EXTENSIBLE float32 WAV "
+          f"({found['cli_predict_ms EXTENSIBLE float32']:.1f} ms): K1 1 launch each, the "
+          f"class grid {want.shape} equal to predict_waveform's of the in-memory clip with the "
+          f"same weights loaded in process, bit for bit; the imported "
+          f"checkpoint's predict_waveform {found['predict_ms']:.2f} ms (median of "
+          f"{', '.join(f'{t:.2f}' for t in times)})")
+    return found
 
 
 def profile_call(what: str, fn, median_ms: float) -> None:
@@ -1721,7 +2025,8 @@ def phase_long_window(dev: torch.device) -> dict:
         eval_steps = -(-(20 * fps // hop) // cfg.train.batch_size)
         args = ["--synthetic", f"data.base_path={tmp}",
                 f"window.window_seconds={LONG_WINDOW_SECONDS}", "train.num_epochs=1",
-                "train.save_every_n_epochs=1", "train.viz_loss_components_every=1"]
+                "train.save_every_n_epochs=1", "train.viz_loss_components_every=1",
+                f"train.profile_steps={PROFILE_STEPS}"]
         k3_reset()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
@@ -1739,6 +2044,7 @@ def phase_long_window(dev: torch.device) -> dict:
             raise AssertionError(f"K3 launches on the long-window training path {counts}, "
                                  f"expected {want}; in the dashboard {viz_launches}, "
                                  f"expected {blocks}")
+        counts["trace"] = profile_tool(Path(tmp) / "outputs" / "profile", blocks)
         work = Path(tmp) / "checkpoints"
         (record,) = [json.loads(x) for x in (work / "metrics.jsonl").read_text().splitlines()]
         if not all(math.isfinite(record[s]["loss"]) for s in ("train", "test")):
@@ -1779,7 +2085,7 @@ def phase_long_window(dev: torch.device) -> dict:
               k3_fwd_inside(evaluate, "_visualize", "eval visualization pass")):
             rc = cli.main(["eval", *args[:3],
                            *([] if have_mpl else ["--num-visualizations", "0"])])
-        report = json.loads(printed.getvalue())
+        report = printed_json(printed.getvalue())
         evaluated = k3_counts()
         if (rc != 0 or evaluated != {"k3_fwd": (eval_steps + int(have_mpl)) * blocks, "k3_dq": 0,
                                      "k3_dkv": 0}
@@ -1838,6 +2144,40 @@ def phase_long_window(dev: torch.device) -> dict:
     if not losses[-1] < losses[0]:
         raise AssertionError(f"long-window train loss did not fall over the timed steps: {losses}")
     return counts, record["train"]["loss"]
+
+
+PROFILE_STEPS = 2  # train.profile_steps of phase 7's cli train: steps 1 and 2 traced
+# kernel names (substrings of CUDA's names in the trace) -> launches a train step
+TRACED_KERNELS = (("grid_loss_fwd", "k2_fwd", 1), ("grid_loss_bwd", "k2_bwd", 1),
+                  ("flash_fwd_wgmma", "k3_fwd", "blocks"), ("flash_dq_wgmma", "k3_dq", "blocks"),
+                  ("flash_dkv_wgmma", "k3_dkv", "blocks"))
+
+
+def profile_tool(trace_dir: Path, blocks: int) -> dict:
+    """The trace that `train.profile_steps` wrote, read back by the port's
+    tools.profile_summary: its top rows and categories in [profile-tool]
+    lines, and K2's and K3's launches counted by kernel name, which must be
+    exactly PROFILE_STEPS train steps' worth. Returns the counts."""
+    from seld_tpu_torch.tools import profile_summary
+
+    traces = sorted(trace_dir.glob("*.json"))
+    rows, plane = profile_summary.summarize(trace_dir, top=8)
+    cats = profile_summary.category_totals(trace_dir)
+    by_name = profile_summary.event_counts(trace_dir)
+    counts = {key: sum(n for name, n in by_name.items() if pattern in name)
+              for pattern, key, _ in TRACED_KERNELS}
+    want = {key: PROFILE_STEPS * (blocks if per == "blocks" else per)
+            for _, key, per in TRACED_KERNELS}
+    if len(traces) != 1 or not plane.startswith("/device:cuda") or counts != want:
+        raise AssertionError(f"train.profile_steps={PROFILE_STEPS}: traces {traces}, plane "
+                             f"{plane}, kernels by name {counts}, expected {want}")
+    print(f"[profile-tool] {traces[0].name}: plane {plane}, {sum(by_name.values())} device "
+          f"events; by kernel name {json.dumps(counts)} (= {PROFILE_STEPS} traced steps)")
+    print(f"[profile-tool] categories {json.dumps({k: round(v, 3) for k, v in cats.items()})}")
+    for ms, share, name in rows:
+        print(f"[profile-tool]   {ms:8.3f} ms {100 * share:5.1f} %  {name[:90]}")
+    return {**counts, "categories_ms": cats, "top": [(round(ms, 4), name[:80])
+                                                     for ms, _, name in rows[:5]]}
 
 
 def decodes(path: Path) -> bool:
@@ -1959,7 +2299,7 @@ def phase_spatial(dev: torch.device) -> dict:
         printed = io.StringIO()
         with log_messages("seld_tpu_torch") as logged, contextlib.redirect_stdout(printed):
             rc = cli.main(["eval", *args, "--num-visualizations", "0"])
-        report = json.loads(printed.getvalue())
+        report = printed_json(printed.getvalue())
         hits = [m for m in logged if m.startswith("Corpus cache hit")]
         best_record = next(r for r in records if r["epoch"] == report["checkpoint_epoch"])
         if (rc != 0 or spatial_features.launches != 0 or len(hits) != 2
@@ -2100,9 +2440,9 @@ def phase_backbones(dev: torch.device) -> dict:
     printed = io.StringIO()
     with contextlib.redirect_stdout(printed):
         rc = cli.main(["verify"])
-    ok = [line.split(":")[0].strip() for line in printed.getvalue().splitlines()
-          if "OK |" in line]
-    print("\n".join(f"[verify] {line}" for line in printed.getvalue().splitlines()))
+    lines = [x for x in printed.getvalue().splitlines() if not LOG_LINE.match(x)]
+    ok = [line.split(":")[0].strip() for line in lines if "OK |" in line]
+    print("\n".join(f"[verify] {line}" for line in lines))
     if rc != 0 or ok != list(cli.VERIFY_BACKBONES):
         raise AssertionError(f"cli verify: rc {rc}, OK for {ok}")
 
@@ -2223,6 +2563,15 @@ def only(**counts) -> dict:
             **counts}
 
 
+# a line of the port's log format, which the CLI writes to standard output
+LOG_LINE = re.compile(r"^\d{4}-\d\d-\d\d \d\d:\d\d:\d\d - seld_tpu_torch")
+
+
+def printed_json(text: str):
+    """The JSON document a CLI command printed among its log lines."""
+    return json.loads("\n".join(x for x in text.splitlines() if not LOG_LINE.match(x)))
+
+
 def cli_json(argv: list[str]) -> dict:
     """Run a CLI command that prints JSON; its parsed output."""
     from seld_tpu_torch import cli
@@ -2232,7 +2581,7 @@ def cli_json(argv: list[str]) -> dict:
         rc = cli.main(argv)
     if rc != 0:
         raise AssertionError(f"cli {argv[0]}: rc {rc}")
-    return json.loads(printed.getvalue())
+    return printed_json(printed.getvalue())
 
 
 def near_cell_edge(vectors: np.ndarray, n_el: int, n_az: int, threshold: float) -> np.ndarray:
@@ -3805,11 +4154,11 @@ def cli_chain(dev, art: Path, wave) -> dict:
     offline = SELDPredictor.from_artifact(art, device=dev).predict_waveform(wave).classes
     proc = subprocess.Popen([sys.executable, "-m", "seld_tpu_torch.cli", "serve", "--artifact",
                              str(art), "--port", "0", "--max-streams", "2", "--batch-streams"],
-                            cwd=ROOT, stderr=subprocess.PIPE, text=True)
+                            cwd=ROOT, stdout=subprocess.PIPE, text=True)
     try:
         port = None
         t0 = time.perf_counter()
-        for line in proc.stderr:
+        for line in proc.stdout:  # the CLI logs to standard output
             found = re.search(r"Serving \S+ on 127\.0\.0\.1:(\d+)", line)
             if found:
                 port = int(found.group(1))
@@ -4423,84 +4772,158 @@ def phase_distill(dev: torch.device, flagship_run: Path) -> dict:
     return found
 
 
-def main() -> int:
+# phase -> the phases whose results it takes (main runs a selection's
+# dependencies too; 1 and 2, the device and the build, always run)
+PHASE_NEEDS = {13: {7}, 14: {6}, 18: {6}}
+
+
+def selected_phases(argv: list[str]) -> set[int]:
+    """--phases 1,7,...: those phases and what they need; every phase
+    without the option."""
+    every = set(range(1, 19))
+    if not argv:
+        return every
+    if len(argv) != 2 or argv[0] != "--phases":
+        raise SystemExit("usage: chip_smoke.py [--phases N,M,...]")
+    chosen = {int(x) for x in argv[1].split(",") if x.strip()} | {1, 2}
+    if not chosen <= every:
+        raise SystemExit(f"no phase {sorted(chosen - every)}; phases are 1-18")
+    for n in sorted(chosen, reverse=True):
+        chosen |= PHASE_NEEDS.get(n, set())
+    return chosen
+
+
+def quiesce() -> None:
+    """Before the last lines: join what is left of the threads (a daemon's
+    workers; a sampler's stager blocked on its queue never logs, so the
+    wait is bounded) and take the package's log handlers off standard
+    output, so that no log line can follow the contract's last line."""
+    import threading
+
+    from seld_tpu_torch.utils.logging import close_logging
+
+    deadline = time.perf_counter() + 10.0
+    for t in threading.enumerate():
+        if t is not threading.main_thread() and t.is_alive():
+            t.join(timeout=max(0.0, deadline - time.perf_counter()))
+    close_logging()
+    sys.stdout.flush()
+
+
+def main(argv: list[str]) -> int:
+    t_start = time.perf_counter()
+    phases = selected_phases(argv)
     name, smi = phase_device()
     dev = torch.device("cuda")
     phase_build()
-    with no_tf32():  # the plain versions in true float32
-        k1 = phase_k1(dev)
-        k2_fwd, k2_bwd = phase_k2(dev)
-        k3_rows = phase_k3(dev)
-        k4_rows = phase_k4(dev)
-        k5_kernel_ms = phase_k5_profile(dev)
-    k1["launches"] = phase_flagship(dev)
-    phase_f32(dev)
+    rows = {}  # the kernels line's rows, from phase 3
+    if 3 in phases or 12 in phases:
+        with no_tf32():  # the plain versions in true float32
+            if 3 in phases:
+                rows["k1"] = phase_k1(dev)
+                rows["k2_fwd"], rows["k2_bwd"] = phase_k2(dev)
+                rows["k3"] = phase_k3(dev)
+                rows["k4"] = phase_k4(dev)
+            k5_kernel_ms = phase_k5_profile(dev)  # phase 12's, right after phase 3
+    k1, k2_fwd, k2_bwd = (rows.get(k, {}) for k in ("k1", "k2_fwd", "k2_bwd"))
+    k3_rows, k4_rows = rows.get("k3", [{}, {}, {}]), rows.get("k4", [{}, {}])
+    if 4 in phases:
+        k1["launches"], imported = phase_flagship(dev)
+        k1["launches_import"] = {"cli predict, float32 WAV": 1,
+                                 "cli predict, EXTENSIBLE float32 WAV": 1}
+        print(f"[import] {json.dumps(imported)}")
+    if 5 in phases:
+        phase_f32(dev)
     (ROOT / "build").mkdir(exist_ok=True)
     flagship_run = Path(tempfile.mkdtemp(dir=ROOT / "build"))
-    counts = phase_train(dev, flagship_run)
-    k2_fwd["launches"], k2_bwd["launches"] = counts["k2_fwd"], counts["k2_bwd"]
-    counts, long_train_loss = phase_long_window(dev)
-    for row, key in zip(k3_rows, ("k3_fwd", "k3_dq", "k3_dkv")):
-        row["launches"] = counts[key]
-    k3_rows[0]["launches_viz"] = counts["k3_fwd_viz"]
-    with no_tf32():
-        f2_rows = phase_f2(dev)
-        k5_rows = phase_k5(dev)
-    for row in k5_rows:
-        row["profiled_kernel_ms"] = k5_kernel_ms[row["name"].split()[1]]
-    counts = phase_sequence_parallel(dev, long_train_loss)
-    k5_rows[0]["launches"] = counts["k5_fwd"]
-    k5_rows[1]["launches"] = counts["k5_dq"] + counts["k5_dkv"]
-    for row, by in zip(k5_rows, ({"K3 fwd": counts["k5_fwd"]},
-                                 {"K3 dQ": counts["k5_dq"], "K3 dK/dV": counts["k5_dkv"]})):
-        row["launches_in"] = "the sharded cli train epoch at T = 1000, 1-rank NCCL ring (n = 1)"
-        row["launches_by_kernel"] = by
-    counts = phase_spatial(dev)
-    for row, key in zip(k4_rows, ("mel_iv", "mel_gcc")):
-        row["launches"] = counts[key]
-    print(f"[paths] launches by path: {json.dumps(phase_backbones(dev))}")
-    print(f"[paths] K3 launches a T = 1000 flagship step by option: "
-          f"{json.dumps(phase_flagship_options(dev))}")
     try:
-        found = phase_accdoa(dev, flagship_run)
-        distilled = phase_distill(dev, flagship_run)
+        if 6 in phases:
+            counts = phase_train(dev, flagship_run)
+            k2_fwd["launches"], k2_bwd["launches"] = counts["k2_fwd"], counts["k2_bwd"]
+        if 7 in phases:
+            counts, long_train_loss = phase_long_window(dev)
+            for row, key in zip(k3_rows, ("k3_fwd", "k3_dq", "k3_dkv")):
+                row["launches"] = counts[key]
+            k3_rows[0]["launches_viz"] = counts["k3_fwd_viz"]
+            for row, key in ((k2_fwd, "k2_fwd"), (k2_bwd, "k2_bwd"),
+                             *zip(k3_rows, ("k3_fwd", "k3_dq", "k3_dkv"))):
+                row["launches_traced"] = counts["trace"][key]
+        k5_rows = []
+        with no_tf32():
+            f2_rows = phase_f2(dev) if 11 in phases else []
+            if 12 in phases:
+                k5_rows = phase_k5(dev)
+        for row in k5_rows:
+            row["profiled_kernel_ms"] = k5_kernel_ms[row["name"].split()[1]]
+        if 13 in phases:
+            counts = phase_sequence_parallel(dev, long_train_loss)
+            if k5_rows:
+                k5_rows[0]["launches"] = counts["k5_fwd"]
+                k5_rows[1]["launches"] = counts["k5_dq"] + counts["k5_dkv"]
+                for row, by in zip(k5_rows, ({"K3 fwd": counts["k5_fwd"]},
+                                             {"K3 dQ": counts["k5_dq"],
+                                              "K3 dK/dV": counts["k5_dkv"]})):
+                    row["launches_in"] = ("the sharded cli train epoch at T = 1000, 1-rank "
+                                          "NCCL ring (n = 1)")
+                    row["launches_by_kernel"] = by
+        if 8 in phases:
+            counts = phase_spatial(dev)
+            for row, key in zip(k4_rows, ("mel_iv", "mel_gcc")):
+                row["launches"] = counts[key]
+        if 9 in phases:
+            print(f"[paths] launches by path: {json.dumps(phase_backbones(dev))}")
+        if 10 in phases:
+            print(f"[paths] K3 launches a T = 1000 flagship step by option: "
+                  f"{json.dumps(phase_flagship_options(dev))}")
+        if 14 in phases:
+            found = phase_accdoa(dev, flagship_run)
+            print(f"[paths] launches on the ACCDOA and calibration paths: {json.dumps(found)}")
+            for row, key in ((k1, "k1"), (k2_fwd, "k2_fwd"), (k2_bwd, "k2_bwd"),
+                             *zip(k3_rows, ("k3_fwd", "k3_dq", "k3_dkv")), (k4_rows[0], "k4")):
+                row["launches_accdoa"] = accdoa_launches(found, key)
+        if 18 in phases:
+            distilled = phase_distill(dev, flagship_run)
+            timings = distilled.pop("timings")
+            print(f"[paths] launches on the distillation paths: {json.dumps(distilled)}")
+            print(f"[distill] timings {json.dumps(timings)}")
+            for row, key in ((k1, "k1"), (k2_fwd, "k2_fwd"), (k2_bwd, "k2_bwd"),
+                             *zip(k3_rows, ("k3_fwd", "k3_dq", "k3_dkv"))):
+                row["launches_distill"] = {p: c[key] for p, c in distilled.items() if key in c}
     finally:
         shutil.rmtree(flagship_run, ignore_errors=True)
-    print(f"[paths] launches on the ACCDOA and calibration paths: {json.dumps(found)}")
-    timings = distilled.pop("timings")
-    print(f"[paths] launches on the distillation paths: {json.dumps(distilled)}")
-    print(f"[distill] timings {json.dumps(timings)}")
-    for row, key in ((k1, "k1"), (k2_fwd, "k2_fwd"), (k2_bwd, "k2_bwd"),
-                     *zip(k3_rows, ("k3_fwd", "k3_dq", "k3_dkv"))):
-        row["launches_distill"] = {p: c[key] for p, c in distilled.items() if key in c}
-    for row, key in ((k1, "k1"), (k2_fwd, "k2_fwd"), (k2_bwd, "k2_bwd"),
-                     *zip(k3_rows, ("k3_fwd", "k3_dq", "k3_dkv")), (k4_rows[0], "k4")):
-        row["launches_accdoa"] = accdoa_launches(found, key)
-    served = phase_serving(dev)
-    print(f"[paths] launches on the serving paths: {json.dumps(served)}")
-    for row, key in ((k1, "k1"), (k2_fwd, "k2_fwd"), (k3_rows[0], "k3_fwd"), (k4_rows[0], "k4")):
-        row["launches_stream"] = {p: c[key] for p, c in served.items()
-                                  if "stream" in p and key in c}
-        row["launches_tta"] = {p: c[key] for p, c in served.items()
-                               if "stream" not in p and key in c and "tta" in p.lower()}
-    daemon = phase_daemon(dev)
-    print(f"[paths] launches on the daemon and artifact paths: "
-          f"{json.dumps({k: v['launches'] for k, v in daemon.items() if 'launches' in v})}")
-    for row, key in ((k1, "k1"), (k3_rows[0], "k3_fwd"), (k4_rows[0], "k4")):
-        row["launches_served"] = {p[len("serve "):]: c["launches"][key]
-                                  for p, c in daemon.items() if p.startswith("serve ")}
-        row["launches_artifact"] = {p: c["launches"][key] for p, c in daemon.items()
-                                    if "artifact_ms" in c}
-    k3_rows[0]["host_us_operator"] = daemon["k3 host us"]["operator"]
-    int8, qat = phase_int8(dev)
-    print(f"[paths] launches on the int8 and QAT paths: "
-          f"{json.dumps({'int8': int8, 'qat': qat})}")
-    for row, key in ((k1, "k1"), (k2_fwd, "k2_fwd"), (k2_bwd, "k2_bwd"),
-                     *zip(k3_rows, ("k3_fwd", "k3_dq", "k3_dkv")), (k4_rows[0], "k4")):
-        row["launches_int8"] = {p: c[key] for p, c in int8.items() if key in c}
-        row["launches_qat"] = {p: c[key] for p, c in qat.items() if key in c}
-    print(json.dumps({"kernels": [k1, k2_fwd, k2_bwd, *k3_rows, *k4_rows, *f2_rows,
-                                  *k5_rows]}))
+    if 15 in phases:
+        served = phase_serving(dev)
+        print(f"[paths] launches on the serving paths: {json.dumps(served)}")
+        for row, key in ((k1, "k1"), (k2_fwd, "k2_fwd"), (k3_rows[0], "k3_fwd"),
+                         (k4_rows[0], "k4")):
+            row["launches_stream"] = {p: c[key] for p, c in served.items()
+                                      if "stream" in p and key in c}
+            row["launches_tta"] = {p: c[key] for p, c in served.items()
+                                   if "stream" not in p and key in c and "tta" in p.lower()}
+    if 16 in phases:
+        daemon = phase_daemon(dev)
+        print(f"[paths] launches on the daemon and artifact paths: "
+              f"{json.dumps({k: v['launches'] for k, v in daemon.items() if 'launches' in v})}")
+        for row, key in ((k1, "k1"), (k3_rows[0], "k3_fwd"), (k4_rows[0], "k4")):
+            row["launches_served"] = {p[len("serve "):]: c["launches"][key]
+                                      for p, c in daemon.items() if p.startswith("serve ")}
+            row["launches_artifact"] = {p: c["launches"][key] for p, c in daemon.items()
+                                        if "artifact_ms" in c}
+        k3_rows[0]["host_us_operator"] = daemon["k3 host us"]["operator"]
+    if 17 in phases:
+        int8, qat = phase_int8(dev)
+        print(f"[paths] launches on the int8 and QAT paths: "
+              f"{json.dumps({'int8': int8, 'qat': qat})}")
+        for row, key in ((k1, "k1"), (k2_fwd, "k2_fwd"), (k2_bwd, "k2_bwd"),
+                         *zip(k3_rows, ("k3_fwd", "k3_dq", "k3_dkv")), (k4_rows[0], "k4")):
+            row["launches_int8"] = {p: c[key] for p, c in int8.items() if key in c}
+            row["launches_qat"] = {p: c[key] for p, c in qat.items() if key in c}
+    quiesce()
+    print(f"[time] phases {','.join(map(str, sorted(phases)))}: "
+          f"{time.perf_counter() - t_start:.1f} s in all, the build included")
+    if 3 in phases:  # the kernels line needs phase 3's rows
+        print(json.dumps({"kernels": [k1, k2_fwd, k2_bwd, *k3_rows, *k4_rows, *f2_rows,
+                                      *k5_rows]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count(),
@@ -4511,4 +4934,4 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--sp-worker"]:
         sys.exit(sp_worker(sys.argv[2:]))
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -110,9 +110,26 @@ forward calibrated on those WAVs.
     python -m seld_tpu_torch.cli average-ckpts --checkpoint-dir RUN \
         --output-dir OUT [--last N | --steps E1,E2]
 
-averages the run's rolling checkpoints (SWA) into OUT/best. All but
-`score` and `average-ckpts` run on the CUDA card unless --device names
-another. `train ... train.qat=true` trains quantization-aware (int8
+averages the run's rolling checkpoints (SWA) into OUT/best.
+
+    python -m seld_tpu_torch.cli info [--device cpu] [k.e.y=value ...]
+
+prints the devices (platform, count, name, compute capability, memory)
+and the config as JSON.
+
+    python -m seld_tpu_torch.cli import-torch --torch-checkpoint F.pth \
+        [--device cpu] [k.e.y=value ...]
+
+converts a checkpoint of the reference PyTorch pipeline (its trainer's
+dict or a bare state_dict) into a best checkpoint under
+<data.base_path>/checkpoints, which `predict` and `eval` then serve.
+
+All but `score` and `average-ckpts` run on the CUDA card unless --device
+names another. Every command takes --synthetic, as the JAX package's do
+(it changes nothing where the command reads no corpus), and config
+overrides. Each logs to standard output and to
+logs/seld_tpu_torch_<command>_<time>.log; a command that fails logs the
+exception and returns 1. `train ... train.qat=true` trains quantization-aware (int8
 fake-quant with straight-through gradients). `train ...
 train.distill_ckpt=DIR [train.distill_alpha=A train.distill_temperature=T
 train.distill_track_matching=permutation|position]` distills from the
@@ -127,6 +144,8 @@ import json
 import logging
 import sys
 from pathlib import Path
+
+from seld_tpu_torch.utils.logging import setup_logging
 
 logger = logging.getLogger("seld_tpu_torch")
 
@@ -501,12 +520,92 @@ def cmd_score(args) -> int:
 def cmd_average_ckpts(args) -> int:
     """SWA: average the run's rolling checkpoints into a new best one; no
     device."""
+    from seld_tpu_torch.config import Config, parse_overrides
     from seld_tpu_torch.tools.average_ckpt import average_checkpoints
 
+    parse_overrides(Config(), args.overrides)  # an unknown field fails as in every command
     summary = average_checkpoints(args.checkpoint_dir, args.output_dir, last=args.last,
                                   steps=_csv(args.steps, int))
     logger.info("SWA checkpoint written: %s (averaged epochs %s, %s params)",
                 args.output_dir, summary["steps"], f"{summary['n_params']:,}")
+    return 0
+
+
+def cmd_info(args) -> int:
+    """The devices and the config as JSON."""
+    from seld_tpu_torch import resolve_device
+    from seld_tpu_torch.config import Config, config_to_dict, parse_overrides
+    from seld_tpu_torch.utils.platform import describe_devices
+
+    device = resolve_device(args.device)
+    cfg = parse_overrides(Config(), args.overrides)
+    info = describe_devices(device, logger)
+    print(json.dumps({"devices": info, "config": config_to_dict(cfg)}, indent=2))
+    return 0
+
+
+def _load_reference_checkpoint(path):
+    """A .pth of the reference pipeline: weights_only first; its trainer's
+    files pickle their Config, which a permissive stand-in module lets the
+    unpickler rebuild (the JAX package's `_load`)."""
+    import types
+
+    import torch
+
+    try:
+        return torch.load(path, map_location="cpu", weights_only=True)
+    except Exception:
+        shim = types.ModuleType("config")
+
+        class _AnyConfig:
+            def __setstate__(self, state):
+                self.__dict__.update(state if isinstance(state, dict) else {})
+
+        shim.Config = _AnyConfig
+        sys.modules.setdefault("config", shim)
+        return torch.load(path, map_location="cpu", weights_only=False)
+
+
+def cmd_import_torch(args) -> int:
+    """A reference PyTorch checkpoint -> a best checkpoint of the port under
+    <data.base_path>/checkpoints (fresh Adam state, the file's epoch and
+    test loss), after a forward at (1, 8, C, n_mels)."""
+    import numpy as np
+    import torch
+
+    from seld_tpu_torch import resolve_device
+    from seld_tpu_torch.config import Config, parse_overrides
+    from seld_tpu_torch.features.spatial import feature_channels
+    from seld_tpu_torch.models import build_model
+    from seld_tpu_torch.tools.torch_import import import_state_dict
+    from seld_tpu_torch.train.checkpoint import CheckpointManager
+    from seld_tpu_torch.train.optimizer import make_optimizer
+    from seld_tpu_torch.train.state import create_train_state
+
+    device = resolve_device(args.device)
+    cfg = parse_overrides(Config(), args.overrides)
+    ckpt = _load_reference_checkpoint(args.torch_checkpoint)
+    sd = ckpt.get("model_state_dict", ckpt) if isinstance(ckpt, dict) else ckpt
+    sd = {k: (v.numpy() if hasattr(v, "numpy") else np.asarray(v))
+          for k, v in sd.items() if hasattr(v, "shape") or hasattr(v, "numpy")}
+    n_ch = feature_channels(cfg.features.feature_set, cfg.model.n_channels)
+    model = build_model(cfg.model, cfg.grid, device=device, in_channels=n_ch)
+    model.load_state_dict(import_state_dict(sd, cfg.model, cfg.grid.num_classes))
+    model.eval()
+    with torch.inference_mode():  # the forward at the production shape
+        out = model(torch.zeros((1, 8, n_ch, cfg.model.n_mels), device=device))
+    want = (1, 8, cfg.grid.num_classes, cfg.grid.n_cells)
+    if tuple(out.shape) != want:
+        raise ValueError(f"imported {cfg.model.model_type}: output {tuple(out.shape)}, "
+                         f"expected {want}")
+    state = create_train_state(model, make_optimizer(
+        model.parameters(), cfg.train.learning_rate, cfg.train.weight_decay))
+    is_dict = isinstance(ckpt, dict)
+    epoch = int(ckpt.get("epoch", 0)) if is_dict else 0
+    test_loss = float(ckpt.get("test_loss", float("inf"))) if is_dict else float("inf")
+    path = CheckpointManager(cfg.data.checkpoint_path, cfg).save_best(
+        max(epoch, 1), state, float("nan"), test_loss)
+    logger.info("Imported %s (%s) -> %s", args.torch_checkpoint, cfg.model.model_type, path)
     return 0
 
 
@@ -584,6 +683,12 @@ def _add_checkpoint_flags(p) -> None:
                    help="serve an `export` artifact instead of a checkpoint")
 
 
+def _add_synthetic_flag(p) -> None:
+    p.add_argument("--synthetic", action="store_true",
+                   help="accepted as the JAX package's commands accept it; this command "
+                   "reads no corpus")
+
+
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(prog="python -m seld_tpu_torch.cli")
     sub = parser.add_subparsers(dest="command", required=True)
@@ -656,6 +761,7 @@ def build_parser() -> argparse.ArgumentParser:
     p = sub.add_parser("score", help="official DCASE2022 metrics of prediction CSVs "
                        "against ground-truth CSVs")
     p.add_argument("overrides", nargs="*", help="dotted config overrides, k.e.y=value")
+    _add_synthetic_flag(p)
     p.add_argument("--pred-dir", required=True, help="directory of predicted CSVs")
     p.add_argument("--gt-dir", required=True,
                    help="directory of ground-truth CSVs (matched by file name)")
@@ -665,11 +771,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.set_defaults(fn=cmd_score)
     p = sub.add_parser("verify", help="output-shape contract of every backbone")
     p.add_argument("overrides", nargs="*", help="dotted config overrides, k.e.y=value")
+    _add_synthetic_flag(p)
     p.add_argument("--frames", type=int, default=250, help="input frames T (default 250)")
     p.add_argument("--device", default=None, help=device_help)
     p.set_defaults(fn=cmd_verify)
     p = sub.add_parser("predict", help="WAV file(s) -> STARSS22-style CSV per clip")
     p.add_argument("overrides", nargs="*", help="dotted config overrides, k.e.y=value")
+    _add_synthetic_flag(p)
     _add_checkpoint_flags(p)
     p.add_argument("--wavs", nargs="+", required=True)
     p.add_argument("--out", default=None,
@@ -704,6 +812,7 @@ def build_parser() -> argparse.ArgumentParser:
     p = sub.add_parser("export", help="the serving artifact: torch.export programs of the "
                        "forwards, weights inside, and a JSON sidecar")
     p.add_argument("overrides", nargs="*", help="dotted config overrides, k.e.y=value")
+    _add_synthetic_flag(p)
     p.add_argument("--checkpoint", default=None,
                    help="checkpoint file (default: the run's newest best checkpoint)")
     p.add_argument("--out", required=True,
@@ -735,6 +844,7 @@ def build_parser() -> argparse.ArgumentParser:
     p = sub.add_parser("serve", help="the TCP streaming daemon (bit-equal to offline "
                        "prediction; bounded memory per stream)")
     p.add_argument("overrides", nargs="*", help="dotted config overrides, k.e.y=value")
+    _add_synthetic_flag(p)
     _add_checkpoint_flags(p)
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=8771, help="0 picks a free port")
@@ -757,6 +867,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.set_defaults(fn=cmd_serve)
     p = sub.add_parser("average-ckpts", help="SWA: average a run's rolling checkpoints into "
                        "a new best checkpoint")
+    p.add_argument("overrides", nargs="*", help="dotted config overrides, k.e.y=value")
+    _add_synthetic_flag(p)
     p.add_argument("--checkpoint-dir", required=True,
                    help="the run's checkpoint tree (<data.base_path>/checkpoints)")
     p.add_argument("--output-dir", required=True,
@@ -766,13 +878,32 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--steps", default=None, metavar="E1,E2,...",
                    help="average these epochs' rolling checkpoints (wins over --last)")
     p.set_defaults(fn=cmd_average_ckpts)
+    p = sub.add_parser("import-torch", help="a checkpoint of the reference PyTorch pipeline "
+                       "-> the run's best checkpoint")
+    p.add_argument("overrides", nargs="*", help="dotted config overrides, k.e.y=value")
+    _add_synthetic_flag(p)
+    p.add_argument("--torch-checkpoint", required=True,
+                   help=".pth from the reference pipeline (its trainer's dict or a bare "
+                   "state_dict)")
+    p.add_argument("--device", default=None, help=device_help)
+    p.set_defaults(fn=cmd_import_torch)
+    p = sub.add_parser("info", help="the devices and the config as JSON")
+    p.add_argument("overrides", nargs="*", help="dotted config overrides, k.e.y=value")
+    _add_synthetic_flag(p)
+    p.add_argument("--device", default=None, help=device_help)
+    p.set_defaults(fn=cmd_info)
     return parser
 
 
 def main(argv: list[str] | None = None) -> int:
     args = build_parser().parse_args(argv)
-    logging.basicConfig(level=logging.INFO, format="%(levelname)s %(message)s")
-    return args.fn(args)
+    log, log_file = setup_logging(experiment_name=f"seld_tpu_torch_{args.command}")
+    log.info("Log file: %s", log_file)
+    try:
+        return args.fn(args)
+    except Exception:
+        log.exception("%s failed", args.command)
+        return 1
 
 
 if __name__ == "__main__":

@@ -269,6 +269,10 @@ class TrainConfig:
     # scene transforms, applied to features and labels inside the train
     # step. Needs features.feature_set="mel_iv".
     acs_augment: bool = False
+    # torch.profiler trace of steps 1..N of the first epoch (0 = off) as a
+    # Chrome-trace JSON under <output>/profile; read it back with
+    # `python -m seld_tpu_torch.tools.profile_summary <output>/profile`.
+    profile_steps: int = 0
     # Render the loss-component dashboard (viz.visualize_loss_components)
     # of the first test batch every N epochs, 0 = off: an eval-mode forward
     # on the training device into <output>/train_visualizations. Grid

@@ -101,24 +101,19 @@ class Prediction:
         """Collapse 20 ms frames to 100 ms STARSS22 metadata rows
         (frame, class, source=0, azimuth, elevation): a (class, cell) is
         emitted for a metadata frame when it is active in >= min_votes of
-        the frame's 5 label frames."""
+        the frame's 5 label frames. Rows come in the JAX package's order:
+        metadata frame, then cell, then class."""
         t, g = self.classes.shape
         fanout = 5
         n_meta = t // fanout
         el, az = cell_centers(self.n_el, self.n_az)
-        rows = []
         cls = self.classes[: n_meta * fanout].reshape(n_meta, fanout, g)
-        for mf in range(n_meta):
-            block = cls[mf]  # (5, G)
-            for c in range(g):
-                vals, counts = np.unique(block[:, c], return_counts=True)
-                for v, n in zip(vals, counts):
-                    if v != self.background_class and n >= min_votes:
-                        i, j = divmod(c, self.n_az)
-                        rows.append(
-                            (mf, int(v), 0, int(round(az[j])), int(round(el[i])))
-                        )
-        return np.asarray(rows, np.int64).reshape(-1, 5)
+        votes = (cls[..., None] == np.arange(self.num_classes)).sum(axis=1)  # (n_meta, G, M)
+        votes[..., self.background_class] = 0
+        mf, c, v = np.nonzero(votes >= min_votes)
+        i, j = np.divmod(c, self.n_az)
+        return np.stack([mf, v, np.zeros_like(mf), np.round(az[j]).astype(np.int64),
+                         np.round(el[i]).astype(np.int64)], axis=1).astype(np.int64)
 
 
 class SELDPredictor:

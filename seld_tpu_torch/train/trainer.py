@@ -11,7 +11,8 @@ step, seld_tpu_torch.quant), knowledge distillation from a trained
 teacher's checkpoint tree (train.distill_ckpt, seld_tpu_torch.distill), a
 per-epoch record in metrics.jsonl, training_history.json and the
 loss-curve PNG at the end, and every train.viz_loss_components_every
-epochs a loss-component dashboard of the first test batch (seld_tpu_torch.viz).
+epochs a loss-component dashboard of the first test batch (seld_tpu_torch.viz),
+and with train.profile_steps=N a torch.profiler trace of train steps 1..N.
 The ACCDOA families (model.model_type accdoa_conformer /
 multi_accdoa_conformer) train on the corpora's ACCDOA targets with the
 ACCDOA or ADPIT loss, rotate those targets under ACS, and decode their
@@ -108,6 +109,36 @@ class PreemptionGuard:
         if self._prev is not None:
             signal.signal(signal.SIGTERM, self._prev)
         return False
+
+
+class StepTrace:
+    """train.profile_steps: a torch.profiler session (CPU activity, and CUDA
+    activity on a CUDA device) over train steps 1..N of the first epoch, as
+    seld_tpu/train/trainer.py:599-645 captures a JAX trace, written as a
+    Chrome-trace JSON to <out_dir>/<YYYYmmdd_HHMMSS>_rank<r>.pt.trace.json
+    (every rank of a mesh writes its own)."""
+
+    def __init__(self, out_dir: Path, device: torch.device, rank: int):
+        from torch.profiler import ProfilerActivity, profile
+
+        self.out_dir, self.device, self.rank = Path(out_dir), device, rank
+        activities = [ProfilerActivity.CPU]
+        if device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        self.prof = profile(activities=activities)
+        self.prof.start()
+        logger.info("profiler trace started -> %s", self.out_dir)
+
+    def stop(self, steps: int) -> None:
+        """End the session once the device is done and write the trace."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.prof.stop()
+        self.out_dir.mkdir(parents=True, exist_ok=True)
+        stamp = time.strftime("%Y%m%d_%H%M%S")
+        path = self.out_dir / f"{stamp}_rank{self.rank}.pt.trace.json"
+        self.prof.export_chrome_trace(str(path))
+        logger.info("profiler trace captured (%d steps) -> %s", steps, path)
 
 
 def _epoch_mean(metric_list: list[dict]) -> dict[str, float]:
@@ -477,6 +508,11 @@ def train_model(cfg: Config, train_corpus: WindowedCorpus, test_corpus: Windowed
                 )
     epoch = start_epoch - 1
 
+    # JAX's window: started before step 1 of the first epoch, stopped after
+    # the step numbered profile_steps, which is in a later epoch when the
+    # first has fewer steps; a trace still open when training ends is
+    # written then (the JAX package loses it)
+    trace, traced = None, 0
     with PreemptionGuard() as preempt:
         for epoch in range(start_epoch, tc.num_epochs + 1):
             t0 = time.time()
@@ -484,14 +520,21 @@ def train_model(cfg: Config, train_corpus: WindowedCorpus, test_corpus: Windowed
             for i, (mel, targets, em, _) in enumerate(
                 device_prefetch(train_iter, place, depth=cfg.data.prefetch_depth)
             ):
+                if tc.profile_steps > 0 and epoch == start_epoch and i == 1:
+                    trace = StepTrace(Path(cfg.data.output_path) / "profile", device,
+                                      0 if mesh is None else mesh.rank)
                 if cosine is not None:
                     set_learning_rate(optimizer, cosine((epoch - 1) * steps_per_epoch + i))
                 _, metrics = train_step(state, mel, targets, em, (tc.seed, epoch))
+                traced += trace is not None
                 if ema_model is not None:
                     with torch.no_grad():  # the shadow keeps the live BatchNorm statistics
                         torch._foreach_lerp_(ema_params, live_params, 1.0 - tc.ema_decay)
                         torch._foreach_copy_(ema_buffers, live_buffers)
                 train_metrics.append(metrics)
+                if trace is not None and (preempt.requested or i == tc.profile_steps):
+                    trace.stop(traced)  # a preemption finishes an open trace too
+                    trace = None
                 if preempt.requested:  # a host flag: no device sync
                     break
             train_avg = _epoch_mean(train_metrics)
@@ -599,6 +642,11 @@ def train_model(cfg: Config, train_corpus: WindowedCorpus, test_corpus: Windowed
                 )
                 break
 
+    if trace is not None:
+        logger.warning("profiler trace still open when training ended (no later epoch "
+                       "reached step %d): writing the %d train steps it holds",
+                       tc.profile_steps, traced)
+        trace.stop(traced)
     history.update(best_train_loss=stopper.best, best_test_loss=best_test,
                    best_epoch=stopper.best_epoch, total_epochs=epoch)
     if lead:

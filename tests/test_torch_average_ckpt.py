@@ -10,7 +10,6 @@ what it writes."""
 
 import contextlib
 import io
-import json
 import shutil
 
 import jax.numpy as jnp
@@ -30,6 +29,7 @@ from seld_tpu_torch.tools.average_ckpt import average_checkpoints, mean_state_di
 from seld_tpu_torch.train.checkpoint import save_checkpoint
 from tests.test_torch_backbones import random_variables
 from tests.test_torch_model import one_torch_thread  # noqa: F401 (autouse)
+from tests.torch_cli_helpers import printed_json
 
 MODELS = {
     "conformer": ["model.model_type=conformer", "model.crnn_cnn_channels=8,16",
@@ -136,7 +136,7 @@ def _json_of(argv):
     printed = io.StringIO()
     with contextlib.redirect_stdout(printed):
         assert port_main(argv) == 0
-    return json.loads(printed.getvalue())
+    return printed_json(printed.getvalue())
 
 
 @pytest.fixture(scope="module")

@@ -28,6 +28,7 @@ from seld_tpu_torch.models import build_model as build_port_model
 from seld_tpu_torch.models import layers as port_layers
 from seld_tpu_torch.ops.pooling import adaptive_avg_pool_2d, bilinear_resize
 from tests.test_torch_model import one_torch_thread  # noqa: F401 (autouse)
+from tests.torch_cli_helpers import printed_json
 
 TINY = {
     "crnn": ["model.model_type=crnn", "model.crnn_cnn_channels=8,16",
@@ -379,7 +380,7 @@ def test_cli_train_eval_predict_tiny_crnn(tmp_path, capsys):
         capsys.readouterr()
         assert port_main(["eval", "--synthetic", "--device", "cpu", "--num-visualizations",
                           "0", *overrides]) == 0
-        report = json.loads(capsys.readouterr().out)
+        report = printed_json(capsys.readouterr().out)
         assert np.isfinite(report["test_loss"]) and "SELD_error" in report["dcase2022"]
         pcfg = pc.parse_overrides(pc.Config(), overrides)
         wavs, _ = synthetic_raw_files(tmp_path / "wavs", pcfg, n_files=1, seconds=2.0)

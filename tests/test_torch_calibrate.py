@@ -25,6 +25,7 @@ from seld_tpu_torch.eval import score as port_score
 from seld_tpu_torch.train.trainer import train_model
 from tests.test_torch_eval import _assert_same
 from tests.test_torch_model import one_torch_thread  # noqa: F401 (autouse)
+from tests.torch_cli_helpers import port_fails, printed_json
 
 
 @pytest.fixture(autouse=True)
@@ -226,7 +227,7 @@ def _json_of(argv):
     printed = io.StringIO()
     with contextlib.redirect_stdout(printed):
         assert port_main(argv) == 0
-    return json.loads(printed.getvalue())
+    return printed_json(printed.getvalue())
 
 
 @pytest.mark.parametrize("family", sorted(CLI))
@@ -281,10 +282,9 @@ def test_cli_train_eval_calibrate_predict_score(tmp_path, family):
     # a file made for another model is refused before anything runs
     (tmp_path / "other.json").write_text(json.dumps(
         {**json.loads(path.read_text()), "model_type": "multi_accdoa_conformer"}))
-    with pytest.raises(ValueError, match="recalibrate"):
-        port_main(["predict", "--checkpoint", str(best), "--wavs", wavs[0], "--out",
-                   str(tmp_path / "x"), "--device", "cpu", "--calibration",
-                   str(tmp_path / "other.json")])
+    port_fails(["predict", "--checkpoint", str(best), "--wavs", wavs[0], "--out",
+               str(tmp_path / "x"), "--device", "cpu", "--calibration",
+               str(tmp_path / "other.json")], ValueError, "recalibrate")
 
 
 def test_predict_calibration_of_a_tta_file_turns_tta_on(tmp_path):

@@ -1402,3 +1402,44 @@ def test_distilling_step_teacher_equals_its_eval_forward_on_card(cuda_device, qa
     with torch.no_grad():
         want = spec.teacher(mel)
     assert len(seen) == 1 and torch.equal(seen[0], want)
+
+
+def test_profiled_long_window_steps_count_k2_and_k3_as_the_counters_on_card(cuda_device,
+                                                                            tmp_path):
+    """train.profile_steps=2 on the full-width flagship at T = 1000 (train
+    steps of 2 windows, the corpus's windows padded past its end): the
+    port's profile_summary counts K2's and K3's kernels in the trace by
+    name exactly as the launch counters count two train steps (K2 forward
+    and backward once a step, K3's forward, dQ and dK/dV once a conformer
+    block)."""
+    from seld_tpu_torch.config import Config, parse_overrides
+    from seld_tpu_torch.data.synthetic import synthetic_corpus
+    from seld_tpu_torch.tools import profile_summary
+    from seld_tpu_torch.train.trainer import train_model
+
+    cfg = parse_overrides(Config(), [
+        f"data.base_path={tmp_path}", "window.window_seconds=20.0", "window.hop_seconds=1.0",
+        "train.batch_size=2", "train.num_epochs=1", "train.profile_steps=2"])
+    train_c = synthetic_corpus(cfg, n_files=1, seconds=6.0, seed=0, device=cuda_device)
+    test_c = synthetic_corpus(cfg, n_files=1, seconds=2.0, seed=1, train=False,
+                              device=cuda_device)
+    train_steps, eval_steps = -(-len(train_c) // 2), -(-len(test_c) // 2)
+    assert train_steps >= 3  # steps 1 and 2 traced
+    fa = flash_attention
+    fa.fwd_launches = fa.bwd_dq_launches = fa.bwd_dkv_launches = 0
+    grid_loss_terms.fwd_launches = grid_loss_terms.bwd_launches = 0
+    train_model(cfg, train_c, test_c, device=cuda_device)
+    blocks = cfg.model.resnet_conf_n_layers
+    # the counters over the whole run: once a train or eval step, K3 a block
+    steps = train_steps + eval_steps
+    assert (grid_loss_terms.fwd_launches, grid_loss_terms.bwd_launches) == (steps, train_steps)
+    assert (fa.fwd_launches, fa.bwd_dq_launches, fa.bwd_dkv_launches) == (
+        steps * blocks, train_steps * blocks, train_steps * blocks)
+    by_name = profile_summary.event_counts(tmp_path / "outputs" / "profile")
+    traced = {pattern: sum(n for name, n in by_name.items() if pattern in name)
+              for pattern in ("grid_loss_fwd", "grid_loss_bwd", "flash_fwd_wgmma",
+                              "flash_dq_wgmma", "flash_dkv_wgmma")}
+    assert traced == {"grid_loss_fwd": 2, "grid_loss_bwd": 2, "flash_fwd_wgmma": 2 * blocks,
+                      "flash_dq_wgmma": 2 * blocks, "flash_dkv_wgmma": 2 * blocks}
+    rows, plane = profile_summary.summarize(tmp_path / "outputs" / "profile", top=5)
+    assert plane == "/device:cuda:0" and len(rows) == 5

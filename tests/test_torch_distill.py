@@ -46,6 +46,7 @@ from seld_tpu_torch.train.state import create_train_state as create_port_state
 from seld_tpu_torch.train.steps import make_train_step as make_port_train_step
 from tests.test_torch_backbones import port_model, random_variables
 from tests.test_torch_model import one_torch_thread  # noqa: F401 (autouse)
+from tests.torch_cli_helpers import port_fails
 
 RTOL, ATOL = 1e-5, 1e-6  # the KD losses and their gradients, float32 sums in other orders
 STEP_RTOL = 1e-3  # three updates compound the float32 differences (test_torch_train.py)
@@ -590,10 +591,9 @@ def test_cli_train_distills_logs_jax_s_count_and_resumes_exactly(tmp_path, caplo
 def test_cli_train_refuses_bad_distill_knobs_before_writing(override, match, tmp_path):
     teacher_dir, _, _ = _teacher_tree(tmp_path / "teacher",
                                       TEACHER + COMMON)
-    with pytest.raises(ValueError, match=match):
-        port_main(["train", "--synthetic", "--device", "cpu", *STUDENT[:-1], *COMMON,
-                   f"data.base_path={tmp_path / 'run'}", f"train.distill_ckpt={teacher_dir}",
-                   override])
+    port_fails(["train", "--synthetic", "--device", "cpu", *STUDENT[:-1], *COMMON,
+               f"data.base_path={tmp_path / 'run'}", f"train.distill_ckpt={teacher_dir}",
+               override], ValueError, match)
     assert not (tmp_path / "run" / "checkpoints" / "best").exists()
 
 

@@ -38,6 +38,7 @@ from seld_tpu_torch.train.checkpoint import CheckpointManager, checkpoint_file
 from seld_tpu_torch.train.steps import make_metric_eval_step
 from seld_tpu_torch.train.trainer import train_model
 from tests.test_torch_model import one_torch_thread  # noqa: F401 (autouse)
+from tests.torch_cli_helpers import port_fails, printed_json, printed_lines
 
 # --- metrics: the same grids through both packages ------------------------
 
@@ -506,7 +507,7 @@ def test_cli_eval_prints_the_report_of_the_run(run, report):
                         "--num-visualizations", "0",
                         "--bg-bias", "0.5", "--median-filter-sweep", "1,3",
                         *_cli_overrides(work.parent)])
-    got = json.loads(printed.getvalue())
+    got = printed_json(printed.getvalue())
     assert rc == 0 and "visualizations" not in got
     assert got["checkpoint_epoch"] == report["checkpoint_epoch"] and got["bg_bias"] == 0.5
     assert list(got["median_filter_sweep"]["metrics"]) == ["1", "3"]
@@ -520,21 +521,21 @@ def test_cli_train_eval_after_and_eval_without_a_checkpoint(tmp_path):
                         "--num-visualizations", "0",
                         "train.num_epochs=1", "window.hop_seconds=4.0",
                         *[o for o in _cli_overrides(tmp_path) if not o.startswith("window.hop")]])
-    got = json.loads(printed.getvalue())
+    got = printed_json(printed.getvalue())
     assert rc == 0 and got["checkpoint_epoch"] == 1 and got["checkpoint_kind"] == "best"
     record = json.loads((tmp_path / "checkpoints" / "metrics.jsonl").read_text())
     assert got["test_loss"] == pytest.approx(record["test"]["loss"], abs=1e-6)
     shutil.rmtree(tmp_path / "checkpoints")
-    with pytest.raises(FileNotFoundError, match=str(tmp_path / "checkpoints")):
-        port_main(["eval", "--synthetic", "--device", "cpu", "window.hop_seconds=4.0",
-                   *[o for o in _cli_overrides(tmp_path) if not o.startswith("window.hop")]])
+    port_fails(["eval", "--synthetic", "--device", "cpu", "window.hop_seconds=4.0",
+               *[o for o in _cli_overrides(tmp_path) if not o.startswith("window.hop")]],
+               FileNotFoundError, str(tmp_path / "checkpoints"))
     with pytest.raises(SystemExit):
         port_main(["eval", "--use-checkpoint", "newest"])
 
 
 def test_cli_verify_reports_every_backbone(capsys):
     assert port_main(["verify", "--frames", "6", "--device", "cpu"]) == 0
-    lines = capsys.readouterr().out.splitlines()
+    lines = printed_lines(capsys.readouterr().out)
     assert len(lines) == 6
     assert all("(2, 6, 14, 648) OK" in line for line in lines[:4])
     assert [line.split(":")[0].strip() for line in lines] == [

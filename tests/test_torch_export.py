@@ -43,6 +43,7 @@ from seld_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
 from tests.test_torch_model import one_torch_thread  # noqa: F401 (autouse)
 from tests.test_torch_predict import _assert_same_decisions
 from tests.test_torch_tta import jax_and_port_checkpoints
+from tests.torch_cli_helpers import port_fails
 
 SR = 24_000
 REPO = Path(__file__).resolve().parents[1]
@@ -172,11 +173,9 @@ def test_int8_export_is_refused_naming_item_9(runs, tmp_path, flags):
     argv = ["export", f"data.base_path={runs['grid']}", "--out", str(tmp_path / "m.pt2"),
             "--device", "cpu", *[str(tmp_path / f) if f.endswith(".wav") else f for f in flags]]
     if "--int8-weight-only" in flags:
-        with pytest.raises(ValueError, match="--int8-weight-only requires --int8-calib-wavs"):
-            port_main(argv)
+        port_fails(argv, ValueError, "--int8-weight-only requires --int8-calib-wavs")
     else:
-        with pytest.raises(FileNotFoundError):
-            port_main(argv)
+        port_fails(argv, FileNotFoundError)
     assert not (tmp_path / "m.pt2").exists()
 
 
@@ -231,14 +230,14 @@ def test_cli_predict_from_artifact(runs, artifact, wav):
                       "--wavs", str(wav), "--out", str(tmp / "from_artifact"),
                       "--device", "cpu"]) == 0
     assert _csv(tmp / "from_artifact", wav) == _csv(tmp / "from_ckpt", wav)
-    with pytest.raises(ValueError, match="--bg-bias does not compose with --artifact: the "
-                       r"bias is baked at export time \(export --bg-bias\)"):
-        port_main(["predict", "--artifact", str(artifact), "--bg-bias", "1",
-                   "--wavs", str(wav), "--device", "cpu"])
-    with pytest.raises(ValueError, match="--accdoa-threshold does not compose with "
-                       "--artifact: the threshold is baked at export time"):
-        port_main(["predict", "--artifact", str(artifact), "--accdoa-threshold",
-                   "0.4", "--wavs", str(wav), "--device", "cpu"])
+    port_fails(["predict", "--artifact", str(artifact), "--bg-bias", "1",
+               "--wavs", str(wav), "--device", "cpu"],
+               ValueError, "--bg-bias does not compose with --artifact: the "
+               r"bias is baked at export time \(export --bg-bias\)")
+    port_fails(["predict", "--artifact", str(artifact), "--accdoa-threshold",
+               "0.4", "--wavs", str(wav), "--device", "cpu"],
+               ValueError, "--accdoa-threshold does not compose with "
+               "--artifact: the threshold is baked at export time")
 
 
 def test_predict_artifact_median_filter_zero_overrides_sidecar(runs, artifact, wav):
@@ -265,12 +264,12 @@ def test_refusals(runs, artifact, tmp_path):
     calib.write_text(json.dumps({"calibration_version": 1, "model_type": "conformer",
                                  "feature_set": "mel", "bg_bias": 0.5, "median_filter": 3,
                                  "tta": True, "tta_transforms": [0, 4]}))
-    with pytest.raises(ValueError, match="--calibration does not compose with --artifact"):
-        port_main(["predict", "--artifact", str(tmp_path / "m.pt2"), "--calibration",
-                   str(calib), "--wavs", "x.wav", "--device", "cpu"])
-    with pytest.raises(ValueError, match="tuned under TTA, which this command cannot apply"):
-        port_main(["export", f"data.base_path={run}", "--out", str(tmp_path / "m.pt2"),
-                   "--calibration", str(calib), "--device", "cpu"])
+    port_fails(["predict", "--artifact", str(tmp_path / "m.pt2"), "--calibration",
+               str(calib), "--wavs", "x.wav", "--device", "cpu"],
+               ValueError, "--calibration does not compose with --artifact")
+    port_fails(["export", f"data.base_path={run}", "--out", str(tmp_path / "m.pt2"),
+               "--calibration", str(calib), "--device", "cpu"],
+               ValueError, "tuned under TTA, which this command cannot apply")
     out = _copy(artifact, tmp_path, platforms=["cuda"])
     with pytest.raises(ValueError, match=r"exported for \['cuda'\] and cannot run on cpu"):
         SELDPredictor.from_artifact(out, device="cpu")
@@ -415,6 +414,5 @@ def test_cli_predict_overrides_serve_the_runs_best_checkpoint(runs, wav):
     shutil.rmtree(run / "outputs")
     assert got == _csv(wav.parent / "explicit", wav)
     assert got != _csv(wav.parent / "older", wav)
-    with pytest.raises(FileNotFoundError, match="no best checkpoint"):
-        port_main(["predict", f"data.base_path={wav.parent}", "--wavs", str(wav),
-                   "--device", "cpu"])
+    port_fails(["predict", f"data.base_path={wav.parent}", "--wavs", str(wav),
+               "--device", "cpu"], FileNotFoundError, "no best checkpoint")

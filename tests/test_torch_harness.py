@@ -14,13 +14,13 @@ import pytest
 import torch
 
 import seld_tpu_torch
-from seld_tpu_torch.cli import main as port_main
 from seld_tpu_torch.config import Config, FeatureConfig, ModelConfig
 from seld_tpu_torch.data.corpus import compute_mel_features
 from seld_tpu_torch.infer import SELDPredictor
 from seld_tpu_torch.models import build_model
 from seld_tpu_torch.ops import mel_cuda
 from tests.test_torch_model import one_torch_thread  # noqa: F401 (autouse)
+from tests.torch_cli_helpers import port_fails
 
 ROOT = Path(__file__).resolve().parent.parent
 FORBIDDEN = re.compile(
@@ -136,8 +136,7 @@ def test_entry_points_raise_without_cuda(no_cuda, tmp_path):
         build_model(ModelConfig())
     with pytest.raises(RuntimeError, match="CUDA"):
         compute_mel_features(np.zeros((4, 4800), np.float32), FeatureConfig())
-    with pytest.raises(RuntimeError, match="CUDA"):
-        port_main(["predict", "--checkpoint", str(missing), "--wavs", "x.wav"])
+    port_fails(["predict", "--checkpoint", str(missing), "--wavs", "x.wav"], RuntimeError, "CUDA")
 
 
 def test_evaluation_entry_points_raise_without_cuda(no_cuda, tmp_path):
@@ -145,10 +144,8 @@ def test_evaluation_entry_points_raise_without_cuda(no_cuda, tmp_path):
 
     with pytest.raises(RuntimeError, match="CUDA"):
         evaluate_model(Config(), None, tmp_path)
-    with pytest.raises(RuntimeError, match="CUDA"):
-        port_main(["eval", "--synthetic", f"data.base_path={tmp_path}"])
-    with pytest.raises(RuntimeError, match="CUDA"):
-        port_main(["verify"])
+    port_fails(["eval", "--synthetic", f"data.base_path={tmp_path}"], RuntimeError, "CUDA")
+    port_fails(["verify"], RuntimeError, "CUDA")
     assert not list(tmp_path.iterdir())  # the device check comes first
 
 
@@ -164,8 +161,7 @@ def test_training_entry_points_raise_without_cuda(no_cuda, tmp_path):
         build_corpus([], [], cfg.features, cfg.grid, cfg.window, cfg.targets)
     with pytest.raises(RuntimeError, match="CUDA"):
         train_model(cfg, None, None, workdir=tmp_path)
-    with pytest.raises(RuntimeError, match="CUDA"):
-        port_main(["train", "--synthetic", f"data.base_path={tmp_path}"])
+    port_fails(["train", "--synthetic", f"data.base_path={tmp_path}"], RuntimeError, "CUDA")
     assert not list(tmp_path.iterdir())  # the device check comes first
 
 

@@ -12,6 +12,7 @@ import torch
 
 from seld_tpu.config import Config, ModelConfig, WindowConfig, config_to_dict
 from seld_tpu.data.audio import write_wav
+from seld_tpu.infer import Prediction as JaxPrediction
 from seld_tpu.infer import SELDPredictor as JaxPredictor
 from seld_tpu.models import build_model
 from seld_tpu.train.checkpoint import CheckpointManager
@@ -21,7 +22,7 @@ from seld_tpu_torch.cli import main as port_main
 from seld_tpu_torch.config import config_from_dict
 from seld_tpu_torch.convert import state_dict_from_jax
 from seld_tpu_torch.data.corpus import compute_mel_features
-from seld_tpu_torch.infer import SELDPredictor
+from seld_tpu_torch.infer import Prediction, SELDPredictor
 from seld_tpu_torch.train.checkpoint import save_checkpoint
 from tests.test_torch_model import one_torch_thread  # noqa: F401 (autouse)
 
@@ -128,6 +129,23 @@ def test_predict_matches_jax_no_overlap(predictors, wave):
     assert len(rows) > 0
     np.testing.assert_array_equal(rows, want.to_metadata_rows())
     assert got.events() == want.events()
+
+
+@pytest.mark.parametrize("min_votes", [1, 2, 3, 5])
+def test_metadata_rows_equal_jax_s(min_votes):
+    """The vote over each metadata frame's 5 label frames, row for row and
+    in JAX's order, on grids sparse and dense, with the background class
+    in between and a ragged tail of frames that no metadata frame takes."""
+    rng = np.random.default_rng(min_votes)
+    for active in (0.0, 0.05, 0.6, 1.0):
+        base = rng.integers(0, 13, (1, 648))
+        classes = np.where(rng.random((203, 648)) < 0.3, rng.integers(0, 13, (203, 648)), base)
+        classes = np.where(rng.random((203, 648)) < active, classes, 13).astype(np.int8)
+        got = Prediction(classes, 18, 36, 14).to_metadata_rows(min_votes)
+        want = JaxPrediction(classes, 18, 36, 14).to_metadata_rows(min_votes)
+        assert got.dtype == want.dtype == np.int64 and got.shape[1] == 5
+        np.testing.assert_array_equal(got, want)
+    assert len(got) > 0
 
 
 def test_predict_matches_jax_overlap(predictors, wave):

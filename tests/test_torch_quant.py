@@ -46,6 +46,7 @@ from seld_tpu_torch.train.checkpoint import save_checkpoint
 from seld_tpu_torch.train.steps import make_train_step
 from tests.test_torch_backbones import port_model, random_variables
 from tests.test_torch_model import one_torch_thread  # noqa: F401 (autouse)
+from tests.torch_cli_helpers import port_fails
 
 SR = 24_000
 WAIT = 60  # seconds: every join and socket read
@@ -390,9 +391,9 @@ def test_qat_under_a_mesh_of_more_than_one_rank_names_item_10(monkeypatch, tmp_p
         make_train_step(model, None, torch.optim.Adam(model.parameters()), 14,
                         mesh=TwoRanks(), qat=True)
     monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match="train.qat under a process mesh"):
-        port_main(["train", "--synthetic", "--device", "cpu", f"data.base_path={tmp_path}",
-                   "train.qat=true", *FAMILIES["crnn"]])
+    port_fails(["train", "--synthetic", "--device", "cpu", f"data.base_path={tmp_path}",
+               "train.qat=true", *FAMILIES["crnn"]],
+               NotImplementedError, "train.qat under a process mesh")
     assert not list(tmp_path.iterdir())
 
 
@@ -524,13 +525,13 @@ def test_int8_calibration_file_turns_int8_on_for_predict_and_export(run, corpus,
                           "--out", str(tmp_path / name), "--device", "cpu", *flags]) == 0
         csv[name] = (tmp_path / name / "predictions" / "clip0.csv").read_text()
     assert csv["file"] == csv["flags"]
-    with pytest.raises(ValueError, match="tuned under int8 — pass --int8-calib-wavs"):
-        port_main(["export", "--checkpoint", str(_ckpt(base)), "--out",
-                   str(tmp_path / "a.pt2"), "--calibration", str(out), "--device", "cpu"])
+    port_fails(["export", "--checkpoint", str(_ckpt(base)), "--out",
+               str(tmp_path / "a.pt2"), "--calibration", str(out), "--device", "cpu"],
+               ValueError, "tuned under int8 — pass --int8-calib-wavs")
     out.write_text(json.dumps({**calib, "int8_weight_only": True}))
-    with pytest.raises(ValueError, match="weight-only quantization, which this command"):
-        port_main(["predict", "--checkpoint", str(_ckpt(base)), "--wavs", wav, "--out",
-                   str(tmp_path / "wo"), "--calibration", str(out), "--device", "cpu"])
+    port_fails(["predict", "--checkpoint", str(_ckpt(base)), "--wavs", wav, "--out",
+               str(tmp_path / "wo"), "--calibration", str(out), "--device", "cpu"],
+               ValueError, "weight-only quantization, which this command")
 
 
 def test_int8_artifacts_equal_the_predictors_int8_grid(run, tmp_path):
@@ -624,8 +625,8 @@ def test_cli_train_qat_on_the_cpu(tmp_path, caplog):
 def test_int8_flags_are_refused_as_jax_refuses_them(run, tmp_path, argv, match):
     base, _, _ = run
     argv = [a.format(tmp=tmp_path, base=base) for a in argv]
-    with pytest.raises(ValueError, match=match):
-        port_main([*argv, "--device", "cpu", "--synthetic" if argv[0] in ("eval", "calibrate")
-                   else f"data.base_path={base}", *TINY, *MEL_IV]
-                  + ([f"data.base_path={base}"] if argv[0] in ("eval", "calibrate") else []))
+    port_fails([*argv, "--device", "cpu", "--synthetic" if argv[0] in ("eval", "calibrate")
+               else f"data.base_path={base}", *TINY, *MEL_IV]
+              + ([f"data.base_path={base}"] if argv[0] in ("eval", "calibrate") else []),
+               ValueError, match)
     assert not (tmp_path / "a.pt2").exists()

@@ -38,6 +38,7 @@ from tests.test_torch_model import one_torch_thread  # noqa: F401 (autouse)
 from tests.test_torch_predict import _assert_same_decisions
 from tests.test_torch_stream import _logit_margin
 from tests.test_torch_tta import jax_and_port_checkpoints
+from tests.torch_cli_helpers import port_fails
 
 SR = 24_000
 WAIT = 60  # seconds: every join, wait and socket read
@@ -178,12 +179,11 @@ def test_served_int8_is_refused(ckpt, tmp_path, artifact):
     args = ["serve", "--checkpoint", str(ckpt), "--port", "0", "--device", "cpu",
             "--int8-calib-wavs", str(wav)]
     if artifact:
-        with pytest.raises(ValueError, match="--int8-calib-wavs does not compose with "
-                           "--artifact: int8 is baked at export time"):
-            port_main([*args, "--artifact", str(tmp_path / "a.pt2")])
+        port_fails([*args, "--artifact", str(tmp_path / "a.pt2")],
+                   ValueError, "--int8-calib-wavs does not compose with "
+                   "--artifact: int8 is baked at export time")
     else:
-        with pytest.raises(FileNotFoundError):
-            port_main(args)
+        port_fails(args, FileNotFoundError)
     shutil.rmtree(tmp_path, ignore_errors=True)
 
 

@@ -40,6 +40,7 @@ from seld_tpu_torch.train.steps import make_eval_step as make_port_eval_step
 from seld_tpu_torch.train.steps import make_train_step as make_port_train_step
 from seld_tpu_torch.train.trainer import train_model
 from tests.test_torch_model import one_torch_thread  # noqa: F401 (autouse)
+from tests.torch_cli_helpers import port_fails
 
 SMALL = dict(resnet_conf_d_model=32, resnet_conf_n_heads=2, resnet_conf_n_layers=1,
              compute_dtype="float32", resnet_dropout=0.0)
@@ -630,7 +631,7 @@ def test_cli_train_synthetic_on_the_cpu(tmp_path):
 
 @pytest.mark.parametrize("override", ["train.log_every_steps=5",
                                       "train.prng_impl=rbg", "mesh.shard_params=true",
-                                      "mesh.shard_opt_state=true", "train.profile_steps=3"])
+                                      "mesh.shard_opt_state=true", "features.use_pallas=false"])
 def test_override_of_an_unported_field_is_an_unknown_key(override):
     with pytest.raises(KeyError, match="unknown config field"):
         pc.parse_overrides(pc.Config(), [override])
@@ -644,8 +645,8 @@ def test_left_out_options_name_their_roadmap_item(override, synthetic, monkeypat
     monkeypatch.setenv("WORLD_SIZE", "2")
     args = ["train", "--device", "cpu", f"data.base_path={tmp_path}", override,
             "model.model_type=accdoa_conformer"]
-    with pytest.raises(NotImplementedError, match="ROADMAP item 10"):
-        port_main(args + (["--synthetic"] if synthetic else []))
+    port_fails(args + (["--synthetic"] if synthetic else []),
+               NotImplementedError, "ROADMAP item 10")
     assert not list(tmp_path.iterdir())
 
 
@@ -653,9 +654,9 @@ def test_distillation_under_a_mesh_names_its_roadmap_item(monkeypatch, tmp_path)
     """train.distill_ckpt under a process mesh of more than one rank raises
     naming ROADMAP item 10 before any corpus is built or file written."""
     monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 10"):
-        port_main(["train", "--synthetic", "--device", "cpu", f"data.base_path={tmp_path}",
-                   f"train.distill_ckpt={tmp_path / 'teacher'}"])
+    port_fails(["train", "--synthetic", "--device", "cpu", f"data.base_path={tmp_path}",
+               f"train.distill_ckpt={tmp_path / 'teacher'}"],
+               NotImplementedError, "ROADMAP item 10")
     assert not list(tmp_path.iterdir())
 
 

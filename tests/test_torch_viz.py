@@ -55,6 +55,7 @@ from seld_tpu_torch.train.checkpoint import save_checkpoint
 from seld_tpu_torch.train.trainer import check_mesh_config, train_model
 from tests.test_torch_model import one_torch_thread  # noqa: F401 (autouse)
 from tests.test_torch_predict import _randomize
+from tests.torch_cli_helpers import printed_json
 
 N_EL, N_AZ, M = 6, 12, 14
 NUMBER = re.compile(r"-?\d+(?:\.\d+)?(?:e[-+]?\d+)?|nan")
@@ -446,7 +447,7 @@ def test_cli_eval_num_visualizations(trained):
         with contextlib.redirect_stdout(printed):
             rc = port_main(["eval", "--synthetic", "--device", "cpu", "--num-visualizations",
                             str(n), "train.batch_size=4", *over])
-        assert rc == 0 and "visualizations" not in json.loads(printed.getvalue())
+        assert rc == 0 and "visualizations" not in printed_json(printed.getvalue())
         pngs = sorted(viz_dir.glob("*.png")) if viz_dir.exists() else []
         assert len(pngs) == n
         assert all(_pixels(p).ndim == 3 for p in pngs)
@@ -474,17 +475,15 @@ train, eval_ = json.loads(sys.argv[1]), json.loads(sys.argv[2])
 print("train rc", main(["train", "--synthetic", "--device", "cpu", *train]), flush=True)
 print("eval rc", main(["eval", "--synthetic", "--device", "cpu", "--num-visualizations", "0",
                        *eval_]), flush=True)
-try:
-    main(["eval", "--synthetic", "--device", "cpu", *eval_])
-except ModuleNotFoundError as e:
-    print("eval with PNGs:", e, flush=True)
+print("eval with PNGs rc", main(["eval", "--synthetic", "--device", "cpu", *eval_]), flush=True)
 """
 
 
 def test_without_matplotlib_training_goes_on_and_eval_names_it(tmp_path):
     """Where matplotlib is missing, `cli train` with a dashboard every epoch
     trains and warns for each figure, `cli eval --num-visualizations 0`
-    scores, and `cli eval` with PNGs raises the missing module."""
+    scores, and `cli eval` with PNGs fails (rc 1) naming the missing
+    module."""
     over = [o for o in TRAIN_RUN if o != "train.num_epochs=2"] + [
         "train.num_epochs=1", f"data.base_path={tmp_path}"]
     res = subprocess.run(
@@ -493,9 +492,12 @@ def test_without_matplotlib_training_goes_on_and_eval_names_it(tmp_path):
         cwd=Path(__file__).resolve().parents[1], capture_output=True, text=True, timeout=600)
     assert res.returncode == 0, res.stderr[-3000:]
     assert res.stdout.count("rc 0") == 2, res.stdout
-    assert "eval with PNGs: No module named 'matplotlib'" in res.stdout
-    assert "loss-component viz failed: No module named 'matplotlib'" in res.stderr
-    assert "loss-curve plot failed: No module named 'matplotlib'" in res.stderr
+    # the failing eval returns 1 and logs its exception (to standard output)
+    assert "eval with PNGs rc 1" in res.stdout
+    assert "eval failed" in res.stdout
+    assert "ModuleNotFoundError: No module named 'matplotlib'" in res.stdout
+    assert "loss-component viz failed: No module named 'matplotlib'" in res.stdout
+    assert "loss-curve plot failed: No module named 'matplotlib'" in res.stdout
     assert (tmp_path / "checkpoints" / "metrics.jsonl").exists()
     assert not list(tmp_path.rglob("*.png"))
     shutil.rmtree(tmp_path)

@@ -252,13 +252,34 @@ Phases, each of which raises on failure:
      multi_accdoa_conformer teacher distilling a multi_accdoa_conformer
      under `distill_track_matching` permutation and position (K2 never;
      the first step's permutation-invariant KD at most the slot-wise one).
-It prints the launch counts of phases 9, 10, 14, 15, 16, 17 and 18, one
+ 19. bf16 parameters (model.param_dtype=bfloat16) on the full-width
+     flagship at 20 s windows (T = 1000): a probe of what CUDA's
+     F.batch_norm and F.layer_norm take with bf16 weights, and the port's
+     norms with bf16 parameters equal to the same weights in float32 bit
+     for bit; ChainAdam's three steps on the card within 1 bf16 ulp of the
+     CPU's (the bit-equal share), its step on the flagship's parameters
+     timed beside torch.optim.Adam's in float32; `cli train --synthetic`
+     for one epoch (K1 3, K2 forward train + eval steps and backward train
+     steps, K3 forward / dQ / dK/dV 4 a step, exact); the rolling
+     checkpoint read back (bf16 parameters and Adam moments, float32
+     BatchNorm statistics, Adam's count) and its bytes beside the same file
+     with its bf16 tensors in float32; `--resume` for a second epoch (the
+     same counts, the count carried); `cli eval` (K2 forward and K3 4 an
+     eval step); a 60 s `cli predict` from the checkpoint, `cli export` of
+     it (K3's operator 4 times in the program), the artifact's `cli
+     predict` (K1 1, K3 4; its CSV equal to the checkpoint's byte for byte,
+     its class grid cell for cell) and `predict --int8`; the T = 1000
+     train step with float32 and with bf16 parameters (step ms, kernel time
+     by family, peak memory) and, for each, three `save_rolling` calls'
+     blocking ms beside their write ms and the file's bytes.
+It prints the launch counts of phases 9, 10, 14, 15, 16, 17, 18 and 19, one
 JSON line of kernel figures (each row's `launches_accdoa`: its launches on
 phase 14's paths; `launches_stream` and `launches_tta`: on phase 15's;
 `launches_served` and `launches_artifact` on K1, K3 forward and K4: on
 phase 16's; K3 forward's `host_us_operator`; `launches_int8` and
 `launches_qat` on K1, K2, K3 and K4: on phase 17's; `launches_distill` on
-K1, K2 and K3: on phase 18's; `launches_traced` on K2 and K3: counted by
+K1, K2 and K3: on phase 18's; `launches_param_dtype` on K1, K2 and K3: on
+phase 19's; `launches_traced` on K2 and K3: counted by
 name in phase 7's trace; `launches_import` on K1: phase 4's imported
 predicts), the seconds of the whole run, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. The CLI logs to standard output; before the
@@ -1841,7 +1862,7 @@ def phase_train(dev: torch.device, run_dir: Path) -> dict:
 
 
 def time_train_steps(dev: torch.device, cfg, tag: str = "[train]", qat: bool = False,
-                     distill=None, profile: bool = True) -> dict:
+                     distill=None, profile: bool = True, keep_state: bool = False) -> dict:
     """Wall time of cfg's train steps on seeded synthetic batches (host
     clock around a step that ends in a synchronize), K3's and K2's launches
     in one more step, and one step under torch.profiler (unless not
@@ -1850,7 +1871,7 @@ def time_train_steps(dev: torch.device, cfg, tag: str = "[train]", qat: bool = F
     (int8 fake-quant); distill (a DistillSpec) makes them distilling.
     Returns the losses of the timed steps, the metrics of the first, the
     median step ms, the peak device memory in GiB, those K3 counts and the
-    K2 counts."""
+    K2 counts, and with keep_state the train state under "state"."""
     from seld_tpu_torch.accdoa import ACCDOALossFn, ADPITLossFn
     from seld_tpu_torch.data.sampler import BatchIterator, place_batch
     from seld_tpu_torch.data.synthetic import synthetic_corpus
@@ -1921,7 +1942,7 @@ def time_train_steps(dev: torch.device, cfg, tag: str = "[train]", qat: bool = F
         profile_call("train step" if tag == "[train]" else f"{what} train step",
                      lambda: step(state, mel, mask, em, (0, 1)), step_ms)
     return {"losses": losses, "first": first, "step_ms": step_ms, "peak_gib": peak_gib,
-            "k3": k3, "k2": k2}
+            "k3": k3, "k2": k2, **({"state": state} if keep_state else {})}
 
 
 def phase_long_window(dev: torch.device) -> dict:
@@ -4772,6 +4793,316 @@ def phase_distill(dev: torch.device, flagship_run: Path) -> dict:
     return found
 
 
+def probe_norms_with_bf16_weights(dev: torch.device) -> dict:
+    """What CUDA's F.batch_norm and F.layer_norm take with bf16 weights: a
+    float32 input and a bf16 one, each call made once. The layers do not
+    depend on the answer (models/layers.py casts the weights explicitly:
+    BatchNorm to float32, LayerNorm to the input's dtype); the probe
+    records it, and the layers' own outputs with bf16 parameters must equal
+    those of the same weights held in float32."""
+    import torch.nn.functional as F
+
+    from seld_tpu_torch.models.layers import BatchNorm, LayerNorm
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn((4, 16, 50, 8), device=dev, generator=gen)
+    w = torch.rand(16, device=dev, generator=gen).bfloat16() + 0.5
+    b = torch.randn(16, device=dev, generator=gen).bfloat16()
+    stats = (torch.zeros(16, device=dev), torch.ones(16, device=dev))
+    found = {}
+    probes = {
+        "batch_norm float32 x": lambda: F.batch_norm(x, *stats, w, b, training=False),
+        "batch_norm bf16 x": lambda: F.batch_norm(x.bfloat16(), *stats, w, b, training=False),
+        "layer_norm float32 x": lambda: F.layer_norm(x, (8,), w[:8], b[:8]),
+        "layer_norm bf16 x": lambda: F.layer_norm(x.bfloat16(), (8,), w[:8], b[:8]),
+    }
+    for name, call in probes.items():
+        try:  # a probe of the library, not a path of the port: any refusal is its answer
+            call()
+            torch.cuda.synchronize()
+            found[name] = "accepted"
+        except Exception as e:
+            found[name] = f"rejected ({type(e).__name__}: {str(e).splitlines()[0][:90]})"
+    for norm_dtype in (torch.float32, torch.bfloat16):
+        for train in (False, True):
+            bn16 = BatchNorm(16, norm_dtype).to(dev).train(train)
+            bn32 = BatchNorm(16, norm_dtype).to(dev).train(train)
+            ln16, ln32 = LayerNorm(8, norm_dtype).to(dev), LayerNorm(8, norm_dtype).to(dev)
+            for m16, m32, n in ((bn16, bn32, 16), (ln16, ln32, 8)):
+                m16.weight = torch.nn.Parameter(w[:n].clone())
+                m16.bias = torch.nn.Parameter(b[:n].clone())
+                m32.weight = torch.nn.Parameter(w[:n].float())
+                m32.bias = torch.nn.Parameter(b[:n].float())
+            with torch.no_grad():
+                for xin in (x, x.bfloat16()):
+                    if not (torch.equal(bn16(xin), bn32(xin)) and torch.equal(bn16.running_var,
+                                                                              bn32.running_var)):
+                        raise AssertionError(f"BatchNorm with bf16 parameters differs from float32 "
+                                             f"ones ({norm_dtype}, train {train}, {xin.dtype} x)")
+                    if not torch.equal(ln16(xin), ln32(xin)):
+                        raise AssertionError(f"LayerNorm with bf16 parameters differs "
+                                             f"({norm_dtype}, {xin.dtype} x)")
+    print(f"[param_dtype] probe of CUDA's norms with bf16 weights: {json.dumps(found)}; the "
+          f"port's BatchNorm (weights cast to float32) and LayerNorm (weights in the input's "
+          f"dtype) with bf16 parameters equal the same weights in float32, bit for bit")
+    return found
+
+
+def chain_adam_card_against_cpu(dev: torch.device) -> dict:
+    """ChainAdam's three steps on the card against the same steps on the
+    CPU (where tests/test_torch_param_dtype.py holds it bit-equal to optax):
+    every entry within 1 bf16 ulp; the bit-equal share, and the step's ms on
+    the flagship's 59.67 M bf16 parameters in its tensors' shapes."""
+    from seld_tpu_torch.config import Config, parse_overrides
+    from seld_tpu_torch.models import build_model
+    from seld_tpu_torch.train.optimizer import ChainAdam, make_optimizer
+
+    def ordered(t):
+        i = t.view(torch.int16).int() & 0xFFFF
+        return torch.where(i >= 0x8000, -(i & 0x7FFF), i)
+
+    gen = torch.Generator().manual_seed(0)
+    shapes = [(512, 2048), (2048,), (64, 4, 3, 3), (1000,)]
+    p_cpu = [torch.nn.Parameter((torch.randn(s, generator=gen) * 0.05).bfloat16()) for s in shapes]
+    p_dev = [torch.nn.Parameter(p.detach().to(dev)) for p in p_cpu]
+    opts = [make_optimizer(p_cpu, 1e-3, 1e-4), make_optimizer(p_dev, 1e-3, 1e-4)]
+    if not all(isinstance(o, ChainAdam) for o in opts):
+        raise AssertionError("bf16 parameters did not get ChainAdam")
+    for _ in range(3):
+        for a, b in zip(p_cpu, p_dev):
+            g = (torch.randn(a.shape, generator=gen)
+                 * 10.0 ** torch.empty(a.shape).uniform_(-6, 0, generator=gen)).bfloat16()
+            a.grad, b.grad = g, g.to(dev)
+        for o in opts:
+            o.step()
+    torch.cuda.synchronize()
+    worst, equal, total = 0, 0, 0
+    for a, b in zip(p_cpu, p_dev):
+        d = (ordered(a.detach()) - ordered(b.detach().cpu())).abs()
+        worst = max(worst, int(d.max()))
+        equal, total = equal + int((d == 0).sum()), total + d.numel()
+    if worst > 1:
+        raise AssertionError(f"ChainAdam on the card is {worst} bf16 ulps from the CPU's")
+    step_ms = {}
+    for dtype in ("bfloat16", "float32"):  # ChainAdam, then torch.optim.Adam
+        cfg = parse_overrides(Config(), [f"model.param_dtype={dtype}"])
+        model = build_model(cfg.model, cfg.grid, device=dev, seed=0)
+        opt = make_optimizer(model.parameters(), 1e-3, 1e-4)
+        for p in model.parameters():
+            p.grad = torch.full_like(p, 1e-3)
+        step_ms[dtype] = cuda_ms(opt.step, iters=10, warmup=2)
+        n_params, n_tensors = sum(p.numel() for p in model.parameters()), len(opt.state)
+        del model, opt
+    print(f"[param_dtype] ChainAdam (optax's chain in bf16) on the card against the CPU over 3 "
+          f"steps: {equal} of {total} entries bit-equal, the rest within {worst} ulp; one step "
+          f"of the flagship's {n_params:,} parameters in {n_tensors} tensors: ChainAdam bf16 "
+          f"{step_ms['bfloat16']:.3f} ms, torch.optim.Adam float32 {step_ms['float32']:.3f} ms")
+    return {"bit_equal": equal, "entries": total, "worst_ulp": worst,
+            "chain_adam_bf16_step_ms": step_ms["bfloat16"],
+            "adam_float32_step_ms": step_ms["float32"]}
+
+
+def phase_param_dtype(dev: torch.device) -> dict:
+    """19. model.param_dtype=bfloat16 on the full-width flagship at T = 1000:
+    the norm probe, ChainAdam on the card against the CPU, `cli train
+    --synthetic` one epoch (exact K1, K2 and K3 counts), the checkpoint's
+    dtypes and bytes (beside the same file with its bf16 tensors in
+    float32), `--resume` for one more epoch, `cli eval`, a 60 s `cli
+    predict`, `cli export` and the artifact's predict equal to the
+    checkpoint's (K3's operator 4 times in the program), `predict --int8`;
+    then the T = 1000 train step with bf16 and with float32 parameters
+    (step ms, kernel time by family, peak memory) and a save_rolling's
+    blocking time beside its write. Returns the launches of each path."""
+    from seld_tpu_torch import cli
+    from seld_tpu_torch.config import Config, parse_overrides
+    from seld_tpu_torch.data.audio import write_wav
+    from seld_tpu_torch.infer import SELDPredictor
+    from seld_tpu_torch.train.checkpoint import CheckpointManager
+
+    t_phase = time.perf_counter()
+    steps = {}
+    probe_norms_with_bf16_weights(dev)
+    adam = chain_adam_card_against_cpu(dev)
+    steps["probes"] = time.perf_counter() - t_phase
+    bf16 = ["model.param_dtype=bfloat16"]
+    long = [f"window.window_seconds={LONG_WINDOW_SECONDS}"]
+    cfg = parse_overrides(Config(), [*long, *bf16])
+    blocks = cfg.model.resnet_conf_n_layers
+    fps = cfg.features.sample_rate // cfg.features.hop_length
+    hop = cfg.window.hop_frames(cfg.features)
+    train_steps = -(-(2 * 30 * fps // hop) // cfg.train.batch_size)
+    eval_steps = -(-(20 * fps // hop) // cfg.train.batch_size)
+    found = {}
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        run = [f"data.base_path={tmp}", *long, *bf16, "train.save_every_n_epochs=1"]
+        t0 = time.perf_counter()
+        reset_launches()
+        if cli.main(["train", "--synthetic", *run, "train.num_epochs=1"]) != 0:
+            raise AssertionError("cli train with bf16 parameters failed")
+        found["cli train"] = launches()
+        want = only(k1=3, k2_fwd=train_steps + eval_steps, k2_bwd=train_steps,
+                    k3_fwd=(train_steps + eval_steps) * blocks, k3_dq=train_steps * blocks,
+                    k3_dkv=train_steps * blocks)
+        if found["cli train"] != want:
+            raise AssertionError(f"bf16-parameter cli train: launches {found['cli train']}, "
+                                 f"expected {want}")
+        work = Path(tmp) / "checkpoints"
+        rolling = work / "rolling" / "epoch_0001.pt"
+        blob = torch.load(rolling, map_location="cpu", weights_only=True)
+        sd, opt_state = blob["state_dict"], blob["optimizer"]["state"]
+        dtypes = {("stat" if "running_" in k else "param", str(v.dtype)) for k, v in sd.items()}
+        moments = {str(s[k].dtype) for s in opt_state.values() for k in ("mu", "nu")}
+        counts = {s["step"] for s in opt_state.values()}
+        if (dtypes != {("param", "torch.bfloat16"), ("stat", "torch.float32")}
+                or moments != {"torch.bfloat16"} or counts != {train_steps}):
+            raise AssertionError(f"bf16 checkpoint: dtypes {dtypes}, moments {moments}, "
+                                 f"Adam counts {counts}")
+        as_f32 = {**blob, "state_dict": {k: v.float() for k, v in sd.items()},
+                  "optimizer": {**blob["optimizer"], "state": {
+                      i: {k: (v.float() if torch.is_tensor(v) else v) for k, v in s.items()}
+                      for i, s in opt_state.items()}}}
+        torch.save(as_f32, Path(tmp) / "as_float32.pt")
+        ckpt_bytes = rolling.stat().st_size
+        f32_bytes = (Path(tmp) / "as_float32.pt").stat().st_size
+        records = [json.loads(x) for x in (work / "metrics.jsonl").read_text().splitlines()]
+        print(f"[param_dtype] cli train --synthetic model.param_dtype=bfloat16 at T = "
+              f"{cfg.window.window_frames(cfg.features)}, 1 epoch of {train_steps} train + "
+              f"{eval_steps} eval steps in {time.perf_counter() - t0:.1f} s: launches "
+              f"{json.dumps(found['cli train'])}; train loss {records[0]['train']['loss']:.6f}, "
+              f"test {records[0]['test']['loss']:.6f}; the rolling checkpoint holds bf16 "
+              f"parameters and Adam moments, float32 BatchNorm statistics, Adam count "
+              f"{train_steps}: {ckpt_bytes:,} bytes against {f32_bytes:,} for the same file with "
+              f"its bf16 tensors in float32 ({ckpt_bytes / f32_bytes:.3f}x)")
+        steps["cli train"] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        reset_launches()
+        if cli.main(["train", "--resume", "--synthetic", *run, "train.num_epochs=2"]) != 0:
+            raise AssertionError("cli train --resume with bf16 parameters failed")
+        found["cli train --resume"] = launches()
+        resumed = torch.load(work / "rolling" / "epoch_0002.pt", map_location="cpu",
+                             weights_only=True)
+        records = [json.loads(x) for x in (work / "metrics.jsonl").read_text().splitlines()]
+        if (found["cli train --resume"] != want or [r["epoch"] for r in records] != [1, 2]
+                or {s["step"] for s in resumed["optimizer"]["state"].values()}
+                != {2 * train_steps} or resumed["step"] != 2 * train_steps):
+            raise AssertionError(f"bf16 resume: launches {found['cli train --resume']}, "
+                                 f"records {records}, step {resumed['step']}")
+        print(f"[param_dtype] cli train --resume: epoch 2 from the bf16 rolling checkpoint in "
+              f"{time.perf_counter() - t0:.1f} s, launches "
+              f"{json.dumps(found['cli train --resume'])}, step and Adam count "
+              f"{resumed['step']}; train loss "
+              f"{records[1]['train']['loss']:.6f}")
+        steps["resume"] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        reset_launches()
+        report = cli_json(["eval", "--synthetic", "--num-visualizations", "0", *run])
+        found["cli eval"] = launches()
+        if (found["cli eval"]["k2_fwd"] != eval_steps or found["cli eval"]["k2_bwd"] != 0
+                or found["cli eval"]["k3_fwd"] != eval_steps * blocks
+                or not math.isfinite(report["test_loss"])):
+            raise AssertionError(f"bf16 cli eval: launches {found['cli eval']}, report "
+                                 f"{sorted(report)}")
+        print(f"[param_dtype] cli eval: checkpoint epoch {report['checkpoint_epoch']}, test "
+              f"loss {report['test_loss']:.6f}, SELD_error "
+              f"{report['dcase2022']['SELD_error']:.4f}; launches {json.dumps(found['cli eval'])}"
+              f" in {time.perf_counter() - t0:.1f} s")
+        steps["eval"] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        sr = cfg.features.sample_rate
+        wave = (0.1 * np.random.default_rng(3).standard_normal((4, CLIP_SECONDS * sr))
+                ).astype(np.float32)
+        wav = Path(tmp) / "clip.wav"
+        write_wav(wav, wave, sr)
+        best = sorted((work / "best").glob("epoch_*.pt"))[-1]
+        forwards = -(-(-(-(1 + CLIP_SECONDS * fps) // cfg.window.window_frames(cfg.features)))
+                     // 8)
+        want_predict = only(k1=1, k3_fwd=forwards * blocks)
+        outs = {}
+        for name, argv in (("checkpoint", ["--checkpoint", str(best)]),
+                           ("artifact", ["--artifact", str(Path(tmp) / "a.pt2")]),
+                           ("int8", ["--checkpoint", str(best), "--int8"])):
+            if name == "artifact":
+                te = time.perf_counter()
+                if cli.main(["export", "--checkpoint", str(best), "--out",
+                             str(Path(tmp) / "a.pt2")]) != 0:
+                    raise AssertionError("cli export of the bf16 checkpoint failed")
+                ops = program_ops(Path(tmp) / "a.pt2")
+                if ops != blocks:
+                    raise AssertionError(f"the bf16 artifact's program holds K3's operator "
+                                         f"{ops} times, expected {blocks}")
+                print(f"[param_dtype] cli export of the bf16 checkpoint in "
+                      f"{time.perf_counter() - te:.1f} s: K3's operator {ops} times in the "
+                      f"program; {(Path(tmp) / 'a.pt2').stat().st_size:,} bytes")
+            reset_launches()
+            tp = time.perf_counter()
+            if cli.main(["predict", *argv, "--out", str(Path(tmp) / name), "--wavs",
+                         str(wav)]) != 0:
+                raise AssertionError(f"cli predict from the bf16 {name} failed")
+            found[f"cli predict {name}"] = launches()
+            outs[name] = (Path(tmp) / name / "predictions" / "clip.csv").read_text()
+            if name != "int8" and found[f"cli predict {name}"] != want_predict:
+                raise AssertionError(f"bf16 predict from the {name}: launches "
+                                     f"{found[f'cli predict {name}']}, expected {want_predict}")
+            print(f"[param_dtype] cli predict --{' --'.join(a[2:] for a in argv if a[:2] == '--')}"
+                  f" of the {CLIP_SECONDS} s clip in {time.perf_counter() - tp:.1f} s: "
+                  f"{len(outs[name].splitlines())} CSV lines, launches "
+                  f"{json.dumps(found[f'cli predict {name}'])}")
+        if outs["artifact"] != outs["checkpoint"]:
+            raise AssertionError("the bf16 artifact's CSV differs from the checkpoint's")
+        if found["cli predict int8"]["k1"] < 1:
+            raise AssertionError(f"bf16 predict --int8: {found['cli predict int8']}")
+        # the class grids themselves (a trained model's CSV may list few events)
+        live = SELDPredictor(best, device=dev).predict_waveform(wave).classes
+        art = SELDPredictor.from_artifact(Path(tmp) / "a.pt2", device=dev).predict_waveform(
+            wave).classes
+        if not np.array_equal(live, art):
+            raise AssertionError("the bf16 artifact's class grid differs from the checkpoint's")
+        print(f"[param_dtype] the artifact's CSV equals the checkpoint's byte for byte, and its "
+              f"class grid {live.shape} the checkpoint predictor's cell for cell "
+              f"({int((live != cfg.grid.num_classes - 1).sum())} non-background cells)")
+        steps["predict, export, int8"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    timings = {}
+    for name, overrides in (("float32 parameters", []), ("bf16 parameters", bf16)):
+        tcfg = parse_overrides(Config(), [*long, *overrides])
+        timed = time_train_steps(dev, tcfg, tag=f"[param_dtype {name}]", keep_state=True)
+        if timed["k3"] != {"k3_fwd": blocks, "k3_dq": blocks, "k3_dkv": blocks} or not all(
+                math.isfinite(x) for x in timed["losses"]):
+            raise AssertionError(f"T = 1000 step with {name}: K3 {timed['k3']}, losses "
+                                 f"{timed['losses']}")
+        with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+            mgr = CheckpointManager(tmp, tcfg)
+            saves = []
+            for epoch in (1, 2, 3):
+                torch.cuda.synchronize()
+                ts = time.perf_counter()
+                mgr.save_rolling(epoch, timed["state"], 0.0, 0.0)
+                blocked = (time.perf_counter() - ts) * 1e3
+                mgr.wait()
+                saves.append((blocked, (time.perf_counter() - ts) * 1e3))
+            size = sorted(Path(tmp, "rolling").glob("epoch_*.pt"))[-1].stat().st_size
+            mgr.close()
+        timings[name] = {"step_ms": timed["step_ms"], "peak_gib": timed["peak_gib"],
+                         "save_blocking_ms": [b for b, _ in saves],
+                         "save_total_ms": [w for _, w in saves], "bytes": size}
+        print(f"[param_dtype] {name}: step {timed['step_ms']:.2f} ms, peak device memory "
+              f"{timed['peak_gib']:.2f} GiB; save_rolling of the state (model and Adam "
+              f"moments, {size:,} bytes) blocked the caller "
+              f"{', '.join(f'{b:.1f}' for b, _ in saves)} ms, written and renamed after "
+              f"{', '.join(f'{w:.1f}' for _, w in saves)} ms")
+        del timed
+    steps["timed steps and saves"] = time.perf_counter() - t0
+    found["timings"] = {**timings, "chain_adam": adam}
+    print(f"[param_dtype] phase 19 took {time.perf_counter() - t_phase:.1f} s "
+          f"({', '.join(f'{k} {v:.1f} s' for k, v in steps.items())})")
+    return found
+
+
 # phase -> the phases whose results it takes (main runs a selection's
 # dependencies too; 1 and 2, the device and the build, always run)
 PHASE_NEEDS = {13: {7}, 14: {6}, 18: {6}}
@@ -4780,14 +5111,14 @@ PHASE_NEEDS = {13: {7}, 14: {6}, 18: {6}}
 def selected_phases(argv: list[str]) -> set[int]:
     """--phases 1,7,...: those phases and what they need; every phase
     without the option."""
-    every = set(range(1, 19))
+    every = set(range(1, 20))
     if not argv:
         return every
     if len(argv) != 2 or argv[0] != "--phases":
         raise SystemExit("usage: chip_smoke.py [--phases N,M,...]")
     chosen = {int(x) for x in argv[1].split(",") if x.strip()} | {1, 2}
     if not chosen <= every:
-        raise SystemExit(f"no phase {sorted(chosen - every)}; phases are 1-18")
+        raise SystemExit(f"no phase {sorted(chosen - every)}; phases are 1-19")
     for n in sorted(chosen, reverse=True):
         chosen |= PHASE_NEEDS.get(n, set())
     return chosen
@@ -4918,6 +5249,14 @@ def main(argv: list[str]) -> int:
                          *zip(k3_rows, ("k3_fwd", "k3_dq", "k3_dkv")), (k4_rows[0], "k4")):
             row["launches_int8"] = {p: c[key] for p, c in int8.items() if key in c}
             row["launches_qat"] = {p: c[key] for p, c in qat.items() if key in c}
+    if 19 in phases:
+        param_dtype = phase_param_dtype(dev)
+        timings = param_dtype.pop("timings")
+        print(f"[paths] launches on the bf16-parameter paths: {json.dumps(param_dtype)}")
+        print(f"[param_dtype] timings {json.dumps(timings)}")
+        for row, key in ((k1, "k1"), (k2_fwd, "k2_fwd"), (k2_bwd, "k2_bwd"),
+                         *zip(k3_rows, ("k3_fwd", "k3_dq", "k3_dkv"))):
+            row["launches_param_dtype"] = {p: c[key] for p, c in param_dtype.items()}
     quiesce()
     print(f"[time] phases {','.join(map(str, sorted(phases)))}: "
           f"{time.perf_counter() - t_start:.1f} s in all, the build included")

@@ -390,7 +390,7 @@ def cmd_train(args) -> int:
     from seld_tpu_torch import resolve_device
     from seld_tpu_torch.config import Config, parse_overrides
     from seld_tpu_torch.parallel.multihost import launched_world_size
-    from seld_tpu_torch.train.trainer import check_mesh_config, train_model
+    from seld_tpu_torch.train.trainer import check_mesh_config, check_param_dtype, train_model
 
     device = resolve_device(args.device)
     cfg = _normalize_config(parse_overrides(Config(), args.overrides))
@@ -399,7 +399,8 @@ def cmd_train(args) -> int:
         raise NotImplementedError(
             "train --eval-after under a process mesh is not ported (evaluation under a "
             "mesh is ROADMAP item 10's remainder)")
-    check_mesh_config(cfg, cfg.window.window_frames(cfg.features))  # before any corpus
+    check_param_dtype(cfg)  # before any corpus
+    check_mesh_config(cfg, cfg.window.window_frames(cfg.features))
     train_c, test_c = _build_corpora(cfg, args.synthetic, device)
     try:
         _, history = train_model(cfg, train_c, test_c, workdir=cfg.data.checkpoint_path,
@@ -603,8 +604,9 @@ def cmd_import_torch(args) -> int:
     is_dict = isinstance(ckpt, dict)
     epoch = int(ckpt.get("epoch", 0)) if is_dict else 0
     test_loss = float(ckpt.get("test_loss", float("inf"))) if is_dict else float("inf")
-    path = CheckpointManager(cfg.data.checkpoint_path, cfg).save_best(
-        max(epoch, 1), state, float("nan"), test_loss)
+    mgr = CheckpointManager(cfg.data.checkpoint_path, cfg)
+    path = mgr.save_best(max(epoch, 1), state, float("nan"), test_loss)
+    mgr.close()
     logger.info("Imported %s (%s) -> %s", args.torch_checkpoint, cfg.model.model_type, path)
     return 0
 

@@ -76,7 +76,12 @@ class FeatureConfig:
     n_mels: int = 64
     f_min: float = 0.0
     f_max: float | None = None  # None means sample_rate / 2
+    # power, top_db and use_pallas are the JAX package's fields, which
+    # nothing there reads either: accepted, so that its override files parse
+    power: float = 2.0
     amin: float = 1e-10
+    top_db: float | None = None
+    use_pallas: bool = True
     # "mel" (4 log-mel channels, kernel K1), "mel_iv" (+ 3 FOA intensity
     # vectors) or "mel_gcc" (+ 6 GCC-PHAT pairs), both through kernel K4.
     feature_set: str = "mel"
@@ -138,6 +143,7 @@ class TargetConfig:
     sigma_azimuth: float = 5.0
     sigma_elevation: float = 5.0
     augmentation_seed: int = 0
+    max_rows_per_chunk: int = 4096  # the JAX package's field; nothing reads it
     accdoa: bool = False
     accdoa_tracks: int = 1
 
@@ -177,7 +183,8 @@ class ModelConfig:
     # CSPDarkNet ("cnn"): depth and width multiples (0.33, 0.5) when small
     csp_use_small: bool = True
 
-    # Parameters in float32; convolutions and linears in compute_dtype; the
+    # Parameters in param_dtype ("float32" or "bfloat16"; BatchNorm's running
+    # statistics stay float32); convolutions and linears in compute_dtype; the
     # attention softmax and the logits in float32. Norms reduce their
     # statistics and normalise in float32 and return norm_dtype: "bfloat16"
     # halves the bytes every norm writes (no float32 copy of the activation).
@@ -269,6 +276,7 @@ class TrainConfig:
     # scene transforms, applied to features and labels inside the train
     # step. Needs features.feature_set="mel_iv".
     acs_augment: bool = False
+    log_every_steps: int = 10  # the JAX package's field; nothing reads it
     # torch.profiler trace of steps 1..N of the first epoch (0 = off) as a
     # Chrome-trace JSON under <output>/profile; read it back with
     # `python -m seld_tpu_torch.tools.profile_summary <output>/profile`.

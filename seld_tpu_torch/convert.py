@@ -23,6 +23,12 @@ as seld_tpu/tools/torch_import.py maps them).
 Every leaf the model needs must be present, and every leaf given must be
 used: a missing or unknown key raises KeyError.
 
+Dtypes: a bf16 leaf (a numpy array whose dtype is named "bfloat16", as
+jax.device_get gives for model.param_dtype=bfloat16) arrives bf16 bit for
+bit, read through its uint16 view; a float32 `params` leaf converted for a
+config with param_dtype "bfloat16" is rounded to bf16 to nearest even, as
+astype rounds; every other leaf (batch_stats always) is float32.
+
 `quant_tree_from_jax` carries a seld_tpu int8 quant tree ({JAX module
 path: {"w_q", "s_w", "s_x", "bias"}}, seld_tpu/quant.py) across the same
 way: w_q by the layer's kernel layout, a logits head's (M, G) scales and
@@ -206,6 +212,16 @@ def _convert(take, kind: str) -> dict[str, np.ndarray]:
     raise ValueError(f"unknown layer kind {kind!r}")
 
 
+def _tensor(value: np.ndarray, round_to_bf16: bool) -> torch.Tensor:
+    """A leaf as a writable CPU tensor: bf16 bit for bit, float32 otherwise
+    (rounded to bf16 when asked)."""
+    if value.dtype.name == "bfloat16":
+        bits = np.array(value, order="C").view(np.uint16)  # a copy, then its bits
+        return torch.from_numpy(bits).view(torch.bfloat16)
+    t = torch.from_numpy(np.array(value, dtype=np.float32, order="C"))
+    return t.to(torch.bfloat16) if round_to_bf16 else t
+
+
 def state_dict_from_jax(variables_np: Mapping, model_cfg: ModelConfig) -> dict[str, torch.Tensor]:
     """seld_tpu variables (numpy leaves) -> seld_tpu_torch state_dict."""
     if model_cfg.model_type not in _LAYERS:
@@ -213,6 +229,7 @@ def state_dict_from_jax(variables_np: Mapping, model_cfg: ModelConfig) -> dict[s
             f"no converter for model_type {model_cfg.model_type!r} yet"
         )
     leaves = _flatten(variables_np)
+    bf16_params = model_cfg.param_dtype == "bfloat16"
     state = {}
     for jax_path, port_name, kind in _LAYERS[model_cfg.model_type](model_cfg):
         def take(collection, leaf, _path=jax_path):
@@ -222,9 +239,8 @@ def state_dict_from_jax(variables_np: Mapping, model_cfg: ModelConfig) -> dict[s
             return leaves.pop(key)
 
         for leaf, value in _convert(take, kind).items():
-            state[f"{port_name}.{leaf}"] = torch.from_numpy(
-                np.array(value, dtype=np.float32, order="C")  # a writable copy
-            )
+            state[f"{port_name}.{leaf}"] = _tensor(
+                value, bf16_params and not leaf.startswith("running_"))
     if leaves:
         raise KeyError(f"JAX variables the port does not know: {sorted(leaves)[:5]}")
     return state

@@ -22,8 +22,13 @@ generator like every other Dropout (nn.GRU's own dropout would draw from
 the global one). The recurrence runs in float32 whatever the compute
 dtype, with its float32 parameters as they are: cuDNN's GRU does take bf16
 on the H100, but that needs a bf16 copy of the weights on every call, and
-flax's cell keeps its carry in float32 too. The encoder's bf16 output is
-read as float32, and the GRU's output is cast back to the compute dtype.
+flax's cell keeps its carry in float32 too. With bf16 parameters
+(model.param_dtype=bfloat16, bf16 compute only: models.registry refuses
+float32 compute, as flax's scan does) the recurrence stays float32 over
+exact float32 copies of the weights, made per call (`_run_gru`); the
+gradient reaches the bf16 parameters through the copies. The encoder's
+output is read as float32, and the GRU's output is cast back to the
+compute dtype.
 """
 
 from __future__ import annotations
@@ -36,6 +41,17 @@ from torch import nn
 
 from seld_tpu_torch import no_tf32
 from seld_tpu_torch.models.layers import CNNEncoder, Dropout, DropoutSeeding, GridHead
+
+
+def _run_gru(gru: nn.GRU, x: torch.Tensor) -> torch.Tensor:
+    """gru(x)'s output in float32: the module itself for float32 weights,
+    else the same single-layer bidirectional GRU on float32 copies of its
+    weights (torch._VF.gru, the call nn.GRU.forward makes)."""
+    if gru.weight_ih_l0.dtype == torch.float32:
+        return gru(x)[0]
+    h0 = x.new_zeros((2, x.shape[0], gru.hidden_size))
+    weights = [w.float() for w in gru._flat_weights]
+    return torch._VF.gru(x, h0, weights, True, 1, 0.0, gru.training, True, True)[0]
 
 
 def _zero_rz_rows(hidden: int, grad: torch.Tensor) -> torch.Tensor:
@@ -79,7 +95,7 @@ class BiGRU(nn.Module):
                     bias.register_hook(functools.partial(_zero_rz_rows, self.hidden))
         x = x.float()
         for i, gru in enumerate(self.layers):
-            x, _ = gru(x)
+            x = _run_gru(gru, x)
             if i < len(self.drops):
                 x = self.drops[i](x)
         return x.to(self.compute_dtype)

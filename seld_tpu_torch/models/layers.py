@@ -1,11 +1,15 @@
 """Building blocks of the grid backbones (counterpart:
 seld_tpu/models/layers.py).
 
-Dtype policy, as in the JAX package: parameters are float32; convolutions
-and linears cast their input and weights to the compute dtype; BatchNorm
-and LayerNorm compute in float32 against float32 weights and statistics
-and return their `norm_dtype` (float32 by default), and the caller casts
-back to the compute dtype where the JAX module does. With norm_dtype
+Dtype policy, as in the JAX package: parameters are in the model's
+param_dtype (float32, or bfloat16 built by models.registry), BatchNorm's
+running statistics always float32; convolutions and linears cast their
+input and weights to the compute dtype (a no-op for bf16 weights in bf16,
+an exact upcast of bf16 weights to float32, as flax promotes); BatchNorm
+and LayerNorm compute in float32 against float32 weights (a bf16 scale and
+bias upcast exactly, as flax's normalisation promotes them) and float32
+statistics and return their `norm_dtype` (float32 by default), and the
+caller casts back to the compute dtype where the JAX module does. With norm_dtype
 bfloat16 a norm reads a bf16 input as it is and writes bf16, as flax's
 `_normalize` does (float32 arithmetic inside, the result cast): no float32
 copy of the activation is written. Spatial tensors are NCHW, sequence
@@ -151,7 +155,9 @@ class LayerNorm(nn.LayerNorm):
     """LayerNorm over the last axis, computed in float32, returning
     `norm_dtype`.
 
-    A bf16 norm hands F.layer_norm its weights cast to bf16: CUDA's
+    F.layer_norm takes its weights in the input's dtype: bf16 parameters
+    are upcast exactly for a float32 input. A bf16 norm hands F.layer_norm
+    its weights cast to bf16: CUDA's
     layer_norm raises for a bf16 input with float32 weights (torch 2.11 on
     the H100), and one code path serves both devices. The statistics, the
     normalisation and the affine still run in float32 inside the kernel;
@@ -210,7 +216,8 @@ def _global_mask(x: torch.Tensor, p_keep: float, generator: torch.Generator) -> 
 
 class BatchNorm(nn.Module):
     """BatchNorm over axis 1, computed in float32 against float32 weights
-    and statistics, returning `norm_dtype` (F.batch_norm takes a bf16
+    (bf16 parameters are upcast for the call) and statistics, returning
+    `norm_dtype` (F.batch_norm takes a bf16
     input with float32 weights and statistics on the CPU and on CUDA, and
     writes bf16). In train mode it normalises by the batch's mean and
     biased variance and moves the float32 running statistics toward them by
@@ -230,17 +237,21 @@ class BatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = _norm_input(x, self.norm_dtype)
+        # float32 weights whatever the parameter dtype, so that F.batch_norm
+        # takes the same path for bf16 parameters (.float() is the identity
+        # on float32 ones)
+        weight, bias = self.weight.float(), self.bias.float()
         if not self.training:
-            return F.batch_norm(x, self.running_mean, self.running_var, self.weight,
-                                self.bias, training=False, eps=BN_EPS).to(self.norm_dtype)
+            return F.batch_norm(x, self.running_mean, self.running_var, weight,
+                                bias, training=False, eps=BN_EPS).to(self.norm_dtype)
         if world_mesh() is not None:
-            return self._global_batch_norm(x, world_mesh())
+            return self._global_batch_norm(x, world_mesh(), weight, bias)
         # F.batch_norm writes momentum * (batch mean, unbiased batch variance)
         # into zeroed buffers (autograd saves them, so the module's own
         # statistics are updated apart); unbiased -> biased is (n - 1) / n
         n = x.numel() // x.shape[1]
         mean_step, var_step = torch.zeros((2, x.shape[1]), device=x.device).unbind(0)
-        out = F.batch_norm(x, mean_step, var_step, self.weight, self.bias,
+        out = F.batch_norm(x, mean_step, var_step, weight, bias,
                            training=True, momentum=BN_MOMENTUM, eps=BN_EPS)
         if self.update_stats:
             with torch.no_grad():
@@ -248,7 +259,8 @@ class BatchNorm(nn.Module):
                 self.running_var.mul_(1.0 - BN_MOMENTUM).add_(var_step, alpha=(n - 1) / n)
         return out.to(self.norm_dtype)
 
-    def _global_batch_norm(self, x: torch.Tensor, mesh) -> torch.Tensor:
+    def _global_batch_norm(self, x: torch.Tensor, mesh, weight: torch.Tensor,
+                           bias: torch.Tensor) -> torch.Tensor:
         """Train mode over every rank's rows: the mean, then the biased
         variance as the mean squared deviation from it (two passes, as
         F.batch_norm computes it on one device), each a sum all-reduced over
@@ -261,8 +273,8 @@ class BatchNorm(nn.Module):
         mean = all_reduce_sum(xf.sum(dim=dims)) / count
         centred = xf - mean.view(shape)
         var = all_reduce_sum(centred.square().sum(dim=dims)) / count
-        out = centred * torch.rsqrt(var + BN_EPS).view(shape) * self.weight.view(shape) \
-            + self.bias.view(shape)
+        out = centred * torch.rsqrt(var + BN_EPS).view(shape) * weight.view(shape) \
+            + bias.view(shape)
         if self.update_stats:
             with torch.no_grad():
                 self.running_mean.mul_(1.0 - BN_MOMENTUM).add_(mean, alpha=BN_MOMENTUM)

@@ -79,11 +79,30 @@ MODEL_REGISTRY = {
 }
 
 
+CRNN_F32_BF16_PARAMS_ERROR = (
+    "model.model_type=crnn with model.compute_dtype=float32 and "
+    "model.param_dtype=bfloat16 is refused: the JAX package's GRU scan carries a "
+    "bfloat16 carry in and a float32 one out and raises TypeError at init "
+    "(seld_tpu/models/crnn.py:48); use model.compute_dtype=bfloat16 or float32 "
+    "parameters")
+
+
+def _cast_parameters(model: nn.Module, dtype: torch.dtype) -> None:
+    """Every parameter of the model in `dtype`; buffers (BatchNorm's running
+    statistics) stay float32, as flax keeps batch_stats. setattr keeps
+    nn.GRU's flat weight list in step."""
+    for module in model.modules():
+        for name, p in list(module._parameters.items()):
+            if p is not None and p.dtype != dtype:
+                setattr(module, name, nn.Parameter(p.to(dtype), p.requires_grad))
+
+
 def init_parameters(model: nn.Module, generator: torch.Generator) -> None:
     """Seeded initialisation: conv, linear and GRU weights from
     N(0, 1/fan_in) (flax's lecun-normal scale), biases 0, norm scales 1,
     BatchNorm running mean 0 and variance 1. Draws on the CPU from
-    `generator`."""
+    `generator` in float32; a bf16 parameter takes the draw rounded to
+    nearest even."""
     with torch.no_grad():
         for name, p in model.named_parameters():
             leaf = name.rsplit(".", 1)[-1]
@@ -114,8 +133,12 @@ def build_model(model_cfg: ModelConfig, grid_cfg: GridConfig | None = None,
 
     seed: initialise the parameters from torch.Generator().manual_seed(seed);
     None leaves them unset for a caller that loads a state_dict next.
-    compute_dtype="float32" is true float32: the model's forward turns
-    TF32 off for its own duration (seld_tpu_torch.no_tf32). norm_dtype
+    param_dtype "bfloat16" keeps every parameter (weights, biases, norm
+    scales and biases, the GRU's weights) in bf16 and BatchNorm's running
+    statistics in float32, as flax does; the CRNN with float32 compute and
+    bf16 parameters raises ValueError, where the JAX package raises
+    TypeError at init. compute_dtype="float32" is true float32: the model's
+    forward turns TF32 off for its own duration (seld_tpu_torch.no_tf32). norm_dtype
     "bfloat16" makes every norm return bf16; remat recomputes blocks in
     the backward ("resnet" and "conformer" name the blocks of the models
     that have them; the CRNN and CSPDarkNet have none, as in the JAX
@@ -125,14 +148,12 @@ def build_model(model_cfg: ModelConfig, grid_cfg: GridConfig | None = None,
     if model_cfg.model_type not in MODEL_REGISTRY:
         raise ValueError(f"unknown model_type {model_cfg.model_type!r}; "
                          f"available: {sorted(MODEL_REGISTRY)}")
-    if model_cfg.param_dtype != "float32":
-        raise NotImplementedError(
-            "the port keeps parameters in float32 "
-            f"(got param_dtype={model_cfg.param_dtype!r}; ROADMAP item 13)"
-        )
-    for field in ("compute_dtype", "norm_dtype"):
+    for field in ("compute_dtype", "param_dtype", "norm_dtype"):
         if getattr(model_cfg, field) not in _DTYPES:
             raise ValueError(f"unknown {field} {getattr(model_cfg, field)!r}")
+    if (model_cfg.model_type == "crnn" and model_cfg.compute_dtype == "float32"
+            and model_cfg.param_dtype == "bfloat16"):
+        raise ValueError(CRNN_F32_BF16_PARAMS_ERROR)
     if model_cfg.remat not in REMAT:
         raise ValueError(f"unknown remat {model_cfg.remat!r}; one of {REMAT}")
     dt = dict(compute_dtype=_DTYPES[model_cfg.compute_dtype],
@@ -140,6 +161,7 @@ def build_model(model_cfg: ModelConfig, grid_cfg: GridConfig | None = None,
     with torch.device("meta"):
         model = MODEL_REGISTRY[model_cfg.model_type](
             model_cfg, grid_cfg, model_cfg.n_channels if in_channels is None else in_channels, dt)
+        _cast_parameters(model, _DTYPES[model_cfg.param_dtype])
     model = model.to_empty(device=device).eval()
     model.model_cfg = model_cfg  # the layer list quant.py reads
     if seed is not None:

@@ -22,6 +22,12 @@ Layout transforms, reference -> seld_tpu:
 The counts of layers come from the model config (the CNN encoder's
 blocks, the GRU layers, the conformer blocks), where the JAX package
 assumes its default depths.
+
+The leaves are float32 whatever model.param_dtype is, as the JAX
+converter writes them. Under param_dtype "bfloat16" the JAX package keeps
+them float32 in its checkpoint and rounds them to bf16, to nearest even,
+when it restores that tree into its bf16 model; here state_dict_from_jax
+rounds them the same way at import, so both serve the same bf16 weights.
 """
 
 from __future__ import annotations

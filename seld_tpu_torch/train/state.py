@@ -1,7 +1,8 @@
 """Train state: the step counter, the model and its optimizer as one
 object (counterpart: seld_tpu/train/state.py). The model holds the
-parameters and BatchNorm statistics, the optimizer the Adam moments and
-the learning rate; the train step updates all three in place."""
+parameters (in model.param_dtype) and the float32 BatchNorm statistics,
+the optimizer the Adam moments (in the parameters' dtype) and the learning
+rate; the train step updates all three in place."""
 
 from __future__ import annotations
 

@@ -1,7 +1,8 @@
 """Train and eval steps (counterpart: seld_tpu/train/steps.py).
 
 A step is eager PyTorch: model forward (bf16 convolutions and linears on
-float32 parameters), the composite loss straight from the class bitmask
+float32 parameters, or on bf16 ones with model.param_dtype=bfloat16, whose
+gradients are then bf16 too), the composite loss straight from the class bitmask
 (`loss_fn.from_bitmask`, which on the card runs the softmax region through
 kernel K2, forward and backward), backward, one Adam update. The batch
 comes in and a handful of scalar metrics go out as device tensors: nothing
@@ -47,6 +48,12 @@ QAT_MESH_ERROR = ("train.qat under a process mesh of more than one rank is not p
 DISTILL_MESH_ERROR = ("train.distill_ckpt under a process mesh of more than one rank is not "
                       "ported (ROADMAP item 10's remainder: the KD term's normaliser "
                       "sum(w * em) would be each rank's own)")
+
+
+ACCUM_BF16_PARAMS_ERROR = (
+    "train.accum_steps > 1 with model.param_dtype=bfloat16 is refused: the JAX "
+    "package's accumulation adds share * gradient, which promotes the bf16 gradient "
+    "sum to float32, and its scan raises TypeError (seld_tpu/train/steps.py:229-236)")
 
 
 def _true_f32(model: nn.Module):
@@ -166,6 +173,8 @@ def make_train_step(model: nn.Module, loss_fn: SELDLossFn,
     _check_classes(loss_fn, num_classes)
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
+    if accum_steps > 1 and any(p.dtype == torch.bfloat16 for p in model.parameters()):
+        raise ValueError(ACCUM_BF16_PARAMS_ERROR)
 
     generator = None
 

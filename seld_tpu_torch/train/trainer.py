@@ -21,6 +21,15 @@ vectors at the 0.5 activity threshold for a validation metric.
 Metrics stay on the device until the epoch's summary: one read-back per
 epoch for the train metrics and one for the test metrics, none per step.
 
+Checkpoints are written in the background (train/checkpoint.py): as the
+JAX trainer does, training waits for the writes after a preemption save,
+after a non-finite-loss save and at the end, and closes the manager on
+the way out, an error's included. With model.param_dtype=bfloat16 the
+parameters, Adam's moments (ChainAdam, train/optimizer.py) and the EMA
+shadow are bf16; the CRNN with float32 compute and gradient accumulation
+are refused with bf16 parameters before any corpus is built, where the
+JAX package raises TypeError while tracing (check_param_dtype).
+
 Under a process mesh (cfg.mesh; one process per GPU under torchrun) every
 rank builds the same corpora, draws the same batches and runs the steps on
 its block of each (see train/steps.py); every rank holds the whole state,
@@ -55,7 +64,11 @@ from seld_tpu_torch.features.spatial import feature_channels
 from seld_tpu_torch.features.specaugment import make_spec_augment
 from seld_tpu_torch.losses import SELDLossFn
 from seld_tpu_torch.models import build_model
-from seld_tpu_torch.models.registry import ACCDOA_MODELS, MULTI_ACCDOA_MODELS
+from seld_tpu_torch.models.registry import (
+    ACCDOA_MODELS,
+    CRNN_F32_BF16_PARAMS_ERROR,
+    MULTI_ACCDOA_MODELS,
+)
 from seld_tpu_torch.parallel.mesh import Mesh, mesh_from_config
 from seld_tpu_torch.parallel.multihost import launched_world_size
 from seld_tpu_torch.parallel.sharding import check_divisible
@@ -64,11 +77,13 @@ from seld_tpu_torch.train.checkpoint import CheckpointManager
 from seld_tpu_torch.train.optimizer import (
     current_learning_rate,
     make_optimizer,
+    rounded,
     set_learning_rate,
 )
 from seld_tpu_torch.train.schedule import EarlyStopping, ReduceLROnPlateau, WarmupCosine
 from seld_tpu_torch.train.state import TrainState, create_train_state, param_count
 from seld_tpu_torch.train.steps import (
+    ACCUM_BF16_PARAMS_ERROR,
     DISTILL_MESH_ERROR,
     QAT_MESH_ERROR,
     make_eval_step,
@@ -190,6 +205,28 @@ def widest_halo(model_cfg) -> int:
     return max(kernel // 2, 1)
 
 
+def check_param_dtype(cfg: Config) -> None:
+    """Raise for the two bf16-parameter runs the JAX package cannot trace
+    (a TypeError there), before any corpus is built."""
+    mc = cfg.model
+    if mc.param_dtype != "bfloat16":
+        return
+    if mc.model_type == "crnn" and mc.compute_dtype == "float32":
+        raise ValueError(CRNN_F32_BF16_PARAMS_ERROR)
+    if cfg.train.accum_steps > 1:
+        raise ValueError(ACCUM_BF16_PARAMS_ERROR)
+
+
+def ema_update(ema_params: list, live_params: list, decay: float) -> None:
+    """One step of the parameter EMA, in place: seld_tpu/train/trainer.py:326's
+    a * d + b * (1 - d), each scalar and product rounded to the parameters'
+    dtype as XLA rounds it (in bf16 a decay of 0.999 rounds to 1.0, so the
+    shadow moves only by the rounded live term)."""
+    dtype = ema_params[0].dtype
+    torch._foreach_mul_(ema_params, rounded(decay, dtype))
+    torch._foreach_add_(ema_params, torch._foreach_mul(live_params, rounded(1.0 - decay, dtype)))
+
+
 def check_mesh_config(cfg: Config, window_frames: int) -> None:
     """Raise for a run the mesh cannot shard, as the JAX trainer does,
     before any process group is joined."""
@@ -299,6 +336,7 @@ def train_model(cfg: Config, train_corpus: WindowedCorpus, test_corpus: Windowed
             f"train.accum_steps={tc.accum_steps}"
         )
 
+    check_param_dtype(cfg)
     check_mesh_config(cfg, cfg.window.window_frames(cfg.features))
     accdoa_mode = cfg.model.model_type in ACCDOA_MODELS
     multi = cfg.model.model_type in MULTI_ACCDOA_MODELS
@@ -381,289 +419,296 @@ def train_model(cfg: Config, train_corpus: WindowedCorpus, test_corpus: Windowed
 
     _barrier(mesh)
     ckpt = CheckpointManager(workdir, cfg)
+    try:
 
-    def save(kind, *args, **kwargs):
-        """Rank 0 writes the checkpoint; the others wait for it."""
-        if lead:
-            getattr(ckpt, kind)(*args, **kwargs)
-        _barrier(mesh)
-
-    start_epoch = 1
-    resume_best_meta = None
-    resumed_lr = None
-    if resume:
-        # the best-so-far baseline comes from the best checkpoint even when
-        # there is no rolling checkpoint to take the weights from
-        resume_best_meta = ckpt.best_meta()
-        restored = ckpt.restore_latest(state)
-        if restored is not None:
-            start_epoch = restored[1]["epoch"] + 1
-            resumed_lr = current_learning_rate(optimizer)  # from the restored optimizer
-            logger.info("Resumed from rolling checkpoint at epoch %d", restored[1]["epoch"])
-        elif resume_best_meta is not None:
-            logger.warning(
-                "Resume: no rolling checkpoint under %s: restarting training from "
-                "scratch, keeping the stored best checkpoint (epoch %d) as the "
-                "improvement baseline", workdir, resume_best_meta.get("epoch", -1),
-            )
-
-    # Parameter EMA: a shadow model updated after every step; it is what
-    # eval sees and what the best checkpoint stores. Rolling checkpoints
-    # keep the raw weights, and the EMA restarts from them on resume.
-    ema_model = None
-    if tc.ema_decay > 0:
-        ema_model = copy.deepcopy(model).eval()
-        ema_params, live_params = list(ema_model.parameters()), list(model.parameters())
-        ema_buffers, live_buffers = list(ema_model.buffers()), list(model.buffers())
-        logger.info("Parameter EMA on (decay %.4f); eval/best use EMA weights", tc.ema_decay)
-    eval_model = model if ema_model is None else ema_model
-
-    if input_augment is not None:
-        logger.info("SpecAugment on: %d time masks (w<=%d frames), %d freq masks "
-                    "(w<=%d bins)", tc.specaugment_time_masks, tc.specaugment_time_width,
-                    tc.specaugment_freq_masks, tc.specaugment_freq_width)
-    if spatial_augment is not None:
-        logger.info("ACS spatial augmentation on: per-sample draw from the 16 FOA scene "
-                    "transforms (features + %s)", "ACCDOA targets" if accdoa_mode else
-                    "grid labels")
-    if tc.accum_steps > 1:
-        logger.info("Gradient accumulation: %d microbatches of %d",
-                    tc.accum_steps, tc.batch_size // tc.accum_steps)
-    if tc.qat:
-        logger.info("Quantization-aware training: int8 fake-quant with straight-through "
-                    "gradients on the PTQ layer set")
-    train_step = make_train_step(model, loss_fn, optimizer, cfg.grid.num_classes,
-                                 accum_steps=tc.accum_steps, input_augment=input_augment,
-                                 spatial_augment=spatial_augment, mesh=mesh,
-                                 time_sharded=time_sharded, qat=tc.qat, distill=distill)
-    eval_step = make_eval_step(eval_model, loss_fn, cfg.grid.num_classes, mesh=mesh,
-                               time_sharded=time_sharded)
-    # With a validation metric the eval pass also decodes predicted and true
-    # class grids on the device, and the best checkpoint is chosen on the
-    # DCASE2022 metric of the epoch instead of the test loss.
-    metric_step = None
-    if select != "loss":
-        metric_step = make_metric_eval_step(
-            eval_model, loss_fn, cfg.grid.num_classes, mesh=mesh, time_sharded=time_sharded,
-            accdoa_decoder=(grid_decoder(multi, cfg.grid.n_el, cfg.grid.n_az,
-                                         cfg.grid.num_classes) if accdoa_mode else None))
-        logger.info("Best-checkpoint selection on DCASE2022 %s (computed every epoch "
-                    "from decoded grids)", select)
-
-    plateau = ReduceLROnPlateau(lr=tc.learning_rate, factor=tc.lr_decay_factor,
-                                patience=tc.lr_decay_patience)
-    steps_per_epoch = max(-(-len(train_corpus) // tc.batch_size), 1)
-    cosine = None
-    if tc.lr_schedule == "cosine":
-        cosine = WarmupCosine(peak=tc.learning_rate,
-                              total_steps=steps_per_epoch * tc.num_epochs,
-                              warmup_steps=tc.warmup_steps,
-                              final_scale=tc.cosine_final_scale)
-        logger.info("LR schedule: warmup %d steps -> cosine over %d steps "
-                    "(plateau rewrites disabled)", tc.warmup_steps, cosine.total_steps)
-    stopper = EarlyStopping(patience=tc.patience, min_delta=tc.min_delta)
-    replayed_min_test = None
-    if start_epoch > 1:
-        replayed_min_test = _replay_schedules(workdir, start_epoch, plateau, stopper)
-        if resumed_lr is not None:
-            plateau.lr = resumed_lr  # the restored optimizer is the ground truth
-
-    train_iter = BatchIterator(train_corpus, tc.batch_size, shuffle=True,
-                               seed=cfg.data.shuffle_seed, prefetch=cfg.data.prefetch_depth)
-    train_iter.epoch = start_epoch - 1  # a resumed run continues the shuffle sequence
-    test_iter = BatchIterator(test_corpus, tc.batch_size, shuffle=False,
-                              prefetch=cfg.data.prefetch_depth)
-
-    def place(batch):
-        """(mel, loss targets, example mask, label mask): the loss targets
-        are the bitmask, or an ACCDOA model's vectors."""
-        mel, mask, em, *acc = place_batch(batch, device)
-        return mel, acc[0] if accdoa_mode else mask, em, mask
-
-    history = {"train_losses": [], "test_losses": [], "lr": []}
-    if metric_step is not None:
-        history["val_metric"] = []
-    best_select = float("inf")
-    best_test = float("inf")
-    if resume_best_meta is not None:
-        best_test = float(resume_best_meta.get("test_loss", float("inf")))
-        if replayed_min_test is not None:
-            # under a metric the best checkpoint's test loss is the
-            # metric-best epoch's, not the least one seen
-            best_test = min(best_test, replayed_min_test)
-        logger.info("Resume: best test loss so far %.6f (best epoch %d)",
-                    best_test, resume_best_meta.get("epoch", -1))
-        if metric_step is not None:
-            sel = resume_best_meta.get("select")
-            if sel and sel.get("metric") == select:
-                best_select = SELECT_METRICS[select][1] * float(sel["value"])
-                history["best_val_metric"] = float(sel["value"])
-                history["best_val_epoch"] = int(resume_best_meta["epoch"])
-                logger.info("Resume: best %s so far %.4f", select, sel["value"])
-            else:
-                logger.warning(
-                    "Resume: the stored best checkpoint has no %s record (saved %s): the "
-                    "first improvement after the resume sets the baseline anew",
-                    select, (sel or {}).get("metric", "by test loss"),
-                )
-    epoch = start_epoch - 1
-
-    # JAX's window: started before step 1 of the first epoch, stopped after
-    # the step numbered profile_steps, which is in a later epoch when the
-    # first has fewer steps; a trace still open when training ends is
-    # written then (the JAX package loses it)
-    trace, traced = None, 0
-    with PreemptionGuard() as preempt:
-        for epoch in range(start_epoch, tc.num_epochs + 1):
-            t0 = time.time()
-            train_metrics = []
-            for i, (mel, targets, em, _) in enumerate(
-                device_prefetch(train_iter, place, depth=cfg.data.prefetch_depth)
-            ):
-                if tc.profile_steps > 0 and epoch == start_epoch and i == 1:
-                    trace = StepTrace(Path(cfg.data.output_path) / "profile", device,
-                                      0 if mesh is None else mesh.rank)
-                if cosine is not None:
-                    set_learning_rate(optimizer, cosine((epoch - 1) * steps_per_epoch + i))
-                _, metrics = train_step(state, mel, targets, em, (tc.seed, epoch))
-                traced += trace is not None
-                if ema_model is not None:
-                    with torch.no_grad():  # the shadow keeps the live BatchNorm statistics
-                        torch._foreach_lerp_(ema_params, live_params, 1.0 - tc.ema_decay)
-                        torch._foreach_copy_(ema_buffers, live_buffers)
-                train_metrics.append(metrics)
-                if trace is not None and (preempt.requested or i == tc.profile_steps):
-                    trace.stop(traced)  # a preemption finishes an open trace too
-                    trace = None
-                if preempt.requested:  # a host flag: no device sync
-                    break
-            train_avg = _epoch_mean(train_metrics)
-            if epoch == start_epoch and device.type == "cuda":
-                logger.info("Peak device memory after the first epoch: %.2f GiB",
-                            torch.cuda.max_memory_allocated(device) / 2**30)
-
-            if preempt.requested:
-                logger.warning("SIGTERM received: saving a preemption checkpoint at "
-                               "epoch %d and exiting cleanly", epoch)
-                save("save_rolling", epoch, state, train_avg["loss"], float("inf"))
-                history["preempted_epoch"] = epoch
-                break
-
-            if not math.isfinite(train_avg["loss"]):
-                logger.error("Non-finite train loss %.6f at epoch %d: saving an "
-                             "emergency checkpoint and aborting", train_avg["loss"], epoch)
-                save("save_rolling", epoch, state, train_avg["loss"], float("inf"))
-                history["aborted_epoch"] = epoch
-                break
-
-            val22 = None
-            if metric_step is None:
-                eval_metrics = [
-                    eval_step(mel, targets, em)
-                    for mel, targets, em, _ in device_prefetch(test_iter, place,
-                                                               depth=cfg.data.prefetch_depth)
-                ]
-            else:
-                eval_metrics, preds, trues = [], [], []
-                for mel, targets, em, mask in device_prefetch(test_iter, place,
-                                                              depth=cfg.data.prefetch_depth):
-                    m, p, t = metric_step(mel, mask, em, targets)
-                    eval_metrics.append(m)
-                    n_valid = int(em.sum().item())  # the padded tail's rows drop out
-                    preds.append(p[:n_valid].cpu().numpy())
-                    trues.append(t[:n_valid].cpu().numpy())
-                val22 = dcase2022_metrics(np.concatenate(preds), np.concatenate(trues),
-                                          cfg.grid.n_el, cfg.grid.n_az, cfg.grid.num_classes)
-            test_avg = _epoch_mean(eval_metrics)
-
-            if cosine is not None:
-                new_lr = current_learning_rate(optimizer)
-            else:
-                new_lr = plateau.step(test_avg["loss"])
-                old_lr = current_learning_rate(optimizer)
-                # rewrite only on a real change (reductions are x0.5), not on
-                # the rounding of a stored and restored value
-                if abs(new_lr - old_lr) > 1e-6 * max(abs(new_lr), abs(old_lr), 1e-30):
-                    set_learning_rate(optimizer, new_lr)
-                    logger.info("  Learning rate reduced: %.6f -> %.6f", old_lr, new_lr)
-
-            history["train_losses"].append(train_avg["loss"])
-            history["test_losses"].append(test_avg["loss"])
-            history["lr"].append(new_lr)
-            record = {"epoch": epoch, "seconds": round(time.time() - t0, 2), "lr": new_lr,
-                      "train": train_avg, "test": test_avg}
-            if val22 is not None:
-                record["val_dcase2022"] = {k: float(val22[k]) for k in DCASE2022_SUMMARY}
+        def save(kind, *args, **kwargs):
+            """Rank 0 writes the checkpoint; the others wait for it."""
             if lead:
-                with (workdir / "metrics.jsonl").open("a") as fh:
-                    fh.write(json.dumps(record) + "\n")
-            logger.info("Epoch %d/%d - %.1fs | train %.6f | test %.6f | lr %.6f",
-                        epoch, tc.num_epochs, time.time() - t0,
-                        train_avg["loss"], test_avg["loss"], new_lr)
-            for k in train_avg:
-                if k == "loss":
-                    continue
-                if k in test_avg:
-                    logger.info("    %s: train %.6f test %.6f", k, train_avg[k], test_avg[k])
-                else:  # train-only terms (the distillation's kd / hard split)
-                    logger.info("    %s: train %.6f", k, train_avg[k])
+                getattr(ckpt, kind)(*args, **kwargs)
+            _barrier(mesh)
 
-            best_state = state if ema_model is None else TrainState(state.step, ema_model, None)
-            if metric_step is None:
-                if test_avg["loss"] < best_test - tc.min_delta:
-                    best_test = test_avg["loss"]
-                    save("save_best", epoch, best_state, train_avg["loss"], test_avg["loss"])
-                    logger.info("  New best model saved (test loss %.6f)", best_test)
-            else:
-                key, sign = SELECT_METRICS[select]
-                val = float(val22[key])
-                logger.info("  DCASE2022 val: ER %.3f F %.3f LE %.1f deg LR %.3f | "
-                            "SELD_error %.3f", *(val22[k] for k in DCASE2022_SUMMARY))
-                history["val_metric"].append(val)
-                best_test = min(best_test, test_avg["loss"])
-                if sign * val < best_select:
-                    best_select = sign * val
-                    history["best_val_metric"] = val
-                    history["best_val_epoch"] = epoch
-                    save("save_best", epoch, best_state, train_avg["loss"], test_avg["loss"],
-                         select={"metric": select, "value": val})
-                    logger.info("  New best model saved (%s %.4f)", select, val)
-            if epoch % tc.save_every_n_epochs == 0:
-                save("save_rolling", epoch, state, train_avg["loss"], test_avg["loss"])
-                logger.info("  Rolling checkpoint saved (epoch %d)", epoch)
-            if viz_every > 0 and epoch % viz_every == 0:
-                _loss_dashboard(eval_model, test_corpus, cfg, device, epoch)
-
-            if stopper.step(train_avg["loss"], epoch):
-                logger.info(
-                    "EARLY STOPPING at epoch %d (no train improvement for %d epochs; "
-                    "best train %.6f @ epoch %d)",
-                    epoch, stopper.patience, stopper.best, stopper.best_epoch,
+        start_epoch = 1
+        resume_best_meta = None
+        resumed_lr = None
+        if resume:
+            # the best-so-far baseline comes from the best checkpoint even when
+            # there is no rolling checkpoint to take the weights from
+            resume_best_meta = ckpt.best_meta()
+            restored = ckpt.restore_latest(state)
+            if restored is not None:
+                start_epoch = restored[1]["epoch"] + 1
+                resumed_lr = current_learning_rate(optimizer)  # from the restored optimizer
+                logger.info("Resumed from rolling checkpoint at epoch %d", restored[1]["epoch"])
+            elif resume_best_meta is not None:
+                logger.warning(
+                    "Resume: no rolling checkpoint under %s: restarting training from "
+                    "scratch, keeping the stored best checkpoint (epoch %d) as the "
+                    "improvement baseline", workdir, resume_best_meta.get("epoch", -1),
                 )
-                break
 
-    if trace is not None:
-        logger.warning("profiler trace still open when training ended (no later epoch "
-                       "reached step %d): writing the %d train steps it holds",
-                       tc.profile_steps, traced)
-        trace.stop(traced)
-    history.update(best_train_loss=stopper.best, best_test_loss=best_test,
-                   best_epoch=stopper.best_epoch, total_epochs=epoch)
-    if lead:
-        try:
-            from seld_tpu_torch.viz import plot_loss_curves
+        # Parameter EMA: a shadow model updated after every step; it is what
+        # eval sees and what the best checkpoint stores. Rolling checkpoints
+        # keep the raw weights, and the EMA restarts from them on resume.
+        ema_model = None
+        if tc.ema_decay > 0:
+            ema_model = copy.deepcopy(model).eval()
+            ema_params, live_params = list(ema_model.parameters()), list(model.parameters())
+            ema_buffers, live_buffers = list(ema_model.buffers()), list(model.buffers())
+            logger.info("Parameter EMA on (decay %.4f); eval/best use EMA weights", tc.ema_decay)
+        eval_model = model if ema_model is None else ema_model
 
-            out_dir = Path(cfg.data.output_path)
-            out_dir.mkdir(parents=True, exist_ok=True)
-            plot_loss_curves(history["train_losses"], history["test_losses"],
-                             save_path=out_dir / "loss_curves.png")
-        except Exception as e:  # rendering is best-effort, never kills training
-            logger.warning("loss-curve plot failed: %s", e)
-    restored = ckpt.restore_best(state)
-    if restored is not None:
-        logger.info("Best model loaded from epoch %d", restored[1]["epoch"])
-    hist_path = workdir / "training_history.json"
-    if lead:
-        hist_path.write_text(json.dumps(history, indent=2))
-        logger.info("Training history saved to %s", hist_path)
-    return state, history
+        if input_augment is not None:
+            logger.info("SpecAugment on: %d time masks (w<=%d frames), %d freq masks "
+                        "(w<=%d bins)", tc.specaugment_time_masks, tc.specaugment_time_width,
+                        tc.specaugment_freq_masks, tc.specaugment_freq_width)
+        if spatial_augment is not None:
+            logger.info("ACS spatial augmentation on: per-sample draw from the 16 FOA scene "
+                        "transforms (features + %s)", "ACCDOA targets" if accdoa_mode else
+                        "grid labels")
+        if tc.accum_steps > 1:
+            logger.info("Gradient accumulation: %d microbatches of %d",
+                        tc.accum_steps, tc.batch_size // tc.accum_steps)
+        if tc.qat:
+            logger.info("Quantization-aware training: int8 fake-quant with straight-through "
+                        "gradients on the PTQ layer set")
+        train_step = make_train_step(model, loss_fn, optimizer, cfg.grid.num_classes,
+                                     accum_steps=tc.accum_steps, input_augment=input_augment,
+                                     spatial_augment=spatial_augment, mesh=mesh,
+                                     time_sharded=time_sharded, qat=tc.qat, distill=distill)
+        eval_step = make_eval_step(eval_model, loss_fn, cfg.grid.num_classes, mesh=mesh,
+                                   time_sharded=time_sharded)
+        # With a validation metric the eval pass also decodes predicted and true
+        # class grids on the device, and the best checkpoint is chosen on the
+        # DCASE2022 metric of the epoch instead of the test loss.
+        metric_step = None
+        if select != "loss":
+            metric_step = make_metric_eval_step(
+                eval_model, loss_fn, cfg.grid.num_classes, mesh=mesh, time_sharded=time_sharded,
+                accdoa_decoder=(grid_decoder(multi, cfg.grid.n_el, cfg.grid.n_az,
+                                             cfg.grid.num_classes) if accdoa_mode else None))
+            logger.info("Best-checkpoint selection on DCASE2022 %s (computed every epoch "
+                        "from decoded grids)", select)
+
+        plateau = ReduceLROnPlateau(lr=tc.learning_rate, factor=tc.lr_decay_factor,
+                                    patience=tc.lr_decay_patience)
+        steps_per_epoch = max(-(-len(train_corpus) // tc.batch_size), 1)
+        cosine = None
+        if tc.lr_schedule == "cosine":
+            cosine = WarmupCosine(peak=tc.learning_rate,
+                                  total_steps=steps_per_epoch * tc.num_epochs,
+                                  warmup_steps=tc.warmup_steps,
+                                  final_scale=tc.cosine_final_scale)
+            logger.info("LR schedule: warmup %d steps -> cosine over %d steps "
+                        "(plateau rewrites disabled)", tc.warmup_steps, cosine.total_steps)
+        stopper = EarlyStopping(patience=tc.patience, min_delta=tc.min_delta)
+        replayed_min_test = None
+        if start_epoch > 1:
+            replayed_min_test = _replay_schedules(workdir, start_epoch, plateau, stopper)
+            if resumed_lr is not None:
+                plateau.lr = resumed_lr  # the restored optimizer is the ground truth
+
+        train_iter = BatchIterator(train_corpus, tc.batch_size, shuffle=True,
+                                   seed=cfg.data.shuffle_seed, prefetch=cfg.data.prefetch_depth)
+        train_iter.epoch = start_epoch - 1  # a resumed run continues the shuffle sequence
+        test_iter = BatchIterator(test_corpus, tc.batch_size, shuffle=False,
+                                  prefetch=cfg.data.prefetch_depth)
+
+        def place(batch):
+            """(mel, loss targets, example mask, label mask): the loss targets
+            are the bitmask, or an ACCDOA model's vectors."""
+            mel, mask, em, *acc = place_batch(batch, device)
+            return mel, acc[0] if accdoa_mode else mask, em, mask
+
+        history = {"train_losses": [], "test_losses": [], "lr": []}
+        if metric_step is not None:
+            history["val_metric"] = []
+        best_select = float("inf")
+        best_test = float("inf")
+        if resume_best_meta is not None:
+            best_test = float(resume_best_meta.get("test_loss", float("inf")))
+            if replayed_min_test is not None:
+                # under a metric the best checkpoint's test loss is the
+                # metric-best epoch's, not the least one seen
+                best_test = min(best_test, replayed_min_test)
+            logger.info("Resume: best test loss so far %.6f (best epoch %d)",
+                        best_test, resume_best_meta.get("epoch", -1))
+            if metric_step is not None:
+                sel = resume_best_meta.get("select")
+                if sel and sel.get("metric") == select:
+                    best_select = SELECT_METRICS[select][1] * float(sel["value"])
+                    history["best_val_metric"] = float(sel["value"])
+                    history["best_val_epoch"] = int(resume_best_meta["epoch"])
+                    logger.info("Resume: best %s so far %.4f", select, sel["value"])
+                else:
+                    logger.warning(
+                        "Resume: the stored best checkpoint has no %s record (saved %s): the "
+                        "first improvement after the resume sets the baseline anew",
+                        select, (sel or {}).get("metric", "by test loss"),
+                    )
+        epoch = start_epoch - 1
+
+        # JAX's window: started before step 1 of the first epoch, stopped after
+        # the step numbered profile_steps, which is in a later epoch when the
+        # first has fewer steps; a trace still open when training ends is
+        # written then (the JAX package loses it)
+        trace, traced = None, 0
+        with PreemptionGuard() as preempt:
+            for epoch in range(start_epoch, tc.num_epochs + 1):
+                t0 = time.time()
+                train_metrics = []
+                for i, (mel, targets, em, _) in enumerate(
+                    device_prefetch(train_iter, place, depth=cfg.data.prefetch_depth)
+                ):
+                    if tc.profile_steps > 0 and epoch == start_epoch and i == 1:
+                        trace = StepTrace(Path(cfg.data.output_path) / "profile", device,
+                                          0 if mesh is None else mesh.rank)
+                    if cosine is not None:
+                        set_learning_rate(optimizer, cosine((epoch - 1) * steps_per_epoch + i))
+                    _, metrics = train_step(state, mel, targets, em, (tc.seed, epoch))
+                    traced += trace is not None
+                    if ema_model is not None:
+                        with torch.no_grad():  # the shadow keeps the live BatchNorm statistics
+                            ema_update(ema_params, live_params, tc.ema_decay)
+                            torch._foreach_copy_(ema_buffers, live_buffers)
+                    train_metrics.append(metrics)
+                    if trace is not None and (preempt.requested or i == tc.profile_steps):
+                        trace.stop(traced)  # a preemption finishes an open trace too
+                        trace = None
+                    if preempt.requested:  # a host flag: no device sync
+                        break
+                train_avg = _epoch_mean(train_metrics)
+                if epoch == start_epoch and device.type == "cuda":
+                    logger.info("Peak device memory after the first epoch: %.2f GiB",
+                                torch.cuda.max_memory_allocated(device) / 2**30)
+
+                if preempt.requested:
+                    logger.warning("SIGTERM received: saving a preemption checkpoint at "
+                                   "epoch %d and exiting cleanly", epoch)
+                    save("save_rolling", epoch, state, train_avg["loss"], float("inf"))
+                    ckpt.wait()
+                    history["preempted_epoch"] = epoch
+                    break
+
+                if not math.isfinite(train_avg["loss"]):
+                    logger.error("Non-finite train loss %.6f at epoch %d: saving an "
+                                 "emergency checkpoint and aborting", train_avg["loss"], epoch)
+                    save("save_rolling", epoch, state, train_avg["loss"], float("inf"))
+                    ckpt.wait()
+                    history["aborted_epoch"] = epoch
+                    break
+
+                val22 = None
+                if metric_step is None:
+                    eval_metrics = [
+                        eval_step(mel, targets, em)
+                        for mel, targets, em, _ in device_prefetch(test_iter, place,
+                                                                   depth=cfg.data.prefetch_depth)
+                    ]
+                else:
+                    eval_metrics, preds, trues = [], [], []
+                    for mel, targets, em, mask in device_prefetch(test_iter, place,
+                                                                  depth=cfg.data.prefetch_depth):
+                        m, p, t = metric_step(mel, mask, em, targets)
+                        eval_metrics.append(m)
+                        n_valid = int(em.sum().item())  # the padded tail's rows drop out
+                        preds.append(p[:n_valid].cpu().numpy())
+                        trues.append(t[:n_valid].cpu().numpy())
+                    val22 = dcase2022_metrics(np.concatenate(preds), np.concatenate(trues),
+                                              cfg.grid.n_el, cfg.grid.n_az, cfg.grid.num_classes)
+                test_avg = _epoch_mean(eval_metrics)
+
+                if cosine is not None:
+                    new_lr = current_learning_rate(optimizer)
+                else:
+                    new_lr = plateau.step(test_avg["loss"])
+                    old_lr = current_learning_rate(optimizer)
+                    # rewrite only on a real change (reductions are x0.5), not on
+                    # the rounding of a stored and restored value
+                    if abs(new_lr - old_lr) > 1e-6 * max(abs(new_lr), abs(old_lr), 1e-30):
+                        set_learning_rate(optimizer, new_lr)
+                        logger.info("  Learning rate reduced: %.6f -> %.6f", old_lr, new_lr)
+
+                history["train_losses"].append(train_avg["loss"])
+                history["test_losses"].append(test_avg["loss"])
+                history["lr"].append(new_lr)
+                record = {"epoch": epoch, "seconds": round(time.time() - t0, 2), "lr": new_lr,
+                          "train": train_avg, "test": test_avg}
+                if val22 is not None:
+                    record["val_dcase2022"] = {k: float(val22[k]) for k in DCASE2022_SUMMARY}
+                if lead:
+                    with (workdir / "metrics.jsonl").open("a") as fh:
+                        fh.write(json.dumps(record) + "\n")
+                logger.info("Epoch %d/%d - %.1fs | train %.6f | test %.6f | lr %.6f",
+                            epoch, tc.num_epochs, time.time() - t0,
+                            train_avg["loss"], test_avg["loss"], new_lr)
+                for k in train_avg:
+                    if k == "loss":
+                        continue
+                    if k in test_avg:
+                        logger.info("    %s: train %.6f test %.6f", k, train_avg[k], test_avg[k])
+                    else:  # train-only terms (the distillation's kd / hard split)
+                        logger.info("    %s: train %.6f", k, train_avg[k])
+
+                best_state = state if ema_model is None else TrainState(state.step, ema_model, None)
+                if metric_step is None:
+                    if test_avg["loss"] < best_test - tc.min_delta:
+                        best_test = test_avg["loss"]
+                        save("save_best", epoch, best_state, train_avg["loss"], test_avg["loss"])
+                        logger.info("  New best model saved (test loss %.6f)", best_test)
+                else:
+                    key, sign = SELECT_METRICS[select]
+                    val = float(val22[key])
+                    logger.info("  DCASE2022 val: ER %.3f F %.3f LE %.1f deg LR %.3f | "
+                                "SELD_error %.3f", *(val22[k] for k in DCASE2022_SUMMARY))
+                    history["val_metric"].append(val)
+                    best_test = min(best_test, test_avg["loss"])
+                    if sign * val < best_select:
+                        best_select = sign * val
+                        history["best_val_metric"] = val
+                        history["best_val_epoch"] = epoch
+                        save("save_best", epoch, best_state, train_avg["loss"], test_avg["loss"],
+                             select={"metric": select, "value": val})
+                        logger.info("  New best model saved (%s %.4f)", select, val)
+                if epoch % tc.save_every_n_epochs == 0:
+                    save("save_rolling", epoch, state, train_avg["loss"], test_avg["loss"])
+                    logger.info("  Rolling checkpoint saved (epoch %d)", epoch)
+                if viz_every > 0 and epoch % viz_every == 0:
+                    _loss_dashboard(eval_model, test_corpus, cfg, device, epoch)
+
+                if stopper.step(train_avg["loss"], epoch):
+                    logger.info(
+                        "EARLY STOPPING at epoch %d (no train improvement for %d epochs; "
+                        "best train %.6f @ epoch %d)",
+                        epoch, stopper.patience, stopper.best, stopper.best_epoch,
+                    )
+                    break
+
+        ckpt.wait()  # rank 0's files on disk before any rank restores the best
+        _barrier(mesh)
+        if trace is not None:
+            logger.warning("profiler trace still open when training ended (no later epoch "
+                           "reached step %d): writing the %d train steps it holds",
+                           tc.profile_steps, traced)
+            trace.stop(traced)
+        history.update(best_train_loss=stopper.best, best_test_loss=best_test,
+                       best_epoch=stopper.best_epoch, total_epochs=epoch)
+        if lead:
+            try:
+                from seld_tpu_torch.viz import plot_loss_curves
+
+                out_dir = Path(cfg.data.output_path)
+                out_dir.mkdir(parents=True, exist_ok=True)
+                plot_loss_curves(history["train_losses"], history["test_losses"],
+                                 save_path=out_dir / "loss_curves.png")
+            except Exception as e:  # rendering is best-effort, never kills training
+                logger.warning("loss-curve plot failed: %s", e)
+        restored = ckpt.restore_best(state)
+        if restored is not None:
+            logger.info("Best model loaded from epoch %d", restored[1]["epoch"])
+        hist_path = workdir / "training_history.json"
+        if lead:
+            hist_path.write_text(json.dumps(history, indent=2))
+            logger.info("Training history saved to %s", hist_path)
+        return state, history
+    finally:
+        ckpt.close()  # every rank, an error's exit included

@@ -1443,3 +1443,113 @@ def test_profiled_long_window_steps_count_k2_and_k3_as_the_counters_on_card(cuda
                       "flash_dq_wgmma": 2 * blocks, "flash_dkv_wgmma": 2 * blocks}
     rows, plane = profile_summary.summarize(tmp_path / "outputs" / "profile", top=5)
     assert plane == "/device:cuda:0" and len(rows) == 5
+
+
+# --- bf16 parameters (model.param_dtype=bfloat16) ----------------------------------------
+
+BF16_FLAGSHIP = ["model.resnet_conf_d_model=64", "model.resnet_conf_n_heads=2",
+                 "model.resnet_conf_n_layers=1", "model.param_dtype=bfloat16"]
+
+
+def _bf16_ulps(a, b):
+    def ordered(t):
+        i = t.view(torch.int16).int() & 0xFFFF
+        return torch.where(i >= 0x8000, -(i & 0x7FFF), i)
+    return (ordered(a) - ordered(b)).abs()
+
+
+def test_bf16_parameter_flagship_step_through_k3_on_card(cuda_device):
+    """A train step of the small bf16-parameter flagship at T = 512: K2
+    forward and backward once, K3's forward, dQ and dK/dV once for its one
+    conformer block; bf16 gradients, ChainAdam's bf16 moments, the weights
+    still bf16 after the step, and that step within 1 bf16 ulp of the same
+    ChainAdam step on the CPU from the card's gradients."""
+    import copy
+
+    from seld_tpu_torch.models import build_model
+    from seld_tpu_torch.train.optimizer import ChainAdam, make_optimizer
+    from seld_tpu_torch.train.state import create_train_state
+    from seld_tpu_torch.train.steps import make_train_step
+
+    cfg = _port_cfg(BF16_FLAGSHIP)
+    model = build_model(cfg.model, cfg.grid, device=cuda_device, seed=0)
+    before = copy.deepcopy(model).cpu()
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    mel = torch.randn((2, FLASH_MIN_SEQ_LEN, 4, 64), device=cuda_device, generator=gen)
+    mask = torch.randint(0, 2 ** 13, (2, FLASH_MIN_SEQ_LEN, cfg.grid.n_cells),
+                         device=cuda_device, generator=gen).to(torch.int16)
+    optimizer = make_optimizer(model.parameters(), 1e-3, 1e-4)
+    assert isinstance(optimizer, ChainAdam)
+    step = make_train_step(model, SELDLossFn(cfg.loss, cfg.grid), optimizer, cfg.grid.num_classes)
+    fa = flash_attention
+    fa.fwd_launches = fa.bwd_dq_launches = fa.bwd_dkv_launches = 0
+    grid_loss_terms.fwd_launches = grid_loss_terms.bwd_launches = 0
+    metrics = step(create_train_state(model, optimizer), mel, mask, None, (0, 1))[1]
+    torch.cuda.synchronize()
+    assert torch.isfinite(metrics["loss"])
+    assert (fa.fwd_launches, fa.bwd_dq_launches, fa.bwd_dkv_launches) == (1, 1, 1)
+    assert (grid_loss_terms.fwd_launches, grid_loss_terms.bwd_launches) == (1, 1)
+    params = dict(model.named_parameters())
+    assert {p.dtype for p in params.values()} == {torch.bfloat16}
+    assert {p.grad.dtype for p in params.values()} == {torch.bfloat16}
+    assert {s["mu"].dtype for s in optimizer.state.values()} == {torch.bfloat16}
+    cpu_params = dict(before.named_parameters())
+    for name, p in cpu_params.items():
+        p.grad = params[name].grad.cpu()
+    make_optimizer(cpu_params.values(), 1e-3, 1e-4).step()
+    for name, p in cpu_params.items():
+        assert int(_bf16_ulps(params[name].detach().cpu(), p.detach()).max()) <= 1, name
+
+
+def test_bf16_parameter_predict_on_card(cuda_device, tmp_path):
+    """A saved bf16-parameter checkpoint serves on the card: K1 once a
+    predict; with float32 compute the bf16 weights upcast exactly, so its
+    logits equal the CPU's within the float32 card-vs-CPU bar (1e-3)."""
+    import numpy as np
+
+    from seld_tpu_torch.infer import SELDPredictor
+    from seld_tpu_torch.models import build_model
+    from seld_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
+
+    cfg = _port_cfg([*BF16_FLAGSHIP, "model.compute_dtype=float32"])
+    model = build_model(cfg.model, cfg.grid, device=cuda_device, seed=0)
+    save_checkpoint(tmp_path / "m.pt", model, cfg)
+    assert load_checkpoint(tmp_path / "m.pt")[1]["proj.weight"].dtype == torch.bfloat16
+    pred = SELDPredictor(tmp_path / "m.pt", device=cuda_device)
+    assert {p.dtype for p in pred.model.parameters()} == {torch.bfloat16}
+    wave = (0.1 * np.random.default_rng(0).standard_normal((4, 5 * 24_000))).astype(np.float32)
+    log_mel_frames.launches = 0
+    classes = pred.predict_waveform(wave).classes
+    assert log_mel_frames.launches == 1
+    assert classes.shape == (251, cfg.grid.n_cells) and 0 <= classes.min()
+    x = torch.randn((2, 50, 4, 64), generator=torch.Generator().manual_seed(1))
+    cpu = build_model(cfg.model, cfg.grid, device="cpu", seed=None)
+    cpu.load_state_dict(model.state_dict())
+    with torch.no_grad():
+        got, want = model(x.to(cuda_device)).cpu(), cpu(x)
+    torch.testing.assert_close(got, want, atol=1e-3, rtol=1e-3)
+
+
+@pytest.mark.parametrize("norm_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("train", [False, True])
+def test_norms_with_bf16_parameters_equal_float32_ones_on_card(cuda_device, norm_dtype, train):
+    """BatchNorm casts bf16 parameters to float32 and LayerNorm to the
+    input's dtype, so on CUDA both give what the same weights in float32
+    give, bit for bit, for a float32 and a bf16 input."""
+    from seld_tpu_torch.models.layers import BatchNorm, LayerNorm
+
+    gen = torch.Generator(device=cuda_device).manual_seed(2)
+    w = (torch.rand(16, device=cuda_device, generator=gen) + 0.5).bfloat16()
+    b = torch.randn(16, device=cuda_device, generator=gen).bfloat16()
+    pairs = []
+    for make, n in ((lambda: BatchNorm(16, norm_dtype), 16), (lambda: LayerNorm(8, norm_dtype), 8)):
+        m16, m32 = make().to(cuda_device).train(train), make().to(cuda_device).train(train)
+        m16.weight, m16.bias = torch.nn.Parameter(w[:n].clone()), torch.nn.Parameter(b[:n].clone())
+        m32.weight, m32.bias = torch.nn.Parameter(w[:n].float()), torch.nn.Parameter(b[:n].float())
+        pairs.append((m16, m32))
+    x = torch.randn((4, 16, 50, 8), device=cuda_device, generator=gen)
+    with torch.no_grad():
+        for xin in (x, x.bfloat16()):
+            for m16, m32 in pairs:
+                assert torch.equal(m16(xin), m32(xin))
+    assert torch.equal(pairs[0][0].running_var, pairs[0][1].running_var)

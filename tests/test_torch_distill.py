@@ -269,9 +269,9 @@ def test_load_teacher_errors_are_jax_word_for_word(student, teacher, monkeypatch
 
 
 def test_load_teacher_features_error_names_the_section_as_jax(monkeypatch, tmp_path):
-    """The features section: the port's FeatureConfig lacks three of the JAX
-    package's fields (power, top_db, use_pallas), so the two reprs differ;
-    the message up to them is JAX's."""
+    """The features section: the message up to the reprs is JAX's (since
+    the port's FeatureConfig has the JAX package's power, top_db and
+    use_pallas, the whole message is too)."""
     root, _, _ = _teacher_tree(tmp_path, TEACHER)
     with pytest.raises(ValueError) as got:
         pd.load_teacher(pc.parse_overrides(pc.Config(), STUDENT + FEATURES), root, "cpu")
@@ -279,6 +279,7 @@ def test_load_teacher_features_error_names_the_section_as_jax(monkeypatch, tmp_p
     head = "train.distill_ckpt: teacher features config differs from the student's"
     assert str(got.value).startswith(head) and want.startswith(head)
     assert str(got.value).split("(teacher ")[0] == want.split("(teacher ")[0]
+    assert str(got.value) == want
 
 
 def test_load_teacher_missing_trees_are_jax_word_for_word(monkeypatch, tmp_path):

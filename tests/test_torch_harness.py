@@ -24,7 +24,7 @@ from tests.torch_cli_helpers import port_fails
 
 ROOT = Path(__file__).resolve().parent.parent
 FORBIDDEN = re.compile(
-    r"^\s*(?:from|import)\s+(?:jax|jaxlib|flax|optax|orbax|seld_tpu(?!_torch))\b",
+    r"^\s*(?:from|import)\s+(?:jax|jaxlib|flax|optax|orbax|ml_dtypes|seld_tpu(?!_torch))\b",
     re.M,
 )
 
@@ -42,9 +42,10 @@ def test_import_leaves_jax_and_seld_tpu_out():
         "seld_tpu_torch.data.cache, seld_tpu_torch.stream, seld_tpu_torch.tta, "
         "seld_tpu_torch.tools.average_ckpt, seld_tpu_torch.serve, seld_tpu_torch.export, "
         "seld_tpu_torch.ops.counters, seld_tpu_torch.viz, seld_tpu_torch.tools.replot, "
-        "seld_tpu_torch.tools.augment_compare\n"
+        "seld_tpu_torch.tools.augment_compare, seld_tpu_torch.quant, seld_tpu_torch.distill, "
+        "seld_tpu_torch.train.optimizer, seld_tpu_torch.tools.torch_import\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'seld_tpu'))\n"
+        "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'ml_dtypes', 'seld_tpu'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )
@@ -207,13 +208,15 @@ def test_float32_forward_turns_tf32_off_for_its_own_call_only(monkeypatch, dtype
 
 
 def test_unported_families_name_their_roadmap_item():
-    """Every model_type of the JAX package builds; what is left unported of
-    the models, bf16 parameters, names its ROADMAP item."""
-    for model_type in ("accdoa_conformer", "multi_accdoa_conformer"):
-        build_model(ModelConfig(model_type=model_type), device="meta", seed=None)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 13"):
-        build_model(ModelConfig(model_type="accdoa_conformer", param_dtype="bfloat16"),
-                    device="cpu")
+    """Every model_type of the JAX package builds, with float32 and with
+    bf16 parameters: nothing of the models is left unported (no ROADMAP
+    item 13 remains)."""
+    for model_type in ("crnn", "conformer", "resnet_conformer", "cnn", "cspdarknet",
+                       "accdoa_conformer", "multi_accdoa_conformer"):
+        for param_dtype in ("float32", "bfloat16"):
+            model = build_model(ModelConfig(model_type=model_type, param_dtype=param_dtype),
+                                device="meta", seed=None)
+            assert {p.dtype for p in model.parameters()} == {getattr(torch, param_dtype)}
 
 
 @pytest.mark.parametrize("frames,err", [

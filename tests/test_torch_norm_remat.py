@@ -270,7 +270,7 @@ def test_train_step_with_remat_equals_plain():
 @pytest.mark.parametrize("field,value,err", [
     ("model.remat", "everything", ValueError),
     ("model.norm_dtype", "float16", ValueError),
-    ("model.param_dtype", "bfloat16", NotImplementedError)])
+    ("model.param_dtype", "float16", ValueError)])
 def test_build_model_refuses_what_it_does_not_have(field, value, err):
     cfg = pc.parse_overrides(pc.Config(), [f"{field}={value}"])
     with pytest.raises(err):

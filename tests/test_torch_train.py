@@ -550,6 +550,7 @@ def test_rolling_checkpoints_keep_the_newest(trained, corpora, tmp_path):
     for epoch in (1, 2, 3):
         mgr.save_rolling(epoch, state, 0.5, 0.25)
         mgr.save_best(epoch, state, 0.5, 0.25)
+    mgr.wait()  # the saves write in the background
     assert sorted(f.name for f in mgr.rolling_dir.iterdir()) == ["epoch_0002.pt",
                                                                 "epoch_0003.pt"]
     assert [f.name for f in mgr.best_dir.iterdir()] == ["epoch_0003.pt"]
@@ -629,12 +630,33 @@ def test_cli_train_synthetic_on_the_cpu(tmp_path):
     assert (work / "training_history.json").exists() and list((work / "best").iterdir())
 
 
-@pytest.mark.parametrize("override", ["train.log_every_steps=5",
-                                      "train.prng_impl=rbg", "mesh.shard_params=true",
-                                      "mesh.shard_opt_state=true", "features.use_pallas=false"])
+@pytest.mark.parametrize("override", ["train.prng_impl=rbg", "mesh.shard_params=true",
+                                      "mesh.shard_opt_state=true"])
 def test_override_of_an_unported_field_is_an_unknown_key(override):
     with pytest.raises(KeyError, match="unknown config field"):
         pc.parse_overrides(pc.Config(), [override])
+
+
+@pytest.mark.parametrize("override,value", [
+    ("train.log_every_steps=5", 5), ("features.use_pallas=false", False),
+    ("features.power=1.0", 1.0), ("features.top_db=80", 80.0),
+    ("targets.max_rows_per_chunk=128", 128)])
+def test_override_of_a_field_nothing_reads_parses_as_in_jax(override, value):
+    """The JAX package's fields that nothing of either package reads parse
+    in the port, to the value and type JAX's parser gives them."""
+    from seld_tpu.config import Config as JaxConfig
+    from seld_tpu.config import parse_overrides as jax_parse
+
+    path = override.split("=")[0]
+    got = _field(pc.parse_overrides(pc.Config(), [override]), path)
+    want = _field(jax_parse(JaxConfig(), [override]), path)
+    assert got == want == value and type(got) is type(want)
+
+
+def _field(cfg, path):
+    for part in path.split("."):
+        cfg = getattr(cfg, part)
+    return cfg
 
 
 @pytest.mark.parametrize("override,synthetic", [("targets.accdoa=true", True)])
